@@ -7,18 +7,27 @@
 It builds the hand-written CUDA kernels from incarnation_tpu_torch/csrc,
 builds the procedural atrium (289k triangles, 41 materials, 66 lights,
 masked foliage, decals) onto the card and renders 8 TAA frames at 1920x1088
-through render_frame, the port's raster frame: opaque raster, 8 masked
-depth peels, decals, resolve, sky IBL, sun, clustered lights, TAA and
-tonemap, with the sun shadow map off. The camera is the atrium's glTF
-camera with Halton jitter and a small orbit every frame.
+through render_frame, the port's raster frame in the bench configuration:
+opaque raster, 8 masked depth peels, decals, resolve, the 1024 x 1024 sun
+shadow map (K1's depth-only role), sky IBL, shadowed sun, clustered lights,
+TAA and tonemap. The camera is the atrium's glTF camera with Halton jitter
+and a small orbit every frame. It checks that the shadow map darkens the
+frame.
 
 Then it captures each kernel's inputs from one more frame, runs each kernel
 and its plain PyTorch twin on those inputs on the card, compares them and
-times both, renders that frame again with every kernel swapped for its twin
-and compares the images, and prints one JSON line of kernel figures. The
-last line is {"ok": true, "device": {...}}. Any failed phase raises, and
-the script exits non-zero without printing that line. It needs CUDA and
-the repository around it.
+times both, and renders that frame again with every kernel swapped for its
+twin and compares the images.
+
+A second, small path (512x256, the port's scene/testing.py scene with a
+BLEND quad) renders one forward-lighting frame with blend layers and both
+debug draws, holds one blend-layer launch of K1 to its twin, renders one
+frame per view mode and checks pick and highlight.
+
+It prints one JSON line of kernel figures; the last line is
+{"ok": true, "device": {...}}. Any failed phase raises, and the script
+exits non-zero without printing that line. It needs CUDA and the
+repository around it.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ W, H = 1920, 1088
 FRAMES = 8
 PEELS = 8
 ORBIT_RAD = 0.001          # camera yaw about a point ahead, per frame
+SMALL_W, SMALL_H = 512, 256  # the forward / view-mode / debug-draw path
+SMALL_PEELS = 4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate and float32 outside the
 # tensor cores. Every kernel here is f32 CUDA-core work.
@@ -117,7 +128,7 @@ def main(argv=None) -> int:
     from incarnation_tpu_torch.config import Config
     from incarnation_tpu_torch.core import mathutils as mu
     from incarnation_tpu_torch.kernels import (build, clustered, ibl, raster,
-                                               sky, taa)
+                                               shadow, sky, taa)
     from incarnation_tpu_torch.renderer import frame
     from incarnation_tpu_torch.scene import cache, stress
 
@@ -136,7 +147,7 @@ def main(argv=None) -> int:
                 _log(f"  {name}: {line.strip()}")
 
     # 3. the atrium, built on the host and moved to the card
-    cfg = Config(sun_shadow_mode="off", masked_depth_peels=PEELS)
+    cfg = Config(sun_shadow_mode="map", masked_depth_peels=PEELS)
     t0 = time.perf_counter()
     path = stress.build_atrium(ATRIUM_DIR)
     host = cache.load_scene_cached(path, texture_max_dim=cfg.texture_max_dim,
@@ -164,11 +175,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     _log(f"probe + env BRDF built in {time.perf_counter() - t0:.1f} s")
 
-    # 5. the main path
+    # 5. the main path: the bench configuration, sun shadow map on
     params = raster.RasterParams(width=W, height=H, pair_capacity=1 << 18,
                                  bin_max_span=8)
     view0 = bench_view(host, W, H)
     jitters = mu.halton_jitter_table(16)
+    shadow_bounds = (host.bounds_center,
+                     float(np.linalg.norm(host.bounds_extent)) + 1e-3)
 
     def make_fc(i, prev_vp):
         return frame.FrameConstants.make(
@@ -176,10 +189,10 @@ def main(argv=None) -> int:
             sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
             jitter=jitters[i % 16] * 2.0 / np.array([W, H]),
             prev_view_proj=prev_vp, history_valid=i > 0, frame_index=i,
-            device=dev)
+            shadow_bounds=shadow_bounds, device=dev)
 
-    def run(fc, history):
-        return frame.render_frame(scene, fc, config=cfg, params=params,
+    def run(fc, history, config=cfg):
+        return frame.render_frame(scene, fc, config=config, params=params,
                                   probe=probe, env_brdf=env_brdf,
                                   history=history)
 
@@ -195,6 +208,7 @@ def main(argv=None) -> int:
         k.reset()
     history = torch.zeros((H, W, 3), device=dev)
     prev_vp, frame_ms, outs, per_frame = None, [], [], []
+    outs_history = []
     for i in range(FRAMES):
         before = [k.launches for k in kernels]
         fc = make_fc(i, prev_vp)
@@ -206,6 +220,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         frame_ms.append(start.elapsed_time(end))
         outs.append(out["stats"])
+        outs_history.append(history)
         history = out["accumulation"]
         prev_vp = fc.view_proj.cpu().numpy()
         per_frame.append([k.launches - n for k, n in zip(kernels, before)])
@@ -215,7 +230,8 @@ def main(argv=None) -> int:
     _log("frame ms: " + ", ".join(f"{t:.2f}" for t in frame_ms))
 
     for i, st in enumerate(outs):
-        for key in ("bin_overflow", "big_overflow", "peel_overflow"):
+        for key in ("bin_overflow", "big_overflow", "peel_overflow",
+                    "shadow_bin_overflow"):
             if int(st[key]) != 0:
                 raise RuntimeError(f"frame {i}: {key} = {int(st[key])}")
     last = outs[-1]
@@ -232,15 +248,38 @@ def main(argv=None) -> int:
          f"{out['color'].float().mean().item():.2f}")
     if covered < 0.5:
         raise RuntimeError("the atrium frame is mostly empty")
-    # per frame: K1 for the opaque layer, each peel and the decals, K2
-    # once, K3 on every frame with a history (all but frame 0)
-    want = [[2 + PEELS, 1, int(i > 0)] for i in range(FRAMES)]
+    # per frame: K1 for the opaque layer, each peel, the decals and the
+    # shadow map, K2 once, K3 on every frame with a history (all but
+    # frame 0)
+    want = [[3 + PEELS, 1, int(i > 0)] for i in range(FRAMES)]
     if per_frame != want:
         raise RuntimeError(f"launches per frame (K1, K2, K3) {per_frame} "
                            f"!= {want}")
     if k1_by_layer != {"raster_opaque": FRAMES, "raster_decal": FRAMES,
-                       "raster_peel": FRAMES * PEELS}:
+                       "raster_peel": FRAMES * PEELS,
+                       "raster_shadow_depth": FRAMES}:
         raise RuntimeError(f"K1 layers {k1_by_layer}")
+
+    # 5b. the shadow map does something: some, not all, covered pixels of
+    # the last frame are in shadow, and the frame is darker than the same
+    # frame without the map
+    gb = out["gbuffer"]
+    smap, _ = shadow.render_sun_shadow_map(
+        scene, fc.scene_rotation, fc.sun_view_proj,
+        shadow.shadow_params(cfg.shadow_map_resolution, cfg))
+    vis = shadow.sun_visibility(
+        gb.world_pos, torch.sum(mu.oct_decode(gb.normals) * fc.sun_dir, -1),
+        smap, fc.sun_view_proj, cfg.shadow_map_resolution)
+    shadowed = float((vis[gb.mask] == 0).float().mean())
+    unshadowed = run(fc, outs_history[-1],
+                     cfg.replace(sun_shadow_mode="off"))["hdr"]
+    mean_on, mean_off = float(hdr.mean()), float(unshadowed.mean())
+    _log(f"sun shadow map: {shadowed:.4f} of the covered pixels in shadow; "
+         f"mean hdr {mean_on:.2f} with the map, {mean_off:.2f} without")
+    if not 0.0 < shadowed < 1.0:
+        raise RuntimeError("the shadow map shadows none or all of the frame")
+    if not mean_on < mean_off:
+        raise RuntimeError("the shadow map does not darken the frame")
 
     # 6. each kernel against its twin on one frame's real inputs
     fc = make_fc(FRAMES, prev_vp)
@@ -250,6 +289,10 @@ def main(argv=None) -> int:
     check_twin_frame(run, fc, history, raster, clustered, taa)
     if args.profile:
         profile_frame(run, fc, history)
+
+    # 7. the small path: forward lighting with blend layers and the debug
+    # draws, every view mode, pick and highlight
+    rows.insert(4, small_path(dev, raster, clustered, taa))
     _log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
          " GiB")
     _log(json.dumps({"kernels": rows}))
@@ -291,9 +334,9 @@ def capture_frame(run, fc, history, raster, clustered, taa):
 def _k1_bound(bins, params, z_limit, mask_table):
     """(bound ms, 'bytes' | 'operations') of one K1 launch on these bins:
     the pair lists, setup and attribute rows of the triangles they name and
-    the z limits read once, 72 B/px of outputs written once; 16 operations
-    per (pair, tile pixel) of the tiles that run (a peel skips tiles whose
-    limits are all 0)."""
+    the z limits read once, 72 B/px of outputs written once (the depth-only
+    role: no attribute rows, 8 B/px); 16 operations per (pair, tile pixel)
+    of the tiles that run (a peel skips tiles whose limits are all 0)."""
     import torch
     from incarnation_tpu_torch.kernels import raster
     p = params
@@ -318,9 +361,11 @@ def _k1_bound(bins, params, z_limit, mask_table):
     used = torch.cat([bins.pair_tri.long()[pos],
                       bins.big_tri.long()[:nbig if n_live else 0]])
     n_tris = int(torch.unique(used).numel())
-    nbytes = (4 * (int(counts.sum()) + nbig) + 8 * nt
-              + 4 * n_tris * (raster.SETUP_ROWS + raster.ATTR_ROWS)
-              + p.width * p.height * (4 + 4 + 4 * raster.INTERP_CHANNELS))
+    rows, chans = ((raster.SETUP_ROWS, 0) if p.depth_only else
+                   (raster.SETUP_ROWS + raster.ATTR_ROWS,
+                    raster.INTERP_CHANNELS))
+    nbytes = (4 * (int(counts.sum()) + nbig) + 8 * nt + 4 * n_tris * rows
+              + p.width * p.height * (4 + 4 + 4 * chans))
     if z_limit is not None:
         nbytes += 4 * p.width * p.height
     if mask_table is not None:
@@ -345,38 +390,16 @@ def compare_kernels(calls, raster, clustered, taa, launches, k1_by_layer):
     layers = {}
     for kind, a, kw in k1_calls:
         layers.setdefault(kw.get("name", "fine_raster"), []).append((a, kw))
-    if sorted(layers) != ["raster_decal", "raster_opaque", "raster_peel"]:
+    want = ["raster_decal", "raster_opaque", "raster_peel",
+            "raster_shadow_depth"]
+    if sorted(layers) != want:
         raise RuntimeError(f"captured K1 layers {sorted(layers)}")
-    for layer in ("raster_opaque", "raster_peel", "raster_decal"):
-        errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
-        for a, kw in layers[layer]:
-            bins, p = a
-            zl, mt = kw.get("z_limit"), kw.get("mask_table")
-            got = raster.rasterize_tiles(bins, p, z_limit=zl, mask_table=mt)
-            ref = raster.rasterize_tiles_plain(bins, p, z_limit=zl,
-                                               mask_table=mt)
-            errs.append(_k1_error(got, ref))
-            ms.append(cuda_ms(lambda: raster.rasterize_tiles(
-                bins, p, z_limit=zl, mask_table=mt), 10))
-            plain_ms.append(cuda_ms(lambda: raster.rasterize_tiles_plain(
-                bins, p, z_limit=zl, mask_table=mt), 2))
-            b, by = _k1_bound(bins, p, zl, mt)
-            bounds.append(b)
-            bound_by.add(by)
-        _log(f"K1 {layer}: per launch ms " + ", ".join(f"{t:.3f}" for t in ms)
-             + "; tri mismatch share "
-             + ", ".join(f"{e[2]:.2e}" for e in errs))
-        rows.append(dict(
-            name=f"k1_raster[{layer}]", route="cuda",
-            source="incarnation_tpu_torch/csrc/raster.cu",
-            replaces="incarnation_tpu/kernels/raster.py:1077",
-            launches=k1_by_layer[layer],
-            max_abs_err=max(e[0] for e in errs),
-            max_rel_err=max(e[1] for e in errs),
-            ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
-            bound_ms=float(np.mean(bounds)),
-            bound_by="operations" if "operations" in bound_by else "bytes",
-            library_ms=None))
+    (sa, _), = layers["raster_shadow_depth"]
+    _log(f"sun shadow pass: {int(sa[0].counts.sum())} tile pairs of a "
+         f"capacity of {sa[1].pair_capacity}")
+    for layer in ("raster_opaque", "raster_peel", "raster_decal",
+                  "raster_shadow_depth"):
+        rows.append(k1_row(raster, layer, layers[layer], k1_by_layer[layer]))
 
     (_, a, kw), = [c for c in calls if c[0] == "k2"]
     got = clustered.clustered_lighting(*a, **kw)
@@ -431,6 +454,164 @@ def compare_kernels(calls, raster, clustered, taa, launches, k1_by_layer):
     return rows
 
 
+def k1_row(raster, layer, launches_captured, n_launches):
+    """Kernel-vs-twin on the captured K1 launches of one raster layer
+    (error, both times and the bound, each the mean over the launches)
+    -> the layer's JSON row."""
+    errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
+    for a, kw in launches_captured:
+        bins, p = a
+        zl, mt = kw.get("z_limit"), kw.get("mask_table")
+        got = raster.rasterize_tiles(bins, p, z_limit=zl, mask_table=mt)
+        ref = raster.rasterize_tiles_plain(bins, p, z_limit=zl,
+                                           mask_table=mt)
+        errs.append(_k1_error(got, ref))
+        ms.append(cuda_ms(lambda: raster.rasterize_tiles(
+            bins, p, z_limit=zl, mask_table=mt), 10))
+        plain_ms.append(cuda_ms(lambda: raster.rasterize_tiles_plain(
+            bins, p, z_limit=zl, mask_table=mt), 2))
+        b, by = _k1_bound(bins, p, zl, mt)
+        bounds.append(b)
+        bound_by.add(by)
+    bins, p = launches_captured[0][0]
+    _log(f"K1 {layer}: per launch ms " + ", ".join(f"{t:.3f}" for t in ms)
+         + "; tri mismatch share "
+         + ", ".join(f"{e[2]:.2e}" for e in errs)
+         + f"; {int(bins.counts.sum())} pairs in {p.num_tiles} tiles of "
+         f"{p.tile_h}x{p.tile_w}, at most {int(bins.counts.max())} in one, "
+         f"+ {int(bins.big_count[0])} big triangles in every tile")
+    return dict(
+        name=f"k1_raster[{layer}]", route="cuda",
+        source="incarnation_tpu_torch/csrc/raster.cu",
+        replaces="incarnation_tpu/kernels/raster.py:1077",
+        launches=n_launches,
+        max_abs_err=max(e[0] for e in errs),
+        max_rel_err=max(e[1] for e in errs),
+        ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+        bound_ms=float(np.mean(bounds)),
+        bound_by="operations" if "operations" in bound_by else "bytes",
+        library_ms=None)
+
+
+def small_path(dev, raster, clustered, taa):
+    """The forward / view-mode / debug-draw path on the port's own test
+    scene with a BLEND quad, 512x256, every launch on the card. Returns the
+    k1_raster[raster_blend] row (its launches are this path's)."""
+    import torch
+    from incarnation_tpu_torch.config import Config, ViewMode
+    from incarnation_tpu_torch.core.view import View
+    from incarnation_tpu_torch.renderer import frame
+    from incarnation_tpu_torch.scene import testing
+    w, h = SMALL_W, SMALL_H
+    scene = testing.make_rich_scene(device=dev, blend_quad=True)
+    if not scene.meta.has_blend:
+        raise RuntimeError("the small scene lost its BLEND quad")
+    params = raster.RasterParams(width=w, height=h, pair_capacity=4096,
+                                 bin_max_span=8, big_tri_capacity=64)
+    base = dict(masked_depth_peels=SMALL_PEELS, sun_shadow_mode="map",
+                shadow_map_resolution=256, enable_taa=False)
+    sun = np.asarray([0.2, 0.8, -0.55], np.float32)
+    view = View.from_lookat([0.0, 1.0, 1.0], [0.0, 0.0, 7.0], aspect=w / h)
+
+    def render(**kw):
+        cfg = Config(**dict(base, **kw))
+        fc = frame.FrameConstants.make(
+            view, cfg, sun_dir=sun / np.linalg.norm(sun),
+            sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
+            shadow_bounds=([0.0, 0.75, 8.0], 13.0), device=dev)
+        return frame.render_frame(scene, fc, config=cfg, params=params)
+
+    def check_color(out, what):
+        c = out["color"]
+        if tuple(c.shape) != (h, w, 3) or c.dtype != torch.uint8:
+            raise RuntimeError(f"{what}: colour is not an (H, W, 3) uint8")
+        for key in ("hdr", "accumulation"):
+            if not bool(torch.isfinite(out[key]).all()):
+                raise RuntimeError(f"{what}: {key} is not finite")
+
+    # forward lighting with blend layers and both debug draws
+    fwd = dict(forward_lighting=True, show_light_bounds=True,
+               show_object_bounds=True)
+    render(**fwd)                               # warm-up
+    kernels = (raster.K1, clustered.K2, taa.K3)
+    for k in kernels:
+        k.reset()
+    calls = capture_frame(lambda fc, history: render(**fwd), None, None,
+                          raster, clustered, taa)
+    by_name, k2_launches = dict(raster.K1.by_name), clustered.K2.launches
+    out = render(**fwd)
+    check_color(out, "forward frame")
+    stats = {k: int(v) for k, v in out["stats"].items()}
+    _log(f"small path, forward frame: K1 by layer {by_name}, K2 "
+         f"{k2_launches} launches; stats {json.dumps(stats)}")
+    if by_name.get("raster_blend") != SMALL_PEELS:
+        raise RuntimeError(f"raster_blend launches {by_name}")
+    # K2 shades the opaque surface and each blend layer
+    if by_name.get("raster_shadow_depth") != 1 \
+            or k2_launches != 1 + SMALL_PEELS:
+        raise RuntimeError(f"small path launches {by_name}")
+    if stats["debug_draws"] <= 0:
+        raise RuntimeError("no debug draw was appended")
+    for key in ("bin_overflow", "big_overflow", "peel_overflow",
+                "shadow_bin_overflow"):
+        if stats[key] != 0:
+            raise RuntimeError(f"small path: {key} = {stats[key]}")
+    no_wires = render(forward_lighting=True)
+    wires = int((out["color"] != no_wires["color"]).any(-1).sum())
+    blend = int(((out["hdr"] - render(forward_lighting=False)["hdr"]).abs()
+                 .sum(-1) > 0).sum())
+    _log(f"small path: {wires} wireframe pixels, {blend} pixels differ "
+         "between the forward (blend layers) and the deferred frame")
+    if wires == 0 or blend == 0:
+        raise RuntimeError("the debug draws or the blend layers drew nothing")
+    blends = [(a, kw) for kind, a, kw in calls
+              if kind == "k1" and kw.get("name") == "raster_blend"]
+    if len(blends) != SMALL_PEELS or blends[0][1].get("mask_table") \
+            is not None or blends[0][1].get("z_limit") is None:
+        raise RuntimeError("the blend layers are not z_limit peels")
+    row = k1_row(raster, "raster_blend", blends, by_name["raster_blend"])
+
+    # one frame per view mode
+    modes = {n: v for n, v in vars(ViewMode).items()
+             if isinstance(v, int) and not n.startswith("_")}
+    if len(modes) != 14:
+        raise RuntimeError(f"{len(modes)} view modes")
+    means = {}
+    for name, vm in sorted(modes.items(), key=lambda kv: kv[1]):
+        o = render(viewmode=vm)
+        check_color(o, f"view mode {name}")
+        means[name] = round(float(o["color"].float().mean()), 2)
+        if name == "OBJECT_IDS":
+            covered = o["tri"] >= 0
+            if not bool(o["color"][covered].sum(-1).min() > 0):
+                raise RuntimeError("OBJECT_IDS is black on geometry")
+            ids = o
+    _log(f"small path, mean u8 colour per view mode: {json.dumps(means)}")
+
+    # pick at a covered pixel, highlight of that primitive
+    ys, xs = torch.nonzero(ids["tri"] >= 0, as_tuple=True)
+    mid = ys.numel() // 2
+    x, y = int(xs[mid]), int(ys[mid])
+    prim, local, meshlet = frame.pick(scene, ids["tri"], x, y)
+    if prim < 0 or local < 0 or meshlet < 0:
+        raise RuntimeError(f"pick({x}, {y}) found nothing on a covered pixel")
+    if frame.pick(scene, torch.full_like(ids["tri"], -1), x, y) \
+            != (-1, -1, -1):
+        raise RuntimeError("pick on an empty map found something")
+    lit = frame.highlight(ids["color"], ids["tri"], scene, prim)
+    changed = (lit != ids["color"]).any(-1)
+    owner = scene.tri_prim[ids["tri"].clamp(min=0).long()]
+    own = (ids["tri"] >= 0) & (owner == prim)
+    _log(f"small path: pick({x}, {y}) = prim {prim}, triangle {local}, "
+         f"meshlet {meshlet}; highlight changed {int(changed.sum())} of its "
+         f"{int(own.sum())} pixels")
+    if not bool(changed.any()) or bool((changed & ~own).any()):
+        raise RuntimeError("highlight changed other pixels than the picked "
+                           "primitive's")
+    torch.cuda.synchronize()
+    return row
+
+
 def _close(what, got, ref, rtol, atol_frac, where=None):
     """Holds got to ref per element: |got - ref| <= rtol |ref| + atol, with
     atol = atol_frac x the median nonzero |ref| (over the pixels `where`
@@ -471,7 +652,9 @@ def _k1_error(got, ref):
                            "of the pixels")
     err, rel = _close("K1 depth", dep_k, dep_r, rtol=1e-6, atol_frac=1e-7,
                       where=same)
-    for c in range(int_k.shape[0]):
+    if (int_k is None) != (int_r is None):
+        raise RuntimeError("K1 and its twin disagree on writing interp")
+    for c in range(0 if int_k is None else int_k.shape[0]):
         e, r = _close(f"K1 interp channel {c}", int_k[c], int_r[c],
                       rtol=1e-5, atol_frac=1e-6, where=same)
         err, rel = max(err, e), max(rel, r)
@@ -536,6 +719,7 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
 # (module, function) pairs render_frame calls, timed by phase_breakdown
 _PHASES = (("cull", "cull_primitives"), ("raster", "prepare_geometry"),
            ("raster", "bin_triangles_layered"), ("raster", "rasterize_tiles"),
+           ("shadow", "render_sun_shadow_map"), ("shadow", "sun_visibility"),
            ("resolve", "masked_alpha"), ("resolve", "resolve_gbuffer"),
            ("clustered", "build_light_clusters"),
            ("clustered", "clustered_lighting"), ("skylight", "sky_lighting"),
@@ -547,11 +731,14 @@ _PHASES = (("cull", "cull_primitives"), ("raster", "prepare_geometry"),
 def phase_breakdown(run, fc, history, reps: int = 3):
     """ms of each render_frame phase: every call of the functions in
     _PHASES is wrapped in synchronize + host clock; the rest of the frame
-    is the glue between them. Mean over reps frames."""
+    is the glue between them. A phase called inside another (the shadow
+    map's own triangle setup, binning and K1 launch) counts to the outer
+    one. Mean over reps frames."""
     import importlib
     import torch
     spent = {}
     saved = {}
+    depth = [0]
     for mod_name, fn_name in _PHASES:
         mod = importlib.import_module(f"incarnation_tpu_torch.kernels."
                                       f"{mod_name}")
@@ -560,9 +747,15 @@ def phase_breakdown(run, fc, history, reps: int = 3):
         key = f"{mod_name}.{fn_name}"
 
         def timed(*a, _fn=fn, _key=key, **kw):
+            if depth[0]:
+                return _fn(*a, **kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = _fn(*a, **kw)
+            depth[0] += 1
+            try:
+                out = _fn(*a, **kw)
+            finally:
+                depth[0] -= 1
             torch.cuda.synchronize()
             spent[_key] = spent.get(_key, 0.0) + time.perf_counter() - t0
             return out

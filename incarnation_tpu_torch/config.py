@@ -101,97 +101,71 @@ class Config:
     tod_latitude: float = 42.5
     envmap_resolution: int = 256
 
-    # --- TPU-rebuild-specific knobs (no reference equivalent) ---
-    # Software rasterizer tiling. A tile is TILE_H x TILE_W pixels; the fine
-    # raster Pallas kernel runs one grid step per tile. 128-wide tiles match
-    # the VPU lane count.
+    # --- Software-rasterizer and filtering knobs (no reference equivalent) ---
+    # Screen tile of the binner and the fine raster, TILE_H x TILE_W pixels;
+    # K1 runs one thread block per tile (at most 2048 pixels a tile).
     raster_tile_h: int = 32
     raster_tile_w: int = 128
-    # Total (tile, triangle) pair capacity for the binner (static shape;
-    # overflow is counted in render stats). Binning replaces the reference's
-    # GPU atomic-append of indirect draws (ref: culling/batch-culling.hlsl).
+    # Total (tile, triangle) pairs the binner keeps per frame. Pairs beyond
+    # it are dropped and counted in the bin_overflow stat. Binning replaces
+    # the reference's GPU atomic-append of indirect draws (ref:
+    # culling/batch-culling.hlsl).
     pair_capacity: int = 1 << 20
-    # Pair capacity for the SUN SHADOW depth pass. The ortho sun view bins
-    # far fewer pairs than the camera (measured: 125k at 1024^2 on the
-    # 289k-tri atrium vs ~155k camera pairs at 1080p), and both the
-    # capacity-sized pair-row gather and the Pallas raster scale with
-    # capacity, so it gets its own, tighter bound (1.3x headroom).
-    # Overflow shows up in the shadow_bin_overflow stat.
+    # Pair capacity of the sun shadow depth pass, which bins every caster
+    # triangle of the scene into the sun view's tiles. Pairs beyond it are
+    # dropped and counted in the shadow_bin_overflow stat.
     shadow_pair_capacity: int = 163840
-    # Max screen tiles a single binned triangle may span before it is routed
-    # to the per-frame "big triangle" list that every tile processes.
+    # Most screen tiles one binned triangle may span before it goes to the
+    # per-frame "big triangle" list that every tile walks; big triangles
+    # beyond big_tri_capacity are dropped and counted in big_overflow.
     bin_max_span: int = 16
     big_tri_capacity: int = 512
-    # Texture atlas resolution cap (textures are resized to at most this).
+    # Texture resolution cap (textures are resized to at most this).
     texture_max_dim: int = 2048
-    # Stochastic texture filtering (engaged only while TAA history is
-    # accumulating, so single-shot renders stay exact trilinear):
-    # stochastic_mip dithers to a single mip level (half the texture
-    # gathers); stochastic_bilinear additionally jitters the bilinear
-    # footprint so the whole material stack is ONE texel gather per pixel.
-    # The TAA accumulation converges both to the trilinear result.
+    # Stochastic texture filtering: stochastic_mip dithers to one mip
+    # level, stochastic_bilinear jitters the bilinear footprint to one
+    # texel, and TAA accumulation converges both to the trilinear result.
+    # Approximations the port does not make (TPU_ONLY_FLAGS).
     stochastic_mip: bool = False
     stochastic_bilinear: bool = False
-    # Stochastic anisotropic filtering (reference: 16x aniso static
-    # samplers, src/demo.cpp:445-493): the per-frame stochastic tap is
-    # jittered along the footprint's major axis with the mip picked from
-    # the minor axis — converges to the anisotropic integral under TAA at
-    # zero extra gathers. <= 1 disables (isotropic stochastic mip).
+    # Anisotropy limit of the stochastic tap (reference: 16x aniso static
+    # samplers, src/demo.cpp:445-493). Read only by the stochastic filters,
+    # so the port's exact trilinear path ignores it.
     max_anisotropy: int = 16
     # Alpha-masked geometry: number of depth-peel layers rastered for
     # MASK/BLEND primitives (a failed alpha test exposes the next fragment
-    # behind it — ref: visibility-pass.hlsl clip). 2 covers typical foliage
-    # overlap; raise for dense vegetation.
+    # behind it, ref: visibility-pass.hlsl clip), and for the forward
+    # path's BLEND layers. Pixels still unresolved after the last peel are
+    # counted in the peel_overflow stat.
     masked_depth_peels: int = 2
-    # Sparse-layer fetch compaction (kernels/resolve.py _chunk_compact):
-    # the peel alpha tests and the decal material resolve cover a sparse
-    # pixel set, but a full-screen table gather is index-rate bound
-    # (~12.7 ms per 2M px into the 11 MB alpha mirror on v5e). Compacting
-    # at 128-px chunk granularity costs ~nothing (vector-rate row copies)
-    # and cuts the gather to capacity*128 indices. Capacities are in
-    # chunks (1080p has 16320); measured atrium coverage: peels 35/27/19%,
-    # decals 1.8%. Overflowing chunks degrade gracefully (alpha 1.0 /
-    # untextured) and are counted in the frame stats. 0 disables.
+    # Chunk capacities of the sparse-layer fetch compaction for the peel
+    # alpha tests and the decal resolve. 0 disables; the port fetches at
+    # every pixel and rejects any other value (TPU_ONLY_FLAGS).
     peel_chunk_capacity: int = 0
     decal_chunk_capacity: int = 0
     # Analytic split-sum env-BRDF (a 16x16 Chebyshev tensor fitted to the
     # reference integration, mimicking the reference's inverted-row fetch
-    # quirk) instead of the LUT gather: one of the three pixel-proportional
-    # gathers in the deferred frame (~3.8 ms at 1080p) becomes pure VPU
-    # math at <=0.5% absolute error in the specular scale (kernels/ibl.py
-    # env_brdf_approx). On by default; the LUT path remains bit-parity
-    # with the reference's sky-lighting.hlsl:124 behavior.
+    # quirk) in place of the LUT fetch, at <= 0.5% absolute error in the
+    # specular scale (kernels/ibl.py env_brdf_approx). On by default; the
+    # LUT path remains bit-parity with the reference's
+    # sky-lighting.hlsl:124 behavior.
     analytic_env_brdf: bool = True
-    # Sun shadows. The reference ALWAYS traces a per-pixel DXR shadow ray
-    # toward the sun (ref: lighting/common.hlsli:91-116); a per-pixel BVH
-    # walk is HBM-gather-bound on TPU, so the TPU-first default for real
-    # frames is a rasterized orthographic shadow map with a stochastic PCF
-    # tap (kernels/shadow.py). Modes:
-    #   "auto" — "rt" when a scene BVH is supplied, else no shadows
-    #            (round-2 compatibility for tests/tools)
-    #   "map"  — rasterized sun shadow map (the bench/CLI frame)
-    #   "rt"   — exact BVH shadow rays (parity/reference mode; slow)
-    #   "off"  — sun always visible
+    # Sun shadows. The reference always traces a per-pixel DXR shadow ray
+    # toward the sun (ref: lighting/common.hlsli:91-116). Modes:
+    #   "auto" - "rt" when a scene BVH is supplied, else no shadows
+    #   "map"  - rasterized orthographic sun shadow map, one tap per pixel
+    #            (kernels/shadow.py; the bench frame)
+    #   "rt"   - exact BVH shadow rays
+    #   "off"  - sun always visible
     sun_shadow_mode: str = "auto"
-    # 1024: the per-pixel visibility gather is index-rate bound with a
-    # strong table-SIZE tier (tools/microbench.py): the 1024^2 packed-u16
-    # map is 2 MB (fast tier, ~10 ms/2M px) where 2048^2 was 8 MB (~18 ms),
-    # and the sun depth raster quarters (7.2 -> ~2 ms). The stochastic PCF
-    # tap + TAA penumbra hides the coarser texels.
+    # Side of the square sun shadow map in texels; the depth bias of the
+    # visibility test scales with 2 / resolution.
     shadow_map_resolution: int = 1024
-    # Checkerboard half-rate full-screen gathers (kernels/checker.py): the
-    # sun-shadow sample and the specular probe fetch are 2M-index gathers
-    # that are index-rate bound regardless of table locality (~14.9 ms each
-    # in the profiled honest frame), so half the indices is half the cost
-    # (measured ratio 0.51 — tools/checkerboard_bench.py). The skipped
-    # parity gets the mean of its two horizontal gathered neighbors and TAA
-    # alternates parity per frame. Engaged only while TAA accumulates (like
-    # the stochastic taps), so single-shot renders stay full-rate exact.
+    # Half-rate checkerboard fetch of the sun-shadow sample and the
+    # specular probe while TAA accumulates. Not ported (TPU_ONLY_FLAGS).
     checkerboard_gathers: bool = False
-    # Stochastic single-texel TAA history fetch (1 gather instead of 4).
-    # Off by default: the history feedback loop turns the fetch noise into
-    # visible mottling (33.9 dB vs exact after 32 frames — tools/
-    # stochastic_psnr.py; textures-only stochastic is 41.1 dB and stays on).
+    # Stochastic single-texel TAA history fetch in place of the bilinear
+    # one. Not ported (TPU_ONLY_FLAGS).
     stochastic_taa: bool = False
 
     def __post_init__(self):

@@ -10,6 +10,11 @@
 // channels (u, v, world normal, world tangent, sign, material id, analytic
 // UV derivatives, 2 zero pads).
 //
+// The depth-only role (the sun shadow map; raster.py RasterParams.depth_only)
+// is a compile-time variant of the same kernel, k1_raster_kernel<true>: it
+// takes no attribute rows and no amask table, stages no UV planes, runs no
+// pass 2 and writes tri and depth only (8 B/px).
+//
 // Design for Hopper, not the TPU layout: one block per tile, 256 threads,
 // each thread owning up to 8 pixels of the (at most 2048-pixel) tile. The
 // tile's pairs are staged 128 at a time in shared memory (setup rows read
@@ -70,6 +75,7 @@ __device__ __forceinline__ bool mask_reject(const float* m, int mat,
   return ((word >> (cell & 31)) & 1u) != 0u;
 }
 
+template <bool DEPTH_ONLY>
 __global__ void __launch_bounds__(K1_THREADS)
 k1_raster_kernel(const int* __restrict__ pair_tri,
                  const int* __restrict__ starts,
@@ -85,9 +91,10 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
                  int width, int height, int tile_h, int tile_w,
                  int tiles_x) {
   __shared__ float s_setup[K1_CHUNK][SETUP_ROWS];
-  __shared__ float s_uvd[K1_CHUNK][9];
   __shared__ int s_id[K1_CHUNK];
-  __shared__ int s_mat[K1_CHUNK];
+  // UV planes and material of each staged pair: the masked role only
+  __shared__ float s_uvd[DEPTH_ONLY ? 1 : K1_CHUNK][9];
+  __shared__ int s_mat[DEPTH_ONLY ? 1 : K1_CHUNK];
 
   const int tile = blockIdx.x;
   const int ty = tile / tiles_x;
@@ -125,7 +132,7 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
     }
   }
   const int total = count + bigcnt;
-  const bool masked = mask_table != nullptr;
+  const bool masked = !DEPTH_ONLY && mask_table != nullptr;
 
   for (int base = 0; base < total; base += K1_CHUNK) {
     const int nb = min(K1_CHUNK, total - base);
@@ -137,12 +144,14 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
 #pragma unroll
       for (int r = 0; r < SETUP_ROWS; ++r)
         s_setup[j][r] = setup[(size_t)t * SETUP_ROWS + r];
-      if (masked) {
+      if constexpr (!DEPTH_ONLY) {
+        if (masked) {
 #pragma unroll
-        for (int r = 0; r < 9; ++r)
-          s_uvd[j][r] = attr[(size_t)t * ATTR_ROWS + r];
-        int mat = (int)attr[(size_t)t * ATTR_ROWS + 28];
-        s_mat[j] = mat < 0 ? 0 : (mat >= mask_rows ? mask_rows - 1 : mat);
+          for (int r = 0; r < 9; ++r)
+            s_uvd[j][r] = attr[(size_t)t * ATTR_ROWS + r];
+          int mat = (int)attr[(size_t)t * ATTR_ROWS + 28];
+          s_mat[j] = mat < 0 ? 0 : (mat >= mask_rows ? mask_rows - 1 : mat);
+        }
       }
     }
     __syncthreads();
@@ -159,9 +168,11 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
         bool cov = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z <= 1.0f &&
                    z >= 0.0f;
         if (zlim != nullptr) cov = cov && z < zl[k];
-        if (cov && masked)
-          cov = !mask_reject(s_uvd[j], s_mat[j], colf[k], rowf[k],
-                             mask_table);
+        if constexpr (!DEPTH_ONLY) {
+          if (cov && masked)
+            cov = !mask_reject(s_uvd[j], s_mat[j], colf[k], rowf[k],
+                               mask_table);
+        }
         if (cov) {
           unsigned long long key =
               ((unsigned long long)(__float_as_uint(z) & 0x7fffffffu) << 32) |
@@ -172,7 +183,6 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
     }
   }
 
-  const size_t plane = (size_t)width * height;
 #pragma unroll
   for (int k = 0; k < K1_MAX_PPT; ++k) {
     int p = tid + k * K1_THREADS;
@@ -182,40 +192,42 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
     int gy = ty * tile_h + py;
     if (gx >= width || gy >= height) continue;
     size_t o = (size_t)gy * width + gx;
-    float ch[INTERP_CHANNELS];
+    const bool has = best[k] != 0ull;
+    const int id = has ? (int)((best[k] & 0xffffffffull) - 1ull) : -1;
+    tri_out[o] = id;
+    depth_out[o] = has ? __uint_as_float((unsigned int)(best[k] >> 32)) : 0.0f;
+    if constexpr (!DEPTH_ONLY) {
+      const size_t plane = (size_t)width * height;
+      float ch[INTERP_CHANNELS];
 #pragma unroll
-    for (int q = 0; q < INTERP_CHANNELS; ++q) ch[q] = 0.0f;
-    if (best[k] == 0ull) {
-      tri_out[o] = -1;
-      depth_out[o] = 0.0f;
-    } else {
-      int id = (int)((best[k] & 0xffffffffull) - 1ull);
-      tri_out[o] = id;
-      depth_out[o] = __uint_as_float((unsigned int)(best[k] >> 32));
-      // pass 2: the winner's attribute planes, as raster.py:963-984
-      const float* a = attr + (size_t)id * ATTR_ROWS;
-      float cf = colf[k], rf = rowf[k];
-      float d = a[6] * cf + a[7] * rf + a[8];
-      float inv_d = fabsf(d) > 1e-20f ? 1.0f / d : 0.0f;
-      float u = (a[0] * cf + a[1] * rf + a[2]) * inv_d;
-      float v = (a[3] * cf + a[4] * rf + a[5]) * inv_d;
-      ch[0] = u;
-      ch[1] = v;
-      ch[2] = (a[9] * cf + a[10] * rf + a[11]) * inv_d;
-      ch[3] = (a[12] * cf + a[13] * rf + a[14]) * inv_d;
-      ch[4] = (a[15] * cf + a[16] * rf + a[17]) * inv_d;
-      ch[5] = (a[18] * cf + a[19] * rf + a[20]) * inv_d;
-      ch[6] = (a[21] * cf + a[22] * rf + a[23]) * inv_d;
-      ch[7] = (a[24] * cf + a[25] * rf + a[26]) * inv_d;
-      ch[8] = a[27];
-      ch[9] = a[28];
-      ch[10] = (a[0] - u * a[6]) * inv_d;
-      ch[11] = (a[1] - u * a[7]) * inv_d;
-      ch[12] = (a[3] - v * a[6]) * inv_d;
-      ch[13] = (a[4] - v * a[7]) * inv_d;
+      for (int q = 0; q < INTERP_CHANNELS; ++q) ch[q] = 0.0f;
+      if (has) {
+        // pass 2: the winner's attribute planes, as raster.py:963-984
+        const float* a = attr + (size_t)id * ATTR_ROWS;
+        float cf = colf[k], rf = rowf[k];
+        float d = a[6] * cf + a[7] * rf + a[8];
+        float inv_d = fabsf(d) > 1e-20f ? 1.0f / d : 0.0f;
+        float u = (a[0] * cf + a[1] * rf + a[2]) * inv_d;
+        float v = (a[3] * cf + a[4] * rf + a[5]) * inv_d;
+        ch[0] = u;
+        ch[1] = v;
+        ch[2] = (a[9] * cf + a[10] * rf + a[11]) * inv_d;
+        ch[3] = (a[12] * cf + a[13] * rf + a[14]) * inv_d;
+        ch[4] = (a[15] * cf + a[16] * rf + a[17]) * inv_d;
+        ch[5] = (a[18] * cf + a[19] * rf + a[20]) * inv_d;
+        ch[6] = (a[21] * cf + a[22] * rf + a[23]) * inv_d;
+        ch[7] = (a[24] * cf + a[25] * rf + a[26]) * inv_d;
+        ch[8] = a[27];
+        ch[9] = a[28];
+        ch[10] = (a[0] - u * a[6]) * inv_d;
+        ch[11] = (a[1] - u * a[7]) * inv_d;
+        ch[12] = (a[3] - v * a[6]) * inv_d;
+        ch[13] = (a[4] - v * a[7]) * inv_d;
+      }
+#pragma unroll
+      for (int q = 0; q < INTERP_CHANNELS; ++q)
+        interp_out[q * plane + o] = ch[q];
     }
-#pragma unroll
-    for (int q = 0; q < INTERP_CHANNELS; ++q) interp_out[q * plane + o] = ch[q];
   }
 }
 
@@ -229,9 +241,26 @@ extern "C" int k1_raster(const int* pair_tri, const int* starts,
                          int num_tiles, void* stream) {
   if (tile_h * tile_w > K1_THREADS * K1_MAX_PPT)
     return (int)cudaErrorInvalidValue;
-  k1_raster_kernel<<<num_tiles, K1_THREADS, 0, (cudaStream_t)stream>>>(
+  k1_raster_kernel<false><<<num_tiles, K1_THREADS, 0, (cudaStream_t)stream>>>(
       pair_tri, starts, counts, big_tri, big_count, setup, attr, zlim,
       mask_table, mask_rows, tri_out, depth_out, interp_out, width, height,
       tile_h, tile_w, tiles_x);
+  return (int)cudaGetLastError();
+}
+
+// The depth-only role: no attribute rows, no amask table, no interp output.
+extern "C" int k1_raster_depth(const int* pair_tri, const int* starts,
+                               const int* counts, const int* big_tri,
+                               const int* big_count, const float* setup,
+                               const float* zlim, int* tri_out,
+                               float* depth_out, int width, int height,
+                               int tile_h, int tile_w, int tiles_x,
+                               int num_tiles, void* stream) {
+  if (tile_h * tile_w > K1_THREADS * K1_MAX_PPT)
+    return (int)cudaErrorInvalidValue;
+  k1_raster_kernel<true><<<num_tiles, K1_THREADS, 0, (cudaStream_t)stream>>>(
+      pair_tri, starts, counts, big_tri, big_count, setup, nullptr, zlim,
+      nullptr, 0, tri_out, depth_out, nullptr, width, height, tile_h, tile_w,
+      tiles_x);
   return (int)cudaGetLastError();
 }

@@ -115,32 +115,38 @@ class Kernel:
     argtypes: ctypes types of the arguments before the trailing stream.
     `launches` counts successful launches and `by_name` splits them by the
     caller's name for the launch (a raster layer, say); reset() zeroes
-    both."""
+    both. `variants` maps further entry points of the same kernel (its
+    compile-time roles) to their argtypes; a call picks one with
+    variant=<entry name> and counts on the same counters."""
 
-    def __init__(self, lib: str, fn: str, argtypes: list):
+    def __init__(self, lib: str, fn: str, argtypes: list, variants=None):
         self.lib = lib
         self.fn = fn
-        self.argtypes = list(argtypes) + [ctypes.c_void_p]
+        self.argtypes = {fn: list(argtypes) + [ctypes.c_void_p]}
+        for name, types in (variants or {}).items():
+            self.argtypes[name] = list(types) + [ctypes.c_void_p]
         self.launches = 0
         self.by_name: dict = {}
-        self._f = None
+        self._f: dict = {}
 
     def reset(self):
         self.launches = 0
         self.by_name = {}
 
-    def __call__(self, *args, stream=None, name=None):
+    def __call__(self, *args, stream=None, name=None, variant=None):
         import torch
-        if self._f is None:
-            f = getattr(library(self.lib), self.fn)
-            f.argtypes = self.argtypes
+        entry = variant or self.fn
+        f = self._f.get(entry)
+        if f is None:
+            f = getattr(library(self.lib), entry)
+            f.argtypes = self.argtypes[entry]
             f.restype = ctypes.c_int
-            self._f = f
+            self._f[entry] = f
         if stream is None:
             stream = torch.cuda.current_stream().cuda_stream
-        rc = self._f(*args, stream)
+        rc = f(*args, stream)
         if rc != 0:
-            raise RuntimeError(f"{self.fn} launch failed: cudaError {rc}")
+            raise RuntimeError(f"{entry} launch failed: cudaError {rc}")
         self.launches += 1
         if name is not None:
             self.by_name[name] = self.by_name.get(name, 0) + 1

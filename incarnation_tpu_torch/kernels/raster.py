@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import mathutils as mu
 from .build import Kernel, ptr
 
 SETUP_ROWS = 12
@@ -43,6 +44,7 @@ class RasterParams(NamedTuple):
     big_tri_capacity: int = 512
     bin_mid_span: int = 64
     mid_tri_capacity: int = 1024
+    depth_only: bool = False   # the shadow-map role: no attribute pass
 
     @property
     def tiles_x(self) -> int:
@@ -62,7 +64,8 @@ class PreparedGeometry(NamedTuple):
     ids: torch.Tensor       # (T,) i32
     valid: torch.Tensor     # (T,) bool
     bbox: torch.Tensor      # (T, 4) i32 inclusive x0, y0, x1, y1
-    attr: torch.Tensor      # (T, 29) f32 attribute planes
+    attr: torch.Tensor      # (T, 29) f32 attribute planes; None when
+    #                         prepare_geometry(emit_attributes=False)
 
 
 @dataclasses.dataclass
@@ -79,7 +82,7 @@ class Bins:
     overflow: torch.Tensor    # () i32 dropped pairs (layer 0 only)
     big_overflow: torch.Tensor  # () i32 dropped big triangles
     setup: torch.Tensor       # (T, 12) f32
-    attr: torch.Tensor        # (T, 29) f32
+    attr: torch.Tensor        # (T, 29) f32, None for a depth-only pass
 
 
 # ---------------------------------------------------------------------------
@@ -88,9 +91,11 @@ class Bins:
 
 def prepare_geometry(scene, scene_rotation, view_proj, prim_visible,
                      params: RasterParams, tri_visible=None,
-                     meshlet_visible=None) -> PreparedGeometry:
+                     meshlet_visible=None,
+                     emit_attributes: bool = True) -> PreparedGeometry:
     """Fused corner transform + triangle setup + attribute planes
-    (raster.py:1207-1383)."""
+    (raster.py:1207-1383). emit_attributes=False builds no attribute
+    planes (attr is None): the depth-only pass reads none."""
     w, h = params.width, params.height
     local_to_world = torch.matmul(scene.mesh_transforms, scene_rotation)
     local_to_clip = torch.matmul(local_to_world, view_proj)
@@ -207,17 +212,19 @@ def prepare_geometry(scene, scene_rotation, view_proj, prim_visible,
     setup = torch.stack(list(e0) + list(e1) + list(e2) + list(zplane),
                         dim=-1).contiguous()                  # (T, 12)
 
-    a0, a1, a2 = r0[4:13], r1[4:13], r2[4:13]
+    attr = None
+    if emit_attributes:
+        a0, a1, a2 = r0[4:13], r1[4:13], r2[4:13]
 
-    def plane(c):
-        return [a0[c] * e0[j] + a1[c] * e1[j] + a2[c] * e2[j]
-                for j in range(3)]
+        def plane(c):
+            return [a0[c] * e0[j] + a1[c] * e1[j] + a2[c] * e2[j]
+                    for j in range(3)]
 
-    denom = [e0[j] + e1[j] + e2[j] for j in range(3)]
-    rows = (plane(0) + plane(1) + denom
-            + sum((plane(c) for c in range(2, 8)), [])
-            + [a0[8], tri_mat])
-    attr = torch.stack(rows, dim=-1).contiguous()             # (T, 29)
+        denom = [e0[j] + e1[j] + e2[j] for j in range(3)]
+        rows = (plane(0) + plane(1) + denom
+                + sum((plane(c) for c in range(2, 8)), [])
+                + [a0[8], tri_mat])
+        attr = torch.stack(rows, dim=-1).contiguous()         # (T, 29)
     return PreparedGeometry(setup=setup, ids=ids, valid=valid, bbox=bbox,
                             attr=attr)
 
@@ -317,20 +324,25 @@ def bin_triangles_layered(prep: PreparedGeometry, params: RasterParams,
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_K1_DEPTH = "k1_raster_depth"   # the depth-only role's entry point
 K1 = Kernel("raster", "k1_raster",
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I])
+             _I, _I, _I, _I, _I, _I],
+            variants={_K1_DEPTH: [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I]})
 
 
 def rasterize_tiles(bins: Bins, params: RasterParams, z_limit=None,
                     mask_table=None, name: str = "fine_raster"):
     """-> (tri (H, W) i32, -1 = empty; depth (H, W) f32; interp
-    (16, H, W) f32). z_limit: (H, W) strict per-pixel depth bound (depth
-    peels); mask_table: (M, 34) i32 amask rows (masked layer: fragments in
-    a certainly-transparent UV cell of their material drop in the race).
-    name: the raster layer, counted in K1.by_name.
+    (16, H, W) f32, or None when params.depth_only). z_limit: (H, W)
+    strict per-pixel depth bound (depth peels); mask_table: (M, 34) i32
+    amask rows (masked layer: fragments in a certainly-transparent UV cell
+    of their material drop in the race; not with depth_only, which has no
+    UV planes). name: the raster layer, counted in K1.by_name.
 
     CUDA tensors launch K1; CPU tensors take rasterize_tiles_plain."""
+    _check_role(bins, params, mask_table)
     if not bins.setup.is_cuda:
         return rasterize_tiles_plain(bins, params, z_limit, mask_table)
     p = params
@@ -341,22 +353,28 @@ def rasterize_tiles(bins: Bins, params: RasterParams, z_limit=None,
     _check(bins.big_tri, torch.int32, dev, "big_tri")
     _check(bins.big_count, torch.int32, dev, "big_count", (1,))
     _check(bins.setup, torch.float32, dev, "setup")
-    _check(bins.attr, torch.float32, dev, "attr")
-    if bins.setup.shape[1:] != (SETUP_ROWS,) or \
-            bins.attr.shape != (bins.setup.shape[0], ATTR_ROWS):
-        raise ValueError("setup must be (T, 12) and attr (T, 29)")
+    if bins.setup.shape[1:] != (SETUP_ROWS,):
+        raise ValueError("setup must be (T, 12)")
     if p.tile_h * p.tile_w > 2048:
         raise ValueError("K1 takes tiles of at most 2048 pixels")
     if z_limit is not None:
         _check(z_limit, torch.float32, dev, "z_limit", (p.height, p.width))
+    tri = torch.empty((p.height, p.width), dtype=torch.int32, device=dev)
+    depth = torch.empty((p.height, p.width), dtype=torch.float32, device=dev)
+    if p.depth_only:
+        K1(ptr(bins.pair_tri), ptr(bins.starts), ptr(bins.counts),
+           ptr(bins.big_tri), ptr(bins.big_count), ptr(bins.setup),
+           ptr(z_limit), ptr(tri), ptr(depth), p.width, p.height, p.tile_h,
+           p.tile_w, p.tiles_x, p.num_tiles, name=name, variant=_K1_DEPTH)
+        return tri, depth, None
+    _check(bins.attr, torch.float32, dev, "attr",
+           (bins.setup.shape[0], ATTR_ROWS))
     rows = 0
     if mask_table is not None:
         _check(mask_table, torch.int32, dev, "mask_table")
         if mask_table.shape[1] != AMASK_LANES:
             raise ValueError("mask_table must be (M, 34)")
         rows = mask_table.shape[0]
-    tri = torch.empty((p.height, p.width), dtype=torch.int32, device=dev)
-    depth = torch.empty((p.height, p.width), dtype=torch.float32, device=dev)
     interp = torch.empty((INTERP_CHANNELS, p.height, p.width),
                          dtype=torch.float32, device=dev)
     K1(ptr(bins.pair_tri), ptr(bins.starts), ptr(bins.counts),
@@ -365,6 +383,16 @@ def rasterize_tiles(bins: Bins, params: RasterParams, z_limit=None,
        ptr(depth), ptr(interp), p.width, p.height, p.tile_h, p.tile_w,
        p.tiles_x, p.num_tiles, name=name)
     return tri, depth, interp
+
+
+def _check_role(bins: Bins, params: RasterParams, mask_table):
+    if params.depth_only and mask_table is not None:
+        raise ValueError("depth_only has no attribute planes for the "
+                         "mask_table rejection")
+    if not params.depth_only and bins.attr is None:
+        raise ValueError("these bins carry no attribute planes "
+                         "(emit_attributes=False): only depth_only "
+                         "params can raster them")
 
 
 def _check(t, dtype, device, name, shape=None):
@@ -407,8 +435,10 @@ def rasterize_tiles_plain(bins: Bins, params: RasterParams, z_limit=None,
                           mask_table=None):
     """Plain PyTorch twin of K1: the same function, evaluated as one
     (pair, tile pixel) grid per chunk of pairs with a 64-bit max-key
-    scatter per pixel."""
+    scatter per pixel. With params.depth_only it skips pass 2 and returns
+    (tri, depth, None)."""
     p = params
+    _check_role(bins, p, mask_table)
     dev = bins.setup.device
     n = p.tile_h * p.tile_w
     nt = p.num_tiles
@@ -472,7 +502,36 @@ def rasterize_tiles_plain(bins: Bins, params: RasterParams, z_limit=None,
     tri = torch.where(has, (keys & 0xFFFFFFFF) - 1, -1).to(torch.int32)
     depth = torch.where(has, (keys >> 32).to(torch.int32)
                         .view(torch.float32), 0.0)
+    if p.depth_only:
+        return tri, depth, None
     return tri, depth, _attribute_channels(tri, has, bins.attr, p)
+
+
+def raster_depth(prep: PreparedGeometry, params: RasterParams,
+                 layer_valid=None):
+    """Depth-only raster of everything in prep (params.depth_only must be
+    True), the shadow-map pass: -> (tri, depth, stats) with stats =
+    {bin_overflow, big_overflow} (raster.py:1194-1204)."""
+    if not params.depth_only:
+        raise ValueError("raster_depth needs params.depth_only")
+    if layer_valid is not None:
+        prep = prep._replace(valid=prep.valid & layer_valid)
+    bins, = bin_triangles_layered(prep, params, n_layers=1)
+    tri, depth, _ = rasterize_tiles(bins, params, name="raster_shadow_depth")
+    return tri, depth, dict(bin_overflow=bins.overflow,
+                            big_overflow=bins.big_overflow)
+
+
+def visibility_from_tri(tri, scene):
+    """Global triangle index map -> the reference's visibility-buffer ids
+    (prim << 20 | local_tri, clear 0xFFFFF000; ref:
+    shaders/geo-raster/encoding.hlsli). Used by the id view modes."""
+    mask = tri >= 0
+    safe = torch.clamp(tri, min=0).long()
+    prim = torch.clamp(scene.tri_prim[safe], min=0)
+    local = safe.to(torch.int32) - scene.prim_tri_offset[prim.long()]
+    vis = mu.encode_primitive_visibility(prim, local)
+    return torch.where(mask, vis, mu.VIS_CLEAR_INT32)
 
 
 def _attribute_channels(tri, has, attr, p: RasterParams):

@@ -1,0 +1,109 @@
+"""Sun shadow map (port of incarnation_tpu/kernels/shadow.py, exact path).
+
+The reference traces a per-pixel DXR shadow ray toward the sun in its
+DirectLighting pass (ref: shaders/lighting/common.hlsli:91-116). The raster
+frame's stand-in is a rasterized orthographic shadow map: K1 renders the
+sun view's depth in its depth-only role once per frame, and the screen pass
+compares each pixel's sun-space depth with one tap of the map.
+
+The map stays float32: the JAX package's packing to u16 words is an
+approximation the port does not make, so the port's depth agrees with it to
+half a quantisation step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import mathutils as mu
+from . import raster as raster_mod
+
+
+def sun_view_proj(sun_dir, center, radius) -> np.ndarray:
+    """Orthographic reverse-Z view-proj (row-vector convention) looking
+    along -sun_dir, fitted to the bounding sphere (center, radius).
+
+    NDC z = (far - z_view) / (far - near): 1 nearest the sun, 0 at the far
+    side, the same max-wins depth convention as the camera rasterizer.
+    Host-side (numpy): runs once per frame in FrameConstants.make."""
+    sun_dir = np.asarray(sun_dir, np.float32)
+    sun_dir = sun_dir / max(np.linalg.norm(sun_dir), 1e-8)
+    center = np.asarray(center, np.float32)
+    radius = float(radius)
+    look = -sun_dir                       # light travel direction
+    up_hint = np.asarray([0.0, 1.0, 0.0], np.float32)
+    if abs(float(look @ up_hint)) > 0.95:
+        up_hint = np.asarray([1.0, 0.0, 0.0], np.float32)
+    right = np.cross(up_hint, look)
+    right /= max(np.linalg.norm(right), 1e-8)
+    up = np.cross(look, right)
+    pos = center + sun_dir * (radius * 1.05)
+    view = mu.view_matrix(pos, right, up, look)
+    near, far = 0.0, 2.1 * radius
+    proj = np.zeros((4, 4), np.float32)
+    proj[0, 0] = 1.0 / radius
+    proj[1, 1] = 1.0 / radius
+    proj[2, 2] = -1.0 / (far - near)
+    proj[3, 2] = far / (far - near)
+    proj[3, 3] = 1.0
+    return (view @ proj).astype(np.float32)
+
+
+def shadow_params(resolution: int, config) -> raster_mod.RasterParams:
+    """Raster params for the sun depth pass: square, depth-only, 16-row
+    tiles whatever the display tile height, its own pair capacity. The
+    shadow_bin_overflow counter depends on these values."""
+    return raster_mod.RasterParams(
+        width=resolution, height=resolution,
+        tile_h=16, tile_w=config.raster_tile_w,
+        pair_capacity=config.shadow_pair_capacity,
+        bin_max_span=config.bin_max_span,
+        big_tri_capacity=config.big_tri_capacity,
+        depth_only=True)
+
+
+def render_sun_shadow_map(scene, scene_rotation, sun_vp,
+                          params: raster_mod.RasterParams):
+    """Rasterize sun-view depth for the whole scene: every primitive of a
+    visible mesh that is not a decal casts, and casters are never culled
+    against the camera. Alpha-masked primitives cast opaque shadows (the
+    alpha-tested peel is a camera-pass refinement).
+    -> ((S, S) f32 depth, stats {bin_overflow, big_overflow})."""
+    prim_visible = ((scene.mesh_visible[
+        torch.clamp(scene.prim_mesh, min=0).long()] > 0)
+        & (scene.prim_is_decal == 0))
+    prep = raster_mod.prepare_geometry(scene, scene_rotation, sun_vp,
+                                       prim_visible, params,
+                                       emit_attributes=False)
+    _, depth, stats = raster_mod.raster_depth(prep, params)
+    return depth, stats
+
+
+def sun_visibility(world_pos, n_dot_l, shadow_depth, sun_vp,
+                   resolution: int):
+    """Per-pixel sun visibility from the shadow map, one exact tap.
+
+    world_pos: (H, W, 3) in the (rotated) space the map was rendered in;
+    n_dot_l: (H, W) for the slope-scaled bias; shadow_depth: the (S, S) f32
+    map of render_sun_shadow_map. -> (H, W) f32, 0 (occluded) or 1."""
+    # orthographic, so w == 1: the affine part of the 4x4 product
+    s = torch.matmul(world_pos, sun_vp[:3, :3]) + sun_vp[3, :3]
+    sx, sy, sz = s[..., 0], s[..., 1], s[..., 2]
+    inside = (sx >= -1.0) & (sx <= 1.0) & (sy >= -1.0) & (sy <= 1.0)
+    # clamp as floats, then truncate: a float-to-int cast of a value out
+    # of range (or NaN) differs between devices. Inside the map this is
+    # the reference's truncate-then-clamp; outside, `inside` decides.
+    hi = float(resolution - 1)
+    u = torch.clamp(torch.nan_to_num((sx * 0.5 + 0.5) * resolution),
+                    0.0, hi)
+    v = torch.clamp(torch.nan_to_num((0.5 - sy * 0.5) * resolution),
+                    0.0, hi)
+    lin = v.to(torch.int64) * resolution + u.to(torch.int64)
+    d = shadow_depth.reshape(-1)[lin]          # one flat-index fetch
+    # Slope-scaled bias in NDC-z units (the depth range spans 2.1 x the
+    # radius; 2-texel worst-case slope + a constant offset).
+    bias = (1.5 + 2.0 * (1.0 - torch.clamp(n_dot_l, 0.0, 1.0))) * (
+        2.0 / resolution)
+    occluded = d > sz + bias
+    return torch.where(inside & occluded, 0.0, 1.0)

@@ -3,12 +3,15 @@
 Pass graph: frustum + meshlet cull -> triangle setup -> one layered binning
 -> K1 opaque raster -> masked depth peels (K1 masked + z_limit roles) ->
 gbuffer resolve -> decal layer (K1) -> light clusters -> sky IBL + sun +
-clustered lights (K2) -> sky background -> TAA (K3) -> tonemap.
+clustered lights (K2) -> sky background -> forward blend layers (K1
+z_limit peels, shaded and composited front to back) -> TAA (K3) -> view
+mode / tonemap -> debug draws. The sun shadow map (K1's depth-only role)
+is rendered once per frame before shading when sun_shadow_mode is "map".
 
-Ported so far: viewmode NORMAL, sun_shadow_mode "off" (and "auto", which
-with no scene BVH means no shadows, as in the JAX package). The shadow
-map, RT shadows, HBAO, forward lighting and blend layers, the debug draws,
-the other viewmodes and band sharding raise NotImplementedError.
+Not ported yet, and raising NotImplementedError: what needs a BVH (RT sun
+shadows, HBAO) and what needs a device mesh (band sharding).
+sun_shadow_mode "auto" with no scene BVH means no shadows, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -21,8 +24,9 @@ import torch
 from ..config import Config, EnvSkyMode, ViewMode
 from ..core import mathutils as mu
 from ..device import resolve_device
-from ..kernels import (clustered, cull, post, raster, resolve, shading,
+from ..kernels import (clustered, cull, ibl, post, raster, resolve, shading,
                        skylight, taa)
+from ..kernels import shadow as shadow_mod
 from ..scene import lights as lights_mod
 
 
@@ -45,15 +49,17 @@ class FrameConstants:
     frame_index: int
     inv_view_proj_np: np.ndarray  # host copies for the TAA dispatch
     prev_view_proj_np: np.ndarray
+    sun_view_proj: torch.Tensor   # (4, 4) ortho sun-view VP of the shadow
+    #   map (identity when make() was given no shadow_bounds)
 
     @staticmethod
     def make(view, config: Config, sun_dir=None, sun_color_intensity=None,
              scene_rotation=None, jitter=None, prev_view_proj=None,
              history_valid=False, frame_index=0, shadow_bounds=None,
              device=None):
-        if shadow_bounds is not None or config.sun_shadow_mode == "map":
-            raise NotImplementedError(
-                "the sun shadow map (kernels/shadow.py) is not ported yet")
+        """shadow_bounds: optional (center (3,), radius) world bounding
+        sphere; builds the sun shadow-map projection (rotation-invariant,
+        so scene_rotation needs only the center rotated)."""
         device = resolve_device(device)
         vp = view.view_proj(jitter)
         inv_vp = np.linalg.inv(vp).astype(np.float32)
@@ -62,6 +68,18 @@ class FrameConstants:
         sun_np = np.asarray(
             lights_mod.DEFAULT_SUN_DIR if sun_dir is None else sun_dir,
             np.float32)
+        sun_vp = np.eye(4, dtype=np.float32)
+        if config.sun_shadow_mode == "map" and shadow_bounds is None:
+            raise ValueError(
+                "sun_shadow_mode='map' needs shadow_bounds=(center, radius): "
+                "pass the SceneHost's bounds to FrameConstants.make")
+        if shadow_bounds is not None:
+            center, radius = shadow_bounds
+            center = np.asarray(center, np.float32)
+            if scene_rotation is not None:
+                center = (np.append(center, 1.0)
+                          @ np.asarray(scene_rotation))[:3]
+            sun_vp = shadow_mod.sun_view_proj(sun_np, center, radius)
 
         def dev(x):
             return torch.tensor(np.asarray(x, np.float32), device=device)
@@ -81,25 +99,20 @@ class FrameConstants:
             prev_view_proj=dev(prev),
             history_valid=bool(history_valid),
             frame_index=int(frame_index),
-            inv_view_proj_np=inv_vp, prev_view_proj_np=prev)
+            inv_view_proj_np=inv_vp, prev_view_proj_np=prev,
+            sun_view_proj=dev(sun_vp))
 
 
 def _check_supported(config: Config, scene_bvh=None, band_axis=None):
     todo = []
-    if config.sun_shadow_mode in ("map", "rt"):
-        todo.append(f"sun_shadow_mode={config.sun_shadow_mode!r}")
+    if config.sun_shadow_mode == "rt":
+        todo.append("sun_shadow_mode='rt'")
     if scene_bvh is not None:
         todo.append("scene_bvh (RT shadows, HBAO)")
-    if band_axis is not None:
-        todo.append("band_axis (band sharding)")
-    if config.forward_lighting:
-        todo.append("forward_lighting")
     if config.enable_hbao:
         todo.append("enable_hbao")
-    if config.show_light_bounds or config.show_object_bounds:
-        todo.append("debug draws (show_*_bounds)")
-    if config.viewmode != ViewMode.NORMAL:
-        todo.append(f"viewmode {config.viewmode}")
+    if band_axis is not None:
+        todo.append("band_axis (band sharding)")
     if todo:
         raise NotImplementedError(
             "not ported yet: " + ", ".join(todo))
@@ -133,15 +146,23 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
                                    prim_visible, params,
                                    meshlet_visible=meshlet_visible)
 
-    # Raster layers: 0 opaque, then masked depth peels and decals, all
-    # binned by one sort.
+    # Raster layers: 0 opaque, then masked depth peels, decals and the
+    # forward path's blend layers, all binned by one sort.
     tri_ok = scene.tri_prim >= 0
     safe_prim = torch.clamp(scene.tri_prim, min=0).long()
     tri_alpha = scene.prim_alpha_mode[safe_prim]
     tri_decal = (scene.prim_is_decal[safe_prim] > 0) & tri_ok
-    tri_masked = (tri_alpha > 0) & tri_ok & ~tri_decal
+    has_blend_layer = config.forward_lighting and scene.meta.has_blend
+    if has_blend_layer:
+        # Forward: BLEND prims skip the screen-door peel; they are shaded
+        # per layer and alpha-composited below.
+        tri_masked = (tri_alpha == 1) & tri_ok & ~tri_decal
+        tri_blend = (tri_alpha >= 2) & tri_ok & ~tri_decal
+    else:
+        tri_masked = (tri_alpha > 0) & tri_ok & ~tri_decal
+        tri_blend = None
     n_layers = 1
-    masked_idx = decal_idx = None
+    masked_idx = decal_idx = blend_idx = None
     lyr = torch.zeros_like(scene.tri_prim)
     if scene.meta.has_masked:
         masked_idx = n_layers
@@ -151,6 +172,10 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
         decal_idx = n_layers
         n_layers += 1
         lyr = torch.where(tri_decal, decal_idx, lyr)
+    if has_blend_layer:
+        blend_idx = n_layers
+        n_layers += 1
+        lyr = torch.where(tri_blend, blend_idx, lyr)
     layer_bins = raster.bin_triangles_layered(
         prep, params, layer=(lyr if n_layers > 1 else None),
         n_layers=n_layers)
@@ -193,8 +218,17 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
     stats["culled_primitives"] = culled_prims
     stats["culled_meshlets"] = culled_meshlets
 
-    gb = resolve.resolve_gbuffer(tri, depth, scene, interp, fc.inv_view_proj,
-                                 params.width, params.height)
+    # Forward mode shades from the exact mapped normal (no octahedral round
+    # trip, ref: forward-pass.hlsl:108-114); deferred decodes the gbuffer.
+    n3 = None
+    if config.forward_lighting:
+        gb, n3 = resolve.resolve_gbuffer(
+            tri, depth, scene, interp, fc.inv_view_proj, params.width,
+            params.height, return_normal3=True)
+    else:
+        gb = resolve.resolve_gbuffer(tri, depth, scene, interp,
+                                     fc.inv_view_proj, params.width,
+                                     params.height)
 
     if scene.meta.has_decals:
         # Decals: GREATER_EQUAL against the scene depth; base color
@@ -215,6 +249,18 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
                 gb.base_color[..., 3:]], -1),
             normals=torch.where(opaque, d_gb.normals, gb.normals),
             mrao=torch.where(opaque, d_gb.mrao, gb.mrao))
+        if n3 is not None:
+            n3 = torch.where(opaque, mu.oct_decode(d_gb.normals), n3)
+
+    # Sun shadow map, rendered once per frame and sampled by every shaded
+    # surface (the raster frame's stand-in for the reference's per-pixel
+    # DXR sun shadow ray, ref: lighting/common.hlsli:91-116).
+    sun_shadow_map = None
+    if config.sun_shadow_mode == "map" and config.enable_direct_lighting:
+        sun_shadow_map, sm_stats = shadow_mod.render_sun_shadow_map(
+            scene, fc.scene_rotation, fc.sun_view_proj,
+            shadow_mod.shadow_params(config.shadow_map_resolution, config))
+        stats["shadow_bin_overflow"] = sm_stats["bin_overflow"]
 
     mask_grid = None
     if config.enable_direct_lighting and scene.meta.num_lights > 0:
@@ -223,10 +269,11 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
             config.camera_near_plane)
         stats["culled_lights"] = culled_lights
 
-    n = mu.oct_decode(gb.normals)
-    hdr = _shade_surface(scene, gb, n, depth, fc, config=config,
-                         params=params, probe=probe, env_brdf=env_brdf,
-                         mask_grid=mask_grid)
+    n = n3 if n3 is not None else mu.oct_decode(gb.normals)
+    shade = dict(config=config, params=params, probe=probe,
+                 env_brdf=env_brdf, mask_grid=mask_grid,
+                 sun_shadow_map=sun_shadow_map)
+    hdr, v = _shade_surface(scene, gb, n, depth, fc, **shade)
 
     if config.env_sky_mode == EnvSkyMode.DYNAMIC_SKY:
         hdr = hdr + skylight.environment_background(
@@ -237,6 +284,32 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
             gb.mask, fc.eye, fc.inv_view_proj, params.width, params.height,
             probe=probe, sky_brightness=fc.sky_brightness, dynamic_sky=False)
 
+    if has_blend_layer:
+        # Forward alpha-composited BLEND layers: depth-peel the blend
+        # geometry front to back (one z_limit peel per configured masked
+        # layer), forward-shade each layer and under-composite radiance.
+        c_acc = torch.zeros_like(hdr)
+        transmit = torch.ones(hdr.shape[:2] + (1,), dtype=torch.float32,
+                              device=dev)
+        bzlim = torch.full(depth.shape, 2.0, dtype=torch.float32, device=dev)
+        for _ in range(max(1, config.masked_depth_peels)):
+            b_tri, b_depth, b_interp = raster.rasterize_tiles(
+                layer_bins[blend_idx], params, z_limit=bzlim,
+                name="raster_blend")
+            bzlim = torch.where(b_tri >= 0, b_depth, 0.0)
+            gb_b, n3_b = resolve.resolve_gbuffer(
+                b_tri, b_depth, scene, b_interp, fc.inv_view_proj,
+                params.width, params.height, return_normal3=True)
+            hdr_b, _ = _shade_surface(scene, gb_b, n3_b, b_depth, fc,
+                                      **shade)
+            # only fragments in front of the opaque winner contribute
+            # (reverse-Z: larger z = closer)
+            vis_b = gb_b.mask & (b_depth > depth)
+            a = torch.where(vis_b, gb_b.base_color[..., 3], 0.0)[..., None]
+            c_acc = c_acc + transmit * a * hdr_b
+            transmit = transmit * (1.0 - a)
+        hdr = c_acc + transmit * hdr
+
     accumulation = hdr
     if config.enable_taa and history is not None:
         m_np = (fc.inv_view_proj_np.astype(np.float32)
@@ -245,15 +318,38 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
                                        fc.history_valid, params.width,
                                        params.height)
 
-    color = post.tonemap(accumulation, fc.exposure)
-    return dict(color=post.to_uint8(color), hdr=hdr,
+    color = _apply_viewmode(config, scene, gb, n, depth, tri, accumulation,
+                            fc, v=v, probe=probe)
+    color_u8 = post.to_uint8(color)
+
+    # Device-appended debug draws (ref: debug-drawing/common.hlsli:33-95):
+    # the cull pass's and the light culling's own results append wireframe
+    # rows to a device buffer, expanded and splatted depth-tested.
+    if config.show_light_bounds or config.show_object_bounds:
+        from . import debugdraw
+        dbuf, dcount = debugdraw.ddraw_new(device=dev)
+        if config.show_light_bounds and mask_grid is not None:
+            rows, rmask = debugdraw.light_bounds_rows(scene.lights,
+                                                      mask_grid)
+            dbuf, dcount = debugdraw.ddraw_append(dbuf, dcount, rows, rmask)
+        if config.show_object_bounds:
+            rows, rmask = debugdraw.object_bounds_rows(
+                scene, fc.scene_rotation, prim_visible)
+            dbuf, dcount = debugdraw.ddraw_append(dbuf, dcount, rows, rmask)
+        color_u8 = debugdraw.ddraw_render(color_u8, depth, dbuf, dcount,
+                                          fc.view_proj)
+        stats["debug_draws"] = dcount
+
+    return dict(color=color_u8, hdr=hdr,
                 accumulation=accumulation, tri=tri, depth=depth,
                 gbuffer=gb, stats=stats)
 
 
 def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
-                   probe, env_brdf, mask_grid):
-    """Emissive + sky IBL + sun + clustered punctual lights."""
+                   probe, env_brdf, mask_grid, sun_shadow_map=None):
+    """Emissive + sky IBL + sun (shadow-mapped) + clustered punctual
+    lights, shared by the deferred frame, the forward frame and the forward
+    blend layers. -> (hdr, v)."""
     hdr = gb.emissive
     v = mu.normalize(fc.eye - gb.world_pos)
     if probe is not None and config.enable_sky_lighting \
@@ -262,15 +358,22 @@ def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
             gb, n, v, probe, env_brdf, fc.sky_brightness,
             diffuse_ibl=config.enable_diffuse_ibl,
             specular_ibl=config.enable_specular_ibl,
+            lighting_only=(config.viewmode == ViewMode.LIGHTING_ONLY),
             extras=(gb.extras if scene.meta.has_extras else None),
             analytic_env_brdf=config.analytic_env_brdf)
     if config.enable_direct_lighting:
         radiance_in = shading.directional_light_radiance(
             fc.sun_color_intensity[:3], fc.sun_color_intensity[3])
+        sun_vis = 1.0
+        if sun_shadow_map is not None:
+            ndl = torch.sum(n * fc.sun_dir, -1)
+            sun_vis = shadow_mod.sun_visibility(
+                gb.world_pos, ndl, sun_shadow_map, fc.sun_view_proj,
+                config.shadow_map_resolution)[..., None]
         has_x = scene.meta.has_extras
         sun = shading.brdf_response(
             gb.base_color[..., :3], gb.mrao[..., 0], gb.mrao[..., 1], n, v,
-            fc.sun_dir, radiance_in,
+            fc.sun_dir, radiance_in, visibility=sun_vis,
             transmission=gb.extras[..., 0] if has_x else None,
             clearcoat=gb.extras[..., 1] if has_x else None,
             cc_roughness=gb.extras[..., 2] if has_x else None)
@@ -280,4 +383,87 @@ def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
             gb, n.contiguous(), v.contiguous(), depth.contiguous(),
             scene.lights, mask_grid, config, config.camera_near_plane,
             params.width, params.height)
-    return hdr
+    return hdr, v
+
+
+def _apply_viewmode(config: Config, scene, gb, n, depth, tri, hdr, fc,
+                    v=None, probe=None):
+    """Debug visualization modes (ref: postprocess/debug-visualization.hlsl,
+    inc/demo.h:7-23). -> (H, W, 3) f32 colour in [0, 1]."""
+    vm = config.viewmode
+    m3 = gb.mask[..., None]
+    if vm == ViewMode.REFLECTIONS and v is not None and probe is not None:
+        # mirror reflection of the prefiltered envmap at mip 0
+        # (ref: geo-raster/forward-pass.hlsl:121-130 VIEWMODE == 7)
+        r = mu.normalize(2.0 * torch.sum(n * v, -1, keepdim=True) * n - v)
+        refl = ibl.sample_cube(probe.prefiltered, r) * fc.sky_brightness
+        return post.tonemap(torch.where(m3, refl, hdr), fc.exposure)
+    if vm == ViewMode.BENT_NORMALS:
+        # bent normals x0.5+0.5 (ref: debug-visualization.hlsl:193-199):
+        # without HBAO, which is not ported yet, the shading normal
+        return torch.where(m3, n * 0.5 + 0.5, 0.0)
+    if vm == ViewMode.NAN_CHECK:
+        return post.tonemap(hdr, fc.exposure, nan_check=True)
+    if vm == ViewMode.BASE_COLOR:
+        return gb.base_color[..., :3]
+    if vm == ViewMode.ROUGHNESS:
+        return gb.mrao[..., 1:2].expand(-1, -1, 3)
+    if vm == ViewMode.METALLIC:
+        return gb.mrao[..., 0:1].expand(-1, -1, 3)
+    if vm == ViewMode.EMISSIVE:
+        return post.tonemap(gb.emissive, fc.exposure)
+    if vm == ViewMode.NORMALMAP:
+        return n * 0.5 + 0.5
+    if vm == ViewMode.AMBIENT_OCCLUSION:
+        return gb.mrao[..., 2:3].expand(-1, -1, 3)
+    if vm in (ViewMode.OBJECT_IDS, ViewMode.TRIANGLE_IDS):
+        vis = raster.visibility_from_tri(tri, scene)
+        prim, ltri = mu.decode_primitive_visibility(
+            torch.where(gb.mask, vis, 0))
+        key = prim if vm == ViewMode.OBJECT_IDS else ltri
+        return torch.where(m3, _hash_color(key), 0.0)
+    if vm == ViewMode.LIGHT_CLUSTER_SLICES:
+        # colour by exponential depth slice (ref: debug-visualization.hlsl
+        # cluster-slices mode)
+        h, w = depth.shape
+        cid = clustered.pixel_cluster_id(depth, config,
+                                         config.camera_near_plane, w, h)
+        gxy = config.light_cluster_dim_x * config.light_cluster_dim_y
+        return torch.where(m3, _hash_color(cid // gxy), 0.0)
+    # NORMAL, LIGHTING_ONLY (and REFLECTIONS without a probe)
+    return post.tonemap(hdr, fc.exposure)
+
+
+def pick(scene, tri_map, x: int, y: int):
+    """Mouse picking: (primitive id, local triangle id, meshlet id) under a
+    pixel, -1s when no geometry (ref: debug-visualization.hlsl:94-150; the
+    triangle-index buffer is read back directly)."""
+    t = int(tri_map[y, x])
+    if t < 0:
+        return -1, -1, -1
+    prim = int(scene.tri_prim[t])
+    local = t - int(scene.prim_tri_offset[prim])
+    meshlet = int(scene.tri_meshlet[t])
+    return prim, local, meshlet
+
+
+def highlight(color_u8, tri_map, scene, prim_id: int):
+    """White overlay on the picked primitive's pixels
+    (ref: render-jobs/highlight-pass.inl + geo-raster/highlight-pass.hlsl)."""
+    safe = torch.clamp(tri_map, min=0).long()
+    m = (tri_map >= 0) & (scene.tri_prim[safe] == prim_id)
+    blended = (color_u8.to(torch.float32) * 0.35
+               + 255.0 * 0.65).to(torch.uint8)
+    return torch.where(m[..., None], blended, color_u8)
+
+
+def _hash_color(key):
+    """Integer id -> pseudo-random rgb (ref: debug-visualization.hlsl hashes
+    ids to colours for the id view modes). uint32 arithmetic, carried in
+    int64 and reduced modulo 2^32."""
+    h = (((key.to(torch.int64) & 0xFFFFFFFF) + 1) * 2654435761
+         & 0xFFFFFFFF) >> 8
+    r = (h & 0xFF).to(torch.float32) / 255.0
+    g = ((h >> 8) & 0xFF).to(torch.float32) / 255.0
+    b = ((h >> 16) & 0xFF).to(torch.float32) / 255.0
+    return torch.stack([r, g, b], dim=-1)

@@ -63,15 +63,30 @@ def test_tpu_only_flags_default_off():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(sun_shadow_mode="map"), dict(sun_shadow_mode="rt"),
-    dict(forward_lighting=True), dict(enable_hbao=True),
-    dict(show_light_bounds=True), dict(viewmode=tconfig.ViewMode.BASE_COLOR)])
+    dict(sun_shadow_mode="rt"), dict(enable_hbao=True),
+    dict(scene_bvh=object()), dict(band_axis="x"),
+    dict(sun_shadow_mode="rt", forward_lighting=True),
+    dict(enable_hbao=True, use_bent_normals=True,
+         viewmode=tconfig.ViewMode.BENT_NORMALS)])
 def test_later_slices_raise(kw):
-    """Branches of render_frame that later slices port raise
+    """Branches of render_frame that later slices port (what needs a BVH:
+    RT sun shadows, HBAO; what needs a device mesh: band sharding) raise
     NotImplementedError rather than rendering something else."""
-    cfg = tconfig.Config(**kw)
+    names = ("scene_bvh", "band_axis")
+    args = {k: v for k, v in kw.items() if k in names}
+    cfg = tconfig.Config(**{k: v for k, v in kw.items() if k not in names})
     with pytest.raises(NotImplementedError):
-        tframe._check_supported(cfg)
+        tframe._check_supported(cfg, **args)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sun_shadow_mode="map"), dict(forward_lighting=True),
+    dict(show_light_bounds=True, show_object_bounds=True),
+    dict(viewmode=tconfig.ViewMode.BASE_COLOR),
+    dict(viewmode=tconfig.ViewMode.LIGHT_CLUSTER_SLICES)])
+def test_raster_frame_options_are_supported(kw):
+    """Everything of the raster frame that needs no BVH is ported."""
+    tframe._check_supported(tconfig.Config(**kw))
 
 
 def test_band_axis_raises():

@@ -97,6 +97,35 @@ def test_k1_opaque_and_peels(dev):
         zl = torch.where(got[0] >= 0, got[1], 0.0)
 
 
+def test_k1_depth_only(dev):
+    """The depth-only role (the sun shadow map's), without attribute rows:
+    tri and depth equal to its twin's and to the full role's, no interp;
+    also as a z_limit peel."""
+    bins, p = _bins(dev, seed=3)
+    full = raster.rasterize_tiles(bins[0], p)
+    dp = p._replace(depth_only=True)
+    bare = raster.Bins(**{**vars(bins[0]), "attr": None})
+    before = raster.K1.launches
+    got = raster.rasterize_tiles(bare, dp, name="raster_shadow_depth")
+    assert raster.K1.launches == before + 1
+    assert raster.K1.by_name["raster_shadow_depth"] >= 1
+    ref = raster.rasterize_tiles_plain(bare, dp)
+    assert got[2] is None and ref[2] is None
+    for a, b, c in zip(got[:2], ref[:2], full[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+    assert (got[0] >= 0).float().mean() > 0.3
+    zl = torch.where(got[0] >= 0, got[1], 0.0)
+    peel = raster.rasterize_tiles(bare, dp, z_limit=zl)
+    ref = raster.rasterize_tiles_plain(bare, dp, z_limit=zl)
+    torch.testing.assert_close(peel[0], ref[0], rtol=0, atol=0)
+    torch.testing.assert_close(peel[1], ref[1], rtol=0, atol=0)
+    table = torch.zeros((1, raster.AMASK_LANES), dtype=torch.int32,
+                        device=dev)
+    with pytest.raises(ValueError, match="depth_only"):
+        raster.rasterize_tiles(bare, dp, mask_table=table)
+
+
 def test_k1_masked(dev):
     """The masked role with a random amask table (wrap, clamp and mirror
     addressing)."""

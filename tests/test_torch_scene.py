@@ -16,13 +16,17 @@ from incarnation_tpu.core import mathutils as jmu
 from incarnation_tpu.core.view import View as JView
 from incarnation_tpu.scene import lights as jlights
 from incarnation_tpu.scene import loader as jloader
+from incarnation_tpu.scene import instancing as jinstancing
+from incarnation_tpu.scene import testing as jtesting
 from incarnation_tpu.scene import textures as jtex
 from incarnation_tpu.scene.testing import make_rich_scene
 from incarnation_tpu_torch.core import mathutils as tmu
 from incarnation_tpu_torch.core.view import View as TView
+from incarnation_tpu_torch.scene import instancing as tinstancing
 from incarnation_tpu_torch.scene import lights as tlights
 from incarnation_tpu_torch.scene import loader as tloader
 from incarnation_tpu_torch.scene import png as tpng
+from incarnation_tpu_torch.scene import testing as ttesting
 from incarnation_tpu_torch.scene import textures as ttex
 
 torch.set_num_threads(1)
@@ -126,6 +130,70 @@ def test_scene_from_arrays_rich_scene():
     assert tscene.mat_stack.amask.dtype == torch.int32
     assert tscene.lights.transform.shape[1:] == (4, 4)
     assert tscene.nbytes() > 0
+
+
+def test_testing_make_rich_scene_matches_jax():
+    """The port's own scene/testing.py builder against JAX's: every table
+    equal, the decal flag and meta included."""
+    _compare_scene(ttesting.make_rich_scene(device="cpu"), make_rich_scene())
+
+
+def test_testing_make_scene_matches_jax():
+    """make_scene with its defaults and with a BLEND primitive, normals,
+    UVs and a transform: every table and the meta (has_blend) equal."""
+    rng = np.random.default_rng(21)
+    pos = rng.normal(size=(6, 3)).astype(np.float32)
+    tris = [[0, 1, 2], [3, 4, 5]]
+    _compare_scene(ttesting.make_scene(pos, tris, device="cpu"),
+                   jtesting.make_scene(pos, tris))
+    kw = dict(normals=rng.normal(size=(6, 3)).astype(np.float32),
+              uvs=rng.random((6, 2)).astype(np.float32),
+              transform=tmu.trs_matrix([1, 2, 3], [0, 0.6, 0, 0.8], None),
+              double_sided=True, tri_prim=[0, 1], num_prims=2,
+              prim_tri_offset=[0, 1], prim_alpha_mode=[0, 2],
+              prim_material=[0, 0])
+    t = ttesting.make_scene(pos, tris, device="cpu", **kw)
+    _compare_scene(t, jtesting.make_scene(pos, tris, **kw))
+    assert t.meta.has_blend and t.meta.has_masked
+
+
+@pytest.mark.parametrize("name", ["neutral_material_stack",
+                                  "checkerboard_alpha_stack",
+                                  "two_material_stack"])
+def test_testing_material_stacks_match_jax(name):
+    """The three small texture stacks: the port's host dict holds the
+    arrays of JAX's MaterialTextureStack."""
+    j = getattr(jtesting, name)()
+    t = getattr(ttesting, name)()
+    assert set(t) == {f.name for f in dataclasses.fields(j)}
+    for k, v in t.items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(j, k)),
+                                      err_msg=k)
+    jm = jtesting.default_material_table()
+    for k, v in ttesting.default_material_table().items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(jm, k)),
+                                      err_msg=k)
+
+
+def test_replicate_scene_matches_jax():
+    """replicate_scene over a 2 x 2 grid of the rich scene: every table
+    equal to JAX's, ids offset per instance, padding ids kept at -1."""
+    jscene = make_rich_scene()
+    tscene = tloader.scene_from_arrays(*tloader.scene_arrays(jscene), "cpu")
+    off = tinstancing.grid_offsets(2, 2, 20.0)
+    np.testing.assert_array_equal(off, jinstancing.grid_offsets(2, 2, 20.0))
+    _compare_scene(tinstancing.replicate_scene(tscene, off),
+                   jinstancing.replicate_scene(jscene, off))
+    # a scene with -1 padding in tri_prim / tri_meshlet
+    arrays, meta = tloader.scene_arrays(jscene)
+    for k in ("tri_prim", "tri_meshlet"):
+        arrays[k] = arrays[k].copy()
+        arrays[k][-1] = -1
+    padded = tloader.scene_from_arrays(arrays, meta, "cpu")
+    rep = tinstancing.replicate_scene(padded, off[:2])
+    assert rep.tri_prim.tolist()[7::8] == [-1, -1]
+    assert rep.tri_meshlet.tolist()[7::8] == [-1, -1]
+    assert rep.meta.num_primitives == 8 and rep.mesh_transforms.shape[0] == 2
 
 
 def test_light_table_matches_jax():
