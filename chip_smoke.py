@@ -15,9 +15,10 @@ and a small orbit every frame. It checks that the shadow map darkens the
 frame.
 
 Then it captures each kernel's inputs from one more frame, runs each kernel
-and its plain PyTorch twin on those inputs on the card, compares them and
-times both, and renders that frame again with every kernel swapped for its
-twin and compares the images.
+and its plain PyTorch twin on those inputs on the card, compares them, times
+both by their device time, prints each kernel's bound (the work its inputs
+need) and work diagnostics, and renders that frame again with every kernel
+swapped for its twin and compares the images.
 
 A second, small path (512x256, the port's scene/testing.py scene with a
 BLEND quad) renders one forward-lighting frame with blend layers and both
@@ -55,9 +56,18 @@ SMALL_PEELS = 4
 # tensor cores. Every kernel here is f32 CUDA-core work.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# float operations per unit of work, counted from the kernel sources:
-K1_OPS_PER_PAIR_PIXEL = 16     # 4 planes (3 edges + depth) x (2 mul + 2 add)
-K2_OPS_PER_PIXEL_LIGHT = 90    # radiance ~35 + Cook-Torrance/Lambert ~55
+# float operations per unit of work, counted from the kernel sources
+# (add, sub, mul, div, sqrt, min and max count one each; compares none):
+# K1: 4 planes (3 edges + depth) x (2 mul + 2 add) per (pair, pixel) that
+# the pair's triangle covers -- the tests no sub-tile rejection can avoid
+K1_OPS_PER_PAIR_PIXEL = 16
+# K2, per (covered pixel, light of its cluster), in the order csrc/
+# clustered.cu spends them: distance 9; range falloff 6 (ranged lights);
+# direction 4; spot window 11 (spot lights); NoL 7; the rest of the
+# radiance and the BRDF 96. A light skipped as zero stops after the test
+# that skips it.
+K2_OPS_DIST, K2_OPS_RANGE, K2_OPS_DIR = 9, 6, 4
+K2_OPS_SPOT, K2_OPS_NOL, K2_OPS_BRDF = 11, 7, 96
 K3_OPS_PER_PIXEL = 45          # 3x4 reprojection, divide, 3-channel bilerp
 
 
@@ -74,8 +84,9 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of fn() over reps launches, by CUDA events after a warm-up
-    call."""
+    """Mean ms of fn() over reps back-to-back calls, by CUDA events after a
+    warm-up call: device time, or the host's time per call where the host
+    cannot keep the card busy."""
     import torch
     fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -86,6 +97,29 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean ms of device work per fn() call over reps calls after a warm-up
+    call: the sum of every kernel's, memset's and copy's time on the card
+    (torch.profiler, CUDA activity only), so a small launch is not timed
+    by the host that launches it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    # a profiling window now and then returns without its device events:
+    # measure again (a few times) rather than report nothing
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in prof.key_averages())
+        if us > 0.0:
+            return us / 1e3 / reps
+    raise RuntimeError("the profiler saw no device time in 3 windows")
 
 
 def bench_view(host, width, height):
@@ -293,6 +327,13 @@ def main(argv=None) -> int:
     # 7. the small path: forward lighting with blend layers and the debug
     # draws, every view mode, pick and highlight
     rows.insert(4, small_path(dev, raster, clustered, taa))
+    # a bound counts the least work the inputs need: no kernel beats it
+    shares = {r["name"]: r["bound_ms"] / r["ms"] for r in rows}
+    _log("bound share (bound ms / ms): " + json.dumps(
+        {k: round(v, 4) for k, v in shares.items()}))
+    over = {k: v for k, v in shares.items() if v > 1.0}
+    if over:
+        raise RuntimeError(f"kernels faster than their bound: {over}")
     _log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
          " GiB")
     _log(json.dumps({"kernels": rows}))
@@ -336,7 +377,9 @@ def _k1_bound(bins, params, z_limit, mask_table):
     the pair lists, setup and attribute rows of the triangles they name and
     the z limits read once, 72 B/px of outputs written once (the depth-only
     role: no attribute rows, 8 B/px); 16 operations per (pair, tile pixel)
-    of the tiles that run (a peel skips tiles whose limits are all 0)."""
+    that the pair's triangle covers (raster.covered_pair_pixels: the exact
+    edge and depth test, z_limit and amask tests set aside, over the tiles
+    that run -- a peel skips tiles whose limits are all 0)."""
     import torch
     from incarnation_tpu_torch.kernels import raster
     p = params
@@ -345,14 +388,9 @@ def _k1_bound(bins, params, z_limit, mask_table):
     nbig = int(bins.big_count[0])
     live = torch.ones(nt, dtype=torch.bool, device=counts.device)
     if z_limit is not None:
-        pad = torch.zeros((p.tiles_y * p.tile_h, p.tiles_x * p.tile_w),
-                          device=z_limit.device)
-        pad[:p.height, :p.width] = z_limit
-        live = pad.reshape(p.tiles_y, p.tile_h, p.tiles_x, p.tile_w) \
-            .amax(dim=(1, 3)).reshape(-1) > 0.0
+        live = raster._tile_limits(z_limit, p).amax(dim=1) > 0.0
     counts = torch.where(live, counts, 0)
     n_live = int(live.sum())
-    pairs = int(counts.sum()) + nbig * n_live
     tiles = torch.repeat_interleave(torch.arange(nt, device=counts.device),
                                     counts)
     first = torch.cumsum(counts, 0) - counts
@@ -370,7 +408,7 @@ def _k1_bound(bins, params, z_limit, mask_table):
         nbytes += 4 * p.width * p.height
     if mask_table is not None:
         nbytes += mask_table.numel() * 4
-    ops = K1_OPS_PER_PAIR_PIXEL * pairs * p.tile_h * p.tile_w
+    ops = K1_OPS_PER_PAIR_PIXEL * raster.covered_pair_pixels(bins, p, z_limit)
     return _bound(nbytes, ops)
 
 
@@ -411,15 +449,17 @@ def compare_kernels(calls, raster, clustered, taa, launches, k1_by_layer):
                       where=a[0].mask)
     _log(f"K2: max abs err {err:.3e}, max relative err {rel:.3e} "
          f"(peak {float(ref.abs().max()):.3e})")
+    k2_ops, k2_diag = _k2_work(*a, **kw)
+    _log("K2 work: " + json.dumps(k2_diag))
     rows.append(dict(
         name="k2_clustered", route="cuda",
         source="incarnation_tpu_torch/csrc/clustered.cu",
         replaces="incarnation_tpu/kernels/clustered.py:526",
         launches=launches["k2_clustered"], max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: clustered.clustered_lighting(*a, **kw), 20),
-        plain_ms=cuda_ms(lambda: clustered.clustered_lighting_plain(
+        ms=device_ms(lambda: clustered.clustered_lighting(*a, **kw), 20),
+        plain_ms=device_ms(lambda: clustered.clustered_lighting_plain(
             *a, **kw), 3),
-        **dict(zip(("bound_ms", "bound_by"), _k2_bound(*a, **kw))),
+        **dict(zip(("bound_ms", "bound_by"), _k2_bound(k2_ops, *a, **kw))),
         library_ms=None))
 
     (_, a, kw), = [c for c in calls if c[0] == "k3"]
@@ -446,11 +486,11 @@ def compare_kernels(calls, raster, clustered, taa, launches, k1_by_layer):
         source="incarnation_tpu_torch/csrc/taa.cu",
         replaces="incarnation_tpu/kernels/taa.py:195",
         launches=launches["k3_taa_fetch"], max_abs_err=err, max_rel_err=rel,
-        ms=cuda_ms(lambda: taa.history_fetch(*a), 50),
-        plain_ms=cuda_ms(lambda: taa.history_fetch_plain(*a), 10),
+        ms=device_ms(lambda: taa.history_fetch(*a), 50),
+        plain_ms=device_ms(lambda: taa.history_fetch_plain(*a), 10),
         **dict(zip(("bound_ms", "bound_by"), _bound(
             w * h * (12 + 4 + 12) + 64, K3_OPS_PER_PIXEL * w * h))),
-        library_ms=cuda_ms(library, 50)))
+        library_ms=device_ms(library, 50)))
     return rows
 
 
@@ -458,7 +498,7 @@ def k1_row(raster, layer, launches_captured, n_launches):
     """Kernel-vs-twin on the captured K1 launches of one raster layer
     (error, both times and the bound, each the mean over the launches)
     -> the layer's JSON row."""
-    errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
+    errs, ms, call_ms, plain_ms, bounds, bound_by = [], [], [], [], [], set()
     for a, kw in launches_captured:
         bins, p = a
         zl, mt = kw.get("z_limit"), kw.get("mask_table")
@@ -466,20 +506,28 @@ def k1_row(raster, layer, launches_captured, n_launches):
         ref = raster.rasterize_tiles_plain(bins, p, z_limit=zl,
                                            mask_table=mt)
         errs.append(_k1_error(got, ref))
-        ms.append(cuda_ms(lambda: raster.rasterize_tiles(
+        ms.append(device_ms(lambda: raster.rasterize_tiles(
             bins, p, z_limit=zl, mask_table=mt), 10))
-        plain_ms.append(cuda_ms(lambda: raster.rasterize_tiles_plain(
+        call_ms.append(cuda_ms(lambda: raster.rasterize_tiles(
+            bins, p, z_limit=zl, mask_table=mt), 10))
+        plain_ms.append(device_ms(lambda: raster.rasterize_tiles_plain(
             bins, p, z_limit=zl, mask_table=mt), 2))
         b, by = _k1_bound(bins, p, zl, mt)
         bounds.append(b)
         bound_by.add(by)
     bins, p = launches_captured[0][0]
+    items, largest = raster.k1_work_items(bins, p)
     _log(f"K1 {layer}: per launch ms " + ", ".join(f"{t:.3f}" for t in ms)
+         + "; per call, host included (events) "
+         + ", ".join(f"{t:.3f}" for t in call_ms)
+         + "; bound ms " + ", ".join(f"{t:.4f}" for t in bounds)
          + "; tri mismatch share "
          + ", ".join(f"{e[2]:.2e}" for e in errs)
          + f"; {int(bins.counts.sum())} pairs in {p.num_tiles} tiles of "
          f"{p.tile_h}x{p.tile_w}, at most {int(bins.counts.max())} in one, "
-         f"+ {int(bins.big_count[0])} big triangles in every tile")
+         f"+ {int(bins.big_count[0])} big triangles in every tile; "
+         f"{items} work items of at most {raster.K1_ITEM_PAIRS} pairs, the "
+         f"largest {largest} (first launch)")
     return dict(
         name=f"k1_raster[{layer}]", route="cuda",
         source="incarnation_tpu_torch/csrc/raster.cu",
@@ -661,23 +709,75 @@ def _k1_error(got, ref):
     return err, rel, share
 
 
-def _k2_bound(gb, n, v, depth, lights, cluster_mask, config, near, width,
-              height):
-    """Bytes: the gbuffer planes K2 reads (base colour and mrao as 4-float
-    rows, normal, view, world position, mask, depth) and its output, once;
-    operations: K2_OPS_PER_PIXEL_LIGHT per covered pixel per light of its
-    cluster (popcount of the cluster's mask words)."""
+def _k2_work(gb, n, v, depth, lights, cluster_mask, config, near, width,
+             height):
+    """Operations K2's inputs need and the diagnostics of its work, from
+    the exact-zero tests of every (covered pixel, light of its cluster)
+    pair (clustered.zero_light_tests, the twin's arithmetic): a skipped
+    light is charged up to the test that skips it, a contributing one the
+    whole evaluation (see K2_OPS_*). -> (ops, diagnostics)."""
     import torch
     from incarnation_tpu_torch.kernels import clustered
+    from incarnation_tpu_torch.scene import lights as lights_mod
+    cid = clustered.pixel_cluster_id(depth, config, near, width, height)
+    words = cluster_mask[cid.long()]
+    in_cluster = torch.zeros(depth.shape, dtype=torch.int64,
+                             device=depth.device)
+    contrib = torch.zeros_like(in_cluster)
+    ops = 0
+    why = dict(beyond_range=0, outside_cone=0, behind_surface=0)
+    for i in range(lights.type.shape[0]):
+        on = (((words[..., i // 32] >> (i % 32)) & 1) > 0) & gb.mask
+        beyond, outside, behind = clustered.zero_light_tests(
+            lights, i, gb.world_pos, n)
+        ranged = bool(lights.range[i] > 0.0)
+        spot = bool(lights.type[i] == lights_mod.LIGHT_SPOT)
+        n_on = int(on.sum())
+        n_beyond = int((on & beyond).sum())
+        n_outside = int((on & outside).sum())
+        n_behind = int((on & behind).sum())
+        lit = on & ~beyond & ~outside & ~behind
+        in_cluster += on
+        contrib += lit
+        why["beyond_range"] += n_beyond
+        why["outside_cone"] += n_outside
+        why["behind_surface"] += n_behind
+        dist = K2_OPS_DIST + K2_OPS_RANGE * ranged
+        cone = dist + K2_OPS_DIR + K2_OPS_SPOT * spot
+        ops += (dist * n_on + (cone - dist) * (n_on - n_beyond)
+                + K2_OPS_NOL * (n_on - n_beyond - n_outside)
+                + K2_OPS_BRDF * int(lit.sum()))
+
+    def warp_sum_max(count, bw, bh):
+        """Sum over warps of bw x bh pixels of the largest lane count."""
+        hp, wp = -(-height // bh) * bh, -(-width // bw) * bw
+        pad = torch.zeros((hp, wp), dtype=count.dtype, device=count.device)
+        pad[:height, :width] = count
+        return int(pad.reshape(hp // bh, bh, wp // bw, bw)
+                   .amax(dim=(1, 3)).sum())
+
+    pairs = int(in_cluster.sum())
+    diag = dict(
+        cluster_light_pairs=pairs, contributing=int(contrib.sum()),
+        skipped_share=(pairs - int(contrib.sum())) / max(pairs, 1),
+        skipped_by=why,
+        warp_sum_of_mean_lane=pairs / 32,
+        warp_sum_of_max_lane_32x1=warp_sum_max(in_cluster, 32, 1),
+        warp_sum_of_max_lane_8x4=warp_sum_max(in_cluster, 8, 4),
+        warp_sum_of_max_contributing_32x1=warp_sum_max(contrib, 32, 1),
+        warp_sum_of_max_contributing_8x4=warp_sum_max(contrib, 8, 4),
+        ops=ops)
+    return ops, diag
+
+
+def _k2_bound(ops, gb, n, v, depth, lights, cluster_mask, config, near,
+              width, height):
+    """Bytes: the gbuffer planes K2 reads (base colour and mrao as 4-float
+    rows, normal, view, world position, mask, depth) and its output, once;
+    operations: those _k2_work counts."""
     px = width * height
     nbytes = px * (16 + 16 + 12 + 12 + 12 + 1 + 4 + 12) \
         + cluster_mask.numel() * 4 + lights.type.shape[0] * 64
-    cid = clustered.pixel_cluster_id(depth, config, near, width, height)
-    words = cluster_mask[cid.long()][gb.mask].long() & 0xFFFFFFFF
-    bits = torch.zeros_like(words)
-    for s in range(32):
-        bits += (words >> s) & 1
-    ops = K2_OPS_PER_PIXEL_LIGHT * int(bits.sum())
     return _bound(nbytes, ops)
 
 

@@ -17,6 +17,7 @@ import torch
 
 from . import shading
 from .build import Kernel, ptr
+from ..core import mathutils as mu
 from ..scene import lights as lights_mod
 
 MAX_LIGHT_RANGE = 4.0  # ref: cluster-culling.hlsli:4
@@ -132,6 +133,21 @@ def _slice_of(view_z, bounds):
     return cz
 
 
+def slice_by_search(view_z, bounds):
+    """K2's z-slice lookup (csrc/clustered.cu): the count of the ascending
+    f32 `bounds` tensor's entries <= view_z, by the kernel's binary search.
+    Equal to _slice_of's count for non-decreasing bounds."""
+    lo = torch.zeros(view_z.shape, dtype=torch.int64, device=view_z.device)
+    hi = torch.full_like(lo, bounds.shape[0])
+    while bool((lo < hi).any()):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        ge = view_z >= bounds[torch.clamp(mid, max=bounds.shape[0] - 1)]
+        lo = torch.where(active & ge, mid + 1, lo)
+        hi = torch.where(active & ~ge, mid, hi)
+    return lo.to(torch.int32)
+
+
 def pixel_cluster_id(depth, config, near: float, width: int, height: int):
     """Per-pixel flattened cluster id; view z = near / depth."""
     gx, gy, gz = cluster_grid_shape(config)
@@ -205,6 +221,35 @@ def clustered_lighting(gb, n, v, depth, lights: lights_mod.LightTable,
        rows.shape[0], ptr(bounds), gx, gy, gz, float(near), ptr(out),
        width, height)
     return out
+
+
+def zero_light_tests(lights: lights_mod.LightTable, i: int, world_pos, n):
+    """K2's exact-zero tests for light i at every pixel, in the twin's
+    arithmetic (shading.punctual_light, brdf_response): -> (beyond its
+    range, outside its spot cone, behind the surface), (...) bool each,
+    applied in that order (a later one only where the earlier ones fail).
+    Where any holds, the twin's contribution of the light is exactly
+    +0.0 and K2 skips its BRDF."""
+    lvec = lights.transform[i, 3, :3] - world_pos
+    dist_sq = torch.sum(lvec * lvec, dim=-1)
+    dist = torch.sqrt(dist_sq)
+    rng = lights.range[i]
+    q = dist / torch.clamp(rng, min=1e-8)
+    falloff = torch.clamp(torch.clamp(1.0 - mu.ipow(q, 4), max=1.0), min=0.0)
+    beyond = (rng > 0.0) & (falloff == 0.0)
+    l = lvec / torch.clamp(dist, min=1e-8)[..., None]
+    spot_dir = lights_mod.light_direction_toward(lights.transform[i])
+    cd = torch.sum(spot_dir * l, dim=-1)
+    cos_outer = torch.cos(lights.spot_angles[i, 1])
+    cos_inner = torch.cos(lights.spot_angles[i, 0])
+    scale = 1.0 / torch.clamp(cos_inner - cos_outer, min=1e-3)
+    ang = torch.clamp(cd * scale - cos_outer * scale, 0.0, 1.0)
+    angular = torch.where(cd > cos_outer, ang * ang, 0.0)
+    outside = ~beyond & (lights.type[i] == lights_mod.LIGHT_SPOT) \
+        & (angular == 0.0)
+    no_l = torch.clamp(torch.sum(n * l, dim=-1), 0.0, 1.0)
+    behind = ~beyond & ~outside & ~(no_l > 0.0)
+    return beyond, outside, behind
 
 
 def clustered_lighting_plain(gb, n, v, depth, lights, cluster_mask, config,

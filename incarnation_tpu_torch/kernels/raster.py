@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -327,9 +328,65 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _K1_DEPTH = "k1_raster_depth"   # the depth-only role's entry point
 K1 = Kernel("raster", "k1_raster",
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I],
+             _I, _I, _I, _I, _I, _I, _P, _I],
             variants={_K1_DEPTH: [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I]})
+                                  _I, _I, _I, _I, _I, _I, _P, _I]})
+
+# K1's schedule (csrc/raster.cu): each tile's pairs are cut into work items
+# of at most K1_ITEM_PAIRS; each warp owns a SUBTILE_W x SUBTILE_H sub-tile
+# (a lane per column) and a tile holds at most K1_WARPS of them.
+K1_ITEM_PAIRS = 256
+K1_WARPS = 8
+K1_TILE_PX = 2048
+SUBTILE_W, SUBTILE_H = 32, 8
+
+
+def k1_max_items(bins: Bins, params: RasterParams) -> int:
+    """An upper bound of K1's work items, from shapes alone (no device
+    read): each tile takes ceil(pairs / K1_ITEM_PAIRS) items, at least
+    one, and a tile's pairs are its CSR slice plus the big list."""
+    nt = params.num_tiles
+    pairs = bins.pair_tri.numel() - 1 + bins.big_tri.numel() * nt
+    return nt + pairs // K1_ITEM_PAIRS + 1
+
+
+def k1_work_items(bins: Bins, params: RasterParams):
+    """(items, largest item in pairs) of K1's plan on these bins, as its
+    plan kernel counts them (one host read; for reports)."""
+    total = bins.counts.long() + int(bins.big_count[0])
+    items = torch.clamp(-(-total // K1_ITEM_PAIRS), min=1)
+    return int(items.sum()), int(torch.clamp(total, max=K1_ITEM_PAIRS).max())
+
+
+def _plane_bound(a, b, c, x0, x1, y0, y1, upper: bool):
+    """raster.cu plane_bound: a*x + b*y + c at the box corner that
+    maximises (upper) or minimises it, plus or minus 1e-6 of
+    |a| x1 + |b| y1 + |c|, in f32 with the kernel's operation order."""
+    xm = torch.where((a > 0.0) == upper, x1, x0)
+    ym = torch.where((b > 0.0) == upper, y1, y0)
+    m = a * xm + b * ym + c
+    margin = (torch.abs(a) * x1 + torch.abs(b) * y1 + torch.abs(c)) \
+        * 1e-6 + 1e-30
+    return m + margin if upper else m - margin
+
+
+def subtile_may_cover(setup, x0, y0, zl_max=None):
+    """K1's conservative sub-tile test (raster.cu subtile_may_cover), the
+    same f32 arithmetic: False only where no pixel centre of the
+    SUBTILE_W x SUBTILE_H box whose first centre is (x0, y0) can pass the exact
+    test (3 edges >= 0, 0 <= z <= 1, z < a limit <= zl_max). setup: (..., 12)
+    rows; x0, y0, zl_max broadcast against setup[..., 0]. NaN keeps the
+    pair."""
+    x1 = x0 + float(SUBTILE_W - 1)
+    y1 = y0 + float(SUBTILE_H - 1)
+    c = [setup[..., r] for r in range(SETUP_ROWS)]
+    ok = [~(_plane_bound(c[o], c[o + 1], c[o + 2], x0, x1, y0, y1, True)
+            < 0.0) for o in (0, 3, 6, 9)]
+    zmin = _plane_bound(c[9], c[10], c[11], x0, x1, y0, y1, False)
+    ok.append(~(zmin > 1.0))
+    if zl_max is not None:
+        ok.append(~(zmin > zl_max))
+    return functools.reduce(torch.logical_and, ok)
 
 
 def rasterize_tiles(bins: Bins, params: RasterParams, z_limit=None,
@@ -355,17 +412,27 @@ def rasterize_tiles(bins: Bins, params: RasterParams, z_limit=None,
     _check(bins.setup, torch.float32, dev, "setup")
     if bins.setup.shape[1:] != (SETUP_ROWS,):
         raise ValueError("setup must be (T, 12)")
-    if p.tile_h * p.tile_w > 2048:
-        raise ValueError("K1 takes tiles of at most 2048 pixels")
+    if -(-p.tile_h // SUBTILE_H) * -(-p.tile_w // SUBTILE_W) > K1_WARPS:
+        raise ValueError(f"K1 takes tiles of at most {K1_WARPS} sub-tiles "
+                         f"of {SUBTILE_W}x{SUBTILE_H} pixels")
+    if bins.setup.data_ptr() % 16:
+        raise ValueError("setup must be 16-byte aligned (K1 stages its "
+                         "rows with 16-byte asynchronous copies)")
     if z_limit is not None:
         _check(z_limit, torch.float32, dev, "z_limit", (p.height, p.width))
     tri = torch.empty((p.height, p.width), dtype=torch.int32, device=dev)
     depth = torch.empty((p.height, p.width), dtype=torch.float32, device=dev)
+    # one scratch buffer: each item's keys (multi-item tiles), then the
+    # work and arrival counters, which the C entry clears
+    max_items = k1_max_items(bins, p)
+    scratch = torch.empty(max_items * K1_TILE_PX + p.num_tiles // 2 + 1,
+                          dtype=torch.int64, device=dev)
     if p.depth_only:
         K1(ptr(bins.pair_tri), ptr(bins.starts), ptr(bins.counts),
            ptr(bins.big_tri), ptr(bins.big_count), ptr(bins.setup),
            ptr(z_limit), ptr(tri), ptr(depth), p.width, p.height, p.tile_h,
-           p.tile_w, p.tiles_x, p.num_tiles, name=name, variant=_K1_DEPTH)
+           p.tile_w, p.tiles_x, p.num_tiles, ptr(scratch), max_items,
+           name=name, variant=_K1_DEPTH)
         return tri, depth, None
     _check(bins.attr, torch.float32, dev, "attr",
            (bins.setup.shape[0], ATTR_ROWS))
@@ -381,7 +448,7 @@ def rasterize_tiles(bins: Bins, params: RasterParams, z_limit=None,
        ptr(bins.big_tri), ptr(bins.big_count), ptr(bins.setup),
        ptr(bins.attr), ptr(z_limit), ptr(mask_table), rows, ptr(tri),
        ptr(depth), ptr(interp), p.width, p.height, p.tile_h, p.tile_w,
-       p.tiles_x, p.num_tiles, name=name)
+       p.tiles_x, p.num_tiles, ptr(scratch), max_items, name=name)
     return tri, depth, interp
 
 
@@ -431,35 +498,37 @@ def _mask_reject(a, colf, rowf, table):
     return ((word >> (cell & 31)) & 1) > 0
 
 
-def rasterize_tiles_plain(bins: Bins, params: RasterParams, z_limit=None,
-                          mask_table=None):
-    """Plain PyTorch twin of K1: the same function, evaluated as one
-    (pair, tile pixel) grid per chunk of pairs with a 64-bit max-key
-    scatter per pixel. With params.depth_only it skips pass 2 and returns
-    (tri, depth, None)."""
-    p = params
-    _check_role(bins, p, mask_table)
+def _tile_limits(z_limit, p: RasterParams):
+    """(NT, tile pixels) z limits, zero-padded beyond the frame; None
+    without a z_limit."""
+    if z_limit is None:
+        return None
+    padded = torch.zeros((p.tiles_y * p.tile_h, p.tiles_x * p.tile_w),
+                         dtype=torch.float32, device=z_limit.device)
+    padded[:p.height, :p.width] = z_limit
+    return padded.reshape(p.tiles_y, p.tile_h, p.tiles_x, p.tile_w) \
+        .permute(0, 2, 1, 3).reshape(p.num_tiles, -1)
+
+
+def _pair_chunks(bins: Bins, p: RasterParams, zl_tiles=None):
+    """Every (tile, triangle) pair K1 races, in chunks of whole tile grids:
+    yields (tile, tri, colf, rowf, z, cov) with (C, tile pixels) pixel
+    centres, depth plane and the exact edge-and-depth test (3 edges >= 0,
+    0 <= z <= 1), rounded as the kernel's. A tile whose limits are all 0
+    (zl_tiles) takes no pairs."""
     dev = bins.setup.device
     n = p.tile_h * p.tile_w
-    nt = p.num_tiles
     counts = bins.counts.long()
     starts = bins.starts.long()
     big_count = int(bins.big_count[0])
-    tiles = torch.arange(nt, device=dev)
+    tiles = torch.arange(p.num_tiles, device=dev)
     pix = torch.arange(n, device=dev)
     py, px = pix // p.tile_w, pix % p.tile_w
-    zl_tiles = None
-    if z_limit is not None:
-        padded = torch.zeros((p.tiles_y * p.tile_h, p.tiles_x * p.tile_w),
-                             dtype=torch.float32, device=dev)
-        padded[:p.height, :p.width] = z_limit
-        zl_tiles = padded.reshape(p.tiles_y, p.tile_h, p.tiles_x, p.tile_w) \
-            .permute(0, 2, 1, 3).reshape(nt, n)
+    big_tiles = tiles
+    if zl_tiles is not None:
         live = zl_tiles.amax(dim=1) > 0.0
         counts = torch.where(live, counts, 0)
         big_tiles = tiles[live]
-    else:
-        big_tiles = tiles
     tile_of = torch.repeat_interleave(tiles, counts)
     first = torch.cumsum(counts, 0) - counts
     pos = starts[tile_of] + torch.arange(tile_of.shape[0], device=dev) \
@@ -469,8 +538,6 @@ def rasterize_tiles_plain(bins: Bins, params: RasterParams, z_limit=None,
     pair_tris = torch.cat([bins.pair_tri.long()[pos],
                            bins.big_tri.long()[:big_count].repeat(
                                big_tiles.shape[0])])
-
-    keys = torch.zeros(nt * n, dtype=torch.int64, device=dev)
     step = max(1, _PLAIN_CHUNK_ELEMS // n)
     for s in range(0, pair_tiles.shape[0], step):
         tt = pair_tiles[s:s + step]
@@ -486,6 +553,36 @@ def rasterize_tiles_plain(bins: Bins, params: RasterParams, z_limit=None,
         z = c[:, 9:10] * colf + c[:, 10:11] * rowf + c[:, 11:12]
         cov = (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (z <= 1.0) \
             & (z >= 0.0)
+        yield tt, tr, colf, rowf, z, cov
+
+
+def covered_pair_pixels(bins: Bins, params: RasterParams,
+                        z_limit=None) -> int:
+    """The (pair, tile pixel) elements whose exact edge-and-depth test
+    passes, over the pairs K1 races (the z_limit and amask tests set
+    aside; z_limit only drops the tiles whose limits are all 0): the
+    pixel tests no sub-tile design can avoid."""
+    total = 0
+    for *_, cov in _pair_chunks(bins, params, _tile_limits(z_limit, params)):
+        total += int(cov.sum())
+    return total
+
+
+def rasterize_tiles_plain(bins: Bins, params: RasterParams, z_limit=None,
+                          mask_table=None):
+    """Plain PyTorch twin of K1: the same function, evaluated as one
+    (pair, tile pixel) grid per chunk of pairs with a 64-bit max-key
+    scatter per pixel. With params.depth_only it skips pass 2 and returns
+    (tri, depth, None)."""
+    p = params
+    _check_role(bins, p, mask_table)
+    dev = bins.setup.device
+    n = p.tile_h * p.tile_w
+    nt = p.num_tiles
+    pix = torch.arange(n, device=dev)
+    zl_tiles = _tile_limits(z_limit, p)
+    keys = torch.zeros(nt * n, dtype=torch.int64, device=dev)
+    for tt, tr, colf, rowf, z, cov in _pair_chunks(bins, p, zl_tiles):
         if zl_tiles is not None:
             cov &= z < zl_tiles[tt]
         if mask_table is not None:

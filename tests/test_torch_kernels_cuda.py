@@ -210,3 +210,130 @@ def test_k3_matches_twin(dev):
     torch.testing.assert_close(taa.history_fetch(hist, depth, m, w, h),
                                taa.history_fetch_plain(hist, depth, m, w, h),
                                rtol=0, atol=1e-6)
+
+
+def _long_list_bins(dev, bins, tile, n_pairs, seed):
+    """bins with tile `tile`'s list replaced by n_pairs triangle ids (its
+    own pairs, then random valid triangles and repeats), enough to split
+    it into several K1 work items."""
+    r = np.random.default_rng(seed)
+    own = bins.pair_tri[bins.starts[tile]:bins.starts[tile]
+                        + bins.counts[tile]].cpu().numpy()
+    ids = np.concatenate([own, r.integers(0, bins.setup.shape[0],
+                                          n_pairs - own.size)])
+    r.shuffle(ids)
+    pair_tri = torch.cat([bins.pair_tri[:-1],
+                          torch.tensor(ids, dtype=torch.int32, device=dev),
+                          bins.pair_tri[-1:]])
+    starts, counts = bins.starts.clone(), bins.counts.clone()
+    starts[tile] = bins.pair_tri.shape[0] - 1
+    counts[tile] = n_pairs
+    return raster.Bins(**{**vars(bins), "pair_tri": pair_tri,
+                          "starts": starts, "counts": counts})
+
+
+def test_k1_split_long_lists(dev):
+    """One tile with thousands of pairs is cut into several work items
+    (raced across blocks, reduced by the last): the full role, a z_limit
+    peel and the depth-only role all equal their twins."""
+    bins, p = _bins(dev, seed=5)
+    crafted = _long_list_bins(dev, bins[0], 2, 5000, seed=6)
+    items, largest = raster.k1_work_items(crafted, p)
+    assert items >= p.num_tiles + 5000 // raster.K1_ITEM_PAIRS
+    ref = raster.rasterize_tiles_plain(crafted, p)
+    _assert_k1(raster.rasterize_tiles(crafted, p), ref)
+    assert (ref[0] >= 0).float().mean() > 0.3
+    zl = torch.where(ref[0] >= 0, ref[1], 0.0)
+    _assert_k1(raster.rasterize_tiles(crafted, p, z_limit=zl),
+               raster.rasterize_tiles_plain(crafted, p, z_limit=zl))
+    dp = p._replace(depth_only=True)
+    bare = raster.Bins(**{**vars(crafted), "attr": None})
+    got = raster.rasterize_tiles(bare, dp, name="raster_shadow_depth")
+    want = raster.rasterize_tiles_plain(bare, dp)
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_k1_equal_depth_ties_across_work_items(dev):
+    """Screen-filling triangles at one depth, their pairs shuffled over a
+    list of several work items: every pixel goes to the largest id, as in
+    the twin, and a second tile whose list repeats ids agrees too."""
+    w, h = 256, 16
+    p = raster.RasterParams(width=w, height=h, pair_capacity=1 << 14)
+    n_tri = 1500
+    r = np.random.default_rng(7)
+    setup = np.zeros((n_tri, raster.SETUP_ROWS), np.float32)
+    setup[:, 2] = setup[:, 5] = setup[:, 8] = 1.0     # every edge >= 0
+    setup[:, 11] = 0.5                                # z = 0.5 everywhere
+    setup[: n_tri // 2, 11] = 0.25                    # half lie behind
+    attr = r.normal(size=(n_tri, raster.ATTR_ROWS)).astype(np.float32)
+    attr[:, 6:9] = [0.0, 0.0, 1.0]
+    lists = [r.permutation(n_tri), r.integers(0, n_tri - 1, 2 * n_tri)]
+    counts = [l.size for l in lists]
+    flat = np.concatenate(lists + [[0]]).astype(np.int32)
+    t = lambda x, dt=torch.int32: torch.tensor(np.asarray(x), dtype=dt,
+                                               device=dev)
+    bins = raster.Bins(
+        pair_tri=t(flat), starts=t(np.cumsum(counts) - counts),
+        counts=t(counts), big_tri=t(np.zeros(4)), big_count=t([0]),
+        overflow=t(0), big_overflow=t(0), setup=t(setup, torch.float32),
+        attr=t(attr, torch.float32))
+    got = raster.rasterize_tiles(bins, p)
+    _assert_k1(got, raster.rasterize_tiles_plain(bins, p))
+    assert bool((got[0][:, :128] == n_tri - 1).all())
+    assert bool((got[0][:, 128:] == int(lists[1].max())).all())
+    assert bool((got[1] == 0.5).all())
+
+
+def test_k2_lights_mostly_out_of_reach(dev):
+    """Short ranges and narrow spot cones: most (pixel, cluster light)
+    pairs add exactly zero and are skipped; K2 still equals its twin."""
+    w, h = 256, 96
+    cfg = Config()
+    r = np.random.default_rng(8)
+    defs, xforms = [], []
+    for i in range(48):
+        xf = np.eye(4, dtype=np.float32)
+        xf[:3, :3] = np.linalg.qr(r.normal(size=(3, 3)))[0]
+        xf[3, :3] = r.uniform(-6, 6, 3) + [0, 0, 8]
+        d = {"type": ["point", "spot"][i % 2], "range": float(
+            r.uniform(0.5, 2.0)), "intensity": float(r.uniform(5, 50)),
+             "color": r.uniform(0.2, 1, 3).tolist()}
+        if i % 2:
+            d["spot"] = {"innerConeAngle": 0.05, "outerConeAngle": 0.15}
+        defs.append(d)
+        xforms.append(xf)
+    lights = lights_mod.light_table(lights_mod.light_arrays(defs, xforms),
+                                    dev)
+    from incarnation_tpu_torch.core.view import View
+    view = View.from_lookat([0.5, 0.5, -2.0], [0.0, 0.0, 8.0], aspect=w / h)
+    f = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+    mask, _ = clustered.build_light_clusters(
+        lights, cfg, f(view.projection_transform()),
+        f(np.linalg.inv(view.view_proj())), 1.0)
+    nrm = np.random.default_rng(9).normal(size=(h, w, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    gb = resolve.GBuffer(
+        base_color=f(r.uniform(0, 1, (h, w, 4))),
+        normals=f(np.zeros((h, w, 2))), mrao=f(r.uniform(0.05, 1, (h, w, 4))),
+        emissive=f(np.zeros((h, w, 3))),
+        mask=torch.tensor(r.random((h, w)) > 0.1, device=dev),
+        world_pos=f(r.uniform(-5, 5, (h, w, 3)) + [0, 0, 8]),
+        uv=f(np.zeros((h, w, 2))), extras=f(np.zeros((h, w, 3))))
+    depth = f(r.uniform(0.005, 1.0, (h, w)))
+    view_v = nrm + 0.9 * r.normal(size=(h, w, 3))
+    view_v /= np.linalg.norm(view_v, axis=-1, keepdims=True)
+    args = (gb, f(nrm), f(view_v), depth, lights, mask, cfg, 1.0, w, h)
+    got = clustered.clustered_lighting(*args)
+    ref = clustered.clustered_lighting_plain(*args)
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-5 * float(ref.abs().max()))
+    cid = clustered.pixel_cluster_id(depth, cfg, 1.0, w, h).long()
+    on_pairs = skipped = 0
+    for i in range(len(defs)):
+        on = (((mask[cid, i // 32] >> (i % 32)) & 1) > 0) & gb.mask
+        tests = clustered.zero_light_tests(lights, i, gb.world_pos, f(nrm))
+        on_pairs += int(on.sum())
+        skipped += int((on & (tests[0] | tests[1] | tests[2])).sum())
+    assert on_pairs > 0 and skipped > 0.5 * on_pairs
+    assert float(ref.abs().max()) > 0
