@@ -16,9 +16,9 @@ frame.
 
 Then it captures each kernel's inputs from one more frame, runs each kernel
 and its plain PyTorch twin on those inputs on the card, compares them, times
-both by their device time, prints each kernel's bound (the work its inputs
-need) and work diagnostics, and renders that frame again with every kernel
-swapped for its twin and compares the images.
+both on the card's clock (device_ms), prints each kernel's bound (the work
+its inputs need) and work diagnostics, and renders that frame again with
+every kernel swapped for its twin and compares the images.
 
 A second, small path (512x256, the port's scene/testing.py scene with a
 BLEND quad) renders one forward-lighting frame with blend layers and both
@@ -69,6 +69,9 @@ K1_OPS_PER_PAIR_PIXEL = 16
 K2_OPS_DIST, K2_OPS_RANGE, K2_OPS_DIR = 9, 6, 4
 K2_OPS_SPOT, K2_OPS_NOL, K2_OPS_BRDF = 11, 7, 96
 K3_OPS_PER_PIXEL = 45          # 3x4 reprojection, divide, 3-channel bilerp
+# cycles a spin kernel runs per second at the H100 SXM's highest SM clock
+# (1.98 GHz): at a lower clock the spin lasts longer, never shorter
+SPIN_CYCLES_PER_S = 2.0e9
 
 
 def _log(msg):
@@ -83,43 +86,33 @@ def card_line() -> str:
     return out[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms of fn() over reps back-to-back calls, by CUDA events after a
-    warm-up call: device time, or the host's time per call where the host
-    cannot keep the card busy."""
+def device_ms(fn, reps: int) -> float:
+    """Mean ms per fn() call on the card's clock: CUDA events around reps
+    back-to-back calls, queued behind a spin kernel that holds the stream
+    for three times the host's time to launch them, so the card runs them
+    back to back and a small launch is not timed by the host that launches
+    it. The time between the events is every kernel's, memset's and copy's,
+    and the gaps between them. A call that synchronises inside (a plain
+    twin reading a count) waits for the card there, and then its time
+    includes the host's. A warm-up call first, then one batch whose time
+    on the host sets the spin's; L2 is not flushed."""
     import torch
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * (3.0 * host_s + 2e-3)))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps: int) -> float:
-    """Mean ms of device work per fn() call over reps calls after a warm-up
-    call: the sum of every kernel's, memset's and copy's time on the card
-    (torch.profiler, CUDA activity only), so a small launch is not timed
-    by the host that launches it."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    # a profiling window now and then returns without its device events:
-    # measure again (a few times) rather than report nothing
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", 0.0)
-                 for e in prof.key_averages())
-        if us > 0.0:
-            return us / 1e3 / reps
-    raise RuntimeError("the profiler saw no device time in 3 windows")
 
 
 def bench_view(host, width, height):
@@ -159,12 +152,9 @@ def main(argv=None) -> int:
               "runs the port on a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from incarnation_tpu_torch.config import Config
     from incarnation_tpu_torch.core import mathutils as mu
-    from incarnation_tpu_torch.kernels import (build, clustered, ibl, raster,
-                                               shadow, sky, taa)
-    from incarnation_tpu_torch.renderer import frame
-    from incarnation_tpu_torch.scene import cache, stress
+    from incarnation_tpu_torch.kernels import (build, clustered, raster,
+                                               shadow, taa)
 
     # 1. the card
     dev = torch.device("cuda")
@@ -180,55 +170,10 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 _log(f"  {name}: {line.strip()}")
 
-    # 3. the atrium, built on the host and moved to the card
-    cfg = Config(sun_shadow_mode="map", masked_depth_peels=PEELS)
-    t0 = time.perf_counter()
-    path = stress.build_atrium(ATRIUM_DIR)
-    host = cache.load_scene_cached(path, texture_max_dim=cfg.texture_max_dim,
-                                   device=dev)
-    torch.cuda.synchronize()
-    scene = host.scene
-    meta = scene.meta
-    _log(f"scene: {meta.num_triangles} triangles, {meta.num_lights} lights, "
-         f"{scene.mat_params.shape[0]} materials, "
-         f"{scene.nbytes() / 2**20:.1f} MiB on the card, host build + load "
-         f"{time.perf_counter() - t0:.1f} s")
-    if not (meta.has_masked and meta.has_decals and meta.num_lights > 0):
-        raise RuntimeError("the atrium lost its masked, decal or light layer")
-
-    # 4. sky probe and env BRDF, as the JAX bench builds them
-    t0 = time.perf_counter()
-    sun = scene.sun_dir.cpu().numpy()
-    probe = cache.load_probe_cached(
-        lambda: ibl.build_probe(
-            sky.sky_latlong(scene.sun_dir, cfg.turbidity, 256, 128),
-            envmap_size=cfg.envmap_resolution),
-        key=f"sky:{sun.round(4).tolist()}:{cfg.turbidity}:"
-            f"{cfg.envmap_resolution}", device=dev)
-    env_brdf = ibl.pack_env_brdf(ibl.env_brdf_lut(128, device=dev))
-    torch.cuda.synchronize()
-    _log(f"probe + env BRDF built in {time.perf_counter() - t0:.1f} s")
-
-    # 5. the main path: the bench configuration, sun shadow map on
-    params = raster.RasterParams(width=W, height=H, pair_capacity=1 << 18,
-                                 bin_max_span=8)
-    view0 = bench_view(host, W, H)
-    jitters = mu.halton_jitter_table(16)
-    shadow_bounds = (host.bounds_center,
-                     float(np.linalg.norm(host.bounds_extent)) + 1e-3)
-
-    def make_fc(i, prev_vp):
-        return frame.FrameConstants.make(
-            orbit(view0, ORBIT_RAD * i), cfg, sun_dir=sun,
-            sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
-            jitter=jitters[i % 16] * 2.0 / np.array([W, H]),
-            prev_view_proj=prev_vp, history_valid=i > 0, frame_index=i,
-            shadow_bounds=shadow_bounds, device=dev)
-
-    def run(fc, history, config=cfg):
-        return frame.render_frame(scene, fc, config=config, params=params,
-                                  probe=probe, env_brdf=env_brdf,
-                                  history=history)
+    # 3-5. the atrium and the bench configuration
+    path = atrium_path(dev)
+    scene, run, make_fc = path.scene, path.run, path.make_fc
+    cfg = path.cfg
 
     # two warm-up frames, the second with a history, load every kernel
     # library and torch's own lazily loaded code before anything is timed
@@ -342,6 +287,71 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def atrium_path(dev):
+    """The main path's set-up: the atrium built on the host and moved to the
+    card, the sky probe and env BRDF, and the bench configuration's frame.
+    -> namespace(host, scene, cfg, params, run(fc, history[, config]),
+    make_fc(i, prev_view_proj))."""
+    import types
+    import torch
+    from incarnation_tpu_torch.config import Config
+    from incarnation_tpu_torch.core import mathutils as mu
+    from incarnation_tpu_torch.kernels import ibl, raster, sky
+    from incarnation_tpu_torch.renderer import frame
+    from incarnation_tpu_torch.scene import cache, stress
+    cfg = Config(sun_shadow_mode="map", masked_depth_peels=PEELS)
+    t0 = time.perf_counter()
+    path = stress.build_atrium(ATRIUM_DIR)
+    host = cache.load_scene_cached(path, texture_max_dim=cfg.texture_max_dim,
+                                   device=dev)
+    torch.cuda.synchronize()
+    scene = host.scene
+    meta = scene.meta
+    _log(f"scene: {meta.num_triangles} triangles, {meta.num_lights} lights, "
+         f"{scene.mat_params.shape[0]} materials, "
+         f"{scene.nbytes() / 2**20:.1f} MiB on the card, host build + load "
+         f"{time.perf_counter() - t0:.1f} s")
+    if not (meta.has_masked and meta.has_decals and meta.num_lights > 0):
+        raise RuntimeError("the atrium lost its masked, decal or light layer")
+
+    # sky probe and env BRDF, as the JAX bench builds them
+    t0 = time.perf_counter()
+    sun = scene.sun_dir.cpu().numpy()
+    probe = cache.load_probe_cached(
+        lambda: ibl.build_probe(
+            sky.sky_latlong(scene.sun_dir, cfg.turbidity, 256, 128),
+            envmap_size=cfg.envmap_resolution),
+        key=f"sky:{sun.round(4).tolist()}:{cfg.turbidity}:"
+            f"{cfg.envmap_resolution}", device=dev)
+    env_brdf = ibl.pack_env_brdf(ibl.env_brdf_lut(128, device=dev))
+    torch.cuda.synchronize()
+    _log(f"probe + env BRDF built in {time.perf_counter() - t0:.1f} s")
+
+    # the bench configuration, sun shadow map on
+    params = raster.RasterParams(width=W, height=H, pair_capacity=1 << 18,
+                                 bin_max_span=8)
+    view0 = bench_view(host, W, H)
+    jitters = mu.halton_jitter_table(16)
+    shadow_bounds = (host.bounds_center,
+                     float(np.linalg.norm(host.bounds_extent)) + 1e-3)
+
+    def make_fc(i, prev_vp):
+        return frame.FrameConstants.make(
+            orbit(view0, ORBIT_RAD * i), cfg, sun_dir=sun,
+            sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
+            jitter=jitters[i % 16] * 2.0 / np.array([W, H]),
+            prev_view_proj=prev_vp, history_valid=i > 0, frame_index=i,
+            shadow_bounds=shadow_bounds, device=dev)
+
+    def run(fc, history, config=cfg):
+        return frame.render_frame(scene, fc, config=config, params=params,
+                                  probe=probe, env_brdf=env_brdf,
+                                  history=history)
+
+    return types.SimpleNamespace(host=host, scene=scene, cfg=cfg,
+                                 params=params, run=run, make_fc=make_fc)
 
 
 def capture_frame(run, fc, history, raster, clustered, taa):
@@ -498,7 +508,7 @@ def k1_row(raster, layer, launches_captured, n_launches):
     """Kernel-vs-twin on the captured K1 launches of one raster layer
     (error, both times and the bound, each the mean over the launches)
     -> the layer's JSON row."""
-    errs, ms, call_ms, plain_ms, bounds, bound_by = [], [], [], [], [], set()
+    errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
     for a, kw in launches_captured:
         bins, p = a
         zl, mt = kw.get("z_limit"), kw.get("mask_table")
@@ -508,8 +518,6 @@ def k1_row(raster, layer, launches_captured, n_launches):
         errs.append(_k1_error(got, ref))
         ms.append(device_ms(lambda: raster.rasterize_tiles(
             bins, p, z_limit=zl, mask_table=mt), 10))
-        call_ms.append(cuda_ms(lambda: raster.rasterize_tiles(
-            bins, p, z_limit=zl, mask_table=mt), 10))
         plain_ms.append(device_ms(lambda: raster.rasterize_tiles_plain(
             bins, p, z_limit=zl, mask_table=mt), 2))
         b, by = _k1_bound(bins, p, zl, mt)
@@ -517,9 +525,7 @@ def k1_row(raster, layer, launches_captured, n_launches):
         bound_by.add(by)
     bins, p = launches_captured[0][0]
     items, largest = raster.k1_work_items(bins, p)
-    _log(f"K1 {layer}: per launch ms " + ", ".join(f"{t:.3f}" for t in ms)
-         + "; per call, host included (events) "
-         + ", ".join(f"{t:.3f}" for t in call_ms)
+    _log(f"K1 {layer}: per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
          + "; bound ms " + ", ".join(f"{t:.4f}" for t in bounds)
          + "; tri mismatch share "
          + ", ".join(f"{e[2]:.2e}" for e in errs)
@@ -541,13 +547,13 @@ def k1_row(raster, layer, launches_captured, n_launches):
         library_ms=None)
 
 
-def small_path(dev, raster, clustered, taa):
-    """The forward / view-mode / debug-draw path on the port's own test
-    scene with a BLEND quad, 512x256, every launch on the card. Returns the
-    k1_raster[raster_blend] row (its launches are this path's)."""
-    import torch
-    from incarnation_tpu_torch.config import Config, ViewMode
+def small_renderer(dev):
+    """The small path's scene (the port's scene/testing.py scene with a
+    BLEND quad) and render(**Config overrides) of one 512x256 frame.
+    -> (scene, render)."""
+    from incarnation_tpu_torch.config import Config
     from incarnation_tpu_torch.core.view import View
+    from incarnation_tpu_torch.kernels import raster
     from incarnation_tpu_torch.renderer import frame
     from incarnation_tpu_torch.scene import testing
     w, h = SMALL_W, SMALL_H
@@ -568,6 +574,19 @@ def small_path(dev, raster, clustered, taa):
             sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
             shadow_bounds=([0.0, 0.75, 8.0], 13.0), device=dev)
         return frame.render_frame(scene, fc, config=cfg, params=params)
+
+    return scene, render
+
+
+def small_path(dev, raster, clustered, taa):
+    """The forward / view-mode / debug-draw path on the port's own test
+    scene with a BLEND quad, 512x256, every launch on the card. Returns the
+    k1_raster[raster_blend] row (its launches are this path's)."""
+    import torch
+    from incarnation_tpu_torch.config import ViewMode
+    from incarnation_tpu_torch.renderer import frame
+    w, h = SMALL_W, SMALL_H
+    scene, render = small_renderer(dev)
 
     def check_color(out, what):
         c = out["color"]

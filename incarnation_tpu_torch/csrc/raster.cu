@@ -26,16 +26,18 @@
 //   tile left the launch to the block with the longest list. Here each
 //   tile's list (its CSR slice, then the big list) is cut into work items
 //   of at most K1_ITEM pairs. Persistent blocks, as many as fit on the
-//   card, take items from a global counter, so the tail is one item. Item
-//   t is tile t's first; the extra items of long tiles follow, and a block
-//   lays them out (a scan in shared memory) only when it meets one, so a
-//   layer of short lists costs no plan. A tile with one item races in
-//   registers and writes its outputs.
+//   card, start on item blockIdx.x and take the next items from a global
+//   counter, so the tail is one item. Item t is tile t's first; the extra
+//   items of long tiles follow, and where a tile has any, each block lays
+//   them out (a scan of the tile counts in shared memory) while its first
+//   item's z limits load. A tile with one item races in registers and
+//   writes its outputs.
 //   A tile with several writes each item's keys to its own slot of a
 //   scratch buffer (plain stores, nothing to clear); the item that arrives
 //   last at the tile's counter reduces the slots with a max and writes the
-//   outputs. The C entry clears the counters (one memset) and launches one
-//   kernel.
+//   outputs. The counters are zero when a launch starts and when it ends:
+//   the last item of a tile resets the tile's counter and the launch's last
+//   take resets the work counter, so a call is one kernel and no memset.
 // - Pixel tests. Each warp owns a 32x8 sub-tile (lane: one column, 8
 //   rows, so a warp's stores are whole 128-byte rows). Lanes test 32
 //   staged pairs at once against the sub-tile as a whole
@@ -46,9 +48,14 @@
 //   tile. The exact per-pixel test, rounded as the twin's separate multiply
 //   and add (built --fmad=false), alone decides coverage, so coverage
 //   matches the twin bit for bit.
-// - Staging. The next item's setup rows (and, in the masked role, its UV
-//   planes and material) are copied into the other half of a double buffer
-//   with cp.async while the current item is tested.
+// - Latency. A small launch (a peel over a few tiles) is a chain of
+//   dependent loads, so each is issued as early as it can be: the next
+//   item is taken from the counter before the current one is tested, its
+//   setup rows (and, in the masked role, its UV planes and material) are
+//   copied into the other half of a double buffer with cp.async while the
+//   current item's outputs are written, and its z limits are loaded before
+//   its rows are waited for. A block's first item stages no rows when its
+//   tile's limits are all 0.
 // What is left: the outputs, 72 B/px (16 f32 channels + tri + depth; 8 B/px
 // depth-only), and 16 flops per (pair, covered pixel).
 
@@ -149,23 +156,19 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-__device__ __forceinline__ void cp_async_wait_prev() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Counters, cleared by the C entry: [0] the work counter, [1, nt + 1)
-// per-tile arrival counters.
+// Counters, zero at the start and the end of a launch: [0] the work counter
+// (items taken past the grid's first), [1, nt + 1) per-tile arrival
+// counters.
 //
 // Items: tile t takes n_t = ceil(pairs / K1_ITEM) items, at least one. Its
-// first is item t, so a block needs no plan for a tile of one item; the
-// other n_t - 1 are numbered from nt on, tile by tile. A block that meets
-// such an item lays them out once in shared memory (base[t]: the first
-// extra item of tile t, less nt; base[nt]: how many extra items there
-// are), and returns that count.
+// first is item t; the other n_t - 1 are numbered from nt on, tile by tile.
+// Where a tile has any, each block lays them out in shared memory
+// (base[t]: the first extra item of tile t, less nt; base[nt]: how many
+// extra items there are), and returns that count.
 __device__ __forceinline__ int items_of_tile(int total) {
   return total > K1_ITEM ? (total + K1_ITEM - 1) / K1_ITEM : 1;
 }
@@ -251,7 +254,7 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
                  float* __restrict__ interp_out,
                  int width, int height, int tile_h, int tile_w,
                  int tiles_x, int num_tiles,
-                 unsigned long long* __restrict__ partial,
+                 unsigned long long* __restrict__ partial, int max_items,
                  int* __restrict__ counters) {
   __shared__ __align__(16) float s_setup[2][K1_ITEM][SETUP_ROWS];
   __shared__ int s_id[2][K1_ITEM];
@@ -275,21 +278,8 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
   const int lr0 = sy * K1_SUB_H;         // and its first row
   const bool masked = !DEPTH_ONLY && mask_table != nullptr;
   const int bigcnt = big_count[0];
-  // items past the first of each tile, laid out at the first need (every
-  // call below is block-uniform: g and the tile's item count are)
-  int n_extra = -1;
-  auto planned = [&]() {
-    if (n_extra < 0)
-      n_extra = plan_extra_items(counts, bigcnt, num_tiles, s_base);
-  };
-  auto valid = [&](int g) {
-    if (g < num_tiles) return true;
-    planned();
-    return g < num_tiles + n_extra;
-  };
 
-  auto stage = [&](int g, int b) {
-    const Item it = item_of(g, s_base, num_tiles, starts, counts, bigcnt);
+  auto stage = [&](const Item& it, int b) {
     for (int j = tid; j < it.nb; j += K1_THREADS) {
       const int q = it.q0 + j;
       const int t = q < it.count ? pair_tri[it.start + q]
@@ -310,39 +300,26 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
     }
   };
 
-  if (tid == 0) s_next = atomicAdd(counter, 1);
-  __syncthreads();
-  int g = s_next;
-  int b = 0;
-  if (valid(g)) stage(g, 0);
-  cp_async_commit();
-
-  while (valid(g)) {
-    // the next item's rows land in buffer b ^ 1 while g is tested
-    __syncthreads();
-    if (tid == 0) s_next = atomicAdd(counter, 1);
-    __syncthreads();
-    const int gn = s_next;
-    if (valid(gn)) stage(gn, b ^ 1);
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncthreads();
-
-    const Item it = item_of(g, s_base, num_tiles, starts, counts, bigcnt);
-    const int ty = it.tile / tiles_x;
-    const int tx = it.tile - ty * tiles_x;
-    float colf = (float)(tx * tile_w + lc) + 0.5f;
-    float rowf[K1_PPL], zl[K1_PPL];
-    unsigned long long best[K1_PPL];
-    bool live_local = false;
-    float zl_max = 0.0f;
+  // the current item and its tile's pixel centres and z limits, loaded
+  // before the item's rows are waited for
+  Item it;
+  int tx = 0, ty = 0;
+  float colf = 0.0f, rowf[K1_PPL], zl[K1_PPL];
+  bool live_local = false;
+  float zl_max = 0.0f;
+  auto load_tile = [&](const Item& next) {
+    it = next;
+    ty = it.tile / tiles_x;
+    tx = it.tile - ty * tiles_x;
+    colf = (float)(tx * tile_w + lc) + 0.5f;
+    live_local = false;
+    zl_max = 0.0f;
 #pragma unroll
     for (int k = 0; k < K1_PPL; ++k) {
       const int gy = ty * tile_h + lr0 + k;
       const int gx = tx * tile_w + lc;
       const bool in_tile = warp_in && lc < tile_w && lr0 + k < tile_h;
       rowf[k] = (float)gy + 0.5f;
-      best[k] = 0ull;
       // pixels beyond the frame read a z limit of 0 (the TPU wrapper pads
       // z_limit with zeros), so they take no fragment
       zl[k] = zlim == nullptr ? 2.0f
@@ -352,10 +329,49 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
       live_local |= zl[k] > 0.0f;
       zl_max = fmaxf(zl_max, zl[k]);
     }
+  };
+
+  // Each item is preceded by a take of the item after it (tid 0), whose
+  // number is read after the tests. Every block's last take lies past the
+  // tiles' first items, so every block needs the extra items' count (and,
+  // where there are any, their layout); a block whose first item is a
+  // tile's first takes and loads the tile's limits before that, any other
+  // block after it.
+  int g = blockIdx.x;
+  int b = 0;
+  int taken = 0;
+  const bool first_of_tile = g < num_tiles;
+  if (first_of_tile) {
+    if (tid == 0) taken = atomicAdd(counter, 1);
+    load_tile(item_of(g, s_base, num_tiles, starts, counts, bigcnt));
+  }
+  // the layout is needed only where a tile has more than one item
+  bool long_local = false;
+  for (int t = tid; t < num_tiles; t += K1_THREADS)
+    long_local |= counts[t] + bigcnt > K1_ITEM;
+  const int n_items =
+      num_tiles + (__syncthreads_or(long_local)
+                       ? plan_extra_items(counts, bigcnt, num_tiles, s_base)
+                       : 0);
+  if (!first_of_tile && g < n_items) {
+    if (tid == 0) taken = atomicAdd(counter, 1);
+    load_tile(item_of(g, s_base, num_tiles, starts, counts, bigcnt));
+  }
+  // the first item's rows; none for a tile whose z limits are all 0
+  if (g < n_items && (zlim == nullptr || __syncthreads_or(live_local) != 0))
+    stage(it, 0);
+  cp_async_commit();
+
+  while (g < n_items) {
+    cp_async_wait_all();
     // a tile whose limits are all 0 takes nothing (the depth-peel early
     // exit); without z_limit every pixel of the tile is live
-    const bool tile_live =
-        zlim == nullptr || __syncthreads_or(live_local) != 0;
+    bool tile_live = true;
+    if (zlim == nullptr) __syncthreads();
+    else tile_live = __syncthreads_or(live_local) != 0;
+    unsigned long long best[K1_PPL];
+#pragma unroll
+    for (int k = 0; k < K1_PPL; ++k) best[k] = 0ull;
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       zl_max = fmaxf(zl_max, __shfl_xor_sync(FULL_MASK, zl_max, o));
@@ -401,10 +417,29 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
       }
     }
 
+    // the next item's rows land in buffer b ^ 1 while g's outputs are
+    // written. Each block that enters the loop ends on one take past the
+    // last item, so the takes are numbered 0 .. n_items - 1 and the last
+    // one resets the counter.
+    if (tid == 0) {
+      s_next = gridDim.x + taken;
+      if (taken == n_items - 1) atomicExch(counter, 0);
+    }
+    __syncthreads();
+    const int gn = s_next;
+    Item next;
+    if (gn < n_items) {
+      next = item_of(gn, s_base, num_tiles, starts, counts, bigcnt);
+      stage(next, b ^ 1);
+    }
+    cp_async_commit();
+
     bool write = true;
     if (it.n_items > 1) {
       // several items race this tile: publish the keys, and the item that
       // arrives last reduces them
+      // the wrapper sized the slots from shapes (raster.py k1_max_items)
+      if (g >= max_items) __trap();
       if (tile_live) {
         unsigned long long* slot = partial + (size_t)g * K1_TILE_PX;
 #pragma unroll
@@ -412,12 +447,13 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
       }
       __threadfence();
       __syncthreads();
-      if (tid == 0)
+      if (tid == 0) {
         s_last = atomicAdd(&arrive[it.tile], 1) == it.n_items - 1;
+        if (s_last) atomicExch(&arrive[it.tile], 0);
+      }
       __syncthreads();
       write = s_last != 0;
       if (write && tile_live) {
-        planned();
         __threadfence();
         for (int i = 0; i < it.n_items; ++i) {
           // the tile's items: itself, then its extra items from nt on
@@ -482,6 +518,10 @@ k1_raster_kernel(const int* __restrict__ pair_tri,
     }
     g = gn;
     b ^= 1;
+    if (g < n_items) {
+      if (tid == 0) taken = atomicAdd(counter, 1);
+      load_tile(next);
+    }
   }
   cp_async_wait_all();
 }
@@ -491,39 +531,43 @@ static size_t plan_bytes(int num_tiles) {
   return sizeof(int) * (size_t)(num_tiles + 1);
 }
 
-// Persistent blocks: as many as fit on the card at once, at most one per
-// item. Returns 0 and sets *grid, or a CUDA error.
+// Persistent blocks on the current device: as many as fit on it at once,
+// at most one per item. Returns 0 and sets *grid, or a CUDA error.
 template <bool DEPTH_ONLY>
 static int grid_size(int max_items, size_t smem, int* grid) {
-  static size_t last_smem = 0;   // the last query, kept: the host side of
-  static int blocks = 0;         // a launch stays a few microseconds
-  if (smem != last_smem) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaError_t e = cudaFuncSetAttribute(
-        k1_raster_kernel<DEPTH_ONLY>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, k1_raster_kernel<DEPTH_ONLY>, K1_THREADS, smem);
-    if (e != cudaSuccess) return (int)e;
-    blocks = sms * (per_sm > 0 ? per_sm : 1);
-    last_smem = smem;
-  }
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k1_raster_kernel<DEPTH_ONLY>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, k1_raster_kernel<DEPTH_ONLY>, K1_THREADS, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = sms * (per_sm > 0 ? per_sm : 1);
   *grid = max_items < blocks ? max_items : blocks;
   return 0;
 }
 
-static bool tile_fits(int tile_h, int tile_w) {
+// The caller's view of the schedule must be this file's: item_pairs and
+// tile_px (the key slots' size) are raster.py's K1_ITEM_PAIRS and
+// K1_TILE_PX, from which it sized the scratch.
+static bool args_fit(int tile_h, int tile_w, int item_pairs, int tile_px,
+                     int max_items) {
   return tile_h > 0 && tile_w > 0 &&
          ((tile_h + K1_SUB_H - 1) / K1_SUB_H) *
-                 ((tile_w + K1_SUB_W - 1) / K1_SUB_W) <= K1_WARPS;
+                 ((tile_w + K1_SUB_W - 1) / K1_SUB_W) <= K1_WARPS &&
+         item_pairs == K1_ITEM && tile_px == K1_TILE_PX && max_items > 0;
 }
 
-// scratch, one buffer the wrapper allocates: max_items * K1_TILE_PX uint64
-// per-item keys, then num_tiles + 1 int32 counters, which the entry clears.
-// max_items bounds the item count (raster.py k1_max_items).
+// partial: max_items * K1_TILE_PX uint64 per-item keys, which the wrapper
+// allocates for each call (max_items bounds the item count from shapes,
+// raster.py k1_max_items; an item past it traps). counters: num_tiles + 1
+// int32, zero before the call and left zero by it (the wrapper keeps one
+// buffer per device and stream).
 extern "C" int k1_raster(const int* pair_tri, const int* starts,
                          const int* counts, const int* big_tri,
                          const int* big_count, const float* setup,
@@ -531,22 +575,21 @@ extern "C" int k1_raster(const int* pair_tri, const int* starts,
                          const int* mask_table, int mask_rows, int* tri_out,
                          float* depth_out, float* interp_out, int width,
                          int height, int tile_h, int tile_w, int tiles_x,
-                         int num_tiles, void* scratch, int max_items,
+                         int num_tiles, void* partial, int max_items,
+                         int* counters, int item_pairs, int tile_px,
                          void* stream) {
-  if (!tile_fits(tile_h, tile_w)) return (int)cudaErrorInvalidValue;
+  if (!args_fit(tile_h, tile_w, item_pairs, tile_px, max_items))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = plan_bytes(num_tiles);
   int grid = 0;
   int rc = grid_size<false>(max_items, smem, &grid);
   if (rc) return rc;
-  unsigned long long* partial = (unsigned long long*)scratch;
-  int* counters = (int*)(partial + (size_t)max_items * K1_TILE_PX);
-  cudaError_t e = cudaMemsetAsync(counters, 0, plan_bytes(num_tiles), s);
-  if (e != cudaSuccess) return (int)e;
   k1_raster_kernel<false><<<grid, K1_THREADS, smem, s>>>(
       pair_tri, starts, counts, big_tri, big_count, setup, attr, zlim,
       mask_table, mask_rows, tri_out, depth_out, interp_out, width, height,
-      tile_h, tile_w, tiles_x, num_tiles, partial, counters);
+      tile_h, tile_w, tiles_x, num_tiles, (unsigned long long*)partial,
+      max_items, counters);
   return (int)cudaGetLastError();
 }
 
@@ -557,21 +600,19 @@ extern "C" int k1_raster_depth(const int* pair_tri, const int* starts,
                                const float* zlim, int* tri_out,
                                float* depth_out, int width, int height,
                                int tile_h, int tile_w, int tiles_x,
-                               int num_tiles, void* scratch, int max_items,
-                               void* stream) {
-  if (!tile_fits(tile_h, tile_w)) return (int)cudaErrorInvalidValue;
+                               int num_tiles, void* partial,
+                               int max_items, int* counters, int item_pairs,
+                               int tile_px, void* stream) {
+  if (!args_fit(tile_h, tile_w, item_pairs, tile_px, max_items))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = plan_bytes(num_tiles);
   int grid = 0;
   int rc = grid_size<true>(max_items, smem, &grid);
   if (rc) return rc;
-  unsigned long long* partial = (unsigned long long*)scratch;
-  int* counters = (int*)(partial + (size_t)max_items * K1_TILE_PX);
-  cudaError_t e = cudaMemsetAsync(counters, 0, plan_bytes(num_tiles), s);
-  if (e != cudaSuccess) return (int)e;
   k1_raster_kernel<true><<<grid, K1_THREADS, smem, s>>>(
       pair_tri, starts, counts, big_tri, big_count, setup, nullptr, zlim,
       nullptr, 0, tri_out, depth_out, nullptr, width, height, tile_h, tile_w,
-      tiles_x, num_tiles, partial, counters);
+      tiles_x, num_tiles, (unsigned long long*)partial, max_items, counters);
   return (int)cudaGetLastError();
 }

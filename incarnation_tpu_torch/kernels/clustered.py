@@ -10,6 +10,7 @@ ones.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -126,6 +127,15 @@ def _slice_bounds(near: float, far: float, gz: int):
         for k in range(1, gz))
 
 
+@functools.lru_cache(maxsize=16)
+def _slice_bounds_on(near: float, far: float, gz: int, device):
+    """_slice_bounds as an f32 tensor on `device`, made once per key: a
+    copy from host memory waits for the stream, so K2's wrapper does not
+    make one per call."""
+    return torch.tensor(_slice_bounds(near, far, gz) or (0.0,),
+                        dtype=torch.float32, device=device)
+
+
 def _slice_of(view_z, bounds):
     cz = torch.zeros(view_z.shape, dtype=torch.int32, device=view_z.device)
     for b in bounds:
@@ -213,8 +223,8 @@ def clustered_lighting(gb, n, v, depth, lights: lights_mod.LightTable,
     mask = gb.mask.to(torch.uint8).contiguous()
     cmask = cluster_mask.contiguous()
     rows = light_rows(lights)
-    bounds = torch.tensor(_slice_bounds(near, config.cluster_depth_extent,
-                                        gz) or (0.0,), dtype=f32, device=dev)
+    bounds = _slice_bounds_on(float(near), config.cluster_depth_extent, gz,
+                              dev)
     out = torch.empty((height, width, 3), dtype=f32, device=dev)
     K2(ptr(gb.base_color), ptr(gb.mrao), ptr(n), ptr(v), ptr(gb.world_pos),
        ptr(mask), ptr(depth), ptr(cmask), cmask.shape[1], ptr(rows),

@@ -328,17 +328,34 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _K1_DEPTH = "k1_raster_depth"   # the depth-only role's entry point
 K1 = Kernel("raster", "k1_raster",
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-             _I, _I, _I, _I, _I, _I, _P, _I],
+             _I, _I, _I, _I, _I, _I, _P, _I, _P, _I, _I],
             variants={_K1_DEPTH: [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _I, _P, _I]})
+                                  _I, _I, _I, _I, _I, _I, _P, _I, _P, _I,
+                                  _I]})
 
 # K1's schedule (csrc/raster.cu): each tile's pairs are cut into work items
 # of at most K1_ITEM_PAIRS; each warp owns a SUBTILE_W x SUBTILE_H sub-tile
-# (a lane per column) and a tile holds at most K1_WARPS of them.
+# (a lane per column) and a tile holds at most K1_WARPS of them; an item's
+# key slot holds K1_TILE_PX keys. The C entries refuse other values.
 K1_ITEM_PAIRS = 256
 K1_WARPS = 8
 K1_TILE_PX = 2048
 SUBTILE_W, SUBTILE_H = 32, 8
+
+# K1's work and arrival counters, per (device, stream): zero between
+# launches, which leave them zero (csrc/raster.cu), so a call needs no
+# memset. Grown, never shrunk.
+_K1_COUNTERS: dict = {}
+
+
+def _k1_counters(dev, num_tiles: int):
+    stream = torch.cuda.current_stream(dev)
+    key = (dev.index, stream.cuda_stream)
+    buf = _K1_COUNTERS.get(key)
+    if buf is None or buf.numel() < num_tiles + 1:
+        buf = torch.zeros(num_tiles + 1, dtype=torch.int32, device=dev)
+        _K1_COUNTERS[key] = buf
+    return buf
 
 
 def k1_max_items(bins: Bins, params: RasterParams) -> int:
@@ -422,17 +439,18 @@ def rasterize_tiles(bins: Bins, params: RasterParams, z_limit=None,
         _check(z_limit, torch.float32, dev, "z_limit", (p.height, p.width))
     tri = torch.empty((p.height, p.width), dtype=torch.int32, device=dev)
     depth = torch.empty((p.height, p.width), dtype=torch.float32, device=dev)
-    # one scratch buffer: each item's keys (multi-item tiles), then the
-    # work and arrival counters, which the C entry clears
+    # each item's keys (multi-item tiles), and the counters
     max_items = k1_max_items(bins, p)
-    scratch = torch.empty(max_items * K1_TILE_PX + p.num_tiles // 2 + 1,
-                          dtype=torch.int64, device=dev)
+    partial = torch.empty(max_items * K1_TILE_PX, dtype=torch.int64,
+                          device=dev)
+    sched = (ptr(partial), max_items, ptr(_k1_counters(dev, p.num_tiles)),
+             K1_ITEM_PAIRS, K1_TILE_PX)
     if p.depth_only:
         K1(ptr(bins.pair_tri), ptr(bins.starts), ptr(bins.counts),
            ptr(bins.big_tri), ptr(bins.big_count), ptr(bins.setup),
            ptr(z_limit), ptr(tri), ptr(depth), p.width, p.height, p.tile_h,
-           p.tile_w, p.tiles_x, p.num_tiles, ptr(scratch), max_items,
-           name=name, variant=_K1_DEPTH)
+           p.tile_w, p.tiles_x, p.num_tiles, *sched, name=name,
+           variant=_K1_DEPTH)
         return tri, depth, None
     _check(bins.attr, torch.float32, dev, "attr",
            (bins.setup.shape[0], ATTR_ROWS))
@@ -448,7 +466,7 @@ def rasterize_tiles(bins: Bins, params: RasterParams, z_limit=None,
        ptr(bins.big_tri), ptr(bins.big_count), ptr(bins.setup),
        ptr(bins.attr), ptr(z_limit), ptr(mask_table), rows, ptr(tri),
        ptr(depth), ptr(interp), p.width, p.height, p.tile_h, p.tile_w,
-       p.tiles_x, p.num_tiles, ptr(scratch), max_items, name=name)
+       p.tiles_x, p.num_tiles, *sched, name=name)
     return tri, depth, interp
 
 

@@ -162,3 +162,21 @@ def test_work_items_follow_the_list_lengths():
     assert items == p.num_tiles + 5 + 1
     assert largest == item
     assert items <= raster.k1_max_items(bins, p)
+
+
+def test_schedule_constants_match_the_kernel_source():
+    """The wrapper sizes K1's key slots and sub-tile checks from its own
+    copies of raster.cu's schedule constants; the C entries refuse a call
+    whose item size or slot size differs, and here the copies are held to
+    the source's #defines."""
+    import pathlib
+    import re
+    src = (pathlib.Path(raster.__file__).resolve().parents[1] / "csrc"
+           / "raster.cu").read_text()
+    defs = {k: int(v) for k, v in
+            re.findall(r"^#define (K1_\w+) (\d+)", src, flags=re.M)}
+    assert defs["K1_ITEM"] == raster.K1_ITEM_PAIRS
+    assert defs["K1_THREADS"] * defs["K1_PPL"] == raster.K1_TILE_PX
+    assert defs["K1_WARPS"] == raster.K1_WARPS
+    assert (defs["K1_SUB_W"], defs["K1_SUB_H"]) == (raster.SUBTILE_W,
+                                                    raster.SUBTILE_H)

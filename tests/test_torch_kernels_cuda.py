@@ -254,6 +254,21 @@ def test_k1_split_long_lists(dev):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_k1_leaves_its_counters_zero(dev):
+    """K1 keeps its work and arrival counters from call to call, and each
+    call leaves them zero: a split list launched twice in a row gives the
+    same outputs both times, and the counters read zero after."""
+    bins, p = _bins(dev, seed=5)
+    crafted = _long_list_bins(dev, bins[0], 2, 3000, seed=8)
+    first = raster.rasterize_tiles(crafted, p)
+    second = raster.rasterize_tiles(crafted, p)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    _assert_k1(second, raster.rasterize_tiles_plain(crafted, p))
+    counters = raster._k1_counters(crafted.setup.device, p.num_tiles)
+    assert int(counters.abs().sum()) == 0
+
+
 def test_k1_equal_depth_ties_across_work_items(dev):
     """Screen-filling triangles at one depth, their pairs shuffled over a
     list of several work items: every pixel goes to the largest id, as in
