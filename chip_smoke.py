@@ -25,6 +25,16 @@ BLEND quad) renders one forward-lighting frame with blend layers and both
 debug draws, holds one blend-layer launch of K1 to its twin, renders one
 frame per view mode and checks pick and highlight.
 
+Then the BVH paths on the atrium: (a) the scene BVH built on the host;
+(b) the path tracer (render_pathtrace) at the JAX bench's 640x360, one
+warm-up sample and 8 timed ones, counted rays per second, K4 launches per
+sample by role; (c) K4 against its twin on one sample's primary, bounce
+and shadow traces (identical hits), timed, with its bound and steps per
+ray; (d) one sample with K4 swapped for its twin (identical radiance);
+(e) one 1920x1088 render_frame with RT sun shadows and HBAO through the
+same BVH (RT shadows darken the frame, AO in [0, 1], unit bent normals,
+the share of covered pixels where RT and shadow-map visibility agree).
+
 It prints one JSON line of kernel figures; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises, and the script
 exits non-zero without printing that line. It needs CUDA and the
@@ -34,6 +44,7 @@ repository around it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -69,6 +80,28 @@ K1_OPS_PER_PAIR_PIXEL = 16
 K2_OPS_DIST, K2_OPS_RANGE, K2_OPS_DIR = 9, 6, 4
 K2_OPS_SPOT, K2_OPS_NOL, K2_OPS_BRDF = 11, 7, 96
 K3_OPS_PER_PIXEL = 45          # 3x4 reprojection, divide, 3-channel bilerp
+# K4, counted from csrc/bvh.cu (a fused multiply-add counts two), for the
+# slots these inputs fill (K4 also tests the empty ones, which need no
+# work): a triangle test 46 per filled leaf slot the ray must test (two
+# cross products at 9, four dot products at 5, the reciprocal 1, o - v0 3,
+# three scalings by the reciprocal 3, u + v 1; with any hit, up to the
+# accepted slot); a box test 24 per filled child slot of an internal row
+# (per axis 2 subtractions, 2 multiplications, a min and a max, and the
+# two running bounds) and 1 per internal row for its limit. A ray reads 24
+# bytes (origin, direction) and writes 16 (t, tri, u, v).
+K4_OPS_TRI = 46
+K4_OPS_BOX = 24
+K4_OPS_INTERNAL = 1
+K4_RAY_BYTES = 24 + 16
+PT_W, PT_H = 640, 360      # the JAX bench's path-tracing size (bench.py:156)
+PT_SAMPLES = 8             # timed samples, after one warm-up
+# K4 launches per path-traced sample, by role (kernels/pathtrace.py): one
+# primary trace, a closest-hit trace for each of the 3 further bounces,
+# one any-hit shadow batch per bounce; up to 2 alpha continuations of each
+# closest-hit trace and 1 of each shadow batch
+PT_LAUNCHES = {"pt_primary": (1, 1), "pt_bounce": (3, 3),
+               "pt_shadow": (4, 4), "pt_primary_peel": (0, 2),
+               "pt_bounce_peel": (0, 6), "pt_shadow_peel": (0, 4)}
 # cycles a spin kernel runs per second at the H100 SXM's highest SM clock
 # (1.98 GHz): at a lower clock the spin lasts longer, never shorter
 SPIN_CYCLES_PER_S = 2.0e9
@@ -153,7 +186,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from incarnation_tpu_torch.core import mathutils as mu
-    from incarnation_tpu_torch.kernels import (build, clustered, raster,
+    from incarnation_tpu_torch.kernels import (build, bvh, clustered, raster,
                                                shadow, taa)
 
     # 1. the card
@@ -182,7 +215,7 @@ def main(argv=None) -> int:
     run(make_fc(1, fc0.view_proj.cpu().numpy()), warm["accumulation"])
     torch.cuda.synchronize()
 
-    kernels = (raster.K1, clustered.K2, taa.K3)
+    kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4)
     for k in kernels:
         k.reset()
     history = torch.zeros((H, W, 3), device=dev)
@@ -204,6 +237,8 @@ def main(argv=None) -> int:
         prev_vp = fc.view_proj.cpu().numpy()
         per_frame.append([k.launches - n for k, n in zip(kernels, before)])
     launches = {k.fn: k.launches for k in kernels}
+    if launches.pop("k4_trace"):
+        raise RuntimeError("the raster frame launched K4")
     k1_by_layer = dict(raster.K1.by_name)
     _log(f"launches on the main path: {launches}, K1 by layer {k1_by_layer}")
     _log("frame ms: " + ", ".join(f"{t:.2f}" for t in frame_ms))
@@ -229,11 +264,11 @@ def main(argv=None) -> int:
         raise RuntimeError("the atrium frame is mostly empty")
     # per frame: K1 for the opaque layer, each peel, the decals and the
     # shadow map, K2 once, K3 on every frame with a history (all but
-    # frame 0)
-    want = [[3 + PEELS, 1, int(i > 0)] for i in range(FRAMES)]
+    # frame 0), K4 never (no BVH on this path)
+    want = [[3 + PEELS, 1, int(i > 0), 0] for i in range(FRAMES)]
     if per_frame != want:
-        raise RuntimeError(f"launches per frame (K1, K2, K3) {per_frame} "
-                           f"!= {want}")
+        raise RuntimeError(f"launches per frame (K1, K2, K3, K4) "
+                           f"{per_frame} != {want}")
     if k1_by_layer != {"raster_opaque": FRAMES, "raster_decal": FRAMES,
                        "raster_peel": FRAMES * PEELS,
                        "raster_shadow_depth": FRAMES}:
@@ -272,6 +307,9 @@ def main(argv=None) -> int:
     # 7. the small path: forward lighting with blend layers and the debug
     # draws, every view mode, pick and highlight
     rows.insert(4, small_path(dev, raster, clustered, taa))
+
+    # 8. the BVH paths: the path tracer, then RT shadows and HBAO
+    rows += bvh_paths(dev, path, args.profile)
     # a bound counts the least work the inputs need: no kernel beats it
     shares = {r["name"]: r["bound_ms"] / r["ms"] for r in rows}
     _log("bound share (bound ms / ms): " + json.dumps(
@@ -345,39 +383,30 @@ def atrium_path(dev):
             prev_view_proj=prev_vp, history_valid=i > 0, frame_index=i,
             shadow_bounds=shadow_bounds, device=dev)
 
-    def run(fc, history, config=cfg):
+    def run(fc, history, config=cfg, scene_bvh=None):
         return frame.render_frame(scene, fc, config=config, params=params,
                                   probe=probe, env_brdf=env_brdf,
-                                  history=history)
+                                  history=history, scene_bvh=scene_bvh)
 
     return types.SimpleNamespace(host=host, scene=scene, cfg=cfg,
-                                 params=params, run=run, make_fc=make_fc)
+                                 params=params, run=run, make_fc=make_fc,
+                                 probe=probe, env_brdf=env_brdf, sun=sun,
+                                 shadow_bounds=shadow_bounds)
 
 
 def capture_frame(run, fc, history, raster, clustered, taa):
     """Run one frame with each kernel wrapper wrapped to record its
     arguments; returns [(kind, args, kwargs)] in launch order."""
-    calls = []
-    originals = {}
-
-    def hook(mod, name, kind):
-        fn = getattr(mod, name)
-        originals[(mod, name)] = fn
-
-        def recorded(*a, **kw):
-            calls.append((kind, a, kw))
-            return fn(*a, **kw)
-        setattr(mod, name, recorded)
-
-    hook(raster, "rasterize_tiles", "k1")
-    hook(clustered, "clustered_lighting", "k2")
-    hook(taa, "history_fetch", "k3")
-    try:
-        run(fc, history)
-    finally:
-        for (mod, name), fn in originals.items():
-            setattr(mod, name, fn)
     import torch
+    calls = []
+    with contextlib.ExitStack() as stack:
+        for mod, name, kind in ((raster, "rasterize_tiles", "k1"),
+                                (clustered, "clustered_lighting", "k2"),
+                                (taa, "history_fetch", "k3")):
+            stack.enter_context(_hooked(
+                mod, name, lambda out, *a, kind=kind, **kw: calls.append(
+                    (kind, a, kw))))
+        run(fc, history)
     torch.cuda.synchronize()
     return calls
 
@@ -679,6 +708,311 @@ def small_path(dev, raster, clustered, taa):
     return row
 
 
+def bvh_paths(dev, path, profile: bool):
+    """Phases (a)-(e) on the atrium: the scene BVH, the path tracer at
+    PT_W x PT_H, K4 against its twin, a sample with the twin, and the RT
+    shadow + HBAO frame at W x H. Returns K4's JSON rows, one per role."""
+    import torch
+    from incarnation_tpu_torch.kernels import bvh, hbao, pathtrace, shadow
+    from incarnation_tpu_torch.renderer import frame
+    from incarnation_tpu_torch.core import mathutils as mu
+
+    # (a) the scene BVH, built on the host and moved to the card
+    t0 = time.perf_counter()
+    sbvh = bvh.build_scene_bvh(path.scene, device=dev)
+    torch.cuda.synchronize()
+    rows_np = sbvh.rows[:, bvh._W_FLAG].cpu()
+    n_leaf = int((rows_np > 0.5).sum())
+    _log(f"(a) atrium BVH: {sbvh.rows.shape[0]} rows ({n_leaf} leaves, "
+         f"{sbvh.rows.shape[0] - n_leaf} 8-wide internal), "
+         f"{sbvh.nbytes() / 2**20:.2f} MiB on the card, built on the host "
+         f"in {time.perf_counter() - t0:.1f} s")
+
+    # (b) the path tracer, as the JAX bench runs it (bench.py:145-190)
+    cfg = path.cfg
+    fc = frame.FrameConstants.make(
+        bench_view(path.host, PT_W, PT_H), cfg, sun_dir=path.sun,
+        sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
+        shadow_bounds=path.shadow_bounds, device=dev)
+
+    def sample(i, history):
+        return frame.render_pathtrace(path.scene, sbvh, fc, history, i,
+                                      config=cfg, width=PT_W, height=PT_H,
+                                      probe=path.probe)
+
+    truncs = []
+    with _hooked(bvh, "trace", lambda out, *a, **kw: truncs.append(
+            out["trunc"])):
+        history = sample(0, torch.zeros((PT_H, PT_W, 3), device=dev))[
+            "history"]
+        torch.cuda.synchronize()
+        bvh.K4.reset()
+        rays, per_sample = [], []
+        t0 = time.perf_counter()
+        for i in range(1, 1 + PT_SAMPLES):
+            before = dict(bvh.K4.by_name)
+            out = sample(i, history)
+            history = out["history"]
+            rays.append(out["rays"])
+            per_sample.append({k: bvh.K4.by_name.get(k, 0) - before.get(k, 0)
+                               for k in bvh.K4.by_name})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    pt_launches = dict(bvh.K4.by_name)
+    n_rays = float(torch.stack(rays).sum())
+    _log(f"(b) path tracer {PT_W}x{PT_H}: {PT_SAMPLES} samples in "
+         f"{wall * 1e3:.1f} ms ({wall / PT_SAMPLES * 1e3:.1f} ms per "
+         f"sample), counted rays per sample "
+         + ", ".join(f"{float(r):.0f}" for r in rays)
+         + f"; {n_rays / wall / 1e6:.4f} Mray/s")
+    _log(f"(b) K4 launches per sample by role: {json.dumps(per_sample)}")
+    for i, got in enumerate(per_sample):
+        for role, (lo, hi) in PT_LAUNCHES.items():
+            if not lo <= got.get(role, 0) <= hi:
+                raise RuntimeError(f"sample {i}: {got.get(role, 0)} K4 "
+                                   f"launches as {role}, not in [{lo}, {hi}]")
+        if set(got) - set(PT_LAUNCHES):
+            raise RuntimeError(f"sample {i}: K4 roles {sorted(got)}")
+    bad = [int(t) for t in truncs if int(t) != 0]
+    _log(f"(b) trunc over the {len(truncs)} traces: {sum(bad)}")
+    if bad:
+        raise RuntimeError(f"{len(bad)} traces stopped rays at the step "
+                           f"budget: {bad}")
+    color = out["color"]
+    neg = int((history < 0).any(-1).sum())
+    _log(f"(b) history: min {float(history.min()):.4g}, max "
+         f"{float(history.max()):.4g}, mean {float(history.mean()):.4g}, "
+         f"{neg} pixels with a negative channel; mean u8 colour "
+         f"{float(color.float().mean()):.2f}")
+    if not bool(torch.isfinite(history).all()) or neg:
+        raise RuntimeError("the path-traced history is not finite and >= 0")
+    if float(color.float().mean()) < 2.0:
+        raise RuntimeError("the path-traced image is black")
+
+    # (c) K4 against its twin on one sample's launches
+    calls = {}
+
+    def keep(out, bvh_, o, d, tmin=0.0, tmax=1e30, any_hit=False,
+             role=None, **kw):
+        calls.setdefault(role, (bvh_, o, d, tmin, tmax, any_hit))
+    with _hooked(bvh, "trace_k4", keep):
+        sample(PT_SAMPLES + 1, history)
+    rows = [k4_row(bvh, calls[role], role, pt_launches.get(role, 0))
+            for role in ("pt_primary", "pt_bounce", "pt_shadow",
+                         "pt_primary_peel") if role in calls]
+
+    # (d) one sample with K4 swapped for its twin
+    got = sample(PT_SAMPLES + 1, history)["history"]
+    with _swapped(bvh, "trace_k4", _k4_twin(bvh)):
+        ref = sample(PT_SAMPLES + 1, history)["history"]
+    torch.cuda.synchronize()
+    diff = float((got - ref).abs().max())
+    _log(f"(d) a sample with K4 against the same sample with its twin: "
+         f"identical {bool(torch.equal(got, ref))}, max abs diff {diff:.3e}")
+    if not torch.equal(got, ref):
+        raise RuntimeError("the sample with K4 differs from the twin's")
+    if profile:
+        profile_pt(sample, history, bvh, pathtrace)
+
+    # (e) the raster frame with RT sun shadows and HBAO, W x H
+    rt_cfg = cfg.replace(sun_shadow_mode="rt", enable_hbao=True,
+                         use_bent_normals=True)
+    fc = path.make_fc(0, None)
+    hist0 = torch.zeros((H, W, 3), device=dev)
+    path.run(fc, hist0, rt_cfg, sbvh)                    # warm-up
+    for k in (bvh.K4,):
+        k.reset()
+    rt_calls = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with _hooked(bvh, "trace_k4", lambda out, bvh_, o, d, tmin=0.0,
+                 tmax=1e30, any_hit=False, role=None, **kw:
+                 rt_calls.setdefault(role, (bvh_, o, d, tmin, tmax,
+                                            any_hit))):
+        start.record()
+        out = path.run(fc, hist0, rt_cfg, sbvh)
+        end.record()
+        torch.cuda.synchronize()
+    rt_launches = dict(bvh.K4.by_name)
+    _log(f"(e) RT shadow + HBAO frame {W}x{H}: {start.elapsed_time(end):.2f}"
+         f" ms, K4 launches by role {json.dumps(rt_launches)}")
+    if rt_launches.get("rt_sun") != 1 or not 1 <= rt_launches.get(
+            "hbao", 0) <= 2 * hbao.NUM_SLICES * hbao.MAX_TRACES_PER_SLICE:
+        raise RuntimeError(f"RT frame K4 launches {rt_launches}")
+    for key in ("bin_overflow", "big_overflow", "peel_overflow"):
+        if int(out["stats"][key]) != 0:
+            raise RuntimeError(f"RT frame: {key} = {int(out['stats'][key])}")
+    hdr = out["hdr"]
+    off = path.run(fc, hist0, rt_cfg.replace(sun_shadow_mode="off"),
+                   sbvh)["hdr"]
+    gb = out["gbuffer"]
+    ao, bent = hbao.hbao(sbvh, gb, out["depth"], fc, W, H)
+    m = gb.mask
+    ao_mean = float(ao[m].mean())
+    bent_len = torch.linalg.vector_norm(mu.oct_decode(bent)[m], dim=-1)
+    vis_rt = frame.rt_sun_visibility(path.scene, sbvh, gb, fc)
+    smap, _ = shadow.render_sun_shadow_map(
+        path.scene, fc.scene_rotation, fc.sun_view_proj,
+        shadow.shadow_params(cfg.shadow_map_resolution, cfg))
+    vis_map = shadow.sun_visibility(
+        gb.world_pos, torch.sum(mu.oct_decode(gb.normals) * fc.sun_dir, -1),
+        smap, fc.sun_view_proj, cfg.shadow_map_resolution)
+    agree = float(((vis_rt[m] > 0.5) == (vis_map[m] > 0.5)).float().mean())
+    _log(f"(e) mean hdr {float(hdr.mean()):.2f} with RT shadows, "
+         f"{float(off.mean()):.2f} without; RT shadow share "
+         f"{float((vis_rt[m] < 0.5).float().mean()):.4f}, map shadow share "
+         f"{float((vis_map[m] < 0.5).float().mean()):.4f}, RT and map agree "
+         f"on {agree:.4f} of the covered pixels; AO mean {ao_mean:.4f} "
+         f"(min {float(ao.min()):.4f}, max {float(ao.max()):.4f}); bent "
+         f"normal length {float(bent_len.min()):.6f}-"
+         f"{float(bent_len.max()):.6f}")
+    if not bool(torch.isfinite(hdr).all()):
+        raise RuntimeError("the RT frame is not finite")
+    if not float(hdr.mean()) < float(off.mean()):
+        raise RuntimeError("RT shadows do not darken the frame")
+    if not (float(ao.min()) >= 0.0 and float(ao.max()) <= 1.0
+            and 0.0 < ao_mean < 1.0):
+        raise RuntimeError("AO outside [0, 1] or its mean not inside it")
+    if float((bent_len - 1.0).abs().max()) > 1e-4:
+        raise RuntimeError("the bent normals are not unit length")
+    rows += [k4_row(bvh, rt_calls[role], role, rt_launches.get(role, 0))
+             for role in ("hbao", "rt_sun")]
+    return rows
+
+
+def k4_row(bvh, call, role, n_launches):
+    """K4 against its twin on one captured launch (identical tri, t, u, v
+    and trunc, or it raises), both timed, the bound from the twin's walk
+    -> the role's JSON row."""
+    import torch
+    b, o, d, tmin, tmax, any_hit = call
+    got = bvh.trace_k4(b, o, d, tmin, tmax, any_hit, return_steps=True)
+    ref = bvh.trace_plain(b, o, d, tmin, tmax, any_hit, return_steps=True)
+    for k in ("tri", "t", "u", "v", "steps"):
+        if not torch.equal(got[k], ref[k]):
+            n = int((got[k] != ref[k]).sum())
+            raise RuntimeError(f"K4 {role}: {k} differs from its twin on "
+                               f"{n} of {got[k].numel()} rays")
+    if int(got["trunc"]) != int(ref["trunc"]) or int(got["trunc"]):
+        raise RuntimeError(f"K4 {role}: trunc {int(got['trunc'])}, twin "
+                           f"{int(ref['trunc'])}")
+    r = o.shape[0]
+    steps = ref["steps"].double()
+    leaf = ref["leaf_steps"].double()
+    n_rows = int(ref["visited"].sum())
+    nbytes = r * (K4_RAY_BYTES + (4 if torch.is_tensor(tmin) else 0)) \
+        + n_rows * bvh.WIDE_LANES * 4
+    ops = float(ref["tri_tests"].double().sum()) * K4_OPS_TRI \
+        + float(ref["box_tests"].double().sum()) * K4_OPS_BOX \
+        + float((steps - leaf).sum()) * K4_OPS_INTERNAL
+    bound_ms, bound_by = _bound(nbytes, ops)
+    hits = float((got["tri"] >= 0).float().mean())
+    ms = device_ms(lambda: bvh.trace_k4(b, o, d, tmin, tmax, any_hit), 5)
+    plain_ms = device_ms(lambda: bvh.trace_plain(b, o, d, tmin, tmax,
+                                                 any_hit), 1)
+    _log(f"K4 {role}: {r} rays ({'any' if any_hit else 'closest'} hit, "
+         f"{hits:.4f} hit), steps per ray mean {float(steps.mean()):.2f} "
+         f"max {int(steps.max())} (leaf {float(leaf.mean()):.2f}), "
+         f"filled slots tested per ray: "
+         f"{float(ref['tri_tests'].double().mean()):.2f} triangles, "
+         f"{float(ref['box_tests'].double().mean()):.2f} boxes, "
+         f"{n_rows} distinct rows; {ms:.4f} ms, twin {plain_ms:.2f} ms, "
+         f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
+         f"{ops / 1e9:.3f} GFLOP); identical to the twin")
+    return dict(
+        name=f"k4_trace[{role}]", route="cuda",
+        source="incarnation_tpu_torch/csrc/bvh.cu",
+        replaces="incarnation_tpu/kernels/bvh.py:1108",
+        launches=n_launches, max_abs_err=0.0, max_rel_err=0.0, ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, steps_mean=float(steps.mean()),
+        steps_max=int(steps.max()), trunc=int(got["trunc"]))
+
+
+def _k4_twin(bvh):
+    def twin(b, o, d, tmin=0.0, tmax=1e30, any_hit=False,
+             max_steps=bvh.MAX_STEPS, return_steps=False, role=None):
+        return bvh.trace_plain(b, o, d, tmin, tmax, any_hit, max_steps,
+                               return_steps)
+    return twin
+
+
+@contextlib.contextmanager
+def _swapped(mod, name, fn):
+    """mod.name replaced by fn for the duration of the block."""
+    saved = getattr(mod, name)
+    setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        setattr(mod, name, saved)
+
+
+def _hooked(mod, name, after):
+    """mod.name calls after(result, *args, **kwargs) on each call, for the
+    duration of the block."""
+    fn = getattr(mod, name)
+
+    def hooked(*a, **kw):
+        out = fn(*a, **kw)
+        after(out, *a, **kw)
+        return out
+    return _swapped(mod, name, hooked)
+
+
+def profile_pt(sample, history, bvh, pathtrace):
+    """ms of one path-traced sample by phase (a synchronize around each):
+    traversal by K4 role, the alpha tests of the peels, the material fetch
+    (hit attributes + textures), and the rest (shading, sampling, host);
+    then a torch.profiler table of one sample."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    spent = {}
+
+    def timed(key_of, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            key = key_of(*a, **kw)
+            spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    with _swapped(bvh, "trace_k4", timed(
+            lambda *a, role=None, **kw: f"traversal[{role}]",
+            bvh.trace_k4)), \
+            _swapped(pathtrace, "_alpha_at_hit", timed(
+                lambda *a, **kw: "alpha tests", pathtrace._alpha_at_hit)), \
+            _swapped(pathtrace, "_eval_material", timed(
+                lambda *a, **kw: "material fetch",
+                pathtrace._eval_material)), \
+            _swapped(pathtrace, "_hit_attributes", timed(
+                lambda *a, **kw: "hit attributes",
+                pathtrace._hit_attributes)):
+        sample(1, history)
+        spent.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sample(1, history)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+    ms = {k: v * 1e3 for k, v in spent.items()}
+    ms["shading, sampling, host"] = total - sum(ms.values())
+    _log(f"PT sample by phase, {total:.2f} ms with a synchronize around "
+         "each phase: " + json.dumps(
+             {k: round(v, 3) for k, v in sorted(ms.items(),
+                                                key=lambda kv: -kv[1])}))
+    sample(1, history)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sample(1, history)
+        torch.cuda.synchronize()
+    _log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+
 def _close(what, got, ref, rtol, atol_frac, where=None):
     """Holds got to ref per element: |got - ref| <= rtol |ref| + atol, with
     atol = atol_frac x the median nonzero |ref| (over the pixels `where`
@@ -811,18 +1145,11 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
         return raster.rasterize_tiles_plain(bins, params, z_limit,
                                             mask_table)
 
-    swaps = {(raster, "rasterize_tiles"): raster_plain,
-             (clustered, "clustered_lighting"):
-                 clustered.clustered_lighting_plain,
-             (taa, "history_fetch"): taa.history_fetch_plain}
-    saved = {key: getattr(*key) for key in swaps}
-    try:
-        for (mod, name), fn in swaps.items():
-            setattr(mod, name, fn)
+    with _swapped(raster, "rasterize_tiles", raster_plain), \
+            _swapped(clustered, "clustered_lighting",
+                     clustered.clustered_lighting_plain), \
+            _swapped(taa, "history_fetch", taa.history_fetch_plain):
         ref = run(fc, history)
-    finally:
-        for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
     torch.cuda.synchronize()
     share = float((got["tri"] != ref["tri"]).float().mean())
     mse = float(((got["color"].double() - ref["color"].double()) ** 2)

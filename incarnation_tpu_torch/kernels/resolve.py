@@ -137,3 +137,17 @@ def resolve_gbuffer(tri, depth, scene, interp, inv_view_proj,
     if return_normal3:
         return gb, torch.where(m, n_mapped, 0.0)
     return gb
+
+
+def vertex_world_attributes(scene, scene_rotation):
+    """Per-vertex world-space normals and tangents (V, 3) each. Like the
+    reference (gbuffer-compute.hlsl:238-241), normals go through the 3x3 of
+    the local-to-world transform, without the inverse transpose."""
+    rot = scene.mesh_transforms[:, :3, :3] @ scene_rotation[:3, :3]
+    r = rot[scene.vtx_mesh.long()]                       # (V, 3, 3)
+
+    def apply(x):
+        return (x[:, 0:1] * r[:, 0] + x[:, 1:2] * r[:, 1]
+                + x[:, 2:3] * r[:, 2])
+
+    return apply(scene.normals), apply(scene.tangents[:, :3])

@@ -36,6 +36,12 @@ def g_schlick_ggx(u, k):
     return u / (u * (1.0 - k) + k)
 
 
+def g_smith_direct(no_v, no_l, roughness):
+    a2 = roughness * roughness
+    k = (a2 + 1.0) ** 2 / 8.0
+    return g_schlick_ggx(no_v, k) * g_schlick_ggx(no_l, k)
+
+
 def g_smith_ibl(no_v, no_l, roughness):
     a2 = roughness * roughness
     k = 0.5 * a2 * a2

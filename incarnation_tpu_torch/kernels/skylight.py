@@ -14,11 +14,14 @@ from . import sky as sky_mod
 
 
 def sky_lighting(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
-                 sky_brightness, diffuse_ibl: bool = True,
-                 specular_ibl: bool = True, lighting_only: bool = False,
-                 extras=None, analytic_env_brdf: bool = False):
+                 sky_brightness, hbao=None, bent_normals=None,
+                 diffuse_ibl: bool = True, specular_ibl: bool = True,
+                 lighting_only: bool = False, extras=None,
+                 analytic_env_brdf: bool = False):
     """Additive sky radiance for covered pixels (ref: sky-lighting.hlsl).
-    extras: gb.extras when the scene has transmission/clearcoat factors."""
+    hbao: (H, W) AO that scales the result; bent_normals: (H, W, 3) normals
+    for the diffuse SH lookup. extras: gb.extras when the scene has
+    transmission/clearcoat factors."""
     base = (torch.full_like(gb.base_color[..., :3], 0.5) if lighting_only
             else gb.base_color[..., :3])
     metallic = gb.mrao[..., 0:1]
@@ -31,8 +34,9 @@ def sky_lighting(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
         albedo = (1.0 - metallic) * base
         if extras is not None:
             albedo = albedo * (1.0 - extras[..., 0:1])
+        sampling_n = bent_normals if bent_normals is not None else n
         sh_diffuse = (albedo * mu.INV_PI
-                      * ibl.sh_irradiance(n, probe.sh) * 5.0)
+                      * ibl.sh_irradiance(sampling_n, probe.sh) * 5.0)
         radiance = radiance + sky_brightness * (
             sh_diffuse * (1 - ao_blend) + ao * sh_diffuse * ao_blend)
 
@@ -64,6 +68,8 @@ def sky_lighting(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
             radiance = radiance * (1.0 - fc)
         radiance = radiance + sky_brightness * (
             spec * (1 - ao_blend) + ao * spec * ao_blend)
+    if hbao is not None:
+        radiance = radiance * hbao[..., None]
     return torch.where(gb.mask[..., None], radiance, 0.0)
 
 

@@ -8,10 +8,15 @@ z_limit peels, shaded and composited front to back) -> TAA (K3) -> view
 mode / tonemap -> debug draws. The sun shadow map (K1's depth-only role)
 is rendered once per frame before shading when sun_shadow_mode is "map".
 
-Not ported yet, and raising NotImplementedError: what needs a BVH (RT sun
-shadows, HBAO) and what needs a device mesh (band sharding).
-sun_shadow_mode "auto" with no scene BVH means no shadows, as in the JAX
-package.
+With a scene BVH (kernels/bvh.py), sun_shadow_mode "auto" or "rt" traces
+one any-hit sun ray per covered pixel (K4 on the card) in place of the
+shadow map, and enable_hbao adds ray-traced AO and bent normals to the sky
+lighting. sun_shadow_mode "auto" with no scene BVH means no shadows, as in
+the JAX package. render_pathtrace is the second renderer: one progressive
+path-traced sample per call (kernels/pathtrace.py).
+
+Not ported yet, and raising NotImplementedError: band sharding, which needs
+a device mesh.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ import torch
 from ..config import Config, EnvSkyMode, ViewMode
 from ..core import mathutils as mu
 from ..device import resolve_device
-from ..kernels import (clustered, cull, ibl, post, raster, resolve, shading,
-                       skylight, taa)
+from ..kernels import (clustered, cull, hbao, ibl, pathtrace, post, raster,
+                       resolve, shading, skylight, taa)
 from ..kernels import shadow as shadow_mod
 from ..scene import lights as lights_mod
 
@@ -51,6 +56,13 @@ class FrameConstants:
     prev_view_proj_np: np.ndarray
     sun_view_proj: torch.Tensor   # (4, 4) ortho sun-view VP of the shadow
     #   map (identity when make() was given no shadow_bounds)
+    camera_right: torch.Tensor    # (3,) camera basis (thin-lens aperture)
+    camera_up: torch.Tensor       # (3,)
+    aperture: float               # path-tracer aperture
+    focal_length: float           # path-tracer focal length
+    inv_scene_rotation: torch.Tensor  # (4, 4): rays are inverse-rotated
+    #   into the BVH's unrotated world space instead of rebuilding it
+    turbidity: float
 
     @staticmethod
     def make(view, config: Config, sun_dir=None, sun_color_intensity=None,
@@ -100,22 +112,20 @@ class FrameConstants:
             history_valid=bool(history_valid),
             frame_index=int(frame_index),
             inv_view_proj_np=inv_vp, prev_view_proj_np=prev,
-            sun_view_proj=dev(sun_vp))
+            sun_view_proj=dev(sun_vp),
+            camera_right=dev(view.right), camera_up=dev(view.up),
+            aperture=float(config.pathtracing_camera_aperture),
+            focal_length=float(config.pathtracing_camera_focal_length),
+            inv_scene_rotation=dev(np.linalg.inv(
+                np.eye(4, dtype=np.float32) if scene_rotation is None
+                else np.asarray(scene_rotation, np.float32))),
+            turbidity=float(config.turbidity))
 
 
-def _check_supported(config: Config, scene_bvh=None, band_axis=None):
-    todo = []
-    if config.sun_shadow_mode == "rt":
-        todo.append("sun_shadow_mode='rt'")
-    if scene_bvh is not None:
-        todo.append("scene_bvh (RT shadows, HBAO)")
-    if config.enable_hbao:
-        todo.append("enable_hbao")
+def _check_supported(band_axis=None):
     if band_axis is not None:
-        todo.append("band_axis (band sharding)")
-    if todo:
         raise NotImplementedError(
-            "not ported yet: " + ", ".join(todo))
+            "not ported yet: band_axis (band sharding)")
 
 
 def render_frame(scene, fc: FrameConstants, *, config: Config,
@@ -124,8 +134,9 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
     """Full raster-path frame. probe + env_brdf enable the sky-lighting
     pass. Returns dict with 'color' (H, W, 3) uint8 sRGB, 'hdr',
     'accumulation', 'tri', 'depth', 'gbuffer' and 'stats' (tensors).
-    scene_bvh and band_axis belong to later slices and raise."""
-    _check_supported(config, scene_bvh, band_axis)
+    scene_bvh: the scene's BVH, for RT sun shadows ("auto" / "rt") and
+    HBAO. band_axis belongs to a later slice and raises."""
+    _check_supported(band_axis)
     dev = scene.tri_prim.device
     prim_visible = torch.ones_like(scene.prim_is_decal, dtype=torch.bool)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -271,9 +282,9 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
 
     n = n3 if n3 is not None else mu.oct_decode(gb.normals)
     shade = dict(config=config, params=params, probe=probe,
-                 env_brdf=env_brdf, mask_grid=mask_grid,
+                 env_brdf=env_brdf, scene_bvh=scene_bvh, mask_grid=mask_grid,
                  sun_shadow_map=sun_shadow_map)
-    hdr, v = _shade_surface(scene, gb, n, depth, fc, **shade)
+    hdr, bent_normals, v = _shade_surface(scene, gb, n, depth, fc, **shade)
 
     if config.env_sky_mode == EnvSkyMode.DYNAMIC_SKY:
         hdr = hdr + skylight.environment_background(
@@ -300,8 +311,8 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
             gb_b, n3_b = resolve.resolve_gbuffer(
                 b_tri, b_depth, scene, b_interp, fc.inv_view_proj,
                 params.width, params.height, return_normal3=True)
-            hdr_b, _ = _shade_surface(scene, gb_b, n3_b, b_depth, fc,
-                                      **shade)
+            hdr_b, _, _ = _shade_surface(scene, gb_b, n3_b, b_depth, fc,
+                                         **shade)
             # only fragments in front of the opaque winner contribute
             # (reverse-Z: larger z = closer)
             vis_b = gb_b.mask & (b_depth > depth)
@@ -319,7 +330,7 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
                                        params.height)
 
     color = _apply_viewmode(config, scene, gb, n, depth, tri, accumulation,
-                            fc, v=v, probe=probe)
+                            fc, v=v, probe=probe, bent_normals=bent_normals)
     color_u8 = post.to_uint8(color)
 
     # Device-appended debug draws (ref: debug-drawing/common.hlsli:33-95):
@@ -346,16 +357,26 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
 
 
 def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
-                   probe, env_brdf, mask_grid, sun_shadow_map=None):
-    """Emissive + sky IBL + sun (shadow-mapped) + clustered punctual
-    lights, shared by the deferred frame, the forward frame and the forward
-    blend layers. -> (hdr, v)."""
+                   probe, env_brdf, scene_bvh, mask_grid,
+                   sun_shadow_map=None):
+    """Emissive + sky IBL (with HBAO when asked for and a BVH is given) +
+    sun (shadow-mapped or ray-traced) + clustered punctual lights, shared
+    by the deferred frame, the forward frame and the forward blend layers.
+    -> (hdr, bent normals or None, v)."""
     hdr = gb.emissive
     v = mu.normalize(fc.eye - gb.world_pos)
+    # ray-traced HBAO and bent normals (ref: render-jobs/hbao.inl)
+    ao_map = bent_normals = None
+    if config.enable_hbao and scene_bvh is not None:
+        ao_map, bent_oct = hbao.hbao(scene_bvh, gb, depth, fc,
+                                     params.width, params.height)
+        if config.use_bent_normals:
+            bent_normals = mu.oct_decode(bent_oct)
     if probe is not None and config.enable_sky_lighting \
             and env_brdf is not None:
         hdr = hdr + skylight.sky_lighting(
             gb, n, v, probe, env_brdf, fc.sky_brightness,
+            hbao=ao_map, bent_normals=bent_normals,
             diffuse_ibl=config.enable_diffuse_ibl,
             specular_ibl=config.enable_specular_ibl,
             lighting_only=(config.viewmode == ViewMode.LIGHTING_ONLY),
@@ -365,11 +386,15 @@ def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
         radiance_in = shading.directional_light_radiance(
             fc.sun_color_intensity[:3], fc.sun_color_intensity[3])
         sun_vis = 1.0
-        if sun_shadow_map is not None:
+        rt_shadows = (scene_bvh is not None
+                      and config.sun_shadow_mode in ("auto", "rt"))
+        if sun_shadow_map is not None and not rt_shadows:
             ndl = torch.sum(n * fc.sun_dir, -1)
             sun_vis = shadow_mod.sun_visibility(
                 gb.world_pos, ndl, sun_shadow_map, fc.sun_view_proj,
                 config.shadow_map_resolution)[..., None]
+        elif rt_shadows:
+            sun_vis = rt_sun_visibility(scene, scene_bvh, gb, fc)[..., None]
         has_x = scene.meta.has_extras
         sun = shading.brdf_response(
             gb.base_color[..., :3], gb.mrao[..., 0], gb.mrao[..., 1], n, v,
@@ -383,11 +408,31 @@ def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
             gb, n.contiguous(), v.contiguous(), depth.contiguous(),
             scene.lights, mask_grid, config, config.camera_near_plane,
             params.width, params.height)
-    return hdr, v
+    return hdr, bent_normals, v
+
+
+def rt_sun_visibility(scene, scene_bvh, gb, fc):
+    """(H, W) f32 sun visibility, 1 lit and 0 occluded: one any-hit ray
+    toward the sun from each covered pixel (ref: lighting/common.hlsli:
+    91-116; TMin 0.1, TMax 1000), alpha-tested through cutouts with the
+    frame index as the BLEND noise seed, traced in the BVH's unrotated
+    space. Uncovered pixels read 1."""
+    inv = fc.inv_scene_rotation
+    r3 = inv[:3, :3]
+    mask = gb.mask.reshape(-1)
+    idx = torch.nonzero(mask).squeeze(1)
+    origins = gb.world_pos.reshape(-1, 3)[idx] @ r3 + inv[3, :3]
+    dirs = (fc.sun_dir @ r3).expand(origins.shape)
+    occ = pathtrace._trace_alpha(scene, scene_bvh, origins, dirs, 0.1,
+                                 1000.0, fc.frame_index, any_hit=True,
+                                 role="rt_sun")["tri"] >= 0
+    vis = torch.ones(mask.shape, dtype=torch.float32, device=mask.device)
+    vis[idx] = 1.0 - occ.to(torch.float32)
+    return vis.reshape(gb.mask.shape)
 
 
 def _apply_viewmode(config: Config, scene, gb, n, depth, tri, hdr, fc,
-                    v=None, probe=None):
+                    v=None, probe=None, bent_normals=None):
     """Debug visualization modes (ref: postprocess/debug-visualization.hlsl,
     inc/demo.h:7-23). -> (H, W, 3) f32 colour in [0, 1]."""
     vm = config.viewmode
@@ -399,9 +444,10 @@ def _apply_viewmode(config: Config, scene, gb, n, depth, tri, hdr, fc,
         refl = ibl.sample_cube(probe.prefiltered, r) * fc.sky_brightness
         return post.tonemap(torch.where(m3, refl, hdr), fc.exposure)
     if vm == ViewMode.BENT_NORMALS:
-        # bent normals x0.5+0.5 (ref: debug-visualization.hlsl:193-199):
-        # without HBAO, which is not ported yet, the shading normal
-        return torch.where(m3, n * 0.5 + 0.5, 0.0)
+        # bent normals x0.5+0.5 (ref: debug-visualization.hlsl:193-199);
+        # the shading normal when HBAO or bent normals are off
+        bn = n if bent_normals is None else bent_normals
+        return torch.where(m3, bn * 0.5 + 0.5, 0.0)
     if vm == ViewMode.NAN_CHECK:
         return post.tonemap(hdr, fc.exposure, nan_check=True)
     if vm == ViewMode.BASE_COLOR:
@@ -467,3 +513,48 @@ def _hash_color(key):
     g = ((h >> 8) & 0xFF).to(torch.float32) / 255.0
     b = ((h >> 16) & 0xFF).to(torch.float32) / 255.0
     return torch.stack([r, g, b], dim=-1)
+
+
+def pathtrace_inputs(scene, fc):
+    """The camera, sun and lights moved into the BVH's unrotated space, and
+    the unrotated world vertex normals and tangents -> (scene_b, fc_b,
+    world_n_v, world_t_v). Pair with sky_rot3 = fc.scene_rotation[:3, :3],
+    so that environment fetches stay in world space."""
+    inv = fc.inv_scene_rotation
+    r3 = inv[:3, :3]
+    fc_b = dataclasses.replace(
+        fc, eye=fc.eye @ r3 + inv[3, :3],
+        camera_right=fc.camera_right @ r3, camera_up=fc.camera_up @ r3,
+        sun_dir=fc.sun_dir @ r3, inv_view_proj=fc.inv_view_proj @ inv)
+    scene_b = dataclasses.replace(
+        scene, lights=dataclasses.replace(
+            scene.lights, transform=scene.lights.transform @ inv))
+    world_n_v, world_t_v = resolve.vertex_world_attributes(
+        scene, torch.eye(4, device=inv.device))
+    return scene_b, fc_b, world_n_v, world_t_v
+
+
+def render_pathtrace(scene, bvh, fc, history, sample_index, *,
+                     config: Config, width: int, height: int, probe=None):
+    """One progressive path-traced sample (or a batch, for a sequence of
+    sample indices) + accumulation + tonemap (ref: renderer.cpp:1679-1710:
+    PathTracing, pathtrace-integrate and the tonemap on the history).
+    -> dict(color (H, W, 3) u8, history (H, W, 3) f32, rays: counted rays,
+    a 0-dim f32 tensor). The BVH holds the unrotated scene: the camera,
+    sun and lights are moved into its space for the trace, and sky fetches
+    stay in world space."""
+    scene_b, fc_b, world_n_v, world_t_v = pathtrace_inputs(scene, fc)
+    current, rays = pathtrace.trace_sample(
+        scene_b, bvh, world_n_v, world_t_v, fc_b, probe, sample_index,
+        width, height,
+        sqrt_sample_count=int(np.sqrt(config.max_sample_count)),
+        dynamic_sky=(config.env_sky_mode == EnvSkyMode.DYNAMIC_SKY),
+        turbidity=config.turbidity, viewmode=config.viewmode,
+        sky_rot3=fc.scene_rotation[:3, :3], sun_dir_world=fc.sun_dir,
+        return_rays=True)
+    first = (sample_index[0] if isinstance(sample_index, (list, tuple))
+             else torch.as_tensor(sample_index).reshape(-1)[0])
+    accumulated = pathtrace.integrate(history, current, int(first))
+    color = post.tonemap(accumulated, fc.exposure,
+                         nan_check=(config.viewmode == ViewMode.NAN_CHECK))
+    return dict(color=post.to_uint8(color), history=accumulated, rays=rays)

@@ -721,16 +721,31 @@ def _stack_bilinear(stack, base, ebase, s, uv, address):
     return top * (1 - ty) + bot * ty
 
 
+def _stack_point(stack, base, ebase, s, uv, address, jitter):
+    """Stochastic-bilinear point fetch: texel floor(u s - 0.5 + j) picks
+    the bilinear footprint's x0 + 1 with exactly the bilinear weight, so
+    the expectation over the jitter j (uniforms in [0, 1)) is the bilinear
+    result. The path tracer's progressive accumulation integrates it."""
+    sf = s.to(torch.float32)
+    fx = uv[..., 0] * sf - 0.5 + jitter[..., 0]
+    fy = uv[..., 1] * sf - 0.5 + jitter[..., 1]
+    x = _address(torch.floor(fx).to(torch.int32), s, address)
+    y = _address(torch.floor(fy).to(torch.int32), s, address)
+    return _fetch_texel(stack, base, ebase, x, y, s)
+
+
 def stack_meta_lookup(stack: MaterialTextureStack, mat_id):
     """stack.meta[max(mat_id, 0)] -> (..., 6) int32."""
     return mu.gather_rows(stack.meta, mat_id)
 
 
 def sample_material_stack(stack: MaterialTextureStack, mat_id, uv, lod=None,
-                          trilinear: bool = True):
+                          trilinear: bool = True, jitter=None):
     """All material texture slots at once: mat_id (...,) int32, uv (..., 2),
     lod (...,) float mip or None. Returns (..., 16) channels in storage
-    space (base/emissive rgb still sRGB; see decode_stack_channels)."""
+    space (base/emissive rgb still sRGB; see decode_stack_channels).
+    jitter: (..., 2) uniforms for a one-texel stochastic-bilinear fetch of
+    mip 0 (lod None), the path tracer's material fetch."""
     meta = stack_meta_lookup(stack, mat_id)
     base = meta[..., 0]
     size = meta[..., 1]
@@ -742,7 +757,14 @@ def sample_material_stack(stack: MaterialTextureStack, mat_id, uv, lod=None,
         return torch.where(ebase >= 0, ebase + off, -1)
 
     if lod is None:
+        if jitter is not None:
+            return _stack_point(stack, base, ebase, size, uv, address,
+                                jitter)
         return _stack_bilinear(stack, base, ebase, size, uv, address)
+    if jitter is not None:
+        raise NotImplementedError(
+            "a jittered fetch of a mip other than 0 is the TPU-only "
+            "stochastic_bilinear approximation, not ported")
     lod = torch.minimum(torch.clamp(lod, min=0.0),
                         (levels - 1).to(torch.float32))
     l0 = torch.floor(lod).to(torch.int32)

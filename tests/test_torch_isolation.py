@@ -4,14 +4,16 @@ CPU fallback, and no TPU-only approximation behind a flag."""
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 from incarnation_tpu_torch import config as tconfig
 from incarnation_tpu_torch.core.view import View
 from incarnation_tpu_torch.device import resolve_device
-from incarnation_tpu_torch.kernels import clustered, raster, taa
+from incarnation_tpu_torch.kernels import bvh, clustered, raster, taa
 from incarnation_tpu_torch.renderer import frame as tframe
+from incarnation_tpu_torch.scene import testing as ttesting
 
 torch.set_num_threads(1)
 
@@ -45,6 +47,9 @@ def test_default_device_raises_without_cuda():
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tframe.FrameConstants.make(View.default(), tconfig.Config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bvh.bvh_from_arrays(np.zeros((1, bvh.WIDE_LANES), np.float32),
+                            None)
     assert resolve_device("cpu").type == "cpu"
 
 
@@ -62,21 +67,51 @@ def test_tpu_only_flags_default_off():
     assert not any(getattr(cfg, f) for f in tconfig.TPU_ONLY_FLAGS)
 
 
+@pytest.fixture(scope="module")
+def tiny():
+    """make_rich_scene with its BVH, all on the CPU, for 16x8 frames."""
+    scene = ttesting.make_rich_scene(device="cpu", blend_quad=True)
+    return scene, bvh.build_scene_bvh(scene, use_cache=False, device="cpu")
+
+
+def _render_tiny(tiny, kw):
+    """One 16x8 frame of make_rich_scene with Config(**kw); a scene_bvh
+    key stands for the scene's BVH and band_axis is passed through."""
+    scene, scene_bvh = tiny
+    args = {k: v for k, v in kw.items() if k == "band_axis"}
+    if "scene_bvh" in kw:
+        args["scene_bvh"] = scene_bvh
+    cfg = tconfig.Config(masked_depth_peels=2, enable_taa=False,
+                         **{k: v for k, v in kw.items()
+                            if k not in ("scene_bvh", "band_axis")})
+    fc = tframe.FrameConstants.make(
+        View.from_lookat([1.0, 2.5, -2.0], [0.0, -1.0, 7.0], aspect=2.0),
+        cfg, shadow_bounds=([0.0, 1.0, 6.0], 12.0), device="cpu")
+    params = raster.RasterParams(width=16, height=8, pair_capacity=1024,
+                                 bin_max_span=8, big_tri_capacity=64)
+    out = tframe.render_frame(scene, fc, config=cfg, params=params, **args)
+    assert torch.isfinite(out["hdr"]).all()
+    assert out["color"].shape == (8, 16, 3)
+    return out
+
+
 @pytest.mark.parametrize("kw", [
-    dict(sun_shadow_mode="rt"), dict(enable_hbao=True),
-    dict(scene_bvh=object()), dict(band_axis="x"),
-    dict(sun_shadow_mode="rt", forward_lighting=True),
-    dict(enable_hbao=True, use_bent_normals=True,
+    dict(sun_shadow_mode="rt", scene_bvh=True),
+    dict(enable_hbao=True, scene_bvh=True),
+    dict(scene_bvh=True), dict(band_axis="x"),
+    dict(sun_shadow_mode="rt", forward_lighting=True, scene_bvh=True),
+    dict(enable_hbao=True, use_bent_normals=True, scene_bvh=True,
          viewmode=tconfig.ViewMode.BENT_NORMALS)])
-def test_later_slices_raise(kw):
-    """Branches of render_frame that later slices port (what needs a BVH:
-    RT sun shadows, HBAO; what needs a device mesh: band sharding) raise
-    NotImplementedError rather than rendering something else."""
-    names = ("scene_bvh", "band_axis")
-    args = {k: v for k, v in kw.items() if k in names}
-    cfg = tconfig.Config(**{k: v for k, v in kw.items() if k not in names})
-    with pytest.raises(NotImplementedError):
-        tframe._check_supported(cfg, **args)
+def test_later_slices_raise(tiny, kw):
+    """The branch of render_frame that a later slice ports (band sharding,
+    which needs a device mesh) raises NotImplementedError rather than
+    rendering something else; what needs a BVH (RT sun shadows, HBAO, a
+    scene_bvh), ported in slice 4, renders a finite frame."""
+    if "band_axis" in kw:
+        with pytest.raises(NotImplementedError, match="band_axis"):
+            _render_tiny(tiny, kw)
+    else:
+        _render_tiny(tiny, kw)
 
 
 @pytest.mark.parametrize("kw", [
@@ -84,9 +119,10 @@ def test_later_slices_raise(kw):
     dict(show_light_bounds=True, show_object_bounds=True),
     dict(viewmode=tconfig.ViewMode.BASE_COLOR),
     dict(viewmode=tconfig.ViewMode.LIGHT_CLUSTER_SLICES)])
-def test_raster_frame_options_are_supported(kw):
-    """Everything of the raster frame that needs no BVH is ported."""
-    tframe._check_supported(tconfig.Config(**kw))
+def test_raster_frame_options_are_supported(tiny, kw):
+    """Everything of the raster frame that needs no BVH is ported: each
+    option renders a finite frame without one."""
+    _render_tiny(tiny, kw)
 
 
 def test_band_axis_raises():
@@ -99,11 +135,12 @@ def test_band_axis_raises():
 def test_cpu_tensors_take_the_twins():
     """On CPU tensors the wrappers run the plain twins and count no kernel
     launch."""
-    for k in (raster.K1, clustered.K2, taa.K3):
+    for k in (raster.K1, clustered.K2, taa.K3, bvh.K4):
         k.launches = 0
     h, w = 16, 8
     hist = torch.rand(h, w, 3)
     depth = torch.full((h, w), 0.5)
     out = taa.history_fetch(hist, depth, torch.eye(4), w, h)
     torch.testing.assert_close(out, hist, rtol=0, atol=1e-6)
-    assert raster.K1.launches == clustered.K2.launches == taa.K3.launches == 0
+    assert raster.K1.launches == clustered.K2.launches == taa.K3.launches \
+        == bvh.K4.launches == 0

@@ -1,4 +1,4 @@
-"""K1, K2 and K3 against their plain PyTorch twins on a CUDA card, at small
+"""K1, K2, K3 and K4 against their plain PyTorch twins on a CUDA card, at small
 shapes from a seed. Marked `cuda`: they skip on a host without a card and
 run on the card with
 
@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from incarnation_tpu_torch.config import Config
-from incarnation_tpu_torch.kernels import clustered, raster, resolve, taa
+from incarnation_tpu_torch.kernels import bvh, clustered, raster, resolve, taa
 from incarnation_tpu_torch.scene import lights as lights_mod
 
 pytestmark = pytest.mark.cuda
@@ -352,3 +352,97 @@ def test_k2_lights_mostly_out_of_reach(dev):
         skipped += int((on & (tests[0] | tests[1] | tests[2])).sum())
     assert on_pairs > 0 and skipped > 0.5 * on_pairs
     assert float(ref.abs().max()) > 0
+
+
+def _k4_bvh(dev, n=1500, seed=0, double_sided_every=2):
+    """The wide BVH of a random triangle soup (every other triangle
+    single-sided), on the card."""
+    r = np.random.default_rng(seed)
+    tris = (r.uniform(-10, 10, (n, 1, 3))
+            + r.uniform(-0.8, 0.8, (n, 3, 3))).astype(np.float32)
+    geo, leaf_tri = bvh.build_wide(tris)
+    for s in range(bvh.LEAF_K):
+        ok = leaf_tri[:, s] >= 0
+        lane = 11 if s == 0 else bvh._DS1_OFF + s - 1
+        geo[ok, lane] = (leaf_tri[ok, s] % double_sided_every == 0)
+    return tris, bvh.bvh_from_arrays(geo, dev)
+
+
+def _k4_rays(dev, n=20000, seed=1):
+    """Random rays, some along the axes (the inv_d guard: exact zeros and
+    negative zeros in the direction), some parked at 1e29."""
+    r = np.random.default_rng(seed)
+    o = r.uniform(-12, 12, (n, 3)).astype(np.float32)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    axes = np.eye(3, dtype=np.float32)[np.arange(300) % 3]
+    d[:300] = axes * np.where(np.arange(300) % 2, -1.0, 1.0)[:, None]
+    d[300:400] = np.float32([-0.0, 0.0, 1.0])
+    o[400:600] = 1e29
+    return torch.tensor(o, device=dev), torch.tensor(d, device=dev)
+
+
+def _assert_k4(got, ref):
+    for k in ("tri", "t", "u", "v"):
+        assert torch.equal(got[k], ref[k]), k
+    assert int(got["trunc"]) == int(ref["trunc"])
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k4_matches_twin(dev, any_hit):
+    """Closest and any hit, scalar and per-ray tmin, single- and
+    double-sided triangles: tri, t, u, v identical to the twin."""
+    _, b = _k4_bvh(dev)
+    o, d = _k4_rays(dev)
+    bvh.K4.reset()
+    got = bvh.trace(b, o, d, tmin=0.05, tmax=25.0, any_hit=any_hit)
+    assert bvh.K4.launches == 1
+    _assert_k4(got, bvh.trace_plain(b, o, d, 0.05, 25.0, any_hit))
+    assert (got["tri"] >= 0).float().mean() > 0.05
+    assert (got["tri"][400:600] < 0).all()           # parked rays miss
+    tmin = torch.rand(o.shape[0], device=dev) * 3.0
+    _assert_k4(bvh.trace(b, o, d, tmin=tmin, tmax=25.0, any_hit=any_hit),
+               bvh.trace_plain(b, o, d, tmin, 25.0, any_hit))
+
+
+def test_k4_tie_slots_within_a_leaf(dev):
+    """Four coplanar copies of one triangle share a leaf: every ray's hit
+    ties across the slots, and the strict t < t_best keeps slot a's
+    triangle, as the twin does."""
+    tri = np.float32([[[-1, -1, 5], [1, -1, 5], [0, 1, 5]]])
+    tris = np.repeat(tri, 4, 0)
+    geo, _ = bvh.build_wide(tris)
+    geo[:, 11] = 1.0
+    geo[:, bvh._DS1_OFF:bvh._DS1_OFF + 3] = 1.0
+    b = bvh.bvh_from_arrays(geo, dev)
+    n = 1000
+    r = np.random.default_rng(3)
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = r.uniform(-0.2, 0.2, n)       # inside the triangle
+    o[:, 1] = r.uniform(-0.5, 0.5, n)
+    d = np.tile(np.float32([0, 0, 1]), (n, 1))
+    o, d = torch.tensor(o, device=dev), torch.tensor(d, device=dev)
+    got = bvh.trace(b, o, d)
+    _assert_k4(got, bvh.trace_plain(b, o, d))
+    assert (got["tri"] == int(geo[0, 10])).all()
+
+
+def test_k4_budget_counts_trunc_and_leaves_counters_zero(dev):
+    """A step budget shorter than the walks stops rays with their best hit
+    and counts them in trunc, as the twin does; back-to-back launches
+    leave K4's counters zero (no memset between calls)."""
+    _, b = _k4_bvh(dev)
+    o, d = _k4_rays(dev)
+    ref = bvh.trace_plain(b, o, d, return_steps=True, max_steps=6)
+    got = bvh.trace_k4(b, o, d, return_steps=True, max_steps=6)
+    _assert_k4(got, ref)
+    assert torch.equal(got["steps"], ref["steps"])
+    assert int(got["trunc"]) > 0
+    for _ in range(3):
+        bvh.trace_k4(b, o, d, max_steps=6)
+        full = bvh.trace_k4(b, o, d, return_steps=True)
+    torch.cuda.synchronize()
+    assert int(full["trunc"]) == 0
+    assert torch.count_nonzero(bvh._k4_counters(dev)) == 0
+    assert torch.equal(full["steps"],
+                       bvh.trace_plain(b, o, d, return_steps=True)["steps"])
