@@ -35,6 +35,20 @@ ray; (d) one sample with K4 swapped for its twin (identical radiance);
 same BVH (RT shadows darken the frame, AO in [0, 1], unit bent normals,
 the share of covered pixels where RT and shadow-map visibility agree).
 
+Then the rest of the port: (g) the atrium's binary BVH (merged table) and
+K4's binary role on the captured primary, bounce and shadow rays, against
+its twin and against the wide layout's hits; (h) tools/pt_step_bench.py's
+six traces at 640x360, K4's alpha role (pathtrace.AlphaFilter) against its
+twin; (i) the CLI in-process on the atrium's glTF: 8 raster frames at
+1920x1088 (the PNG equals render_frame on what the CLI built), an RT
+shadow + HBAO frame, and a 4-sample path trace at 640x360 checkpointed
+after 2 and resumed (equal to the uninterrupted run); (j) the web viewer
+serving the atrium at 960x540 (the frame after an orbit input differs);
+(k) band sharding over two devices (two cards if the machine shows them,
+else cuda:0 twice): a 1920x1088 frame and a second TAA frame against the
+single frame, a band-sharded path-traced sample (identical) and an
+SPP-sharded round (the batch-mean rule within 1e-6).
+
 It prints one JSON line of kernel figures; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises, and the script
 exits non-zero without printing that line. It needs CUDA and the
@@ -94,6 +108,9 @@ K4_OPS_BOX = 24
 K4_OPS_INTERNAL = 1
 K4_RAY_BYTES = 24 + 16
 PT_W, PT_H = 640, 360      # the JAX bench's path-tracing size (bench.py:156)
+VIEW_W, VIEW_H = 960, 540  # the web viewer's frame
+BAND_TRI_SHARE = 1e-3      # band_phase: see there
+K2_RTOL = 1e-5             # K2 against its twin: see compare_kernels
 PT_SAMPLES = 8             # timed samples, after one warm-up
 # K4 launches per path-traced sample, by role (kernels/pathtrace.py): one
 # primary trace, a closest-hit trace for each of the 3 further bounces,
@@ -309,7 +326,16 @@ def main(argv=None) -> int:
     rows.insert(4, small_path(dev, raster, clustered, taa))
 
     # 8. the BVH paths: the path tracer, then RT shadows and HBAO
-    rows += bvh_paths(dev, path, args.profile)
+    bvh_rows, pt = bvh_paths(dev, path, args.profile)
+    rows += bvh_rows
+
+    # 9. the rest of the port: the binary BVH and the alpha role of K4,
+    # the CLI, the web viewer and band sharding
+    rows += binary_phase(dev, path, pt)
+    rows += alpha_phase(dev, path, pt)
+    cli_phase(dev, path)
+    viewer_phase(dev, path)
+    rows += band_phase(dev, path, pt)
     # a bound counts the least work the inputs need: no kernel beats it
     shares = {r["name"]: r["bound_ms"] / r["ms"] for r in rows}
     _log("bound share (bound ms / ms): " + json.dumps(
@@ -399,16 +425,27 @@ def capture_frame(run, fc, history, raster, clustered, taa):
     arguments; returns [(kind, args, kwargs)] in launch order."""
     import torch
     calls = []
+    with _capturing(calls, raster, clustered, taa):
+        run(fc, history)
+    torch.cuda.synchronize()
+    return calls
+
+
+@contextlib.contextmanager
+def _capturing(calls, raster, clustered, taa, limit=None):
+    """For the duration of the block, each K1, K2 and K3 wrapper call
+    appends (kind, args, kwargs) to calls, at most `limit` per kind."""
+    def keep(kind):
+        def after(out, *a, **kw):
+            if limit is None or sum(c[0] == kind for c in calls) < limit:
+                calls.append((kind, a, kw))
+        return after
     with contextlib.ExitStack() as stack:
         for mod, name, kind in ((raster, "rasterize_tiles", "k1"),
                                 (clustered, "clustered_lighting", "k2"),
                                 (taa, "history_fetch", "k3")):
-            stack.enter_context(_hooked(
-                mod, name, lambda out, *a, kind=kind, **kw: calls.append(
-                    (kind, a, kw))))
-        run(fc, history)
-    torch.cuda.synchronize()
-    return calls
+            stack.enter_context(_hooked(mod, name, keep(kind)))
+        yield calls
 
 
 def _k1_bound(bins, params, z_limit, mask_table):
@@ -481,10 +518,10 @@ def compare_kernels(calls, raster, clustered, taa, launches, k1_by_layer):
     (_, a, kw), = [c for c in calls if c[0] == "k2"]
     got = clustered.clustered_lighting(*a, **kw)
     ref = clustered.clustered_lighting_plain(*a, **kw)
-    # the same light sums in the same order; the BRDF's 3-term dot products
-    # may round an ulp apart from torch's reductions, which the GGX lobe's
-    # clamped denominator amplifies to a few 1e-5 at most
-    err, rel = _close("K2", got, ref, rtol=1e-4, atol_frac=1e-5,
+    # the same light sums and dot products in the same order
+    # (mathutils.dot3); K2 takes D x G / (4 NoV NoL) in one division where
+    # the twin divides three times, a few ulps after the ulp-sensitive NoH
+    err, rel = _close("K2", got, ref, rtol=K2_RTOL, atol_frac=1e-5,
                       where=a[0].mask)
     _log(f"K2: max abs err {err:.3e}, max relative err {rel:.3e} "
          f"(peak {float(ref.abs().max()):.3e})")
@@ -502,14 +539,28 @@ def compare_kernels(calls, raster, clustered, taa, launches, k1_by_layer):
         library_ms=None))
 
     (_, a, kw), = [c for c in calls if c[0] == "k3"]
-    history, depth, m, w, h = a
+    rows.append(k3_row(taa, a, "k3_taa_fetch", launches["k3_taa_fetch"]))
+    return rows
+
+
+def k3_row(taa, a, name, n_launches):
+    """K3 against its twin on one captured launch (history, depth, m, w, h
+    and, for a band, its y_off halo rows), both timed, with its bound and
+    grid_sample's time on the same fetch -> the JSON row."""
+    import torch
+    history, depth, m, w, h, *rest = a
+    y_off = rest[0] if rest else 0
     got = taa.history_fetch(*a)
     ref = taa.history_fetch_plain(*a)
     # the same f32 operations in the same order (K3 built --fmad=false)
-    err, rel = _close("K3", got, ref, rtol=1e-6, atol_frac=1e-7)
-    _log(f"K3: max abs err {err:.3e}, max relative err {rel:.3e} "
-         f"(peak {float(ref.abs().max()):.3e})")
-    grid = (2.0 * taa.reproject_uv(depth, m, w, h) - 1.0)[None]
+    err, rel = _close(name, got, ref, rtol=1e-6, atol_frac=1e-7)
+    _log(f"{name}: {w}x{h}, {y_off} halo rows each way; max abs err "
+         f"{err:.3e}, max relative err {rel:.3e} (peak "
+         f"{float(ref.abs().max()):.3e})")
+    uv = taa.reproject_uv(depth, m, w, h)
+    # the halo rows extend the image grid_sample clamps at its border
+    gy = (uv[..., 1] * h + y_off) / (h + 2 * y_off)
+    grid = (2.0 * torch.stack([uv[..., 0], gy], -1) - 1.0)[None]
     img = history.permute(2, 0, 1)[None].contiguous()
 
     def library():
@@ -518,19 +569,18 @@ def compare_kernels(calls, raster, clustered, taa, launches, k1_by_layer):
             align_corners=False)
 
     lib_err = float((library()[0].permute(1, 2, 0) - ref).abs().max())
-    _log(f"K3 library yardstick (grid_sample on the reprojected grid): max "
-         f"abs diff from the twin {lib_err:.3e}")
-    rows.append(dict(
-        name="k3_taa_fetch", route="cuda",
+    _log(f"{name} library yardstick (grid_sample on the reprojected grid): "
+         f"max abs diff from the twin {lib_err:.3e}")
+    return dict(
+        name=name, route="cuda",
         source="incarnation_tpu_torch/csrc/taa.cu",
         replaces="incarnation_tpu/kernels/taa.py:195",
-        launches=launches["k3_taa_fetch"], max_abs_err=err, max_rel_err=rel,
+        launches=n_launches, max_abs_err=err, max_rel_err=rel,
         ms=device_ms(lambda: taa.history_fetch(*a), 50),
         plain_ms=device_ms(lambda: taa.history_fetch_plain(*a), 10),
         **dict(zip(("bound_ms", "bound_by"), _bound(
             w * h * (12 + 4 + 12) + 64, K3_OPS_PER_PIXEL * w * h))),
-        library_ms=device_ms(library, 50)))
-    return rows
+        library_ms=device_ms(library, 50))
 
 
 def k1_row(raster, layer, launches_captured, n_launches):
@@ -711,7 +761,10 @@ def small_path(dev, raster, clustered, taa):
 def bvh_paths(dev, path, profile: bool):
     """Phases (a)-(e) on the atrium: the scene BVH, the path tracer at
     PT_W x PT_H, K4 against its twin, a sample with the twin, and the RT
-    shadow + HBAO frame at W x H. Returns K4's JSON rows, one per role."""
+    shadow + HBAO frame at W x H. Returns (K4's JSON rows, one per role;
+    namespace(sbvh, calls: the captured K4 launches of one sample by role,
+    fc: the path tracer's constants, history: its accumulation))."""
+    import types
     import torch
     from incarnation_tpu_torch.kernels import bvh, hbao, pathtrace, shadow
     from incarnation_tpu_torch.renderer import frame
@@ -730,7 +783,7 @@ def bvh_paths(dev, path, profile: bool):
 
     # (b) the path tracer, as the JAX bench runs it (bench.py:145-190)
     cfg = path.cfg
-    fc = frame.FrameConstants.make(
+    fc = fc_pt = frame.FrameConstants.make(
         bench_view(path.host, PT_W, PT_H), cfg, sun_dir=path.sun,
         sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
         shadow_bounds=path.shadow_bounds, device=dev)
@@ -790,11 +843,12 @@ def bvh_paths(dev, path, profile: bool):
         raise RuntimeError("the path-traced image is black")
 
     # (c) K4 against its twin on one sample's launches
+    pt_history = history
     calls = {}
 
     def keep(out, bvh_, o, d, tmin=0.0, tmax=1e30, any_hit=False,
-             role=None, **kw):
-        calls.setdefault(role, (bvh_, o, d, tmin, tmax, any_hit))
+             role=None, alpha_of=None, **kw):
+        calls.setdefault(role, (bvh_, o, d, tmin, tmax, any_hit, alpha_of))
     with _hooked(bvh, "trace_k4", keep):
         sample(PT_SAMPLES + 1, history)
     rows = [k4_row(bvh, calls[role], role, pt_launches.get(role, 0))
@@ -826,9 +880,9 @@ def bvh_paths(dev, path, profile: bool):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with _hooked(bvh, "trace_k4", lambda out, bvh_, o, d, tmin=0.0,
-                 tmax=1e30, any_hit=False, role=None, **kw:
+                 tmax=1e30, any_hit=False, role=None, alpha_of=None, **kw:
                  rt_calls.setdefault(role, (bvh_, o, d, tmin, tmax,
-                                            any_hit))):
+                                            any_hit, alpha_of))):
         start.record()
         out = path.run(fc, hist0, rt_cfg, sbvh)
         end.record()
@@ -877,17 +931,439 @@ def bvh_paths(dev, path, profile: bool):
         raise RuntimeError("the bent normals are not unit length")
     rows += [k4_row(bvh, rt_calls[role], role, rt_launches.get(role, 0))
              for role in ("hbao", "rt_sun")]
+    return rows, types.SimpleNamespace(sbvh=sbvh, calls=calls, fc=fc_pt,
+                                       history=pt_history)
+
+
+def binary_phase(dev, path, pt):
+    """(g) The atrium's binary BVH (wide=False: the merged table), K4's
+    binary role on the captured primary, bounce and shadow rays of (c)
+    through bvh.trace, against its twin, and its closest hits against the
+    wide layout's. Returns the role's JSON rows."""
+    import torch
+    from incarnation_tpu_torch.kernels import bvh
+    t0 = time.perf_counter()
+    bb = bvh.build_scene_bvh(path.scene, wide=False, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_leaf = int((bb.rows[:bb.nodes, 12] > 0.5).sum())
+    _log(f"(g) atrium binary BVH ({'merged' if bb.merged else 'split'}): "
+         f"{bb.nodes} nodes ({n_leaf} leaves), {bb.rows.shape[0]} rows, "
+         f"{bb.nbytes() / 2**20:.2f} MiB on the card, built on the host in "
+         f"{secs:.1f} s")
+    roles = {"pt_primary": "binary_primary", "pt_bounce": "binary_bounce",
+             "pt_shadow": "binary_shadow"}
+    bvh.K4.reset()
+    outs = {}
+    for src, role in roles.items():
+        _, o, d, tmin, tmax, any_hit, _ = pt.calls[src]
+        outs[role] = bvh.trace(bb, o, d, tmin=tmin, tmax=tmax,
+                               any_hit=any_hit, role=role)
+    launches = dict(bvh.K4.by_name)
+    _log(f"(g) K4 launches by role: {json.dumps(launches)}")
+    if launches != {role: 1 for role in roles.values()}:
+        raise RuntimeError(f"binary K4 launches {launches}")
+    rows = []
+    for src, role in roles.items():
+        wb, o, d, tmin, tmax, any_hit, _ = pt.calls[src]
+        got = outs[role]
+        wide = bvh.trace_k4(wb, o, d, tmin, tmax, any_hit,
+                            return_steps=True)
+        if any_hit:
+            differ = (got["tri"] >= 0) != (wide["tri"] >= 0)
+            what = "occlusion"
+        else:
+            # the same nearest depth; where it ties the layouts may keep
+            # different triangles
+            differ = (got["tri"] != wide["tri"]) & (got["t"] != wide["t"])
+            what = "closest hit"
+        ties = int(((got["tri"] != wide["tri"]) & ~differ).sum())
+        if int(differ.sum()):
+            raise RuntimeError(f"(g) {role}: {what} differs from the wide "
+                               f"layout's on {int(differ.sum())} rays")
+        row = k4_row(bvh, (bb, o, d, tmin, tmax, any_hit, None), role,
+                     launches[role])
+        _log(f"(g) {role}: {what} as the wide layout's ({ties} rays keep "
+             f"another triangle at a tied depth); steps per ray "
+             f"{row['steps_mean']:.2f} binary, "
+             f"{float(wide['steps'].double().mean()):.2f} wide")
+        rows.append(row)
     return rows
 
 
-def k4_row(bvh, call, role, n_launches):
-    """K4 against its twin on one captured launch (identical tri, t, u, v
-    and trunc, or it raises), both timed, the bound from the twin's walk
-    -> the role's JSON row."""
+# tools/pt_step_bench.py's cases (:47-56): label, any_hit, filter
+ALPHA_CASES = (("closest_primary", False, False),
+               ("closest_primary", False, True),
+               ("closest_incoherent", False, False),
+               ("closest_incoherent", False, True),
+               ("anyhit", True, False), ("anyhit", True, True))
+
+
+def alpha_phase(dev, path, pt):
+    """(h) tools/pt_step_bench.py's six traces through bvh.trace on the
+    wide BVH, each without and with the path tracer's opacity test
+    (pathtrace.AlphaFilter, noise 0, as the bench's alpha_of): closest and
+    any hit of PT_W x PT_H rays from the eye (0, 4, -14) in seeded
+    directions, and closest hits of incoherent rays. The bench's
+    incoherent cases trace the eye rays under another traversal profile;
+    the port has one walk, so its incoherent rays are the path tracer's
+    own bounce rays from (c). The filtered traces (K4's alpha role)
+    against the twin. Returns their rows."""
     import torch
-    b, o, d, tmin, tmax, any_hit = call
-    got = bvh.trace_k4(b, o, d, tmin, tmax, any_hit, return_steps=True)
-    ref = bvh.trace_plain(b, o, d, tmin, tmax, any_hit, return_steps=True)
+    from incarnation_tpu_torch.kernels import bvh, pathtrace
+    r = PT_W * PT_H
+    rng = np.random.default_rng(0)
+    dirs = rng.standard_normal((r, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    d = torch.tensor(dirs, device=dev)
+    o = torch.tensor(np.float32([0.0, 4.0, -14.0]), device=dev).expand(
+        r, 3).contiguous()
+    _, bo, bd, btmin, btmax, _, _ = pt.calls["pt_bounce"]
+    rays = {"closest_primary": (o, d, 0.0, 1e30),
+            "closest_incoherent": (bo, bd, btmin, btmax),
+            "anyhit": (o, d, 0.0, 1e30)}
+    filters = {k: pathtrace.AlphaFilter(path.scene, torch.zeros(
+        v[0].shape[0], device=dev)) for k, v in rays.items()}
+    bvh.K4.reset()
+    outs = []
+    for label, any_hit, filtered in ALPHA_CASES:
+        role = f"alpha_{label}" if filtered else f"bare_{label}"
+        ro, rd, tmin, tmax = rays[label]
+        outs.append(bvh.trace(pt.sbvh, ro, rd, tmin=tmin, tmax=tmax,
+                              any_hit=any_hit,
+                              alpha_of=filters[label] if filtered else None,
+                              role=role))
+    launches = dict(bvh.K4.by_name)
+    _log(f"(h) K4 launches by role: {json.dumps(launches)}")
+    rows = []
+    for (label, any_hit, filtered), out in zip(ALPHA_CASES, outs):
+        role = f"alpha_{label}" if filtered else f"bare_{label}"
+        ro, rd, tmin, tmax = rays[label]
+        flt = filters[label] if filtered else None
+        if int(out["trunc"]):
+            raise RuntimeError(f"(h) {role}: trunc {int(out['trunc'])}")
+        ms = device_ms(lambda: bvh.trace_k4(pt.sbvh, ro, rd, tmin, tmax,
+                                            any_hit, alpha_of=flt), 5)
+        _log(f"(h) {role}: {int((out['tri'] >= 0).sum())} accepted hits of "
+             f"{ro.shape[0]} rays, {ms:.4f} ms")
+        if filtered:
+            rows.append(k4_row(bvh, (pt.sbvh, ro, rd, tmin, tmax, any_hit,
+                                     flt), role, launches[role]))
+    return rows
+
+
+def _png_check(png_path, w, h):
+    """The PNG decodes at (h, w) and is not black -> its pixels."""
+    from incarnation_tpu_torch.utils import imageio
+    img = imageio.load_png(png_path)
+    if img.shape != (h, w, 3) or float(img.mean()) < 2.0:
+        raise RuntimeError(f"{png_path}: shape {img.shape}, mean "
+                           f"{float(img.mean()):.2f}")
+    return img
+
+
+def cli_phase(dev, path):
+    """(i) The CLI in-process (cli.main) on the atrium's glTF: a raster
+    run of 8 TAA frames at W x H, equal to render_frame on the Config,
+    View and constants the CLI built; an RT shadow + HBAO frame; a
+    path-traced run of 4 samples at PT_W x PT_H checkpointed after 2 and
+    resumed, equal to an uninterrupted run. Every PNG decodes and is not
+    black."""
+    import torch
+    from incarnation_tpu_torch.app import cli
+    from incarnation_tpu_torch.kernels import bvh, clustered, raster, taa
+    from incarnation_tpu_torch.renderer import frame
+    from incarnation_tpu_torch.scene import stress
+    out_dir = ROOT / "build" / "smoke_cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    model = str(stress.build_atrium(ATRIUM_DIR))
+    base = ["--model", model, "--sun", "100"]
+    kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4)
+    for k in kernels:
+        k.reset()
+    calls = []
+    with _capturing(calls, raster, clustered, taa, limit=8):
+        res = cli.main(base + ["--width", str(W), "--height", str(H),
+                               "--frames", str(FRAMES), "--out",
+                               str(out_dir / "raster.png")])
+    counts = [k.launches for k in kernels]
+    _log(f"(i) CLI raster {W}x{H}: frame ms " + ", ".join(
+        f"{t:.2f}" for t in res["frame_ms"]) + f"; launches K1-K4 {counts}")
+    # the CLI's camera is static (jitter only): TAA takes the constant
+    # shift and K3 does not run
+    if 0 in counts[:2]:
+        raise RuntimeError(f"(i) the CLI's frames skipped a kernel: "
+                           f"{counts}")
+    check_twins("(i) CLI raster", calls, raster, clustered, taa,
+                need=("k1", "k2"))
+    img = _png_check(out_dir / "raster.png", W, H)
+    ref = frame.render_frame(res["scene"], res["fc"], config=res["config"],
+                             params=res["params"], probe=res["probe"],
+                             env_brdf=res["env_brdf"],
+                             history=res["history"])["color"]
+    same = bool(np.array_equal(img, ref.cpu().numpy()))
+    _log(f"(i) CLI PNG equals render_frame on the CLI's Config, View and "
+         f"last frame's constants and history: {same}")
+    if not same:
+        raise RuntimeError("(i) the CLI's PNG differs from render_frame's")
+
+    for k in kernels:
+        k.reset()
+    res = cli.main(base + ["--width", str(W), "--height", str(H),
+                           "--shadows", "rt", "--hbao", "--out",
+                           str(out_dir / "rt.png")])
+    _log(f"(i) CLI --shadows rt --hbao: {res['frame_ms'][0]:.1f} ms with "
+         f"the BVH build; K4 launches {dict(bvh.K4.by_name)}")
+    if not bvh.K4.by_name.get("rt_sun") or not bvh.K4.by_name.get("hbao"):
+        raise RuntimeError("(i) the RT frame did not trace")
+    _png_check(out_dir / "rt.png", W, H)
+
+    pt = base + ["--width", str(PT_W), "--height", str(PT_H), "--pathtrace"]
+    ck = out_dir / "pt.npz"
+    ck.unlink(missing_ok=True)
+    bvh.K4.reset()
+    full = cli.main(pt + ["--spp", "4", "--out", str(out_dir / "pt4.png")])
+    _log(f"(i) CLI --pathtrace --spp 4: K4 launches "
+         f"{dict(bvh.K4.by_name)}; counted rays per sample "
+         + ", ".join(f"{x:.0f}" for x in full["rays"]))
+    cli.main(pt + ["--spp", "2", "--pt-checkpoint", str(ck), "--out",
+                   str(out_dir / "pt2.png")])
+    resumed = cli.main(pt + ["--spp", "4", "--pt-checkpoint", str(ck),
+                             "--resume", "--out",
+                             str(out_dir / "pt_resumed.png")])
+    same = bool(torch.equal(resumed["history"], full["history"]))
+    _log(f"(i) CLI path trace resumed after 2 of 4 samples equals the "
+         f"uninterrupted run: {same}")
+    if not same:
+        raise RuntimeError("(i) the resumed path trace differs")
+    a = _png_check(out_dir / "pt4.png", PT_W, PT_H)
+    if not np.array_equal(a, _png_check(out_dir / "pt_resumed.png", PT_W,
+                                        PT_H)):
+        raise RuntimeError("(i) the resumed PNG differs")
+
+
+def viewer_phase(dev, path):
+    """(j) The web viewer serving the atrium at VIEW_W x VIEW_H on a free
+    port: the
+    page, two frames, an orbit input after which the next frame differs,
+    then /quit, which ends the render loop."""
+    import threading
+    import urllib.request
+    from incarnation_tpu_torch.app import viewer
+    from incarnation_tpu_torch.kernels import clustered, raster, taa
+    from incarnation_tpu_torch.scene import png
+    w, h = VIEW_W, VIEW_H
+    for k in (raster.K1, clustered.K2):
+        k.reset()
+    calls = []
+    with _capturing(calls, raster, clustered, taa, limit=8):
+        server, state = viewer.serve(path.host, path.cfg, w, h, port=0,
+                                     block=False)
+        loop = threading.Thread(target=viewer.render_loop,
+                                args=(path.host, path.cfg, state, w, h),
+                                daemon=True)
+        loop.start()
+        port = server.server_address[1]
+
+        def get(p):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{p}",
+                                        timeout=120) as r:
+                return r.read(), dict(r.headers)
+
+        def post(p, obj):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}{p}",
+                                         data=json.dumps(obj).encode(),
+                                         method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.read()
+
+        try:
+            page, _ = get("/")
+            f1, h1 = get("/frame.png?seq=0")
+            f2, h2 = get(f"/frame.png?seq={h1['X-Seq']}")
+            if state.error:
+                raise RuntimeError(f"(j) viewer: {state.error}")
+            if png.png_size(f1) != (w, h) \
+                    or h1["Content-Type"] != "image/png":
+                raise RuntimeError("(j) the frame is not a PNG of the size")
+            seq = int(h2["X-Seq"])
+            post("/input", {"cmd": "orbit", "dx": 80, "dy": 0})
+            t0 = time.perf_counter()
+            f3, h3 = get(f"/frame.png?seq={seq}")
+            while int(h3["X-Seq"]) <= seq + 1 \
+                    and time.perf_counter() - t0 < 60:
+                f3, h3 = get(f"/frame.png?seq={h3['X-Seq']}")
+            st = json.loads(get("/state")[0])
+            moved = not np.array_equal(png.decode_png(f3),
+                                       png.decode_png(f2))
+            _log(f"(j) viewer {w}x{h}: page {len(page)} B, frames "
+                 f"{h1['X-Seq']}, {h2['X-Seq']}, {h3['X-Seq']}; "
+                 f"{st['panel']['fps']} fps; the frame after the orbit "
+                 f"input differs: {moved}; launches K1 "
+                 f"{raster.K1.launches}, K2 {clustered.K2.launches}")
+            if b"incarnation_tpu" not in page or not moved:
+                raise RuntimeError("(j) the viewer's frame did not advance")
+        finally:
+            post("/quit", {})
+            loop.join(timeout=120)
+            server.shutdown()
+            server.server_close()
+    if loop.is_alive() or state.error:
+        raise RuntimeError(f"(j) the render loop did not end cleanly: "
+                           f"{state.error}")
+    check_twins("(j) viewer", calls, raster, clustered, taa,
+                need=("k1", "k2"))
+
+
+def band_phase(dev, path, pt):
+    """(k) Band sharding over two devices (two cards when the machine shows
+    them, else cuda:0 twice): a W x H frame equal to the single frame, a
+    second TAA frame through the halos, a band-sharded path-traced sample
+    bit-identical to the single one and an SPP-sharded round by the
+    batch-mean rule."""
+    import torch
+    from incarnation_tpu_torch.dist import sharding
+    from incarnation_tpu_torch.kernels import clustered, pathtrace, raster
+    from incarnation_tpu_torch.kernels import taa
+    from incarnation_tpu_torch.renderer import frame
+    n_cards = torch.cuda.device_count()
+    devices = ["cuda:0", "cuda:1"] if n_cards > 1 else ["cuda:0", "cuda:0"]
+    _log(f"(k) band sharding on {devices} ({n_cards} cards visible)")
+    kw = dict(config=path.cfg, params=path.params, probe=path.probe,
+              env_brdf=path.env_brdf)
+    hist0 = torch.zeros((H, W, 3), device=dev)
+    fc0 = path.make_fc(0, None)
+    fc1 = path.make_fc(1, fc0.view_proj.cpu().numpy())
+    s0 = path.run(fc0, hist0)
+    s1 = path.run(fc1, s0["accumulation"])
+    sharding.render_frame_sharded(path.scene, fc0, devices=devices,
+                                  history=hist0, **kw)      # warm-up
+    for k in (raster.K1, clustered.K2, taa.K3):
+        k.reset()
+    # the second frame's launches are captured, to hold each against its
+    # twin at the band's shapes (K3 with its halo rows) once counted
+    calls = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b0 = sharding.render_frame_sharded(path.scene, fc0, devices=devices,
+                                       history=hist0, **kw)
+    with _capturing(calls, raster, clustered, taa):
+        b1 = sharding.render_frame_sharded(
+            path.scene, fc1, devices=devices, history=b0["accumulation"],
+            **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 2
+    counts = [raster.K1.launches, clustered.K2.launches, taa.K3.launches]
+    # A band renders through view_proj @ J, which rounds apart from the
+    # single frame's view_proj at the last bit: a pixel centre on a
+    # triangle edge, or two surfaces at one depth, may go the other way.
+    # So tri may differ on at most BAND_TRI_SHARE of the pixels, and the
+    # u8 colour must hold 50 dB.
+    for i, (b, s) in enumerate(((b0, s0), (b1, s1))):
+        share = float((b["tri"] != s["tri"]).float().mean())
+        mse = float(((b["color"].double() - s["color"].double()) ** 2)
+                    .mean())
+        psnr = float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+        acc = float((b["accumulation"] - s["accumulation"]).abs().max())
+        _log(f"(k) band frame {i}: tri differs from the single frame's on "
+             f"{share:.2e} of the pixels, u8 colour PSNR {psnr:.2f} dB, "
+             f"accumulation max abs diff {acc:.3e}")
+        if share > BAND_TRI_SHARE or psnr < 50.0:
+            raise RuntimeError(f"(k) band frame {i} differs from the single")
+    _log(f"(k) band frames: {ms:.2f} ms each (host clock, 2 frames), "
+         f"launches K1, K2, K3 {counts}")
+    if 0 in counts:
+        raise RuntimeError(f"(k) the band frames skipped a kernel: {counts}")
+    halo = check_twins("(k) band frame", calls, raster, clustered, taa,
+                       need=("k1", "k2", "k3"))
+    if len(halo) < 2 or any(len(a) < 6 or a[5] <= 0 for a in halo):
+        raise RuntimeError("(k) a band's K3 launch had no halo rows")
+    rows = [k3_row(taa, halo[0], "k3_taa_fetch[band_halo]", counts[2])]
+
+    hist = pt.history
+    single = frame.render_pathtrace(path.scene, pt.sbvh, pt.fc, hist, 20,
+                                    config=path.cfg, width=PT_W,
+                                    height=PT_H, probe=path.probe)
+    band = sharding.pathtrace_band_sharded(
+        path.scene, pt.sbvh, pt.fc, hist, 20, config=path.cfg, width=PT_W,
+        height=PT_H, devices=devices, probe=path.probe)
+    same = bool(torch.equal(band["history"], single["history"]))
+    _log(f"(k) band-sharded path-traced sample {PT_W}x{PT_H}: identical "
+         f"{same}, counted rays {float(band['rays']):.0f} "
+         f"(single {float(single['rays']):.0f})")
+    if not same or float(band["rays"]) != float(single["rays"]):
+        raise RuntimeError("(k) the band-sharded sample differs")
+    spp = sharding.pathtrace_spp_sharded(
+        path.scene, pt.sbvh, pt.fc, hist, 21, config=path.cfg, width=PT_W,
+        height=PT_H, devices=devices, probe=path.probe)
+    scene_b, fc_b, wn, wt = frame.pathtrace_inputs(path.scene, pt.fc)
+    cur = pathtrace.trace_sample(
+        scene_b, pt.sbvh, wn, wt, fc_b, path.probe, [21, 22], PT_W, PT_H,
+        sqrt_sample_count=int(np.sqrt(path.cfg.max_sample_count)),
+        turbidity=path.cfg.turbidity, sky_rot3=pt.fc.scene_rotation[:3, :3],
+        sun_dir_world=pt.fc.sun_dir)
+    want = pathtrace.integrate(hist, cur, 21)
+    err = float(((spp - want).abs() / (want.abs() + 1e-6)).max())
+    _log(f"(k) SPP-sharded round (samples 21, 22): max relative diff "
+         f"{err:.3e} from the batch-mean rule")
+    if err > 1e-6:
+        raise RuntimeError("(k) the SPP-sharded round misses the rule")
+    return rows
+
+
+def check_twins(what, calls, raster, clustered, taa, need):
+    """Each captured K1, K2 and K3 launch against its twin, at
+    compare_kernels' tolerances (K1 via _k1_error, K2 K2_RTOL, K3 1e-6
+    relative), at the shapes the path gave it; raises if a kind in `need` was
+    not captured. Returns the K3 launches' arguments."""
+    kinds = {k: [c for c in calls if c[0] == k] for k in ("k1", "k2", "k3")}
+    if not all(kinds[k] for k in need):
+        raise RuntimeError(f"{what}: captured launches per kernel "
+                           f"{ {k: len(v) for k, v in kinds.items()} }")
+    worst = (0.0, 0.0, 0.0)
+    for _, a, kw in kinds["k1"]:
+        bins, p = a
+        zl, mt = kw.get("z_limit"), kw.get("mask_table")
+        e = _k1_error(raster.rasterize_tiles(bins, p, z_limit=zl,
+                                             mask_table=mt),
+                      raster.rasterize_tiles_plain(bins, p, z_limit=zl,
+                                                   mask_table=mt))
+        worst = tuple(max(x, y) for x, y in zip(worst, e))
+    shapes = sorted({(c[1][1].width, c[1][1].height, c[1][1].pair_capacity)
+                     for c in kinds["k1"]})
+    _log(f"{what}: K1 x{len(kinds['k1'])} at (width, height, pair "
+         f"capacity) {shapes} against the twin: max abs err {worst[0]:.3e}, "
+         f"max relative err {worst[1]:.3e}, tri mismatch share "
+         f"{worst[2]:.2e}")
+    for i, (_, a, kw) in enumerate(kinds["k2"]):
+        err, rel = _close(f"{what} K2",
+                          clustered.clustered_lighting(*a, **kw),
+                          clustered.clustered_lighting_plain(*a, **kw),
+                          rtol=K2_RTOL, atol_frac=1e-5, where=a[0].mask)
+        _log(f"{what}: K2 {i} ({a[8]}x{a[9]}) against the twin: max abs "
+             f"err {err:.3e}, max relative err {rel:.3e}")
+    for i, (_, a, kw) in enumerate(kinds["k3"]):
+        err, rel = _close(f"{what} K3", taa.history_fetch(*a),
+                          taa.history_fetch_plain(*a), rtol=1e-6,
+                          atol_frac=1e-7)
+        _log(f"{what}: K3 {i} ({a[3]}x{a[4]}, "
+             f"{a[5] if len(a) > 5 else 0} halo rows each way) against the "
+             f"twin: max abs err {err:.3e}, max relative err {rel:.3e}")
+    return [a for _, a, _ in kinds["k3"]]
+
+
+def k4_row(bvh, call, role, n_launches):
+    """K4 against its twin on one captured launch (identical tri, t, u, v,
+    steps and trunc, or it raises), both timed, the bound from the twin's
+    walk -> the role's JSON row. A launch with an alpha filter is bounded
+    by its walk alone: the opacity tests' fetches and operations are not
+    counted, so its bound is looser than the others'."""
+    import torch
+    b, o, d, tmin, tmax, any_hit, alpha_of = call
+    got = bvh.trace_k4(b, o, d, tmin, tmax, any_hit, return_steps=True,
+                       alpha_of=alpha_of)
+    ref = bvh.trace_plain(b, o, d, tmin, tmax, any_hit, return_steps=True,
+                          alpha_of=alpha_of)
     for k in ("tri", "t", "u", "v", "steps"):
         if not torch.equal(got[k], ref[k]):
             n = int((got[k] != ref[k]).sum())
@@ -900,17 +1376,24 @@ def k4_row(bvh, call, role, n_launches):
     steps = ref["steps"].double()
     leaf = ref["leaf_steps"].double()
     n_rows = int(ref["visited"].sum())
-    nbytes = r * (K4_RAY_BYTES + (4 if torch.is_tensor(tmin) else 0)) \
-        + n_rows * bvh.WIDE_LANES * 4
+    lanes = bvh.WIDE_LANES if b.wide else bvh.ROW_LANES
+    nbytes = r * (K4_RAY_BYTES + (4 if torch.is_tensor(tmin) else 0)
+                  + (4 if alpha_of is not None else 0)) \
+        + n_rows * lanes * 4 \
+        + 8 * int(ref["visited_links"].sum() if "visited_links" in ref
+                  else 0)
     ops = float(ref["tri_tests"].double().sum()) * K4_OPS_TRI \
         + float(ref["box_tests"].double().sum()) * K4_OPS_BOX \
         + float((steps - leaf).sum()) * K4_OPS_INTERNAL
     bound_ms, bound_by = _bound(nbytes, ops)
     hits = float((got["tri"] >= 0).float().mean())
-    ms = device_ms(lambda: bvh.trace_k4(b, o, d, tmin, tmax, any_hit), 5)
-    plain_ms = device_ms(lambda: bvh.trace_plain(b, o, d, tmin, tmax,
-                                                 any_hit), 1)
+    ms = device_ms(lambda: bvh.trace_k4(b, o, d, tmin, tmax, any_hit,
+                                        alpha_of=alpha_of), 5)
+    plain_ms = device_ms(lambda: bvh.trace_plain(
+        b, o, d, tmin, tmax, any_hit, alpha_of=alpha_of), 1)
     _log(f"K4 {role}: {r} rays ({'any' if any_hit else 'closest'} hit, "
+         f"{'alpha filter, ' if alpha_of is not None else ''}"
+         f"{'wide' if b.wide else 'binary'} layout, "
          f"{hits:.4f} hit), steps per ray mean {float(steps.mean()):.2f} "
          f"max {int(steps.max())} (leaf {float(leaf.mean()):.2f}), "
          f"filled slots tested per ray: "
@@ -931,9 +1414,10 @@ def k4_row(bvh, call, role, n_launches):
 
 def _k4_twin(bvh):
     def twin(b, o, d, tmin=0.0, tmax=1e30, any_hit=False,
-             max_steps=bvh.MAX_STEPS, return_steps=False, role=None):
+             max_steps=bvh.MAX_STEPS, return_steps=False, role=None,
+             alpha_of=None):
         return bvh.trace_plain(b, o, d, tmin, tmax, any_hit, max_steps,
-                               return_steps)
+                               return_steps, alpha_of)
     return twin
 
 

@@ -146,9 +146,19 @@ RH_TO_LH = np.diag([1.0, 1.0, -1.0, 1.0]).astype(np.float32)
 # Per-pixel helpers (torch)
 # ---------------------------------------------------------------------------
 
-def normalize(v, dim=-1, eps=1e-20):
-    return v * (1.0 / torch.sqrt(torch.sum(v * v, dim=dim, keepdim=True)
-                                 + eps))
+def dot3(a, b, keepdim: bool = False):
+    """Dot product over the last axis of (..., 3) tensors, summed left to
+    right, (x + y) + z, as the CUDA kernels sum it: torch.sum reduces a
+    row of three on the card in another order, an ulp apart, which the
+    GGX lobe's NoH amplifies to 1e-4 of a pixel's radiance."""
+    p = a * b
+    s = p[..., 0] + p[..., 1] + p[..., 2]
+    return s[..., None] if keepdim else s
+
+
+def normalize(v, eps=1e-20):
+    """(..., 3) vectors scaled to unit length."""
+    return v * (1.0 / torch.sqrt(dot3(v, v, keepdim=True) + eps))
 
 
 def ipow(x, n: int):

@@ -11,6 +11,11 @@
 // history, which exist on the TPU only to keep the fetch inside VMEM and on
 // the MXU. This is the twin _bilinear_image's function exactly.
 //
+// y_off: a band of a band-sharded frame (dist/sharding.py) passes its
+// history with y_off halo rows copied from the neighbouring bands above and
+// below the (height, width) viewport; rows then address into the halo
+// before they clamp (taa.py _bilinear_image y_off). 0 for a whole frame.
+//
 // What bounds it: 4 B depth + 12 B of history (the fetch is local, so each
 // history texel is read about once) + 12 B out per pixel = 58 MB at
 // 1920x1088, ~17 us at 3.35 TB/s. Built with --fmad=false to round as the
@@ -21,11 +26,11 @@
 #define K3_THREADS 256
 
 __global__ void __launch_bounds__(K3_THREADS)
-k3_taa_fetch_kernel(const float* __restrict__ history,  // (H, W, 3)
+k3_taa_fetch_kernel(const float* __restrict__ history,  // (H + 2 y_off, W, 3)
                     const float* __restrict__ depth,    // (H, W)
                     const float* __restrict__ m,        // (4, 4) row-major
                     float* __restrict__ out,            // (H, W, 3)
-                    int width, int height) {
+                    int width, int height, int y_off) {
   const int i = blockIdx.x * K3_THREADS + threadIdx.x;
   if (i >= width * height) return;
   const int x = i % width;
@@ -43,18 +48,20 @@ k3_taa_fetch_kernel(const float* __restrict__ history,  // (H, W, 3)
   const float v = -0.5f * cy * inv_w + 0.5f;
   const float fx = u * (float)width - 0.5f;
   const float fy = v * (float)height - 0.5f;
-  // floor, kept in [-1, size] before the int conversion (the twin does
-  // the same, so far-off reprojections clamp identically)
+  // floor, kept in [-1, size] (rows: [-1 - y_off, height + y_off]) before
+  // the int conversion (the twin does the same, so far-off reprojections
+  // clamp identically)
   const float x0f = fminf(fmaxf(floorf(fx), -1.0f), (float)width);
-  const float y0f = fminf(fmaxf(floorf(fy), -1.0f), (float)height);
+  const float y0f = fminf(fmaxf(floorf(fy), -1.0f - (float)y_off),
+                          (float)(height + y_off));
   const int x0 = (int)x0f;
   const int y0 = (int)y0f;
   const float tx = fx - x0f;
   const float ty = fy - y0f;
   const int x0c = min(max(x0, 0), width - 1);
   const int x1c = min(max(x0 + 1, 0), width - 1);
-  const int y0c = min(max(y0, 0), height - 1);
-  const int y1c = min(max(y0 + 1, 0), height - 1);
+  const int y0c = min(max(y0, -y_off), height - 1 + y_off) + y_off;
+  const int y1c = min(max(y0 + 1, -y_off), height - 1 + y_off) + y_off;
   const float* h00 = history + 3 * (y0c * width + x0c);
   const float* h01 = history + 3 * (y0c * width + x1c);
   const float* h10 = history + 3 * (y1c * width + x0c);
@@ -69,10 +76,11 @@ k3_taa_fetch_kernel(const float* __restrict__ history,  // (H, W, 3)
 
 extern "C" int k3_taa_fetch(const float* history, const float* depth,
                             const float* m, float* out, int width,
-                            int height, void* stream) {
+                            int height, int y_off, void* stream) {
+  if (y_off < 0) return (int)cudaErrorInvalidValue;
   const int n = width * height;
   const int blocks = (n + K3_THREADS - 1) / K3_THREADS;
   k3_taa_fetch_kernel<<<blocks, K3_THREADS, 0, (cudaStream_t)stream>>>(
-      history, depth, m, out, width, height);
+      history, depth, m, out, width, height, y_off);
   return (int)cudaGetLastError();
 }

@@ -241,7 +241,7 @@ def zero_light_tests(lights: lights_mod.LightTable, i: int, world_pos, n):
     Where any holds, the twin's contribution of the light is exactly
     +0.0 and K2 skips its BRDF."""
     lvec = lights.transform[i, 3, :3] - world_pos
-    dist_sq = torch.sum(lvec * lvec, dim=-1)
+    dist_sq = mu.dot3(lvec, lvec)
     dist = torch.sqrt(dist_sq)
     rng = lights.range[i]
     q = dist / torch.clamp(rng, min=1e-8)
@@ -249,7 +249,7 @@ def zero_light_tests(lights: lights_mod.LightTable, i: int, world_pos, n):
     beyond = (rng > 0.0) & (falloff == 0.0)
     l = lvec / torch.clamp(dist, min=1e-8)[..., None]
     spot_dir = lights_mod.light_direction_toward(lights.transform[i])
-    cd = torch.sum(spot_dir * l, dim=-1)
+    cd = mu.dot3(spot_dir, l)
     cos_outer = torch.cos(lights.spot_angles[i, 1])
     cos_inner = torch.cos(lights.spot_angles[i, 0])
     scale = 1.0 / torch.clamp(cos_inner - cos_outer, min=1e-3)
@@ -257,7 +257,7 @@ def zero_light_tests(lights: lights_mod.LightTable, i: int, world_pos, n):
     angular = torch.where(cd > cos_outer, ang * ang, 0.0)
     outside = ~beyond & (lights.type[i] == lights_mod.LIGHT_SPOT) \
         & (angular == 0.0)
-    no_l = torch.clamp(torch.sum(n * l, dim=-1), 0.0, 1.0)
+    no_l = torch.clamp(mu.dot3(n, l), 0.0, 1.0)
     behind = ~beyond & ~outside & ~(no_l > 0.0)
     return beyond, outside, behind
 

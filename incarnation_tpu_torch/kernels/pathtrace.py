@@ -68,6 +68,33 @@ def _alpha_at_hit(scene, tri, u, v, noise):
     return (mode == 0) | (alpha >= thresh)
 
 
+class AlphaFilter:
+    """The opacity test of _alpha_at_hit as an alpha_of filter for
+    bvh.trace / occluded (the reference's any-hit alpha shader,
+    pathtracing.hlsl:270-302): callable as alpha_of(tri, u, v), which
+    evaluates _alpha_at_hit (the twin's path), and readable by K4's alpha
+    role, which evaluates the same test inside the walk on the card.
+    noise: the BLEND threshold noise, an (R,) tensor with one value per
+    ray of the trace, or a float for every ray."""
+
+    def __init__(self, scene, noise):
+        self.scene = scene
+        self.noise = torch.as_tensor(noise, dtype=torch.float32,
+                                     device=scene.tri_prim.device)
+
+    def __call__(self, tri, u, v):
+        noise = (self.noise.expand(tri.shape) if self.noise.dim() == 0
+                 else self.noise)
+        return _alpha_at_hit(self.scene, tri, u, v, noise)
+
+    def subset(self, idx):
+        """The filter over the rays idx of the trace (the twin's batch
+        of rays still walking)."""
+        if self.noise.dim() == 0:
+            return self
+        return AlphaFilter(self.scene, self.noise[idx])
+
+
 def _peel_noise(seed, peel, tri, noise_u):
     """BLEND threshold noise of alpha peel `peel`: the caller's CMJ value
     per ray under a golden-ratio rotation per peel, else a uint32 hash of
@@ -195,9 +222,10 @@ def _sky_sample_term(probe, sky_brightness, u2, base, metallic, roughness,
     # NoV clamped to [0, 1], as the direct light's BRDF clamps it in both
     # packages (shading.brdf_response). A divergence: the JAX term leaves
     # it unclamped (pathtrace.py:247) and turns negative, or into a
-    # firefly, where the shading normal faces away from the eye. No source
-    # in the repository shows whether the HLSL reference clamps here;
-    # ROADMAP Queue 3 keeps it as an open question.
+    # firefly, where the shading normal faces away from the eye. The clamp
+    # stays: the JAX term cites lighting/common.hlsli:147-202, whose direct
+    # BRDF in the same file (:118-139) clamps NoV, and no estimator of a
+    # non-negative integral returns a negative sample (ROADMAP Queue 3).
     no_v = torch.clamp(torch.sum(n * v, -1, keepdim=True), 0.0, 1.0)
     no_h = torch.clamp(torch.sum(n * h, -1, keepdim=True), min=1e-4)
     vo_h = torch.clamp(torch.sum(v * h, -1, keepdim=True), min=1e-4)

@@ -49,23 +49,26 @@ def _interp_lod(scene, mat_id, interp):
     return torch.log2(torch.clamp(rho, min=1e-8))
 
 
-def _pixel_noise(shape, device):
+def _pixel_noise(shape, device, row0: int = 0):
     """Per-pixel uniform in [0, 1): the JAX _frame_noise uint32 hash at
     frame 0 (the exact path never dithers by frame), in int64 arithmetic
-    reduced modulo 2^32."""
+    reduced modulo 2^32. row0: the first row's index in the whole frame
+    (a band of a sharded frame hashes whole-frame rows)."""
     m32 = 0xFFFFFFFF
     xs = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :]
-    ys = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None]
+    ys = torch.arange(row0, row0 + shape[0], dtype=torch.int64,
+                      device=device)[:, None]
     h = (xs * 374761393 + ys * 668265263) & m32
     h = ((h ^ (h >> 13)) * 1274126177) & m32
     return ((h >> 16) & 0xFFFF).to(torch.float32) / 65536.0
 
 
-def masked_alpha(scene, tri, interp):
+def masked_alpha(scene, tri, interp, row0: int = 0):
     """Per-pixel opacity + pass threshold for a masked layer: MASK prims
     clip at alphaCutoff; BLEND prims get the screen-door threshold
-    (resolve.py:107-181, exact path). Fragment survives iff alpha >=
-    thresh."""
+    (resolve.py:107-181, exact path), hashed from the pixel's position in
+    the whole frame (row0: the first row's). Fragment survives iff alpha
+    >= thresh."""
     mat_id = interp[9].to(torch.int32)
     uv = torch.stack([interp[0], interp[1]], dim=-1)
     lod = _interp_lod(scene, mat_id, interp)
@@ -78,7 +81,7 @@ def masked_alpha(scene, tri, interp):
     a_tex = tex_mod.sample_stack_alpha(scene.mat_stack, mat_id, uv, lod=lod)
     fac = mu.gather_rows(scene.mat_params, mat_id)
     alpha = fac[..., 6] * a_tex
-    blend_noise = _pixel_noise(tri.shape, tri.device)
+    blend_noise = _pixel_noise(tri.shape, tri.device, row0)
     thresh = torch.where(fac[..., 12] >= 2.0,
                          torch.clamp(blend_noise, min=1e-3), fac[..., 11])
     return alpha, thresh

@@ -67,11 +67,11 @@ def brdf_response(base_color, metallic, roughness, n, v, l, radiance_in,
                   cc_roughness=None):
     """Cook-Torrance specular + Lambert diffuse (+ the optional
     transmission and clearcoat terms); returns outgoing radiance (..., 3)."""
-    no_l = torch.clamp(torch.sum(n * l, dim=-1, keepdim=True), 0.0, 1.0)
-    no_v = torch.clamp(torch.sum(n * v, dim=-1, keepdim=True), 0.0, 1.0)
+    no_l = torch.clamp(mu.dot3(n, l, keepdim=True), 0.0, 1.0)
+    no_v = torch.clamp(mu.dot3(n, v, keepdim=True), 0.0, 1.0)
     h = mu.normalize(l + v)
-    no_h = torch.clamp(torch.sum(n * h, dim=-1, keepdim=True), 0.0, 1.0)
-    vo_h = torch.clamp(torch.sum(v * h, dim=-1, keepdim=True), 0.0, 1.0)
+    no_h = torch.clamp(mu.dot3(n, h, keepdim=True), 0.0, 1.0)
+    vo_h = torch.clamp(mu.dot3(v, h, keepdim=True), 0.0, 1.0)
     metallic = _last(metallic, n)
     roughness = _last(roughness, n)
     f0 = metallic * base_color + (1.0 - metallic) * 0.04
@@ -108,7 +108,7 @@ def punctual_light(light_type, transform, color, intensity, rng, spot_angles,
     Returns (l (..., 3), radiance_in (..., 3))."""
     light_pos = transform[..., 3, :3]
     lvec = light_pos - world_pos
-    dist_sq = torch.sum(lvec * lvec, dim=-1, keepdim=True)
+    dist_sq = mu.dot3(lvec, lvec, keepdim=True)
     dist = torch.sqrt(dist_sq)
     l = lvec / torch.clamp(dist, min=1e-8)
     bounded = torch.clamp(
@@ -117,7 +117,7 @@ def punctual_light(light_type, transform, color, intensity, rng, spot_angles,
     unbounded = 1.0 / torch.clamp(dist_sq, min=1e-4)
     radial = torch.where(rng > 0.0, bounded, unbounded)
     spot_dir = lights_mod.light_direction_toward(transform)
-    cd = torch.sum(spot_dir * l, dim=-1, keepdim=True)
+    cd = mu.dot3(spot_dir, l, keepdim=True)
     cos_outer = torch.cos(spot_angles[..., 1:2])
     cos_inner = torch.cos(spot_angles[..., 0:1])
     scale = 1.0 / torch.clamp(cos_inner - cos_outer, min=1e-3)

@@ -7,6 +7,11 @@ tensors and its twin (reproject_uv + bilinear_image) on CPU ones. When the
 camera is static and only the jitter moved, m is a pure NDC translation and
 the fetch is one constant sub-pixel shift; that choice is made on the host
 from the numpy matrices, with no device sync.
+
+A band of a band-sharded frame (dist/sharding.py) resolves with halos
+copied from its neighbours: history rows above and below its viewport, so a
+reprojection across the seam reads the neighbour's history, and one row of
+the current HDR each way for the 3x3 clamp (JAX taa.py:272-290, :363-371).
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import torch
 from .build import Kernel, ptr
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-K3 = Kernel("taa", "k3_taa_fetch", [_P, _P, _P, _P, _I, _I])
+# history, depth, m, out, width, height, y_off
+K3 = Kernel("taa", "k3_taa_fetch", [_P, _P, _P, _P, _I, _I, _I])
 
 
 def reproject_uv(depth, m, width: int, height: int):
@@ -41,35 +47,40 @@ def reproject_uv(depth, m, width: int, height: int):
                        dim=-1)
 
 
-def bilinear_image(img, uv, width: int, height: int):
+def bilinear_image(img, uv, width: int, height: int, y_off: int = 0):
     """Bilinear sample of (H, W, C) at uv in [0,1]^2 with edge clamp (the
     JAX _bilinear_image). The floor is kept in [-1, size] before the int
-    conversion, as K3 does."""
+    conversion, as K3 does. y_off: img carries y_off halo rows above and
+    below the (height, width) viewport, which rows address before they
+    clamp."""
     fx = uv[..., 0] * width - 0.5
     fy = uv[..., 1] * height - 0.5
     x0f = torch.clamp(torch.floor(fx), -1.0, float(width))
-    y0f = torch.clamp(torch.floor(fy), -1.0, float(height))
+    y0f = torch.clamp(torch.floor(fy), -1.0 - y_off, float(height + y_off))
     x0 = x0f.to(torch.int64)
     y0 = y0f.to(torch.int64)
     tx = (fx - x0f)[..., None]
     ty = (fy - y0f)[..., None]
     x0c = torch.clamp(x0, 0, width - 1)
     x1c = torch.clamp(x0 + 1, 0, width - 1)
-    y0c = torch.clamp(y0, 0, height - 1)
-    y1c = torch.clamp(y0 + 1, 0, height - 1)
+    y0c = torch.clamp(y0, -y_off, height - 1 + y_off) + y_off
+    y1c = torch.clamp(y0 + 1, -y_off, height - 1 + y_off) + y_off
     flat = img.reshape(-1, img.shape[-1])
     top = flat[y0c * width + x0c] * (1 - tx) + flat[y0c * width + x1c] * tx
     bot = flat[y1c * width + x0c] * (1 - tx) + flat[y1c * width + x1c] * tx
     return top * (1 - ty) + bot * ty
 
 
-def history_fetch(history, depth, m, width: int, height: int):
+def history_fetch(history, depth, m, width: int, height: int,
+                  y_off: int = 0):
     """Reprojected bilinear history fetch (H, W, 3): K3 on CUDA tensors,
-    the twin on CPU ones."""
+    the twin on CPU ones. history: (H + 2 y_off, W, 3), y_off halo rows
+    above and below the viewport."""
     if not depth.is_cuda:
-        return history_fetch_plain(history, depth, m, width, height)
+        return history_fetch_plain(history, depth, m, width, height, y_off)
     dev = depth.device
-    for name, t, shape in (("history", history, (height, width, 3)),
+    for name, t, shape in (("history", history,
+                            (height + 2 * y_off, width, 3)),
                            ("depth", depth, (height, width)),
                            ("m", m, (4, 4))):
         if t.dtype != torch.float32 or t.device != dev \
@@ -77,19 +88,21 @@ def history_fetch(history, depth, m, width: int, height: int):
             raise ValueError(f"{name}: need a contiguous float32 {shape} "
                              f"tensor on {dev}")
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    K3(ptr(history), ptr(depth), ptr(m), ptr(out), width, height)
+    K3(ptr(history), ptr(depth), ptr(m), ptr(out), width, height, y_off)
     return out
 
 
-def history_fetch_plain(history, depth, m, width: int, height: int):
+def history_fetch_plain(history, depth, m, width: int, height: int,
+                        y_off: int = 0):
     return bilinear_image(history, reproject_uv(depth, m, width, height),
-                          width, height)
+                          width, height, y_off)
 
 
-def bilinear_const_shift(img, sx: float, sy: float):
+def bilinear_const_shift(img, sx: float, sy: float, y_off: int = 0):
     """Bilinear fetch at pixel + (sx, sy), a constant sub-pixel shift with
-    edge clamp (|sx|, |sy| <= 3; the static-camera reprojection)."""
-    h, w = img.shape[0], img.shape[1]
+    edge clamp (|sx|, |sy| <= 3; the static-camera reprojection). img
+    carries y_off halo rows above and below the viewport."""
+    h, w = img.shape[0] - 2 * y_off, img.shape[1]
     ix = int(np.floor(sx))
     iy = int(np.floor(sy))
     tx = float(np.float32(sx) - np.float32(ix))
@@ -100,7 +113,7 @@ def bilinear_const_shift(img, sx: float, sy: float):
         mode="replicate")[0].permute(1, 2, 0)
 
     def g(dy, dx):
-        y0 = pad + iy + dy
+        y0 = pad + y_off + iy + dy
         x0 = pad + ix + dx
         return padded[y0:y0 + h, x0:x0 + w]
 
@@ -126,11 +139,17 @@ def static_shift(m_np: np.ndarray, width: int, height: int):
     return None
 
 
-def _neighborhood_minmax(img):
-    """3x3 min/max with edge clamp."""
-    padded = torch.nn.functional.pad(img.permute(2, 0, 1)[None],
-                                     (1, 1, 1, 1), mode="replicate")[0] \
-        .permute(1, 2, 0)
+def _neighborhood_minmax(img, hdr_halo=None):
+    """3x3 min/max with edge clamp; hdr_halo: the (1, W, C) rows above and
+    below img (a band's neighbours), which take the place of the clamp."""
+    if hdr_halo is not None:
+        img_h = torch.cat([hdr_halo[0], img, hdr_halo[1]], 0)
+        padded = torch.nn.functional.pad(img_h.permute(2, 0, 1)[None],
+                                         (1, 1, 0, 0), mode="replicate")[0]
+    else:
+        padded = torch.nn.functional.pad(img.permute(2, 0, 1)[None],
+                                         (1, 1, 1, 1), mode="replicate")[0]
+    padded = padded.permute(1, 2, 0)
     h, w = img.shape[:2]
     mins = img
     maxs = img
@@ -150,20 +169,25 @@ def _luminance_weight(c):
 
 
 def taa_resolve(current_hdr, history, depth, m_np: np.ndarray,
-                history_valid: bool, width: int, height: int):
+                history_valid: bool, width: int, height: int,
+                hdr_halo=None):
     """-> new accumulation (H, W, 3). m_np: host (4, 4) f32
     inv_view_proj @ prev_view_proj. history_valid False passes the current
-    frame through (frame 0) without fetching."""
+    frame through (frame 0) without fetching. A band of a sharded frame
+    passes its history with y_off halo rows above and below (history
+    (H + 2 y_off, W, 3)) and hdr_halo, the (1, W, 3) current-HDR rows just
+    above and below the band."""
     if not history_valid:
         return current_hdr
+    y_off = (history.shape[0] - height) // 2
     shift = static_shift(m_np, width, height)
     if shift is not None:
-        prev_color = bilinear_const_shift(history, *shift)
+        prev_color = bilinear_const_shift(history, *shift, y_off=y_off)
     else:
         m = torch.as_tensor(m_np, dtype=torch.float32, device=depth.device)
         prev_color = history_fetch(history.contiguous(), depth.contiguous(),
-                                   m, width, height)
-    mins, maxs = _neighborhood_minmax(current_hdr)
+                                   m, width, height, y_off)
+    mins, maxs = _neighborhood_minmax(current_hdr, hdr_halo)
     clamped = torch.minimum(torch.maximum(prev_color, mins), maxs)
     w_cur = 0.1 * _luminance_weight(current_hdr)
     w_prev = 0.9 * _luminance_weight(clamped)

@@ -15,8 +15,10 @@ lighting. sun_shadow_mode "auto" with no scene BVH means no shadows, as in
 the JAX package. render_pathtrace is the second renderer: one progressive
 path-traced sample per call (kernels/pathtrace.py).
 
-Not ported yet, and raising NotImplementedError: band sharding, which needs
-a device mesh.
+render_frame runs two phases, render_hdr (everything up to the frame's
+HDR) and finish_frame (TAA, view mode, tonemap, debug draws): the band
+sharder (dist/sharding.py) renders every band's HDR before any band's TAA,
+which reads halo rows of its neighbours' history and HDR.
 """
 
 from __future__ import annotations
@@ -122,21 +124,28 @@ class FrameConstants:
             turbidity=float(config.turbidity))
 
 
-def _check_supported(band_axis=None):
-    if band_axis is not None:
-        raise NotImplementedError(
-            "not ported yet: band_axis (band sharding)")
-
-
 def render_frame(scene, fc: FrameConstants, *, config: Config,
                  params: raster.RasterParams, probe=None, env_brdf=None,
-                 history=None, scene_bvh=None, band_axis=None):
+                 history=None, scene_bvh=None):
     """Full raster-path frame. probe + env_brdf enable the sky-lighting
     pass. Returns dict with 'color' (H, W, 3) uint8 sRGB, 'hdr',
     'accumulation', 'tri', 'depth', 'gbuffer' and 'stats' (tensors).
     scene_bvh: the scene's BVH, for RT sun shadows ("auto" / "rt") and
-    HBAO. band_axis belongs to a later slice and raises."""
-    _check_supported(band_axis)
+    HBAO. A band-sharded frame is dist.sharding.render_frame_sharded."""
+    return finish_frame(render_hdr(scene, fc, config=config, params=params,
+                                   probe=probe, env_brdf=env_brdf,
+                                   scene_bvh=scene_bvh), history)
+
+
+def render_hdr(scene, fc: FrameConstants, *, config: Config,
+               params: raster.RasterParams, probe=None, env_brdf=None,
+               scene_bvh=None, band_row: int = 0) -> dict:
+    """render_frame's first phase: the frame up to its HDR (raster layers,
+    gbuffer, decals, shadows, lighting, sky, blend layers). -> the state
+    finish_frame takes. band_row: a band of a sharded frame (fc carrying
+    its band matrix) passes its first row in the whole frame, where the
+    BLEND screen-door noise starts (the single frame's noise, so the bands
+    put together are the single frame)."""
     dev = scene.tri_prim.device
     prim_visible = torch.ones_like(scene.prim_is_decal, dtype=torch.bool)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -212,7 +221,8 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
             m_tri, m_depth, m_interp = raster.rasterize_tiles(
                 layer_bins[masked_idx], params, z_limit=zlim,
                 mask_table=amask_tab, name="raster_peel")
-            alpha, thresh = resolve.masked_alpha(scene, m_tri, m_interp)
+            alpha, thresh = resolve.masked_alpha(scene, m_tri, m_interp,
+                                                 band_row)
             hit = m_tri >= 0
             passed = hit & (alpha >= thresh)
             newly = passed & (acc_tri < 0)
@@ -321,16 +331,36 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
             transmit = transmit * (1.0 - a)
         hdr = c_acc + transmit * hdr
 
+    return dict(scene=scene, fc=fc, config=config, params=params,
+                probe=probe, hdr=hdr, tri=tri, depth=depth, gb=gb, n=n, v=v,
+                bent_normals=bent_normals, mask_grid=mask_grid,
+                prim_visible=prim_visible, stats=stats)
+
+
+def finish_frame(st: dict, history=None, hdr_halo=None) -> dict:
+    """render_frame's second phase on render_hdr's state: TAA against
+    `history`, the view mode, tonemap and the debug draws -> render_frame's
+    dict. A band of a sharded frame passes its history with halo rows of
+    its neighbours above and below, and hdr_halo, their HDR rows next to
+    the band (kernels/taa.py taa_resolve)."""
+    scene, fc, config, params = st["scene"], st["fc"], st["config"], \
+        st["params"]
+    hdr, depth, tri, gb, n = st["hdr"], st["depth"], st["tri"], st["gb"], \
+        st["n"]
+    stats = st["stats"]
+    mask_grid = st["mask_grid"]
+    dev = depth.device
     accumulation = hdr
     if config.enable_taa and history is not None:
         m_np = (fc.inv_view_proj_np.astype(np.float32)
                 @ fc.prev_view_proj_np.astype(np.float32))
         accumulation = taa.taa_resolve(hdr, history, depth, m_np,
                                        fc.history_valid, params.width,
-                                       params.height)
+                                       params.height, hdr_halo=hdr_halo)
 
     color = _apply_viewmode(config, scene, gb, n, depth, tri, accumulation,
-                            fc, v=v, probe=probe, bent_normals=bent_normals)
+                            fc, v=st["v"], probe=st["probe"],
+                            bent_normals=st["bent_normals"])
     color_u8 = post.to_uint8(color)
 
     # Device-appended debug draws (ref: debug-drawing/common.hlsli:33-95):
@@ -345,7 +375,7 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
             dbuf, dcount = debugdraw.ddraw_append(dbuf, dcount, rows, rmask)
         if config.show_object_bounds:
             rows, rmask = debugdraw.object_bounds_rows(
-                scene, fc.scene_rotation, prim_visible)
+                scene, fc.scene_rotation, st["prim_visible"])
             dbuf, dcount = debugdraw.ddraw_append(dbuf, dcount, rows, rmask)
         color_u8 = debugdraw.ddraw_render(color_u8, depth, dbuf, dcount,
                                           fc.view_proj)

@@ -127,14 +127,16 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def encode_png(rgba: np.ndarray, level: int = 3) -> bytes:
-    """(H, W, 4) uint8 -> PNG bytes (RGBA, filter type 0 on every row)."""
+    """(H, W, 4) uint8 RGBA or (H, W, 3) RGB -> PNG bytes (filter type 0
+    on every row)."""
     rgba = np.ascontiguousarray(rgba, np.uint8)
     h, w, c = rgba.shape
-    if c != 4:
-        raise ValueError("encode_png takes (H, W, 4) uint8 RGBA")
+    if c not in (3, 4):
+        raise ValueError("encode_png takes (H, W, 4) RGBA or (H, W, 3) RGB "
+                         "uint8")
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           rgba.reshape(h, w * 4)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0)
+                           rgba.reshape(h, w * c)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 6 if c == 4 else 2, 0, 0, 0)
     return (_SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
             + _chunk(b"IEND", b""))

@@ -11,6 +11,7 @@ import torch
 from incarnation_tpu_torch import config as tconfig
 from incarnation_tpu_torch.core.view import View
 from incarnation_tpu_torch.device import resolve_device
+from incarnation_tpu_torch.dist import sharding
 from incarnation_tpu_torch.kernels import bvh, clustered, raster, taa
 from incarnation_tpu_torch.renderer import frame as tframe
 from incarnation_tpu_torch.scene import testing as ttesting
@@ -20,7 +21,8 @@ torch.set_num_threads(1)
 
 def test_port_imports_no_jax():
     """A fresh interpreter that imports the whole frame path (and the
-    package's every module) holds no jax and no incarnation_tpu module."""
+    package's every module) holds no jax and no incarnation_tpu module,
+    and no PIL or OpenCV (the card's machine has neither)."""
     code = (
         "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {str(tconfig.__file__.rsplit('/', 2)[0])!r})\n"
@@ -30,7 +32,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'jaxlib' or m.startswith('incarnation_tpu.')\n"
-        "       or m == 'incarnation_tpu']\n"
+        "       or m == 'incarnation_tpu'\n"
+        "       or m.split('.')[0] in ('PIL', 'cv2')]\n"
         "print('BAD', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-I", "-c", code],
@@ -76,9 +79,11 @@ def tiny():
 
 def _render_tiny(tiny, kw):
     """One 16x8 frame of make_rich_scene with Config(**kw); a scene_bvh
-    key stands for the scene's BVH and band_axis is passed through."""
+    key stands for the scene's BVH, and a band_axis key renders the frame
+    in 2 bands of 4 rows (dist.sharding over ["cpu", "cpu"]), which must
+    equal the single frame."""
     scene, scene_bvh = tiny
-    args = {k: v for k, v in kw.items() if k == "band_axis"}
+    args = {}
     if "scene_bvh" in kw:
         args["scene_bvh"] = scene_bvh
     cfg = tconfig.Config(masked_depth_peels=2, enable_taa=False,
@@ -88,8 +93,16 @@ def _render_tiny(tiny, kw):
         View.from_lookat([1.0, 2.5, -2.0], [0.0, -1.0, 7.0], aspect=2.0),
         cfg, shadow_bounds=([0.0, 1.0, 6.0], 12.0), device="cpu")
     params = raster.RasterParams(width=16, height=8, pair_capacity=1024,
-                                 bin_max_span=8, big_tri_capacity=64)
+                                 bin_max_span=8, big_tri_capacity=64,
+                                 tile_h=4 if "band_axis" in kw else 16)
     out = tframe.render_frame(scene, fc, config=cfg, params=params, **args)
+    if "band_axis" in kw:
+        band = sharding.render_frame_sharded(scene, fc, config=cfg,
+                                             params=params,
+                                             devices=["cpu", "cpu"], **args)
+        assert torch.equal(band["tri"], out["tri"])
+        assert int((band["color"].int() - out["color"].int()).abs().max()) \
+            <= 1
     assert torch.isfinite(out["hdr"]).all()
     assert out["color"].shape == (8, 16, 3)
     return out
@@ -103,15 +116,11 @@ def _render_tiny(tiny, kw):
     dict(enable_hbao=True, use_bent_normals=True, scene_bvh=True,
          viewmode=tconfig.ViewMode.BENT_NORMALS)])
 def test_later_slices_raise(tiny, kw):
-    """The branch of render_frame that a later slice ports (band sharding,
-    which needs a device mesh) raises NotImplementedError rather than
-    rendering something else; what needs a BVH (RT sun shadows, HBAO, a
-    scene_bvh), ported in slice 4, renders a finite frame."""
-    if "band_axis" in kw:
-        with pytest.raises(NotImplementedError, match="band_axis"):
-            _render_tiny(tiny, kw)
-    else:
-        _render_tiny(tiny, kw)
+    """Every branch of render_frame that a later slice was to port is
+    ported and renders a finite frame: what needs a BVH (RT sun shadows,
+    HBAO, a scene_bvh; slice 4) and band sharding (slice 5, the band_axis
+    case), whose 2-band frame equals the single frame."""
+    _render_tiny(tiny, kw)
 
 
 @pytest.mark.parametrize("kw", [
@@ -126,7 +135,9 @@ def test_raster_frame_options_are_supported(tiny, kw):
 
 
 def test_band_axis_raises():
-    with pytest.raises(NotImplementedError):
+    """render_frame takes no mesh axis: a band-sharded frame is
+    dist.sharding.render_frame_sharded over a list of devices."""
+    with pytest.raises(TypeError, match="band_axis"):
         tframe.render_frame(None, None, config=tconfig.Config(),
                             params=raster.RasterParams(128, 16),
                             band_axis="x")

@@ -446,3 +446,116 @@ def test_k4_budget_counts_trunc_and_leaves_counters_zero(dev):
     assert torch.count_nonzero(bvh._k4_counters(dev)) == 0
     assert torch.equal(full["steps"],
                        bvh.trace_plain(b, o, d, return_steps=True)["steps"])
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["merged", "split"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k4_binary_matches_twin(dev, any_hit, split, monkeypatch):
+    """K4's binary roles (the merged table, and rows + links split as
+    above _MERGE_LIMIT nodes): tri, t, u, v and steps identical to the
+    binary twin, per-ray tmin included."""
+    if split:
+        monkeypatch.setattr(bvh, "_MERGE_LIMIT", 0)
+    tris, _ = _k4_bvh(dev)
+    rows, links, _ = bvh.build_lbvh(tris)
+    rows[:, 11] = 1.0
+    rows[:, bvh._DS1_OFF:bvh._DS1_OFF + 3] = 1.0
+    b = bvh._finish_bvh(rows, links, dev)
+    assert b.merged == (not split)
+    o, d = _k4_rays(dev)
+    bvh.K4.reset()
+    got = bvh.trace(b, o, d, tmin=0.05, tmax=25.0, any_hit=any_hit)
+    assert bvh.K4.launches == 1
+    _assert_k4(got, bvh.trace_plain(b, o, d, 0.05, 25.0, any_hit))
+    tmin = torch.rand(o.shape[0], device=dev) * 3.0
+    g2 = bvh.trace_k4(b, o, d, tmin, 25.0, any_hit, return_steps=True)
+    r2 = bvh.trace_plain(b, o, d, tmin, 25.0, any_hit, return_steps=True)
+    _assert_k4(g2, r2)
+    assert torch.equal(g2["steps"], r2["steps"])
+    assert (got["tri"] >= 0).float().mean() > 0.05
+
+
+def test_k4_split_links_pass_2_24(dev):
+    """A split table of 3M nodes whose walk ends at its last two rows, so
+    that octants 5-7 follow int32 links past 2^24 (which f32 would round
+    to the wrong node): K4 identical to the twin, every octant's ray
+    reaching the last row's triangle."""
+    n = 3 << 20
+    rows = torch.zeros((n, bvh.ROW_LANES), device=dev)
+    links = torch.zeros((8 * n, 2), dtype=torch.int32, device=dev)
+    rows[0, 0:3], rows[0, 3:6] = -100.0, 100.0
+    tris = np.float32([[[50, 50, 50], [51, 50, 50], [50, 51, 50]],
+                       [[-10, -10, 0], [10, -10, 0], [0, 10, 0]]])
+    rows[n - 2:] = torch.tensor(bvh._leaf_rows_for(
+        tris, np.array([[0, -1, -1, -1], [1, -1, -1, -1]])), device=dev)
+    rows[n - 2:, 11] = 1.0
+    for okt in range(8):
+        off = okt * n
+        links[off] = torch.tensor([off + n - 2, -1])
+        links[off + n - 2] = torch.tensor([-1, off + n - 1])
+        links[off + n - 1] = -1
+    b = bvh.SceneBVH(rows=rows, links=links, wide=False)
+    signs = torch.tensor([[1.0 - 2 * ((k >> a) & 1) for a in range(3)]
+                          for k in range(8)], device=dev)
+    d = signs * torch.tensor([0.36, 0.48, 0.8], device=dev)
+    o = (-4.0 * d).contiguous()
+    got = bvh.trace_k4(b, o, d, return_steps=True)
+    ref = bvh.trace_plain(b, o, d, return_steps=True)
+    _assert_k4(got, ref)
+    assert torch.equal(got["steps"], ref["steps"])
+    assert got["tri"].tolist() == [1] * 8
+
+
+def _alpha_scene(dev):
+    """The port's testing scene with its MASK quad and a BLEND quad, rays
+    toward both from in front, and one noise value per ray."""
+    from incarnation_tpu_torch.scene import testing
+    scene = testing.make_rich_scene(device=dev, blend_quad=True)
+    r = np.random.default_rng(5)
+    n = 20000
+    o = np.stack([r.uniform(-5, 5, n), r.uniform(-1.5, 4.5, n),
+                  r.uniform(-1, 2, n)], 1).astype(np.float32)
+    d = np.stack([r.normal(0, 0.3, n), r.normal(0, 0.3, n),
+                  np.ones(n)], 1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (scene, torch.tensor(o, device=dev), torch.tensor(d, device=dev),
+            torch.tensor(r.uniform(0, 1, n).astype(np.float32), device=dev))
+
+
+@pytest.mark.parametrize("wide", [True, False], ids=["wide", "binary"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k4_alpha_matches_twin(dev, any_hit, wide):
+    """K4's alpha role with a pathtrace.AlphaFilter (MASK cutoff, BLEND
+    noise per ray): identical to the twin calling the same filter, and the
+    filter changes hits; any other callable on CUDA tensors raises."""
+    from incarnation_tpu_torch.kernels import pathtrace
+    scene, o, d, noise = _alpha_scene(dev)
+    b = bvh.build_scene_bvh(scene, use_cache=False, wide=wide, device=dev)
+    flt = pathtrace.AlphaFilter(scene, noise)
+    got = bvh.trace(b, o, d, any_hit=any_hit, alpha_of=flt)
+    ref = bvh.trace_plain(b, o, d, any_hit=any_hit, alpha_of=flt)
+    _assert_k4(got, ref)
+    bare = bvh.trace(b, o, d, any_hit=any_hit)
+    assert int((bare["tri"] != got["tri"]).sum()) > 100
+    with pytest.raises(TypeError, match="AlphaFilter"):
+        bvh.trace(b, o, d, alpha_of=lambda tri, u, v: tri >= 0)
+
+
+def test_k3_halo_rows_match_twin(dev):
+    """K3 on a band's history with y_off halo rows above and below (the
+    band-sharded frame): identical to the twin, and the halo rows are read
+    (the fetch differs from a fetch clamped at the band's edge)."""
+    h, w, y = 64, 256, 16
+    r = np.random.default_rng(9)
+    hist = torch.tensor(r.uniform(0, 4, (h + 2 * y, w, 3)).astype(
+        np.float32), device=dev)
+    depth = torch.tensor(r.uniform(0.05, 1.0, (h, w)).astype(np.float32),
+                         device=dev)
+    m = torch.eye(4, device=dev)
+    m[3, 1] = 0.2                    # a vertical shift of 0.1 h rows
+    m[3, 0] = -0.03
+    got = taa.history_fetch(hist, depth, m, w, h, y)
+    ref = taa.history_fetch_plain(hist, depth, m, w, h, y)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    inner = taa.history_fetch(hist[y:h + y].contiguous(), depth, m, w, h)
+    assert not torch.equal(got, inner)

@@ -215,11 +215,14 @@ def test_integrate_matches_jax():
 
 
 def test_sky_sample_term_clamps_nov():
-    """Divergence (ROADMAP Queue 3, an open question): the sky sample's
-    BRDF clamps NoV to [0, 1], as the direct light's BRDF
-    (shading.brdf_response) does in both packages. Where the normal faces the eye the
+    """Divergence (ROADMAP Queue 3, decided: keep the clamp): the sky
+    sample's BRDF clamps NoV to [0, 1], as the direct light's BRDF of the
+    same reference file (lighting/common.hlsli:118-139) does in both
+    packages (shading.brdf_response). Where the normal faces the eye the
     term equals JAX's; where it faces away, JAX's unclamped NoV makes the
-    term negative or a firefly, and the port's stays >= 0."""
+    term negative or a firefly, and the port's stays >= 0. Both sides are
+    pinned at one input: JAX's term there is about -1.1e5 per channel, the
+    port's a small positive radiance."""
     from incarnation_tpu.kernels import pathtrace as jpt
     jp, tp = probe_pair()
     rng = np.random.default_rng(9)
@@ -245,3 +248,11 @@ def test_sky_sample_term_clamps_nov():
     np.testing.assert_allclose(tt[facing], jt[facing], rtol=1e-4, atol=1e-5)
     assert (tt >= 0).all()
     assert (jt[~facing] < 0).any()
+    # one input with the normal facing away (n . v = -0.7266): JAX's term
+    # and the port's, as measured on the CPU build of both packages
+    i = 3824
+    assert not facing[i]
+    np.testing.assert_allclose(jt[i], [-107339.39, -123800.195, -122742.73],
+                               rtol=1e-3)
+    np.testing.assert_allclose(tt[i], [0.15076, 0.49635, 0.26009],
+                               rtol=1e-3)
