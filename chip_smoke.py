@@ -8,11 +8,12 @@ It builds the hand-written CUDA kernels from incarnation_tpu_torch/csrc,
 builds the procedural atrium (289k triangles, 41 materials, 66 lights,
 masked foliage, decals) onto the card and renders 8 TAA frames at 1920x1088
 through render_frame, the port's raster frame in the bench configuration:
-opaque raster, 8 masked depth peels, decals, resolve, the 1024 x 1024 sun
-shadow map (K1's depth-only role), sky IBL, shadowed sun, clustered lights,
-TAA and tonemap. The camera is the atrium's glTF camera with Halton jitter
-and a small orbit every frame. It checks that the shadow map darkens the
-frame.
+opaque raster, 8 masked depth peels with their alpha tests (K6), decals,
+the material resolve of the opaque and decal layers (K5), the 1024 x 1024
+sun shadow map (K1's depth-only role, every face casting), sky IBL,
+shadowed sun, clustered lights, TAA and tonemap. The camera is the
+atrium's glTF camera with Halton jitter and a small orbit every frame. It
+checks that the shadow map darkens the frame.
 
 Then it captures each kernel's inputs from one more frame, runs each kernel
 and its plain PyTorch twin on those inputs on the card, compares them, times
@@ -22,8 +23,9 @@ every kernel swapped for its twin and compares the images.
 
 A second, small path (512x256, the port's scene/testing.py scene with a
 BLEND quad) renders one forward-lighting frame with blend layers and both
-debug draws, holds one blend-layer launch of K1 to its twin, renders one
-frame per view mode and checks pick and highlight.
+debug draws, holds its blend-layer launches of K1 and every K5 and K6
+launch to their twins, renders one frame per view mode and checks pick and
+highlight.
 
 Then the BVH paths on the atrium: (a) the scene BVH built on the host;
 (b) the path tracer (render_pathtrace) at the JAX bench's 640x360, one
@@ -33,7 +35,8 @@ and shadow traces (identical hits), timed, with its bound and steps per
 ray; (d) one sample with K4 swapped for its twin (identical radiance);
 (e) one 1920x1088 render_frame with RT sun shadows and HBAO through the
 same BVH (RT shadows darken the frame, AO in [0, 1], unit bent normals,
-the share of covered pixels where RT and shadow-map visibility agree).
+the share of covered pixels where RT and shadow-map visibility agree; its
+K5 and K6 launches against their twins).
 
 Then the rest of the port: (g) the atrium's binary BVH (merged table) and
 K4's binary role on the captured primary, bounce and shadow rays, against
@@ -47,7 +50,8 @@ serving the atrium at 960x540 (the frame after an orbit input differs);
 (k) band sharding over two devices (two cards if the machine shows them,
 else cuda:0 twice): a 1920x1088 frame and a second TAA frame against the
 single frame, a band-sharded path-traced sample (identical) and an
-SPP-sharded round (the batch-mean rule within 1e-6).
+SPP-sharded round (the batch-mean rule within 1e-6). (i)-(k) capture
+their K1, K2, K3, K5 and K6 launches and hold each to its twin.
 
 It prints one JSON line of kernel figures; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises, and the script
@@ -94,6 +98,24 @@ K1_OPS_PER_PAIR_PIXEL = 16
 K2_OPS_DIST, K2_OPS_RANGE, K2_OPS_DIR = 9, 6, 4
 K2_OPS_SPOT, K2_OPS_NOL, K2_OPS_BRDF = 11, 7, 96
 K3_OPS_PER_PIXEL = 45          # 3x4 reprojection, divide, 3-channel bilerp
+# K5, counted from csrc/resolve.cu (pow and log2 count one each), per
+# covered pixel: the two bilinear levels 310 and their 8 core texel
+# decodes 44 each (662 in all); LOD 16; the TBN basis 45; sRGB decode 30;
+# the factors 14; normal mapping 38; octahedral encoding 13; world
+# position 41 -- and 264 more where the material has extras blocks (8
+# decodes of 33). An empty pixel costs none. Bytes: tri and uv of every
+# pixel, 13 more floats of a covered one (depth, 12 interp channels), 85
+# B of GBuffer planes written per pixel (97 with the mapped normal), each
+# stack block and material row touched read once.
+K5_OPS_PER_COVERED = 859
+K5_OPS_PER_EXTRAS = 264
+K5_OUT_BYTES = 85
+# K6, per pixel of the peel: LOD 12, its cap 4, the clamps 2, the bilinear
+# alpha fetch 26, alpha 1, the BLEND threshold 2 (43, on every pixel, hit
+# or not); bytes: 7 interp channels in, alpha and threshold out.
+K6_OPS_PER_PIXEL = 43
+K6_PIXEL_BYTES = 7 * 4 + 8
+K5_RTOL = 1e-5             # K5 against its twin: see _k5_error
 # K4, counted from csrc/bvh.cu (a fused multiply-add counts two), for the
 # slots these inputs fill (K4 also tests the empty ones, which need no
 # work): a triangle test 46 per filled leaf slot the ray must test (two
@@ -204,7 +226,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from incarnation_tpu_torch.core import mathutils as mu
     from incarnation_tpu_torch.kernels import (build, bvh, clustered, raster,
-                                               shadow, taa)
+                                               resolve, shadow, taa)
 
     # 1. the card
     dev = torch.device("cuda")
@@ -232,7 +254,8 @@ def main(argv=None) -> int:
     run(make_fc(1, fc0.view_proj.cpu().numpy()), warm["accumulation"])
     torch.cuda.synchronize()
 
-    kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4)
+    kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4, resolve.K5,
+               resolve.K6)
     for k in kernels:
         k.reset()
     history = torch.zeros((H, W, 3), device=dev)
@@ -281,10 +304,11 @@ def main(argv=None) -> int:
         raise RuntimeError("the atrium frame is mostly empty")
     # per frame: K1 for the opaque layer, each peel, the decals and the
     # shadow map, K2 once, K3 on every frame with a history (all but
-    # frame 0), K4 never (no BVH on this path)
-    want = [[3 + PEELS, 1, int(i > 0), 0] for i in range(FRAMES)]
+    # frame 0), K4 never (no BVH on this path), K5 for the opaque and the
+    # decal layer, K6 for each peel
+    want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS] for i in range(FRAMES)]
     if per_frame != want:
-        raise RuntimeError(f"launches per frame (K1, K2, K3, K4) "
+        raise RuntimeError(f"launches per frame (K1, K2, K3, K4, K5, K6) "
                            f"{per_frame} != {want}")
     if k1_by_layer != {"raster_opaque": FRAMES, "raster_decal": FRAMES,
                        "raster_peel": FRAMES * PEELS,
@@ -317,6 +341,8 @@ def main(argv=None) -> int:
     calls = capture_frame(run, fc, history, raster, clustered, taa)
     rows = compare_kernels(calls, raster, clustered, taa, launches,
                            k1_by_layer)
+    rows += [k5_row(resolve, calls, launches["k5_resolve"]),
+             k6_row(resolve, calls, launches["k6_masked_alpha"])]
     check_twin_frame(run, fc, history, raster, clustered, taa)
     if args.profile:
         profile_frame(run, fc, history)
@@ -433,8 +459,11 @@ def capture_frame(run, fc, history, raster, clustered, taa):
 
 @contextlib.contextmanager
 def _capturing(calls, raster, clustered, taa, limit=None):
-    """For the duration of the block, each K1, K2 and K3 wrapper call
-    appends (kind, args, kwargs) to calls, at most `limit` per kind."""
+    """For the duration of the block, each K1, K2, K3, K5 and K6 wrapper
+    call appends (kind, args, kwargs) to calls, at most `limit` per
+    kind."""
+    from incarnation_tpu_torch.kernels import resolve
+
     def keep(kind):
         def after(out, *a, **kw):
             if limit is None or sum(c[0] == kind for c in calls) < limit:
@@ -443,7 +472,9 @@ def _capturing(calls, raster, clustered, taa, limit=None):
     with contextlib.ExitStack() as stack:
         for mod, name, kind in ((raster, "rasterize_tiles", "k1"),
                                 (clustered, "clustered_lighting", "k2"),
-                                (taa, "history_fetch", "k3")):
+                                (taa, "history_fetch", "k3"),
+                                (resolve, "resolve_gbuffer", "k5"),
+                                (resolve, "masked_alpha", "k6")):
             stack.enter_context(_hooked(mod, name, keep(kind)))
         yield calls
 
@@ -583,6 +614,194 @@ def k3_row(taa, a, name, n_launches):
         library_ms=device_ms(library, 50))
 
 
+def _k5_args(a, kw):
+    """A captured resolve_gbuffer call -> (tri, depth, scene, interp,
+    inv_view_proj, width, height, return_normal3)."""
+    tri, depth, scene, interp, ivp, w, h, *rest = a
+    n3 = rest[0] if rest else kw.get("return_normal3", False)
+    return tri, depth, scene, interp, ivp, w, h, bool(n3)
+
+
+def _k5_error(got, ref):
+    """(max abs error, max relative error) of one K5 launch against its
+    twin; raises past the tolerance. The mask and uv must be identical and
+    every float plane must agree per element to K5_RTOL of the twin's
+    value + 1e-5 of its median: K5 repeats the twin's operations in order
+    (--fmad=false) but for torch.cross and torch.matmul, which round in
+    their own order on the card."""
+    import torch
+    if isinstance(got, tuple):
+        (got, g3), (ref, r3) = got, ref
+        planes = [("normal3", g3, r3)]
+    else:
+        planes = []
+    if not (torch.equal(got.mask, ref.mask) and torch.equal(got.uv, ref.uv)):
+        raise RuntimeError("K5 mask or uv differs from its twin")
+    planes += [(f, getattr(got, f), getattr(ref, f))
+               for f in ("base_color", "normals", "mrao", "emissive",
+                         "world_pos", "extras")]
+    err = rel = 0.0
+    for name, g, r in planes:
+        e, q = _close(f"K5 {name}", g, r, rtol=K5_RTOL, atol_frac=1e-5)
+        err, rel = max(err, e), max(rel, q)
+    return err, rel
+
+
+def _rows_touched(fn, tables):
+    """Runs fn (a twin) with mathutils.gather_rows recording the rows it
+    gathers from each table of `tables` ({name: (table, pixel mask or
+    None)}), the rows of masked pixels only. -> {name: distinct rows}."""
+    import torch
+    from incarnation_tpu_torch.core import mathutils as mu
+    seen = {name: [] for name in tables}
+    gather = mu.gather_rows
+
+    def rec(table, idx):
+        for name, (t, where) in tables.items():
+            if table is t:
+                i = torch.clamp(idx, 0, t.shape[0] - 1)
+                if where is not None:
+                    i = i[where.expand(i.shape)]
+                seen[name].append(i.reshape(-1))
+        return gather(table, idx)
+    with _swapped(mu, "gather_rows", rec):
+        fn()
+    return {name: int(torch.unique(torch.cat(v)).numel()) if v else 0
+            for name, v in seen.items()}
+
+
+def _k5_bound(resolve, tri, depth, scene, interp, ivp, w, h, n3):
+    """(bound ms, 'bytes' | 'operations') of one K5 launch: see K5_OPS_*."""
+    st = scene.mat_stack
+    cov = tri >= 0
+    mat = interp[9].to(dtype=tri.dtype).clamp(0, st.meta.shape[0] - 1)
+    has_ex = cov & (st.meta[mat.long(), 4] >= 0) & (st.extra.shape[0] > 1)
+    rows = _rows_touched(
+        lambda: resolve.resolve_gbuffer_plain(tri, depth, scene, interp, ivp,
+                                              w, h, n3),
+        {"flat": (st.flat, cov), "extra": (st.extra, has_ex),
+         "meta": (st.meta, cov), "params": (scene.mat_params, cov)})
+    n_cov, n_ex = int(cov.sum()), int(has_ex.sum())
+    nbytes = (w * h * (4 + 8 + K5_OUT_BYTES + 12 * n3) + n_cov * 13 * 4
+              + 64 + 32 * rows["flat"] + 24 * rows["extra"]
+              + 24 * rows["meta"] + 64 * rows["params"])
+    return _bound(nbytes,
+                  n_cov * K5_OPS_PER_COVERED + n_ex * K5_OPS_PER_EXTRAS)
+
+
+def k5_row(resolve, calls, n_launches, name="k5_resolve"):
+    """K5 against its twin on each captured resolve_gbuffer launch (error,
+    both times and the bound, each the mean over the launches) -> the JSON
+    row."""
+    launches = [_k5_args(a, kw) for kind, a, kw in calls if kind == "k5"]
+    if not launches:
+        raise RuntimeError(f"{name}: no K5 launch was captured")
+    errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
+    for args in launches:
+        errs.append(_k5_error(resolve.resolve_gbuffer(*args),
+                              resolve.resolve_gbuffer_plain(*args)))
+        ms.append(device_ms(lambda: resolve.resolve_gbuffer(*args), 20))
+        plain_ms.append(device_ms(
+            lambda: resolve.resolve_gbuffer_plain(*args), 2))
+        b, by = _k5_bound(resolve, *args)
+        bounds.append(b)
+        bound_by.add(by)
+    _log(f"{name}: per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
+         + "; twin ms " + ", ".join(f"{t:.2f}" for t in plain_ms)
+         + "; bound ms " + ", ".join(f"{t:.4f}" for t in bounds)
+         + "; covered share " + ", ".join(
+             f"{float((a[0] >= 0).float().mean()):.4f}" for a in launches)
+         + "; max abs err " + ", ".join(f"{e[0]:.3e}" for e in errs)
+         + ", max relative err " + ", ".join(f"{e[1]:.3e}" for e in errs))
+    return dict(
+        name=name, route="cuda",
+        source="incarnation_tpu_torch/csrc/resolve.cu",
+        replaces="incarnation_tpu/kernels/resolve.py:242",
+        launches=n_launches, max_abs_err=max(e[0] for e in errs),
+        max_rel_err=max(e[1] for e in errs),
+        ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+        bound_ms=float(np.mean(bounds)),
+        bound_by="operations" if "operations" in bound_by else "bytes",
+        library_ms=None)
+
+
+def _k6_error(got, ref, tri):
+    """(max abs error, max relative error, elements not identical) of one
+    K6 launch against its twin. The pass/fail decision alpha >= thresh
+    must be the twin's on every hit pixel (it picks the peel's fragment),
+    and alpha and the threshold must agree to 1e-6 relative; K6 repeats
+    the twin's operations in order, so both are expected to be
+    identical."""
+    (ga, gt), (ra, rt) = got, ref
+    hit = tri >= 0
+    flips = int(((ga >= gt) != (ra >= rt))[hit].sum())
+    if flips:
+        raise RuntimeError(f"K6 decides {flips} hit pixels otherwise than "
+                           "its twin")
+    err = rel = 0.0
+    for what, g, r in (("alpha", ga, ra), ("threshold", gt, rt)):
+        e, q = _close(f"K6 {what}", g, r, rtol=1e-6, atol_frac=1e-7)
+        err, rel = max(err, e), max(rel, q)
+    return err, rel, int((ga != ra).sum() + (gt != rt).sum())
+
+
+def _k6_bound(resolve, scene, tri, interp, row0=0):
+    """(bound ms, 'bytes' | 'operations') of one K6 launch: see
+    K6_OPS_PER_PIXEL; each alpha-mirror row and material row touched is
+    read once."""
+    st = scene.mat_stack
+    rows = _rows_touched(
+        lambda: resolve.masked_alpha_plain(scene, tri, interp, row0),
+        {"alpha": (st.alpha, None), "meta": (st.meta, None),
+         "params": (scene.mat_params, None)})
+    px = tri.numel()
+    nbytes = (px * K6_PIXEL_BYTES + 16 * rows["alpha"] + 24 * rows["meta"]
+              + 64 * rows["params"])
+    return _bound(nbytes, px * K6_OPS_PER_PIXEL)
+
+
+def _k6_args(a, kw):
+    scene, tri, interp, *rest = a
+    return scene, tri, interp, rest[0] if rest else kw.get("row0", 0)
+
+
+def k6_row(resolve, calls, n_launches, name="k6_masked_alpha"):
+    """K6 against its twin on each captured masked_alpha launch (the
+    decisions on hit pixels, the error, both times and the bound, each the
+    mean over the launches) -> the JSON row."""
+    launches = [_k6_args(a, kw) for kind, a, kw in calls if kind == "k6"]
+    if not launches:
+        raise RuntimeError(f"{name}: no K6 launch was captured")
+    errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
+    for args in launches:
+        errs.append(_k6_error(resolve.masked_alpha(*args),
+                              resolve.masked_alpha_plain(*args), args[1]))
+        ms.append(device_ms(lambda: resolve.masked_alpha(*args), 20))
+        plain_ms.append(device_ms(lambda: resolve.masked_alpha_plain(*args),
+                                  2))
+        b, by = _k6_bound(resolve, *args)
+        bounds.append(b)
+        bound_by.add(by)
+    _log(f"{name}: per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
+         + "; twin ms " + ", ".join(f"{t:.2f}" for t in plain_ms)
+         + "; bound ms " + ", ".join(f"{t:.4f}" for t in bounds)
+         + "; hit pixels " + ", ".join(
+             str(int((a[1] >= 0).sum())) for a in launches)
+         + "; decisions as the twin's on every hit pixel; max abs err "
+         + ", ".join(f"{e[0]:.3e}" for e in errs)
+         + "; elements not identical " + ", ".join(str(e[2]) for e in errs))
+    return dict(
+        name=name, route="cuda",
+        source="incarnation_tpu_torch/csrc/resolve.cu",
+        replaces="incarnation_tpu/kernels/resolve.py:107",
+        launches=n_launches, max_abs_err=max(e[0] for e in errs),
+        max_rel_err=max(e[1] for e in errs),
+        ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+        bound_ms=float(np.mean(bounds)),
+        bound_by="operations" if "operations" in bound_by else "bytes",
+        library_ms=None, not_identical=sum(e[2] for e in errs))
+
+
 def k1_row(raster, layer, launches_captured, n_launches):
     """Kernel-vs-twin on the captured K1 launches of one raster layer
     (error, both times and the bound, each the mean over the launches)
@@ -663,6 +882,7 @@ def small_path(dev, raster, clustered, taa):
     k1_raster[raster_blend] row (its launches are this path's)."""
     import torch
     from incarnation_tpu_torch.config import ViewMode
+    from incarnation_tpu_torch.kernels import resolve
     from incarnation_tpu_torch.renderer import frame
     w, h = SMALL_W, SMALL_H
     scene, render = small_renderer(dev)
@@ -679,23 +899,31 @@ def small_path(dev, raster, clustered, taa):
     fwd = dict(forward_lighting=True, show_light_bounds=True,
                show_object_bounds=True)
     render(**fwd)                               # warm-up
-    kernels = (raster.K1, clustered.K2, taa.K3)
+    kernels = (raster.K1, clustered.K2, taa.K3, resolve.K5, resolve.K6)
     for k in kernels:
         k.reset()
     calls = capture_frame(lambda fc, history: render(**fwd), None, None,
                           raster, clustered, taa)
     by_name, k2_launches = dict(raster.K1.by_name), clustered.K2.launches
+    k5_launches, k6_launches = resolve.K5.launches, resolve.K6.launches
     out = render(**fwd)
     check_color(out, "forward frame")
     stats = {k: int(v) for k, v in out["stats"].items()}
     _log(f"small path, forward frame: K1 by layer {by_name}, K2 "
-         f"{k2_launches} launches; stats {json.dumps(stats)}")
+         f"{k2_launches}, K5 {k5_launches}, K6 {k6_launches} launches; "
+         f"stats {json.dumps(stats)}")
     if by_name.get("raster_blend") != SMALL_PEELS:
         raise RuntimeError(f"raster_blend launches {by_name}")
-    # K2 shades the opaque surface and each blend layer
+    # K2 shades the opaque surface and each blend layer; K5 resolves the
+    # opaque, decal and blend layers, K6 tests each masked peel
     if by_name.get("raster_shadow_depth") != 1 \
-            or k2_launches != 1 + SMALL_PEELS:
-        raise RuntimeError(f"small path launches {by_name}")
+            or k2_launches != 1 + SMALL_PEELS \
+            or k5_launches != 2 + SMALL_PEELS or k6_launches != SMALL_PEELS:
+        raise RuntimeError(f"small path launches {by_name}, K2 "
+                           f"{k2_launches}, K5 {k5_launches}, K6 "
+                           f"{k6_launches}")
+    check_twins("small path, forward frame", calls, raster, clustered, taa,
+                need=("k1", "k2", "k5", "k6"))
     if stats["debug_draws"] <= 0:
         raise RuntimeError("no debug draw was appended")
     for key in ("bin_overflow", "big_overflow", "peel_overflow",
@@ -766,7 +994,8 @@ def bvh_paths(dev, path, profile: bool):
     fc: the path tracer's constants, history: its accumulation))."""
     import types
     import torch
-    from incarnation_tpu_torch.kernels import bvh, hbao, pathtrace, shadow
+    from incarnation_tpu_torch.kernels import (bvh, clustered, hbao,
+                                               pathtrace, raster, shadow, taa)
     from incarnation_tpu_torch.renderer import frame
     from incarnation_tpu_torch.core import mathutils as mu
 
@@ -876,13 +1105,14 @@ def bvh_paths(dev, path, profile: bool):
     path.run(fc, hist0, rt_cfg, sbvh)                    # warm-up
     for k in (bvh.K4,):
         k.reset()
-    rt_calls = {}
+    rt_calls, raster_calls = {}, []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with _hooked(bvh, "trace_k4", lambda out, bvh_, o, d, tmin=0.0,
                  tmax=1e30, any_hit=False, role=None, alpha_of=None, **kw:
                  rt_calls.setdefault(role, (bvh_, o, d, tmin, tmax,
-                                            any_hit, alpha_of))):
+                                            any_hit, alpha_of))), \
+            _capturing(raster_calls, raster, clustered, taa):
         start.record()
         out = path.run(fc, hist0, rt_cfg, sbvh)
         end.record()
@@ -929,6 +1159,9 @@ def bvh_paths(dev, path, profile: bool):
         raise RuntimeError("AO outside [0, 1] or its mean not inside it")
     if float((bent_len - 1.0).abs().max()) > 1e-4:
         raise RuntimeError("the bent normals are not unit length")
+    check_twins("(e) RT frame", [c for c in raster_calls
+                                 if c[0] in ("k5", "k6")],
+                raster, clustered, taa, need=("k5", "k6"))
     rows += [k4_row(bvh, rt_calls[role], role, rt_launches.get(role, 0))
              for role in ("hbao", "rt_sun")]
     return rows, types.SimpleNamespace(sbvh=sbvh, calls=calls, fc=fc_pt,
@@ -1095,7 +1328,7 @@ def cli_phase(dev, path):
         raise RuntimeError(f"(i) the CLI's frames skipped a kernel: "
                            f"{counts}")
     check_twins("(i) CLI raster", calls, raster, clustered, taa,
-                need=("k1", "k2"))
+                need=("k1", "k2", "k5", "k6"))
     img = _png_check(out_dir / "raster.png", W, H)
     ref = frame.render_frame(res["scene"], res["fc"], config=res["config"],
                              params=res["params"], probe=res["probe"],
@@ -1212,7 +1445,7 @@ def viewer_phase(dev, path):
         raise RuntimeError(f"(j) the render loop did not end cleanly: "
                            f"{state.error}")
     check_twins("(j) viewer", calls, raster, clustered, taa,
-                need=("k1", "k2"))
+                need=("k1", "k2", "k5", "k6"))
 
 
 def band_phase(dev, path, pt):
@@ -1275,7 +1508,11 @@ def band_phase(dev, path, pt):
     if 0 in counts:
         raise RuntimeError(f"(k) the band frames skipped a kernel: {counts}")
     halo = check_twins("(k) band frame", calls, raster, clustered, taa,
-                       need=("k1", "k2", "k3"))
+                       need=("k1", "k2", "k3", "k5", "k6"))
+    if {_k6_args(a, kw)[3] for kind, a, kw in calls if kind == "k6"} \
+            != {0, H // 2}:
+        raise RuntimeError("(k) the bands' K6 launches do not start at "
+                           "rows 0 and H / 2")
     if len(halo) < 2 or any(len(a) < 6 or a[5] <= 0 for a in halo):
         raise RuntimeError("(k) a band's K3 launch had no halo rows")
     rows = [k3_row(taa, halo[0], "k3_taa_fetch[band_halo]", counts[2])]
@@ -1312,11 +1549,14 @@ def band_phase(dev, path, pt):
 
 
 def check_twins(what, calls, raster, clustered, taa, need):
-    """Each captured K1, K2 and K3 launch against its twin, at
+    """Each captured K1, K2, K3, K5 and K6 launch against its twin, at
     compare_kernels' tolerances (K1 via _k1_error, K2 K2_RTOL, K3 1e-6
-    relative), at the shapes the path gave it; raises if a kind in `need` was
-    not captured. Returns the K3 launches' arguments."""
-    kinds = {k: [c for c in calls if c[0] == k] for k in ("k1", "k2", "k3")}
+    relative, K5 via _k5_error, K6 via _k6_error), at the shapes the path
+    gave it; raises if a kind in `need` was not captured. Returns the K3
+    launches' arguments."""
+    from incarnation_tpu_torch.kernels import resolve
+    kinds = {k: [c for c in calls if c[0] == k]
+             for k in ("k1", "k2", "k3", "k5", "k6")}
     if not all(kinds[k] for k in need):
         raise RuntimeError(f"{what}: captured launches per kernel "
                            f"{ {k: len(v) for k, v in kinds.items()} }")
@@ -1331,10 +1571,11 @@ def check_twins(what, calls, raster, clustered, taa, need):
         worst = tuple(max(x, y) for x, y in zip(worst, e))
     shapes = sorted({(c[1][1].width, c[1][1].height, c[1][1].pair_capacity)
                      for c in kinds["k1"]})
-    _log(f"{what}: K1 x{len(kinds['k1'])} at (width, height, pair "
-         f"capacity) {shapes} against the twin: max abs err {worst[0]:.3e}, "
-         f"max relative err {worst[1]:.3e}, tri mismatch share "
-         f"{worst[2]:.2e}")
+    if shapes:
+        _log(f"{what}: K1 x{len(kinds['k1'])} at (width, height, pair "
+             f"capacity) {shapes} against the twin: max abs err "
+             f"{worst[0]:.3e}, max relative err {worst[1]:.3e}, tri "
+             f"mismatch share {worst[2]:.2e}")
     for i, (_, a, kw) in enumerate(kinds["k2"]):
         err, rel = _close(f"{what} K2",
                           clustered.clustered_lighting(*a, **kw),
@@ -1349,6 +1590,21 @@ def check_twins(what, calls, raster, clustered, taa, need):
         _log(f"{what}: K3 {i} ({a[3]}x{a[4]}, "
              f"{a[5] if len(a) > 5 else 0} halo rows each way) against the "
              f"twin: max abs err {err:.3e}, max relative err {rel:.3e}")
+    k5 = [_k5_error(resolve.resolve_gbuffer(*args),
+                    resolve.resolve_gbuffer_plain(*args))
+          for args in (_k5_args(a, kw) for _, a, kw in kinds["k5"])]
+    k6_args = [_k6_args(a, kw) for _, a, kw in kinds["k6"]]
+    k6 = [_k6_error(resolve.masked_alpha(*args),
+                    resolve.masked_alpha_plain(*args), args[1])
+          for args in k6_args]
+    if k5 or k6:
+        _log(f"{what}: K5 x{len(k5)} against the twin: max abs err "
+             f"{max([e[0] for e in k5], default=0.0):.3e}, max relative err "
+             f"{max([e[1] for e in k5], default=0.0):.3e}; K6 x{len(k6)} "
+             f"(first rows {sorted({a[3] for a in k6_args})}): decisions "
+             f"as the twin's on every hit pixel, max abs err "
+             f"{max([e[0] for e in k6], default=0.0):.3e}, elements not "
+             f"identical {sum(e[2] for e in k6)}")
     return [a for _, a, _ in kinds["k3"]]
 
 
@@ -1623,6 +1879,7 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
     images must agree (tri on all but 1e-4 of the pixels, u8 colour
     >= 50 dB PSNR)."""
     import torch
+    from incarnation_tpu_torch.kernels import resolve
     got = run(fc, history)
     def raster_plain(bins, params, z_limit=None, mask_table=None,
                      name=None):
@@ -1632,7 +1889,10 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
     with _swapped(raster, "rasterize_tiles", raster_plain), \
             _swapped(clustered, "clustered_lighting",
                      clustered.clustered_lighting_plain), \
-            _swapped(taa, "history_fetch", taa.history_fetch_plain):
+            _swapped(taa, "history_fetch", taa.history_fetch_plain), \
+            _swapped(resolve, "resolve_gbuffer",
+                     resolve.resolve_gbuffer_plain), \
+            _swapped(resolve, "masked_alpha", resolve.masked_alpha_plain):
         ref = run(fc, history)
     torch.cuda.synchronize()
     share = float((got["tri"] != ref["tri"]).float().mean())

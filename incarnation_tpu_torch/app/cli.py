@@ -384,9 +384,12 @@ def _pathtrace(args, cfg, host, fc, probe, device, info) -> dict:
               f"counted)")
     if ckpath is not None:
         ckpath.parent.mkdir(parents=True, exist_ok=True)
+        # a resumed checkpoint that already holds more than --spp samples
+        # keeps its count (JAX's CLI saves --spp, and a later resume then
+        # adds samples the history already holds a second time)
         np.savez(ckpath, history=history.cpu().numpy(),
-                 next_sample=args.spp, width=args.width, height=args.height,
-                 sample_grid=cfg.max_sample_count)
+                 next_sample=max(start_s, args.spp), width=args.width,
+                 height=args.height, sample_grid=cfg.max_sample_count)
         print(f"[pt] checkpoint -> {ckpath}")
     io_mod.save_png(args.out, out["color"].cpu().numpy())
     print(f"[out] {args.out}")

@@ -113,8 +113,11 @@ class Config:
     pair_capacity: int = 1 << 20
     # Pair capacity of the sun shadow depth pass, which bins every caster
     # triangle of the scene into the sun view's tiles. Pairs beyond it are
-    # dropped and counted in the shadow_bin_overflow stat.
-    shadow_pair_capacity: int = 163840
+    # dropped and counted in the shadow_bin_overflow stat. Every face casts
+    # (kernels/shadow.py), so the atrium's 1024 x 1024 sun pass bins
+    # 341,735 pairs (JAX's 163,840, sized for front faces only, would drop
+    # 177,895); 2^19 leaves half as much again.
+    shadow_pair_capacity: int = 1 << 19
     # Most screen tiles one binned triangle may span before it goes to the
     # per-frame "big triangle" list that every tile walks; big triangles
     # beyond big_tri_capacity are dropped and counted in big_overflow.

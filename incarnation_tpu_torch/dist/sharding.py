@@ -9,13 +9,16 @@ device, with no mesh and no torch.distributed: what the JAX package
 exchanges over ICI is a copy between the bands' tensors here. The frame
 runs in two phases (renderer/frame.py render_hdr and finish_frame): every
 band up to its HDR, then every band's TAA, which reads halo rows copied
-from its neighbours: HALO_ROWS rows of history above and below the band,
-so a reprojection across a seam reads the neighbour's history, and one row
-of current HDR each way for the 3x3 clamp (JAX taa.py:272-290, :363-371).
-The outermost bands repeat their edge row, as the single frame's clamp
-does. The BLEND screen-door noise of a band is hashed from whole-frame
-rows (render_hdr's band_row; the JAX bands hash their own rows, so their
-BLEND pixels differ from the single frame's). Outputs are assembled on
+from its neighbours: the whole history of the other bands above and below
+it (H - H/n rows each way), so a reprojection reads the history row the
+single frame reads however far it moves, and one row of current HDR each
+way for the 3x3 clamp (JAX taa.py:272-290, :363-371). Past the image's
+top and bottom the halo repeats the edge row, as the single frame's clamp
+does. (JAX's bands borrow 16 history rows, its fetch kernel's reach, and
+leave the single frame past 16 rows of vertical motion at a seam.) The
+BLEND screen-door noise of a band is hashed from whole-frame rows
+(render_hdr's band_row; the JAX bands hash their own rows, so their BLEND
+pixels differ from the single frame's). Outputs are assembled on
 devices[0] and the stats summed.
 
 The scene, probe and BVH are given per device: one object, copied to each
@@ -34,12 +37,6 @@ from ..config import EnvSkyMode
 from ..device import resolve_device
 from ..kernels import pathtrace
 from ..renderer import frame as frame_mod
-
-# History rows each band borrows from each neighbour: the JAX fetch
-# kernel's vertical reach (taa.py _MARGIN_Y), the displacement up to which
-# a band's TAA equals the single frame's across a seam.
-HALO_ROWS = 16
-
 
 def band_projection(n_bands: int, band_index: int) -> np.ndarray:
     """Post-projection matrix mapping band `band_index`'s NDC y-range to
@@ -108,14 +105,14 @@ def _band_constants(fc, n_bands: int, band_index: int, device):
 
 
 def _rows_halo(bands, i: int, rows: int, device):
-    """(rows above band i, rows below it): the neighbours' adjacent rows,
-    or the band's own edge row repeated at the image's top and bottom."""
-    own = bands[i]
-    above = (bands[i - 1][-rows:] if i > 0
-             else own[:1].expand(rows, -1, -1))
-    below = (bands[i + 1][:rows] if i + 1 < len(bands)
-             else own[-1:].expand(rows, -1, -1))
-    return above.to(device), below.to(device)
+    """(rows above band i, rows below it): the `rows` rows of the whole
+    image (the bands stacked) next to band i, with the image's first or
+    last row repeated past its top and bottom edge."""
+    top = bands[0][:1].to(device).expand(rows, -1, -1)
+    bottom = bands[-1][-1:].to(device).expand(rows, -1, -1)
+    above = torch.cat([top] + [b.to(device) for b in bands[:i]], 0)
+    below = torch.cat([b.to(device) for b in bands[i + 1:]] + [bottom], 0)
+    return above[above.shape[0] - rows:], below[:rows]
 
 
 def render_frame_sharded(scene, fc, *, config, params, devices, probe=None,
@@ -152,7 +149,7 @@ def render_frame_sharded(scene, fc, *, config, params, devices, probe=None,
     for i, d in enumerate(devs):
         hist = halo = None
         if hist_bands is not None:
-            above, below = _rows_halo(hist_bands, i, min(HALO_ROWS, hb), d)
+            above, below = _rows_halo(hist_bands, i, params.height - hb, d)
             hist = torch.cat([above, hist_bands[i], below], 0)
             halo = _rows_halo(hdr_bands, i, 1, d)
         outs.append(frame_mod.finish_frame(states[i], hist, halo))

@@ -93,10 +93,15 @@ class Bins:
 def prepare_geometry(scene, scene_rotation, view_proj, prim_visible,
                      params: RasterParams, tri_visible=None,
                      meshlet_visible=None,
-                     emit_attributes: bool = True) -> PreparedGeometry:
+                     emit_attributes: bool = True,
+                     all_double_sided: bool = False) -> PreparedGeometry:
     """Fused corner transform + triangle setup + attribute planes
     (raster.py:1207-1383). emit_attributes=False builds no attribute
-    planes (attr is None): the depth-only pass reads none."""
+    planes (attr is None): the depth-only pass reads none.
+    all_double_sided keeps every back face, whatever its primitive's
+    doubleSided flag: the sun shadow map's casters (kernels/shadow.py), so
+    a single-sided wall that faces away from the sun still casts, as it
+    blocks an RT shadow ray (a divergence from JAX, which culls it)."""
     w, h = params.width, params.height
     local_to_world = torch.matmul(scene.mesh_transforms, scene_rotation)
     local_to_clip = torch.matmul(local_to_world, view_proj)
@@ -147,7 +152,7 @@ def prepare_geometry(scene, scene_rotation, view_proj, prim_visible,
         ds, vis, mat = (scene.prim_double_sided, prim_visible,
                         scene.prim_material)
         row = torch.clamp(prim, min=0).long()
-    double_sided = ds[row] > 0
+    double_sided = (ds[row] > 0) | all_double_sided
     tri_vis = vis[row]
     tri_mat = mat[row].to(torch.float32)
     front = det < 0.0

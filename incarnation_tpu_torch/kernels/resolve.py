@@ -5,16 +5,34 @@ compaction).
 The raster kernel's 16 interpolated channels (u, v, world normal, world
 tangent, sign, material id, analytic UV derivatives) drive one material
 stack fetch per pixel; world position is reconstructed from depth.
+
+resolve_gbuffer is K5 and masked_alpha K6 (csrc/resolve.cu) on CUDA
+tensors; on CPU tensors each runs its plain twin (resolve_gbuffer_plain,
+masked_alpha_plain), the torch code the kernels were written from.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
 
+from .build import Kernel, ptr
 from ..core import mathutils as mu
 from ..scene import textures as tex_mod
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# tri, depth, interp, inv_view_proj, flat, n_flat, extra, n_extra, meta,
+# n_meta, mat_params, n_params, then the outputs base_color, normals, mrao,
+# emissive, mask, world_pos, uv, extras, n3 (NULL: none), width, height
+K5 = Kernel("resolve", "k5_resolve",
+            [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I] + [_P] * 9
+            + [_I, _I])
+# interp, meta, n_meta, mat_params, n_params, alpha mirror, n_alpha,
+# alpha out, thresh out, width, height, row0
+K6 = Kernel("resolve", "k6_masked_alpha",
+            [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I])
 
 
 @dataclasses.dataclass
@@ -63,12 +81,58 @@ def _pixel_noise(shape, device, row0: int = 0):
     return ((h >> 16) & 0xFFFF).to(torch.float32) / 65536.0
 
 
+def _check(name, t, dtype, shape, dev):
+    if t.dtype != dtype or t.device != dev or not t.is_contiguous() \
+            or (shape is not None and tuple(t.shape) != tuple(shape)):
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor of "
+                         f"shape {shape} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def _check_tables(scene, dev, alpha: bool):
+    """Raises unless the material tables K6 (alpha) or K5 reads are
+    contiguous, non-empty rows of their width on dev."""
+    st = scene.mat_stack
+    tables = [("mat_stack.meta", st.meta, torch.int32, 6),
+              ("mat_params", scene.mat_params, torch.float32, 16)]
+    tables += ([("mat_stack.alpha", st.alpha, torch.int32, 4)] if alpha else
+               [("mat_stack.flat", st.flat, torch.int32, 8),
+                ("mat_stack.extra", st.extra, torch.int32, 6)])
+    for name, t, dtype, cols in tables:
+        _check(name, t, dtype, None, dev)
+        if t.dim() != 2 or t.shape[1] != cols or t.shape[0] < 1:
+            raise ValueError(f"{name}: need (N >= 1, {cols}) rows, got "
+                             f"{tuple(t.shape)}")
+    if st.flat.data_ptr() % 16:
+        raise ValueError("mat_stack.flat: K5 loads its rows as 16-byte "
+                         "words and needs a 16-byte aligned table")
+
+
 def masked_alpha(scene, tri, interp, row0: int = 0):
     """Per-pixel opacity + pass threshold for a masked layer: MASK prims
     clip at alphaCutoff; BLEND prims get the screen-door threshold
     (resolve.py:107-181, exact path), hashed from the pixel's position in
     the whole frame (row0: the first row's). Fragment survives iff alpha
-    >= thresh."""
+    >= thresh. K6 on CUDA tensors, the twin on CPU ones."""
+    if not interp.is_cuda:
+        return masked_alpha_plain(scene, tri, interp, row0)
+    dev = interp.device
+    h, w = tri.shape
+    _check("interp", interp, torch.float32, (16, h, w), dev)
+    if row0 < 0:
+        raise ValueError("masked_alpha: need row0 >= 0")
+    _check_tables(scene, dev, alpha=True)
+    st = scene.mat_stack
+    alpha = torch.empty((h, w), dtype=torch.float32, device=dev)
+    thresh = torch.empty((h, w), dtype=torch.float32, device=dev)
+    K6(ptr(interp), ptr(st.meta), st.meta.shape[0], ptr(scene.mat_params),
+       scene.mat_params.shape[0], ptr(st.alpha), st.alpha.shape[0],
+       ptr(alpha), ptr(thresh), w, h, int(row0))
+    return alpha, thresh
+
+
+def masked_alpha_plain(scene, tri, interp, row0: int = 0):
+    """K6's twin: masked_alpha in torch operations."""
     mat_id = interp[9].to(torch.int32)
     uv = torch.stack([interp[0], interp[1]], dim=-1)
     lod = _interp_lod(scene, mat_id, interp)
@@ -90,7 +154,43 @@ def masked_alpha(scene, tri, interp, row0: int = 0):
 def resolve_gbuffer(tri, depth, scene, interp, inv_view_proj,
                     width: int, height: int, return_normal3: bool = False):
     """tri (H, W) i32 (-1 = background), interp (16, H, W) -> GBuffer
-    (resolve.py:242-376, exact trilinear path)."""
+    (resolve.py:242-376, exact trilinear path); with return_normal3 also
+    the (H, W, 3) mapped world normal before its octahedral encoding. K5
+    on CUDA tensors, the twin on CPU ones."""
+    if not tri.is_cuda:
+        return resolve_gbuffer_plain(tri, depth, scene, interp,
+                                     inv_view_proj, width, height,
+                                     return_normal3)
+    dev = tri.device
+    shape = (height, width)
+    _check("tri", tri, torch.int32, shape, dev)
+    _check("depth", depth, torch.float32, shape, dev)
+    _check("interp", interp, torch.float32, (16,) + shape, dev)
+    _check("inv_view_proj", inv_view_proj, torch.float32, (4, 4), dev)
+    _check_tables(scene, dev, alpha=False)
+    st = scene.mat_stack
+
+    def out(c):
+        return torch.empty(shape + (c,), dtype=torch.float32, device=dev)
+
+    gb = GBuffer(base_color=out(4), normals=out(2), mrao=out(4),
+                 emissive=out(3),
+                 mask=torch.empty(shape, dtype=torch.bool, device=dev),
+                 world_pos=out(3), uv=out(2), extras=out(3))
+    n3 = out(3) if return_normal3 else None
+    K5(ptr(tri), ptr(depth), ptr(interp), ptr(inv_view_proj), ptr(st.flat),
+       st.flat.shape[0], ptr(st.extra), st.extra.shape[0], ptr(st.meta),
+       st.meta.shape[0], ptr(scene.mat_params), scene.mat_params.shape[0],
+       ptr(gb.base_color), ptr(gb.normals), ptr(gb.mrao), ptr(gb.emissive),
+       ptr(gb.mask), ptr(gb.world_pos), ptr(gb.uv), ptr(gb.extras), ptr(n3),
+       width, height)
+    return (gb, n3) if return_normal3 else gb
+
+
+def resolve_gbuffer_plain(tri, depth, scene, interp, inv_view_proj,
+                          width: int, height: int,
+                          return_normal3: bool = False):
+    """K5's twin: resolve_gbuffer in torch operations."""
     mask = tri >= 0
     uv = torch.stack([interp[0], interp[1]], dim=-1)
     wn = torch.stack([interp[2], interp[3], interp[4]], dim=-1)

@@ -67,15 +67,20 @@ def render_sun_shadow_map(scene, scene_rotation, sun_vp,
                           params: raster_mod.RasterParams):
     """Rasterize sun-view depth for the whole scene: every primitive of a
     visible mesh that is not a decal casts, and casters are never culled
-    against the camera. Alpha-masked primitives cast opaque shadows (the
-    alpha-tested peel is a camera-pass refinement).
+    against the camera. Every face casts, front or back, double-sided or
+    not: a shadow ray from a receiver is blocked by the caster's face that
+    looks at the receiver, which from the sun is often the back face (the
+    JAX map culls single-sided back faces and lets light through such
+    walls). Alpha-masked primitives cast opaque shadows (the alpha-tested
+    peel is a camera-pass refinement).
     -> ((S, S) f32 depth, stats {bin_overflow, big_overflow})."""
     prim_visible = ((scene.mesh_visible[
         torch.clamp(scene.prim_mesh, min=0).long()] > 0)
         & (scene.prim_is_decal == 0))
     prep = raster_mod.prepare_geometry(scene, scene_rotation, sun_vp,
                                        prim_visible, params,
-                                       emit_attributes=False)
+                                       emit_attributes=False,
+                                       all_double_sided=True)
     _, depth, stats = raster_mod.raster_depth(prep, params)
     return depth, stats
 

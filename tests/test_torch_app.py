@@ -135,6 +135,30 @@ def test_cli_pathtrace_resume_is_bit_identical(gltf, tmp_path):
     assert int(np.load(ck)["next_sample"]) == 2
 
 
+def test_cli_resume_with_fewer_samples_keeps_the_count(gltf, tmp_path):
+    """--spp 4 checkpointed, then --resume --spp 2 (nothing to trace),
+    then --resume --spp 4: the checkpoint keeps counting 4 samples, so the
+    last run traces none and equals the uninterrupted 4-sample run (JAX's
+    CLI saves --spp and would add samples 2 and 3 a second time)."""
+    base = ["--model", str(gltf), "--width", "32", "--height", "16",
+            "--texture-max-dim", "64", "--no-sky", "--sun", "2",
+            "--lookat", "1", "0.5", "-4.6", "1", "0.5", "-2.5",
+            "--pathtrace", "--cpu", "--pt-checkpoint",
+            str(tmp_path / "c.npz")]
+    full = tcli.main(base + ["--spp", "4", "--out", str(tmp_path / "4.png")])
+    short = tcli.main(base + ["--spp", "2", "--resume", "--out",
+                              str(tmp_path / "2.png")])
+    assert short["rays"] == []
+    assert int(np.load(tmp_path / "c.npz")["next_sample"]) == 4
+    again = tcli.main(base + ["--spp", "4", "--resume", "--out",
+                              str(tmp_path / "r.png")])
+    assert again["rays"] == []
+    assert torch.equal(again["history"], full["history"])
+    assert float(full["history"].max()) > 0
+    np.testing.assert_array_equal(tio.load_png(tmp_path / "r.png"),
+                                  tio.load_png(tmp_path / "4.png"))
+
+
 # ---------------------------------------------------------------------------
 # The web viewer, headless (cases as tests/test_viewer.py)
 # ---------------------------------------------------------------------------

@@ -161,19 +161,22 @@ def test_band_sharded_frame_matches_single(rich):
         sharding.render_frame_sharded(scene, fc, devices=["cpu"] * 3, **kw)
 
 
-@pytest.mark.parametrize("eye1", [[0.0, 1.0, -2.0], [0.0, 1.6, -2.0]],
-                         ids=["static", "moving"])
-def test_band_sharded_taa_matches_single(rich, eye1):
+@pytest.mark.parametrize("eye1, target1", [
+    ([0.0, 1.0, -2.0], [0.0, 0.0, 7.0]), ([0.0, 1.6, -2.0], [0.0, 0.0, 7.0]),
+    ([0.0, 1.0, -2.0], [0.0, 3.0, 7.0])], ids=["static", "moving", "tilt"])
+def test_band_sharded_taa_matches_single(rich, eye1, target1):
     """A second TAA frame through the halos: a static camera (the static
-    shift path) and a vertical dolly whose reprojection crosses the band
-    seam (the fetch, with history halo rows from the other band): the
+    shift path), a vertical dolly whose reprojection crosses the band
+    seam (the fetch, with history halo rows from the other band) and a
+    tilt of the target from y 0 to 3, which moves the seam's history by
+    more than 16 rows (past the 16 halo rows JAX's bands borrow): the
     accumulation, seam rows included, matches the single frame's; the
-    moving camera's band frames also match JAX's single frames."""
+    dolly's band frames also match JAX's single frames."""
     scene, probe, brdf, cfg, params, jax_side = rich
     cfg = cfg.replace(enable_taa=True)
     target = [0.0, 0.0, 7.0]
     v0 = View.from_lookat([0.0, 1.0, -2.0], target, aspect=W / H)
-    v1 = View.from_lookat(eye1, target, aspect=W / H)
+    v1 = View.from_lookat(eye1, target1, aspect=W / H)
     fc0 = _constants(cfg, v0, history_valid=False)
     fc1 = _constants(cfg, v1, prev_view_proj=v0.view_proj(),
                      history_valid=True, frame_index=1)

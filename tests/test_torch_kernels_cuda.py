@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K4 against their plain PyTorch twins on a CUDA card, at small
+"""K1-K6 against their plain PyTorch twins on a CUDA card, at small
 shapes from a seed. Marked `cuda`: they skip on a host without a card and
 run on the card with
 
@@ -54,6 +54,63 @@ def _soup(dev, n=400, seed=0):
         tri_corner=t(corner.reshape(n, 36).T.copy(), torch.float32),
         prim_double_sided=t(np.arange(n_prims) % 2),
         prim_material=t((np.arange(n_prims) % 4 == 0).astype(np.int32)))
+
+
+def material_inputs(seed=0, h=24, w=40, extras=True, wild_mats=False):
+    """numpy inputs of one resolve: a stack of three block-encoded
+    materials (textures.make_material_stack: 8x8 with 4 mips, mirror; 4x4
+    with 3, wrap; 1x1, clamp; the third without extras blocks, or no
+    extras table at all with extras=False), their mat_params (MASK, BLEND
+    and OPAQUE), and an h x w layer: tri with empty pixels, depth, the 16
+    interp channels (uv past [0, 1], footprints from far below mip 0 to
+    past the last mip; wild_mats adds material ids outside the table) and
+    inv_view_proj. -> dict(stack, mat_params, tri, depth, interp,
+    inv_view_proj)."""
+    from incarnation_tpu_torch.core.view import View
+    from incarnation_tpu_torch.scene import textures as tex
+    r = np.random.default_rng(seed)
+    rows = r.integers(0, 2 ** 32, (85 + 21 + 1, 4), dtype=np.uint64)
+    legacy = np.asarray([[0, 8, 4, tex.ADDRESS_MIRROR],
+                         [85, 4, 3, tex.ADDRESS_WRAP],
+                         [106, 1, 1, tex.ADDRESS_CLAMP]], np.int32)
+    stack = tex.make_material_stack(rows.astype(np.uint32), legacy)
+    stack["meta"][2, 4] = -1
+    if not extras:
+        stack["extra"] = np.zeros((1, 6), np.int32)
+        stack["meta"][:, 4] = -1
+    params = r.uniform(0.0, 1.0, (3, 16)).astype(np.float32)
+    params[:, 10] = [0.5, 1.0, 1.5]
+    params[:, 11] = 0.5
+    params[:, 12] = [1.0, 2.0, 0.0]
+    interp = np.zeros((16, h, w), np.float32)
+    interp[0:2] = r.uniform(-1.5, 2.5, (2, h, w))
+    interp[2:8] = r.normal(size=(6, h, w))
+    interp[8] = r.choice([-1.0, 1.0], (h, w))
+    interp[9] = r.integers(0, 3, (h, w))
+    if wild_mats:
+        interp[9, ::5, ::3] = r.choice([-2.0, 3.0, 7.0], interp[9, ::5,
+                                                               ::3].shape)
+    interp[10:14] = (10.0 ** r.uniform(-3.5, 0.0, (4, h, w))
+                     * r.choice([-1.0, 1.0], (4, h, w)))
+    tri = np.where(r.random((h, w)) < 0.2, -1,
+                   r.integers(0, 1000, (h, w))).astype(np.int32)
+    vp = View.from_lookat([0.5, 1.0, -3.0], [0.0, 0.0, 5.0],
+                          aspect=w / h).view_proj()
+    return dict(stack=stack, mat_params=params, tri=tri,
+                depth=r.uniform(0.02, 1.0, (h, w)).astype(np.float32),
+                interp=interp,
+                inv_view_proj=np.linalg.inv(vp).astype(np.float32))
+
+
+def material_scene(inputs, dev):
+    """The port's view of material_inputs: (scene namespace with mat_stack
+    and mat_params, tri, depth, interp, inv_view_proj) on dev."""
+    from incarnation_tpu_torch.scene import textures as tex
+    f = lambda x: torch.tensor(x, device=dev)
+    scene = SimpleNamespace(mat_stack=tex.material_stack(inputs["stack"], dev),
+                            mat_params=f(inputs["mat_params"]))
+    return (scene, f(inputs["tri"]), f(inputs["depth"]), f(inputs["interp"]),
+            f(inputs["inv_view_proj"]))
 
 
 def _bins(dev, width=320, height=72, seed=0):
@@ -559,3 +616,65 @@ def test_k3_halo_rows_match_twin(dev):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
     inner = taa.history_fetch(hist[y:h + y].contiguous(), depth, m, w, h)
     assert not torch.equal(got, inner)
+
+
+def _close_to_twin(got, ref, what, rtol=1e-5, atol_frac=1e-5):
+    """chip_smoke.py's _close: |got - ref| <= rtol |ref| + atol_frac x the
+    median nonzero |ref|."""
+    mag = ref.abs()
+    nonzero = mag[mag > 0]
+    atol = atol_frac * float(nonzero.median()) if nonzero.numel() else 0.0
+    bad = int(((got - ref).abs() > rtol * mag + atol).sum())
+    assert bad == 0, f"{what}: {bad} of {ref.numel()} elements"
+
+
+@pytest.mark.parametrize("extras", [True, False], ids=["extras", "no_extras"])
+@pytest.mark.parametrize("normal3", [False, True], ids=["gbuffer", "normal3"])
+def test_k5_matches_twin(dev, extras, normal3):
+    """K5 against resolve_gbuffer_plain on the card: the mask and uv
+    exactly, every float plane to K5's 1e-5 (torch.cross and the 4x4
+    product round in their own order), zeros off the mask; with an extras
+    table and without one, with and without the mapped normal; material
+    ids outside the table clamp as the twin's gathers do."""
+    scene, tri, depth, interp, ivp = material_scene(
+        material_inputs(seed=11, h=72, w=200, extras=extras,
+                        wild_mats=True), dev)
+    h, w = tri.shape
+    n0 = resolve.K5.launches
+    got = resolve.resolve_gbuffer(tri, depth, scene, interp, ivp, w, h,
+                                  return_normal3=normal3)
+    ref = resolve.resolve_gbuffer_plain(tri, depth, scene, interp, ivp, w, h,
+                                        return_normal3=normal3)
+    assert resolve.K5.launches == n0 + 1
+    if normal3:
+        (got, g3), (ref, r3) = got, ref
+        _close_to_twin(g3, r3, "normal3")
+    assert torch.equal(got.mask, ref.mask) and torch.equal(got.uv, ref.uv)
+    for f in ("base_color", "normals", "mrao", "emissive", "world_pos",
+              "extras"):
+        _close_to_twin(getattr(got, f), getattr(ref, f), f)
+        assert not bool(getattr(got, f)[~got.mask].any()), f
+    if extras:
+        assert float(got.emissive.abs().max()) > 0
+    with pytest.raises(ValueError, match="interp"):
+        resolve.resolve_gbuffer(tri, depth, scene, interp[:, :, :-1], ivp,
+                                w, h)
+
+
+@pytest.mark.parametrize("row0", [0, 37])
+def test_k6_matches_twin(dev, row0):
+    """K6 against masked_alpha_plain on the card: the twin's operations in
+    its order (sqrt and log2 the same library functions), so alpha and
+    the threshold equal bit for bit and every pass/fail decision agrees,
+    for MASK and BLEND materials, in a band starting at row0."""
+    scene, tri, _, interp, _ = material_scene(
+        material_inputs(seed=12, h=72, w=200, wild_mats=True), dev)
+    n0 = resolve.K6.launches
+    alpha, thresh = resolve.masked_alpha(scene, tri, interp, row0)
+    ra, rt = resolve.masked_alpha_plain(scene, tri, interp, row0)
+    assert resolve.K6.launches == n0 + 1
+    assert torch.equal(alpha, ra) and torch.equal(thresh, rt)
+    passed = alpha >= thresh
+    assert 0.05 < float(passed.float().mean()) < 0.95
+    blend = scene.mat_params[interp[9].long().clamp(0, 2), 12] >= 2.0
+    assert bool(blend.any()) and bool((~blend).any())

@@ -90,11 +90,65 @@ def test_sun_view_proj_matches_jax(sun):
 
 
 def test_shadow_params_match_jax():
+    """Every field as JAX's but the pair capacity: the port's map casts
+    back faces too, so its default capacity is larger."""
     jp = jshadow.shadow_params(S, JConfig(**CFG))
     tp = tshadow.shadow_params(S, TConfig(**CFG))
-    for k in ("width", "height", "tile_h", "tile_w", "pair_capacity",
-              "bin_max_span", "big_tri_capacity", "depth_only"):
+    for k in ("width", "height", "tile_h", "tile_w", "bin_max_span",
+              "big_tri_capacity", "depth_only"):
         assert getattr(tp, k) == getattr(jp, k), k
+    assert tp.pair_capacity == TConfig().shadow_pair_capacity \
+        > jp.pair_capacity
+    assert tshadow.shadow_params(S, TConfig(
+        **CFG, shadow_pair_capacity=1234)).pair_capacity == 1234
+
+
+def _wall_over_floor():
+    """A single-sided floor quad at y = 0 facing up, and a single-sided
+    wall standing on it in the plane z = 0 (x in [-3, 3], y in [0, 4])
+    whose front face looks along +z, away from a sun at -z (front faces
+    wind clockwise as seen from their side, as in D3D). The sun view sees
+    the wall's back face."""
+    positions = [[-10, 0, -10], [10, 0, -10], [10, 0, 10], [-10, 0, 10],
+                 [-3, 0, 0], [3, 0, 0], [3, 4, 0], [-3, 4, 0]]
+    tris = [[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6]]
+    normals = [[0, 1, 0]] * 4 + [[0, 0, 1]] * 4
+    return ttesting.make_scene(
+        np.asarray(positions, np.float32), np.asarray(tris, np.int32),
+        normals=np.asarray(normals, np.float32), double_sided=False,
+        tri_prim=[0, 0, 1, 1], num_prims=2, prim_tri_offset=[0, 2],
+        device="cpu")
+
+
+def test_single_sided_wall_facing_away_shadows_the_floor():
+    """A divergence from JAX: the port's map casts every face. A wall
+    facing away from the sun shadows the floor behind it both in the map
+    and through RT (K4's twin, which culls back faces from the
+    receiver's side: the shadow ray meets the wall's front face), and the
+    sun side of the floor stays lit in both. With back faces culled, as
+    JAX culls them, the map lets the light through."""
+    from incarnation_tpu_torch.kernels import bvh as tbvh
+    scene = _wall_over_floor()
+    sun = np.asarray([0.0, 1.0, -1.0], np.float32) / np.sqrt(2.0)
+    sun_vp = torch.tensor(tshadow.sun_view_proj(sun, [0, 1, 0], 12.0))
+    params = tshadow.shadow_params(S, TConfig(**CFG))
+    depth, stats = tshadow.render_sun_shadow_map(scene, torch.eye(4),
+                                                 sun_vp, params)
+    assert int(stats["bin_overflow"]) == 0
+    # behind the wall (its shadow reaches z = 4 at the floor) and in front
+    wp = torch.tensor([[[0.0, 0.0, 2.0], [0.0, 0.0, -2.0]]])
+    vis = tshadow.sun_visibility(wp, torch.ones((1, 2)), depth, sun_vp, S)
+    assert vis.tolist() == [[0.0, 1.0]]
+    bvh = tbvh.build_scene_bvh(scene, use_cache=False, device="cpu")
+    occ = tbvh.occluded(bvh, wp[0], torch.tensor(sun).expand(2, 3))
+    assert occ.tolist() == [True, False]
+    culled = traster.prepare_geometry(
+        scene, torch.eye(4), sun_vp, torch.ones(2, dtype=torch.bool),
+        params, emit_attributes=False)
+    _, jax_like, _ = traster.raster_depth(culled, params)
+    vis = tshadow.sun_visibility(wp, torch.ones((1, 2)), jax_like, sun_vp,
+                                 S)
+    assert vis.tolist() == [[1.0, 1.0]]
 
 
 def test_raster_depth_matches_jax(maps):

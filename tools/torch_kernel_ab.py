@@ -144,8 +144,9 @@ def main(argv=None) -> int:
     warm = path.run(fc0, torch.zeros((cs.H, cs.W, 3), device=dev))
     fc1 = path.make_fc(1, fc0.view_proj.cpu().numpy())
     path.run(fc1, warm["accumulation"])
-    calls = cs.capture_frame(path.run, fc1, warm["accumulation"], raster,
-                             clustered, taa)
+    calls = [c for c in cs.capture_frame(path.run, fc1, warm["accumulation"],
+                                         raster, clustered, taa)
+             if c[0] in WRAPPERS]
     _, render = cs.small_renderer(dev)
     render(forward_lighting=True)
     small = cs.capture_frame(
