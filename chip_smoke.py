@@ -117,18 +117,26 @@ K6_OPS_PER_PIXEL = 43
 K6_PIXEL_BYTES = 7 * 4 + 8
 K5_RTOL = 1e-5             # K5 against its twin: see _k5_error
 # K4, counted from csrc/bvh.cu (a fused multiply-add counts two), for the
-# slots these inputs fill (K4 also tests the empty ones, which need no
-# work): a triangle test 46 per filled leaf slot the ray must test (two
-# cross products at 9, four dot products at 5, the reciprocal 1, o - v0 3,
-# three scalings by the reciprocal 3, u + v 1; with any hit, up to the
-# accepted slot); a box test 24 per filled child slot of an internal row
-# (per axis 2 subtractions, 2 multiplications, a min and a max, and the
-# two running bounds) and 1 per internal row for its limit. A ray reads 24
-# bytes (origin, direction) and writes 16 (t, tri, u, v).
+# slots these inputs fill: a triangle test 46 per filled leaf slot the ray
+# must test (two cross products at 9, four dot products at 5, the
+# reciprocal 1, o - v0 3, three scalings by the reciprocal 3, u + v 1;
+# with any hit, up to the accepted slot); a box test 24 per filled child
+# the ray must test (per axis 2 subtractions, 2 multiplications, a min and
+# a max, and the two running bounds): in the wide layout the children up
+# to and including the first one hit in the ray's octant order, all filled
+# ones where none is hit (the twin's box_tests_to_hit; box_tests, every
+# filled child, gives a looser bound, logged beside it), one box per
+# binary internal row; and 1 per internal row for its limit. A ray reads 24 bytes
+# (origin, direction) and writes 16 (t, tri, u, v). The table's bytes:
+# each visited row's flag and one octant's (iperm, miss) or (hit, miss)
+# pair, 12, and each box (6 floats, 24, and a wide child's id, 4) and leaf
+# slot (9 floats, id and double-sided flag, 44) that some ray tested, read
+# once.
 K4_OPS_TRI = 46
 K4_OPS_BOX = 24
 K4_OPS_INTERNAL = 1
 K4_RAY_BYTES = 24 + 16
+K4_ROW_BYTES, K4_BOX_BYTES, K4_SLOT_BYTES = 12, 24, 44
 PT_W, PT_H = 640, 360      # the JAX bench's path-tracing size (bench.py:156)
 VIEW_W, VIEW_H = 960, 540  # the web viewer's frame
 BAND_TRI_SHARE = 1e-3      # band_phase: see there
@@ -237,6 +245,7 @@ def main(argv=None) -> int:
     # 2. kernels, one nvcc per source, all started together
     secs, logs = build.timed_build(verbose=True)
     _log(f"kernels built in {secs:.1f} s")
+    K4_RESOURCES.update(k4_resources(build, logs.get("bvh")))
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -1632,21 +1641,36 @@ def k4_row(bvh, call, role, n_launches):
     steps = ref["steps"].double()
     leaf = ref["leaf_steps"].double()
     n_rows = int(ref["visited"].sum())
+    ray_bytes = r * (K4_RAY_BYTES + (4 if torch.is_tensor(tmin) else 0)
+                     + (4 if alpha_of is not None else 0))
+    n_links = int(ref["visited_links"].sum()) if "visited_links" in ref \
+        else 0
+    # the looser count: whole rows, every filled child of a visited row
     lanes = bvh.WIDE_LANES if b.wide else bvh.ROW_LANES
-    nbytes = r * (K4_RAY_BYTES + (4 if torch.is_tensor(tmin) else 0)
-                  + (4 if alpha_of is not None else 0)) \
-        + n_rows * lanes * 4 \
-        + 8 * int(ref["visited_links"].sum() if "visited_links" in ref
-                  else 0)
-    ops = float(ref["tri_tests"].double().sum()) * K4_OPS_TRI \
+    bytes_all = ray_bytes + n_rows * lanes * 4 + 8 * n_links
+    ops_all = float(ref["tri_tests"].double().sum()) * K4_OPS_TRI \
         + float(ref["box_tests"].double().sum()) * K4_OPS_BOX \
         + float((steps - leaf).sum()) * K4_OPS_INTERNAL
+    # the walk in octant order: the children up to the first hit
+    vrows = ref["visited"]
+    is_leaf = b.rows[:, bvh._W_FLAG if b.wide else 12] > 0.5
+    slots = ref["visited_slots"]
+    n_box = int(slots[vrows & ~is_leaf].sum())
+    n_slot = int(slots[vrows & is_leaf].sum())
+    nbytes = ray_bytes + n_box * (K4_BOX_BYTES + 4 * b.wide) \
+        + n_slot * K4_SLOT_BYTES \
+        + (n_rows * 4 + n_links * 8 if n_links else n_rows * K4_ROW_BYTES)
+    ops = ops_all + float((ref["box_tests_to_hit"]
+                           - ref["box_tests"]).double().sum()) * K4_OPS_BOX
     bound_ms, bound_by = _bound(nbytes, ops)
+    bound_all_ms, bound_all_by = _bound(bytes_all, ops_all)
     hits = float((got["tri"] >= 0).float().mean())
     ms = device_ms(lambda: bvh.trace_k4(b, o, d, tmin, tmax, any_hit,
                                         alpha_of=alpha_of), 5)
     plain_ms = device_ms(lambda: bvh.trace_plain(
         b, o, d, tmin, tmax, any_hit, alpha_of=alpha_of), 1)
+    regs, spill = K4_RESOURCES.get(
+        (bool(any_hit), b.layout, alpha_of is not None), (None, None))
     _log(f"K4 {role}: {r} rays ({'any' if any_hit else 'closest'} hit, "
          f"{'alpha filter, ' if alpha_of is not None else ''}"
          f"{'wide' if b.wide else 'binary'} layout, "
@@ -1655,17 +1679,68 @@ def k4_row(bvh, call, role, n_launches):
          f"filled slots tested per ray: "
          f"{float(ref['tri_tests'].double().mean()):.2f} triangles, "
          f"{float(ref['box_tests'].double().mean()):.2f} boxes, "
-         f"{n_rows} distinct rows; {ms:.4f} ms, twin {plain_ms:.2f} ms, "
-         f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.2f} MB, "
-         f"{ops / 1e9:.3f} GFLOP); identical to the twin")
+         f"{float(ref['box_tests_to_hit'].double().mean()):.2f} boxes to "
+         f"the first hit, {n_rows} distinct rows; {ms:.4f} ms, twin "
+         f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+         f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP; every filled "
+         f"child: {bound_all_ms:.4f} ms, {bound_all_by}); {regs} "
+         f"registers, {spill} bytes spilled; identical to the twin")
     return dict(
         name=f"k4_trace[{role}]", route="cuda",
         source="incarnation_tpu_torch/csrc/bvh.cu",
         replaces="incarnation_tpu/kernels/bvh.py:1108",
         launches=n_launches, max_abs_err=0.0, max_rel_err=0.0, ms=ms,
         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None, steps_mean=float(steps.mean()),
-        steps_max=int(steps.max()), trunc=int(got["trunc"]))
+        library_ms=None, bound_all_filled_ms=bound_all_ms,
+        steps_mean=float(steps.mean()), steps_max=int(steps.max()),
+        box_tests_mean=float(ref["box_tests"].double().mean()),
+        box_tests_to_hit_mean=float(
+            ref["box_tests_to_hit"].double().mean()),
+        registers=regs, spill_bytes=spill, trunc=int(got["trunc"]))
+
+
+# (any_hit, layout, alpha) -> (registers, spill bytes) of K4's kernel in
+# each compiled role, from ptxas (k4_resources); filled by main()
+K4_RESOURCES: dict = {}
+
+
+def k4_resources(build_mod, log=None) -> dict:
+    """(any_hit, layout, alpha) -> (registers, bytes of spill stores) of
+    csrc/bvh.cu's k4_trace_kernel in each role (the larger of a role's
+    instantiations), parsed from ptxas's -v report: `log`, that report
+    from a build, or, where the build was cached, a compile of its own
+    with build_mod's flags."""
+    import os
+    import re
+    import tempfile
+    if not log or log == "(cached)":
+        build_mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_mod.BUILD_DIR)
+        os.close(fd)
+        try:
+            log = subprocess.run(
+                [build_mod._nvcc(), *build_mod._FLAGS, "-Xptxas", "-v",
+                 "-o", tmp, str(build_mod.CSRC / "bvh.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                check=True, timeout=600).stdout
+        finally:
+            os.unlink(tmp)
+    out, role, spill = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*k4_trace_kernel"
+                      r"ILb([01])ELi(\d)ELb([01])E", line)
+        if m:
+            role = (m.group(1) == "1", int(m.group(2)), m.group(3) == "1")
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and role is not None:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and role is not None:
+            regs, spilled = out.get(role, (0, 0))
+            out[role] = (max(regs, int(m.group(1))), max(spilled, spill or 0))
+            role, spill = None, None
+    return out
 
 
 def _k4_twin(bvh):

@@ -38,7 +38,9 @@ backface-culled unless double-sided) and follows its miss link.
 Traversal is K4 (csrc/bvh.cu, one thread per ray walking the rows
 stacklessly, a compile-time role per layout) on CUDA tensors and the plain
 twin (_step_wide or _step looped over the batch) on CPU ones; both round
-identically (K4 is built --fmad=false). The JAX package's compaction
+identically: K4 is built --fmad=false, and the multiply-adds that XLA's
+CPU build fuses are one FFMA each in K4 and rounded once, exactly, by the
+twin's _fma. The JAX package's compaction
 ladders and step schedules exist for the TPU's lock-step wavefront and are
 not ported: each ray here walks until it is done or has spent MAX_STEPS
 rows (counted in `trunc`).
@@ -53,6 +55,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
+import math
 
 import numpy as np
 import torch
@@ -768,8 +771,9 @@ class _K4Alpha(ctypes.Structure):
                 ("noise", _P), ("mat_stride", _I), ("n_meta", _I),
                 ("alpha_rows", _I), ("n_mat", _I)]
 
-# K4's trunc and arrival counters, per (device, stream): zero between
-# launches, which leave them zero (csrc/bvh.cu), so a call needs no memset.
+# K4's trunc, arrival and work counters, per (device, stream): zero
+# between launches, which leave them zero (csrc/bvh.cu), so a call needs
+# no memset.
 _K4_COUNTERS: dict = {}
 
 
@@ -777,18 +781,32 @@ def _k4_counters(dev):
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     buf = _K4_COUNTERS.get(key)
     if buf is None:
-        buf = torch.zeros(2, dtype=torch.int32, device=dev)
+        buf = torch.zeros(3, dtype=torch.int32, device=dev)
         _K4_COUNTERS[key] = buf
     return buf
 
 
 def _fma(a, b, c):
-    """f32 a * b + c, a fused multiply-add emulated through f64: the
-    product of two f32 values is exact in f64, the f64 sum rounds once and
-    the cast to f32 again (double rounding: in rare ties an ulp from a
-    single-rounding FMA). csrc/bvh.cu k4_fma computes the same
-    expression."""
-    return (a.double() * b.double() + c.double()).float()
+    """f32 a * b + c rounded once to nearest even, as a fused multiply-add
+    does it (csrc/bvh.cu k4_fma, __fmaf_rn; XLA's CPU build fuses
+    jnp.cross and jnp.sum so). The f64 product p of two f32 values is
+    exact; the f64 sum s = p + c rounds, and TwoSum gives its exact error
+    e. Casting s to f32 rounds a * b + c correctly, except where s lies
+    exactly halfway between two f32 values and e is not 0: the exact sum
+    then lies on e's side of that midpoint and rounds to the neighbour
+    there (the plain cast would round s a second time, to even). Exact
+    for sums below the f32 overflow threshold."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    e = (p - (s - bv)) + (cd - bv)
+    f = s.float()
+    fd = f.double()
+    g = torch.nextafter(f, torch.where(fd < s, math.inf, -math.inf))
+    tie = ((fd + g.double()) * 0.5 == s) & ((e > 0) | (e < 0))
+    side = torch.where(e > 0, torch.maximum(f, g), torch.minimum(f, g))
+    return torch.where(tie, side, f)
 
 
 def _cross(a, b):
@@ -856,10 +874,13 @@ def _leaf_slots(lane, leaf, o, d, tmax_eff, state, any_hit, alpha_of):
 
 
 def _step_wide(bvh, okt, o, d, inv_d, tmax_eff, state, any_hit: bool,
-               alpha_of=None):
+               alpha_of=None, diag=None):
     """One traversal step of every ray in the state over the wide layout
     (JAX _step_wide, bvh.py:914-987): one row each; a leaf tests its 4
-    slots in order, an internal row its 8 child boxes in storage order."""
+    slots in order, an internal row its 8 child boxes in storage order.
+    diag, a dict, receives `pos` (n, 8), each storage slot's position in
+    the ray's octant order, and `first` (n,), the position of the child
+    taken (8 where none was hit)."""
     row = bvh.rows[state[0]]                             # (n, 80)
     lane = [row[:, i] for i in range(WIDE_LANES)]
     leaf = lane[_W_FLAG] > 0.5
@@ -886,6 +907,10 @@ def _step_wide(bvh, okt, o, d, inv_d, tmax_eff, state, any_hit: bool,
         hit_k = (tn <= tf) & (cid >= 0) & (pos < best_pos)
         best_pos = torch.where(hit_k, pos, best_pos)
         nxt_int = torch.where(hit_k, cid, nxt_int)
+    if diag is not None:
+        diag["pos"] = torch.stack([(iperm >> (3 * k)) & 7
+                                   for k in range(WIDE_ARITY)], 1)
+        diag["first"] = best_pos
 
     nxt = torch.where(leaf, miss, nxt_int)
     alive = alive & (nxt >= 0)
@@ -894,13 +919,14 @@ def _step_wide(bvh, okt, o, d, inv_d, tmax_eff, state, any_hit: bool,
 
 
 def _step(bvh, okt, o, d, inv_d, tmax_eff, state, any_hit: bool,
-          alpha_of=None):
+          alpha_of=None, diag=None):
     """One traversal step over the binary layout (JAX _step,
     bvh.py:844-900). cur holds local node ids; okt_off = okt * N picks the
     ray's octant table: the merged row at cur + okt_off, or the row at cur
     and the split link at cur + okt_off. A leaf tests its 4 slots; an
     internal row slab-tests its own box, pruned by min(t_best, tmax), and
-    takes the hit link on a hit, else the miss link."""
+    takes the hit link on a hit, else the miss link. diag: unused (an
+    internal row tests its one box)."""
     okt_off = okt * bvh.nodes
     if bvh.merged:
         row = bvh.rows[state[0] + okt_off]               # (n, 48)
@@ -964,8 +990,13 @@ def trace_plain(bvh: SceneBVH, origins, directions, tmin=0.0, tmax=1e30,
     the filled leaf slots (tri >= 0) each ray had to test (with any_hit, up
     to the slot it accepted); `box_tests`, the filled child slots (id >= 0)
     of the internal rows it visited (one box per binary internal row);
-    `visited`, a mask over the table's rows that any ray visited; and, for
-    the split binary layout, `visited_links` over its link rows."""
+    `box_tests_to_hit`, of those the children up to and including the
+    first one hit in the ray's octant order (all filled ones where none is
+    hit), the least an exact walk in that order must test; `visited`, a
+    mask over the table's rows that any ray visited; `visited_slots` (rows,
+    8), the leaf slots and child slots that some ray tested (slot 0 of a
+    binary internal row: its box); and, for the split binary layout,
+    `visited_links` over its link rows."""
     r = origins.shape[0]
     dev = origins.device
     o, inv_d, tmax_eff, okt = _ray_setup(origins, directions, tmin, tmax)
@@ -981,8 +1012,13 @@ def trace_plain(bvh: SceneBVH, origins, directions, tmin=0.0, tmax=1e30,
         bvh.links.shape[0], dtype=torch.bool, device=dev))
     tri_tests = torch.zeros_like(steps)
     box_tests = torch.zeros_like(steps)
+    box_tests_to_hit = torch.zeros_like(steps)
+    slot_tests = torch.zeros((bvh.rows.shape[0], WIDE_ARITY),
+                             dtype=torch.int32, device=dev)
+    diag = {} if return_steps and bvh.wide else None
     if return_steps:
         slot_ids, filled_tris, filled_boxes, flag = _filled_slots(bvh)
+        slot_k = torch.arange(WIDE_ARITY, device=dev)
     idx = torch.arange(r, device=dev)
     cur = torch.zeros(r, dtype=torch.int64, device=dev)
     alive = torch.ones(r, dtype=torch.bool, device=dev)
@@ -999,7 +1035,8 @@ def trace_plain(bvh: SceneBVH, origins, directions, tmin=0.0, tmax=1e30,
         for _ in range(min(8, max_steps - n_done)):
             steps[idx] += state[5].to(torch.int32)
             before = state
-            state = step(bvh, ok, ob, db, ib, tm[idx], state, any_hit, af)
+            state = step(bvh, ok, ob, db, ib, tm[idx], state, any_hit, af,
+                         diag)
             if return_steps:
                 on = before[5]
                 # the table row each ray read (merged: its octant's copy)
@@ -1022,6 +1059,23 @@ def trace_plain(bvh: SceneBVH, origins, directions, tmin=0.0, tmax=1e30,
                     leaf, filled_tris[row, last], 0).to(torch.int32)
                 box_tests[idx] += torch.where(
                     on & ~leaf, filled_boxes[row], 0).to(torch.int32)
+                # the slots tested: a leaf's filled ones up to `last`; the
+                # filled children of a wide row up to the first one hit in
+                # octant order; a binary internal row's box
+                tested = torch.zeros((row.shape[0], WIDE_ARITY),
+                                     dtype=torch.bool, device=dev)
+                tested[:, :LEAF_K] = (slot_ids[row] >= 0) \
+                    & (slot_k[:LEAF_K] <= last[:, None])
+                if bvh.wide:
+                    inner = (bvh.rows[row, _W_CHILD:_W_CHILD + WIDE_ARITY]
+                             >= 0) & (diag["pos"] <= diag["first"][:, None])
+                else:
+                    inner = slot_k[None, :] == 0
+                tested = torch.where(leaf[:, None], tested,
+                                     inner & (on & ~leaf)[:, None])
+                box_tests_to_hit[idx] += torch.where(
+                    leaf, 0, tested.sum(1)).to(torch.int32)
+                slot_tests.index_add_(0, row, tested.to(torch.int32))
             n_done += 1
         cur, tb, bt, ub, vb, alive = state
         t_best[idx], best_tri[idx], uo[idx], vo[idx] = tb, bt, ub, vb
@@ -1031,7 +1085,8 @@ def trace_plain(bvh: SceneBVH, origins, directions, tmin=0.0, tmax=1e30,
     out = _finish(t_best, best_tri, uo, vo, tmin, trunc)
     if return_steps:
         out.update(steps=steps, leaf_steps=leaf_steps, tri_tests=tri_tests,
-                   box_tests=box_tests, visited=visited)
+                   box_tests=box_tests, box_tests_to_hit=box_tests_to_hit,
+                   visited=visited, visited_slots=slot_tests > 0)
         if visited_links is not None:
             out["visited_links"] = visited_links
     return out

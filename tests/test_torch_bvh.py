@@ -22,7 +22,7 @@ torch.set_num_threads(1)
 EDGE = 1e-4
 MIN_TRI_SHARE = 0.999
 RTOL = 1e-5      # t, u, v where tri agrees: the same f32 arithmetic, the
-#                  multiply-adds XLA fuses emulated through f64 (bvh._fma)
+#                  multiply-adds XLA fuses rounded once (bvh._fma)
 
 
 def _soup(rng, n, extent=10.0, size=0.8):
@@ -189,6 +189,84 @@ def test_walk_counts_filled_slots():
         assert (w["box_tests"] >= internal).all()
         assert int(w["box_tests"].sum()) < \
             tbvh.WIDE_ARITY * int(internal.sum())
+
+
+def _walk_boxes_to_hit(rows, o, d, any_hit):
+    """A ray-at-a-time wide walk in plain Python (the twin's arithmetic on
+    one ray): per ray, the filled children tested in octant order up to
+    and including the first one hit, all filled ones where none is."""
+    counts = []
+    for i in range(o.shape[0]):
+        oi, di = o[i:i + 1], d[i:i + 1]
+        ob, db = [oi[:, a] for a in range(3)], [di[:, a] for a in range(3)]
+        _, inv_d, tmax_eff, okt = tbvh._ray_setup(oi, di, 0.0, 1e30)
+        okt = int(okt[0])
+        t_best, cur, n = float("inf"), 0, 0
+        while cur >= 0:
+            row = rows[cur]
+            miss = int(row[tbvh._W_THREAD + 2 * okt + 1])
+            if row[tbvh._W_FLAG] > 0.5:
+                for o9, oid, ods in ((0, 10, 11), (15, 42, 45), (24, 43, 46),
+                                     (33, 44, 47)):
+                    tri9 = [torch.tensor(row[o9 + j:o9 + j + 1])
+                            for j in range(9)]
+                    t, _, _ = tbvh._tri_intersect(
+                        tri9, ob, db, torch.tensor([row[ods] < 0.5]))
+                    if row[oid] >= 0 and float(t[0]) < t_best:
+                        t_best = float(t[0])
+                        if any_hit:
+                            miss = -1
+                            break
+                cur = miss
+                continue
+            iperm = int(row[tbvh._W_THREAD + 2 * okt])
+            slot_at = {(iperm >> (3 * k)) & 7: k for k in range(8)}
+            limit = np.float32(min(t_best, float(tmax_eff)))
+            cur = miss
+            for p in range(8):
+                k = slot_at[p]
+                if row[tbvh._W_CHILD + k] < 0:
+                    continue
+                n += 1
+                tn, tf = np.float32(0), limit
+                for a in range(3):
+                    t0 = (row[6 * k + a] - oi[0, a].numpy()) \
+                        * inv_d[0, a].numpy()
+                    t1 = (row[6 * k + 3 + a] - oi[0, a].numpy()) \
+                        * inv_d[0, a].numpy()
+                    tn, tf = max(tn, min(t0, t1)), min(tf, max(t0, t1))
+                if tn <= tf:
+                    cur = int(row[tbvh._W_CHILD + k])
+                    break
+        counts.append(n)
+    return counts
+
+
+def test_walk_counts_boxes_to_first_hit():
+    """box_tests_to_hit, the least box work of a walk that tests children
+    in octant order and stops at the first hit (K4's), against a walk
+    written out ray by ray; and bounded by the twin's other counts."""
+    rng = np.random.default_rng(11)
+    rows = _rows_with_ds(_soup(rng, 600), True)
+    tb = tbvh.bvh_from_arrays(rows, "cpu")
+    o, d = _rays(rng, 400)
+    o, d = torch.tensor(o), torch.tensor(d)
+    for any_hit in (False, True):
+        w = tbvh.trace_plain(tb, o, d, any_hit=any_hit, return_steps=True)
+        internal = w["steps"] - w["leaf_steps"]
+        assert (w["box_tests_to_hit"] <= w["box_tests"]).all()
+        assert (w["box_tests_to_hit"] >= internal).all()
+        assert int(w["box_tests_to_hit"].sum()) < int(w["box_tests"].sum())
+        assert w["box_tests_to_hit"][:40].tolist() == _walk_boxes_to_hit(
+            rows, o[:40], d[:40], any_hit)
+        # the slots some ray tested: within the visited rows' filled ones
+        slots = w["visited_slots"]
+        assert not slots[~w["visited"]].any()
+        filled = np.concatenate([rows[:, tbvh._W_CHILD:tbvh._W_CHILD + 8],
+                                 rows[:, [10, 42, 43, 44]]], 1) >= 0
+        is_leaf = rows[:, tbvh._W_FLAG] > 0.5
+        assert not slots.numpy()[~is_leaf][~filled[~is_leaf, :8]].any()
+        assert not slots[:, 4:].numpy()[is_leaf].any()
 
 
 def test_unported_options_raise():

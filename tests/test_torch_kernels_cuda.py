@@ -563,13 +563,12 @@ def test_k4_split_links_pass_2_24(dev):
     assert got["tri"].tolist() == [1] * 8
 
 
-def _alpha_scene(dev):
-    """The port's testing scene with its MASK quad and a BLEND quad, rays
+def _alpha_scene(dev, n=20000):
+    """The port's testing scene with its MASK quad and a BLEND quad, n rays
     toward both from in front, and one noise value per ray."""
     from incarnation_tpu_torch.scene import testing
     scene = testing.make_rich_scene(device=dev, blend_quad=True)
     r = np.random.default_rng(5)
-    n = 20000
     o = np.stack([r.uniform(-5, 5, n), r.uniform(-1.5, 4.5, n),
                   r.uniform(-1, 2, n)], 1).astype(np.float32)
     d = np.stack([r.normal(0, 0.3, n), r.normal(0, 0.3, n),
@@ -596,6 +595,93 @@ def test_k4_alpha_matches_twin(dev, any_hit, wide):
     assert int((bare["tri"] != got["tri"]).sum()) > 100
     with pytest.raises(TypeError, match="AlphaFilter"):
         bvh.trace(b, o, d, alpha_of=lambda tri, u, v: tri >= 0)
+
+
+# more rays than the persistent grid's lanes at once (132 SMs x at most
+# 16 blocks x 128 threads), so warps take rays from the counter many
+# times; neither a multiple of 32 nor of any grid of 128-thread blocks
+K4_MANY_RAYS = 300_007
+
+
+def _k4_role(dev, layout, alpha, monkeypatch):
+    """(bvh, rays(n, seed) -> (o, d, noise or None), filt(noise) -> a
+    pathtrace.AlphaFilter or None) of one K4 role: the soup's BVH, or the
+    testing scene's with an alpha filter, in the layout asked."""
+    from incarnation_tpu_torch.kernels import pathtrace
+    if layout == "split":
+        monkeypatch.setattr(bvh, "_MERGE_LIMIT", 0)
+    if alpha:
+        scene, _, _, _ = _alpha_scene(dev, 8)
+        b = bvh.build_scene_bvh(scene, use_cache=False,
+                                wide=layout == "wide", device=dev)
+
+        def rays(n, seed):
+            _, o, d, noise = _alpha_scene(dev, n)
+            perm = torch.tensor(np.random.default_rng(seed).permutation(n),
+                                device=dev)
+            return o[perm].contiguous(), d[perm].contiguous(), noise[perm]
+    else:
+        tris, b = _k4_bvh(dev)
+        if layout != "wide":
+            rows, links, _ = bvh.build_lbvh(tris)
+            rows[:, 11] = 1.0
+            rows[:, bvh._DS1_OFF:bvh._DS1_OFF + 3] = 1.0
+            b = bvh._finish_bvh(rows, links, dev)
+
+        def rays(n, seed):
+            o, d = _k4_rays(dev, max(n, 600), seed)
+            pick = torch.tensor(np.random.default_rng(seed).permutation(
+                o.shape[0])[:n], device=dev)
+            return o[pick].contiguous(), d[pick].contiguous(), None
+    assert b.layout == {"wide": 0, "merged": 1, "split": 2}[layout]
+    return b, rays, (lambda noise: None if noise is None
+                     else pathtrace.AlphaFilter(scene, noise))
+
+
+@pytest.mark.parametrize("alpha", [False, True], ids=["bare", "alpha"])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("layout", ["wide", "merged", "split"])
+def test_k4_persistent_warps_every_role(dev, layout, any_hit, alpha,
+                                        monkeypatch):
+    """Every compiled role of K4 (layout x any hit x alpha filter):
+    identical to the twin (tri, t, u, v, steps) on fewer rays than one
+    warp (a thread a ray), on K4_MANY_RAYS (persistent warps), on as many
+    rays mixing walks of very different lengths (a third, parked far away,
+    end after one row: lanes are refilled), and on two launches in a row on
+    one stream (persistent, then a thread a ray); K4's counters are zero
+    after each launch."""
+    b, rays, filt = _k4_role(dev, layout, alpha, monkeypatch)
+
+    def check(got, o, d, noise):
+        torch.cuda.synchronize()
+        assert torch.count_nonzero(bvh._k4_counters(dev)) == 0
+        ref = bvh.trace_plain(b, o, d, 0.05, 25.0, any_hit,
+                              return_steps=True, alpha_of=filt(noise))
+        _assert_k4(got, ref)
+        assert torch.equal(got["steps"], ref["steps"])
+        return ref
+
+    def launch(o, d, noise):
+        return bvh.trace_k4(b, o, d, 0.05, 25.0, any_hit, return_steps=True,
+                            alpha_of=filt(noise))
+
+    few = rays(7, 11)
+    check(launch(*few), *few)
+    many = rays(K4_MANY_RAYS, 12)
+    ref = check(launch(*many), *many)
+    assert (ref["tri"] >= 0).any()
+    o, d, noise = rays(K4_MANY_RAYS, 13)
+    park = torch.tensor(np.random.default_rng(14).random(K4_MANY_RAYS)
+                        < 1 / 3, device=dev)
+    o = torch.where(park[:, None], torch.full_like(o, 1e29), o)
+    ref = check(launch(o, d, noise), o, d, noise)
+    assert int(ref["steps"][park].max()) == 1
+    assert float(ref["steps"][~park].double().mean()) > 2
+    second = rays(12_345, 15)
+    a = launch(o, d, noise)
+    c = launch(*second)
+    check(a, o, d, noise)
+    check(c, *second)
 
 
 def test_k3_halo_rows_match_twin(dev):

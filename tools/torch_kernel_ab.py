@@ -1,23 +1,40 @@
 #!/usr/bin/env python3
-"""This checkout's CUDA kernels against another checkout's, on one card.
+"""This checkout's CUDA kernels against other checkouts', on one card.
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
-    python3 tools/torch_kernel_ab.py trees/parent [--out FILE]
+    python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
+        [--kernels k1,k2,k3,k4] [--out FILE]
 
-It renders one main-path frame of chip_smoke.py (the atrium at 1920x1088,
-sun shadow map, 8 masked peels) and one forward frame of its small path
-(512x256, 4 blend layers), captures every launch of K1, K2 and K3 with its
-inputs, and times each launch with the other checkout's wrapper and with
-this one's on the same inputs, by chip_smoke.device_ms, in the order
-other, this, this, other, and keeps the smaller of each checkout's two
-times (a stall of the host longer than the timer's spin only adds time).
-K2 is timed twice: through each wrapper, and as
+K1-K3: it renders one main-path frame of chip_smoke.py (the atrium at
+1920x1088, sun shadow map, 8 masked peels) and one forward frame of its
+small path (512x256, 4 blend layers), captures every launch of K1, K2 and
+K3 with its inputs, and times each launch with each other checkout's
+wrapper and with this one's on the same inputs, by chip_smoke.device_ms,
+in the order other, this, this, other, and keeps the smaller of each
+checkout's two times (a stall of the host longer than the timer's spin
+only adds time). K2 is timed twice: through each wrapper, and as
 each C entry alone on the C-level arguments this checkout's wrapper makes
 (`k2_clustered[entry]`), since the wrappers may differ in their host work.
 Both must agree: K1 and K3 identical outputs, K2 each within 1e-3 of the
-twin. It prints a line per kernel role and, last, one JSON object of the
-mean times. The other checkout's wrappers and C entries must take the same
-arguments as this one's (the kernels' contract).
+twin.
+
+K4: it builds the atrium's wide and binary BVHs, captures every K4 launch
+of one path-traced sample at 640x360 (primary, bounce, shadow and their
+alpha peels) and of one RT shadow + HBAO frame at 1920x1088 (HBAO, RT sun
+and its peels), the binary layout's traces of the sample's first primary,
+bounce and shadow rays, and alpha-filtered traces (noise 0) of the
+sample's bounce rays (closest hit) and primary rays (any hit). Each
+checkout's trace_k4 must equal its own twin (trace_plain: tri, t, u, v,
+steps, trunc) on every launch, since the checkouts may round differently;
+then each launch is timed as above. It prints K4's registers per compiled
+role in each checkout, each role's mean ms per launch, and the summed ms
+of K4's launches per PT sample and per RT frame; then it renders the
+sample and the frame whole (host clock, a synchronize after each) with
+each other checkout's trace_k4 and this one's in turns.
+
+It prints a line per kernel role and, last, one JSON object of the times.
+The other checkouts' wrappers and C entries must take the same arguments
+as this one's (the kernels' contract).
 """
 
 from __future__ import annotations
@@ -27,6 +44,7 @@ import importlib
 import json
 import pathlib
 import sys
+import time
 
 import numpy as np
 
@@ -52,7 +70,8 @@ def load_kernels(tree: pathlib.Path) -> dict:
     sys.path.insert(0, str(tree))
     try:
         mods = {n: importlib.import_module(f"{PKG}.kernels.{n}")
-                for n in ("build", "raster", "clustered", "taa")}
+                for n in ("build", "raster", "clustered", "taa", "bvh",
+                          "pathtrace")}
     finally:
         sys.path.remove(str(tree))
         for k in _package_modules():
@@ -115,30 +134,20 @@ def k2_entry_call(clustered, a, kw):
     return args, held
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("other", help="the other checkout's root")
-    ap.add_argument("--out", help="also write the JSON object here")
-    args = ap.parse_args(argv)
+def time_pair(cs, f_other, f_this, reps):
+    """(other ms, this ms): each the smaller of two device_ms runs, in the
+    order other, this, this, other."""
+    runs = [cs.device_ms(f, reps) for f in (f_other, f_this, f_this,
+                                            f_other)]
+    return min(runs[0], runs[3]), min(runs[1], runs[2])
 
+
+def k1_to_k3(cs, others, this, dev, times):
+    """K1-K3 of one main-path frame and the small path's blend layers,
+    each launch timed with each other checkout's wrapper and this one's;
+    appends to times[(other, role)]."""
     import torch
-    if not torch.cuda.is_available():
-        print("torch_kernel_ab: no CUDA card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
-    other = load_kernels(pathlib.Path(args.other).resolve())
-    from incarnation_tpu_torch.kernels import build, clustered, raster, taa
-    this = dict(raster=raster, clustered=clustered, taa=taa)
-    dev = torch.device("cuda")
-    card = cs.card_line()
-    print(f"card: {card}", flush=True)
-    for name, b in (("other", other["build"]), ("this", build)):
-        secs, _ = b.timed_build()
-        print(f"{name} checkout's kernels built in {secs:.1f} s", flush=True)
-
-    # the launches of one main-path frame with a history, then the small
-    # path's blend layers
+    raster, clustered, taa = this["raster"], this["clustered"], this["taa"]
     path = cs.atrium_path(dev)
     fc0 = path.make_fc(0, None)
     warm = path.run(fc0, torch.zeros((cs.H, cs.W, 3), device=dev))
@@ -154,42 +163,247 @@ def main(argv=None) -> int:
         raster, clustered, taa)
     calls += [c for c in small
               if c[0] == "k1" and c[2].get("name") == "raster_blend"]
+    for name, other in others:
+        for kind, a, kw in calls:
+            mod, fn, reps = WRAPPERS[kind]
+            impls = (getattr(other[mod], fn), getattr(this[mod], fn))
+            agree(cs, kind, a, kw, [f(*a, **kw) for f in impls], this)
+            t_o, t_t = time_pair(cs, lambda: impls[0](*a, **kw),
+                                 lambda: impls[1](*a, **kw), reps)
+            t = times.setdefault((name, role(kind, kw)),
+                                 {"other": [], "this": []})
+            t["other"].append(t_o)
+            t["this"].append(t_t)
+            if kind == "k2":
+                entry_args, held = k2_entry_call(clustered, a, kw)
+                entries = (other["clustered"].K2, clustered.K2)
+                t_o, t_t = time_pair(cs, lambda: entries[0](*entry_args),
+                                     lambda: entries[1](*entry_args), reps)
+                t = times.setdefault((name, "k2_clustered[entry]"),
+                                     {"other": [], "this": []})
+                t["other"].append(t_o)
+                t["this"].append(t_t)
+
+
+# K4 launches captured from the binary layout and the alpha role: (group,
+# role, source role of the rays, any hit, alpha filter)
+K4_EXTRA = (("binary", "binary_primary", "pt_primary", False, False),
+            ("binary", "binary_bounce", "pt_bounce", False, False),
+            ("binary", "binary_shadow", "pt_shadow", True, False),
+            ("alpha", "alpha_closest_bounce", "pt_bounce", False, True),
+            ("alpha", "alpha_anyhit_primary", "pt_primary", True, True))
+
+
+def k4_launches(cs, this, dev):
+    """-> ([(group, role, (bvh, o, d, tmin, tmax, any_hit, scene or
+    None))], {group: a function that renders it}): every K4 launch of one
+    path-traced sample (group pt_sample) and of one RT shadow + HBAO frame
+    (rt_frame), then the K4_EXTRA traces (scene: the alpha role's, with
+    noise 0)."""
+    import torch
+    from incarnation_tpu_torch.renderer import frame
+    bvh = this["bvh"]
+    path = cs.atrium_path(dev)
+    sbvh = bvh.build_scene_bvh(path.scene, device=dev)
+    cfg = path.cfg
+    fc = frame.FrameConstants.make(
+        cs.bench_view(path.host, cs.PT_W, cs.PT_H), cfg, sun_dir=path.sun,
+        sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
+        shadow_bounds=path.shadow_bounds, device=dev)
+
+    def sample(i, history):
+        return frame.render_pathtrace(path.scene, sbvh, fc, history, i,
+                                      config=cfg, width=cs.PT_W,
+                                      height=cs.PT_H, probe=path.probe)
+
+    history = sample(0, torch.zeros((cs.PT_H, cs.PT_W, 3), device=dev))[
+        "history"]
+    launches = []
+
+    def keep(group):
+        def after(out, b, o, d, tmin=0.0, tmax=1e30, any_hit=False,
+                  role=None, alpha_of=None, **kw):
+            if alpha_of is not None:
+                raise RuntimeError(f"{group}: an alpha-filtered launch")
+            launches.append((group, role, (b, o, d, tmin, tmax, any_hit,
+                                           None)))
+        return after
+    with cs._hooked(bvh, "trace_k4", keep("pt_sample")):
+        sample(1, history)
+    rt_cfg = cfg.replace(sun_shadow_mode="rt", enable_hbao=True,
+                         use_bent_normals=True)
+    hist0 = torch.zeros((cs.H, cs.W, 3), device=dev)
+    fc_rt = path.make_fc(0, None)
+
+    def rt_frame():
+        path.run(fc_rt, hist0, rt_cfg, sbvh)
+    with cs._hooked(bvh, "trace_k4", keep("rt_frame")):
+        rt_frame()
+    first = {}
+    for _, r, call in launches:
+        first.setdefault(r, call)
+    bb = bvh.build_scene_bvh(path.scene, wide=False, device=dev)
+    for group, r, src, any_hit, alpha in K4_EXTRA:
+        _, o, d, tmin, tmax, _, _ = first[src]
+        launches.append((group, r, (bb if group == "binary" else sbvh, o, d,
+                                    tmin, tmax, any_hit,
+                                    path.scene if alpha else None)))
+    torch.cuda.synchronize()
+    return launches, {"pt_sample": lambda: sample(1, history),
+                      "rt_frame": rt_frame}
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean ms of fn() over reps runs, each ended by a synchronize (the
+    host's clock: a path-traced sample and a frame wait on the host)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def k4_ab(cs, others, this, dev, times):
+    """K4 on the launches of k4_launches: each checkout against its own
+    twin on every launch, then each launch timed with each other checkout
+    and this one; appends to times[(other, role)] and returns (the
+    launch-weighted totals per group, the end-to-end times)."""
+    import torch
+    launches, renders = k4_launches(cs, this, dev)
+    trees = [("this", this)] + list(others)
+
+    def tracer(mods, spec):
+        # every checkout's bvh imports this one's pathtrace.AlphaFilter
+        # (its relative import meets this package in sys.modules)
+        b, o, d, tmin, tmax, any_hit, scene = spec
+        flt = None if scene is None else this["pathtrace"].AlphaFilter(
+            scene, torch.zeros(o.shape[0], device=dev))
+        return (lambda **kw: mods["bvh"].trace_k4(
+            b, o, d, tmin, tmax, any_hit, alpha_of=flt, **kw),
+            lambda: mods["bvh"].trace_plain(b, o, d, tmin, tmax, any_hit,
+                                            return_steps=True, alpha_of=flt))
+
+    totals: dict = {}
+    for group, r, spec in launches:
+        fns = {name: tracer(mods, spec) for name, mods in trees}
+        for name, (k4, twin) in fns.items():
+            got, ref = k4(return_steps=True), twin()
+            for k in ("tri", "t", "u", "v", "steps"):
+                if not torch.equal(got[k], ref[k]):
+                    raise RuntimeError(
+                        f"{name} checkout's K4 {r}: {k} differs from its "
+                        f"twin on {int((got[k] != ref[k]).sum())} rays")
+            if int(got["trunc"]) or int(ref["trunc"]):
+                raise RuntimeError(f"{name} checkout's K4 {r}: trunc")
+        for name, _ in others:
+            t_o, t_t = time_pair(cs, fns[name][0], fns["this"][0], 5)
+            print(f"  {group} k4_trace[{r}] {spec[1].shape[0]} rays: "
+                  f"{name} {t_o:.4f} ms, this {t_t:.4f} ms", flush=True)
+            t = times.setdefault((name, f"k4_trace[{r}]"),
+                                 {"other": [], "this": []})
+            t["other"].append(t_o)
+            t["this"].append(t_t)
+            g = totals.setdefault((name, group), {"other": 0.0, "this": 0.0,
+                                                  "launches": 0})
+            g["other"] += t_o
+            g["this"] += t_t
+            g["launches"] += 1
+    # the sample and the frame whole, with each checkout's K4 in turns
+    ends = {}
+    for name, mods in others:
+        for group, fn in renders.items():
+            def with_k4(m):
+                def run():
+                    with cs._swapped(this["bvh"], "trace_k4",
+                                     m["bvh"].trace_k4):
+                        fn()
+                return run
+            runs = [wall_ms(with_k4(m), 3)
+                    for m in (mods, this, this, mods)]
+            ends[(name, group)] = {"other": [runs[0], runs[3]],
+                                   "this": [runs[1], runs[2]]}
+            print(f"{group} end to end with {name}'s K4 and this one's, in "
+                  f"turns: {', '.join(f'{x:.2f}' for x in runs)} ms",
+                  flush=True)
+    return totals, ends
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("others", nargs="+", help="the other checkouts' roots")
+    ap.add_argument("--kernels", default="k1,k2,k3,k4",
+                    help="comma-separated: k1, k2, k3 (one frame's "
+                         "launches), k4")
+    ap.add_argument("--out", help="also write the JSON object here")
+    args = ap.parse_args(argv)
+    kinds = set(args.kernels.split(","))
+
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    others = [(str(o), load_kernels(pathlib.Path(o).resolve()))
+              for o in args.others]
+    from incarnation_tpu_torch.kernels import (build, bvh, clustered,
+                                               pathtrace, raster, taa)
+    this = dict(build=build, raster=raster, clustered=clustered, taa=taa,
+                bvh=bvh, pathtrace=pathtrace)
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    registers = {}
+    for name, mods in [("this", this)] + others:
+        secs, logs = mods["build"].timed_build(verbose=True)
+        print(f"{name} checkout's kernels built in {secs:.1f} s", flush=True)
+        if "k4" in kinds:
+            res = cs.k4_resources(mods["build"], logs.get("bvh"))
+            registers[name] = {
+                f"any_hit={int(k[0])},layout={k[1]},alpha={int(k[2])}": v
+                for k, v in sorted(res.items())}
+            print(f"{name} checkout's K4 (registers, spill bytes) by role: "
+                  f"{json.dumps(registers[name])}", flush=True)
 
     times: dict = {}
-    for kind, a, kw in calls:
-        mod, fn, reps = WRAPPERS[kind]
-        impls = (getattr(other[mod], fn), getattr(this[mod], fn))
-        agree(cs, kind, a, kw, [f(*a, **kw) for f in impls], this)
-        runs = [cs.device_ms(lambda f=impls[i]: f(*a, **kw), reps)
-                for i in (0, 1, 1, 0)]
-        t = times.setdefault(role(kind, kw), {"other": [], "this": []})
-        t["other"].append(min(runs[0], runs[3]))
-        t["this"].append(min(runs[1], runs[2]))
-        if kind == "k2":
-            entry_args, held = k2_entry_call(clustered, a, kw)
-            entries = (other["clustered"].K2, clustered.K2)
-            runs = [cs.device_ms(lambda k=entries[i]: k(*entry_args), reps)
-                    for i in (0, 1, 1, 0)]
-            t = times.setdefault("k2_clustered[entry]",
-                                 {"other": [], "this": []})
-            t["other"].append(min(runs[0], runs[3]))
-            t["this"].append(min(runs[1], runs[2]))
+    if kinds & set(WRAPPERS):
+        k1_to_k3(cs, others, this, dev, times)
+    totals, ends = {}, {}
+    if "k4" in kinds:
+        totals, ends = k4_ab(cs, others, this, dev, times)
 
     summary = {}
-    for name, t in times.items():
-        o, s = float(np.mean(t["other"])), float(np.mean(t["this"]))
-        summary[name] = dict(launches=len(t["this"]), other_ms=o, this_ms=s,
-                             this_over_other=s / o,
-                             other_per_launch=t["other"],
-                             this_per_launch=t["this"])
-        print(f"{name}: other {o:.4f} ms, this {s:.4f} ms per launch "
-              f"({s / o:.3f}x) over {len(t['this'])} launches", flush=True)
-    result = {"card": card, "other": str(args.other), "roles": summary}
+    for (other, name), t in times.items():
+        o, s = float(np.sum(t["other"])), float(np.sum(t["this"]))
+        n = len(t["this"])
+        summary.setdefault(other, {})[name] = dict(
+            launches=n, other_ms=o / n, this_ms=s / n,
+            this_over_other=s / o, other_per_launch=t["other"],
+            this_per_launch=t["this"])
+        print(f"{name} against {other}: other {o / n:.4f} ms, this "
+              f"{s / n:.4f} ms per launch ({s / o:.3f}x) over {n} launches",
+              flush=True)
+    groups = {}
+    for (other, group), g in totals.items():
+        groups.setdefault(other, {})[group] = dict(
+            g, this_over_other=g["this"] / g["other"])
+        print(f"K4 per {group} against {other}: other {g['other']:.4f} ms, "
+              f"this {g['this']:.4f} ms over {g['launches']} launches "
+              f"({g['this'] / g['other']:.3f}x)", flush=True)
+    for (other, group), e in ends.items():
+        groups.setdefault(other, {}).setdefault(group, {})[
+            "end_to_end_ms"] = e
+    result = {"card": card, "others": args.others, "roles": summary,
+              "k4_groups": groups, "k4_registers": registers}
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
     print(card, flush=True)
-    print(json.dumps(result), flush=True)
+    print(json.dumps({k: v for k, v in result.items() if k != "roles"}),
+          flush=True)
     return 0
 
 
