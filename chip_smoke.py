@@ -246,6 +246,8 @@ def main(argv=None) -> int:
     secs, logs = build.timed_build(verbose=True)
     _log(f"kernels built in {secs:.1f} s")
     K4_RESOURCES.update(k4_resources(build, logs.get("bvh")))
+    K5_RESOURCES.update(k5_resources(build, logs.get("resolve")))
+    _log(f"K5 (k5_resolve_kernel): {json.dumps(K5_RESOURCES)}")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -698,15 +700,71 @@ def _k5_bound(resolve, tri, depth, scene, interp, ivp, w, h, n3):
                   n_cov * K5_OPS_PER_COVERED + n_ex * K5_OPS_PER_EXTRAS)
 
 
+def k5_footprints(resolve, tri, scene, interp, warp_px: int = 32) -> dict:
+    """What K5's texture work is on one launch's inputs, from the twin's
+    LOD and addressing (textures.py sample_material_stack): the share of
+    covered pixels whose second level K5 skips (its weight frac is 0), the
+    share of warps (K5's rows of warp_px pixels) with a covered pixel in
+    which every covered pixel skips it, and the mean number of distinct
+    4x4 blocks per bilinear footprint K5 fetches and per warp and level
+    (level 0, and level 1 where not skipped)."""
+    import torch
+    from incarnation_tpu_torch.scene import textures as tex
+    h, w = tri.shape
+    cov = tri >= 0
+    if not bool(cov.any()):
+        return dict(skipped_share=0.0, skipped_warp_share=0.0,
+                    blocks_per_footprint=0.0, blocks_per_warp_level=0.0)
+    mat = interp[9].to(torch.int32)
+    meta = tex.stack_meta_lookup(scene.mat_stack, mat)
+    size, levels, mode = meta[..., 1], meta[..., 2], meta[..., 3]
+    lod = torch.minimum(
+        torch.clamp(resolve._interp_lod(scene, mat, interp), min=0.0),
+        (levels - 1).to(torch.float32))
+    l0 = torch.floor(lod).to(torch.int32)
+    skip = (lod - l0) == 0
+    xw = torch.arange(w, device=tri.device) // warp_px
+    warp = (torch.arange(h, device=tri.device)[:, None]
+            * ((w + warp_px - 1) // warp_px) + xw[None, :])
+
+    def footprint(level, where):
+        s = torch.clamp(size >> level, min=1)
+        s4 = torch.clamp(s >> 2, min=1)
+        base = meta[..., 0] + tex._level_offset_blocks(size, levels, level)
+        x0 = torch.floor(interp[0] * s - 0.5).to(torch.int32)
+        y0 = torch.floor(interp[1] * s - 0.5).to(torch.int32)
+        cols = [tex._address(x, s, mode) >> 2 for x in (x0, x0 + 1)]
+        rows = [tex._address(y, s, mode) >> 2 for y in (y0, y0 + 1)]
+        n = (1 + (cols[0] != cols[1]).int()) * (1 + (rows[0] != rows[1]).int())
+        ids = torch.stack([base + r * s4 + c for r in rows for c in cols])
+        keys = (warp[None].to(torch.int64) << 32) + ids.to(torch.int64)
+        return n[where], torch.unique(keys[:, where]), torch.unique(
+            warp[where])
+
+    n0, k0, w0 = footprint(l0, cov)
+    n1, k1, w1 = footprint(torch.minimum(l0 + 1, levels - 1), cov & ~skip)
+    n_warps = int(torch.unique(warp[cov]).numel())
+    return dict(
+        skipped_share=float(skip[cov].float().mean()),
+        skipped_warp_share=1.0 - int(w1.numel()) / n_warps,
+        blocks_per_footprint=float(torch.cat([n0, n1]).float().mean()),
+        blocks_per_warp_level=(k0.numel() + k1.numel())
+        / (w0.numel() + w1.numel()))
+
+
 def k5_row(resolve, calls, n_launches, name="k5_resolve"):
     """K5 against its twin on each captured resolve_gbuffer launch (error,
-    both times and the bound, each the mean over the launches) -> the JSON
+    both times and the bound, each the mean over the launches; the time
+    and bound of each launch, K5's registers and spills, and per launch
+    k5_footprints' skipped share and blocks per footprint) -> the JSON
     row."""
     launches = [_k5_args(a, kw) for kind, a, kw in calls if kind == "k5"]
     if not launches:
         raise RuntimeError(f"{name}: no K5 launch was captured")
     errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
+    feet = []
     for args in launches:
+        feet.append(k5_footprints(resolve, args[0], args[2], args[3]))
         errs.append(_k5_error(resolve.resolve_gbuffer(*args),
                               resolve.resolve_gbuffer_plain(*args)))
         ms.append(device_ms(lambda: resolve.resolve_gbuffer(*args), 20))
@@ -722,6 +780,9 @@ def k5_row(resolve, calls, n_launches, name="k5_resolve"):
              f"{float((a[0] >= 0).float().mean()):.4f}" for a in launches)
          + "; max abs err " + ", ".join(f"{e[0]:.3e}" for e in errs)
          + ", max relative err " + ", ".join(f"{e[1]:.3e}" for e in errs))
+    _log(f"{name}: texture work per launch {json.dumps(feet)}; "
+         f"{K5_RESOURCES.get('registers')} registers, "
+         f"{K5_RESOURCES.get('spill_bytes')} bytes spilled")
     return dict(
         name=name, route="cuda",
         source="incarnation_tpu_torch/csrc/resolve.cu",
@@ -731,7 +792,11 @@ def k5_row(resolve, calls, n_launches, name="k5_resolve"):
         ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
         bound_ms=float(np.mean(bounds)),
         bound_by="operations" if "operations" in bound_by else "bytes",
-        library_ms=None)
+        library_ms=None, ms_per_launch=ms, bound_ms_per_launch=bounds,
+        registers=K5_RESOURCES.get("registers"),
+        spill_bytes=K5_RESOURCES.get("spill_bytes"),
+        skipped_share=[f["skipped_share"] for f in feet],
+        blocks_per_footprint=[f["blocks_per_footprint"] for f in feet])
 
 
 def _k6_error(got, ref, tri):
@@ -1702,29 +1767,38 @@ def k4_row(bvh, call, role, n_launches):
 # (any_hit, layout, alpha) -> (registers, spill bytes) of K4's kernel in
 # each compiled role, from ptxas (k4_resources); filled by main()
 K4_RESOURCES: dict = {}
+# K5's registers, spill and shared-memory bytes (k5_resources); filled by
+# main()
+K5_RESOURCES: dict = {}
+
+
+def _ptxas_log(build_mod, source: str, log=None) -> str:
+    """ptxas's -v report of csrc/<source>.cu: `log`, that report from a
+    build, or, where the build was cached, a compile of its own with
+    build_mod's flags."""
+    import os
+    import tempfile
+    if log and log != "(cached)":
+        return log
+    build_mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_mod.BUILD_DIR)
+    os.close(fd)
+    try:
+        return subprocess.run(
+            [build_mod._nvcc(), *build_mod._FLAGS, "-Xptxas", "-v", "-o",
+             tmp, str(build_mod.CSRC / f"{source}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            check=True, timeout=600).stdout
+    finally:
+        os.unlink(tmp)
 
 
 def k4_resources(build_mod, log=None) -> dict:
     """(any_hit, layout, alpha) -> (registers, bytes of spill stores) of
     csrc/bvh.cu's k4_trace_kernel in each role (the larger of a role's
-    instantiations), parsed from ptxas's -v report: `log`, that report
-    from a build, or, where the build was cached, a compile of its own
-    with build_mod's flags."""
-    import os
+    instantiations), parsed from ptxas's -v report (_ptxas_log)."""
     import re
-    import tempfile
-    if not log or log == "(cached)":
-        build_mod.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_mod.BUILD_DIR)
-        os.close(fd)
-        try:
-            log = subprocess.run(
-                [build_mod._nvcc(), *build_mod._FLAGS, "-Xptxas", "-v",
-                 "-o", tmp, str(build_mod.CSRC / "bvh.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                check=True, timeout=600).stdout
-        finally:
-            os.unlink(tmp)
+    log = _ptxas_log(build_mod, "bvh", log)
     out, role, spill = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\w*k4_trace_kernel"
@@ -1741,6 +1815,25 @@ def k4_resources(build_mod, log=None) -> dict:
             out[role] = (max(regs, int(m.group(1))), max(spilled, spill or 0))
             role, spill = None, None
     return out
+
+
+def k5_resources(build_mod, log=None) -> dict:
+    """Registers, bytes of spill stores and of static shared memory of
+    csrc/resolve.cu's k5_resolve_kernel, parsed from ptxas's -v report
+    (_ptxas_log)."""
+    import re
+    lines = _ptxas_log(build_mod, "resolve", log).splitlines()
+    for j, line in enumerate(lines):
+        if re.search(r"Compiling entry function '\w*k5_resolve_kernel", line):
+            text = " ".join(lines[j + 1:j + 4])
+
+            def num(pattern):
+                m = re.search(pattern, text)
+                return int(m.group(1)) if m else 0
+            return dict(registers=num(r"Used (\d+) registers"),
+                        spill_bytes=num(r"(\d+) bytes spill stores"),
+                        smem_bytes=num(r"(\d+) bytes smem"))
+    raise RuntimeError("ptxas reported no k5_resolve_kernel")
 
 
 def _k4_twin(bvh):

@@ -45,14 +45,35 @@
 // 85 B a pixel (97 with the mapped normal): at 1920x1088 about 0.09 ms at
 // 3.35 TB/s, against 859-1,123 float operations a covered pixel (about
 // 0.03 ms at 67 TFLOP/s; chip_smoke.py counts both). K6 reads 7 interp
-// channels and writes 8 B a pixel, ~0.02 ms. Design for now: simple and right, one thread per pixel, no shared
-// memory; the texel gathers are dependent (meta row, then block words,
-// then the bit unpack) and served by L1/L2.
+// channels and writes 8 B a pixel, ~0.02 ms; it is one thread per pixel,
+// no shared memory.
+//
+// K5's design for the card. A covered pixel's texture work is bound by
+// instruction throughput (about 200 instructions a texel, 8 texels), a warp's
+// lanes each decoding their own texels. So: a block shades a 32 x 8 pixel tile,
+// a warp one row of it, so that the rows' texel footprints meet in one SM's L1
+// (a 256 x 1 strip took 14% longer). The GBuffer planes leave as whole rows:
+// 16- and 8-byte stores of the 4- and 2-channel planes, and the 3-channel
+// planes and the mask staged in shared memory and written as 16-byte words (a
+// lane writing its own channels one float at a time touched 3-4 times the
+// sectors its bytes need). The wrap and mirror addresses' remainders are masks
+// where the size is a power of two, as every size
+// textures.build_material_stacks makes is (divisions before). The second level
+// is skipped where its weight is 0, and the TBN basis is read after the texture
+// work, prefetched into L1 before it, which keeps the kernel at 80 registers.
+// Measured and left out (PERF.md): one load per distinct block of a footprint
+// (the conditional loads cost more than they saved), and a warp decoding each
+// distinct block of its footprints once into shared memory (1.8-1.9x this
+// kernel's time: the key matching, the syncs and the code size). None of this
+// changes an operation of a pixel: the planes are the same bits as those of the
+// one-thread-per-pixel kernel that came before.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define RS_THREADS 256
+#define K5_TW 32  // K5's tile: a warp's row
+#define K5_TH (RS_THREADS / K5_TW)  // and the block's rows, a warp each
 
 // interp channels (kernels/raster.py INTERP_CHANNELS layout)
 #define CH_U 0
@@ -140,53 +161,102 @@ __device__ __forceinline__ float lerp(float a, float b, float f) {
 }
 
 struct Stack {
-  const uint32_t* flat;    // (n_flat, 8) core blocks
-  const uint32_t* extra;   // (n_extra, 6) extras blocks; n_extra <= 1: none
+  const uint32_t* flat;    // (n_flat, 8) core blocks, 16-byte aligned
+  const uint32_t* extra;   // (n_extra, 6) extras blocks, 8-byte aligned;
+                           // n_extra <= 1: none
   int n_flat, n_extra;
 };
 
-// textures.py _fetch_texel: channels 0-13 of texel (x, y) of the mip whose
-// blocks start at `base` (extras at `ebase`, -1 = none), size s
-__device__ __forceinline__ void fetch_texel(const Stack& st, int base,
-                                            int ebase, int x, int y, int s,
-                                            float* o) {
-  const int s4 = max(s >> 2, 1);
-  const int brel = (y >> 2) * s4 + (x >> 2);
-  const int sh = (((y & 3) << 2) | (x & 3)) << 1;
+// One 4x4 block of the stack: its 8 core words and, where the material
+// has extras blocks, its 6 extras words (24-byte rows, 8-byte aligned)
+struct Block {
+  uint4 lo, hi;
+  uint2 e01, e23, e45;
+};
+
+// the block `brel` of the mip whose blocks start at `base` (extras at
+// `ebase`), clamped into the tables as the twin's gathers clamp
+__device__ __forceinline__ Block load_block(const Stack& st, int base,
+                                            int ebase, int brel, bool ex) {
+  Block b;
   const uint4* wp = reinterpret_cast<const uint4*>(
       st.flat + (size_t)CORE_WORDS * clampi(base + brel, 0, st.n_flat - 1));
-  const uint4 lo = __ldg(wp), hi = __ldg(wp + 1);
+  b.lo = __ldg(wp);
+  b.hi = __ldg(wp + 1);
+  if (ex) {
+    const uint2* e = reinterpret_cast<const uint2*>(
+        st.extra + (size_t)EXTRA_WORDS *
+                       clampi(ebase + brel, 0, st.n_extra - 1));
+    b.e01 = __ldg(e);
+    b.e23 = __ldg(e + 1);
+    b.e45 = __ldg(e + 2);
+  } else {
+    b.e01 = b.e23 = b.e45 = make_uint2(0u, 0u);
+  }
+  return b;
+}
+
+// textures.py _fetch_texel: channels 0-13 of the texel at bit shift `sh`
+// of block b (ex: the material has extras blocks, else channels 8-13 are 1)
+__device__ __forceinline__ void decode_texel(const Block& b, bool ex, int sh,
+                                             float* o) {
   float c0[3], c1[3];
-  dec565(lo.x & 0xFFFFu, c0);
-  dec565((lo.x >> 16) & 0xFFFFu, c1);
-  const float fb = sel3(lo.y, sh);
+  dec565(b.lo.x & 0xFFFFu, c0);
+  dec565((b.lo.x >> 16) & 0xFFFFu, c1);
+  const float fb = sel3(b.lo.y, sh);
 #pragma unroll
   for (int k = 0; k < 3; ++k) o[k] = lerp(c0[k], c1[k], fb);
-  o[3] = lerp(u8f(lo.z, 0), u8f(lo.z, 8), sel3(hi.y, sh));
-  const float fn = sel3(hi.z, sh);
-  o[4] = lerp(u8f(lo.z, 16), u8f(lo.w, 0), fn);
-  o[5] = lerp(u8f(lo.z, 24), u8f(lo.w, 8), fn);
-  const float fm = sel3(hi.w, sh);
-  o[6] = lerp(u8f(lo.w, 16), u8f(hi.x, 0), fm);
-  o[7] = lerp(u8f(lo.w, 24), u8f(hi.x, 8), fm);
-  if (st.n_extra <= 1 || ebase < 0) {
+  o[3] = lerp(u8f(b.lo.z, 0), u8f(b.lo.z, 8), sel3(b.hi.y, sh));
+  const float fn = sel3(b.hi.z, sh);
+  o[4] = lerp(u8f(b.lo.z, 16), u8f(b.lo.w, 0), fn);
+  o[5] = lerp(u8f(b.lo.z, 24), u8f(b.lo.w, 8), fn);
+  const float fm = sel3(b.hi.w, sh);
+  o[6] = lerp(u8f(b.lo.w, 16), u8f(b.hi.x, 0), fm);
+  o[7] = lerp(u8f(b.lo.w, 24), u8f(b.hi.x, 8), fm);
+  if (!ex) {
 #pragma unroll
     for (int k = 8; k < NCH; ++k) o[k] = 1.0f;
     return;
   }
-  const uint32_t* e = st.extra + (size_t)EXTRA_WORDS *
-      clampi(max(ebase, 0) + brel, 0, st.n_extra - 1);
-  const uint32_t e0w = __ldg(e), e1w = __ldg(e + 1), e2w = __ldg(e + 2),
-                 e3w = __ldg(e + 3), e4w = __ldg(e + 4), e5w = __ldg(e + 5);
-  dec565(e0w & 0xFFFFu, c0);
-  dec565((e0w >> 16) & 0xFFFFu, c1);
-  const float fe = sel3(e1w, sh);
+  dec565(b.e01.x & 0xFFFFu, c0);
+  dec565((b.e01.x >> 16) & 0xFFFFu, c1);
+  const float fe = sel3(b.e01.y, sh);
 #pragma unroll
   for (int k = 0; k < 3; ++k) o[8 + k] = lerp(c0[k], c1[k], fe);
-  o[11] = lerp(u8f(e2w, 0), u8f(e2w, 8), sel3(e4w, sh));
-  const float ftc = sel3(e5w, sh);
-  o[12] = lerp(u8f(e2w, 16), u8f(e3w, 0), ftc);
-  o[13] = lerp(u8f(e2w, 24), u8f(e3w, 8), ftc);
+  o[11] = lerp(u8f(b.e23.x, 0), u8f(b.e23.x, 8), sel3(b.e45.x, sh));
+  const float ftc = sel3(b.e45.y, sh);
+  o[12] = lerp(u8f(b.e23.x, 16), u8f(b.e23.y, 0), ftc);
+  o[13] = lerp(u8f(b.e23.x, 24), u8f(b.e23.y, 8), ftc);
+}
+
+// a texel's 2-bit selector shift in its block
+__device__ __forceinline__ int texel_shift(int x, int y) {
+  return (((y & 3) << 2) | (x & 3)) << 1;
+}
+
+// (c mod m), m >= 1, as pymod: a mask where m is a power of two (every
+// size textures.build_material_stacks makes), a division otherwise
+__device__ __forceinline__ int mod_pos(int c, int m) {
+  return (m & (m - 1)) == 0 ? (c & (m - 1)) : pymod(c, m);
+}
+
+// textures.py _address of texels c and c + 1: the integers address(c, n,
+// mode) and address(c + 1, n, mode) give, each remainder a mask where the
+// size is a power of two (K6 keeps address())
+__device__ __forceinline__ void address_pair(int c, int n, int mode, int& a,
+                                             int& b) {
+  if (mode == ADDRESS_CLAMP) {
+    a = min(max(c, 0), n - 1);
+    b = min(max(c + 1, 0), n - 1);
+    return;
+  }
+  const int m = mode == ADDRESS_WRAP ? n : 2 * n;
+  a = mod_pos(c, m);
+  b = mod_pos(c + 1, m);
+  if (mode != ADDRESS_WRAP) {
+    a = a < n ? a : 2 * n - 1 - a;
+    b = b < n ? b : 2 * n - 1 - b;
+  }
 }
 
 // textures.py _stack_bilinear, accumulated as acc += w * bilinear: the
@@ -205,25 +275,39 @@ __device__ __forceinline__ void bilinear_level(const Stack& st, int base,
   const float tx = fx - (float)x0;
   const float ty = fy - (float)y0;
   const float omtx = 1.0f - tx, omty = 1.0f - ty;
-  const int xa = address(x0, s, mode), xb = address(x0 + 1, s, mode);
-  const int ya = address(y0, s, mode), yb = address(y0 + 1, s, mode);
+  int xa, xb, ya, yb;
+  address_pair(x0, s, mode, xa, xb);
+  address_pair(y0, s, mode, ya, yb);
+  const bool ex = st.n_extra > 1 && ebase >= 0;
+  const int s4 = max(s >> 2, 1);
+  const int ca = xa >> 2, cb = xb >> 2;
+  const int ra = (ya >> 2) * s4, rb = (yb >> 2) * s4;
   float top[NCH], bot[NCH], f[NCH];
-  fetch_texel(st, base, ebase, xa, ya, s, f);
+  decode_texel(load_block(st, base, ebase, ra + ca, ex), ex,
+               texel_shift(xa, ya), f);
 #pragma unroll
   for (int k = 0; k < NCH; ++k) top[k] = f[k] * omtx;
-  fetch_texel(st, base, ebase, xb, ya, s, f);
+  decode_texel(load_block(st, base, ebase, ra + cb, ex), ex,
+               texel_shift(xb, ya), f);
 #pragma unroll
   for (int k = 0; k < NCH; ++k) top[k] = top[k] + f[k] * tx;
-  fetch_texel(st, base, ebase, xa, yb, s, f);
+  decode_texel(load_block(st, base, ebase, rb + ca, ex), ex,
+               texel_shift(xa, yb), f);
 #pragma unroll
   for (int k = 0; k < NCH; ++k) bot[k] = f[k] * omtx;
-  fetch_texel(st, base, ebase, xb, yb, s, f);
+  decode_texel(load_block(st, base, ebase, rb + cb, ex), ex,
+               texel_shift(xb, yb), f);
 #pragma unroll
   for (int k = 0; k < NCH; ++k) {
     bot[k] = bot[k] + f[k] * tx;
     const float b = top[k] * omty + bot[k] * ty;
     acc[k] = first ? b * w : acc[k] + b * w;
   }
+}
+
+// asks for the line holding p in L1, without waiting for it
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
 }
 
 // resolve.py _interp_lod: the mip level of the analytic UV footprint
@@ -256,43 +340,72 @@ __device__ __forceinline__ void normalize3(float* v) {
   v[2] = v[2] * inv;
 }
 
-__global__ void __launch_bounds__(RS_THREADS)
-k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
-                  const float* __restrict__ interp,
-                  const float* __restrict__ ivp, Stack st,
-                  const int* __restrict__ meta, int n_meta,
-                  const float* __restrict__ params, int n_params,
-                  float* __restrict__ base_out, float* __restrict__ nrm_out,
-                  float* __restrict__ mrao_out, float* __restrict__ emis_out,
-                  uint8_t* __restrict__ mask_out,
-                  float* __restrict__ wpos_out, float* __restrict__ uv_out,
-                  float* __restrict__ extras_out, float* __restrict__ n3_out,
-                  int width, int height) {
-  const int i = blockIdx.x * RS_THREADS + threadIdx.x;
-  if (i >= width * height) return;
-  const size_t plane = (size_t)width * height;
-  const float u = interp[CH_U * plane + i];
-  const float v = interp[CH_V * plane + i];
-  uv_out[2 * i] = u;
-  uv_out[2 * i + 1] = v;
-  const bool covered = tri[i] >= 0;
-  mask_out[i] = covered ? 1 : 0;
-  if (!covered) {
+// One warp's row of the 3-channel planes and the mask, staged in shared
+// memory so that each row goes out as 16-byte stores
+struct Stage {
+  float emis[K5_TW * 3], wpos[K5_TW * 3], extras[K5_TW * 3], n3[K5_TW * 3];
+  uint8_t mask[K5_TW];
+};
+
+// Where one pixel's channels go: its 4- and 2-channel planes straight to
+// the GBuffer, its 3-channel ones (3 floats each) to its warp's stage
+struct Out {
+  float4* base;
+  float4* mrao;
+  float2* nrm;
+  float *emis, *wpos, *extras, *n3;
+};
+
+// the resolve of covered pixel i at (x, y), in the twin's operations and
+// order, each plane written as soon as it is known
+__device__ __forceinline__ void resolve_pixel(
+    const float* __restrict__ depth, const float* __restrict__ interp,
+    const float* __restrict__ ivp, const Stack& st,
+    const int* __restrict__ meta, int n_meta,
+    const float* __restrict__ params, int n_params, size_t i, size_t plane,
+    int x, int y, int width, int height, float u, float v, const Out& o) {
+  // the depth and TBN channels, read after the texture work
+  prefetch_l1(depth + i);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) base_out[4 * i + k] = 0.0f;
-    nrm_out[2 * i] = 0.0f;
-    nrm_out[2 * i + 1] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) mrao_out[4 * i + k] = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      emis_out[3 * i + k] = 0.0f;
-      wpos_out[3 * i + k] = 0.0f;
-      extras_out[3 * i + k] = 0.0f;
-      if (n3_out) n3_out[3 * i + k] = 0.0f;
-    }
-    return;
+  for (int c = CH_WN; c <= CH_SIGN; ++c) prefetch_l1(interp + c * plane + i);
+
+  // the material and its trilinear stack fetch (sample_material_stack);
+  // where the LOD's fraction is 0 (magnified, or clamped to the last
+  // level) the second level's term is acc + b x 0 == acc exactly (texel
+  // values are finite in [0, 1], acc >= +0) and is skipped; a NaN fraction
+  // is not 0 and takes it
+  const int mat = (int)interp[CH_MAT * plane + i];
+  const int* m = meta + (size_t)META_COLS * clampi(mat, 0, n_meta - 1);
+  const int mbase = m[0], size = m[1], levels = m[2], mode = m[3];
+  const int ebase = m[4];
+  float lod = interp_lod(interp, i, plane, size);
+  lod = tmin(clamp_lo(lod, 0.0f), (float)(levels - 1));
+  const int l0 = (int)floorf(lod);
+  const int l1 = min(l0 + 1, levels - 1);
+  const float frac = lod - (float)l0;
+  float ch[NCH];
+  const int off0 = level_offset_blocks(size, levels, l0);
+  bilinear_level(st, mbase + off0, ebase >= 0 ? ebase + off0 : -1,
+                 max(size >> l0, 1), u, v, mode, 1.0f - frac, true, ch);
+  if (frac != 0.0f) {
+    const int off1 = level_offset_blocks(size, levels, l1);
+    bilinear_level(st, mbase + off1, ebase >= 0 ? ebase + off1 : -1,
+                   max(size >> l1, 1), u, v, mode, frac, false, ch);
   }
+
+  // decode_stack_channels and the mat_params factors
+  const float* fac =
+      params + (size_t)PARAM_COLS * clampi(mat, 0, n_params - 1);
+  *o.base = make_float4(fac[3] * srgb_to_linear(ch[0]),
+                        fac[4] * srgb_to_linear(ch[1]),
+                        fac[5] * srgb_to_linear(ch[2]), fac[6] * ch[3]);
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    o.emis[k] = fac[k] * srgb_to_linear(ch[8 + k]) * 20000.0f;
+  *o.mrao = make_float4(fac[7] * ch[6], fac[8] * ch[7], ch[11], fac[9]);
+  o.extras[0] = fac[13] * ch[12];
+  o.extras[1] = fac[14] * ch[13];
+  o.extras[2] = fac[15];
 
   // the TBN basis
   float n[3], t[3], b[3];
@@ -309,41 +422,6 @@ k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
   b[2] = (n[0] * t[1] - n[1] * t[0]) * sign;
   normalize3(b);
 
-  // the material and its trilinear stack fetch (sample_material_stack)
-  const int mat = (int)interp[CH_MAT * plane + i];
-  const int* m = meta + (size_t)META_COLS * clampi(mat, 0, n_meta - 1);
-  const int mbase = m[0], size = m[1], levels = m[2], mode = m[3];
-  const int ebase = m[4];
-  float lod = interp_lod(interp, i, plane, size);
-  lod = tmin(clamp_lo(lod, 0.0f), (float)(levels - 1));
-  const int l0 = (int)floorf(lod);
-  const int l1 = min(l0 + 1, levels - 1);
-  const float frac = lod - (float)l0;
-  float ch[NCH];
-  const int off0 = level_offset_blocks(size, levels, l0);
-  bilinear_level(st, mbase + off0, ebase >= 0 ? ebase + off0 : -1,
-                 max(size >> l0, 1), u, v, mode, 1.0f - frac, true, ch);
-  const int off1 = level_offset_blocks(size, levels, l1);
-  bilinear_level(st, mbase + off1, ebase >= 0 ? ebase + off1 : -1,
-                 max(size >> l1, 1), u, v, mode, frac, false, ch);
-
-  // decode_stack_channels and the mat_params factors
-  const float* fac =
-      params + (size_t)PARAM_COLS * clampi(mat, 0, n_params - 1);
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    base_out[4 * i + k] = fac[3 + k] * srgb_to_linear(ch[k]);
-    emis_out[3 * i + k] = fac[k] * srgb_to_linear(ch[8 + k]) * 20000.0f;
-  }
-  base_out[4 * i + 3] = fac[6] * ch[3];
-  mrao_out[4 * i] = fac[7] * ch[6];
-  mrao_out[4 * i + 1] = fac[8] * ch[7];
-  mrao_out[4 * i + 2] = ch[11];
-  mrao_out[4 * i + 3] = fac[9];
-  extras_out[3 * i] = fac[13] * ch[12];
-  extras_out[3 * i + 1] = fac[14] * ch[13];
-  extras_out[3 * i + 2] = fac[15];
-
   // normal mapping
   const float nx = (ch[4] * 2.0f - 1.0f) * fac[10];
   const float ny = (ch[5] * 2.0f - 1.0f) * fac[10];
@@ -352,10 +430,8 @@ k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
 #pragma unroll
   for (int k = 0; k < 3; ++k) nm[k] = (nx * t[k] + ny * b[k]) + nz * n[k];
   normalize3(nm);
-  if (n3_out) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) n3_out[3 * i + k] = nm[k];
-  }
+  for (int k = 0; k < 3; ++k) o.n3[k] = nm[k];
   // mathutils.oct_encode (torch.sum of the row of three: (x + z) + y)
   const float l1n = (fabsf(nm[0]) + fabsf(nm[2])) + fabsf(nm[1]);
   const float ox = nm[0] / l1n, oy = nm[1] / l1n, oz = nm[2] / l1n;
@@ -364,12 +440,10 @@ k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
     ex = (1.0f - fabsf(oy)) * (ox >= 0.0f ? 1.0f : -1.0f);
     ey = (1.0f - fabsf(ox)) * (oy >= 0.0f ? 1.0f : -1.0f);
   }
-  nrm_out[2 * i] = ex * 0.5f + 0.5f;
-  nrm_out[2 * i + 1] = ey * 0.5f + 0.5f;
+  *o.nrm = make_float2(ex * 0.5f + 0.5f, ey * 0.5f + 0.5f);
 
   // world_from_depth: (2 xs / width - 1, -2 ys / height + 1, depth, 1)
   // times inv_view_proj (row vector), divided by w
-  const int x = i % width, y = i / width;
   const float ndc[4] = {
       (2.0f * ((float)x + 0.5f)) * (1.0f / (float)width) - 1.0f,
       (-2.0f * ((float)y + 0.5f)) * (1.0f / (float)height) + 1.0f,
@@ -381,7 +455,109 @@ k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
             + ndc[3] * ivp[12 + c];
   const float wd = fabsf(wp[3]) > (float)1e-20 ? wp[3] : 1.0f;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) wpos_out[3 * i + k] = wp[k] / wd;
+  for (int k = 0; k < 3; ++k) o.wpos[k] = wp[k] / wd;
+}
+
+// n floats of a warp's staged row s out to g: 16-byte stores from g's
+// first 16-byte boundary on, 4-byte ones before it and after the last
+__device__ __forceinline__ void flush_floats(float* __restrict__ g,
+                                             const float* s, int n,
+                                             int lane) {
+  const int head = min(
+      (int)(((16u - ((uint32_t)(uintptr_t)g & 15u)) & 15u) >> 2), n);
+  const int nv = (n - head) >> 2, done = head + (nv << 2);
+  if (lane < head) g[lane] = s[lane];
+  for (int j = lane; j < nv; j += 32) {
+    float4 q;
+    if (head == 0) {
+      q = reinterpret_cast<const float4*>(s)[j];
+    } else {
+      const float* e = s + head + 4 * j;
+      q = make_float4(e[0], e[1], e[2], e[3]);
+    }
+    reinterpret_cast<float4*>(g + head)[j] = q;
+  }
+  if (lane < n - done) g[done + lane] = s[done + lane];
+}
+
+// n bytes of a warp's staged row s out to g, the same way
+__device__ __forceinline__ void flush_bytes(uint8_t* __restrict__ g,
+                                            const uint8_t* s, int n,
+                                            int lane) {
+  const int head = min((int)((16u - ((uint32_t)(uintptr_t)g & 15u)) & 15u),
+                       n);
+  const int nv = (n - head) >> 4, done = head + (nv << 4);
+  if (lane < head) g[lane] = s[lane];
+  if (lane < nv) {
+    const uint8_t* e = s + head + 16 * lane;
+    uint32_t q[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      q[k] = (uint32_t)e[4 * k] | ((uint32_t)e[4 * k + 1] << 8) |
+             ((uint32_t)e[4 * k + 2] << 16) | ((uint32_t)e[4 * k + 3] << 24);
+    reinterpret_cast<uint4*>(g + head)[lane] =
+        make_uint4(q[0], q[1], q[2], q[3]);
+  }
+  if (lane < n - done) g[done + lane] = s[done + lane];
+}
+
+// A block shades a 32 x 8 tile, a warp one row of it: neighbouring rows
+// share texture blocks in the SM's L1. Each pixel's 4- and 2-channel
+// planes go out as one 16- or 8-byte store a lane (a row of the tile is
+// contiguous in (H, W, C)); the 3-channel planes and the mask are staged
+// in shared memory and written as the row's 16-byte words. Lanes past
+// the image's right edge and warps below it store nothing. Three blocks
+// an SM hold it to 80 registers, no spills (an earlier version at 111
+// registers, 2 blocks an SM, ran the opaque layer 1.18x as long).
+__global__ void __launch_bounds__(RS_THREADS, 3)
+k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
+                  const float* __restrict__ interp,
+                  const float* __restrict__ ivp, Stack st,
+                  const int* __restrict__ meta, int n_meta,
+                  const float* __restrict__ params, int n_params,
+                  float* __restrict__ base_out, float* __restrict__ nrm_out,
+                  float* __restrict__ mrao_out, float* __restrict__ emis_out,
+                  uint8_t* __restrict__ mask_out,
+                  float* __restrict__ wpos_out, float* __restrict__ uv_out,
+                  float* __restrict__ extras_out, float* __restrict__ n3_out,
+                  int width, int height) {
+  __shared__ __align__(16) Stage stage[K5_TH];
+  const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;
+  const int y = blockIdx.y * K5_TH + row;
+  if (y >= height) return;  // the whole warp
+  const int x0 = blockIdx.x * K5_TW, x = x0 + lane;
+  const int tw = min(K5_TW, width - x0);
+  const size_t plane = (size_t)width * height;
+  const size_t row0 = (size_t)y * width + x0;
+  Stage& sg = stage[row];
+  if (lane < tw) {
+    const size_t i = row0 + lane;
+    const float u = interp[CH_U * plane + i];
+    const float v = interp[CH_V * plane + i];
+    reinterpret_cast<float2*>(uv_out)[i] = make_float2(u, v);
+    const bool covered = tri[i] >= 0;
+    sg.mask[lane] = covered ? 1 : 0;
+    const Out o = {reinterpret_cast<float4*>(base_out) + i,
+                   reinterpret_cast<float4*>(mrao_out) + i,
+                   reinterpret_cast<float2*>(nrm_out) + i, sg.emis + 3 * lane,
+                   sg.wpos + 3 * lane, sg.extras + 3 * lane, sg.n3 + 3 * lane};
+    if (covered) {
+      resolve_pixel(depth, interp, ivp, st, meta, n_meta, params, n_params,
+                    i, plane, x, y, width, height, u, v, o);
+    } else {
+      *o.base = *o.mrao = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *o.nrm = make_float2(0.0f, 0.0f);
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        o.emis[k] = o.wpos[k] = o.extras[k] = o.n3[k] = 0.0f;
+    }
+  }
+  __syncwarp();
+  flush_floats(emis_out + 3 * row0, sg.emis, 3 * tw, lane);
+  flush_floats(wpos_out + 3 * row0, sg.wpos, 3 * tw, lane);
+  flush_floats(extras_out + 3 * row0, sg.extras, 3 * tw, lane);
+  if (n3_out) flush_floats(n3_out + 3 * row0, sg.n3, 3 * tw, lane);
+  flush_bytes(mask_out + row0, sg.mask, tw, lane);
 }
 
 __global__ void __launch_bounds__(RS_THREADS)
@@ -451,10 +627,13 @@ extern "C" int k5_resolve(const int* tri, const float* depth,
                           float* n3, int width, int height, void* stream) {
   if (n_flat < 1 || n_extra < 1 || n_meta < 1 || n_params < 1)
     return (int)cudaErrorInvalidValue;
+  // the 16- and 8-byte loads and stores
+  if (((uintptr_t)flat | (uintptr_t)base_color | (uintptr_t)mrao) & 15u ||
+      ((uintptr_t)extra | (uintptr_t)normals | (uintptr_t)uv) & 7u)
+    return (int)cudaErrorInvalidValue;
   const Stack st = {flat, extra, n_flat, n_extra};
-  const int n = width * height;
-  const int blocks = (n + RS_THREADS - 1) / RS_THREADS;
-  k5_resolve_kernel<<<blocks, RS_THREADS, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((width + K5_TW - 1) / K5_TW, (height + K5_TH - 1) / K5_TH);
+  k5_resolve_kernel<<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(
       tri, depth, interp, inv_view_proj, st, meta, n_meta, params, n_params,
       base_color, normals, mrao, emissive, mask, world_pos, uv, extras, n3,
       width, height);

@@ -106,6 +106,9 @@ def _check_tables(scene, dev, alpha: bool):
     if st.flat.data_ptr() % 16:
         raise ValueError("mat_stack.flat: K5 loads its rows as 16-byte "
                          "words and needs a 16-byte aligned table")
+    if not alpha and st.extra.data_ptr() % 8:
+        raise ValueError("mat_stack.extra: K5 loads its 24-byte rows as "
+                         "8-byte words and needs an 8-byte aligned table")
 
 
 def masked_alpha(scene, tri, interp, row0: int = 0):

@@ -102,6 +102,85 @@ def material_inputs(seed=0, h=24, w=40, extras=True, wild_mats=False):
                 inv_view_proj=np.linalg.inv(vp).astype(np.float32))
 
 
+EDGE_CASES = ("mixed", "empty", "magnified", "last_level", "tails",
+              "address", "alternating")
+
+
+def edge_inputs(case, h, w, seed=0):
+    """numpy inputs of one resolve (material_inputs' keys) on a stack of
+    four block-encoded materials -- 16x16 with 5 mips, wrap, extras; 8x8
+    with 4, mirror, no extras; 16x16 with 5, clamp, extras; 4x4 with 3,
+    wrap, no extras -- and an h x w layer, every pixel covered but in
+    `case`:
+    mixed: random materials, uv in [-1.5, 2.5], footprints from far
+      below mip 0 to past the last mip;
+    empty: no pixel covered;
+    magnified: every LOD below 0 (level 0 alone, the second skipped);
+    last_level: every LOD past the last mip (clamped to it);
+    tails: LODs between the first mip smaller than a 4x4 block and the
+      last;
+    address: level 0, uv on texel centres, edges and just inside them,
+      around and past the texture's edges, in every address mode;
+    alternating: a material with extras blocks and one without on
+      alternate pixels of a row."""
+    from incarnation_tpu_torch.core.view import View
+    from incarnation_tpu_torch.scene import textures as tex
+    r = np.random.default_rng(seed)
+    sizes = np.asarray([16, 8, 16, 4])
+    levels = np.asarray([5, 4, 5, 3])
+    modes = [tex.ADDRESS_WRAP, tex.ADDRESS_MIRROR, tex.ADDRESS_CLAMP,
+             tex.ADDRESS_WRAP]
+    texels = [sum(max(s >> k, 1) ** 2 for k in range(n))
+              for s, n in zip(sizes, levels)]
+    legacy = np.asarray([[sum(texels[:m]), sizes[m], levels[m], modes[m]]
+                         for m in range(4)], np.int32)
+    rows = r.integers(0, 2 ** 32, (sum(texels), 4), dtype=np.uint64)
+    stack = tex.make_material_stack(rows.astype(np.uint32), legacy)
+    stack["meta"][[1, 3], 4] = -1
+    params = r.uniform(0.0, 1.0, (4, 16)).astype(np.float32)
+    params[:, 10] = [0.5, 1.0, 1.5, 0.75]
+    params[:, 11] = 0.5
+    params[:, 12] = [1.0, 2.0, 0.0, 1.0]
+    interp = np.zeros((16, h, w), np.float32)
+    interp[2:8] = r.normal(size=(6, h, w))
+    interp[8] = r.choice([-1.0, 1.0], (h, w))
+    mat = r.integers(0, 4, (h, w))
+    if case == "alternating":
+        mat = np.broadcast_to(np.arange(w) % 2, (h, w))
+    size = sizes[mat].astype(np.float32)
+    lod = r.uniform(-3.0, levels[mat] + 1.0)
+    uv = r.uniform(-1.5, 2.5, (2, h, w))
+    if case == "magnified":
+        lod = r.uniform(-12.0, -0.5, (h, w))
+    elif case == "last_level":
+        lod = levels[mat] - 1 + r.uniform(0.0, 4.0, (h, w))
+    elif case == "tails":
+        first_tail = np.log2(size) - 1          # the first mip under 4x4
+        lod = r.uniform(first_tail, levels[mat] - 1)
+    elif case == "address":
+        lod = r.uniform(-6.0, -1.0, (h, w))
+        n = r.choice([-1, 0, 1], (2, h, w)) * size \
+            + r.choice([-1, 0, -2], (2, h, w)) * (r.random((2, h, w)) < 0.5)
+        uv = (n + r.choice([0.0, 0.25, 0.5, 0.999, 1.0], (2, h, w))) / size
+    interp[0:2] = uv
+    interp[9] = mat
+    # derivatives of lengths 2^lod / size (rho = 2^lod), the largest a
+    # random one of the four, the others at most half of it
+    d = (2.0 ** lod / size) * r.choice([-1.0, 1.0], (4, h, w))
+    d = d * np.where(np.arange(4)[:, None, None]
+                     == r.integers(0, 4, (h, w)), 1.0,
+                     r.uniform(0.0, 0.5, (4, h, w)))
+    interp[10:14] = d
+    tri = (np.full((h, w), -1, np.int32) if case == "empty"
+           else r.integers(0, 1000, (h, w)).astype(np.int32))
+    vp = View.from_lookat([0.5, 1.0, -3.0], [0.0, 0.0, 5.0],
+                          aspect=w / h).view_proj()
+    return dict(stack=stack, mat_params=params, tri=tri,
+                depth=r.uniform(0.02, 1.0, (h, w)).astype(np.float32),
+                interp=interp,
+                inv_view_proj=np.linalg.inv(vp).astype(np.float32))
+
+
 def material_scene(inputs, dev):
     """The port's view of material_inputs: (scene namespace with mat_stack
     and mat_params, tri, depth, interp, inv_view_proj) on dev."""
@@ -745,6 +824,55 @@ def test_k5_matches_twin(dev, extras, normal3):
     with pytest.raises(ValueError, match="interp"):
         resolve.resolve_gbuffer(tri, depth, scene, interp[:, :, :-1], ivp,
                                 w, h)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (23, 37), (9, 33), (544, 1920)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_k5_edge_cases_match_twin(dev, case, shape):
+    """K5 against its twin, as test_k5_matches_twin holds it, with the
+    mapped normal, on edge_inputs' layers at widths and heights that are
+    not multiples of K5's 32x8 tile (1x1, 37x23, 33x9 and a 1920x544
+    band): an empty layer (every plane zero, uv copied), LODs all below
+    0 or past the last mip (the second level skipped), mip tails smaller
+    than a block, every address mode at the texture's edges, and
+    materials with and without extras blocks on alternate pixels of a
+    warp."""
+    h, w = shape
+    scene, tri, depth, interp, ivp = material_scene(
+        edge_inputs(case, h, w, seed=13), dev)
+    got, g3 = resolve.resolve_gbuffer(tri, depth, scene, interp, ivp, w, h,
+                                      return_normal3=True)
+    ref, r3 = resolve.resolve_gbuffer_plain(tri, depth, scene, interp, ivp,
+                                            w, h, return_normal3=True)
+    assert torch.equal(got.mask, ref.mask) and torch.equal(got.uv, ref.uv)
+    assert torch.equal(got.uv, torch.stack([interp[0], interp[1]], -1))
+    _close_to_twin(g3, r3, "normal3")
+    for f in ("base_color", "normals", "mrao", "emissive", "world_pos",
+              "extras"):
+        _close_to_twin(getattr(got, f), getattr(ref, f), f)
+        assert not bool(getattr(got, f)[~got.mask].any()), f
+    assert not bool(g3[~got.mask].any())
+    assert bool(got.mask.any()) == (case != "empty")
+
+
+def test_k5_refuses_misaligned_tables(dev):
+    """resolve_gbuffer raises instead of launching K5 where the extras
+    table is not 8-byte aligned: K5 loads its 24-byte rows as 8-byte
+    words."""
+    import dataclasses
+    scene, tri, depth, interp, ivp = material_scene(
+        material_inputs(seed=3, h=8, w=40), dev)
+    ex = scene.mat_stack.extra
+    shifted = torch.empty(ex.numel() + 1, dtype=ex.dtype,
+                          device=dev)[1:].view(ex.shape)
+    shifted.copy_(ex)
+    assert shifted.data_ptr() % 8 == 4
+    scene.mat_stack = dataclasses.replace(scene.mat_stack, extra=shifted)
+    n0 = resolve.K5.launches
+    with pytest.raises(ValueError, match="mat_stack.extra"):
+        resolve.resolve_gbuffer(tri, depth, scene, interp, ivp, 40, 8)
+    assert resolve.K5.launches == n0
 
 
 @pytest.mark.parametrize("row0", [0, 37])

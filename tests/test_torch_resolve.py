@@ -3,8 +3,9 @@ against the JAX package's exact paths (kernels/resolve.py:242-376 and
 :107-181), on one random layer (tests/test_torch_kernels_cuda.py
 material_inputs) over two material sets: make_rich_scene's and a
 block-encoded stack with mip chains, every address mode and a material
-without extras blocks. The JAX functions are jitted (one compile each per
-material set)."""
+without extras blocks; and resolve_gbuffer on the edge layers K5 is held
+to its twin on (edge_inputs). The JAX functions are jitted (one compile
+each per material set and shape)."""
 
 import dataclasses
 
@@ -19,11 +20,13 @@ from incarnation_tpu.scene import textures as jtex
 from incarnation_tpu.scene.testing import make_rich_scene
 from incarnation_tpu_torch.kernels import resolve as tresolve
 from incarnation_tpu_torch.scene import loader as tloader
-from test_torch_kernels_cuda import material_inputs, material_scene
+from test_torch_kernels_cuda import (EDGE_CASES, edge_inputs,
+                                     material_inputs, material_scene)
 
 torch.set_num_threads(1)
 
 H, W = 24, 40
+EDGE_H, EDGE_W = 23, 37     # not multiples of K5's 32x8 tile
 # the same f32 operations in both packages but for the library functions
 # each calls (pow, log2, sqrt, the 4x4 product): a few ulps of each value
 RTOL = 1e-5
@@ -97,3 +100,51 @@ def test_masked_alpha_matches_jax(both):
     assert 0.05 < (ja >= jt).mean() < 0.95
     _, tb = tresolve.masked_alpha(ts, tri[8:], interp[:, 8:], row0=8)
     np.testing.assert_array_equal(tb.numpy(), tt[8:].numpy())
+
+
+@pytest.fixture(scope="module")
+def edge_jax():
+    """(port scene, jitted JAX resolve_gbuffer with the mapped normal) on
+    edge_inputs' material stack, which every case shares."""
+    inp = edge_inputs("mixed", EDGE_H, EDGE_W)
+    js = dataclasses.replace(
+        make_rich_scene(), mat_stack=jtex.MaterialTextureStack(**{
+            k: jnp.asarray(v) for k, v in inp["stack"].items()}),
+        mat_params=jnp.asarray(inp["mat_params"]))
+    ts = tloader.scene_from_arrays(*tloader.scene_arrays(js), "cpu")
+    return ts, jax.jit(lambda t, d, i, m: jresolve.resolve_gbuffer(
+        t, d, js, i, m, EDGE_W, EDGE_H, return_normal3=True))
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_resolve_edge_cases_match_jax(edge_jax, case):
+    """The twin K5 is held to equals JAX's exact path on the layers that
+    K5's tiles, block reuse and skipped level make hard: as
+    test_resolve_gbuffer_matches_jax, every plane and the mapped normal,
+    the mask exactly, zeros off it, uv everywhere."""
+    ts, jfn = edge_jax
+    inp = edge_inputs(case, EDGE_H, EDGE_W)
+    np.testing.assert_array_equal(ts.mat_stack.flat.numpy(),
+                                  inp["stack"]["flat"])
+    j = jfn(*(jnp.asarray(inp[k]) for k in ("tri", "depth", "interp",
+                                             "inv_view_proj")))
+    _, tri, depth, interp, ivp = material_scene(inp, "cpu")
+    t = tresolve.resolve_gbuffer(tri, depth, ts, interp, ivp, EDGE_W,
+                                 EDGE_H, return_normal3=True)
+    np.testing.assert_array_equal(t[0].mask.numpy(), np.asarray(j[0].mask))
+    assert bool(t[0].mask.any()) == (case != "empty")
+    for f in GB_FIELDS:
+        _assert_close(getattr(t[0], f).numpy(), np.asarray(getattr(j[0], f)),
+                      f)
+    # XLA on the CPU contracts the bilinear sums into fused multiply-adds,
+    # so the stack channels differ by a few ulps; the mapped normal's
+    # combination of the (not orthogonal) random TBN frame, then its
+    # normalisation, carries that to about 5e-6 of its unit length here
+    np.testing.assert_allclose(t[1].numpy(), np.asarray(j[1]), rtol=RTOL,
+                               atol=1e-5, err_msg="normal3")
+    off = ~t[0].mask.numpy()
+    for f in GB_FIELDS:
+        if f != "uv":
+            assert not getattr(t[0], f).numpy()[off].any(), f
+    np.testing.assert_array_equal(t[0].uv.numpy(),
+                                  np.moveaxis(inp["interp"][0:2], 0, -1))

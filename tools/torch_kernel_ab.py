@@ -3,7 +3,7 @@
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
-        [--kernels k1,k2,k3,k4] [--out FILE]
+        [--kernels k1,k2,k3,k4,k5] [--out FILE]
 
 K1-K3: it renders one main-path frame of chip_smoke.py (the atrium at
 1920x1088, sun shadow map, 8 masked peels) and one forward frame of its
@@ -17,6 +17,14 @@ each C entry alone on the C-level arguments this checkout's wrapper makes
 (`k2_clustered[entry]`), since the wrappers may differ in their host work.
 Both must agree: K1 and K3 identical outputs, K2 each within 1e-3 of the
 twin.
+
+K5: the same two frames' launches of the material resolve (the main
+frame's opaque and decal layers; the small frame's opaque layer with the
+mapped normal, its decal layer and its blend layers), timed the same way.
+Each checkout's planes must be bit-identical to the other's, and each
+within chip_smoke.K5_RTOL of its own twin (resolve_gbuffer_plain). It
+prints K5's registers, spill and shared-memory bytes per checkout, and
+the count of each SASS opcode in its kernel (cuobjdump).
 
 K4: it builds the atrium's wide and binary BVHs, captures every K4 launch
 of one path-traced sample at 640x360 (primary, bounce, shadow and their
@@ -53,7 +61,12 @@ PKG = "incarnation_tpu_torch"
 # kind -> (kernel module, wrapper, reps per timing)
 WRAPPERS = {"k1": ("raster", "rasterize_tiles", 10),
             "k2": ("clustered", "clustered_lighting", 20),
-            "k3": ("taa", "history_fetch", 50)}
+            "k3": ("taa", "history_fetch", 50),
+            "k5": ("resolve", "resolve_gbuffer", 20)}
+# the K5 launches of a main-path frame and of the small forward frame, in
+# launch order (renderer/frame.py): their roles
+K5_MAIN = ("opaque", "decal")
+K5_SMALL = ("small_opaque_n3", "small_decal")
 
 
 def _package_modules():
@@ -71,7 +84,7 @@ def load_kernels(tree: pathlib.Path) -> dict:
     try:
         mods = {n: importlib.import_module(f"{PKG}.kernels.{n}")
                 for n in ("build", "raster", "clustered", "taa", "bvh",
-                          "pathtrace")}
+                          "pathtrace", "resolve")}
     finally:
         sys.path.remove(str(tree))
         for k in _package_modules():
@@ -88,12 +101,72 @@ def role(kind, kw):
             else {"k2": "k2_clustered", "k3": "k3_taa_fetch"}[kind])
 
 
-def agree(cs, kind, a, kw, outs, this):
+def with_roles(calls, k5_names):
+    """calls as (kind, args, kwargs, role): a K5 launch's role is
+    k5_names[its index among the K5 launches], 'small_blend' past them
+    (the small frame's blend layers); K6's is None."""
+    out, n = [], 0
+    for kind, a, kw in calls:
+        name = "k5_resolve[{}]".format(
+            k5_names[n] if n < len(k5_names) else "small_blend") \
+            if kind == "k5" else role(kind, kw) if kind in WRAPPERS else None
+        n += kind == "k5"
+        out.append((kind, a, kw, name))
+    return out
+
+
+def sass_mix(build_mod, source: str, function: str) -> dict:
+    """{opcode: count} of `function`'s SASS in the built csrc/<source>.cu
+    library (cuobjdump -sass), the opcode without its modifiers; {} where
+    the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or str(
+        pathlib.Path(build_mod._nvcc()).with_name("cuobjdump"))
+    if not pathlib.Path(tool).exists():
+        return {}
+    text = subprocess.run([tool, "-sass", str(build_mod._target(source))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, inside = {}, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = function in line
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)", line) if inside else None
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def k5_agree(cs, a, kw, outs, mods, name):
+    """The two checkouts' K5 planes of one launch are bit-identical, and
+    each within chip_smoke.K5_RTOL of its own twin, or raise."""
+    import torch
+
+    def planes(out):
+        gb, n3 = out if isinstance(out, tuple) else (out, None)
+        return [getattr(gb, f).view(torch.uint8) for f in (
+            "base_color", "normals", "mrao", "emissive", "mask", "world_pos",
+            "uv", "extras")] + ([] if n3 is None else [n3.view(torch.uint8)])
+    if not all(torch.equal(x, y) for x, y in zip(planes(outs[0]),
+                                                  planes(outs[1]))):
+        raise RuntimeError(f"{name}: the checkouts' planes differ")
+    for out, m in zip(outs, mods):
+        cs._k5_error(out, m["resolve"].resolve_gbuffer_plain(*a, **kw))
+
+
+def agree(cs, kind, a, kw, outs, this, other, name):
     """The two checkouts' outputs of one launch agree, or raise: K1 and K3
     identical, K2 each within 1e-3 of the twin's value (the ceiling a K2
     tolerance may take; chip_smoke.py holds this checkout's to 1e-4)."""
     import torch
     (other_out, this_out) = outs
+    if kind == "k5":
+        k5_agree(cs, a, kw, outs, (other, this), name)
+        return
     if kind == "k2":
         ref = this["clustered"].clustered_lighting_plain(*a, **kw)
         for what, got in (("other", other_out), ("this", this_out)):
@@ -107,8 +180,7 @@ def agree(cs, kind, a, kw, outs, this):
     for x, y in pairs:
         if (x is None) != (y is None) or (x is not None
                                           and not torch.equal(x, y)):
-            raise RuntimeError(f"{role(kind, kw)}: the checkouts' outputs "
-                               "differ")
+            raise RuntimeError(f"{name}: the checkouts' outputs differ")
 
 
 def k2_entry_call(clustered, a, kw):
@@ -142,10 +214,11 @@ def time_pair(cs, f_other, f_this, reps):
     return min(runs[0], runs[3]), min(runs[1], runs[2])
 
 
-def k1_to_k3(cs, others, this, dev, times):
-    """K1-K3 of one main-path frame and the small path's blend layers,
-    each launch timed with each other checkout's wrapper and this one's;
-    appends to times[(other, role)]."""
+def k1_to_k5(cs, others, this, dev, times, kinds):
+    """K1-K3 and K5 (those of kinds) of one main-path frame and the small
+    path's blend layers (K1) and K5 launches, each launch timed with each
+    other checkout's wrapper and this one's; appends to
+    times[(other, role)]."""
     import torch
     raster, clustered, taa = this["raster"], this["clustered"], this["taa"]
     path = cs.atrium_path(dev)
@@ -153,24 +226,32 @@ def k1_to_k3(cs, others, this, dev, times):
     warm = path.run(fc0, torch.zeros((cs.H, cs.W, 3), device=dev))
     fc1 = path.make_fc(1, fc0.view_proj.cpu().numpy())
     path.run(fc1, warm["accumulation"])
-    calls = [c for c in cs.capture_frame(path.run, fc1, warm["accumulation"],
-                                         raster, clustered, taa)
-             if c[0] in WRAPPERS]
+    calls = [c for c in with_roles(cs.capture_frame(
+        path.run, fc1, warm["accumulation"], raster, clustered, taa),
+        K5_MAIN) if c[0] in kinds]
     _, render = cs.small_renderer(dev)
     render(forward_lighting=True)
     small = cs.capture_frame(
         lambda fc, history: render(forward_lighting=True), None, None,
         raster, clustered, taa)
-    calls += [c for c in small
-              if c[0] == "k1" and c[2].get("name") == "raster_blend"]
+    calls += [c for c in with_roles(small, K5_SMALL) if c[0] in kinds and (
+        c[0] == "k5" or c[0] == "k1" and c[2].get("name") == "raster_blend")]
+    for kind, a, kw, role_name in calls:
+        if kind == "k5":
+            tri, _, scene, interp = a[:4]
+            print(f"{role_name}: {tri.shape[1]}x{tri.shape[0]}, covered "
+                  f"share {float((tri >= 0).float().mean()):.4f}, "
+                  f"{json.dumps(cs.k5_footprints(this['resolve'], tri, scene, interp))}",
+                  flush=True)
     for name, other in others:
-        for kind, a, kw in calls:
+        for kind, a, kw, role_name in calls:
             mod, fn, reps = WRAPPERS[kind]
             impls = (getattr(other[mod], fn), getattr(this[mod], fn))
-            agree(cs, kind, a, kw, [f(*a, **kw) for f in impls], this)
+            agree(cs, kind, a, kw, [f(*a, **kw) for f in impls], this, other,
+                  role_name)
             t_o, t_t = time_pair(cs, lambda: impls[0](*a, **kw),
                                  lambda: impls[1](*a, **kw), reps)
-            t = times.setdefault((name, role(kind, kw)),
+            t = times.setdefault((name, role_name),
                                  {"other": [], "this": []})
             t["other"].append(t_o)
             t["this"].append(t_t)
@@ -335,7 +416,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("others", nargs="+", help="the other checkouts' roots")
     ap.add_argument("--kernels", default="k1,k2,k3,k4",
-                    help="comma-separated: k1, k2, k3 (one frame's "
+                    help="comma-separated: k1, k2, k3, k5 (two frames' "
                          "launches), k4")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args(argv)
@@ -350,13 +431,14 @@ def main(argv=None) -> int:
     others = [(str(o), load_kernels(pathlib.Path(o).resolve()))
               for o in args.others]
     from incarnation_tpu_torch.kernels import (build, bvh, clustered,
-                                               pathtrace, raster, taa)
+                                               pathtrace, raster, resolve,
+                                               taa)
     this = dict(build=build, raster=raster, clustered=clustered, taa=taa,
-                bvh=bvh, pathtrace=pathtrace)
+                bvh=bvh, pathtrace=pathtrace, resolve=resolve)
     dev = torch.device("cuda")
     card = cs.card_line()
     print(f"card: {card}", flush=True)
-    registers = {}
+    registers, k5_registers = {}, {}
     for name, mods in [("this", this)] + others:
         secs, logs = mods["build"].timed_build(verbose=True)
         print(f"{name} checkout's kernels built in {secs:.1f} s", flush=True)
@@ -367,10 +449,17 @@ def main(argv=None) -> int:
                 for k, v in sorted(res.items())}
             print(f"{name} checkout's K4 (registers, spill bytes) by role: "
                   f"{json.dumps(registers[name])}", flush=True)
+        if "k5" in kinds:
+            k5_registers[name] = cs.k5_resources(mods["build"],
+                                                 logs.get("resolve"))
+            k5_registers[name]["sass"] = sass_mix(
+                mods["build"], "resolve", "k5_resolve_kernel")
+            print(f"{name} checkout's K5: {json.dumps(k5_registers[name])}",
+                  flush=True)
 
     times: dict = {}
     if kinds & set(WRAPPERS):
-        k1_to_k3(cs, others, this, dev, times)
+        k1_to_k5(cs, others, this, dev, times, kinds)
     totals, ends = {}, {}
     if "k4" in kinds:
         totals, ends = k4_ab(cs, others, this, dev, times)
@@ -397,7 +486,8 @@ def main(argv=None) -> int:
         groups.setdefault(other, {}).setdefault(group, {})[
             "end_to_end_ms"] = e
     result = {"card": card, "others": args.others, "roles": summary,
-              "k4_groups": groups, "k4_registers": registers}
+              "k4_groups": groups, "k4_registers": registers,
+              "k5_resources": k5_registers}
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
