@@ -8,23 +8,26 @@ It builds the hand-written CUDA kernels from incarnation_tpu_torch/csrc,
 builds the procedural atrium (289k triangles, 41 materials, 66 lights,
 masked foliage, decals) onto the card and renders 8 TAA frames at 1920x1088
 through render_frame, the port's raster frame in the bench configuration:
-opaque raster, 8 masked depth peels with their alpha tests (K6), decals,
-the material resolve of the opaque and decal layers (K5), the 1024 x 1024
-sun shadow map (K1's depth-only role, every face casting), sky IBL,
-shadowed sun, clustered lights, TAA and tonemap. The camera is the
+triangle setup of the camera and sun passes (K9), opaque raster, 8 masked
+depth peels with their alpha tests (K6), decals, the material resolve of
+the opaque and decal layers (K5), the 1024 x 1024 sun shadow map (K1's
+depth-only role, every face casting), sky IBL (K8), shadowed sun,
+clustered lights, TAA and tonemap. The camera is the
 atrium's glTF camera with Halton jitter and a small orbit every frame. It
 checks that the shadow map darkens the frame.
 
 Then it captures each kernel's inputs from one more frame, runs each kernel
 and its plain PyTorch twin on those inputs on the card, compares them, times
 both on the card's clock (device_ms), prints each kernel's bound (the work
-its inputs need) and work diagnostics, and renders that frame again with
-every kernel swapped for its twin and compares the images.
+its inputs need) and work diagnostics, renders that frame again with
+every kernel swapped for its twin and compares the images, and prints the
+frame's time by phase (phase_breakdown).
 
 A second, small path (512x256, the port's scene/testing.py scene with a
 BLEND quad) renders one forward-lighting frame with blend layers and both
-debug draws, holds its blend-layer launches of K1 and every K5 and K6
-launch to their twins, renders one frame per view mode and checks pick and
+debug draws, holds its blend-layer launches of K1 and every K5, K6, K8
+and K9 launch to their twins, renders one frame per view mode (the
+lighting-only mode's K8 launch held to its twin) and checks pick and
 highlight.
 
 Then the BVH paths on the atrium: (a) the scene BVH built on the host;
@@ -36,7 +39,8 @@ ray; (d) one sample with K4 swapped for its twin (identical radiance);
 (e) one 1920x1088 render_frame with RT sun shadows and HBAO through the
 same BVH (RT shadows darken the frame, AO in [0, 1], unit bent normals,
 the share of covered pixels where RT and shadow-map visibility agree; its
-K5 and K6 launches against their twins).
+K5, K6, K8 (with HBAO and bent normals) and K9 launches against their
+twins).
 
 Then the rest of the port: (g) the atrium's binary BVH (merged table) and
 K4's binary role on the captured primary, bounce and shadow rays, against
@@ -51,7 +55,7 @@ serving the atrium at 960x540 (the frame after an orbit input differs);
 else cuda:0 twice): a 1920x1088 frame and a second TAA frame against the
 single frame, a band-sharded path-traced sample (identical) and an
 SPP-sharded round (the batch-mean rule within 1e-6). (i)-(k) capture
-their K1, K2, K3, K5 and K6 launches and hold each to its twin.
+their K1, K2, K3, K5, K6, K8 and K9 launches and hold each to its twin.
 
 It prints one JSON line of kernel figures; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises, and the script
@@ -116,6 +120,31 @@ K5_OUT_BYTES = 85
 K6_OPS_PER_PIXEL = 43
 K6_PIXEL_BYTES = 7 * 4 + 8
 K5_RTOL = 1e-5             # K5 against its twin: see _k5_error
+# K8, counted from csrc/skylight.cu (pow, sqrt and abs count one each), per
+# covered pixel: the diffuse lobe 111 (the SH basis 25, its 27 fused
+# multiply-adds 54, albedo, AO blend), +4 with extras; the specular lobe
+# 162 (NoV and the reflected direction 29, the cube face 11, the
+# trilinear fetch 88, f0 and the AO blend 34) and one env-BRDF evaluation:
+# the analytic fit 1,198 (two 16x16 Chebyshev tensor sums of 527 and
+# their recurrences) or the LUT 32; the clearcoat lobe with extras 115
+# (another fetch 88) and another evaluation; the HBAO scale 3. Bytes: the
+# mask and the output of every pixel (13), base colour, mrao, n and v of
+# a covered one (56), +12 for bent normals, +4 for HBAO, +12 for extras;
+# the SH, the prefiltered cube and the LUT read once each, whole.
+K8_OPS_DIFFUSE, K8_OPS_DIFFUSE_EXTRAS = 111, 4
+K8_OPS_SPECULAR, K8_OPS_CLEARCOAT = 162, 115
+K8_OPS_ANALYTIC, K8_OPS_LUT = 1198, 32
+K8_OPS_HBAO = 3
+K8_TOL = 1e-5              # K8 against its twin: see _k8_error
+# K9, counted from csrc/setup.cu, per triangle: the corners' clip positions
+# 72, screen mapping 24, edge functions and det 32, the visibility, sign
+# and depth plane 33, the clipped bbox 89 (250 in the depth-only role);
+# with attributes the world normals and tangents 90 and the 29 planes
+# 126. Bytes: 144 B of corners (the positions, 36, depth-only), tri_mesh
+# and tri_prim 8 (+4 tri_meshlet, +1 tri_visible), 69 B out (setup, bbox,
+# id, valid) + 116 of planes; each mesh row (100 B), primitive row (9) and
+# meshlet row (5) read once.
+K9_OPS_DEPTH, K9_OPS_ATTR = 250, 216
 # K4, counted from csrc/bvh.cu (a fused multiply-add counts two), for the
 # slots these inputs fill: a triangle test 46 per filled leaf slot the ray
 # must test (two cross products at 9, four dot products at 5, the
@@ -234,7 +263,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from incarnation_tpu_torch.core import mathutils as mu
     from incarnation_tpu_torch.kernels import (build, bvh, clustered, raster,
-                                               resolve, shadow, taa)
+                                               resolve, shadow, skylight,
+                                               taa)
+    # K9's wrapper leaves the 4x4 products to torch.matmul in full f32
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmuls are on: the port's 4x4 products "
+                           "need full f32")
 
     # 1. the card
     dev = torch.device("cuda")
@@ -248,6 +282,10 @@ def main(argv=None) -> int:
     K4_RESOURCES.update(k4_resources(build, logs.get("bvh")))
     K5_RESOURCES.update(k5_resources(build, logs.get("resolve")))
     _log(f"K5 (k5_resolve_kernel): {json.dumps(K5_RESOURCES)}")
+    K8_RESOURCES.update(kernel_resources(build, "skylight", "k8_sky_kernel",
+                                         logs.get("skylight")))
+    K9_RESOURCES.update(kernel_resources(build, "setup", "k9_setup_kernel",
+                                         logs.get("setup")))
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -266,7 +304,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4, resolve.K5,
-               resolve.K6)
+               resolve.K6, skylight.K8, raster.K9)
     for k in kernels:
         k.reset()
     history = torch.zeros((H, W, 3), device=dev)
@@ -316,11 +354,13 @@ def main(argv=None) -> int:
     # per frame: K1 for the opaque layer, each peel, the decals and the
     # shadow map, K2 once, K3 on every frame with a history (all but
     # frame 0), K4 never (no BVH on this path), K5 for the opaque and the
-    # decal layer, K6 for each peel
-    want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS] for i in range(FRAMES)]
+    # decal layer, K6 for each peel, K8 once, K9 for the camera and the
+    # sun pass
+    want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS, 1, 2]
+            for i in range(FRAMES)]
     if per_frame != want:
-        raise RuntimeError(f"launches per frame (K1, K2, K3, K4, K5, K6) "
-                           f"{per_frame} != {want}")
+        raise RuntimeError(f"launches per frame (K1, K2, K3, K4, K5, K6, K8, "
+                           f"K9) {per_frame} != {want}")
     if k1_by_layer != {"raster_opaque": FRAMES, "raster_decal": FRAMES,
                        "raster_peel": FRAMES * PEELS,
                        "raster_shadow_depth": FRAMES}:
@@ -353,14 +393,17 @@ def main(argv=None) -> int:
     rows = compare_kernels(calls, raster, clustered, taa, launches,
                            k1_by_layer)
     rows += [k5_row(resolve, calls, launches["k5_resolve"]),
-             k6_row(resolve, calls, launches["k6_masked_alpha"])]
+             k6_row(resolve, calls, launches["k6_masked_alpha"]),
+             k8_row(skylight, calls, launches["k8_sky_lighting"])]
+    rows += k9_rows(raster, calls, launches["k9_setup"])
     check_twin_frame(run, fc, history, raster, clustered, taa)
+    phase_breakdown(run, fc, history)
     if args.profile:
         profile_frame(run, fc, history)
 
     # 7. the small path: forward lighting with blend layers and the debug
     # draws, every view mode, pick and highlight
-    rows.insert(4, small_path(dev, raster, clustered, taa))
+    rows[4:4] = small_path(dev, raster, clustered, taa)
 
     # 8. the BVH paths: the path tracer, then RT shadows and HBAO
     bvh_rows, pt = bvh_paths(dev, path, args.profile)
@@ -470,10 +513,10 @@ def capture_frame(run, fc, history, raster, clustered, taa):
 
 @contextlib.contextmanager
 def _capturing(calls, raster, clustered, taa, limit=None):
-    """For the duration of the block, each K1, K2, K3, K5 and K6 wrapper
-    call appends (kind, args, kwargs) to calls, at most `limit` per
-    kind."""
-    from incarnation_tpu_torch.kernels import resolve
+    """For the duration of the block, each K1, K2, K3, K5, K6, K8 and K9
+    wrapper call appends (kind, args, kwargs) to calls, at most `limit`
+    per kind."""
+    from incarnation_tpu_torch.kernels import resolve, skylight
 
     def keep(kind):
         def after(out, *a, **kw):
@@ -485,7 +528,9 @@ def _capturing(calls, raster, clustered, taa, limit=None):
                                 (clustered, "clustered_lighting", "k2"),
                                 (taa, "history_fetch", "k3"),
                                 (resolve, "resolve_gbuffer", "k5"),
-                                (resolve, "masked_alpha", "k6")):
+                                (resolve, "masked_alpha", "k6"),
+                                (skylight, "sky_lighting", "k8"),
+                                (raster, "prepare_geometry", "k9")):
             stack.enter_context(_hooked(mod, name, keep(kind)))
         yield calls
 
@@ -876,6 +921,187 @@ def k6_row(resolve, calls, n_launches, name="k6_masked_alpha"):
         library_ms=None, not_identical=sum(e[2] for e in errs))
 
 
+def _bound_args(fn, a, kw) -> dict:
+    """The arguments of a captured call of fn by name, defaults filled."""
+    import inspect
+    b = inspect.signature(fn).bind(*a, **kw)
+    b.apply_defaults()
+    return b.arguments
+
+
+def _k8_error(got, ref, mask):
+    """(max abs error, that error over the twin's peak radiance) of one K8
+    launch; raises where an uncovered pixel is not 0 or the error passes
+    K8_TOL of the peak. K8 repeats the twin's operations in order
+    (--fmad=false) but for sh_irradiance's einsum, a cuBLAS GEMM whose sum
+    order over the nine SH terms is its own."""
+    if bool(got[~mask].any()) or bool(ref[~mask].any()):
+        raise RuntimeError("K8 or its twin lit an uncovered pixel")
+    if not bool(mask.any()):
+        return 0.0, 0.0
+    peak = float(ref[mask].abs().max())
+    err = float((got - ref)[mask].abs().max())
+    if not err <= K8_TOL * peak:
+        raise RuntimeError(f"K8 is {err:.3e} from its twin, over {K8_TOL} "
+                           f"of its peak radiance {peak:.3e}")
+    return err, err / peak if peak else 0.0
+
+
+def _k8_bound(skylight, a, kw):
+    """(bound ms, 'bytes' | 'operations') of one K8 launch: see K8_OPS_*."""
+    x = _bound_args(skylight.sky_lighting_plain, a, kw)
+    mask = x["gb"].mask
+    cov = int(mask.sum())
+    diffuse, spec = x["diffuse_ibl"], x["specular_ibl"]
+    bent, hbao, extras = (x[k] is not None for k in ("bent_normals", "hbao",
+                                                     "extras"))
+    analytic = x["analytic_env_brdf"]
+    per_px = 32 - 16 * x["lighting_only"] \
+        + 12 * (spec or (diffuse and not bent)) + 12 * spec \
+        + 12 * (diffuse and bent) + 4 * hbao + 12 * extras
+    nbytes = mask.numel() * 13 + cov * per_px + 108
+    if spec:
+        nbytes += x["probe"].prefiltered.flat.numel() * 4
+        if not analytic:
+            nbytes += x["env_brdf"].numel() * 4
+    env = K8_OPS_ANALYTIC if analytic else K8_OPS_LUT
+    ops = (diffuse * (K8_OPS_DIFFUSE + K8_OPS_DIFFUSE_EXTRAS * extras)
+           + spec * (K8_OPS_SPECULAR + env
+                     + extras * (K8_OPS_CLEARCOAT + env))
+           + K8_OPS_HBAO * hbao)
+    return _bound(nbytes, cov * ops)
+
+
+def k8_row(skylight, calls, n_launches, name="k8_sky_lighting"):
+    """K8 against its twin on each captured sky_lighting launch (error, both
+    times and the bound, each the mean over the launches; K8's registers
+    and spills) -> the JSON row."""
+    launches = [(a, kw) for kind, a, kw in calls if kind == "k8"]
+    if not launches:
+        raise RuntimeError(f"{name}: no K8 launch was captured")
+    errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
+    for a, kw in launches:
+        errs.append(_k8_error(skylight.sky_lighting(*a, **kw),
+                              skylight.sky_lighting_plain(*a, **kw),
+                              a[0].mask))
+        ms.append(device_ms(lambda: skylight.sky_lighting(*a, **kw), 20))
+        plain_ms.append(device_ms(
+            lambda: skylight.sky_lighting_plain(*a, **kw), 2))
+        b, by = _k8_bound(skylight, a, kw)
+        bounds.append(b)
+        bound_by.add(by)
+    res = next(iter(K8_RESOURCES.values()), {})
+    _log(f"{name}: per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
+         + "; twin ms " + ", ".join(f"{t:.2f}" for t in plain_ms)
+         + "; bound ms " + ", ".join(f"{t:.4f}" for t in bounds)
+         + " (" + "/".join(sorted(bound_by)) + "); covered share "
+         + ", ".join(f"{float(a[0].mask.float().mean()):.4f}"
+                     for a, _ in launches)
+         + "; max abs err " + ", ".join(f"{e[0]:.3e}" for e in errs)
+         + ", over the twin's peak " + ", ".join(f"{e[1]:.3e}" for e in errs)
+         + f"; {res.get('registers')} registers, {res.get('spill_bytes')} "
+         "bytes spilled")
+    return dict(
+        name=name, route="cuda",
+        source="incarnation_tpu_torch/csrc/skylight.cu",
+        replaces="incarnation_tpu/kernels/skylight.py:19",
+        launches=n_launches, max_abs_err=max(e[0] for e in errs),
+        max_err_over_peak=max(e[1] for e in errs),
+        ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+        bound_ms=float(np.mean(bounds)),
+        bound_by="operations" if "operations" in bound_by else "bytes",
+        library_ms=None, registers=res.get("registers"),
+        spill_bytes=res.get("spill_bytes"))
+
+
+def _k9_error(got, ref):
+    """Raises unless one K9 launch equals its twin bit for bit in setup,
+    ids, valid, bbox and attr (the same operations in the same order;
+    K1's keys and tie-breaks downstream need the exact values)."""
+    import torch
+    for f in ref._fields:
+        g, r = getattr(got, f), getattr(ref, f)
+        if (g is None) != (r is None):
+            raise RuntimeError(f"K9 and its twin disagree on writing {f}")
+        if g is None:
+            continue
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        if g.shape != r.shape or not torch.equal(g, r):
+            n = int((g != r).sum()) if g.shape == r.shape else -1
+            raise RuntimeError(f"K9 {f} differs from its twin on {n} values")
+
+
+def _k9_bound(raster, a, kw):
+    """(bound ms, 'bytes' | 'operations') of one K9 launch: see K9_OPS_*."""
+    x = _bound_args(raster.prepare_geometry_plain, a, kw)
+    scene = x["scene"]
+    t = scene.tri_corner.shape[1]
+    attrs = x["emit_attributes"]
+    ml = x["meshlet_visible"] is not None
+    per_tri = (144 if attrs else 36) + 8 + 4 * ml \
+        + (x["tri_visible"] is not None) + 69 + 116 * attrs
+    nbytes = t * per_tri + 100 * scene.mesh_transforms.shape[0] \
+        + 9 * x["prim_visible"].shape[0] \
+        + (5 * x["meshlet_visible"].shape[0] if ml else 0)
+    return _bound(nbytes, t * (K9_OPS_DEPTH + K9_OPS_ATTR * attrs))
+
+
+def k9_rows(raster, calls, n_launches):
+    """K9 against its twin, bit for bit, on each captured prepare_geometry
+    launch, timed, with its bound and registers: one JSON row for the
+    camera pass (attribute planes) and one for the sun's depth-only pass.
+    A launch's ms is the wrapper's: K9 and the two 4x4 products with their
+    cat before it (raster._mesh_rows, timed alone in the log)."""
+    roles = {"k9_setup[camera]": [], "k9_setup[sun_depth_only]": []}
+    for kind, a, kw in calls:
+        if kind == "k9":
+            attrs = _bound_args(raster.prepare_geometry_plain, a,
+                                kw)["emit_attributes"]
+            roles["k9_setup[camera]" if attrs
+                  else "k9_setup[sun_depth_only]"].append((a, kw))
+    rows = []
+    for name, launches in roles.items():
+        if not launches:
+            raise RuntimeError(f"{name}: no K9 launch was captured")
+        ms, plain_ms, mesh_ms, bounds, bound_by = [], [], [], [], set()
+        for a, kw in launches:
+            _k9_error(raster.prepare_geometry(*a, **kw),
+                      raster.prepare_geometry_plain(*a, **kw))
+            ms.append(device_ms(lambda: raster.prepare_geometry(*a, **kw),
+                                20))
+            plain_ms.append(device_ms(
+                lambda: raster.prepare_geometry_plain(*a, **kw), 2))
+            mesh_ms.append(device_ms(lambda: raster._mesh_rows(*a[:3]), 20))
+            b, by = _k9_bound(raster, a, kw)
+            bounds.append(b)
+            bound_by.add(by)
+        attrs = name.endswith("[camera]")
+        res = next((v for k, v in K9_RESOURCES.items()
+                    if ("ILb1E" in k) == attrs), {})
+        _log(f"{name}: {launches[0][0][0].tri_corner.shape[1]} triangles; "
+             "per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
+             + " (the 4x4 products and cat alone " + ", ".join(
+                 f"{t:.4f}" for t in mesh_ms) + "); twin ms "
+             + ", ".join(f"{t:.2f}" for t in plain_ms) + "; bound ms "
+             + ", ".join(f"{t:.4f}" for t in bounds)
+             + f"; identical to the twin on {len(launches)} launches; "
+             f"{res.get('registers')} registers, {res.get('spill_bytes')} "
+             "bytes spilled")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="incarnation_tpu_torch/csrc/setup.cu",
+            replaces="incarnation_tpu/kernels/raster.py:1207",
+            launches=n_launches // 2, max_abs_err=0.0, max_rel_err=0.0,
+            ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+            bound_ms=float(np.mean(bounds)),
+            bound_by="operations" if "operations" in bound_by else "bytes",
+            library_ms=None, mesh_rows_ms=float(np.mean(mesh_ms)),
+            registers=res.get("registers"),
+            spill_bytes=res.get("spill_bytes")))
+    return rows
+
+
 def k1_row(raster, layer, launches_captured, n_launches):
     """Kernel-vs-twin on the captured K1 launches of one raster layer
     (error, both times and the bound, each the mean over the launches)
@@ -921,11 +1147,12 @@ def k1_row(raster, layer, launches_captured, n_launches):
 
 def small_renderer(dev):
     """The small path's scene (the port's scene/testing.py scene with a
-    BLEND quad) and render(**Config overrides) of one 512x256 frame.
-    -> (scene, render)."""
+    BLEND quad), lit by a small sky probe, and render(**Config overrides)
+    of one 512x256 frame. -> (scene, render)."""
+    import torch
     from incarnation_tpu_torch.config import Config
     from incarnation_tpu_torch.core.view import View
-    from incarnation_tpu_torch.kernels import raster
+    from incarnation_tpu_torch.kernels import ibl, raster, sky
     from incarnation_tpu_torch.renderer import frame
     from incarnation_tpu_torch.scene import testing
     w, h = SMALL_W, SMALL_H
@@ -937,15 +1164,21 @@ def small_renderer(dev):
     base = dict(masked_depth_peels=SMALL_PEELS, sun_shadow_mode="map",
                 shadow_map_resolution=256, enable_taa=False)
     sun = np.asarray([0.2, 0.8, -0.55], np.float32)
+    sun = sun / np.linalg.norm(sun)
     view = View.from_lookat([0.0, 1.0, 1.0], [0.0, 0.0, 7.0], aspect=w / h)
+    probe = ibl.build_probe(
+        sky.sky_latlong(torch.tensor(sun, device=dev), 2.0, 64, 32),
+        envmap_size=32, num_samples=256)
+    env_brdf = ibl.pack_env_brdf(ibl.env_brdf_lut(32, 256, device=dev))
 
     def render(**kw):
         cfg = Config(**dict(base, **kw))
         fc = frame.FrameConstants.make(
-            view, cfg, sun_dir=sun / np.linalg.norm(sun),
+            view, cfg, sun_dir=sun,
             sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
             shadow_bounds=([0.0, 0.75, 8.0], 13.0), device=dev)
-        return frame.render_frame(scene, fc, config=cfg, params=params)
+        return frame.render_frame(scene, fc, config=cfg, params=params,
+                                  probe=probe, env_brdf=env_brdf)
 
     return scene, render
 
@@ -953,10 +1186,12 @@ def small_renderer(dev):
 def small_path(dev, raster, clustered, taa):
     """The forward / view-mode / debug-draw path on the port's own test
     scene with a BLEND quad, 512x256, every launch on the card. Returns the
-    k1_raster[raster_blend] row (its launches are this path's)."""
+    k1_raster[raster_blend] row and the row of the forward frame's K5
+    launches (opaque with the mapped normal, decal, each blend layer); their
+    launches are this path's."""
     import torch
     from incarnation_tpu_torch.config import ViewMode
-    from incarnation_tpu_torch.kernels import resolve
+    from incarnation_tpu_torch.kernels import resolve, skylight
     from incarnation_tpu_torch.renderer import frame
     w, h = SMALL_W, SMALL_H
     scene, render = small_renderer(dev)
@@ -973,31 +1208,37 @@ def small_path(dev, raster, clustered, taa):
     fwd = dict(forward_lighting=True, show_light_bounds=True,
                show_object_bounds=True)
     render(**fwd)                               # warm-up
-    kernels = (raster.K1, clustered.K2, taa.K3, resolve.K5, resolve.K6)
+    kernels = (raster.K1, clustered.K2, taa.K3, resolve.K5, resolve.K6,
+               skylight.K8, raster.K9)
     for k in kernels:
         k.reset()
     calls = capture_frame(lambda fc, history: render(**fwd), None, None,
                           raster, clustered, taa)
     by_name, k2_launches = dict(raster.K1.by_name), clustered.K2.launches
     k5_launches, k6_launches = resolve.K5.launches, resolve.K6.launches
+    k8_launches, k9_launches = skylight.K8.launches, raster.K9.launches
     out = render(**fwd)
     check_color(out, "forward frame")
     stats = {k: int(v) for k, v in out["stats"].items()}
     _log(f"small path, forward frame: K1 by layer {by_name}, K2 "
-         f"{k2_launches}, K5 {k5_launches}, K6 {k6_launches} launches; "
+         f"{k2_launches}, K5 {k5_launches}, K6 {k6_launches}, K8 "
+         f"{k8_launches}, K9 {k9_launches} launches; "
          f"stats {json.dumps(stats)}")
     if by_name.get("raster_blend") != SMALL_PEELS:
         raise RuntimeError(f"raster_blend launches {by_name}")
-    # K2 shades the opaque surface and each blend layer; K5 resolves the
-    # opaque, decal and blend layers, K6 tests each masked peel
+    # K2 and K8 shade the opaque surface and each blend layer; K5 resolves
+    # the opaque, decal and blend layers, K6 tests each masked peel, K9
+    # sets up the camera and the sun pass
     if by_name.get("raster_shadow_depth") != 1 \
             or k2_launches != 1 + SMALL_PEELS \
-            or k5_launches != 2 + SMALL_PEELS or k6_launches != SMALL_PEELS:
+            or k5_launches != 2 + SMALL_PEELS or k6_launches != SMALL_PEELS \
+            or k8_launches != 1 + SMALL_PEELS or k9_launches != 2:
         raise RuntimeError(f"small path launches {by_name}, K2 "
                            f"{k2_launches}, K5 {k5_launches}, K6 "
-                           f"{k6_launches}")
+                           f"{k6_launches}, K8 {k8_launches}, K9 "
+                           f"{k9_launches}")
     check_twins("small path, forward frame", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6"))
+                need=("k1", "k2", "k5", "k6", "k8", "k9"))
     if stats["debug_draws"] <= 0:
         raise RuntimeError("no debug draw was appended")
     for key in ("bin_overflow", "big_overflow", "peel_overflow",
@@ -1017,7 +1258,8 @@ def small_path(dev, raster, clustered, taa):
     if len(blends) != SMALL_PEELS or blends[0][1].get("mask_table") \
             is not None or blends[0][1].get("z_limit") is None:
         raise RuntimeError("the blend layers are not z_limit peels")
-    row = k1_row(raster, "raster_blend", blends, by_name["raster_blend"])
+    rows = [k1_row(raster, "raster_blend", blends, by_name["raster_blend"]),
+            k5_row(resolve, calls, k5_launches, name="k5_resolve[small_path]")]
 
     # one frame per view mode
     modes = {n: v for n, v in vars(ViewMode).items()
@@ -1026,7 +1268,17 @@ def small_path(dev, raster, clustered, taa):
         raise RuntimeError(f"{len(modes)} view modes")
     means = {}
     for name, vm in sorted(modes.items(), key=lambda kv: kv[1]):
-        o = render(viewmode=vm)
+        if name == "LIGHTING_ONLY":
+            lit_calls = []
+            with _capturing(lit_calls, raster, clustered, taa):
+                o = render(viewmode=vm)
+            if not all(_bound_args(skylight.sky_lighting_plain, a, kw)[
+                    "lighting_only"] for k, a, kw in lit_calls if k == "k8"):
+                raise RuntimeError("LIGHTING_ONLY shaded with base colour")
+            check_twins("small path, LIGHTING_ONLY", lit_calls, raster,
+                        clustered, taa, need=("k8",))
+        else:
+            o = render(viewmode=vm)
         check_color(o, f"view mode {name}")
         means[name] = round(float(o["color"].float().mean()), 2)
         if name == "OBJECT_IDS":
@@ -1057,7 +1309,7 @@ def small_path(dev, raster, clustered, taa):
         raise RuntimeError("highlight changed other pixels than the picked "
                            "primitive's")
     torch.cuda.synchronize()
-    return row
+    return rows
 
 
 def bvh_paths(dev, path, profile: bool):
@@ -1069,7 +1321,8 @@ def bvh_paths(dev, path, profile: bool):
     import types
     import torch
     from incarnation_tpu_torch.kernels import (bvh, clustered, hbao,
-                                               pathtrace, raster, shadow, taa)
+                                               pathtrace, raster, shadow,
+                                               skylight, taa)
     from incarnation_tpu_torch.renderer import frame
     from incarnation_tpu_torch.core import mathutils as mu
 
@@ -1233,9 +1486,14 @@ def bvh_paths(dev, path, profile: bool):
         raise RuntimeError("AO outside [0, 1] or its mean not inside it")
     if float((bent_len - 1.0).abs().max()) > 1e-4:
         raise RuntimeError("the bent normals are not unit length")
+    k8_hbao = [_bound_args(skylight.sky_lighting_plain, a, kw)
+               for k, a, kw in raster_calls if k == "k8"]
+    if not k8_hbao or any(x["hbao"] is None or x["bent_normals"] is None
+                          for x in k8_hbao):
+        raise RuntimeError("(e) K8 was not given the HBAO and bent normals")
     check_twins("(e) RT frame", [c for c in raster_calls
-                                 if c[0] in ("k5", "k6")],
-                raster, clustered, taa, need=("k5", "k6"))
+                                 if c[0] in ("k5", "k6", "k8", "k9")],
+                raster, clustered, taa, need=("k5", "k6", "k8", "k9"))
     rows += [k4_row(bvh, rt_calls[role], role, rt_launches.get(role, 0))
              for role in ("hbao", "rt_sun")]
     return rows, types.SimpleNamespace(sbvh=sbvh, calls=calls, fc=fc_pt,
@@ -1402,7 +1660,7 @@ def cli_phase(dev, path):
         raise RuntimeError(f"(i) the CLI's frames skipped a kernel: "
                            f"{counts}")
     check_twins("(i) CLI raster", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6"))
+                need=("k1", "k2", "k5", "k6", "k8", "k9"))
     img = _png_check(out_dir / "raster.png", W, H)
     ref = frame.render_frame(res["scene"], res["fc"], config=res["config"],
                              params=res["params"], probe=res["probe"],
@@ -1519,7 +1777,7 @@ def viewer_phase(dev, path):
         raise RuntimeError(f"(j) the render loop did not end cleanly: "
                            f"{state.error}")
     check_twins("(j) viewer", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6"))
+                need=("k1", "k2", "k5", "k6", "k8", "k9"))
 
 
 def band_phase(dev, path, pt):
@@ -1582,7 +1840,7 @@ def band_phase(dev, path, pt):
     if 0 in counts:
         raise RuntimeError(f"(k) the band frames skipped a kernel: {counts}")
     halo = check_twins("(k) band frame", calls, raster, clustered, taa,
-                       need=("k1", "k2", "k3", "k5", "k6"))
+                       need=("k1", "k2", "k3", "k5", "k6", "k8", "k9"))
     if {_k6_args(a, kw)[3] for kind, a, kw in calls if kind == "k6"} \
             != {0, H // 2}:
         raise RuntimeError("(k) the bands' K6 launches do not start at "
@@ -1623,14 +1881,14 @@ def band_phase(dev, path, pt):
 
 
 def check_twins(what, calls, raster, clustered, taa, need):
-    """Each captured K1, K2, K3, K5 and K6 launch against its twin, at
-    compare_kernels' tolerances (K1 via _k1_error, K2 K2_RTOL, K3 1e-6
-    relative, K5 via _k5_error, K6 via _k6_error), at the shapes the path
-    gave it; raises if a kind in `need` was not captured. Returns the K3
-    launches' arguments."""
-    from incarnation_tpu_torch.kernels import resolve
+    """Each captured K1, K2, K3, K5, K6, K8 and K9 launch against its twin,
+    at compare_kernels' tolerances (K1 via _k1_error, K2 K2_RTOL, K3 1e-6
+    relative, K5 via _k5_error, K6 via _k6_error, K8 via _k8_error, K9
+    bit for bit), at the shapes the path gave it; raises if a kind in
+    `need` was not captured. Returns the K3 launches' arguments."""
+    from incarnation_tpu_torch.kernels import resolve, skylight
     kinds = {k: [c for c in calls if c[0] == k]
-             for k in ("k1", "k2", "k3", "k5", "k6")}
+             for k in ("k1", "k2", "k3", "k5", "k6", "k8", "k9")}
     if not all(kinds[k] for k in need):
         raise RuntimeError(f"{what}: captured launches per kernel "
                            f"{ {k: len(v) for k, v in kinds.items()} }")
@@ -1679,6 +1937,22 @@ def check_twins(what, calls, raster, clustered, taa, need):
              f"as the twin's on every hit pixel, max abs err "
              f"{max([e[0] for e in k6], default=0.0):.3e}, elements not "
              f"identical {sum(e[2] for e in k6)}")
+    k8 = [_k8_error(skylight.sky_lighting(*a, **kw),
+                    skylight.sky_lighting_plain(*a, **kw), a[0].mask)
+          for _, a, kw in kinds["k8"]]
+    for _, a, kw in kinds["k9"]:
+        _k9_error(raster.prepare_geometry(*a, **kw),
+                  raster.prepare_geometry_plain(*a, **kw))
+    if k8 or kinds["k9"]:
+        given = [_bound_args(skylight.sky_lighting_plain, a, kw)
+                 for _, a, kw in kinds["k8"]]
+        roles = sorted({", ".join(k for k in ("hbao", "bent_normals",
+                                              "extras") if x[k] is not None)
+                        or "no optional input" for x in given})
+        _log(f"{what}: K8 x{len(k8)} ({'; '.join(roles)}) against the twin: "
+             f"max abs err {max([e[0] for e in k8], default=0.0):.3e}, "
+             f"{max([e[1] for e in k8], default=0.0):.3e} of the peak; K9 "
+             f"x{len(kinds['k9'])} identical to the twin")
     return [a for _, a, _ in kinds["k3"]]
 
 
@@ -1767,9 +2041,11 @@ def k4_row(bvh, call, role, n_launches):
 # (any_hit, layout, alpha) -> (registers, spill bytes) of K4's kernel in
 # each compiled role, from ptxas (k4_resources); filled by main()
 K4_RESOURCES: dict = {}
-# K5's registers, spill and shared-memory bytes (k5_resources); filled by
-# main()
+# K5's registers, spill and shared-memory bytes (k5_resources); K8's and
+# K9's by compiled entry (kernel_resources); filled by main()
 K5_RESOURCES: dict = {}
+K8_RESOURCES: dict = {}
+K9_RESOURCES: dict = {}
 
 
 def _ptxas_log(build_mod, source: str, log=None) -> str:
@@ -1817,23 +2093,36 @@ def k4_resources(build_mod, log=None) -> dict:
     return out
 
 
-def k5_resources(build_mod, log=None) -> dict:
-    """Registers, bytes of spill stores and of static shared memory of
-    csrc/resolve.cu's k5_resolve_kernel, parsed from ptxas's -v report
-    (_ptxas_log)."""
+def kernel_resources(build_mod, source: str, kernel: str, log=None) -> dict:
+    """{compiled entry: registers, bytes of spill stores and of static
+    shared memory} of each entry of csrc/<source>.cu whose name holds
+    `kernel` (a template's instantiations apart), parsed from ptxas's -v
+    report (_ptxas_log)."""
     import re
-    lines = _ptxas_log(build_mod, "resolve", log).splitlines()
+    lines = _ptxas_log(build_mod, source, log).splitlines()
+    out = {}
     for j, line in enumerate(lines):
-        if re.search(r"Compiling entry function '\w*k5_resolve_kernel", line):
+        m = re.search(r"Compiling entry function '(\w*" + kernel + r"\w*)'",
+                      line)
+        if m:
             text = " ".join(lines[j + 1:j + 4])
 
             def num(pattern):
-                m = re.search(pattern, text)
-                return int(m.group(1)) if m else 0
-            return dict(registers=num(r"Used (\d+) registers"),
-                        spill_bytes=num(r"(\d+) bytes spill stores"),
-                        smem_bytes=num(r"(\d+) bytes smem"))
-    raise RuntimeError("ptxas reported no k5_resolve_kernel")
+                found = re.search(pattern, text)
+                return int(found.group(1)) if found else 0
+            out[m.group(1)] = dict(
+                registers=num(r"Used (\d+) registers"),
+                spill_bytes=num(r"(\d+) bytes spill stores"),
+                smem_bytes=num(r"(\d+) bytes smem"))
+    if not out:
+        raise RuntimeError(f"ptxas reported no {kernel}")
+    return out
+
+
+def k5_resources(build_mod, log=None) -> dict:
+    """kernel_resources of csrc/resolve.cu's k5_resolve_kernel."""
+    return next(iter(kernel_resources(build_mod, "resolve",
+                                      "k5_resolve_kernel", log).values()))
 
 
 def _k4_twin(bvh):
@@ -2047,7 +2336,7 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
     images must agree (tri on all but 1e-4 of the pixels, u8 colour
     >= 50 dB PSNR)."""
     import torch
-    from incarnation_tpu_torch.kernels import resolve
+    from incarnation_tpu_torch.kernels import resolve, skylight
     got = run(fc, history)
     def raster_plain(bins, params, z_limit=None, mask_table=None,
                      name=None):
@@ -2060,7 +2349,10 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
             _swapped(taa, "history_fetch", taa.history_fetch_plain), \
             _swapped(resolve, "resolve_gbuffer",
                      resolve.resolve_gbuffer_plain), \
-            _swapped(resolve, "masked_alpha", resolve.masked_alpha_plain):
+            _swapped(resolve, "masked_alpha", resolve.masked_alpha_plain), \
+            _swapped(skylight, "sky_lighting", skylight.sky_lighting_plain), \
+            _swapped(raster, "prepare_geometry",
+                     raster.prepare_geometry_plain):
         ref = run(fc, history)
     torch.cuda.synchronize()
     share = float((got["tri"] != ref["tri"]).float().mean())
@@ -2140,11 +2432,10 @@ def phase_breakdown(run, fc, history, reps: int = 3):
 
 
 def profile_frame(run, fc, history):
-    """phase_breakdown, then torch.profiler over one frame: CUDA time by
-    kernel, top 40, printed."""
+    """torch.profiler over one frame: CUDA time by kernel, top 40,
+    printed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    phase_breakdown(run, fc, history)
     run(fc, history)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,

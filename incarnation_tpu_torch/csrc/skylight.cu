@@ -1,0 +1,447 @@
+// K8: sky lighting, the image-based lighting of every covered pixel.
+//
+// It replaces no Pallas kernel: the JAX package writes this pass in jnp
+// (incarnation_tpu/kernels/skylight.py sky_lighting :19-158, exact path,
+// with kernels/ibl.py sample_cube, sample_env_brdf, env_brdf_approx and
+// sh_irradiance). Its torch twin (kernels/skylight.py sky_lighting_plain)
+// launches about 1,100 elementwise kernels over full-frame tensors when
+// the env BRDF is the analytic fit (two 16 x 16 Chebyshev tensor sums),
+// the raster frame's slowest pass; here it is one kernel.
+//
+// One thread per pixel. An uncovered pixel writes exact zeros (the twin's
+// torch.where(mask, radiance, 0), whatever its radiance). A covered one
+// computes in registers: the SH9 irradiance at its normal (or bent normal)
+// for the diffuse lobe; the reflected direction, its cube face and uv and
+// the trilinear fetch of the prefiltered cube (two levels, four texels of
+// three floats each, an L2-resident table); the env BRDF, either the
+// analytic fit at (NoV, 1 - roughness) or the bilinear LUT fetch (packed
+// (S*S, 8) rows or the raw (S, S, 2) image); with extras the clearcoat
+// lobe (a second cube fetch and env-BRDF evaluation); the AO blend, the
+// sky brightness and the HBAO scale.
+//
+// Tables: the Chebyshev coefficients (2 x 256 floats) and the cube's level
+// bases and sizes are kernel parameters, passed by value from host tables
+// the wrapper builds once per coefficient set and per probe. The loops over
+// them are unrolled, so each coefficient is an operand read from the
+// constant bank (one broadcast to the warp), and no table is copied to the
+// card per call.
+//
+// Arithmetic: every operation is the twin's, in the twin's order, built
+// --fmad=false (kernels/build.py), and every constant is the float the
+// twin's Python scalar rounds to. The dot products are mathutils.dot3's,
+// left to right; mathutils.normalize is v * (1 / sqrt(dot3 + 1e-20)); the
+// Chebyshev recurrence is (2 t) T[k-1] - T[k-2] and the tensor sum row by
+// row, g = sum_j c_ij T_j(v) left to right, then out += T_i(u) g; pow and
+// sqrt are the libdevice functions torch calls. The one sum K8 cannot
+// follow is sh_irradiance's einsum, a cuBLAS GEMM on the card whose order
+// over the nine terms is its own: K8 takes it as one chain of fused
+// multiply-adds from zero, which gave the GEMM's bits on every launch
+// measured (PERF.md), but nothing promises that, so K8 is held to its twin
+// to a tolerance (chip_smoke.py K8_TOL), not bit for bit.
+//
+// What bounds it: a covered pixel reads 57 bytes (base colour and mrao as
+// 16-byte rows, n, v, the mask byte), +12 with extras, +4 with HBAO, +12
+// with bent normals, and writes 12: about 0.043 ms at 1920 x 1088 and
+// 3.35 TB/s. The analytic env BRDF costs about 1,100 float operations a
+// lobe, about 0.034 ms at 67 TFLOP/s for 1.6 M covered pixels
+// (chip_smoke.py counts both), so the pass sits near the line between the
+// two bounds.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define K8_THREADS 256
+#define CHEB_N 16
+#define MAX_LEVELS 16
+
+// flags (kernels/skylight.py)
+#define F_DIFFUSE 1
+#define F_SPECULAR 2
+#define F_LIGHTING_ONLY 4
+#define F_ANALYTIC 8
+#define F_LUT_PACKED 16
+
+struct Cheb {
+  float a[CHEB_N * CHEB_N];  // CHEB_A, row-major
+  float b[CHEB_N * CHEB_N];  // CHEB_B
+};
+
+struct Cube {
+  int base[MAX_LEVELS];
+  int size[MAX_LEVELS];
+  int levels;
+  int packed;  // +x / +y neighbours from the clamped texel (CubeMips.packed)
+};
+
+// kernels/ibl.py _SH_K and _SH_A, float32 values
+#define SH_K0 0.282095f
+#define SH_K1 0.488603f
+#define SH_K4 1.092548f
+#define SH_K6 0.315392f
+#define SH_K8 0.546274f
+#define SH_A0 3.14159274101257324f
+#define SH_A1 2.094395f
+#define SH_A2 0.785398f
+#define INV_PI 0.318309873342514038f  // float(1 / pi)
+
+// torch.maximum / minimum / clamp propagate a NaN
+__device__ __forceinline__ float tmax(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fmaxf(a, b);
+}
+__device__ __forceinline__ float tmin(float a, float b) {
+  return (a != a || b != b) ? __int_as_float(0x7fffffff) : fminf(a, b);
+}
+__device__ __forceinline__ float clamp_lo(float x, float lo) {
+  return x < lo ? lo : x;
+}
+__device__ __forceinline__ float clamp01(float x) {
+  return tmin(tmax(x, 0.0f), 1.0f);
+}
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return min(max(v, lo), hi);
+}
+
+// mathutils.dot3: (x + y) + z
+__device__ __forceinline__ float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// ibl.sh_irradiance: the basis times the band weights, then the (9, 3)
+// product as one fused chain per channel
+__device__ __forceinline__ void sh_irradiance(const float* d, const float* sh,
+                                              float* irr) {
+  const float x = d[0], y = d[1], z = d[2];
+  float b[9];
+  b[0] = SH_K0 * SH_A0;
+  b[1] = (SH_K1 * y) * SH_A1;
+  b[2] = (SH_K1 * z) * SH_A1;
+  b[3] = (SH_K1 * x) * SH_A1;
+  b[4] = ((SH_K4 * x) * y) * SH_A2;
+  b[5] = ((SH_K4 * y) * z) * SH_A2;
+  b[6] = (SH_K6 * ((3.0f * z) * z - 1.0f)) * SH_A2;
+  b[7] = ((SH_K4 * x) * z) * SH_A2;
+  b[8] = (SH_K8 * (x * x - y * y)) * SH_A2;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+      acc = __fmaf_rn(b[k], __ldg(sh + 3 * k + c), acc);
+    irr[c] = acc;
+  }
+}
+
+// ibl.dir_to_face_uv
+__device__ __forceinline__ void face_uv(const float* d, int& face, float& u,
+                                        float& v) {
+  const float x = d[0], y = d[1], z = d[2];
+  const float ax = fabsf(x), ay = fabsf(y), az = fabsf(z);
+  const bool is_x = (ax >= ay) && (ax >= az);
+  const bool is_y = !is_x && (ay >= az);
+  face = is_x ? (x >= 0.0f ? 0 : 1)
+              : (is_y ? (y >= 0.0f ? 2 : 3) : (z >= 0.0f ? 4 : 5));
+  const float s = clamp_lo(is_x ? ax : (is_y ? ay : az), 1e-12f);
+  float vx, vy;
+  if (face == 0) vx = -z / s;
+  else if (face == 1) vx = z / s;
+  else if (face == 5) vx = -x / s;
+  else vx = x / s;
+  if (face == 2) vy = -z / s;
+  else if (face == 3) vy = z / s;
+  else vy = y / s;
+  u = (vx + 1.0f) * 0.5f;
+  v = (1.0f - vy) * 0.5f;
+}
+
+// ibl._sample_cube_level: bilinear, clamped at the face's edges
+__device__ __forceinline__ void cube_level(const float* __restrict__ flat,
+                                           const Cube& cube, int base, int s,
+                                           int face, float u, float v,
+                                           float* out) {
+  const float sf = (float)s;
+  const float fx = u * sf - 0.5f;
+  const float fy = v * sf - 0.5f;
+  const int x0 = (int)floorf(fx);
+  const int y0 = (int)floorf(fy);
+  const float tx = fx - (float)x0;
+  const float ty = fy - (float)y0;
+  const int hi = s - 1;
+  const int x0c = min(max(x0, 0), hi);
+  const int y0c = min(max(y0, 0), hi);
+  const int x1c = cube.packed ? min(x0c + 1, hi) : min(max(x0 + 1, 0), hi);
+  const int y1c = cube.packed ? min(y0c + 1, hi) : min(max(y0 + 1, 0), hi);
+  const int row0 = base + (face * s + y0c) * s;
+  const int row1 = base + (face * s + y1c) * s;
+  const float* t00 = flat + 3 * (row0 + x0c);
+  const float* t10 = flat + 3 * (row0 + x1c);
+  const float* t01 = flat + 3 * (row1 + x0c);
+  const float* t11 = flat + 3 * (row1 + x1c);
+  const float ux = 1.0f - tx, uy = 1.0f - ty;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float top = __ldg(t00 + c) * ux + __ldg(t10 + c) * tx;
+    const float bot = __ldg(t01 + c) * ux + __ldg(t11 + c) * tx;
+    out[c] = top * uy + bot * ty;
+  }
+}
+
+// ibl.sample_cube at a float mip
+__device__ __forceinline__ void sample_cube(const float* __restrict__ flat,
+                                            const Cube& cube, int face,
+                                            float u, float v, float lod,
+                                            float* out) {
+  const int last = cube.levels - 1;
+  lod = tmin(tmax(lod, 0.0f), (float)last);
+  const int l0 = clampi((int)floorf(lod), 0, last);
+  const int l1 = min(l0 + 1, last);
+  const float frac = lod - (float)l0;
+  float s0[3], s1[3];
+  cube_level(flat, cube, cube.base[l0], cube.size[l0], face, u, v, s0);
+  cube_level(flat, cube, cube.base[l1], cube.size[l1], face, u, v, s1);
+  const float uf = 1.0f - frac;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[c] = s0[c] * uf + s1[c] * frac;
+}
+
+// the Chebyshev polynomials T_0..T_15 at t
+__device__ __forceinline__ void cheb(float t, float* ts) {
+  ts[0] = 1.0f;
+  ts[1] = t;
+#pragma unroll
+  for (int k = 2; k < CHEB_N; ++k) ts[k] = (2.0f * t) * ts[k - 1] - ts[k - 2];
+}
+
+// sum_i T_i(u) (sum_j c_ij T_j(v)), in the twin's order
+__device__ __forceinline__ float cheb_tensor(const float* c, const float* tu,
+                                             const float* tv) {
+  float out = 0.0f;
+#pragma unroll
+  for (int i = 0; i < CHEB_N; ++i) {
+    float g = c[i * CHEB_N] * tv[0];
+#pragma unroll
+    for (int j = 1; j < CHEB_N; ++j) g = g + c[i * CHEB_N + j] * tv[j];
+    const float term = tu[i] * g;
+    out = i == 0 ? term : out + term;
+  }
+  return out;
+}
+
+// ibl.env_brdf_approx(no_v, roughness) -> (A, B)
+__device__ __forceinline__ void env_brdf_analytic(const Cheb& ch, float no_v,
+                                                  float roughness, float* ab) {
+  const float nov = clamp01(no_v);
+  const float r = clamp01(roughness);
+  float tu[CHEB_N], tv[CHEB_N];
+  cheb(2.0f * powf(clamp_lo(nov, 1e-8f), 0.25f) - 1.0f, tu);
+  cheb(2.0f * r - 1.0f, tv);
+  const float an = cheb_tensor(ch.a, tu, tv);
+  cheb(2.0f * sqrtf(r) - 1.0f, tv);
+  const float bn = cheb_tensor(ch.b, tu, tv);
+  const float inv = 1.0f / clamp_lo(nov, 1.0f / 256.0f);
+  ab[0] = an * inv;
+  ab[1] = bn * inv;
+}
+
+// ibl.sample_env_brdf(lut, no_v, roughness) -> (A, B)
+__device__ __forceinline__ void env_brdf_lut(const float* __restrict__ lut,
+                                             int size, bool packed,
+                                             float no_v, float roughness,
+                                             float* ab) {
+  const float sf = (float)size;
+  const float fx = clamp01(no_v) * sf - 0.5f;
+  const float fy = clamp01(roughness) * sf - 0.5f;
+  const int x0 = clampi((int)floorf(fx), 0, size - 1);
+  const int y0 = clampi((int)floorf(fy), 0, size - 1);
+  const float tx = fx - (float)x0;
+  const float ty = fy - (float)y0;
+  const float ux = 1.0f - tx, uy = 1.0f - ty;
+  if (packed) {
+    const float4* row = reinterpret_cast<const float4*>(lut) +
+                        2 * (y0 * size + x0);
+    const float4 p = __ldg(row), q = __ldg(row + 1);
+    const float top0 = p.x * ux + p.z * tx, top1 = p.y * ux + p.w * tx;
+    const float bot0 = q.x * ux + q.z * tx, bot1 = q.y * ux + q.w * tx;
+    ab[0] = top0 * uy + bot0 * ty;
+    ab[1] = top1 * uy + bot1 * ty;
+    return;
+  }
+  const int x1 = min(x0 + 1, size - 1);
+  const int y1 = min(y0 + 1, size - 1);
+  const float2* f = reinterpret_cast<const float2*>(lut);
+  const float2 a = __ldg(f + y0 * size + x0), b = __ldg(f + y0 * size + x1);
+  const float2 c = __ldg(f + y1 * size + x0), d = __ldg(f + y1 * size + x1);
+  const float top0 = a.x * ux + b.x * tx, top1 = a.y * ux + b.y * tx;
+  const float bot0 = c.x * ux + d.x * tx, bot1 = c.y * ux + d.y * tx;
+  ab[0] = top0 * uy + bot0 * ty;
+  ab[1] = top1 * uy + bot1 * ty;
+}
+
+__global__ void __launch_bounds__(K8_THREADS)
+k8_sky_kernel(const float4* __restrict__ base_color,
+              const float4* __restrict__ mrao,
+              const uint8_t* __restrict__ mask, const float* __restrict__ n,
+              const float* __restrict__ v, const float* __restrict__ bent,
+              const float* __restrict__ hbao,
+              const float* __restrict__ extras, const float* __restrict__ sh,
+              const float* __restrict__ cube_flat,
+              const float* __restrict__ lut, int lut_size, float sky,
+              int flags, const Cube cube, const Cheb cheb_tab,
+              float* __restrict__ out, int npx) {
+  const int i = blockIdx.x * K8_THREADS + threadIdx.x;
+  if (i >= npx) return;
+  float* o = out + 3 * i;
+  if (!mask[i]) {
+    o[0] = 0.0f;
+    o[1] = 0.0f;
+    o[2] = 0.0f;
+    return;
+  }
+  const float4 bc = __ldg(base_color + i);
+  const float4 mr = __ldg(mrao + i);
+  float base[3] = {bc.x, bc.y, bc.z};
+  if (flags & F_LIGHTING_ONLY) base[0] = base[1] = base[2] = 0.5f;
+  const float metallic = mr.x, roughness = mr.y, ao = mr.z, ao_blend = mr.w;
+  const float one_m = 1.0f - metallic;
+  const float one_aob = 1.0f - ao_blend;
+  float ex[3] = {0.0f, 0.0f, 0.0f};
+  if (extras) {
+    ex[0] = __ldg(extras + 3 * i);
+    ex[1] = __ldg(extras + 3 * i + 1);
+    ex[2] = __ldg(extras + 3 * i + 2);
+  }
+  float nn[3] = {__ldg(n + 3 * i), __ldg(n + 3 * i + 1), __ldg(n + 3 * i + 2)};
+  float rad[3] = {0.0f, 0.0f, 0.0f};
+
+  if (flags & F_DIFFUSE) {
+    float sn[3] = {nn[0], nn[1], nn[2]};
+    if (bent) {
+      sn[0] = __ldg(bent + 3 * i);
+      sn[1] = __ldg(bent + 3 * i + 1);
+      sn[2] = __ldg(bent + 3 * i + 2);
+    }
+    float irr[3];
+    sh_irradiance(sn, sh, irr);
+    const float one_t = 1.0f - ex[0];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float albedo = one_m * base[c];
+      if (extras) albedo = albedo * one_t;
+      const float d = ((albedo * INV_PI) * irr[c]) * 5.0f;
+      rad[c] = 0.0f + sky * (d * one_aob + (ao * d) * ao_blend);
+    }
+  }
+
+  if (flags & F_SPECULAR) {
+    const float vv[3] = {__ldg(v + 3 * i), __ldg(v + 3 * i + 1),
+                         __ldg(v + 3 * i + 2)};
+    const float no_v = clamp_lo(dot3(nn, vv), 0.01f);
+    const float vn2 = 2.0f * dot3(vv, nn);
+    float r[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) r[c] = vn2 * nn[c] - vv[c];
+    const float inv = 1.0f / sqrtf(dot3(r, r) + 1e-20f);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) r[c] = r[c] * inv;
+    int face;
+    float fu, fv;
+    face_uv(r, face, fu, fv);
+    const float mips1 = (float)(cube.levels - 1);
+    const bool analytic = flags & F_ANALYTIC;
+    const bool packed_lut = flags & F_LUT_PACKED;
+
+    float pre[3], ab[2];
+    sample_cube(cube_flat, cube, face, fu, fv, roughness * mips1, pre);
+    if (analytic) env_brdf_analytic(cheb_tab, no_v, 1.0f - roughness, ab);
+    else env_brdf_lut(lut, lut_size, packed_lut, no_v, roughness, ab);
+    float spec[3];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float f0 = metallic * base[c] + one_m * 0.04f;
+      spec[c] = pre[c] * (f0 * ab[0] + ab[1]);
+    }
+    if (extras) {
+      const float cc = ex[1];
+      const float ccr = clamp_lo(ex[2], 0.03f);
+      // shading.f_schlick(NoV, 0.04) x cc, (1 - u)^5 as mathutils.ipow
+      const float x = 1.0f - no_v;
+      const float x2 = x * x;
+      const float f = x * (x2 * x2);
+      const float fc = (f + 0.04f * (1.0f - f)) * cc;
+      float pre_cc[3], ab_cc[2];
+      sample_cube(cube_flat, cube, face, fu, fv, ccr * mips1, pre_cc);
+      if (analytic) env_brdf_analytic(cheb_tab, no_v, 1.0f - ccr, ab_cc);
+      else env_brdf_lut(lut, lut_size, packed_lut, no_v, ccr, ab_cc);
+      const float k_cc = 0.04f * ab_cc[0] + ab_cc[1];
+      const float one_fc = 1.0f - fc;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        spec[c] = spec[c] * one_fc + (pre_cc[c] * k_cc) * fc;
+        rad[c] = rad[c] * one_fc;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      rad[c] = rad[c] + sky * (spec[c] * one_aob + (ao * spec[c]) * ao_blend);
+  }
+  if (hbao) {
+    const float a = __ldg(hbao + i);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rad[c] = rad[c] * a;
+  }
+  o[0] = rad[0];
+  o[1] = rad[1];
+  o[2] = rad[2];
+}
+
+// levels: the cube's bases then its sizes, n_levels each (host memory);
+// cheb: CHEB_A then CHEB_B, 512 floats (host memory), needed with
+// F_ANALYTIC and F_SPECULAR.
+extern "C" int k8_sky_lighting(const float* base_color, const float* mrao,
+                               const uint8_t* mask, const float* n,
+                               const float* v, const float* bent,
+                               const float* hbao, const float* extras,
+                               const float* sh, const float* cube_flat,
+                               int cube_rows, const int* levels, int n_levels,
+                               int cube_packed, const float* lut, int lut_size,
+                               const float* cheb, float sky_brightness,
+                               int flags, float* out, int npx, void* stream) {
+  if (npx < 0 || n_levels < 1 || n_levels > MAX_LEVELS || !levels)
+    return (int)cudaErrorInvalidValue;
+  // base colour and mrao load as 16-byte rows, the packed LUT as two
+  // 16-byte words, the raw LUT as 8-byte pairs
+  if (((uintptr_t)base_color | (uintptr_t)mrao) & 15u)
+    return (int)cudaErrorInvalidValue;
+  const bool specular = flags & F_SPECULAR;
+  if (specular && (flags & F_ANALYTIC) && !cheb)
+    return (int)cudaErrorInvalidValue;
+  if (specular && !(flags & F_ANALYTIC) &&
+      (!lut || lut_size < 1 ||
+       ((uintptr_t)lut & ((flags & F_LUT_PACKED) ? 15u : 7u))))
+    return (int)cudaErrorInvalidValue;
+  Cube cube;
+  cube.levels = n_levels;
+  cube.packed = cube_packed;
+  for (int l = 0; l < n_levels; ++l) {
+    cube.base[l] = levels[l];
+    cube.size[l] = levels[n_levels + l];
+    // every texel of the level lies inside the table
+    if (cube.base[l] < 0 || cube.size[l] < 1 ||
+        (long long)cube.base[l] + 6LL * cube.size[l] * cube.size[l] >
+            (long long)cube_rows)
+      return (int)cudaErrorInvalidValue;
+  }
+  for (int l = n_levels; l < MAX_LEVELS; ++l) cube.base[l] = cube.size[l] = 0;
+  Cheb tab;
+  for (int k = 0; k < CHEB_N * CHEB_N; ++k) {
+    tab.a[k] = cheb ? cheb[k] : 0.0f;
+    tab.b[k] = cheb ? cheb[CHEB_N * CHEB_N + k] : 0.0f;
+  }
+  if (npx == 0) return (int)cudaSuccess;
+  const int blocks = (npx + K8_THREADS - 1) / K8_THREADS;
+  k8_sky_kernel<<<blocks, K8_THREADS, 0, (cudaStream_t)stream>>>(
+      reinterpret_cast<const float4*>(base_color),
+      reinterpret_cast<const float4*>(mrao), mask, n, v, bent, hbao, extras,
+      sh, cube_flat, lut, lut_size, sky_brightness, flags, cube, tab, out,
+      npx);
+  return (int)cudaGetLastError();
+}

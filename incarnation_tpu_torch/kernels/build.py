@@ -30,7 +30,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 # the arithmetic is the same.
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("raster", "clustered", "taa", "bvh", "resolve")
+SOURCES = ("raster", "clustered", "taa", "bvh", "resolve", "skylight",
+           "setup")
 
 _LIBS: dict = {}
 

@@ -2,7 +2,9 @@
 
 Pipeline:
 1. prepare_geometry      — per-triangle corner transform, 2D-homogeneous
-                           edge and depth planes, attribute planes, bbox.
+                           edge and depth planes, attribute planes, bbox:
+                           K9 (csrc/setup.cu) on CUDA tensors, the twin
+                           prepare_geometry_plain on CPU ones.
 2. bin_triangles_layered — per-tile triangle lists for every raster layer
                            from one sort (small, mid and big tiers; the
                            pair-capacity and big-list overflows counted).
@@ -90,6 +92,29 @@ class Bins:
 # 1. Geometry front end
 # ---------------------------------------------------------------------------
 
+# tri_corner, T, tri_mesh, mesh rows, meshes, tri_prim, prim_visible,
+# prim_double_sided, prim_material, primitives, tri_meshlet, meshlet_prim,
+# meshlet_visible (NULL: no meshlet culling), meshlets, tri_visible (NULL:
+# none), all_double_sided, width, height, then the outputs setup, ids,
+# valid, bbox and attr (NULL: emit_attributes=False)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+K9 = Kernel("setup", "k9_setup",
+            [_P, _I, _P, _P, _I] + [_P] * 4 + [_I] + [_P] * 3 + [_I, _P]
+            + [_I] * 3 + [_P] * 5)
+
+
+def _mesh_rows(scene, scene_rotation, view_proj):
+    """(M, 25) f32 per mesh instance: local-to-clip (16), then the 3x3 of
+    local-to-world (9). Plain 4x4 products, as the JAX package leaves them
+    to XLA outside its kernels (full f32 on the card: TF32 is off by
+    default)."""
+    local_to_world = torch.matmul(scene.mesh_transforms, scene_rotation)
+    local_to_clip = torch.matmul(local_to_world, view_proj)
+    return torch.cat([local_to_clip.reshape(-1, 16),
+                      local_to_world[:, :3, :3].reshape(-1, 9)],
+                     dim=-1).contiguous()
+
+
 def prepare_geometry(scene, scene_rotation, view_proj, prim_visible,
                      params: RasterParams, tri_visible=None,
                      meshlet_visible=None,
@@ -101,12 +126,68 @@ def prepare_geometry(scene, scene_rotation, view_proj, prim_visible,
     all_double_sided keeps every back face, whatever its primitive's
     doubleSided flag: the sun shadow map's casters (kernels/shadow.py), so
     a single-sided wall that faces away from the sun still casts, as it
-    blocks an RT shadow ray (a divergence from JAX, which culls it)."""
+    blocks an RT shadow ray (a divergence from JAX, which culls it).
+    K9 (csrc/setup.cu) on CUDA tensors, the twin prepare_geometry_plain on
+    CPU ones."""
+    ctab = scene.tri_corner
+    if not ctab.is_cuda:
+        return prepare_geometry_plain(
+            scene, scene_rotation, view_proj, prim_visible, params,
+            tri_visible, meshlet_visible, emit_attributes, all_double_sided)
+    dev = ctab.device
+    t = ctab.shape[1]
+    i32 = torch.int32
+    packed = _mesh_rows(scene, scene_rotation, view_proj)
+    n_mesh, n_prims = packed.shape[0], prim_visible.shape[0]
+    _check(ctab, torch.float32, dev, "tri_corner", (36, t))
+    _check(packed, torch.float32, dev, "mesh rows", (n_mesh, 25))
+    for name, x in (("tri_mesh", scene.tri_mesh),
+                    ("tri_prim", scene.tri_prim)):
+        _check(x, i32, dev, name, (t,))
+    _check(prim_visible, torch.bool, dev, "prim_visible", (n_prims,))
+    for name, x in (("prim_double_sided", scene.prim_double_sided),
+                    ("prim_material", scene.prim_material)):
+        _check(x, i32, dev, name, (n_prims,))
+    n_meshlets = 0
+    if meshlet_visible is not None:
+        n_meshlets = meshlet_visible.shape[0]
+        _check(meshlet_visible, torch.bool, dev, "meshlet_visible",
+               (n_meshlets,))
+        _check(scene.meshlet_prim, i32, dev, "meshlet_prim", (n_meshlets,))
+        _check(scene.tri_meshlet, i32, dev, "tri_meshlet", (t,))
+    if tri_visible is not None:
+        _check(tri_visible, torch.bool, dev, "tri_visible", (t,))
+    if min(n_mesh, n_prims) < 1 or (meshlet_visible is not None
+                                    and n_meshlets < 1):
+        raise ValueError("K9 needs at least one mesh, primitive and "
+                         "meshlet row")
+    setup = torch.empty((t, SETUP_ROWS), dtype=torch.float32, device=dev)
+    ids = torch.empty((t,), dtype=i32, device=dev)
+    valid = torch.empty((t,), dtype=torch.bool, device=dev)
+    bbox = torch.empty((t, 4), dtype=i32, device=dev)
+    attr = (torch.empty((t, ATTR_ROWS), dtype=torch.float32, device=dev)
+            if emit_attributes else None)
+    meshlets = meshlet_visible is not None
+    K9(ptr(ctab), t, ptr(scene.tri_mesh), ptr(packed), n_mesh,
+       ptr(scene.tri_prim), ptr(prim_visible), ptr(scene.prim_double_sided),
+       ptr(scene.prim_material), n_prims,
+       ptr(scene.tri_meshlet) if meshlets else None,
+       ptr(scene.meshlet_prim) if meshlets else None, ptr(meshlet_visible),
+       n_meshlets, ptr(tri_visible), int(all_double_sided), params.width,
+       params.height, ptr(setup), ptr(ids), ptr(valid), ptr(bbox), ptr(attr))
+    return PreparedGeometry(setup=setup, ids=ids, valid=valid, bbox=bbox,
+                            attr=attr)
+
+
+def prepare_geometry_plain(scene, scene_rotation, view_proj, prim_visible,
+                           params: RasterParams, tri_visible=None,
+                           meshlet_visible=None,
+                           emit_attributes: bool = True,
+                           all_double_sided: bool = False
+                           ) -> PreparedGeometry:
+    """K9's twin: prepare_geometry in torch operations."""
     w, h = params.width, params.height
-    local_to_world = torch.matmul(scene.mesh_transforms, scene_rotation)
-    local_to_clip = torch.matmul(local_to_world, view_proj)
-    packed = torch.cat([local_to_clip.reshape(-1, 16),
-                        local_to_world[:, :3, :3].reshape(-1, 9)], dim=-1)
+    packed = _mesh_rows(scene, scene_rotation, view_proj)
     m = packed[scene.tri_mesh.long()].T                       # (25, T)
     ctab = scene.tri_corner                                   # (36, T)
 
@@ -329,7 +410,6 @@ def bin_triangles_layered(prep: PreparedGeometry, params: RasterParams,
 # 3. Fine raster: K1 and its plain twin
 # ---------------------------------------------------------------------------
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
 _K1_DEPTH = "k1_raster_depth"   # the depth-only role's entry point
 K1 = Kernel("raster", "k1_raster",
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,

@@ -2,15 +2,69 @@
 incarnation_tpu/kernels/skylight.py, exact path: trilinear probe fetch).
 
 diffuse = SH9 cosine-convolved irradiance x5, specular = GGX-prefiltered
-envmap by roughness x env-BRDF, both x SkyBrightness and AO-blended."""
+envmap by roughness x env-BRDF, both x SkyBrightness and AO-blended.
+
+sky_lighting is K8 (csrc/skylight.cu) on CUDA tensors; on CPU tensors it
+runs its plain twin, sky_lighting_plain, the torch code the kernel was
+written from."""
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from ..core import mathutils as mu
 from . import ibl, shading
 from . import sky as sky_mod
+from .build import Kernel, ptr
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# base_color, mrao, mask, n, v, bent normals, hbao, extras (NULL: none),
+# sh, cube flat, cube rows, cube levels (host: bases then sizes), levels,
+# packed cube, env-BRDF LUT, its size, Chebyshev table (host), sky
+# brightness, flags, out, pixels
+K8 = Kernel("skylight", "k8_sky_lighting",
+            [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P, _F, _I, _P, _I])
+# K8's flags (csrc/skylight.cu)
+_DIFFUSE, _SPECULAR, _LIGHTING_ONLY, _ANALYTIC, _LUT_PACKED = 1, 2, 4, 8, 16
+MAX_CUBE_LEVELS = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _cheb_table():
+    """ibl_fit_coeffs' CHEB_A then CHEB_B as 512 host floats, each the
+    float32 a Python scalar of the twin's `c * tv[j]` rounds to. K8 takes
+    every coefficient (the twin skips those below 1e-9, and there are
+    none)."""
+    from . import ibl_fit_coeffs as fc
+    table = np.asarray([fc.CHEB_A, fc.CHEB_B], np.float64)
+    if table.shape != (2, 16, 16) or (np.abs(table) < 1e-9).any():
+        raise ValueError("K8 evaluates two 16x16 tables of non-zero "
+                         "Chebyshev coefficients")
+    return (ctypes.c_float * 512)(*table.astype(np.float32).ravel())
+
+
+@functools.lru_cache(maxsize=64)
+def _cube_levels(bases: tuple, size: int, num_levels: int):
+    """A cube's level bases then sizes as host ints (K8 takes them by
+    value, one table per probe)."""
+    if not 1 <= num_levels <= MAX_CUBE_LEVELS or len(bases) != num_levels:
+        raise ValueError(f"K8 takes 1 to {MAX_CUBE_LEVELS} cube levels, got "
+                         f"{num_levels} ({len(bases)} bases)")
+    vals = list(bases) + [size >> l for l in range(num_levels)]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _check(name, t, shape, dtype, dev, align=4):
+    if t.dtype != dtype or t.device != dev or not t.is_contiguous() \
+            or tuple(t.shape) != tuple(shape) or t.data_ptr() % align:
+        raise ValueError(f"{name}: K8 needs a contiguous {dtype} tensor of "
+                         f"shape {tuple(shape)} on {dev}, {align}-byte "
+                         f"aligned; got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device} at {t.data_ptr() % 16} mod 16")
 
 
 def sky_lighting(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
@@ -21,7 +75,63 @@ def sky_lighting(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
     """Additive sky radiance for covered pixels (ref: sky-lighting.hlsl).
     hbao: (H, W) AO that scales the result; bent_normals: (H, W, 3) normals
     for the diffuse SH lookup. extras: gb.extras when the scene has
-    transmission/clearcoat factors."""
+    transmission/clearcoat factors. env_brdf: the (S*S, 8) packed or (S, S,
+    2) LUT, read unless analytic_env_brdf. K8 on CUDA tensors, the twin on
+    CPU ones."""
+    if not gb.mask.is_cuda:
+        return sky_lighting_plain(
+            gb, n, v, probe, env_brdf, sky_brightness, hbao, bent_normals,
+            diffuse_ibl, specular_ibl, lighting_only, extras,
+            analytic_env_brdf)
+    dev = gb.mask.device
+    h, w = gb.mask.shape
+    f32 = torch.float32
+    _check("mask", gb.mask, (h, w), torch.bool, dev, 1)
+    _check("base_color", gb.base_color, (h, w, 4), f32, dev, 16)
+    _check("mrao", gb.mrao, (h, w, 4), f32, dev, 16)
+    _check("n", n, (h, w, 3), f32, dev)
+    _check("v", v, (h, w, 3), f32, dev)
+    for name, t, shape in (("bent_normals", bent_normals, (h, w, 3)),
+                           ("hbao", hbao, (h, w)),
+                           ("extras", extras, (h, w, 3))):
+        if t is not None:
+            _check(name, t, shape, f32, dev)
+    _check("probe.sh", probe.sh, (9, 3), f32, dev)
+    cube = probe.prefiltered
+    _check("probe.prefiltered.flat", cube.flat, (cube.flat.shape[0], 3),
+           f32, dev)
+    levels = _cube_levels(tuple(int(b) for b in cube.bases), int(cube.size),
+                          int(cube.num_levels))
+    flags = ((_DIFFUSE if diffuse_ibl else 0)
+             | (_SPECULAR if specular_ibl else 0)
+             | (_LIGHTING_ONLY if lighting_only else 0)
+             | (_ANALYTIC if analytic_env_brdf else 0))
+    lut, lut_size = None, 0
+    if specular_ibl and not analytic_env_brdf:
+        lut = env_brdf
+        if lut.dim() == 2:
+            lut_size = int(round(np.sqrt(lut.shape[0])))
+            _check("env_brdf", lut, (lut_size * lut_size, 8), f32, dev, 16)
+            flags |= _LUT_PACKED
+        else:
+            lut_size = lut.shape[0]
+            _check("env_brdf", lut, (lut_size, lut_size, 2), f32, dev, 8)
+    out = torch.empty((h, w, 3), dtype=f32, device=dev)
+    K8(ptr(gb.base_color), ptr(gb.mrao), ptr(gb.mask), ptr(n), ptr(v),
+       ptr(bent_normals), ptr(hbao), ptr(extras), ptr(probe.sh),
+       ptr(cube.flat), cube.flat.shape[0], levels, cube.num_levels,
+       int(cube.packed), ptr(lut), lut_size,
+       _cheb_table() if analytic_env_brdf else None, float(sky_brightness),
+       flags, ptr(out), h * w)
+    return out
+
+
+def sky_lighting_plain(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
+                       sky_brightness, hbao=None, bent_normals=None,
+                       diffuse_ibl: bool = True, specular_ibl: bool = True,
+                       lighting_only: bool = False, extras=None,
+                       analytic_env_brdf: bool = False):
+    """K8's twin: sky_lighting in torch operations."""
     base = (torch.full_like(gb.base_color[..., :3], 0.5) if lighting_only
             else gb.base_color[..., :3])
     metallic = gb.mrao[..., 0:1]
@@ -48,9 +158,9 @@ def sky_lighting(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
         return ibl.sample_env_brdf(env_brdf, no_v, rough)
 
     if specular_ibl:
-        no_v = torch.clamp(torch.sum(n * v, -1), min=0.01)
+        no_v = torch.clamp(mu.dot3(n, v), min=0.01)
         f0 = metallic * base + (1.0 - metallic) * 0.04
-        r = mu.normalize(2.0 * torch.sum(v * n, -1, keepdim=True) * n - v)
+        r = mu.normalize(2.0 * mu.dot3(v, n, keepdim=True) * n - v)
         mips = probe.prefiltered.num_levels
         pre = ibl.sample_cube(probe.prefiltered, r, lod=roughness * (mips - 1))
         ab = env_brdf_at(no_v, roughness)

@@ -12,7 +12,8 @@ from incarnation_tpu_torch import config as tconfig
 from incarnation_tpu_torch.core.view import View
 from incarnation_tpu_torch.device import resolve_device
 from incarnation_tpu_torch.dist import sharding
-from incarnation_tpu_torch.kernels import bvh, clustered, raster, taa
+from incarnation_tpu_torch.kernels import (bvh, clustered, ibl, raster,
+                                           resolve, sky, skylight, taa)
 from incarnation_tpu_torch.renderer import frame as tframe
 from incarnation_tpu_torch.scene import testing as ttesting
 
@@ -77,13 +78,13 @@ def tiny():
     return scene, bvh.build_scene_bvh(scene, use_cache=False, device="cpu")
 
 
-def _render_tiny(tiny, kw):
-    """One 16x8 frame of make_rich_scene with Config(**kw); a scene_bvh
-    key stands for the scene's BVH, and a band_axis key renders the frame
-    in 2 bands of 4 rows (dist.sharding over ["cpu", "cpu"]), which must
-    equal the single frame."""
+def _render_tiny(tiny, kw, **args):
+    """One 16x8 frame of make_rich_scene with Config(**kw) and
+    render_frame's further keyword args; a scene_bvh key stands for the
+    scene's BVH, and a band_axis key renders the frame in 2 bands of 4
+    rows (dist.sharding over ["cpu", "cpu"]), which must equal the single
+    frame."""
     scene, scene_bvh = tiny
-    args = {}
     if "scene_bvh" in kw:
         args["scene_bvh"] = scene_bvh
     cfg = tconfig.Config(masked_depth_peels=2, enable_taa=False,
@@ -143,15 +144,41 @@ def test_band_axis_raises():
                             band_axis="x")
 
 
-def test_cpu_tensors_take_the_twins():
+def test_cpu_tensors_take_the_twins(tiny):
     """On CPU tensors the wrappers run the plain twins and count no kernel
-    launch."""
-    for k in (raster.K1, clustered.K2, taa.K3, bvh.K4):
+    launch: K3's history fetch, and a 16x8 frame with the sky probe, whose
+    triangle setup (K9's wrapper, twice: camera and sun) and sky lighting
+    (K8's) go through the wrappers."""
+    kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4, resolve.K5,
+               resolve.K6, skylight.K8, raster.K9)
+    for k in kernels:
         k.launches = 0
     h, w = 16, 8
     hist = torch.rand(h, w, 3)
     depth = torch.full((h, w), 0.5)
     out = taa.history_fetch(hist, depth, torch.eye(4), w, h)
     torch.testing.assert_close(out, hist, rtol=0, atol=1e-6)
-    assert raster.K1.launches == clustered.K2.launches == taa.K3.launches \
-        == bvh.K4.launches == 0
+    calls = []
+
+    def counted(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrapper
+    sun = torch.tensor([0.4, 0.6, 0.69])
+    probe = ibl.build_probe(sky.sky_latlong(sun / sun.norm(), 2.0, 32, 16),
+                            envmap_size=16, num_samples=64)
+    brdf = ibl.pack_env_brdf(ibl.env_brdf_lut(16, 64, device="cpu"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(skylight, "sky_lighting",
+                   counted(skylight, "sky_lighting"))
+        mp.setattr(raster, "prepare_geometry",
+                   counted(raster, "prepare_geometry"))
+        frame = _render_tiny(tiny, dict(sun_shadow_mode="map"),
+                             probe=probe, env_brdf=brdf)
+    assert sorted(calls) == ["prepare_geometry", "prepare_geometry",
+                             "sky_lighting"]
+    assert float(frame["hdr"].abs().max()) > 0
+    assert [k.launches for k in kernels] == [0] * len(kernels)

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from incarnation_tpu_torch.config import Config
-from incarnation_tpu_torch.kernels import bvh, clustered, raster, resolve, taa
+from incarnation_tpu_torch.kernels import (bvh, clustered, raster, resolve,
+                                           skylight, taa)
 from incarnation_tpu_torch.scene import lights as lights_mod
 
 pytestmark = pytest.mark.cuda
@@ -892,3 +893,319 @@ def test_k6_matches_twin(dev, row0):
     assert 0.05 < float(passed.float().mean()) < 0.95
     blend = scene.mat_params[interp[9].long().clamp(0, 2), 12] >= 2.0
     assert bool(blend.any()) and bool((~blend).any())
+
+
+# ---------------------------------------------------------------------------
+# K8: sky lighting
+# ---------------------------------------------------------------------------
+
+K8_TOL = 1e-5   # of the twin's peak radiance, as chip_smoke.py holds K8
+
+# sky_lighting options of each case: the IBL lobes, lighting_only, and
+# which of HBAO, bent normals and extras are given
+SKY_OPTIONS = {
+    "all_inputs": dict(hbao=True, bent=True, extras=True),
+    "no_extras": dict(),
+    "hbao_bent": dict(hbao=True, bent=True),
+    "diffuse_only": dict(specular_ibl=False, hbao=True, extras=True),
+    "specular_only": dict(diffuse_ibl=False, bent=True, extras=True),
+    "lighting_only": dict(lighting_only=True, extras=True),
+    "no_lobe": dict(diffuse_ibl=False, specular_ibl=False, hbao=True),
+}
+
+
+def sky_inputs(seed=0, h=24, w=40, covered=0.85):
+    """numpy inputs of one sky lighting pass on an h x w layer: a GBuffer
+    (base colour, mrao, extras, mask), unit normals n and bent normals, view
+    vectors v and an AO map. Roughness is exactly 1 (the last mip level)
+    on the first column and 0 on the second; on every third row v is
+    grazing or behind the surface, so NoV takes the 0.01 clamp; uncovered
+    pixels hold NaN in every input but the two that pick a cube level
+    (roughness and the clearcoat roughness: the twin indexes the level
+    table with them, and a NaN index is an error), and K8 must write
+    zeros there."""
+    r = np.random.default_rng(seed)
+
+    def unit(shape):
+        x = r.normal(size=shape)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+
+    n = unit((h, w, 3))
+    v = n + unit((h, w, 3)) * 0.9
+    v[::3] = unit((len(range(0, h, 3)), w, 3)) - 1.2 * n[::3]
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    mrao = r.uniform(0.0, 1.0, (h, w, 4))
+    mrao[:, 0, 1] = 1.0
+    mrao[:, 1 % w, 1] = 0.0
+    f = dict(base_color=r.uniform(0, 1, (h, w, 4)), mrao=mrao,
+             extras=r.uniform(0, 1, (h, w, 3)), n=n, v=v,
+             bent=unit((h, w, 3)), hbao=r.uniform(0, 1, (h, w)))
+    f = {k: x.astype(np.float32) for k, x in f.items()}
+    mask = r.random((h, w)) < covered
+    keep = {"mrao": 1, "extras": 2}
+    for k, x in f.items():
+        lvl = x[..., keep[k]].copy() if k in keep else None
+        x[~mask] = np.nan
+        if lvl is not None:
+            x[..., keep[k]] = lvl
+    f["mask"] = mask
+    return f
+
+
+def sky_probe(dev):
+    """A small probe (16^2 cube, an 8^2 prefiltered chain of 4 levels,
+    packed addressing) from a Preetham sky, and the env-BRDF LUT of 16^2,
+    raw and packed."""
+    from incarnation_tpu_torch.kernels import ibl, sky
+    sun = torch.tensor([0.4, 0.6, 0.69], device=dev)
+    probe = ibl.build_probe(sky.sky_latlong(sun / sun.norm(), 2.0, 32, 16),
+                            envmap_size=16, num_samples=64)
+    lut = ibl.env_brdf_lut(16, 64, device=dev)
+    return probe, lut, ibl.pack_env_brdf(lut)
+
+
+def sky_call(inputs, dev, probe, lut, opts, analytic):
+    """sky_lighting's arguments on dev for sky_inputs' arrays and the
+    options of a SKY_OPTIONS case -> (args, kwargs)."""
+    t = {k: torch.tensor(x, device=dev) for k, x in inputs.items()}
+    gb = resolve.GBuffer(base_color=t["base_color"], normals=None,
+                         mrao=t["mrao"], emissive=None, mask=t["mask"],
+                         world_pos=None, uv=None, extras=t["extras"])
+    o = dict(opts)
+    kw = dict(hbao=t["hbao"] if o.pop("hbao", False) else None,
+              bent_normals=t["bent"] if o.pop("bent", False) else None,
+              extras=t["extras"] if o.pop("extras", False) else None,
+              analytic_env_brdf=analytic, **o)
+    return (gb, t["n"], t["v"], probe, lut, 25000.0), kw
+
+
+def _k8_close(got, ref, mask, what):
+    """K8 within K8_TOL of the twin's peak radiance over covered pixels,
+    exact zeros on the others."""
+    assert not bool(got[~mask].any()) and not bool(ref[~mask].any()), what
+    if bool(mask.any()):
+        peak = float(ref[mask].abs().max())
+        err = float((got - ref)[mask].abs().max())
+        assert err <= K8_TOL * peak, f"{what}: {err:.3e} of peak {peak:.3e}"
+
+
+@pytest.mark.parametrize("cube_packed", [True, False],
+                         ids=["packed_cube", "raw_cube"])
+@pytest.mark.parametrize("env", ["analytic", "lut_packed", "lut_raw"])
+@pytest.mark.parametrize("opts", sorted(SKY_OPTIONS))
+def test_k8_matches_twin(dev, opts, env, cube_packed):
+    """K8 against sky_lighting_plain on the card over the option grid: both
+    IBL lobes on or off, lighting_only, HBAO, bent normals and extras given
+    or not, the analytic env BRDF or the LUT in either layout, the
+    prefiltered cube with packed or clamped neighbours; roughness at the
+    last mip level, NoV at its 0.01 clamp, NaN in uncovered pixels."""
+    import dataclasses
+    probe, lut, packed = sky_probe(dev)
+    probe = dataclasses.replace(probe, prefiltered=dataclasses.replace(
+        probe.prefiltered, packed=cube_packed))
+    args, kw = sky_call(sky_inputs(seed=21, h=40, w=72), dev, probe,
+                        packed if env == "lut_packed" else lut,
+                        SKY_OPTIONS[opts], env == "analytic")
+    n0 = skylight.K8.launches
+    got = skylight.sky_lighting(*args, **kw)
+    ref = skylight.sky_lighting_plain(*args, **kw)
+    assert skylight.K8.launches == n0 + 1
+    mask = args[0].mask
+    _k8_close(got, ref, mask, opts)
+    lobes = kw.get("diffuse_ibl", True) or kw.get("specular_ibl", True)
+    assert bool((got[mask] != 0).any()) == lobes
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (9, 33), (1088, 1920)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("covered", [0.0, 0.85], ids=["empty", "covered"])
+def test_k8_sizes_and_empty_mask(dev, shape, covered):
+    """K8 against its twin on layers that are not a multiple of its block,
+    the bench frame's 1920x1088 among them, and with no pixel covered
+    (every output zero though every input is NaN)."""
+    h, w = shape
+    probe, _, packed = sky_probe(dev)
+    args, kw = sky_call(sky_inputs(seed=22, h=h, w=w, covered=covered), dev,
+                        probe, packed, SKY_OPTIONS["all_inputs"], True)
+    got = skylight.sky_lighting(*args, **kw)
+    _k8_close(got, skylight.sky_lighting_plain(*args, **kw), args[0].mask,
+              f"{w}x{h}")
+    if covered == 0.0:
+        assert not bool(got.any())
+
+
+def test_k8_refuses_and_never_falls_back(dev):
+    """sky_lighting raises instead of launching K8, and never runs the
+    twin, on a float64 input, a base colour that is not 16-byte aligned
+    (K8 loads it as 16-byte rows) and a packed LUT that is not."""
+    import dataclasses
+    probe, _, packed = sky_probe(dev)
+    args, kw = sky_call(sky_inputs(seed=23), dev, probe, packed,
+                        SKY_OPTIONS["all_inputs"], False)
+    gb = args[0]
+    n0 = skylight.K8.launches
+    with pytest.raises(ValueError, match="n:"):
+        skylight.sky_lighting(gb, args[1].double(), *args[2:], **kw)
+    bc = gb.base_color
+    shifted = torch.empty(bc.numel() + 1, device=dev)[1:].view(bc.shape)
+    shifted.copy_(bc)
+    with pytest.raises(ValueError, match="base_color"):
+        skylight.sky_lighting(dataclasses.replace(gb, base_color=shifted),
+                              *args[1:], **kw)
+    lut = torch.empty(packed.numel() + 1, device=dev)[1:].view(packed.shape)
+    lut.copy_(packed)
+    with pytest.raises(ValueError, match="env_brdf"):
+        skylight.sky_lighting(*args[:4], lut, *args[5:], **kw)
+    assert skylight.K8.launches == n0
+
+
+# ---------------------------------------------------------------------------
+# K9: triangle setup
+# ---------------------------------------------------------------------------
+
+def setup_scene(dev, n=900, seed=0):
+    """A scene-shaped namespace for triangle setup: n random triangles over
+    three mesh instances (identity, a rotation with a translation, a
+    non-uniform scale) seen from setup_view(); 12 primitives, every third
+    double-sided, of three materials; 24 meshlets; a tenth of the
+    triangles padding (tri_prim and tri_meshlet -1), a tenth with a corner
+    behind the eye (crossing the near plane), a tenth with a corner within
+    1e-3 of w = eps on either side, a fortieth collapsed to a point
+    (det = 0) and a fortieth with a corner repeated or a hair from
+    another, and about half back-facing. -> (scene, prim_visible,
+    meshlet_visible, tri_visible)."""
+    r = np.random.default_rng(seed)
+    c = np.stack([r.uniform(-6, 6, n), r.uniform(-3, 3, n),
+                  r.uniform(2, 20, n)], -1)
+    size = r.choice([0.05, 0.3, 1.0, 6.0], n, p=[0.3, 0.4, 0.2, 0.1])
+    pts = c[:, None] + r.normal(size=(n, 3, 3)) * size[:, None, None]
+    k = n // 10
+    pts[:k, 0, 2] = -15.0
+    pts[k:2 * k, 0, 2] = -12.0 + 1e-3 + r.uniform(-1e-3, 1e-3, k)
+    d = n // 40
+    pts[2 * k:2 * k + d, 1:] = pts[2 * k:2 * k + d, :1]
+    pts[2 * k + d:2 * k + 2 * d, 1] = pts[2 * k + d:2 * k + 2 * d, 0] \
+        + r.choice([0.0, 1e-7], (d, 1))
+    corner = np.zeros((n, 3, 12), np.float32)
+    corner[..., 0:3] = pts
+    corner[..., 3:6] = r.normal(size=(n, 3, 3))
+    corner[..., 6:9] = r.normal(size=(n, 3, 3))
+    corner[..., 9] = r.choice([-1.0, 1.0], (n, 3))
+    corner[..., 10:12] = r.uniform(-1, 2, (n, 3, 2))
+    rot = np.eye(4, dtype=np.float32)
+    rot[:3, :3] = np.linalg.qr(r.normal(size=(3, 3)))[0] * 0.1 \
+        + np.eye(3) * 0.9
+    rot[3, :3] = [0.5, -0.25, 1.0]
+    scale = np.diag([1.5, 0.5, 1.0, 1.0]).astype(np.float32)
+    n_prims, n_meshlets = 12, 24
+    tri_prim = r.integers(0, n_prims, n)
+    tri_meshlet = r.integers(0, n_meshlets, n)
+    pad = r.random(n) < 0.1
+    tri_prim[pad] = -1
+    tri_meshlet[pad] = -1
+    t = lambda x, dt=torch.int32: torch.tensor(np.asarray(x), dtype=dt,
+                                               device=dev)
+    scene = SimpleNamespace(
+        mesh_transforms=t(np.stack([np.eye(4), rot, scale]), torch.float32),
+        tri_mesh=t(r.integers(0, 3, n)), tri_prim=t(tri_prim),
+        tri_corner=t(corner.reshape(n, 36).T.copy(), torch.float32),
+        prim_double_sided=t(np.arange(n_prims) % 3 == 0),
+        prim_material=t(np.arange(n_prims) % 3),
+        tri_meshlet=t(tri_meshlet),
+        meshlet_prim=t(r.integers(-1, n_prims, n_meshlets)))
+    return (scene, t(r.random(n_prims) < 0.85, torch.bool),
+            t(r.random(n_meshlets) < 0.85, torch.bool),
+            t(r.random(n) < 0.9, torch.bool))
+
+
+def setup_view(dev, width, height):
+    """(scene rotation, view_proj) on dev: the eye at z = -12 looking +z."""
+    from incarnation_tpu_torch.core.view import View
+    vp = View.from_lookat([0.5, 0.5, -12.0], [0.0, 0.0, 6.0],
+                          aspect=width / height).view_proj()
+    rot = np.eye(4, dtype=np.float32)
+    rot[:3, :3] = [[0.96, 0.0, -0.28], [0.0, 1.0, 0.0], [0.28, 0.0, 0.96]]
+    return (torch.tensor(rot, device=dev),
+            torch.tensor(vp, dtype=torch.float32, device=dev))
+
+
+def setup_cases(scene, rot, vp, width, height):
+    """How many of setup_scene's triangles reach each case, in float64:
+    crossing w = eps, |det| <= 1e-12, back faces of single- and of
+    double-sided primitives (neither crossing nor degenerate)."""
+    m = (scene.mesh_transforms.double() @ rot.double() @ vp.double()).cpu()
+    m = m.numpy()[scene.tri_mesh.cpu().numpy()]
+    ct = scene.tri_corner.double().cpu().numpy()
+    p = []
+    for k in range(3):
+        pos = np.concatenate([ct[12 * k:12 * k + 3].T,
+                              np.ones((ct.shape[1], 1))], 1)
+        clip = np.einsum("ti,tij->tj", pos, m)
+        p.append(np.stack([(0.5 * clip[:, 0] + 0.5 * clip[:, 3]) * width,
+                           (-0.5 * clip[:, 1] + 0.5 * clip[:, 3]) * height,
+                           clip[:, 3]], -1))
+    det = np.einsum("ti,ti->t", p[0], np.cross(p[1], p[2]))
+    w = np.stack([q[:, 2] for q in p])
+    crossing = (w.min(0) <= 1e-3) & (w.max(0) > 1e-3)
+    prim = scene.tri_prim.cpu().numpy()
+    ds = scene.prim_double_sided.cpu().numpy()[np.clip(prim, 0, None)] > 0
+    back = (det > 1e-12) & (prim >= 0) & ~crossing
+    return dict(crossing=int(crossing.sum()),
+                degenerate=int((np.abs(det) <= 1e-12).sum()),
+                back_single=int((back & ~ds).sum()),
+                back_double=int((back & ds).sum()))
+
+
+def _bits_equal(a, b):
+    """Equal bit for bit (NaN payloads included), or both None."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tri_vis", [False, True], ids=["", "tri_visible"])
+@pytest.mark.parametrize("meshlets", [False, True], ids=["", "meshlets"])
+@pytest.mark.parametrize("double", [False, True], ids=["", "all_double"])
+@pytest.mark.parametrize("attrs", [True, False],
+                         ids=["attributes", "depth_only"])
+def test_k9_matches_twin_bit_for_bit(dev, attrs, double, meshlets, tri_vis):
+    """K9 against prepare_geometry_plain on the card: setup, ids, valid,
+    bbox and attr equal bit for bit, with and without attribute planes,
+    all_double_sided, meshlet culling and tri_visible, on triangles that
+    cross w = eps, degenerate ones and single- and double-sided back
+    faces."""
+    scene, prim_vis, ml_vis, tri_visible = setup_scene(dev, seed=31)
+    params = raster.RasterParams(width=320, height=72)
+    rot, vp = setup_view(dev, 320, 72)
+    kw = dict(tri_visible=tri_visible if tri_vis else None,
+              meshlet_visible=ml_vis if meshlets else None,
+              emit_attributes=attrs, all_double_sided=double)
+    n0 = raster.K9.launches
+    got = raster.prepare_geometry(scene, rot, vp, prim_vis, params, **kw)
+    ref = raster.prepare_geometry_plain(scene, rot, vp, prim_vis, params,
+                                        **kw)
+    assert raster.K9.launches == n0 + 1
+    for f in ref._fields:
+        assert _bits_equal(getattr(got, f), getattr(ref, f)), f
+    assert 0 < int(ref.valid.sum()) < ref.valid.numel()
+    cases = setup_cases(scene, rot, vp, 320, 72)
+    assert min(cases.values()) > 0, cases
+
+
+def test_k9_refuses_and_never_falls_back(dev):
+    """prepare_geometry raises instead of launching K9, and never runs the
+    twin, on an int64 table or a corner table that is not contiguous."""
+    scene, prim_vis, _, _ = setup_scene(dev, n=64, seed=32)
+    params = raster.RasterParams(width=64, height=32)
+    rot, vp = setup_view(dev, 64, 32)
+    n0 = raster.K9.launches
+    scene.tri_prim = scene.tri_prim.long()
+    with pytest.raises(ValueError, match="tri_prim"):
+        raster.prepare_geometry(scene, rot, vp, prim_vis, params)
+    scene.tri_prim = scene.tri_prim.int()
+    scene.tri_corner = scene.tri_corner.T.contiguous().T
+    with pytest.raises(ValueError, match="tri_corner"):
+        raster.prepare_geometry(scene, rot, vp, prim_vis, params)
+    assert raster.K9.launches == n0

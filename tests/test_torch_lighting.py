@@ -339,6 +339,49 @@ def test_sky_lighting_and_background_match_jax(probes, analytic):
         np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-4)
 
 
+# sky_lighting options the extras case above does not reach: HBAO with
+# bent normals, lighting_only, one IBL lobe off, no extras
+SKY_CASES = {
+    "hbao_bent_normals": dict(hbao=True, bent=True, extras=True),
+    "lighting_only": dict(lighting_only=True, extras=True),
+    "diffuse_off": dict(diffuse_ibl=False, extras=True),
+    "specular_off": dict(specular_ibl=False, extras=True),
+    "no_extras": dict(),
+}
+
+
+@pytest.mark.parametrize("analytic", [False, True])
+@pytest.mark.parametrize("case", sorted(SKY_CASES))
+def test_sky_lighting_options_match_jax(probes, case, analytic):
+    """sky_lighting's twin against JAX on the options of SKY_CASES, at the
+    tolerances of test_sky_lighting_and_background_match_jax (the LUT
+    1e-5, the analytic env-BRDF 2e-2 relative)."""
+    jp, _, tp = probes
+    jgb, tgb, n, v, _ = _gbuffers(13, 24, 40, extras=True)
+    r = np.random.default_rng(14)
+    ao = r.uniform(0, 1, (24, 40)).astype(np.float32)
+    bent = _unit(r, (24, 40, 3))
+    o = dict(SKY_CASES[case])
+    use_hbao, use_bent = o.pop("hbao", False), o.pop("bent", False)
+    use_extras = o.pop("extras", False)
+    lut = jibl.pack_env_brdf(jibl.env_brdf_lut(16, 64))
+    j = np.asarray(jsl.sky_lighting(
+        jgb, jnp.asarray(n), jnp.asarray(v), jp, lut, 2000.0,
+        hbao=jnp.asarray(ao) if use_hbao else None,
+        bent_normals=jnp.asarray(bent) if use_bent else None,
+        extras=jgb.extras if use_extras else None,
+        analytic_env_brdf=analytic, **o))
+    t = tsl.sky_lighting(
+        tgb, _t(n), _t(v), tp, _t(lut), 2000.0,
+        hbao=_t(ao) if use_hbao else None,
+        bent_normals=_t(bent) if use_bent else None,
+        extras=tgb.extras if use_extras else None,
+        analytic_env_brdf=analytic, **o).numpy()
+    assert np.abs(t).max() > 0
+    np.testing.assert_allclose(t, j, rtol=2e-2 if analytic else 1e-5,
+                               atol=1e-3)
+
+
 def test_cull_and_tonemap_match_jax():
     r = np.random.default_rng(12)
     bs = np.concatenate([r.uniform(-20, 20, (200, 3)),
