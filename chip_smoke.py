@@ -120,14 +120,15 @@ K5_OUT_BYTES = 85
 K6_OPS_PER_PIXEL = 43
 K6_PIXEL_BYTES = 7 * 4 + 8
 K5_RTOL = 1e-5             # K5 against its twin: see _k5_error
-# K8, counted from csrc/skylight.cu (pow, sqrt and abs count one each), per
-# covered pixel: the diffuse lobe 111 (the SH basis 25, its 27 fused
-# multiply-adds 54, albedo, AO blend), +4 with extras; the specular lobe
-# 162 (NoV and the reflected direction 29, the cube face 11, the
-# trilinear fetch 88, f0 and the AO blend 34) and one env-BRDF evaluation:
-# the analytic fit 1,198 (two 16x16 Chebyshev tensor sums of 527 and
-# their recurrences) or the LUT 32; the clearcoat lobe with extras 115
-# (another fetch 88) and another evaluation; the HBAO scale 3. Bytes: the
+# K8, counted from csrc/skylight.cu (pow, sqrt and abs count one each, a
+# fused multiply-add two), per covered pixel: the diffuse lobe 111 (the SH
+# basis 25, its 27 fused multiply-adds 54, albedo, AO blend), +4 with
+# extras; the specular lobe 162 (NoV and the reflected direction 29, the
+# cube face 11, the trilinear fetch 88, f0 and the AO blend 34) and one
+# env-BRDF evaluation: the analytic fit 1,198 (two 16x16 Chebyshev tensor
+# sums of 527 and their recurrences, every multiply-add fused) or the LUT
+# 32; the clearcoat lobe with extras 115 (another fetch 88) and another
+# evaluation; the HBAO scale 3. Bytes: the
 # mask and the output of every pixel (13), base colour, mrao, n and v of
 # a covered one (56), +12 for bent normals, +4 for HBAO, +12 for extras;
 # the SH, the prefiltered cube and the LUT read once each, whole.
@@ -140,11 +141,14 @@ K8_TOL = 1e-5              # K8 against its twin: see _k8_error
 # 72, screen mapping 24, edge functions and det 32, the visibility, sign
 # and depth plane 33, the clipped bbox 89 (250 in the depth-only role);
 # with attributes the world normals and tangents 90 and the 29 planes
-# 126. Bytes: 144 B of corners (the positions, 36, depth-only), tri_mesh
-# and tri_prim 8 (+4 tri_meshlet, +1 tri_visible), 69 B out (setup, bbox,
-# id, valid) + 116 of planes; each mesh row (100 B), primitive row (9) and
-# meshlet row (5) read once.
-K9_OPS_DEPTH, K9_OPS_ATTR = 250, 216
+# 126; per mesh the two 4x4 products, local_to_world and local_to_clip,
+# 224 (the work the function needs; K9 forms them in every thread).
+# Bytes: 144 B of corners (the positions, 36, depth-only),
+# tri_mesh and tri_prim 8 (+4 tri_meshlet, +1 tri_visible), 69 B out
+# (setup, bbox, id, valid) + 116 of planes; each mesh transform (64 B),
+# primitive row (9) and meshlet row (5) and the two 4x4 matrices (128 B)
+# read once.
+K9_OPS_DEPTH, K9_OPS_ATTR, K9_OPS_PER_MESH = 250, 216, 224
 # K4, counted from csrc/bvh.cu (a fused multiply-add counts two), for the
 # slots these inputs fill: a triangle test 46 per filled leaf slot the ray
 # must test (two cross products at 9, four dot products at 5, the
@@ -265,7 +269,8 @@ def main(argv=None) -> int:
     from incarnation_tpu_torch.kernels import (build, bvh, clustered, raster,
                                                resolve, shadow, skylight,
                                                taa)
-    # K9's wrapper leaves the 4x4 products to torch.matmul in full f32
+    # the port's small matmuls (the band matrix, the RT frame's rotated
+    # rays, the debug draws) need full f32
     if torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("TF32 matmuls are on: the port's 4x4 products "
                            "need full f32")
@@ -933,8 +938,8 @@ def _k8_error(got, ref, mask):
     """(max abs error, that error over the twin's peak radiance) of one K8
     launch; raises where an uncovered pixel is not 0 or the error passes
     K8_TOL of the peak. K8 repeats the twin's operations in order
-    (--fmad=false) but for sh_irradiance's einsum, a cuBLAS GEMM whose sum
-    order over the nine SH terms is its own."""
+    (--fmad=false; the env-BRDF fit's and the SH irradiance's
+    multiply-adds fused in both), so the error is 0 where measured."""
     if bool(got[~mask].any()) or bool(ref[~mask].any()):
         raise RuntimeError("K8 or its twin lit an uncovered pixel")
     if not bool(mask.any()):
@@ -1041,18 +1046,20 @@ def _k9_bound(raster, a, kw):
     ml = x["meshlet_visible"] is not None
     per_tri = (144 if attrs else 36) + 8 + 4 * ml \
         + (x["tri_visible"] is not None) + 69 + 116 * attrs
-    nbytes = t * per_tri + 100 * scene.mesh_transforms.shape[0] \
+    n_mesh = scene.mesh_transforms.shape[0]
+    nbytes = t * per_tri + 64 * n_mesh + 128 \
         + 9 * x["prim_visible"].shape[0] \
         + (5 * x["meshlet_visible"].shape[0] if ml else 0)
-    return _bound(nbytes, t * (K9_OPS_DEPTH + K9_OPS_ATTR * attrs))
+    return _bound(nbytes, t * (K9_OPS_DEPTH + K9_OPS_ATTR * attrs)
+                  + n_mesh * K9_OPS_PER_MESH)
 
 
 def k9_rows(raster, calls, n_launches):
     """K9 against its twin, bit for bit, on each captured prepare_geometry
     launch, timed, with its bound and registers: one JSON row for the
     camera pass (attribute planes) and one for the sun's depth-only pass.
-    A launch's ms is the wrapper's: K9 and the two 4x4 products with their
-    cat before it (raster._mesh_rows, timed alone in the log)."""
+    A launch's ms is the wrapper's, one K9 launch: the two 4x4 products
+    per mesh run inside it."""
     roles = {"k9_setup[camera]": [], "k9_setup[sun_depth_only]": []}
     for kind, a, kw in calls:
         if kind == "k9":
@@ -1064,7 +1071,7 @@ def k9_rows(raster, calls, n_launches):
     for name, launches in roles.items():
         if not launches:
             raise RuntimeError(f"{name}: no K9 launch was captured")
-        ms, plain_ms, mesh_ms, bounds, bound_by = [], [], [], [], set()
+        ms, plain_ms, bounds, bound_by = [], [], [], set()
         for a, kw in launches:
             _k9_error(raster.prepare_geometry(*a, **kw),
                       raster.prepare_geometry_plain(*a, **kw))
@@ -1072,7 +1079,6 @@ def k9_rows(raster, calls, n_launches):
                                 20))
             plain_ms.append(device_ms(
                 lambda: raster.prepare_geometry_plain(*a, **kw), 2))
-            mesh_ms.append(device_ms(lambda: raster._mesh_rows(*a[:3]), 20))
             b, by = _k9_bound(raster, a, kw)
             bounds.append(b)
             bound_by.add(by)
@@ -1081,8 +1087,7 @@ def k9_rows(raster, calls, n_launches):
                     if ("ILb1E" in k) == attrs), {})
         _log(f"{name}: {launches[0][0][0].tri_corner.shape[1]} triangles; "
              "per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
-             + " (the 4x4 products and cat alone " + ", ".join(
-                 f"{t:.4f}" for t in mesh_ms) + "); twin ms "
+             + "; twin ms "
              + ", ".join(f"{t:.2f}" for t in plain_ms) + "; bound ms "
              + ", ".join(f"{t:.4f}" for t in bounds)
              + f"; identical to the twin on {len(launches)} launches; "
@@ -1096,7 +1101,7 @@ def k9_rows(raster, calls, n_launches):
             ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
             bound_ms=float(np.mean(bounds)),
             bound_by="operations" if "operations" in bound_by else "bytes",
-            library_ms=None, mesh_rows_ms=float(np.mean(mesh_ms)),
+            library_ms=None,
             registers=res.get("registers"),
             spill_bytes=res.get("spill_bytes")))
     return rows

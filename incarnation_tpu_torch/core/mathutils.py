@@ -15,6 +15,8 @@ Host-side matrix helpers work on numpy; per-pixel helpers on torch tensors.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -173,6 +175,32 @@ def ipow(x, n: int):
         if n:
             x = x * x
     return acc
+
+
+def fma(a, b, c):
+    """f32 a * b + c rounded once to nearest even, as a fused multiply-add
+    does it (__fmaf_rn in csrc/bvh.cu and csrc/skylight.cu; XLA's CPU
+    build fuses such products so). a and b are f32 tensors, or f64
+    tensors or Python floats that hold f32 values (a caller may pass a
+    tensor's f64 copy once instead of converting it on every call); c is
+    an f32 tensor. The f64 product p of two f32 values is exact; the f64
+    sum s = p + c rounds, and TwoSum gives its exact error e. Casting s to
+    f32 rounds a * b + c correctly, except where s lies exactly halfway
+    between two f32 values and e is not 0: the exact sum then lies on e's
+    side of that midpoint and rounds to the neighbour there (the plain
+    cast would round s a second time, to even). Exact for sums below the
+    f32 overflow threshold."""
+    p = (a.double() if torch.is_tensor(a) else float(a)) * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    e = (p - (s - bv)) + (cd - bv)
+    f = s.float()
+    fd = f.double()
+    g = torch.nextafter(f, torch.where(fd < s, math.inf, -math.inf))
+    tie = ((fd + g.double()) * 0.5 == s) & ((e > 0) | (e < 0))
+    side = torch.where(e > 0, torch.maximum(f, g), torch.minimum(f, g))
+    return torch.where(tie, side, f)
 
 
 def pixel_centers(height: int, width: int, device):

@@ -5,9 +5,19 @@
 // twin (kernels/raster.py prepare_geometry_plain) launches about 300
 // elementwise kernels over every triangle of the scene, twice a frame (the
 // camera pass and the sun's depth-only pass, kernels/shadow.py); here it is
-// one kernel. The two 4x4 products per mesh instance stay torch.matmul in
-// the wrapper (raster._mesh_rows), as JAX leaves them to XLA; K9 reads their
-// (meshes, 25) rows.
+// one kernel, the two 4x4 products per mesh instance included: K9 takes the
+// (meshes, 4, 4) mesh transforms and the scene rotation and view-projection
+// (4x4 each, on the card; the wrapper passes pointers, since passing them by
+// value would copy them to the host, a synchronize per pass) and forms
+// local_to_world = T @ R and local_to_clip = local_to_world @ VP itself, so
+// a pass is one launch and no torch.matmul.
+//
+// The products: each thread forms its own mesh's 25 values (224 float
+// operations, its mesh's transform read as four 16-byte rows, the two
+// matrices as loads every lane of the warp shares). A block that formed
+// each of its meshes' values once in shared memory, 16 threads a mesh, was
+// slower on the depth-only pass (PERF.md): its reductions and barriers
+// cost more than the products, and it spilled.
 //
 // One thread per triangle: the three corners' clip positions, world normals
 // and tangents from tri_corner (36 rows of T floats, read coalesced) and its
@@ -23,19 +33,20 @@
 //
 // Arithmetic: every operation is the twin's, in the twin's order, each
 // multiply and add rounded on its own (--fmad=false, kernels/build.py), the
-// sums left to right; a division by the Python number eps is, as torch does
-// it on the card, a multiplication by its float reciprocal; 1 / |det| is an
-// IEEE division (torch's reciprocal); minimum, maximum and clamp propagate a
-// NaN as torch's do; the bbox is floor(clamp(x, -2e6, 2e6)) cast to int.
-// So K9 equals its twin bit for bit (chip_smoke.py holds every launch to
-// that), and K1 downstream sees the same setup values.
+// sums left to right (the 4x4 products too: raster._mat4_product); a
+// division by the Python number eps is, as torch does it on the card, a
+// multiplication by its float reciprocal; 1 / |det| is an IEEE division
+// (torch's reciprocal); minimum, maximum and clamp propagate a NaN as
+// torch's do; the bbox is floor(clamp(x, -2e6, 2e6)) cast to int. So K9
+// equals its twin bit for bit (chip_smoke.py holds every launch to that),
+// and K1 downstream sees the same setup values.
 //
 // What bounds it: bytes. A triangle reads 144 B of corners (36 B of
 // positions in the depth-only role) and 8-12 B of ids, and writes 48 B of
 // setup, 16 of bbox, 4 of id, 1 of valid and, with attributes, 116 of
 // planes: about 0.029 ms for the atrium's 289,068 triangles at 3.35 TB/s
-// (0.010 ms depth-only), against 466 float operations (250 depth-only;
-// chip_smoke.py counts both).
+// (0.010 ms depth-only), against 466 float operations (250 depth-only)
+// and 224 a mesh for the products (chip_smoke.py counts both).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +73,48 @@ __device__ __forceinline__ int ifloor(float x) {
   return (int)floorf(tmin(tmax(x, -BIG_F), BIG_F));
 }
 
+// row i of local_to_world = T @ R (T one mesh's transform, R the scene
+// rotation), each entry's sum left to right over k, every multiply and add
+// rounded on its own (--fmad=false), as the twin's raster._mat4_product
+__device__ __forceinline__ void world_row(const float4* __restrict__ xf,
+                                          const float4* __restrict__ rot,
+                                          int i, float* r) {
+  const float4 a = __ldg(xf + i);
+  const float4 b0 = __ldg(rot), b1 = __ldg(rot + 1), b2 = __ldg(rot + 2),
+               b3 = __ldg(rot + 3);
+  r[0] = a.x * b0.x + a.y * b1.x + a.z * b2.x + a.w * b3.x;
+  r[1] = a.x * b0.y + a.y * b1.y + a.z * b2.y + a.w * b3.y;
+  r[2] = a.x * b0.z + a.y * b1.z + a.z * b2.z + a.w * b3.z;
+  r[3] = a.x * b0.w + a.y * b1.w + a.z * b2.w + a.w * b3.w;
+}
+
+// entry j of row r @ VP (a row of local_to_clip), left to right
+__device__ __forceinline__ float clip_entry(const float* r,
+                                            const float* __restrict__ vp,
+                                            int j) {
+  return r[0] * __ldg(vp + j) + r[1] * __ldg(vp + 4 + j) +
+         r[2] * __ldg(vp + 8 + j) + r[3] * __ldg(vp + 12 + j);
+}
+
+// one mesh's row (raster._mesh_rows): local_to_clip (16), then the 3x3 of
+// local_to_world (9)
+__device__ __forceinline__ void mesh_row(const float4* __restrict__ xf,
+                                         const float4* __restrict__ rot,
+                                         const float* __restrict__ vp,
+                                         float* m) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float r[4];
+    world_row(xf, rot, i, r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) m[4 * i + j] = clip_entry(r, vp, j);
+    if (i < 3) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) m[16 + 3 * i + j] = r[j];
+    }
+  }
+}
+
 struct Acc {  // the clipped polygon's running bbox
   float mnx, mxx, mny, mxy;
   __device__ __forceinline__ void add(float x, float y, bool ok) {
@@ -79,7 +132,8 @@ template <bool ATTR>
 __global__ void __launch_bounds__(K9_THREADS)
 k9_setup_kernel(const float* __restrict__ corner, int t_count,
                 const int* __restrict__ tri_mesh,
-                const float* __restrict__ mesh_rows, int n_mesh,
+                const float4* __restrict__ mesh_xf, int n_mesh,
+                const float4* __restrict__ rot, const float* __restrict__ vp,
                 const int* __restrict__ tri_prim,
                 const uint8_t* __restrict__ prim_visible,
                 const int* __restrict__ prim_double_sided,
@@ -99,10 +153,12 @@ k9_setup_kernel(const float* __restrict__ corner, int t_count,
   float e[3][3], zp[3], a[3][9];
   float tri_mat = 0.0f;
   if (live) {
-    // the mesh's local-to-clip (16) and local-to-world 3x3 (9); the scene's
-    // tables are consistent, the clamps only keep the reads inside them
-    const float* m = mesh_rows + 25 * clampi(__ldg(tri_mesh + t), 0,
-                                             n_mesh - 1);
+    // the mesh's local-to-clip (16) and local-to-world 3x3 (9), formed
+    // here; the scene's tables are consistent, the clamp only keeps the
+    // reads inside them
+    const int mesh = clampi(__ldg(tri_mesh + t), 0, n_mesh - 1);
+    float m[25];
+    mesh_row(mesh_xf + 4 * mesh, rot, vp, m);
     float clip[3][4];
 #pragma unroll
     for (int k = 0; k < 3; ++k) {
@@ -111,20 +167,19 @@ k9_setup_kernel(const float* __restrict__ corner, int t_count,
       const float px = __ldg(c), py = __ldg(c + s), pz = __ldg(c + 2 * s);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        clip[k][j] = px * __ldg(m + j) + py * __ldg(m + 4 + j) +
-                     pz * __ldg(m + 8 + j) + __ldg(m + 12 + j);
+        clip[k][j] = px * m[j] + py * m[4 + j] + pz * m[8 + j] + m[12 + j];
       if (!ATTR) continue;
       // attributes: u, v, world normal, world tangent, tangent sign
       a[k][0] = __ldg(c + 10 * s);
       a[k][1] = __ldg(c + 11 * s);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        a[k][2 + j] = __ldg(c + 3 * s) * __ldg(m + 16 + j) +
-                      __ldg(c + 4 * s) * __ldg(m + 19 + j) +
-                      __ldg(c + 5 * s) * __ldg(m + 22 + j);
-        a[k][5 + j] = __ldg(c + 6 * s) * __ldg(m + 16 + j) +
-                      __ldg(c + 7 * s) * __ldg(m + 19 + j) +
-                      __ldg(c + 8 * s) * __ldg(m + 22 + j);
+        a[k][2 + j] = __ldg(c + 3 * s) * m[16 + j] +
+                      __ldg(c + 4 * s) * m[19 + j] +
+                      __ldg(c + 5 * s) * m[22 + j];
+        a[k][5 + j] = __ldg(c + 6 * s) * m[16 + j] +
+                      __ldg(c + 7 * s) * m[19 + j] +
+                      __ldg(c + 8 * s) * m[22 + j];
       }
       a[k][8] = __ldg(c + 9 * s);
     }
@@ -255,9 +310,12 @@ k9_setup_kernel(const float* __restrict__ corner, int t_count,
     attr[(size_t)first * ATTR_ROWS + j] = stage[j];
 }
 
+// mesh_xf: the (n_mesh, 4, 4) mesh transforms; rot and vp: the scene
+// rotation and the view-projection, 4x4 each, on the card; all three
+// 16-byte aligned
 extern "C" int k9_setup(const float* corner, int t_count, const int* tri_mesh,
-                        const float* mesh_rows, int n_mesh,
-                        const int* tri_prim,
+                        const float* mesh_xf, int n_mesh, const float* rot,
+                        const float* vp, const int* tri_prim,
                         const uint8_t* prim_visible,
                         const int* prim_double_sided, const int* prim_material,
                         int n_prims, const int* tri_meshlet,
@@ -270,21 +328,25 @@ extern "C" int k9_setup(const float* corner, int t_count, const int* tri_mesh,
   if (t_count < 0 || n_mesh < 1 || n_prims < 1 || width < 1 || height < 1 ||
       (meshlet_visible && (n_meshlets < 1 || !tri_meshlet || !meshlet_prim)))
     return (int)cudaErrorInvalidValue;
-  // bbox rows are stored as 16-byte words
-  if ((uintptr_t)bbox & 15u) return (int)cudaErrorInvalidValue;
+  // bbox rows are stored, and the matrices' rows loaded, as 16-byte words
+  if (((uintptr_t)bbox | (uintptr_t)mesh_xf | (uintptr_t)rot |
+       (uintptr_t)vp) & 15u)
+    return (int)cudaErrorInvalidValue;
+  const float4* xf4 = reinterpret_cast<const float4*>(mesh_xf);
+  const float4* rot4 = reinterpret_cast<const float4*>(rot);
   if (t_count == 0) return (int)cudaSuccess;
   const int blocks = (t_count + K9_THREADS - 1) / K9_THREADS;
   if (attr)
     k9_setup_kernel<true><<<blocks, K9_THREADS, 0, (cudaStream_t)stream>>>(
-        corner, t_count, tri_mesh, mesh_rows, n_mesh, tri_prim, prim_visible,
-        prim_double_sided, prim_material, n_prims, tri_meshlet, meshlet_prim,
-        meshlet_visible, n_meshlets, tri_visible, all_double_sided, width,
-        height, setup, ids, valid, bbox, attr);
+        corner, t_count, tri_mesh, xf4, n_mesh, rot4, vp, tri_prim,
+        prim_visible, prim_double_sided, prim_material, n_prims, tri_meshlet,
+        meshlet_prim, meshlet_visible, n_meshlets, tri_visible,
+        all_double_sided, width, height, setup, ids, valid, bbox, attr);
   else
     k9_setup_kernel<false><<<blocks, K9_THREADS, 0, (cudaStream_t)stream>>>(
-        corner, t_count, tri_mesh, mesh_rows, n_mesh, tri_prim, prim_visible,
-        prim_double_sided, prim_material, n_prims, tri_meshlet, meshlet_prim,
-        meshlet_visible, n_meshlets, tri_visible, all_double_sided, width,
-        height, setup, ids, valid, bbox, nullptr);
+        corner, t_count, tri_mesh, xf4, n_mesh, rot4, vp, tri_prim,
+        prim_visible, prim_double_sided, prim_material, n_prims, tri_meshlet,
+        meshlet_prim, meshlet_visible, n_meshlets, tri_visible,
+        all_double_sided, width, height, setup, ids, valid, bbox, nullptr);
   return (int)cudaGetLastError();
 }

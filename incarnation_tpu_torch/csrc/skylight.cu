@@ -29,28 +29,41 @@
 // Arithmetic: every operation is the twin's, in the twin's order, built
 // --fmad=false (kernels/build.py), and every constant is the float the
 // twin's Python scalar rounds to. The dot products are mathutils.dot3's,
-// left to right; mathutils.normalize is v * (1 / sqrt(dot3 + 1e-20)); the
-// Chebyshev recurrence is (2 t) T[k-1] - T[k-2] and the tensor sum row by
-// row, g = sum_j c_ij T_j(v) left to right, then out += T_i(u) g; pow and
-// sqrt are the libdevice functions torch calls. The one sum K8 cannot
-// follow is sh_irradiance's einsum, a cuBLAS GEMM on the card whose order
-// over the nine terms is its own: K8 takes it as one chain of fused
-// multiply-adds from zero, which gave the GEMM's bits on every launch
-// measured (PERF.md), but nothing promises that, so K8 is held to its twin
-// to a tolerance (chip_smoke.py K8_TOL), not bit for bit.
+// left to right; mathutils.normalize is v * (1 / sqrt(dot3 + 1e-20)); pow
+// and sqrt are the libdevice functions torch calls. The analytic env-BRDF
+// fit is the one place K8 fuses: each Chebyshev recurrence step, T_k =
+// (2 t) T[k-1] - T[k-2], and each product of the tensor sums (row by row,
+// g = c_i0 T_0(v), then g += c_ij T_j(v) left to right, then out +=
+// T_i(u) g) is one explicit FFMA (__fmaf_rn, which --fmad=false leaves
+// alone), and the twin (ibl.env_brdf_approx) rounds each of those steps
+// once, exactly (mathutils.fma), as XLA's CPU build fuses them in the JAX
+// package's jitted frame. The fit is ill-conditioned in f32 (an ulp of
+// T_i(u) moves A by about 1e-2), so K8 and its twin fuse exactly the same
+// steps. The SH irradiance is one chain of FFMAs from zero per channel,
+// which the twin's ibl.sh_irradiance rounds the same way (mathutils.fma).
+// So K8 equals its twin bit for bit (chip_smoke.py holds it to K8_TOL of
+// the peak radiance and logs the error).
+//
+// Mapping: a warp shades an 8 x 4 tile of pixels, so the warps that
+// straddle a coverage edge, whose lanes diverge, are fewer than with 32
+// pixels of a row, and a warp's reflected directions lie closer together;
+// a block of 128 threads (a 16 x 8 tile) leaves less of an SM idle at the
+// end of a launch than one of 256 (each a few percent on the bench frame;
+// PERF.md).
 //
 // What bounds it: a covered pixel reads 57 bytes (base colour and mrao as
 // 16-byte rows, n, v, the mask byte), +12 with extras, +4 with HBAO, +12
 // with bent normals, and writes 12: about 0.043 ms at 1920 x 1088 and
-// 3.35 TB/s. The analytic env BRDF costs about 1,100 float operations a
-// lobe, about 0.034 ms at 67 TFLOP/s for 1.6 M covered pixels
-// (chip_smoke.py counts both), so the pass sits near the line between the
-// two bounds.
+// 3.35 TB/s. The analytic env BRDF costs about 1,200 float operations a
+// lobe (a fused multiply-add counts two), about 0.034 ms at 67 TFLOP/s for
+// 1.6 M covered pixels (chip_smoke.py counts both), so the pass sits near
+// the line between the two bounds; as 552 FFMAs the fit issues about 650
+// instructions a lobe, about 1,200 with each multiply and add apart.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define K8_THREADS 256
+#define K8_THREADS 128
 #define CHEB_N 16
 #define MAX_LEVELS 16
 
@@ -107,7 +120,7 @@ __device__ __forceinline__ float dot3(const float* a, const float* b) {
 }
 
 // ibl.sh_irradiance: the basis times the band weights, then the (9, 3)
-// product as one fused chain per channel
+// product as one fused chain per channel, as the twin rounds it
 __device__ __forceinline__ void sh_irradiance(const float* d, const float* sh,
                                               float* irr) {
   const float x = d[0], y = d[1], z = d[2];
@@ -203,15 +216,21 @@ __device__ __forceinline__ void sample_cube(const float* __restrict__ flat,
   for (int c = 0; c < 3; ++c) out[c] = s0[c] * uf + s1[c] * frac;
 }
 
-// the Chebyshev polynomials T_0..T_15 at t
+// the Chebyshev polynomials T_0..T_15 at t: T_k = (2 t) T_{k-1} - T_{k-2},
+// one FFMA a step (2 t is exact; the product and the sum round once)
 __device__ __forceinline__ void cheb(float t, float* ts) {
+  const float t2 = 2.0f * t;
   ts[0] = 1.0f;
   ts[1] = t;
 #pragma unroll
-  for (int k = 2; k < CHEB_N; ++k) ts[k] = (2.0f * t) * ts[k - 1] - ts[k - 2];
+  for (int k = 2; k < CHEB_N; ++k)
+    ts[k] = __fmaf_rn(t2, ts[k - 1], -ts[k - 2]);
 }
 
-// sum_i T_i(u) (sum_j c_ij T_j(v)), in the twin's order
+// sum_i T_i(u) (sum_j c_ij T_j(v)), in the twin's order: each row
+// g = c_i0 T_0(v), then g = fma(c_ij, T_j(v), g) for j = 1..15; the sum
+// starts at T_0(u) g_0, then out = fma(T_i(u), g_i, out). The coefficients
+// stay constant-bank operands of the FFMAs.
 __device__ __forceinline__ float cheb_tensor(const float* c, const float* tu,
                                              const float* tv) {
   float out = 0.0f;
@@ -219,9 +238,9 @@ __device__ __forceinline__ float cheb_tensor(const float* c, const float* tu,
   for (int i = 0; i < CHEB_N; ++i) {
     float g = c[i * CHEB_N] * tv[0];
 #pragma unroll
-    for (int j = 1; j < CHEB_N; ++j) g = g + c[i * CHEB_N + j] * tv[j];
-    const float term = tu[i] * g;
-    out = i == 0 ? term : out + term;
+    for (int j = 1; j < CHEB_N; ++j)
+      g = __fmaf_rn(c[i * CHEB_N + j], tv[j], g);
+    out = i == 0 ? tu[0] * g : __fmaf_rn(tu[i], g, out);
   }
   return out;
 }
@@ -286,9 +305,13 @@ k8_sky_kernel(const float4* __restrict__ base_color,
               const float* __restrict__ cube_flat,
               const float* __restrict__ lut, int lut_size, float sky,
               int flags, const Cube cube, const Cheb cheb_tab,
-              float* __restrict__ out, int npx) {
-  const int i = blockIdx.x * K8_THREADS + threadIdx.x;
-  if (i >= npx) return;
+              float* __restrict__ out, int width, int height) {
+  // a warp shades an 8 x 4 tile, a block (2 x 2 warps) a 16 x 8 tile
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = blockIdx.x * 16 + (warp & 1) * 8 + (lane & 7);
+  const int y = blockIdx.y * 8 + (warp >> 1) * 4 + (lane >> 3);
+  if (x >= width || y >= height) return;
+  const int i = y * width + x;
   float* o = out + 3 * i;
   if (!mask[i]) {
     o[0] = 0.0f;
@@ -404,8 +427,10 @@ extern "C" int k8_sky_lighting(const float* base_color, const float* mrao,
                                int cube_rows, const int* levels, int n_levels,
                                int cube_packed, const float* lut, int lut_size,
                                const float* cheb, float sky_brightness,
-                               int flags, float* out, int npx, void* stream) {
-  if (npx < 0 || n_levels < 1 || n_levels > MAX_LEVELS || !levels)
+                               int flags, float* out, int width, int height,
+                               void* stream) {
+  if (width < 0 || height < 0 || n_levels < 1 || n_levels > MAX_LEVELS ||
+      !levels)
     return (int)cudaErrorInvalidValue;
   // base colour and mrao load as 16-byte rows, the packed LUT as two
   // 16-byte words, the raw LUT as 8-byte pairs
@@ -436,12 +461,12 @@ extern "C" int k8_sky_lighting(const float* base_color, const float* mrao,
     tab.a[k] = cheb ? cheb[k] : 0.0f;
     tab.b[k] = cheb ? cheb[CHEB_N * CHEB_N + k] : 0.0f;
   }
-  if (npx == 0) return (int)cudaSuccess;
-  const int blocks = (npx + K8_THREADS - 1) / K8_THREADS;
+  if (width == 0 || height == 0) return (int)cudaSuccess;
+  const dim3 blocks((width + 15) / 16, (height + 7) / 8);
   k8_sky_kernel<<<blocks, K8_THREADS, 0, (cudaStream_t)stream>>>(
       reinterpret_cast<const float4*>(base_color),
       reinterpret_cast<const float4*>(mrao), mask, n, v, bent, hbao, extras,
       sh, cube_flat, lut, lut_size, sky_brightness, flags, cube, tab, out,
-      npx);
+      width, height);
   return (int)cudaGetLastError();
 }

@@ -55,11 +55,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import hashlib
-import math
 
 import numpy as np
 import torch
 
+from ..core.mathutils import fma as _fma
 from ..device import resolve_device
 from .build import Kernel, ptr
 
@@ -784,29 +784,6 @@ def _k4_counters(dev):
         buf = torch.zeros(3, dtype=torch.int32, device=dev)
         _K4_COUNTERS[key] = buf
     return buf
-
-
-def _fma(a, b, c):
-    """f32 a * b + c rounded once to nearest even, as a fused multiply-add
-    does it (csrc/bvh.cu k4_fma, __fmaf_rn; XLA's CPU build fuses
-    jnp.cross and jnp.sum so). The f64 product p of two f32 values is
-    exact; the f64 sum s = p + c rounds, and TwoSum gives its exact error
-    e. Casting s to f32 rounds a * b + c correctly, except where s lies
-    exactly halfway between two f32 values and e is not 0: the exact sum
-    then lies on e's side of that midpoint and rounds to the neighbour
-    there (the plain cast would round s a second time, to even). Exact
-    for sums below the f32 overflow threshold."""
-    p = a.double() * b.double()
-    cd = c.double()
-    s = p + cd
-    bv = s - p
-    e = (p - (s - bv)) + (cd - bv)
-    f = s.float()
-    fd = f.double()
-    g = torch.nextafter(f, torch.where(fd < s, math.inf, -math.inf))
-    tie = ((fd + g.double()) * 0.5 == s) & ((e > 0) | (e < 0))
-    side = torch.where(e > 0, torch.maximum(f, g), torch.minimum(f, g))
-    return torch.where(tie, side, f)
 
 
 def _cross(a, b):

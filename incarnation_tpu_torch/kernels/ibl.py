@@ -99,30 +99,37 @@ def pack_env_brdf(lut):
 
 def env_brdf_approx(no_v, roughness):
     """Analytic split-sum env-BRDF (A, B): 16x16 Chebyshev tensor fit of
-    NoV*A / NoV*B divided back by NoV (ibl_fit_coeffs.py)."""
+    NoV*A / NoV*B divided back by NoV (ibl_fit_coeffs.py).
+
+    Each step of the Chebyshev recurrence, T_k = (2 t) T_{k-1} - T_{k-2},
+    and each multiply-add of the tensor sums rounds once (mu.fma), as
+    XLA's CPU build fuses them in the JAX package's jitted frame and K8
+    (csrc/skylight.cu) issues them as FFMAs: row i's g starts at
+    c_i0 T_0(v), then g = fma(c_ij, T_j(v), g) for j = 1..15; the sum
+    starts at T_0(u) g_0, then out = fma(T_i(u), g_i, out). Every other
+    operation rounds on its own. The fit is ill-conditioned in f32 (an
+    ulp of T_i(u) moves A by about 1e-2), so K8 fuses exactly these
+    steps."""
     from . import ibl_fit_coeffs as _fc
     nov = torch.clamp(no_v, 0.0, 1.0)
     r = torch.clamp(roughness, 0.0, 1.0)
 
     def cheb(t, n=16):
+        # f64 copies of the f32 values, for mu.fma
+        t2 = (2.0 * t).double()
         ts = [torch.ones_like(t), t]
         for _ in range(n - 2):
-            ts.append(2.0 * t * ts[-1] - ts[-2])
-        return ts
+            ts.append(mu.fma(t2, ts[-1], -ts[-2]))
+        return ts, [x.double() for x in ts]
 
     def eval_tensor(coeffs, tu, tv):
+        (tu, tu64), (tv, tv64) = tu, tv
         out = None
-        for i, row in enumerate(coeffs):
-            g = None
-            for j, c in enumerate(row):
-                if abs(c) < 1e-9:
-                    continue
-                term = c * tv[j]
-                g = term if g is None else g + term
-            if g is None:
-                continue
-            term = tu[i] * g
-            out = term if out is None else out + term
+        for i, row in enumerate(np.asarray(coeffs, np.float32).tolist()):
+            g = row[0] * tv[0]
+            for j in range(1, len(row)):
+                g = mu.fma(row[j], tv64[j], g)
+            out = tu[0] * g if i == 0 else mu.fma(tu64[i], g, out)
         return out
 
     tu = cheb(2.0 * torch.pow(torch.clamp(nov, min=1e-8), 0.25) - 1.0)
@@ -407,11 +414,21 @@ def sh_project_latlong(latlong):
 
 
 def sh_irradiance(n, sh_coeffs):
-    """Cosine-convolved irradiance at normals n (..., 3) from (9, 3) SH."""
+    """Cosine-convolved irradiance at normals n (..., 3) from (9, 3) SH:
+    the basis times the band weights, then per channel one chain of
+    multiply-adds from zero over the nine terms, each rounded once
+    (mu.fma), as K8 (csrc/skylight.cu) computes it. (A matmul's order over
+    the nine terms is its library's own: cuBLAS on the card left K8 a few
+    ulps from the twin on most pixels of some inputs.)"""
     a = torch.as_tensor(np.concatenate(
         [[_SH_A[0]], [_SH_A[1]] * 3, [_SH_A[2]] * 5]).astype(np.float32),
         device=n.device)
-    return torch.einsum("...k,kc->...c", sh_basis(n) * a, sh_coeffs)
+    b = sh_basis(n) * a
+    acc = torch.zeros(b.shape[:-1] + (3,), dtype=torch.float32,
+                      device=n.device)
+    for k in range(9):
+        acc = mu.fma(b[..., k:k + 1], sh_coeffs[k], acc)
+    return acc
 
 
 @dataclasses.dataclass

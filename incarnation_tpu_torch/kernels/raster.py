@@ -92,24 +92,37 @@ class Bins:
 # 1. Geometry front end
 # ---------------------------------------------------------------------------
 
-# tri_corner, T, tri_mesh, mesh rows, meshes, tri_prim, prim_visible,
-# prim_double_sided, prim_material, primitives, tri_meshlet, meshlet_prim,
-# meshlet_visible (NULL: no meshlet culling), meshlets, tri_visible (NULL:
-# none), all_double_sided, width, height, then the outputs setup, ids,
-# valid, bbox and attr (NULL: emit_attributes=False)
+# tri_corner, T, tri_mesh, mesh transforms, meshes, scene rotation,
+# view_proj, tri_prim, prim_visible, prim_double_sided, prim_material,
+# primitives, tri_meshlet, meshlet_prim, meshlet_visible (NULL: no meshlet
+# culling), meshlets, tri_visible (NULL: none), all_double_sided, width,
+# height, then the outputs setup, ids, valid, bbox and attr (NULL:
+# emit_attributes=False)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K9 = Kernel("setup", "k9_setup",
-            [_P, _I, _P, _P, _I] + [_P] * 4 + [_I] + [_P] * 3 + [_I, _P]
-            + [_I] * 3 + [_P] * 5)
+            [_P, _I, _P, _P, _I, _P, _P] + [_P] * 4 + [_I] + [_P] * 3
+            + [_I, _P] + [_I] * 3 + [_P] * 5)
+
+
+def _mat4_product(a, b):
+    """a @ b for (..., 4, 4) a and a (4, 4) b in f32, each entry's sum
+    left to right over k with every multiply and add rounded on its own,
+    as K9 (csrc/setup.cu) computes it: elementwise torch operations, the
+    same bits on the CPU and on the card (a matmul's order is its
+    library's own)."""
+    out = a[..., :, 0:1] * b[0]
+    for k in range(1, 4):
+        out = out + a[..., :, k:k + 1] * b[k]
+    return out
 
 
 def _mesh_rows(scene, scene_rotation, view_proj):
     """(M, 25) f32 per mesh instance: local-to-clip (16), then the 3x3 of
-    local-to-world (9). Plain 4x4 products, as the JAX package leaves them
-    to XLA outside its kernels (full f32 on the card: TF32 is off by
-    default)."""
-    local_to_world = torch.matmul(scene.mesh_transforms, scene_rotation)
-    local_to_clip = torch.matmul(local_to_world, view_proj)
+    local-to-world (9), where local_to_world = T @ scene_rotation and
+    local_to_clip = local_to_world @ view_proj (_mat4_product). K9
+    computes the same rows inside the kernel; the twin gathers them."""
+    local_to_world = _mat4_product(scene.mesh_transforms, scene_rotation)
+    local_to_clip = _mat4_product(local_to_world, view_proj)
     return torch.cat([local_to_clip.reshape(-1, 16),
                       local_to_world[:, :3, :3].reshape(-1, 9)],
                      dim=-1).contiguous()
@@ -137,10 +150,16 @@ def prepare_geometry(scene, scene_rotation, view_proj, prim_visible,
     dev = ctab.device
     t = ctab.shape[1]
     i32 = torch.int32
-    packed = _mesh_rows(scene, scene_rotation, view_proj)
-    n_mesh, n_prims = packed.shape[0], prim_visible.shape[0]
+    xf = scene.mesh_transforms
+    n_mesh, n_prims = xf.shape[0], prim_visible.shape[0]
     _check(ctab, torch.float32, dev, "tri_corner", (36, t))
-    _check(packed, torch.float32, dev, "mesh rows", (n_mesh, 25))
+    # the matrices' rows load as 16-byte words
+    for name, x, shape in (("mesh_transforms", xf, (n_mesh, 4, 4)),
+                           ("scene_rotation", scene_rotation, (4, 4)),
+                           ("view_proj", view_proj, (4, 4))):
+        _check(x, torch.float32, dev, name, shape)
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: K9 needs it 16-byte aligned")
     for name, x in (("tri_mesh", scene.tri_mesh),
                     ("tri_prim", scene.tri_prim)):
         _check(x, i32, dev, name, (t,))
@@ -168,8 +187,9 @@ def prepare_geometry(scene, scene_rotation, view_proj, prim_visible,
     attr = (torch.empty((t, ATTR_ROWS), dtype=torch.float32, device=dev)
             if emit_attributes else None)
     meshlets = meshlet_visible is not None
-    K9(ptr(ctab), t, ptr(scene.tri_mesh), ptr(packed), n_mesh,
-       ptr(scene.tri_prim), ptr(prim_visible), ptr(scene.prim_double_sided),
+    K9(ptr(ctab), t, ptr(scene.tri_mesh), ptr(xf), n_mesh,
+       ptr(scene_rotation), ptr(view_proj), ptr(scene.tri_prim),
+       ptr(prim_visible), ptr(scene.prim_double_sided),
        ptr(scene.prim_material), n_prims,
        ptr(scene.tri_meshlet) if meshlets else None,
        ptr(scene.meshlet_prim) if meshlets else None, ptr(meshlet_visible),

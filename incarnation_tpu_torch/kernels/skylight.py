@@ -25,9 +25,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # base_color, mrao, mask, n, v, bent normals, hbao, extras (NULL: none),
 # sh, cube flat, cube rows, cube levels (host: bases then sizes), levels,
 # packed cube, env-BRDF LUT, its size, Chebyshev table (host), sky
-# brightness, flags, out, pixels
+# brightness, flags, out, width, height
 K8 = Kernel("skylight", "k8_sky_lighting",
-            [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P, _F, _I, _P, _I])
+            [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P, _F, _I, _P, _I, _I])
 # K8's flags (csrc/skylight.cu)
 _DIFFUSE, _SPECULAR, _LIGHTING_ONLY, _ANALYTIC, _LUT_PACKED = 1, 2, 4, 8, 16
 MAX_CUBE_LEVELS = 16
@@ -36,8 +36,8 @@ MAX_CUBE_LEVELS = 16
 @functools.lru_cache(maxsize=None)
 def _cheb_table():
     """ibl_fit_coeffs' CHEB_A then CHEB_B as 512 host floats, each the
-    float32 a Python scalar of the twin's `c * tv[j]` rounds to. K8 takes
-    every coefficient (the twin skips those below 1e-9, and there are
+    float32 the twin's coefficients round to. K8 and the twin take every
+    coefficient (the JAX function skips those below 1e-9, and there are
     none)."""
     from . import ibl_fit_coeffs as fc
     table = np.asarray([fc.CHEB_A, fc.CHEB_B], np.float64)
@@ -122,7 +122,7 @@ def sky_lighting(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
        ptr(cube.flat), cube.flat.shape[0], levels, cube.num_levels,
        int(cube.packed), ptr(lut), lut_size,
        _cheb_table() if analytic_env_brdf else None, float(sky_brightness),
-       flags, ptr(out), h * w)
+       flags, ptr(out), w, h)
     return out
 
 

@@ -1,4 +1,4 @@
-"""K1-K6 against their plain PyTorch twins on a CUDA card, at small
+"""K1-K9 against their plain PyTorch twins on a CUDA card, at small
 shapes from a seed. Marked `cuda`: they skip on a host without a card and
 run on the card with
 
@@ -998,7 +998,10 @@ def test_k8_matches_twin(dev, opts, env, cube_packed):
     IBL lobes on or off, lighting_only, HBAO, bent normals and extras given
     or not, the analytic env BRDF or the LUT in either layout, the
     prefiltered cube with packed or clamped neighbours; roughness at the
-    last mip level, NoV at its 0.01 clamp, NaN in uncovered pixels."""
+    last mip level, NoV at its 0.01 clamp, NaN in uncovered pixels. K8
+    equals the twin exactly (max abs error 0), the analytic env BRDF
+    included: both fuse the same multiply-adds of the fit and of the SH
+    irradiance."""
     import dataclasses
     probe, lut, packed = sky_probe(dev)
     probe = dataclasses.replace(probe, prefiltered=dataclasses.replace(
@@ -1012,6 +1015,7 @@ def test_k8_matches_twin(dev, opts, env, cube_packed):
     assert skylight.K8.launches == n0 + 1
     mask = args[0].mask
     _k8_close(got, ref, mask, opts)
+    assert float((got - ref).abs().max()) == 0.0, (opts, env)
     lobes = kw.get("diffuse_ibl", True) or kw.get("specular_ibl", True)
     assert bool((got[mask] != 0).any()) == lobes
 
@@ -1063,11 +1067,13 @@ def test_k8_refuses_and_never_falls_back(dev):
 # K9: triangle setup
 # ---------------------------------------------------------------------------
 
-def setup_scene(dev, n=900, seed=0):
+def setup_scene(dev, n=900, seed=0, n_mesh=3, sorted_meshes=False):
     """A scene-shaped namespace for triangle setup: n random triangles over
-    three mesh instances (identity, a rotation with a translation, a
-    non-uniform scale) seen from setup_view(); 12 primitives, every third
-    double-sided, of three materials; 24 meshlets; a tenth of the
+    n_mesh mesh instances (identity, a rotation with a translation, a
+    non-uniform scale, then random rotations, scales and translations), in
+    random order or sorted by mesh, seen from setup_view(); 12
+    primitives, every third double-sided, of three materials; 24
+    meshlets; a tenth of the
     triangles padding (tri_prim and tri_meshlet -1), a tenth with a corner
     behind the eye (crossing the near plane), a tenth with a corner within
     1e-3 of w = eps on either side, a fortieth collapsed to a point
@@ -1106,16 +1112,26 @@ def setup_scene(dev, n=900, seed=0):
     t = lambda x, dt=torch.int32: torch.tensor(np.asarray(x), dtype=dt,
                                                device=dev)
     scene = SimpleNamespace(
-        mesh_transforms=t(np.stack([np.eye(4), rot, scale]), torch.float32),
-        tri_mesh=t(r.integers(0, 3, n)), tri_prim=t(tri_prim),
+        mesh_transforms=None,
+        tri_mesh=t(np.sort(r.integers(0, n_mesh, n)) if sorted_meshes
+                   else r.integers(0, n_mesh, n)), tri_prim=t(tri_prim),
         tri_corner=t(corner.reshape(n, 36).T.copy(), torch.float32),
         prim_double_sided=t(np.arange(n_prims) % 3 == 0),
         prim_material=t(np.arange(n_prims) % 3),
         tri_meshlet=t(tri_meshlet),
         meshlet_prim=t(r.integers(-1, n_prims, n_meshlets)))
-    return (scene, t(r.random(n_prims) < 0.85, torch.bool),
-            t(r.random(n_meshlets) < 0.85, torch.bool),
-            t(r.random(n) < 0.9, torch.bool))
+    out = (scene, t(r.random(n_prims) < 0.85, torch.bool),
+           t(r.random(n_meshlets) < 0.85, torch.bool),
+           t(r.random(n) < 0.9, torch.bool))
+    xf = [np.eye(4), rot, scale]
+    for _ in range(n_mesh - 3):
+        m = np.eye(4)
+        m[:3, :3] = np.linalg.qr(r.normal(size=(3, 3)))[0] \
+            * r.uniform(0.5, 2.0, 3)[:, None]
+        m[3, :3] = r.uniform(-1, 1, 3)
+        xf.append(m)
+    scene.mesh_transforms = t(np.stack(xf[:n_mesh]), torch.float32)
+    return out
 
 
 def setup_view(dev, width, height):
@@ -1194,9 +1210,32 @@ def test_k9_matches_twin_bit_for_bit(dev, attrs, double, meshlets, tri_vis):
     assert min(cases.values()) > 0, cases
 
 
+@pytest.mark.parametrize("order", ["random", "sorted"])
+@pytest.mark.parametrize("attrs", [True, False],
+                         ids=["attributes", "depth_only"])
+def test_k9_many_meshes_per_block(dev, attrs, order):
+    """K9 bit for bit against its twin with 20 meshes, a block's
+    triangles spread over many of them (random order) or over one or two
+    (sorted, as the atrium stores them), including a ragged last
+    block."""
+    scene, prim_vis, ml_vis, _ = setup_scene(
+        dev, n=1000, seed=33, n_mesh=20, sorted_meshes=order == "sorted")
+    params = raster.RasterParams(width=320, height=72)
+    rot, vp = setup_view(dev, 320, 72)
+    kw = dict(meshlet_visible=ml_vis, emit_attributes=attrs)
+    got = raster.prepare_geometry(scene, rot, vp, prim_vis, params, **kw)
+    ref = raster.prepare_geometry_plain(scene, rot, vp, prim_vis, params,
+                                        **kw)
+    for f in ref._fields:
+        assert _bits_equal(getattr(got, f), getattr(ref, f)), f
+    assert 0 < int(ref.valid.sum()) < ref.valid.numel()
+
+
 def test_k9_refuses_and_never_falls_back(dev):
     """prepare_geometry raises instead of launching K9, and never runs the
-    twin, on an int64 table or a corner table that is not contiguous."""
+    twin, on an int64 table, a corner table that is not contiguous, and
+    mesh transforms or matrices of the wrong dtype, shape, device or
+    alignment (K9 loads their rows as 16-byte words)."""
     scene, prim_vis, _, _ = setup_scene(dev, n=64, seed=32)
     params = raster.RasterParams(width=64, height=32)
     rot, vp = setup_view(dev, 64, 32)
@@ -1205,7 +1244,23 @@ def test_k9_refuses_and_never_falls_back(dev):
     with pytest.raises(ValueError, match="tri_prim"):
         raster.prepare_geometry(scene, rot, vp, prim_vis, params)
     scene.tri_prim = scene.tri_prim.int()
-    scene.tri_corner = scene.tri_corner.T.contiguous().T
+    corner = scene.tri_corner
+    scene.tri_corner = corner.T.contiguous().T
     with pytest.raises(ValueError, match="tri_corner"):
         raster.prepare_geometry(scene, rot, vp, prim_vis, params)
+    scene.tri_corner = corner
+    xf = scene.mesh_transforms
+    shifted = torch.empty(xf.numel() + 1, device=dev)[1:].view(xf.shape)
+    shifted.copy_(xf)
+    for bad in (xf.double(), xf.reshape(-1, 16), xf.cpu(), shifted):
+        scene.mesh_transforms = bad
+        with pytest.raises(ValueError, match="mesh_transforms"):
+            raster.prepare_geometry(scene, rot, vp, prim_vis, params)
+    scene.mesh_transforms = xf
+    with pytest.raises(ValueError, match="view_proj"):
+        raster.prepare_geometry(scene, rot, vp.double(), prim_vis, params)
+    with pytest.raises(ValueError, match="scene_rotation"):
+        raster.prepare_geometry(scene, rot[:3], vp, prim_vis, params)
     assert raster.K9.launches == n0
+    raster.prepare_geometry(scene, rot, vp, prim_vis, params)
+    assert raster.K9.launches == n0 + 1

@@ -279,7 +279,11 @@ def test_probe_samplers_match_jax(probes):
 
 def test_env_brdf_matches_jax():
     """The analytic env-BRDF evaluates the same degree-16 Chebyshev tensor
-    in the same f32 order. That evaluation is ill-conditioned: the JAX
+    in the same f32 order, with the same multiply-adds fused: the JAX
+    function as the JAX package runs it, jitted (XLA's CPU build fuses the
+    recurrence steps and the tensor sums' products into multiply-adds;
+    eager dispatch rounds each operation apart and lands up to 0.28
+    away). That evaluation is ill-conditioned: the JAX
     package's own f32 result is up to 0.03 from its float64 evaluation for
     NoV >= 0.1 (and 15 near NoV = 0), and a 1-ulp difference in pow(NoV,
     1/4) between the two libraries moves A or B by up to 0.01 (1% where
@@ -290,7 +294,8 @@ def test_env_brdf_matches_jax():
     nv = r.uniform(0, 1, (64, 64)).astype(np.float32)
     ro = r.uniform(0, 1, (64, 64)).astype(np.float32)
     t = tibl.env_brdf_approx(_t(nv), _t(ro)).numpy()
-    j = np.asarray(jibl.env_brdf_approx(jnp.asarray(nv), jnp.asarray(ro)))
+    j = np.asarray(jax.jit(jibl.env_brdf_approx)(jnp.asarray(nv),
+                                                 jnp.asarray(ro)))
     np.testing.assert_allclose(t, j, rtol=1e-2, atol=0.02)
     assert (t == j).mean() > 0.9
     jlut = np.asarray(jibl.env_brdf_lut(16, 64))

@@ -4,6 +4,7 @@ checkout or another one.
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_frame_phases.py [TREE] [--frames 8] [--out FILE]
+    python3 tools/torch_frame_phases.py TREE_A TREE_B [--frames 8] [--out FILE]
 
 It imports chip_smoke.py from TREE (default: this checkout), builds that
 checkout's kernels, builds the atrium (chip_smoke.atrium_path: its cache
@@ -12,9 +13,14 @@ renders two warm-up frames and then FRAMES TAA frames of the main path at
 1920x1088 with the camera's orbit, each timed by CUDA events around
 render_frame, then chip_smoke.phase_breakdown of one more frame (a
 synchronize around each phase, the mean of 3 frames). It prints one JSON
-line {tree, card, frame_ms, phases}. To compare two checkouts on one card,
-run it in one call for each in turns (a, b, b, a): each run is its own
-process, so each imports its own package.
+line {tree, card, frame_ms, phases}.
+
+Given two trees it compares them on one card: it runs itself once per tree
+in turns, a, b, b, a, each run its own process (so each imports its own
+package), then prints per tree the frame times of both of its runs and
+the phases that triangle setup and sky lighting move
+(raster.prepare_geometry, skylight.sky_lighting and the sun pass,
+shadow.render_sun_shadow_map), and the frame glue.
 """
 
 from __future__ import annotations
@@ -22,21 +28,63 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import subprocess
 import sys
+
+# the phases PR-to-PR comparisons print
+COMPARED = ("raster.prepare_geometry", "skylight.sky_lighting",
+            "shadow.render_sun_shadow_map", "glue")
+
+
+def in_turns(trees, frames: int, out) -> int:
+    """Run this script on trees a, b, b, a (each a process of its own),
+    then print each tree's frame times and COMPARED phases."""
+    order = list(trees) + list(reversed(trees))
+    runs = []
+    for tree in order:
+        proc = subprocess.run(
+            [sys.executable, __file__, tree, "--frames", str(frames)]
+            + (["--out", out] if out else []),
+            capture_output=True, text=True, check=False)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], flush=True)
+            print(f"torch_frame_phases: the run on {tree} failed",
+                  file=sys.stderr)
+            return proc.returncode
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append(line)
+        print(json.dumps(line), flush=True)
+    for tree in trees:
+        mine = [r for r in runs if r["tree"] == str(pathlib.Path(tree)
+                                                    .resolve())]
+        frames_ms = [t for r in mine for t in r["frame_ms"]]
+        phases = {k: [round(r["phases"].get(k, 0.0), 3) for r in mine]
+                  for k in COMPARED}
+        print(f"{tree}: frames {min(frames_ms):.2f}-{max(frames_ms):.2f} ms "
+              f"over {len(frames_ms)}; phases ms (runs in order) "
+              f"{json.dumps(phases)}", flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("tree", nargs="?",
-                    default=str(pathlib.Path(__file__).resolve().parents[1]))
+    ap.add_argument("trees", nargs="*",
+                    default=[str(pathlib.Path(__file__).resolve()
+                                 .parents[1])],
+                    help="one tree, or two to compare in turns")
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--out", help="also append the JSON line to this file")
     args = ap.parse_args(argv)
+    if len(args.trees) > 2:
+        ap.error("one tree, or two to compare")
+    if len(args.trees) == 2:
+        return in_turns(args.trees, args.frames, args.out)
     import torch
     if not torch.cuda.is_available():
         print("torch_frame_phases: no CUDA card", file=sys.stderr)
         return 2
-    tree = pathlib.Path(args.tree).resolve()
+    tree = pathlib.Path(args.trees[0]).resolve()
     sys.path.insert(0, str(tree))
     import chip_smoke as cs
     from incarnation_tpu_torch.kernels import build

@@ -3,7 +3,7 @@
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
-        [--kernels k1,k2,k3,k4,k5] [--out FILE]
+        [--kernels k1,k2,k3,k4,k5,k8,k9] [--out FILE]
 
 K1-K3: it renders one main-path frame of chip_smoke.py (the atrium at
 1920x1088, sun shadow map, 8 masked peels) and one forward frame of its
@@ -25,6 +25,15 @@ Each checkout's planes must be bit-identical to the other's, and each
 within chip_smoke.K5_RTOL of its own twin (resolve_gbuffer_plain). It
 prints K5's registers, spill and shared-memory bytes per checkout, and
 the count of each SASS opcode in its kernel (cuobjdump).
+
+K8 and K9: the main-path frame's launches of sky lighting (one) and of
+triangle setup (the camera pass with attribute planes and the sun's
+depth-only pass), timed the same way. The checkouts may round apart (a
+redesign may fuse what its parent rounded twice), so each checkout's
+output is held to its own twin: K8 by chip_smoke._k8_error (its maximum
+absolute error printed), K9 bit for bit (chip_smoke._k9_error). It
+prints each checkout's registers and SASS opcode counts of k8_sky_kernel
+and k9_setup_kernel (both roles).
 
 K4: it builds the atrium's wide and binary BVHs, captures every K4 launch
 of one path-traced sample at 640x360 (primary, bounce, shadow and their
@@ -62,7 +71,13 @@ PKG = "incarnation_tpu_torch"
 WRAPPERS = {"k1": ("raster", "rasterize_tiles", 10),
             "k2": ("clustered", "clustered_lighting", 20),
             "k3": ("taa", "history_fetch", 50),
-            "k5": ("resolve", "resolve_gbuffer", 20)}
+            "k5": ("resolve", "resolve_gbuffer", 20),
+            "k8": ("skylight", "sky_lighting", 20),
+            "k9": ("raster", "prepare_geometry", 20)}
+# K8's and K9's sources and kernel names, whose registers and SASS opcode
+# counts are printed
+SASS = {"k8": ("skylight", "k8_sky_kernel"),
+        "k9": ("setup", "k9_setup_kernel")}
 # the K5 launches of a main-path frame and of the small forward frame, in
 # launch order (renderer/frame.py): their roles
 K5_MAIN = ("opaque", "decal")
@@ -84,7 +99,7 @@ def load_kernels(tree: pathlib.Path) -> dict:
     try:
         mods = {n: importlib.import_module(f"{PKG}.kernels.{n}")
                 for n in ("build", "raster", "clustered", "taa", "bvh",
-                          "pathtrace", "resolve")}
+                          "pathtrace", "resolve", "skylight")}
     finally:
         sys.path.remove(str(tree))
         for k in _package_modules():
@@ -97,8 +112,12 @@ def load_kernels(tree: pathlib.Path) -> dict:
 
 
 def role(kind, kw):
+    if kind == "k9":
+        return ("k9_setup[camera]" if kw.get("emit_attributes", True)
+                else "k9_setup[sun_depth_only]")
     return (f"k1_raster[{kw.get('name', 'fine_raster')}]" if kind == "k1"
-            else {"k2": "k2_clustered", "k3": "k3_taa_fetch"}[kind])
+            else {"k2": "k2_clustered", "k3": "k3_taa_fetch",
+                  "k8": "k8_sky_lighting"}[kind])
 
 
 def with_roles(calls, k5_names):
@@ -161,11 +180,24 @@ def k5_agree(cs, a, kw, outs, mods, name):
 def agree(cs, kind, a, kw, outs, this, other, name):
     """The two checkouts' outputs of one launch agree, or raise: K1 and K3
     identical, K2 each within 1e-3 of the twin's value (the ceiling a K2
-    tolerance may take; chip_smoke.py holds this checkout's to 1e-4)."""
+    tolerance may take; chip_smoke.py holds this checkout's to 1e-4); K5
+    by k5_agree; K8 and K9 each held to its own checkout's twin."""
     import torch
     (other_out, this_out) = outs
     if kind == "k5":
         k5_agree(cs, a, kw, outs, (other, this), name)
+        return
+    if kind == "k8":
+        for what, out, m in (("other", other_out, other),
+                             ("this", this_out, this)):
+            err, _ = cs._k8_error(out, m["skylight"].sky_lighting_plain(
+                *a, **kw), a[0].mask)
+            print(f"{name}: {what} checkout's K8 max abs error {err:.3e} "
+                  "against its own twin", flush=True)
+        return
+    if kind == "k9":
+        for out, m in ((other_out, other), (this_out, this)):
+            cs._k9_error(out, m["raster"].prepare_geometry_plain(*a, **kw))
         return
     if kind == "k2":
         ref = this["clustered"].clustered_lighting_plain(*a, **kw)
@@ -215,9 +247,9 @@ def time_pair(cs, f_other, f_this, reps):
 
 
 def k1_to_k5(cs, others, this, dev, times, kinds):
-    """K1-K3 and K5 (those of kinds) of one main-path frame and the small
-    path's blend layers (K1) and K5 launches, each launch timed with each
-    other checkout's wrapper and this one's; appends to
+    """K1-K3, K5, K8 and K9 (those of kinds) of one main-path frame and
+    the small path's blend layers (K1) and K5 launches, each launch timed
+    with each other checkout's wrapper and this one's; appends to
     times[(other, role)]."""
     import torch
     raster, clustered, taa = this["raster"], this["clustered"], this["taa"]
@@ -417,7 +449,7 @@ def main(argv=None) -> int:
     ap.add_argument("others", nargs="+", help="the other checkouts' roots")
     ap.add_argument("--kernels", default="k1,k2,k3,k4",
                     help="comma-separated: k1, k2, k3, k5 (two frames' "
-                         "launches), k4")
+                         "launches), k8, k9 (the main frame's), k4")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args(argv)
     kinds = set(args.kernels.split(","))
@@ -432,13 +464,14 @@ def main(argv=None) -> int:
               for o in args.others]
     from incarnation_tpu_torch.kernels import (build, bvh, clustered,
                                                pathtrace, raster, resolve,
-                                               taa)
+                                               skylight, taa)
     this = dict(build=build, raster=raster, clustered=clustered, taa=taa,
-                bvh=bvh, pathtrace=pathtrace, resolve=resolve)
+                bvh=bvh, pathtrace=pathtrace, resolve=resolve,
+                skylight=skylight)
     dev = torch.device("cuda")
     card = cs.card_line()
     print(f"card: {card}", flush=True)
-    registers, k5_registers = {}, {}
+    registers, k5_registers, sass = {}, {}, {}
     for name, mods in [("this", this)] + others:
         secs, logs = mods["build"].timed_build(verbose=True)
         print(f"{name} checkout's kernels built in {secs:.1f} s", flush=True)
@@ -456,6 +489,13 @@ def main(argv=None) -> int:
                 mods["build"], "resolve", "k5_resolve_kernel")
             print(f"{name} checkout's K5: {json.dumps(k5_registers[name])}",
                   flush=True)
+        for kind in sorted(kinds & set(SASS)):
+            src, fn = SASS[kind]
+            res = cs.kernel_resources(mods["build"], src, fn, logs.get(src))
+            for entry, r in res.items():
+                r["sass"] = sass_mix(mods["build"], src, entry)
+            sass.setdefault(name, {})[kind] = res
+            print(f"{name} checkout's {fn}: {json.dumps(res)}", flush=True)
 
     times: dict = {}
     if kinds & set(WRAPPERS):
@@ -487,7 +527,7 @@ def main(argv=None) -> int:
             "end_to_end_ms"] = e
     result = {"card": card, "others": args.others, "roles": summary,
               "k4_groups": groups, "k4_registers": registers,
-              "k5_resources": k5_registers}
+              "k5_resources": k5_registers, "k8_k9_resources": sass}
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         pathlib.Path(args.out).write_text(json.dumps(result, indent=1))
