@@ -8,7 +8,8 @@ It builds the hand-written CUDA kernels from incarnation_tpu_torch/csrc,
 builds the procedural atrium (289k triangles, 41 materials, 66 lights,
 masked foliage, decals) onto the card and renders 8 TAA frames at 1920x1088
 through render_frame, the port's raster frame in the bench configuration:
-triangle setup of the camera and sun passes (K9), opaque raster, 8 masked
+triangle setup (K9) and layered binning (K10) of the camera and sun
+passes, opaque raster, 8 masked
 depth peels with their alpha tests (K6), decals, the material resolve of
 the opaque and decal layers (K5), the 1024 x 1024 sun shadow map (K1's
 depth-only role, every face casting), sky IBL (K8), shadowed sun,
@@ -21,12 +22,14 @@ and its plain PyTorch twin on those inputs on the card, compares them, times
 both on the card's clock (device_ms), prints each kernel's bound (the work
 its inputs need) and work diagnostics, renders that frame again with
 every kernel swapped for its twin and compares the images, and prints the
-frame's time by phase (phase_breakdown).
+frame's time by phase (phase_breakdown). The frame's two binnings run
+once more under torch.cuda.set_sync_debug_mode("error"): K10 makes the
+host wait for nothing.
 
 A second, small path (512x256, the port's scene/testing.py scene with a
 BLEND quad) renders one forward-lighting frame with blend layers and both
-debug draws, holds its blend-layer launches of K1 and every K5, K6, K8
-and K9 launch to their twins, renders one frame per view mode (the
+debug draws, holds its blend-layer launches of K1 and every K5, K6, K8,
+K9 and K10 launch to their twins, renders one frame per view mode (the
 lighting-only mode's K8 launch held to its twin) and checks pick and
 highlight.
 
@@ -39,8 +42,8 @@ ray; (d) one sample with K4 swapped for its twin (identical radiance);
 (e) one 1920x1088 render_frame with RT sun shadows and HBAO through the
 same BVH (RT shadows darken the frame, AO in [0, 1], unit bent normals,
 the share of covered pixels where RT and shadow-map visibility agree; its
-K5, K6, K8 (with HBAO and bent normals) and K9 launches against their
-twins).
+K5, K6, K8 (with HBAO and bent normals), K9 and K10 launches against
+their twins).
 
 Then the rest of the port: (g) the atrium's binary BVH (merged table) and
 K4's binary role on the captured primary, bounce and shadow rays, against
@@ -55,7 +58,8 @@ serving the atrium at 960x540 (the frame after an orbit input differs);
 else cuda:0 twice): a 1920x1088 frame and a second TAA frame against the
 single frame, a band-sharded path-traced sample (identical) and an
 SPP-sharded round (the batch-mean rule within 1e-6). (i)-(k) capture
-their K1, K2, K3, K5, K6, K8 and K9 launches and hold each to its twin.
+their K1, K2, K3, K5, K6, K8, K9 and K10 launches and hold each to its
+twin.
 
 It prints one JSON line of kernel figures; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises, and the script
@@ -149,6 +153,16 @@ K8_TOL = 1e-5              # K8 against its twin: see _k8_error
 # primitive row (9) and meshlet row (5) and the two 4x4 matrices (128 B)
 # read once.
 K9_OPS_DEPTH, K9_OPS_ATTR, K9_OPS_PER_MESH = 250, 216, 224
+# K10, counted from csrc/bin.cu in integer operations: per triangle its
+# tier (four floor divisions, the spans and their product, the tier tests)
+# and its first bucket, 17; per pair its bucket, 6. Bytes: each triangle's
+# bbox (16), valid flag (1) and layer (4, where given) read once; pair_tri
+# (4 x (pair_capacity + 1)), a tile's start and count (8), each layer's big
+# list (4 x big_tri_capacity) and its three counters written once.
+K10_OPS_PER_TRI, K10_OPS_PER_PAIR = 17, 6
+# H100 SXM int32 rate: 64 INT32 lanes an SM (NVIDIA's Hopper white paper)
+# x 132 SMs x 1.98 GHz
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # K4, counted from csrc/bvh.cu (a fused multiply-add counts two), for the
 # slots these inputs fill: a triangle test 46 per filled leaf slot the ray
 # must test (two cross products at 9, four dot products at 5, the
@@ -226,6 +240,22 @@ def device_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def once_ms(fn) -> float:
+    """ms of one fn() call between CUDA events, for a twin that takes
+    seconds (K4's): its host time dominates, and it has just run once for
+    its check, so device_ms's warm-up and its spin's sizing batch (two
+    more calls) would only add seconds to the run."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
 
 
 def bench_view(host, width, height):
@@ -309,7 +339,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4, resolve.K5,
-               resolve.K6, skylight.K8, raster.K9)
+               resolve.K6, skylight.K8, raster.K9, raster.K10)
     for k in kernels:
         k.reset()
     history = torch.zeros((H, W, 3), device=dev)
@@ -334,7 +364,9 @@ def main(argv=None) -> int:
     if launches.pop("k4_trace"):
         raise RuntimeError("the raster frame launched K4")
     k1_by_layer = dict(raster.K1.by_name)
-    _log(f"launches on the main path: {launches}, K1 by layer {k1_by_layer}")
+    k10_steps = dict(raster.K10.by_name)
+    _log(f"launches on the main path: {launches}, K1 by layer "
+         f"{k1_by_layer}, K10 by step {k10_steps}")
     _log("frame ms: " + ", ".join(f"{t:.2f}" for t in frame_ms))
 
     for i, st in enumerate(outs):
@@ -359,13 +391,19 @@ def main(argv=None) -> int:
     # per frame: K1 for the opaque layer, each peel, the decals and the
     # shadow map, K2 once, K3 on every frame with a history (all but
     # frame 0), K4 never (no BVH on this path), K5 for the opaque and the
-    # decal layer, K6 for each peel, K8 once, K9 for the camera and the
-    # sun pass
-    want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS, 1, 2]
-            for i in range(FRAMES)]
+    # decal layer, K6 for each peel, K8 once, K9 and K10's steps for the
+    # camera and the sun pass (K10: 4, and its mid count with the mid tier)
+    sun_params = shadow.shadow_params(cfg.shadow_map_resolution, cfg)
+    k10_steps_per_frame = sum(4 + (q.bin_mid_span > q.bin_max_span)
+                              for q in (path.params, sun_params))
+    want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS, 1, 2,
+             k10_steps_per_frame] for i in range(FRAMES)]
     if per_frame != want:
         raise RuntimeError(f"launches per frame (K1, K2, K3, K4, K5, K6, K8, "
-                           f"K9) {per_frame} != {want}")
+                           f"K9, K10) {per_frame} != {want}")
+    if k10_steps.get("k10_scatter") != 2 * FRAMES:
+        raise RuntimeError(f"K10 steps {k10_steps}: not two binnings a "
+                           "frame")
     if k1_by_layer != {"raster_opaque": FRAMES, "raster_decal": FRAMES,
                        "raster_peel": FRAMES * PEELS,
                        "raster_shadow_depth": FRAMES}:
@@ -401,6 +439,8 @@ def main(argv=None) -> int:
              k6_row(resolve, calls, launches["k6_masked_alpha"]),
              k8_row(skylight, calls, launches["k8_sky_lighting"])]
     rows += k9_rows(raster, calls, launches["k9_setup"])
+    rows += k10_rows(raster, calls, k10_steps["k10_scatter"])
+    k10_no_sync(raster, calls)
     check_twin_frame(run, fc, history, raster, clustered, taa)
     phase_breakdown(run, fc, history)
     if args.profile:
@@ -518,9 +558,9 @@ def capture_frame(run, fc, history, raster, clustered, taa):
 
 @contextlib.contextmanager
 def _capturing(calls, raster, clustered, taa, limit=None):
-    """For the duration of the block, each K1, K2, K3, K5, K6, K8 and K9
-    wrapper call appends (kind, args, kwargs) to calls, at most `limit`
-    per kind."""
+    """For the duration of the block, each K1, K2, K3, K5, K6, K8, K9 and
+    K10 wrapper call appends (kind, args, kwargs) to calls, at most
+    `limit` per kind."""
     from incarnation_tpu_torch.kernels import resolve, skylight
 
     def keep(kind):
@@ -535,7 +575,8 @@ def _capturing(calls, raster, clustered, taa, limit=None):
                                 (resolve, "resolve_gbuffer", "k5"),
                                 (resolve, "masked_alpha", "k6"),
                                 (skylight, "sky_lighting", "k8"),
-                                (raster, "prepare_geometry", "k9")):
+                                (raster, "prepare_geometry", "k9"),
+                                (raster, "bin_triangles_layered", "k10")):
             stack.enter_context(_hooked(mod, name, keep(kind)))
         yield calls
 
@@ -1107,6 +1148,156 @@ def k9_rows(raster, calls, n_launches):
     return rows
 
 
+_K10_FIELDS = ("pair_tri", "starts", "counts", "big_tri", "big_count",
+               "overflow", "big_overflow")
+
+
+def _k10_error(got, ref):
+    """Raises unless one K10 binning equals its twin's in every output of
+    every layer (shapes, dtypes and values: the tile lists are integers,
+    and K1's races downstream read them as they are)."""
+    import torch
+    if len(got) != len(ref):
+        raise RuntimeError(f"K10 gave {len(got)} layers, its twin {len(ref)}")
+    for l, (g, r) in enumerate(zip(got, ref)):
+        for f in _K10_FIELDS:
+            a, b = getattr(g, f), getattr(r, f)
+            if a.dtype != b.dtype or a.shape != b.shape \
+                    or not torch.equal(a, b):
+                n = int((a != b).sum()) if a.shape == b.shape else -1
+                raise RuntimeError(f"K10 layer {l} {f} differs from its twin "
+                                   f"on {n} values")
+
+
+def _k10_work(raster, a, kw, ref):
+    """(triangles, pairs emitted, buckets, bound ms, 'bytes' | 'operations')
+    of one binning, its pairs from the twin's outputs (kept + cut): see
+    K10_*."""
+    prep, p = a[0], a[1]
+    nl = kw.get("n_layers", 1)
+    t = prep.bbox.shape[0]
+    pairs = int(ref[0].overflow) + sum(
+        int(b.counts.sum()) + int(b.big_count[0]) + int(b.big_overflow)
+        for b in ref)
+    nbytes = t * (16 + 1 + 4 * (kw.get("layer") is not None)) \
+        + 4 * (p.pair_capacity + 1) + 8 * nl * p.num_tiles \
+        + 4 * nl * p.big_tri_capacity + 4 * (2 * nl + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (t * K10_OPS_PER_TRI + pairs * K10_OPS_PER_PAIR) \
+        / INT32_OPS_PER_S * 1e3
+    return (t, pairs, nl + nl * p.num_tiles, max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _k10_steps_ms(fn, reps: int = 10) -> dict:
+    """Device ms of each K10 kernel in one fn() call (torch.profiler's CUDA
+    times, the mean over reps calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith("k10_"):
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = e.cuda_time_total
+            out[e.key.split("(")[0]] = us / reps / 1e3
+    return out
+
+
+def k10_rows(raster, calls, n_binnings):
+    """K10 against its twin, every output equal, on each captured binning of
+    the frame, timed (all its steps, one call of the wrapper), with its
+    bound and each step's device time (torch.profiler): one JSON row for
+    the camera pass (every raster layer) and one for the sun's depth-only
+    pass. Beside them, a torch.sort of as many
+    int64 keys as the binning emits pairs (the twin's sort alone;
+    `sort_ms`, not a yardstick: no PyTorch call bins)."""
+    import torch
+    roles = {"k10_bin[camera]": [], "k10_bin[sun_depth_only]": []}
+    for kind, a, kw in calls:
+        if kind == "k10":
+            roles["k10_bin[sun_depth_only]" if a[1].depth_only
+                  else "k10_bin[camera]"].append((a, kw))
+    rows = []
+    for name, launches in roles.items():
+        if not launches:
+            raise RuntimeError(f"{name}: no K10 launch was captured")
+        ms, plain_ms, sort_ms, bounds, bound_by, work, steps = \
+            [], [], [], [], set(), [], []
+        for a, kw in launches:
+            ref = raster.bin_triangles_layered_plain(*a, **kw)
+            _k10_error(raster.bin_triangles_layered(*a, **kw), ref)
+            ms.append(device_ms(
+                lambda: raster.bin_triangles_layered(*a, **kw), 20))
+            plain_ms.append(device_ms(
+                lambda: raster.bin_triangles_layered_plain(*a, **kw), 2))
+            t, pairs, nb, b, by = _k10_work(raster, a, kw, ref)
+            keys = torch.randint(0, nb * max(t, 1), (pairs,),
+                                 dtype=torch.int64, device=a[0].bbox.device)
+            sort_ms.append(device_ms(lambda: torch.sort(keys), 20))
+            steps.append(_k10_steps_ms(
+                lambda: raster.bin_triangles_layered(*a, **kw)))
+            bounds.append(b)
+            bound_by.add(by)
+            work.append((t, pairs, nb))
+        _log(f"{name}: (triangles, pairs emitted, buckets) "
+             f"{sorted(set(work))}; per launch ms (all steps) "
+             + ", ".join(f"{x:.4f}" for x in ms) + "; twin ms "
+             + ", ".join(f"{x:.2f}" for x in plain_ms) + "; bound ms "
+             + ", ".join(f"{x:.4f}" for x in bounds) + "; torch.sort of "
+             "the pairs' int64 keys ms "
+             + ", ".join(f"{x:.4f}" for x in sort_ms)
+             + f"; identical to the twin on {len(launches)} launches; "
+             "device ms by step (profiler) " + json.dumps(
+                 {k: round(v, 4) for k, v in steps[0].items()}))
+        rows.append(dict(
+            name=name, route="cuda", source="incarnation_tpu_torch/csrc/bin.cu",
+            replaces="incarnation_tpu/kernels/raster.py:384",
+            launches=n_binnings // 2, max_abs_err=0.0, max_rel_err=0.0,
+            ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+            bound_ms=float(np.mean(bounds)),
+            bound_by="operations" if "operations" in bound_by else "bytes",
+            library_ms=None, sort_ms=float(np.mean(sort_ms)),
+            steps_ms=steps[0],
+            triangles=work[0][0], pairs=work[0][1], buckets=work[0][2]))
+    return rows
+
+
+def k10_no_sync(raster, calls):
+    """One frame's binnings (the camera's and the sun's, as captured) again
+    under torch.cuda.set_sync_debug_mode("error"): none may wait for the
+    card. Then K1's partial-key buffer of each pass, sized from the bins'
+    shapes (raster.k1_max_items), is logged."""
+    import torch
+    binnings = [(a, kw) for kind, a, kw in calls if kind == "k10"]
+    if len(binnings) != 2:
+        raise RuntimeError(f"{len(binnings)} binnings captured in a frame")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for a, kw in binnings:
+            raster.bin_triangles_layered(*a, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sizes = []
+    for kind, a, kw in calls:
+        if kind == "k1" and kw.get("name") in ("raster_opaque",
+                                               "raster_shadow_depth"):
+            items = raster.k1_max_items(a[0], a[1])
+            sizes.append(f"{kw['name']} {items} items, "
+                         f"{items * raster.K1_TILE_PX * 8 / 1e6:.1f} MB")
+    _log("K10: the frame's two binnings ran under sync debug mode "
+         "\"error\" without a host synchronisation; K1's partial keys "
+         "(k1_max_items, from shapes): " + "; ".join(sizes))
+
+
 def k1_row(raster, layer, launches_captured, n_launches):
     """Kernel-vs-twin on the captured K1 launches of one raster layer
     (error, both times and the bound, each the mean over the launches)
@@ -1214,7 +1405,7 @@ def small_path(dev, raster, clustered, taa):
                show_object_bounds=True)
     render(**fwd)                               # warm-up
     kernels = (raster.K1, clustered.K2, taa.K3, resolve.K5, resolve.K6,
-               skylight.K8, raster.K9)
+               skylight.K8, raster.K9, raster.K10)
     for k in kernels:
         k.reset()
     calls = capture_frame(lambda fc, history: render(**fwd), None, None,
@@ -1222,28 +1413,30 @@ def small_path(dev, raster, clustered, taa):
     by_name, k2_launches = dict(raster.K1.by_name), clustered.K2.launches
     k5_launches, k6_launches = resolve.K5.launches, resolve.K6.launches
     k8_launches, k9_launches = skylight.K8.launches, raster.K9.launches
+    k10_binnings = raster.K10.by_name.get("k10_scatter", 0)
     out = render(**fwd)
     check_color(out, "forward frame")
     stats = {k: int(v) for k, v in out["stats"].items()}
     _log(f"small path, forward frame: K1 by layer {by_name}, K2 "
          f"{k2_launches}, K5 {k5_launches}, K6 {k6_launches}, K8 "
-         f"{k8_launches}, K9 {k9_launches} launches; "
-         f"stats {json.dumps(stats)}")
+         f"{k8_launches}, K9 {k9_launches} launches, K10 {k10_binnings} "
+         f"binnings; stats {json.dumps(stats)}")
     if by_name.get("raster_blend") != SMALL_PEELS:
         raise RuntimeError(f"raster_blend launches {by_name}")
     # K2 and K8 shade the opaque surface and each blend layer; K5 resolves
     # the opaque, decal and blend layers, K6 tests each masked peel, K9
-    # sets up the camera and the sun pass
+    # sets up and K10 bins the camera and the sun pass
     if by_name.get("raster_shadow_depth") != 1 \
             or k2_launches != 1 + SMALL_PEELS \
             or k5_launches != 2 + SMALL_PEELS or k6_launches != SMALL_PEELS \
-            or k8_launches != 1 + SMALL_PEELS or k9_launches != 2:
+            or k8_launches != 1 + SMALL_PEELS or k9_launches != 2 \
+            or k10_binnings != 2:
         raise RuntimeError(f"small path launches {by_name}, K2 "
                            f"{k2_launches}, K5 {k5_launches}, K6 "
                            f"{k6_launches}, K8 {k8_launches}, K9 "
-                           f"{k9_launches}")
+                           f"{k9_launches}, K10 {k10_binnings} binnings")
     check_twins("small path, forward frame", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6", "k8", "k9"))
+                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10"))
     if stats["debug_draws"] <= 0:
         raise RuntimeError("no debug draw was appended")
     for key in ("bin_overflow", "big_overflow", "peel_overflow",
@@ -1497,8 +1690,9 @@ def bvh_paths(dev, path, profile: bool):
                           for x in k8_hbao):
         raise RuntimeError("(e) K8 was not given the HBAO and bent normals")
     check_twins("(e) RT frame", [c for c in raster_calls
-                                 if c[0] in ("k5", "k6", "k8", "k9")],
-                raster, clustered, taa, need=("k5", "k6", "k8", "k9"))
+                                 if c[0] in ("k5", "k6", "k8", "k9", "k10")],
+                raster, clustered, taa,
+                need=("k5", "k6", "k8", "k9", "k10"))
     rows += [k4_row(bvh, rt_calls[role], role, rt_launches.get(role, 0))
              for role in ("hbao", "rt_sun")]
     return rows, types.SimpleNamespace(sbvh=sbvh, calls=calls, fc=fc_pt,
@@ -1665,7 +1859,7 @@ def cli_phase(dev, path):
         raise RuntimeError(f"(i) the CLI's frames skipped a kernel: "
                            f"{counts}")
     check_twins("(i) CLI raster", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6", "k8", "k9"))
+                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10"))
     img = _png_check(out_dir / "raster.png", W, H)
     ref = frame.render_frame(res["scene"], res["fc"], config=res["config"],
                              params=res["params"], probe=res["probe"],
@@ -1782,7 +1976,7 @@ def viewer_phase(dev, path):
         raise RuntimeError(f"(j) the render loop did not end cleanly: "
                            f"{state.error}")
     check_twins("(j) viewer", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6", "k8", "k9"))
+                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10"))
 
 
 def band_phase(dev, path, pt):
@@ -1845,7 +2039,8 @@ def band_phase(dev, path, pt):
     if 0 in counts:
         raise RuntimeError(f"(k) the band frames skipped a kernel: {counts}")
     halo = check_twins("(k) band frame", calls, raster, clustered, taa,
-                       need=("k1", "k2", "k3", "k5", "k6", "k8", "k9"))
+                       need=("k1", "k2", "k3", "k5", "k6", "k8", "k9",
+                             "k10"))
     if {_k6_args(a, kw)[3] for kind, a, kw in calls if kind == "k6"} \
             != {0, H // 2}:
         raise RuntimeError("(k) the bands' K6 launches do not start at "
@@ -1886,14 +2081,14 @@ def band_phase(dev, path, pt):
 
 
 def check_twins(what, calls, raster, clustered, taa, need):
-    """Each captured K1, K2, K3, K5, K6, K8 and K9 launch against its twin,
-    at compare_kernels' tolerances (K1 via _k1_error, K2 K2_RTOL, K3 1e-6
-    relative, K5 via _k5_error, K6 via _k6_error, K8 via _k8_error, K9
-    bit for bit), at the shapes the path gave it; raises if a kind in
-    `need` was not captured. Returns the K3 launches' arguments."""
+    """Each captured K1, K2, K3, K5, K6, K8, K9 and K10 launch against its
+    twin, at compare_kernels' tolerances (K1 via _k1_error, K2 K2_RTOL, K3
+    1e-6 relative, K5 via _k5_error, K6 via _k6_error, K8 via _k8_error,
+    K9 and K10 exactly), at the shapes the path gave it; raises if a kind
+    in `need` was not captured. Returns the K3 launches' arguments."""
     from incarnation_tpu_torch.kernels import resolve, skylight
     kinds = {k: [c for c in calls if c[0] == k]
-             for k in ("k1", "k2", "k3", "k5", "k6", "k8", "k9")}
+             for k in ("k1", "k2", "k3", "k5", "k6", "k8", "k9", "k10")}
     if not all(kinds[k] for k in need):
         raise RuntimeError(f"{what}: captured launches per kernel "
                            f"{ {k: len(v) for k, v in kinds.items()} }")
@@ -1958,6 +2153,14 @@ def check_twins(what, calls, raster, clustered, taa, need):
              f"max abs err {max([e[0] for e in k8], default=0.0):.3e}, "
              f"{max([e[1] for e in k8], default=0.0):.3e} of the peak; K9 "
              f"x{len(kinds['k9'])} identical to the twin")
+    for _, a, kw in kinds["k10"]:
+        _k10_error(raster.bin_triangles_layered(*a, **kw),
+                   raster.bin_triangles_layered_plain(*a, **kw))
+    if kinds["k10"]:
+        shapes = sorted({(a[0].bbox.shape[0], a[1].width, a[1].height,
+                          kw.get("n_layers", 1)) for _, a, kw in kinds["k10"]})
+        _log(f"{what}: K10 x{len(kinds['k10'])} at (triangles, width, "
+             f"height, layers) {shapes} identical to the twin")
     return [a for _, a, _ in kinds["k3"]]
 
 
@@ -2011,8 +2214,8 @@ def k4_row(bvh, call, role, n_launches):
     hits = float((got["tri"] >= 0).float().mean())
     ms = device_ms(lambda: bvh.trace_k4(b, o, d, tmin, tmax, any_hit,
                                         alpha_of=alpha_of), 5)
-    plain_ms = device_ms(lambda: bvh.trace_plain(
-        b, o, d, tmin, tmax, any_hit, alpha_of=alpha_of), 1)
+    plain_ms = once_ms(lambda: bvh.trace_plain(
+        b, o, d, tmin, tmax, any_hit, alpha_of=alpha_of))
     regs, spill = K4_RESOURCES.get(
         (bool(any_hit), b.layout, alpha_of is not None), (None, None))
     _log(f"K4 {role}: {r} rays ({'any' if any_hit else 'closest'} hit, "
@@ -2357,7 +2560,9 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
             _swapped(resolve, "masked_alpha", resolve.masked_alpha_plain), \
             _swapped(skylight, "sky_lighting", skylight.sky_lighting_plain), \
             _swapped(raster, "prepare_geometry",
-                     raster.prepare_geometry_plain):
+                     raster.prepare_geometry_plain), \
+            _swapped(raster, "bin_triangles_layered",
+                     raster.bin_triangles_layered_plain):
         ref = run(fc, history)
     torch.cuda.synchronize()
     share = float((got["tri"] != ref["tri"]).float().mean())

@@ -6,8 +6,10 @@ Pipeline:
                            K9 (csrc/setup.cu) on CUDA tensors, the twin
                            prepare_geometry_plain on CPU ones.
 2. bin_triangles_layered — per-tile triangle lists for every raster layer
-                           from one sort (small, mid and big tiers; the
-                           pair-capacity and big-list overflows counted).
+                           (small, mid and big tiers; the pair-capacity
+                           and big-list overflows counted): K10
+                           (csrc/bin.cu) on CUDA tensors, the twin
+                           bin_triangles_layered_plain on CPU ones.
 3. rasterize_tiles       — K1 (csrc/raster.cu) on CUDA tensors; the plain
                            PyTorch twin rasterize_tiles_plain on CPU ones.
 
@@ -75,8 +77,9 @@ class PreparedGeometry(NamedTuple):
 class Bins:
     """One raster layer's tile lists. pair_tri, setup and attr are shared
     by every layer of a bin_triangles_layered call."""
-    pair_tri: torch.Tensor    # (P + 1,) i32 triangle per pair, sorted by
-    #                           (bucket, triangle); tile i owns
+    pair_tri: torch.Tensor    # (P + 1,) i32, P = pair_capacity: the
+    #                           kept pairs' triangles sorted by (bucket,
+    #                           triangle), then zeros; tile i owns
     #                           [starts[i], starts[i] + counts[i])
     starts: torch.Tensor      # (NT,) i32
     counts: torch.Tensor      # (NT,) i32
@@ -337,18 +340,130 @@ def prepare_geometry_plain(scene, scene_rotation, view_proj, prim_visible,
 
 
 # ---------------------------------------------------------------------------
-# 2. Binning
+# 2. Binning: K10 and its plain twin
 # ---------------------------------------------------------------------------
+
+# K10's steps (csrc/bin.cu), each a C entry whose first argument is a host
+# array of K10's int parameters (_k10_params): the mid count of each block
+# of K10_TRIS triangles (only with the mid tier), each block's pairs per
+# bucket, the scan of that table per bucket, the bucket scan with the
+# outputs' counts, and the scatter of the pairs in (bucket, triangle)
+# order. by_name counts each step by its entry's name.
+K10 = Kernel("bin", "k10_scatter", [_P] * 11,
+             variants={"k10_mids": [_P] * 5, "k10_hist": [_P] * 6,
+                       "k10_scan": [_P] * 3, "k10_finalize": [_P] * 9})
+K10_TRIS = 2048         # triangles a block (csrc/bin.cu K10_TRIS)
+# buckets the scatter's shared memory holds with one walking warp: 8-byte
+# pair descriptors of K10_TRIS triangles and 4 bytes a bucket, in a block's
+# 227 KB less 2 KB for its static arrays
+K10_MAX_BUCKETS = (232448 - 2048 - 8 * K10_TRIS) // 4
+_K10_NPARAMS = 15
+
+
+def _k10_params(p: RasterParams, t: int, n_layers: int, nblocks: int):
+    """K10's parameter array, in csrc/bin.cu's BinParams order (the count
+    first)."""
+    nt = p.num_tiles
+    mid_span = p.bin_mid_span if p.bin_mid_span > p.bin_max_span else 0
+    vals = (_K10_NPARAMS, t, n_layers, nt, p.tiles_x, p.tiles_y, p.tile_w,
+            p.tile_h, p.bin_max_span, mid_span, p.mid_tri_capacity,
+            p.pair_capacity, p.big_tri_capacity, n_layers + n_layers * nt,
+            nblocks)
+    return (ctypes.c_int * len(vals))(*vals)
+
 
 def bin_triangles_layered(prep: PreparedGeometry, params: RasterParams,
                           layer=None, n_layers: int = 1) -> list:
-    """Per-layer tile lists from ONE sort (raster.py:384-640).
+    """Per-layer tile lists, the pairs ordered by (bucket, triangle)
+    (raster.py:384-640).
 
     Buckets: 0..L-1 are each layer's big list (spans above the mid tier,
-    or mids beyond mid_tri_capacity), then L + l*NT + tile. Pairs sort by
-    (bucket, triangle) and the stream is cut at pair_capacity; `overflow`
-    counts the pairs cut, `big_overflow` the big triangles beyond
-    big_tri_capacity. Returns n_layers Bins."""
+    or mids beyond the first mid_tri_capacity in triangle order), then
+    L + l*NT + tile. A small or fitted mid triangle has a pair in each
+    tile of its bbox, a big one a pair in its layer's big bucket. The
+    stream is cut at pair_capacity: pair_tri holds the kept pairs, then
+    zeros, (pair_capacity + 1,) whatever the count; `overflow` counts the
+    pairs cut (layer 0), a tile's starts and counts are its bucket's
+    slice of the cut stream, big_tri the first big_tri_capacity entries
+    of the layer's big bucket, `big_overflow` the rest. Every shape comes
+    from the params. Returns n_layers Bins.
+
+    layer: (T,) int32 in [0, n_layers), or None (all layer 0).
+    K10 (csrc/bin.cu) on CUDA tensors, with no host synchronisation; the
+    twin bin_triangles_layered_plain on CPU ones."""
+    bbox, valid = prep.bbox, prep.valid
+    if not bbox.is_cuda:
+        return bin_triangles_layered_plain(prep, params, layer, n_layers)
+    p = params
+    dev = bbox.device
+    t = bbox.shape[0]
+    nl = n_layers
+    nt = p.num_tiles
+    nb = nl + nl * nt
+    _check(bbox, torch.int32, dev, "bbox", (t, 4))
+    if bbox.data_ptr() % 16:
+        raise ValueError("bbox must be 16-byte aligned (K10 loads its rows "
+                         "as 16-byte words)")
+    _check(valid, torch.bool, dev, "valid", (t,))
+    if layer is not None:
+        _check(layer, torch.int32, dev, "layer", (t,))
+    if nl < 1 or min(p.tile_w, p.tile_h, p.pair_capacity) < 1 \
+            or min(p.big_tri_capacity, p.mid_tri_capacity) < 0:
+        raise ValueError("K10 needs a layer, tiles, a pair capacity and "
+                         "capacities >= 0")
+    if nb > K10_MAX_BUCKETS:
+        raise ValueError(f"K10 holds at most {K10_MAX_BUCKETS} buckets, "
+                         f"not {nb}")
+    if max(p.bin_max_span, p.bin_mid_span) >= 1 << 16:
+        raise ValueError("K10 packs a triangle's pair count and tile span "
+                         "in 16 bits each")
+    # every count and slot an int32: the pairs a call can emit at most
+    most = t * max(p.bin_max_span, p.bin_mid_span, 1)
+    if max(most, p.pair_capacity + 1, nl * p.big_tri_capacity) >= 1 << 31:
+        raise ValueError("K10 counts pairs in 32 bits")
+    nblocks = max(1, -(-t // K10_TRIS))
+    use_mid = p.bin_mid_span > p.bin_max_span
+    prm = _k10_params(p, t, nl, nblocks)
+    i32 = torch.int32
+    big = p.big_tri_capacity
+    # scratch: mid counts, the (block, bucket) table, bucket totals and
+    # first slots, the kept pair count
+    work = torch.empty(nblocks + nblocks * nb + 2 * nb + 1, dtype=i32,
+                       device=dev)
+    mid_count, table, total, bstart, kept = work.split(
+        [nblocks, nblocks * nb, nb, nb, 1])
+    out = torch.empty(p.pair_capacity + 1 + 2 * nl * nt + nl * big
+                      + 2 * nl + 1, dtype=i32, device=dev)
+    pair_tri, starts, counts, big_tri, big_count, big_over, overflow = \
+        out.split([p.pair_capacity + 1, nl * nt, nl * nt, nl * big, nl, nl,
+                   1])
+    src = (ptr(bbox), ptr(valid), ptr(layer))
+    if use_mid:
+        K10(prm, *src, ptr(mid_count), variant="k10_mids", name="k10_mids")
+    K10(prm, *src, ptr(mid_count), ptr(table), variant="k10_hist",
+        name="k10_hist")
+    K10(prm, ptr(table), ptr(total), variant="k10_scan", name="k10_scan")
+    K10(prm, ptr(total), ptr(bstart), ptr(starts), ptr(counts),
+        ptr(big_count), ptr(big_over), ptr(overflow), ptr(kept),
+        variant="k10_finalize", name="k10_finalize")
+    K10(prm, *src, ptr(mid_count), ptr(table), ptr(bstart), ptr(big_count),
+        ptr(kept), ptr(pair_tri), ptr(big_tri), name="k10_scatter")
+    big_tri = big_tri.view(nl, big)
+    zero = torch.zeros((), dtype=i32, device=dev)
+    return [Bins(pair_tri=pair_tri,
+                 starts=starts[l * nt:(l + 1) * nt],
+                 counts=counts[l * nt:(l + 1) * nt],
+                 big_tri=big_tri[l], big_count=big_count[l:l + 1],
+                 overflow=overflow[0] if l == 0 else zero,
+                 big_overflow=big_over[l], setup=prep.setup,
+                 attr=prep.attr)
+            for l in range(nl)]
+
+
+def bin_triangles_layered_plain(prep: PreparedGeometry, params: RasterParams,
+                                layer=None, n_layers: int = 1) -> list:
+    """K10's twin: bin_triangles_layered from ONE torch.sort of the
+    (bucket, triangle) keys, with the same outputs and shapes."""
     p = params
     dev = prep.ids.device
     t = prep.ids.shape[0]
@@ -398,11 +513,12 @@ def bin_triangles_layered(prep: PreparedGeometry, params: RasterParams,
     overflow = torch.tensor(max(n_pairs - p.pair_capacity, 0),
                             dtype=torch.int32, device=dev)
     keys = keys[:p.pair_capacity]
-    counts_all = torch.bincount(keys // t, minlength=nl + nl * nt)
+    counts_all = torch.bincount(keys // max(t, 1), minlength=nl + nl * nt)
     starts_all = torch.cumsum(counts_all, 0) - counts_all
-    # one trailing slot so every index below stays in range
-    pair_tri = torch.cat([(keys % t).to(torch.int32),
-                          torch.zeros(1, dtype=torch.int32, device=dev)])
+    # the kept pairs, then zeros: (pair_capacity + 1,) whatever the count
+    pair_tri = torch.zeros(p.pair_capacity + 1, dtype=torch.int32,
+                           device=dev)
+    pair_tri[:keys.shape[0]] = (keys % max(t, 1)).to(torch.int32)
 
     cap = p.big_tri_capacity
     iota = torch.arange(cap, device=dev)
@@ -411,7 +527,7 @@ def bin_triangles_layered(prep: PreparedGeometry, params: RasterParams,
     for l in range(nl):
         big_total = counts_all[l]
         big_count = torch.clamp(big_total, max=cap)
-        idx = torch.clamp(starts_all[l] + iota, max=pair_tri.shape[0] - 1)
+        idx = torch.clamp(starts_all[l] + iota, max=p.pair_capacity)
         big_tri = torch.where(iota < big_count, pair_tri[idx], 0)
         sl = slice(nl + l * nt, nl + (l + 1) * nt)
         out.append(Bins(

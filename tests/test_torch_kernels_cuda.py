@@ -1,4 +1,4 @@
-"""K1-K9 against their plain PyTorch twins on a CUDA card, at small
+"""K1-K10 against their plain PyTorch twins on a CUDA card, at small
 shapes from a seed. Marked `cuda`: they skip on a host without a card and
 run on the card with
 
@@ -1264,3 +1264,196 @@ def test_k9_refuses_and_never_falls_back(dev):
     assert raster.K9.launches == n0
     raster.prepare_geometry(scene, rot, vp, prim_vis, params)
     assert raster.K9.launches == n0 + 1
+
+
+# ---------------------------------------------------------------------------
+# K10: layered binning
+# ---------------------------------------------------------------------------
+
+def bin_inputs(dev, t, params, n_layers=1, seed=0, frac_valid=0.7,
+               spans=(1, 2, 4, 8, 40, 200, 2000)):
+    """PreparedGeometry-shaped inputs for binning: t triangles with random
+    inclusive pixel bboxes inside the frame (widths and heights up to
+    about twice and once a random choice of `spans` pixels, so small, mid
+    and big tiers all occur), a random `frac_valid` of them valid, and
+    random layers in [0, n_layers) (None with one layer)."""
+    r = np.random.default_rng(seed)
+    w, h = params.width, params.height
+    x0, y0 = r.integers(0, w, t), r.integers(0, h, t)
+    s = r.choice(spans, t)
+    x1 = np.minimum(x0 + (2 * s * r.random(t)).astype(int), w - 1)
+    y1 = np.minimum(y0 + (s * r.random(t)).astype(int), h - 1)
+    bbox = torch.tensor(np.stack([x0, y0, x1, y1], -1).astype(np.int32),
+                        device=dev)
+    prep = raster.PreparedGeometry(
+        setup=torch.zeros((t, raster.SETUP_ROWS), device=dev),
+        ids=torch.arange(t, dtype=torch.int32, device=dev),
+        valid=torch.tensor(r.random(t) < frac_valid, device=dev),
+        bbox=bbox, attr=None)
+    layer = (torch.tensor(r.integers(0, n_layers, t).astype(np.int32),
+                          device=dev) if n_layers > 1 else None)
+    return prep, layer
+
+
+_BIN = dict(width=640, height=256, tile_h=16, tile_w=128,
+            pair_capacity=1 << 14, bin_max_span=2, big_tri_capacity=512,
+            bin_mid_span=8, mid_tri_capacity=256)
+
+
+def _k10_vs_twin(prep, params, layer, n_layers):
+    """K10 against bin_triangles_layered_plain, every output of every
+    layer equal; -> the twin's bins."""
+    n0 = raster.K10.by_name.get("k10_scatter", 0)
+    got = raster.bin_triangles_layered(prep, params, layer=layer,
+                                       n_layers=n_layers)
+    assert raster.K10.by_name["k10_scatter"] == n0 + 1
+    ref = raster.bin_triangles_layered_plain(prep, params, layer=layer,
+                                             n_layers=n_layers)
+    for l in range(n_layers):
+        for f in ("pair_tri", "starts", "counts", "big_tri", "big_count",
+                  "overflow", "big_overflow"):
+            g, r = getattr(got[l], f), getattr(ref[l], f)
+            assert g.dtype == r.dtype and g.shape == r.shape, (l, f)
+            assert torch.equal(g, r), (l, f, int((g != r).sum()))
+    return ref
+
+
+def _kept(bins):
+    return sum(int(b.counts.sum()) + int(b.big_count[0])
+               + int(b.big_overflow) for b in bins)
+
+
+@pytest.mark.parametrize("case,kw,t,n_layers,frac_valid", [
+    ("no_overflow", dict(), 900, 1, 0.7),
+    ("cut_inside_a_bucket", dict(pair_capacity=300), 900, 1, 0.7),
+    ("big_overflow", dict(big_tri_capacity=3), 900, 3, 0.7),
+    ("mids_beyond_capacity", dict(mid_tri_capacity=5), 5000, 2, 0.7),
+    ("mid_tier_off", dict(bin_mid_span=2), 900, 1, 0.7),
+    ("no_valid_triangle", dict(), 700, 1, 0.0),
+    ("four_layers", dict(), 3000, 4, 0.7),
+    ("many_blocks", dict(width=1920, height=1088, pair_capacity=1 << 18,
+                         bin_max_span=8, bin_mid_span=64,
+                         mid_tri_capacity=1024, big_tri_capacity=8192),
+     120_000, 3, 0.6),
+])
+def test_k10_matches_twin(dev, case, kw, t, n_layers, frac_valid):
+    """K10 equals its twin array for array: pair_tri (kept pairs in
+    (bucket, triangle) order, then zeros), starts, counts, the big lists
+    and both overflow counters, on 1, 2, 3 and 4 layers; a cut at
+    pair_capacity inside a tile's bucket; big lists past their capacity;
+    mids past mid_tri_capacity (the first in triangle order fit); the mid
+    tier off; no valid triangle; and 120,000 triangles over 59 blocks,
+    whose order across blocks and walking warps the counting sort must
+    keep."""
+    params = raster.RasterParams(**{**_BIN, **kw})
+    prep, layer = bin_inputs(
+        dev, t, params, n_layers, seed=40, frac_valid=frac_valid,
+        spans=(1, 2, 4, 8, 16, 100) if case == "many_blocks"
+        else (1, 2, 4, 8, 40, 200, 2000))
+    ref = _k10_vs_twin(prep, params, layer, n_layers)
+    over = int(ref[0].overflow)
+    big_over = sum(int(b.big_overflow) for b in ref)
+    kept = _kept(ref)
+    if case == "cut_inside_a_bucket":
+        assert over > 0 and kept == params.pair_capacity
+        assert any(((b.starts < kept) & (b.starts + b.counts == kept)).any()
+                   for b in ref)
+    elif case in ("big_overflow", "mids_beyond_capacity"):
+        assert big_over > 0 and over == 0
+    elif case == "no_valid_triangle":
+        assert kept == 0 and not ref[0].pair_tri.any()
+    else:
+        assert over == 0 and big_over == 0 and kept > 0
+
+
+def test_k10_walking_warps_by_bucket_count(dev):
+    """Many buckets cut the scatter's walking warps (8 to 4 at 5,121
+    buckets, 1 at 24,577): K10 still equals its twin."""
+    for kw in (dict(width=1280, height=1024, tile_h=16, tile_w=16),
+               dict(width=2048, height=1536, tile_h=16, tile_w=8)):
+        params = raster.RasterParams(**{**_BIN, **kw,
+                                        "pair_capacity": 1 << 16,
+                                        "bin_max_span": 16,
+                                        "bin_mid_span": 64})
+        prep, layer = bin_inputs(dev, 20_000, params, 1, seed=41,
+                                 spans=(1, 2, 8, 30, 100))
+        _k10_vs_twin(prep, params, layer, 1)
+
+
+def test_k10_pairs_crowded_in_few_triangles(dev):
+    """A block whose pairs crowd into a few triangles (a run of 300 mids
+    of up to 64 tiles and a full-screen big triangle among triangles of a
+    tile or two, as the atrium's camera pass crowds its mids): one walking
+    warp takes most of the block's pairs, and K10 still equals its
+    twin."""
+    params = raster.RasterParams(**{**_BIN, "width": 1920, "height": 1088,
+                                    "bin_max_span": 2, "bin_mid_span": 64,
+                                    "mid_tri_capacity": 4096})
+    prep, layer = bin_inputs(dev, 6000, params, 2, seed=44, frac_valid=0.9,
+                             spans=(1, 2, 8))
+    bbox = prep.bbox.clone()
+    crowd = torch.arange(2100, 2400, device=dev)
+    bbox[crowd, 2] = torch.clamp(bbox[crowd, 0] + 900, max=1919)
+    bbox[crowd, 3] = torch.clamp(bbox[crowd, 1] + 60, max=1087)
+    bbox[5000, :] = torch.tensor([0, 0, 1919, 1087], device=dev)
+    _k10_vs_twin(prep._replace(bbox=bbox), params, layer, 2)
+
+
+def test_k10_binning_makes_no_host_sync(dev):
+    """One binning of an atrium-sized pass (290,816 triangles, 3 layers,
+    1920x1088 in 16x128 tiles, 2^18 pairs) under
+    torch.cuda.set_sync_debug_mode("error"): no call of it waits for the
+    card."""
+    params = raster.RasterParams(width=1920, height=1088,
+                                 pair_capacity=1 << 18, bin_max_span=8)
+    prep, layer = bin_inputs(dev, 290_816, params, 3, seed=42,
+                             frac_valid=0.4, spans=(1, 2, 4, 8, 16, 64))
+    raster.bin_triangles_layered(prep, params, layer=layer, n_layers=3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bins = raster.bin_triangles_layered(prep, params, layer=layer,
+                                            n_layers=3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(bins[0].overflow) == 0 and _kept(bins) > 100_000
+
+
+def test_k10_refuses_and_never_falls_back(dev):
+    """bin_triangles_layered raises instead of launching K10, and never runs
+    the twin, on an int64 or CPU bbox, a misaligned or non-contiguous one,
+    an int64 layer, a valid mask of the wrong shape, and more buckets than
+    the scatter's shared memory holds."""
+    params = raster.RasterParams(**_BIN)
+    prep, layer = bin_inputs(dev, 500, params, 2, seed=43)
+    n0 = raster.K10.launches
+    bbox = prep.bbox
+    shifted = torch.empty(bbox.numel() + 1, dtype=torch.int32,
+                          device=dev)[1:].view(bbox.shape)
+    shifted.copy_(bbox)
+    for bad, match in ((bbox.long(), "bbox"), (bbox.T.contiguous().T, "bbox"),
+                       (shifted, "bbox")):
+        with pytest.raises(ValueError, match=match):
+            raster.bin_triangles_layered(prep._replace(bbox=bad), params,
+                                         layer=layer, n_layers=2)
+    with pytest.raises(ValueError, match="valid"):
+        raster.bin_triangles_layered(prep._replace(valid=prep.valid[1:]),
+                                     params, layer=layer, n_layers=2)
+    with pytest.raises(ValueError, match="layer"):
+        raster.bin_triangles_layered(prep, params, layer=layer.long(),
+                                     n_layers=2)
+    with pytest.raises(ValueError, match="valid"):
+        raster.bin_triangles_layered(prep._replace(valid=prep.valid.cpu()),
+                                     params, layer=layer, n_layers=2)
+    huge = raster.RasterParams(**{**_BIN, "width": 4096, "height": 4096,
+                                  "tile_w": 8, "tile_h": 8})
+    with pytest.raises(ValueError, match="buckets"):
+        raster.bin_triangles_layered(prep, huge, layer=layer, n_layers=2)
+    assert raster.K10.launches == n0
+    # a CPU bbox takes the twin: K10 does not launch
+    cpu = raster.PreparedGeometry(*(None if x is None else x.cpu()
+                                    for x in prep))
+    raster.bin_triangles_layered(cpu, params, layer=layer.cpu(), n_layers=2)
+    assert raster.K10.launches == n0
+    raster.bin_triangles_layered(prep, params, layer=layer, n_layers=2)
+    assert raster.K10.launches == n0 + 5

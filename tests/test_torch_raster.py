@@ -1,5 +1,6 @@
 """Port parity for the raster front end and K1's plain twin: triangle
-setup, layered binning (sets and overflow counts) and rasterize_tiles in
+setup, layered binning (the pair stream element for element, tile lists
+and overflow counts) and rasterize_tiles in
 its opaque, z_limit and masked roles, against the JAX package (its Pallas
 K1 in interpret mode)."""
 
@@ -105,24 +106,6 @@ def test_prepare_geometry_matches_jax(seed):
     assert 0 < tprep.valid.sum() < tprep.valid.numel()
 
 
-def _jax_sets(bins, jp, n_tiles):
-    setup = np.asarray(bins.setup).reshape(-1, 16)
-    starts, counts = np.asarray(bins.starts), np.asarray(bins.counts)
-    tiles = [sorted(int(x) for x in setup[s:s + c, 12])
-             for s, c in zip(starts, counts)]
-    nb = int(np.asarray(bins.big_count)[0])
-    big = sorted(int(x) for x in np.asarray(bins.big_ids)[:nb, 0])
-    return tiles, big
-
-
-def _torch_sets(bins):
-    pt = bins.pair_tri.numpy()
-    tiles = [sorted(pt[s:s + c].tolist())
-             for s, c in zip(bins.starts.numpy(), bins.counts.numpy())]
-    nb = int(bins.big_count[0])
-    return tiles, sorted(bins.big_tri.numpy()[:nb].tolist())
-
-
 @pytest.mark.parametrize("case", [
     dict(),                                             # no overflow
     dict(pair_capacity=64),                             # pair overflow
@@ -130,9 +113,12 @@ def _torch_sets(bins):
     dict(bin_mid_span=2),                               # mid tier off
 ])
 def test_binning_sets_and_counts_match_jax(case):
-    """Per layer and per tile, the SET of binned triangles, the big list
-    and the overflow / big_overflow counts equal JAX's exactly (the pair
-    order inside a tile is the kernel's business, not the contract)."""
+    """The twin's pair stream equals JAX's element for element: the
+    triangle ids of the kept pairs in (bucket, triangle) order against the
+    id lane of JAX's pair rows, so the cut at pair_capacity keeps the same
+    pairs, and zeros after them up to pair_tri's fixed pair_capacity + 1;
+    per layer starts, counts, the big list, big_count, overflow and
+    big_overflow exactly."""
     jscene = _soup(2, n=90)
     jp, tp = _params(**case)
     jprep, tprep = _prep_both(jscene, jp, tp)
@@ -144,12 +130,31 @@ def test_binning_sets_and_counts_match_jax(case):
                                   n_layers=n_layers)
     tb = tr.bin_triangles_layered(tprep, tp, layer=torch.as_tensor(layer),
                                   n_layers=n_layers)
+    # JAX's stream holds its kept pairs, then filler (the unused candidate
+    # slots' ids, then zeros); the buckets partition the kept pairs
+    cap = tp.pair_capacity
+    kept = sum(int(np.asarray(j.counts).sum()) + int(j.big_count[0])
+               + int(j.big_overflow) for j in jb)
+    assert 0 < kept <= cap
+    pair_tri = tb[0].pair_tri.numpy()
+    assert pair_tri.shape == (cap + 1,) and not pair_tri[kept:].any()
+    j_ids = np.asarray(jb[0].setup).reshape(-1, 16)[:kept, 12]
+    np.testing.assert_array_equal(pair_tri[:kept], j_ids.astype(np.int32))
     for l in range(n_layers):
-        assert _torch_sets(tb[l]) == _jax_sets(jb[l], jp, tp.num_tiles)
-        assert int(tb[l].overflow) == int(jb[l].overflow)
-        assert int(tb[l].big_overflow) == int(jb[l].big_overflow)
+        t, j = tb[l], jb[l]
+        assert t.pair_tri is tb[0].pair_tri
+        np.testing.assert_array_equal(t.starts.numpy(), np.asarray(j.starts))
+        np.testing.assert_array_equal(t.counts.numpy(), np.asarray(j.counts))
+        assert t.big_count.tolist() == np.asarray(j.big_count).tolist()
+        np.testing.assert_array_equal(
+            t.big_tri.numpy(), np.asarray(j.big_ids)[:, 0].astype(np.int32))
+        assert int(t.overflow) == int(j.overflow)
+        assert int(t.big_overflow) == int(j.big_overflow)
     if "pair_capacity" in case:
         assert int(tb[0].overflow) > 0
+        # the cut falls inside a tile's bucket, which keeps its lowest ids
+        assert any(((b.starts < cap) & (b.starts + b.counts == cap)).any()
+                   for b in tb)
     if "big_tri_capacity" in case:
         assert sum(int(b.big_overflow) for b in tb) > 0
 

@@ -18,9 +18,11 @@ line {tree, card, frame_ms, phases}.
 Given two trees it compares them on one card: it runs itself once per tree
 in turns, a, b, b, a, each run its own process (so each imports its own
 package), then prints per tree the frame times of both of its runs and
-the phases that triangle setup and sky lighting move
-(raster.prepare_geometry, skylight.sky_lighting and the sun pass,
-shadow.render_sun_shadow_map), and the frame glue.
+the phases that the kernels of the last slices move (triangle setup,
+raster.prepare_geometry; sky lighting, skylight.sky_lighting; the camera
+pass's binning, raster.bin_triangles_layered; the sun pass with its own
+setup, binning and raster, shadow.render_sun_shadow_map), and the frame
+glue.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ import sys
 
 # the phases PR-to-PR comparisons print
 COMPARED = ("raster.prepare_geometry", "skylight.sky_lighting",
-            "shadow.render_sun_shadow_map", "glue")
+            "raster.bin_triangles_layered", "shadow.render_sun_shadow_map",
+            "glue")
 
 
 def in_turns(trees, frames: int, out) -> int:

@@ -3,7 +3,7 @@
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
-        [--kernels k1,k2,k3,k4,k5,k8,k9] [--out FILE]
+        [--kernels k1,k2,k3,k4,k5,k8,k9,k10] [--out FILE]
 
 K1-K3: it renders one main-path frame of chip_smoke.py (the atrium at
 1920x1088, sun shadow map, 8 masked peels) and one forward frame of its
@@ -34,6 +34,12 @@ output is held to its own twin: K8 by chip_smoke._k8_error (its maximum
 absolute error printed), K9 bit for bit (chip_smoke._k9_error). It
 prints each checkout's registers and SASS opcode counts of k8_sky_kernel
 and k9_setup_kernel (both roles).
+
+K10: the main-path frame's two binnings (the camera pass's three layers
+and the sun's depth-only pass), timed the same way; each checkout's
+bins must equal its own twin's (bin_triangles_layered_plain) and the
+other checkout's, every output of every layer. Each checkout's device
+time of each K10 step is printed too (chip_smoke._k10_steps_ms).
 
 K4: it builds the atrium's wide and binary BVHs, captures every K4 launch
 of one path-traced sample at 640x360 (primary, bounce, shadow and their
@@ -73,7 +79,8 @@ WRAPPERS = {"k1": ("raster", "rasterize_tiles", 10),
             "k3": ("taa", "history_fetch", 50),
             "k5": ("resolve", "resolve_gbuffer", 20),
             "k8": ("skylight", "sky_lighting", 20),
-            "k9": ("raster", "prepare_geometry", 20)}
+            "k9": ("raster", "prepare_geometry", 20),
+            "k10": ("raster", "bin_triangles_layered", 20)}
 # K8's and K9's sources and kernel names, whose registers and SASS opcode
 # counts are printed
 SASS = {"k8": ("skylight", "k8_sky_kernel"),
@@ -111,7 +118,10 @@ def load_kernels(tree: pathlib.Path) -> dict:
     return mods
 
 
-def role(kind, kw):
+def role(kind, a, kw):
+    if kind == "k10":
+        return ("k10_bin[sun_depth_only]" if a[1].depth_only
+                else "k10_bin[camera]")
     if kind == "k9":
         return ("k9_setup[camera]" if kw.get("emit_attributes", True)
                 else "k9_setup[sun_depth_only]")
@@ -128,7 +138,8 @@ def with_roles(calls, k5_names):
     for kind, a, kw in calls:
         name = "k5_resolve[{}]".format(
             k5_names[n] if n < len(k5_names) else "small_blend") \
-            if kind == "k5" else role(kind, kw) if kind in WRAPPERS else None
+            if kind == "k5" else role(kind, a, kw) if kind in WRAPPERS \
+            else None
         n += kind == "k5"
         out.append((kind, a, kw, name))
     return out
@@ -181,7 +192,8 @@ def agree(cs, kind, a, kw, outs, this, other, name):
     """The two checkouts' outputs of one launch agree, or raise: K1 and K3
     identical, K2 each within 1e-3 of the twin's value (the ceiling a K2
     tolerance may take; chip_smoke.py holds this checkout's to 1e-4); K5
-    by k5_agree; K8 and K9 each held to its own checkout's twin."""
+    by k5_agree; K8, K9 and K10 each held to its own checkout's twin (K10
+    also to the other checkout's bins)."""
     import torch
     (other_out, this_out) = outs
     if kind == "k5":
@@ -198,6 +210,12 @@ def agree(cs, kind, a, kw, outs, this, other, name):
     if kind == "k9":
         for out, m in ((other_out, other), (this_out, this)):
             cs._k9_error(out, m["raster"].prepare_geometry_plain(*a, **kw))
+        return
+    if kind == "k10":
+        for out, m in ((other_out, other), (this_out, this)):
+            cs._k10_error(out, m["raster"].bin_triangles_layered_plain(
+                *a, **kw))
+        cs._k10_error(other_out, this_out)
         return
     if kind == "k2":
         ref = this["clustered"].clustered_lighting_plain(*a, **kw)
@@ -247,7 +265,7 @@ def time_pair(cs, f_other, f_this, reps):
 
 
 def k1_to_k5(cs, others, this, dev, times, kinds):
-    """K1-K3, K5, K8 and K9 (those of kinds) of one main-path frame and
+    """K1-K3, K5, K8, K9 and K10 (those of kinds) of one main-path frame and
     the small path's blend layers (K1) and K5 launches, each launch timed
     with each other checkout's wrapper and this one's; appends to
     times[(other, role)]."""
@@ -287,6 +305,13 @@ def k1_to_k5(cs, others, this, dev, times, kinds):
                                  {"other": [], "this": []})
             t["other"].append(t_o)
             t["this"].append(t_t)
+            if kind == "k10":
+                for what, f in (("other", impls[0]), ("this", impls[1])):
+                    steps = cs._k10_steps_ms(lambda: f(*a, **kw))
+                    print(f"{role_name}: {what} checkout's device ms by "
+                          f"step (profiler) " + json.dumps(
+                              {k: round(v, 4) for k, v in steps.items()}),
+                          flush=True)
             if kind == "k2":
                 entry_args, held = k2_entry_call(clustered, a, kw)
                 entries = (other["clustered"].K2, clustered.K2)
@@ -449,7 +474,7 @@ def main(argv=None) -> int:
     ap.add_argument("others", nargs="+", help="the other checkouts' roots")
     ap.add_argument("--kernels", default="k1,k2,k3,k4",
                     help="comma-separated: k1, k2, k3, k5 (two frames' "
-                         "launches), k8, k9 (the main frame's), k4")
+                         "launches), k8, k9, k10 (the main frame's), k4")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args(argv)
     kinds = set(args.kernels.split(","))
