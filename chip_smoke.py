@@ -160,6 +160,8 @@ K9_OPS_DEPTH, K9_OPS_ATTR, K9_OPS_PER_MESH = 250, 216, 224
 # (4 x (pair_capacity + 1)), a tile's start and count (8), each layer's big
 # list (4 x big_tri_capacity) and its three counters written once.
 K10_OPS_PER_TRI, K10_OPS_PER_PAIR = 17, 6
+# K10's launches a binning, by entry (kernels/raster.py K10)
+K10_LAUNCHES = ("k10_count", "k10_scan", "k10_scatter")
 # H100 SXM int32 rate: 64 INT32 lanes an SM (NVIDIA's Hopper white paper)
 # x 132 SMs x 1.98 GHz
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
@@ -366,7 +368,7 @@ def main(argv=None) -> int:
     k1_by_layer = dict(raster.K1.by_name)
     k10_steps = dict(raster.K10.by_name)
     _log(f"launches on the main path: {launches}, K1 by layer "
-         f"{k1_by_layer}, K10 by step {k10_steps}")
+         f"{k1_by_layer}, K10 by launch {k10_steps}")
     _log("frame ms: " + ", ".join(f"{t:.2f}" for t in frame_ms))
 
     for i, st in enumerate(outs):
@@ -391,19 +393,16 @@ def main(argv=None) -> int:
     # per frame: K1 for the opaque layer, each peel, the decals and the
     # shadow map, K2 once, K3 on every frame with a history (all but
     # frame 0), K4 never (no BVH on this path), K5 for the opaque and the
-    # decal layer, K6 for each peel, K8 once, K9 and K10's steps for the
-    # camera and the sun pass (K10: 4, and its mid count with the mid tier)
-    sun_params = shadow.shadow_params(cfg.shadow_map_resolution, cfg)
-    k10_steps_per_frame = sum(4 + (q.bin_mid_span > q.bin_max_span)
-                              for q in (path.params, sun_params))
+    # decal layer, K6 for each peel, K8 once, K9 and K10's launches for the
+    # camera and the sun pass (K10: K10_LAUNCHES a binning)
     want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS, 1, 2,
-             k10_steps_per_frame] for i in range(FRAMES)]
+             2 * len(K10_LAUNCHES)] for i in range(FRAMES)]
     if per_frame != want:
         raise RuntimeError(f"launches per frame (K1, K2, K3, K4, K5, K6, K8, "
                            f"K9, K10) {per_frame} != {want}")
-    if k10_steps.get("k10_scatter") != 2 * FRAMES:
-        raise RuntimeError(f"K10 steps {k10_steps}: not two binnings a "
-                           "frame")
+    if k10_steps != {k: 2 * FRAMES for k in K10_LAUNCHES}:
+        raise RuntimeError(f"K10 launches {k10_steps}: not two binnings a "
+                           f"frame of {len(K10_LAUNCHES)} launches each")
     if k1_by_layer != {"raster_opaque": FRAMES, "raster_decal": FRAMES,
                        "raster_peel": FRAMES * PEELS,
                        "raster_shadow_depth": FRAMES}:
@@ -439,7 +438,7 @@ def main(argv=None) -> int:
              k6_row(resolve, calls, launches["k6_masked_alpha"]),
              k8_row(skylight, calls, launches["k8_sky_lighting"])]
     rows += k9_rows(raster, calls, launches["k9_setup"])
-    rows += k10_rows(raster, calls, k10_steps["k10_scatter"])
+    rows += k10_rows(raster, calls, launches["k10_scatter"])
     k10_no_sync(raster, calls)
     check_twin_frame(run, fc, history, raster, clustered, taa)
     phase_breakdown(run, fc, history)
@@ -1210,15 +1209,38 @@ def _k10_steps_ms(fn, reps: int = 10) -> dict:
     return out
 
 
-def k10_rows(raster, calls, n_binnings):
+def k10_launch_ms() -> float:
+    """Device ms of one launch of csrc/bin.cu's empty kernel, back to back
+    (device_ms): the fixed cost each of K10's launches pays whatever its
+    work."""
+    import ctypes
+
+    import torch
+    from incarnation_tpu_torch.kernels import build
+    f = build.library("bin").k10_empty
+    f.argtypes, f.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        if f(torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("k10_empty launch failed")
+    return device_ms(launch, 200)
+
+
+def k10_rows(raster, calls, n_launches):
     """K10 against its twin, every output equal, on each captured binning of
-    the frame, timed (all its steps, one call of the wrapper), with its
-    bound and each step's device time (torch.profiler): one JSON row for
+    the frame, timed (all its launches, one call of the wrapper), with its
+    bound and each launch's device time (torch.profiler): one JSON row for
     the camera pass (every raster layer) and one for the sun's depth-only
     pass. Beside them, a torch.sort of as many
     int64 keys as the binning emits pairs (the twin's sort alone;
-    `sort_ms`, not a yardstick: no PyTorch call bins)."""
+    `sort_ms`, not a yardstick: no PyTorch call bins), and the floor of
+    K10's launches (`launch_floor_ms`: an empty kernel's time back to back,
+    times K10_LAUNCHES), which no design of as many launches goes below."""
     import torch
+    floor = k10_launch_ms() * len(K10_LAUNCHES)
+    _log(f"K10: an empty launch {floor / len(K10_LAUNCHES):.4f} ms back to "
+         f"back; {len(K10_LAUNCHES)} launches a binning, a floor of "
+         f"{floor:.4f} ms")
     roles = {"k10_bin[camera]": [], "k10_bin[sun_depth_only]": []}
     for kind, a, kw in calls:
         if kind == "k10":
@@ -1254,16 +1276,17 @@ def k10_rows(raster, calls, n_binnings):
              "the pairs' int64 keys ms "
              + ", ".join(f"{x:.4f}" for x in sort_ms)
              + f"; identical to the twin on {len(launches)} launches; "
-             "device ms by step (profiler) " + json.dumps(
+             "device ms by launch (profiler) " + json.dumps(
                  {k: round(v, 4) for k, v in steps[0].items()}))
         rows.append(dict(
             name=name, route="cuda", source="incarnation_tpu_torch/csrc/bin.cu",
             replaces="incarnation_tpu/kernels/raster.py:384",
-            launches=n_binnings // 2, max_abs_err=0.0, max_rel_err=0.0,
+            launches=n_launches // 2, max_abs_err=0.0, max_rel_err=0.0,
             ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
             bound_ms=float(np.mean(bounds)),
             bound_by="operations" if "operations" in bound_by else "bytes",
             library_ms=None, sort_ms=float(np.mean(sort_ms)),
+            launches_per_binning=len(K10_LAUNCHES), launch_floor_ms=floor,
             steps_ms=steps[0],
             triangles=work[0][0], pairs=work[0][1], buckets=work[0][2]))
     return rows

@@ -343,33 +343,70 @@ def prepare_geometry_plain(scene, scene_rotation, view_proj, prim_visible,
 # 2. Binning: K10 and its plain twin
 # ---------------------------------------------------------------------------
 
-# K10's steps (csrc/bin.cu), each a C entry whose first argument is a host
-# array of K10's int parameters (_k10_params): the mid count of each block
-# of K10_TRIS triangles (only with the mid tier), each block's pairs per
-# bucket, the scan of that table per bucket, the bucket scan with the
-# outputs' counts, and the scatter of the pairs in (bucket, triangle)
-# order. by_name counts each step by its entry's name.
-K10 = Kernel("bin", "k10_scatter", [_P] * 11,
-             variants={"k10_mids": [_P] * 5, "k10_hist": [_P] * 6,
-                       "k10_scan": [_P] * 3, "k10_finalize": [_P] * 9})
-K10_TRIS = 2048         # triangles a block (csrc/bin.cu K10_TRIS)
-# buckets the scatter's shared memory holds with one walking warp: 8-byte
-# pair descriptors of K10_TRIS triangles and 4 bytes a bucket, in a block's
-# 227 KB less 2 KB for its static arrays
+# K10's three launches (csrc/bin.cu), each a C entry whose first argument
+# is a host array of K10's int parameters (_k10_params): the counting step
+# (each row of K10_TRIS triangles classified once, the mid fit by a
+# look-back over the rows, the pair descriptors, each walker's offsets and
+# the row's pairs per bucket), the table's column scan with the bucket
+# scan in its last block, and the scatter of the pairs in (bucket,
+# triangle) order. by_name counts each launch by its entry's name.
+K10 = Kernel("bin", "k10_scatter", [_P] * 9,
+             variants={"k10_count": [_P] * 8, "k10_scan": [_P] * 11})
+K10_TRIS = 2048         # triangles a row (csrc/bin.cu K10_TRIS)
+K10_WALKERS = 16        # a row's walkers at most (csrc/bin.cu K10_WALKERS)
+# buckets K10 takes: 4 bytes a bucket beside 8-byte descriptors of
+# K10_TRIS triangles in a block's 227 KB, less 2 KB for its static arrays
+# (csrc/bin.cu K10_SMEM_MAX), which each step's shared memory holds with
+# one walker
 K10_MAX_BUCKETS = (232448 - 2048 - 8 * K10_TRIS) // 4
 _K10_NPARAMS = 15
+# the look-back state at the front of K10's scratch (csrc/bin.cu): int64
+# words, the ticket count, the scan's finished blocks, a word a row
+_K10_STATE_WORDS = 2
 
 
-def _k10_params(p: RasterParams, t: int, n_layers: int, nblocks: int):
+@functools.lru_cache(maxsize=64)
+def _k10_params(p: RasterParams, t: int, n_layers: int):
     """K10's parameter array, in csrc/bin.cu's BinParams order (the count
-    first)."""
+    first), built once per shape."""
     nt = p.num_tiles
     mid_span = p.bin_mid_span if p.bin_mid_span > p.bin_max_span else 0
     vals = (_K10_NPARAMS, t, n_layers, nt, p.tiles_x, p.tiles_y, p.tile_w,
             p.tile_h, p.bin_max_span, mid_span, p.mid_tri_capacity,
             p.pair_capacity, p.big_tri_capacity, n_layers + n_layers * nt,
-            nblocks)
+            max(1, -(-t // K10_TRIS)))
     return (ctypes.c_int * len(vals))(*vals)
+
+
+# K10's scratch per (device, stream), int32 words: the look-back state of
+# every row yet seen (zero between binnings: each leaves it zero,
+# csrc/bin.cu), then a binning's work (bin_triangles_layered). Created
+# zero, grown, never shrunk, the state first, so a row's words keep their
+# place and stay zero; the binnings of one stream run in order, so they
+# share it.
+_K10_SCRATCH: dict = {}
+
+
+def _k10_state_words(rows: int) -> int:
+    """int32 words of the look-back state for `rows` rows, a multiple of 4
+    so that the work after it starts 16-byte aligned."""
+    return -(-2 * (_K10_STATE_WORDS + rows) // 4) * 4
+
+
+def _k10_scratch(dev, rows: int, words: int):
+    """(state, work) of K10's scratch for a binning of `rows` rows that
+    needs `words` words of work."""
+    stream = torch.cuda.current_stream(dev)
+    key = (dev.index, stream.cuda_stream)
+    buf, cap = _K10_SCRATCH.get(key, (None, 0))
+    state = _k10_state_words(cap)
+    if buf is None or rows > cap or buf.numel() - state < words:
+        work = max(words, 0 if buf is None else buf.numel() - state)
+        cap = max(cap, rows)
+        state = _k10_state_words(cap)
+        buf = torch.zeros(state + work, dtype=torch.int32, device=dev)
+        _K10_SCRATCH[key] = (buf, cap)
+    return buf[:state], buf[state:state + words]
 
 
 def bin_triangles_layered(prep: PreparedGeometry, params: RasterParams,
@@ -389,8 +426,8 @@ def bin_triangles_layered(prep: PreparedGeometry, params: RasterParams,
     from the params. Returns n_layers Bins.
 
     layer: (T,) int32 in [0, n_layers), or None (all layer 0).
-    K10 (csrc/bin.cu) on CUDA tensors, with no host synchronisation; the
-    twin bin_triangles_layered_plain on CPU ones."""
+    K10 (csrc/bin.cu, three launches) on CUDA tensors, with no host
+    synchronisation; the twin bin_triangles_layered_plain on CPU ones."""
     bbox, valid = prep.bbox, prep.valid
     if not bbox.is_cuda:
         return bin_triangles_layered_plain(prep, params, layer, n_layers)
@@ -421,43 +458,37 @@ def bin_triangles_layered(prep: PreparedGeometry, params: RasterParams,
     most = t * max(p.bin_max_span, p.bin_mid_span, 1)
     if max(most, p.pair_capacity + 1, nl * p.big_tri_capacity) >= 1 << 31:
         raise ValueError("K10 counts pairs in 32 bits")
-    nblocks = max(1, -(-t // K10_TRIS))
-    use_mid = p.bin_mid_span > p.bin_max_span
-    prm = _k10_params(p, t, nl, nblocks)
-    i32 = torch.int32
+    prm = _k10_params(p, t, nl)
+    rows = prm[-1]
     big = p.big_tri_capacity
-    # scratch: mid counts, the (block, bucket) table, bucket totals and
-    # first slots, the kept pair count
-    work = torch.empty(nblocks + nblocks * nb + 2 * nb + 1, dtype=i32,
-                       device=dev)
-    mid_count, table, total, bstart, kept = work.split(
-        [nblocks, nblocks * nb, nb, nb, 1])
+    # each row's walker offsets (16 bits a bucket, two a word; first, so
+    # that each row's starts 16-byte aligned), then the descriptors, the
+    # table, the bucket totals and first slots, the kept pairs
+    woff_words = rows * K10_WALKERS * ((nb + 1) // 2)
+    sizes = [woff_words, 2 * t, rows * nb, nb, nb, 1]
+    st, work = _k10_scratch(dev, rows, sum(sizes))
+    woff, desc, table, total, bstart, kept = work.split(sizes)
+    # overflow: layer 0's, then the zero of the other layers
     out = torch.empty(p.pair_capacity + 1 + 2 * nl * nt + nl * big
-                      + 2 * nl + 1, dtype=i32, device=dev)
+                      + 2 * nl + 2, dtype=torch.int32, device=dev)
     pair_tri, starts, counts, big_tri, big_count, big_over, overflow = \
         out.split([p.pair_capacity + 1, nl * nt, nl * nt, nl * big, nl, nl,
-                   1])
-    src = (ptr(bbox), ptr(valid), ptr(layer))
-    if use_mid:
-        K10(prm, *src, ptr(mid_count), variant="k10_mids", name="k10_mids")
-    K10(prm, *src, ptr(mid_count), ptr(table), variant="k10_hist",
-        name="k10_hist")
-    K10(prm, ptr(table), ptr(total), variant="k10_scan", name="k10_scan")
-    K10(prm, ptr(total), ptr(bstart), ptr(starts), ptr(counts),
-        ptr(big_count), ptr(big_over), ptr(overflow), ptr(kept),
-        variant="k10_finalize", name="k10_finalize")
-    K10(prm, *src, ptr(mid_count), ptr(table), ptr(bstart), ptr(big_count),
-        ptr(kept), ptr(pair_tri), ptr(big_tri), name="k10_scatter")
-    big_tri = big_tri.view(nl, big)
-    zero = torch.zeros((), dtype=i32, device=dev)
-    return [Bins(pair_tri=pair_tri,
-                 starts=starts[l * nt:(l + 1) * nt],
-                 counts=counts[l * nt:(l + 1) * nt],
-                 big_tri=big_tri[l], big_count=big_count[l:l + 1],
-                 overflow=overflow[0] if l == 0 else zero,
-                 big_overflow=big_over[l], setup=prep.setup,
-                 attr=prep.attr)
-            for l in range(nl)]
+                   2])
+    K10(prm, ptr(bbox), ptr(valid), ptr(layer), ptr(st), ptr(desc),
+        ptr(table), ptr(woff), variant="k10_count", name="k10_count")
+    K10(prm, ptr(st), ptr(table), ptr(total), ptr(bstart), ptr(starts),
+        ptr(counts), ptr(big_count), ptr(big_over), ptr(overflow), ptr(kept),
+        variant="k10_scan", name="k10_scan")
+    K10(prm, ptr(desc), ptr(table), ptr(bstart), ptr(big_count), ptr(kept),
+        ptr(woff), ptr(pair_tri), ptr(big_tri), name="k10_scatter")
+    over = overflow.unbind()
+    return [Bins(pair_tri=pair_tri, starts=s, counts=c, big_tri=bt,
+                 big_count=bc, overflow=over[0] if l == 0 else over[1],
+                 big_overflow=bo, setup=prep.setup, attr=prep.attr)
+            for l, (s, c, bt, bc, bo) in enumerate(zip(
+                starts.view(nl, nt).unbind(), counts.view(nl, nt).unbind(),
+                big_tri.view(nl, big).unbind(),
+                big_count.view(nl, 1).unbind(), big_over.unbind()))]
 
 
 def bin_triangles_layered_plain(prep: PreparedGeometry, params: RasterParams,

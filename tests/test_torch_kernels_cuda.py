@@ -1331,6 +1331,7 @@ def _kept(bins):
     ("mid_tier_off", dict(bin_mid_span=2), 900, 1, 0.7),
     ("no_valid_triangle", dict(), 700, 1, 0.0),
     ("four_layers", dict(), 3000, 4, 0.7),
+    ("tiles_not_powers_of_two", dict(tile_w=96, tile_h=12), 3000, 2, 0.7),
     ("many_blocks", dict(width=1920, height=1088, pair_capacity=1 << 18,
                          bin_max_span=8, bin_mid_span=64,
                          mid_tri_capacity=1024, big_tri_capacity=8192),
@@ -1342,9 +1343,9 @@ def test_k10_matches_twin(dev, case, kw, t, n_layers, frac_valid):
     and both overflow counters, on 1, 2, 3 and 4 layers; a cut at
     pair_capacity inside a tile's bucket; big lists past their capacity;
     mids past mid_tri_capacity (the first in triangle order fit); the mid
-    tier off; no valid triangle; and 120,000 triangles over 59 blocks,
-    whose order across blocks and walking warps the counting sort must
-    keep."""
+    tier off; no valid triangle; tiles whose sizes are not powers of two
+    (a division, not a shift); and 120,000 triangles over 59 rows, whose
+    order across rows and walking warps the counting sort must keep."""
     params = raster.RasterParams(**{**_BIN, **kw})
     prep, layer = bin_inputs(
         dev, t, params, n_layers, seed=40, frac_valid=frac_valid,
@@ -1367,7 +1368,7 @@ def test_k10_matches_twin(dev, case, kw, t, n_layers, frac_valid):
 
 
 def test_k10_walking_warps_by_bucket_count(dev):
-    """Many buckets cut the scatter's walking warps (8 to 4 at 5,121
+    """Many buckets cut the scatter's walking warps (16 to 7 at 5,121
     buckets, 1 at 24,577): K10 still equals its twin."""
     for kw in (dict(width=1280, height=1024, tile_h=16, tile_w=16),
                dict(width=2048, height=1536, tile_h=16, tile_w=8)):
@@ -1456,4 +1457,75 @@ def test_k10_refuses_and_never_falls_back(dev):
     raster.bin_triangles_layered(cpu, params, layer=layer.cpu(), n_layers=2)
     assert raster.K10.launches == n0
     raster.bin_triangles_layered(prep, params, layer=layer, n_layers=2)
-    assert raster.K10.launches == n0 + 5
+    assert raster.K10.launches == n0 + 3
+
+
+@pytest.mark.parametrize("mid_tier", [True, False], ids=["mids", "no_mids"])
+def test_k10_three_launches_a_binning(dev, mid_tier):
+    """A binning is at most three K10 launches, one of each step (counting,
+    column scan, scatter), with the mid tier on or off."""
+    params = raster.RasterParams(**{**_BIN, **({} if mid_tier
+                                               else {"bin_mid_span": 2})})
+    prep, layer = bin_inputs(dev, 3000, params, 2, seed=45)
+    before = dict(raster.K10.by_name)
+    _k10_vs_twin(prep, params, layer, 2)
+    steps = {k: v - before.get(k, 0) for k, v in raster.K10.by_name.items()
+             if v != before.get(k, 0)}
+    assert steps == {"k10_count": 1, "k10_scan": 1, "k10_scatter": 1}
+
+
+def _k10_lookback_case(dev, case):
+    """(prep, params, layer, n_layers) of a look-back case: mids in every
+    row, the mid capacity cut in the middle of them."""
+    if case == "four_million_triangles":
+        params = raster.RasterParams(width=1920, height=1088,
+                                     pair_capacity=1 << 24, bin_max_span=8,
+                                     bin_mid_span=64,
+                                     mid_tri_capacity=200_000,
+                                     big_tri_capacity=8192)
+        prep, layer = bin_inputs(dev, 4_194_304 + 777, params, 3, seed=46,
+                                 frac_valid=0.5, spans=(1, 2, 4, 40, 200))
+        return prep, params, layer, 3
+    wide = case == "wide"
+    params = raster.RasterParams(**{**_BIN, "width": 1920 if wide else 640,
+                                    "height": 1088 if wide else 256,
+                                    "pair_capacity": 1 << 20,
+                                    "bin_max_span": 2, "bin_mid_span": 64,
+                                    "mid_tri_capacity": 15_000 if wide
+                                    else 900})
+    prep, layer = bin_inputs(dev, 150_000 if wide else 9000, params,
+                             3 if wide else 1, seed=47 if wide else 48,
+                             spans=(1, 2, 40, 200))
+    return prep, params, layer, 3 if wide else 1
+
+
+@pytest.mark.parametrize("case", ["four_million_triangles",
+                                  "back_to_back_shapes"])
+def test_k10_lookback_rows_and_state(dev, case):
+    """The mid fit's look-back and K10's state between binnings. 4,195,081
+    triangles make 2,049 rows, more blocks than the card holds at once, so
+    rows wait only on rows of earlier tickets. Back to back, with no
+    synchronisation between them, a wide binning (74 rows, three layers),
+    a narrow one of another shape (5 rows, one layer) and the wide one
+    again: each must equal its twin, so none reads another's look-back
+    words or counters. The mid capacity cuts the mids in the middle of the
+    rows in every case."""
+    if case == "four_million_triangles":
+        runs = [_k10_lookback_case(dev, case)]
+    else:
+        wide = _k10_lookback_case(dev, "wide")
+        runs = [wide, _k10_lookback_case(dev, "narrow"), wide]
+    got = [raster.bin_triangles_layered(prep, params, layer=layer,
+                                        n_layers=nl)
+           for prep, params, layer, nl in runs]
+    for bins, (prep, params, layer, nl) in zip(got, runs):
+        ref = raster.bin_triangles_layered_plain(prep, params, layer=layer,
+                                                 n_layers=nl)
+        for l in range(nl):
+            for f in ("pair_tri", "starts", "counts", "big_tri", "big_count",
+                      "overflow", "big_overflow"):
+                g, r = getattr(bins[l], f), getattr(ref[l], f)
+                assert g.dtype == r.dtype and g.shape == r.shape, (l, f)
+                assert torch.equal(g, r), (case, l, f, int((g != r).sum()))
+        assert sum(int(b.big_overflow) for b in ref) > 0
+        assert int(ref[0].overflow) == 0

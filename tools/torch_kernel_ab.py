@@ -3,7 +3,7 @@
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
-        [--kernels k1,k2,k3,k4,k5,k8,k9,k10] [--out FILE]
+        [--kernels k1,k2,k3,k4,k5,k8,k9,k10] [--timeline] [--out FILE]
 
 K1-K3: it renders one main-path frame of chip_smoke.py (the atrium at
 1920x1088, sun shadow map, 8 masked peels) and one forward frame of its
@@ -39,7 +39,14 @@ K10: the main-path frame's two binnings (the camera pass's three layers
 and the sun's depth-only pass), timed the same way; each checkout's
 bins must equal its own twin's (bin_triangles_layered_plain) and the
 other checkout's, every output of every layer. Each checkout's device
-time of each K10 step is printed too (chip_smoke._k10_steps_ms).
+time of each K10 step is printed too (chip_smoke._k10_steps_ms). With
+--timeline, each checkout whose bin.cu has the K10_TIMELINE hooks is
+built once more with -DK10_TIMELINE (a tool-only library beside its
+kernels; the main path never loads it), and each binning runs once
+through it: per step (counting, scatter, scan), the blocks' %globaltimer
+start and end and their clock64() marks, printed as the median and the
+longest block, when the last block starts, and the longest block's time
+between its marks (k10_timeline).
 
 K4: it builds the atrium's wide and binary BVHs, captures every K4 launch
 of one path-traced sample at 640x360 (primary, bounce, shadow and their
@@ -63,9 +70,12 @@ as this one's (the kernels' contract).
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import importlib
 import json
 import pathlib
+import subprocess
 import sys
 import time
 
@@ -233,6 +243,119 @@ def agree(cs, kind, a, kw, outs, this, other, name):
             raise RuntimeError(f"{name}: the checkouts' outputs differ")
 
 
+# k10_timeline's rows (csrc/bin.cu K10_TIMELINE): steps (a checkout with
+# fewer leaves the rest zero), blocks, slots;
+# then blocks, warps, walks (the counting step's and the scatter's),
+# (groups, steps, cycles)
+K10_TL = (3, 4096, 8)
+K10_TLW = (4096, 16, 2, 3)
+K10_TL_STEPS = ("count", "scatter", "scan")
+K10_TL_WALKS = ("count_pairs", "scatter_walk")
+
+
+def timeline_lib(mods):
+    """The checkout's bin.cu built with -DK10_TIMELINE into its build
+    directory, loaded; None if its source has no timeline hooks."""
+    build = mods["build"]
+    src = build.CSRC / "bin.cu"
+    text = src.read_bytes()
+    if b"K10_TIMELINE" not in text:
+        return None
+    flags = [*build._FLAGS, "-DK10_TIMELINE"]
+    tag = hashlib.sha1(text + " ".join(flags).encode()).hexdigest()[:12]
+    target = build.BUILD_DIR / f"libbin-timeline-{tag}.so"
+    if not target.exists():
+        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([build._nvcc(), *flags, "-o", str(target), str(src)],
+                       check=True)
+    lib = ctypes.CDLL(str(target))
+    lib.k10_timeline.argtypes = [ctypes.c_void_p]
+    lib.k10_timeline.restype = ctypes.c_int
+    return lib
+
+
+def _read_timeline(lib):
+    """(block rows, warp rows) of the last binning; the warp rows stay zero
+    where the checkout's marks have none."""
+    n = int(np.prod(K10_TL))
+    buf = np.zeros(n + int(np.prod(K10_TLW)), dtype=np.uint64)
+    rc = lib.k10_timeline(buf.ctypes.data)
+    if rc:
+        raise RuntimeError(f"k10_timeline failed: cudaError {rc}")
+    buf = buf.astype(np.int64)
+    return buf[:n].reshape(K10_TL), buf[n:].reshape(K10_TLW)
+
+
+def k10_timeline(mods, lib, a, kw) -> dict:
+    """One binning through the checkout's timeline build: for each step,
+    its blocks' start and end (ns, %globaltimer, from the first block's
+    start), the median and longest block, and the longest block's clock64
+    cycles between its marks."""
+    import torch
+    build, raster = mods["build"], mods["raster"]
+    saved = build._LIBS.get("bin"), raster.K10._f
+    build._LIBS["bin"], raster.K10._f = lib, {}
+    try:
+        raster.bin_triangles_layered(*a, **kw)
+        torch.cuda.synchronize()
+        _read_timeline(lib)
+        raster.bin_triangles_layered(*a, **kw)
+        torch.cuda.synchronize()
+        rows, warps = _read_timeline(lib)
+    finally:
+        build._LIBS["bin"], raster.K10._f = saved
+        if saved[0] is None:
+            del build._LIBS["bin"]
+    seen = [r[r[:, 0] > 0] for r in rows]
+    t0 = min(int(r[:, 0].min()) for r in seen if len(r))
+    out = {}
+    for name, r in zip(K10_TL_STEPS, seen):
+        if not len(r):
+            continue
+        dur = r[:, 1] - r[:, 0]
+        longest = int(np.argmax(dur))
+        marks = r[longest, 3:]
+        marks = marks[marks > 0]
+        med = int(np.argsort(dur)[len(dur) // 2])
+        med_marks = r[med, 3:]
+        med_marks = med_marks[med_marks > 0]
+        out[name] = dict(
+            blocks=len(r), sms=int(len(set(r[:, 2].tolist()))),
+            first_start_us=(int(r[:, 0].min()) - t0) / 1e3,
+            last_start_us=(int(r[:, 0].max()) - t0) / 1e3,
+            last_end_us=(int(r[:, 1].max()) - t0) / 1e3,
+            median_block_us=float(np.median(dur)) / 1e3,
+            longest_block_us=int(dur[longest]) / 1e3,
+            longest_block=int(np.flatnonzero(rows[K10_TL_STEPS.index(name),
+                                                  :, 0] > 0)[longest]),
+            longest_starts_us=(int(r[longest, 0]) - t0) / 1e3,
+            longest_cycles_between_marks=np.diff(marks).tolist(),
+            median_cycles_between_marks=np.diff(med_marks).tolist())
+    # each warp's walks: the slowest, the median cycles a group or step,
+    # and the scatter's longest block warp by warp
+    for i, name in enumerate(K10_TL_WALKS):
+        w = warps[:, :, i, :]
+        on = w[..., 2] > 0
+        if not on.any():
+            continue
+        blk, wp = np.unravel_index(np.argmax(np.where(on, w[..., 2], -1)),
+                                   on.shape)
+        units = w[..., 0] + w[..., 1]
+        per = w[..., 2][on & (units > 0)] / units[on & (units > 0)]
+        out[name] = dict(
+            slowest=dict(block=int(blk), warp=int(wp),
+                         groups=int(w[blk, wp, 0]), steps=int(w[blk, wp, 1]),
+                         cycles=int(w[blk, wp, 2])),
+            median_cycles_a_group_or_step=float(np.median(per))
+            if per.size else None)
+        if "scatter" in out and name != "count_pairs":
+            blk = out["scatter"]["longest_block"]
+            out[name]["longest_block_warps"] = [
+                [int(x) for x in w[blk, j]] for j in range(w.shape[1])
+                if w[blk, j, 2] > 0]
+    return out
+
+
 def k2_entry_call(clustered, a, kw):
     """-> (entry args, tensors they point into): the C-level arguments of
     this checkout's K2 wrapper (kernels/clustered.py clustered_lighting)
@@ -264,7 +387,7 @@ def time_pair(cs, f_other, f_this, reps):
     return min(runs[0], runs[3]), min(runs[1], runs[2])
 
 
-def k1_to_k5(cs, others, this, dev, times, kinds):
+def k1_to_k5(cs, others, this, dev, times, kinds, timelines=None):
     """K1-K3, K5, K8, K9 and K10 (those of kinds) of one main-path frame and
     the small path's blend layers (K1) and K5 launches, each launch timed
     with each other checkout's wrapper and this one's; appends to
@@ -312,6 +435,12 @@ def k1_to_k5(cs, others, this, dev, times, kinds):
                           f"step (profiler) " + json.dumps(
                               {k: round(v, 4) for k, v in steps.items()}),
                           flush=True)
+                for what, m in (("other", other), ("this", this)):
+                    lib = (timelines or {}).get(id(m))
+                    if lib is not None:
+                        tl = k10_timeline(m, lib, a, kw)
+                        print(f"{role_name}: {what} checkout's per-block "
+                              f"timeline {json.dumps(tl)}", flush=True)
             if kind == "k2":
                 entry_args, held = k2_entry_call(clustered, a, kw)
                 entries = (other["clustered"].K2, clustered.K2)
@@ -475,6 +604,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default="k1,k2,k3,k4",
                     help="comma-separated: k1, k2, k3, k5 (two frames' "
                          "launches), k8, k9, k10 (the main frame's), k4")
+    ap.add_argument("--timeline", action="store_true",
+                    help="with k10: each checkout's per-block timeline of "
+                         "its counting and scatter steps")
     ap.add_argument("--out", help="also write the JSON object here")
     args = ap.parse_args(argv)
     kinds = set(args.kernels.split(","))
@@ -522,9 +654,16 @@ def main(argv=None) -> int:
             sass.setdefault(name, {})[kind] = res
             print(f"{name} checkout's {fn}: {json.dumps(res)}", flush=True)
 
+    timelines = {}
+    if args.timeline and "k10" in kinds:
+        for name, mods in [("this", this)] + others:
+            timelines[id(mods)] = lib = timeline_lib(mods)
+            print(f"{name} checkout's K10 timeline build: "
+                  f"{'none (no hooks)' if lib is None else 'built'}",
+                  flush=True)
     times: dict = {}
     if kinds & set(WRAPPERS):
-        k1_to_k5(cs, others, this, dev, times, kinds)
+        k1_to_k5(cs, others, this, dev, times, kinds, timelines)
     totals, ends = {}, {}
     if "k4" in kinds:
         totals, ends = k4_ab(cs, others, this, dev, times)
