@@ -7,28 +7,38 @@
 It builds the hand-written CUDA kernels from incarnation_tpu_torch/csrc,
 builds the procedural atrium (289k triangles, 41 materials, 66 lights,
 masked foliage, decals) onto the card and renders 8 TAA frames at 1920x1088
-through render_frame, the port's raster frame in the bench configuration:
-triangle setup (K9) and layered binning (K10) of the camera and sun
-passes, opaque raster, 8 masked
-depth peels with their alpha tests (K6), decals, the material resolve of
-the opaque and decal layers (K5), the 1024 x 1024 sun shadow map (K1's
-depth-only role, every face casting), sky IBL (K8), shadowed sun,
-clustered lights, TAA and tonemap. The camera is the
-atrium's glTF camera with Halton jitter and a small orbit every frame. It
-checks that the shadow map darkens the frame.
+through render_frame, the port's raster frame in the bench configuration
+(bench.py's Config(sun_shadow_mode="map", masked_depth_peels=8), the JAX
+package's defaults otherwise, a history of zeros on frame 0 as bench.py
+gives it): triangle setup (K9) and layered binning (K10) of the camera
+and sun passes, opaque raster, 8 masked depth peels with their alpha
+tests (K6: a jittered texel of a dithered mip under the chunk-capacity
+ladder), decals, the material resolve of the opaque layer (K5: a
+checkerboard of jittered texels) and the decal layer (K5: jittered
+texels under its chunk capacity), the 1024 x 1024 sun shadow map (K1's
+depth-only role, every face casting) and its jittered, checkerboarded
+tap, sky IBL (K8: a checkerboard of jittered RGBE probe texels), shadowed
+sun, clustered lights, TAA and tonemap. The camera is the atrium's glTF
+camera with Halton jitter and a small orbit every frame. Every zero gate
+must read 0 on every frame (peel_chunk_overflow and decal_overflow
+among them), and each launch of K5, K6 and K8 counts under its role.
+Then the same 8 frames with the estimators off (the exact roles of K5,
+K6 and K8 on every frame): both sequences' frame times and the last
+frames' PSNR. It checks that the shadow map darkens the frame.
 
-Then it captures each kernel's inputs from one more frame, runs each kernel
-and its plain PyTorch twin on those inputs on the card, compares them, times
-both on the card's clock (device_ms), prints each kernel's bound (the work
-its inputs need) and work diagnostics, renders that frame again with
-every kernel swapped for its twin and compares the images, and prints the
+Then it captures each kernel's inputs from one more frame of each
+sequence, runs each kernel and its plain PyTorch twin on those inputs on
+the card (a row per role of K5, K6 and K8), compares them, times both on
+the card's clock (device_ms), prints each kernel's bound (the work its
+inputs need) and work diagnostics, renders that frame again with every
+kernel swapped for its twin and compares the images, and prints the
 frame's time by phase (phase_breakdown). The frame's two binnings run
 once more under torch.cuda.set_sync_debug_mode("error"): K10 makes the
 host wait for nothing.
 
 A second, small path (512x256, the port's scene/testing.py scene with a
-BLEND quad) renders one forward-lighting frame with blend layers and both
-debug draws, holds its blend-layer launches of K1 and every K5, K6, K8,
+BLEND quad, TAA off: the exact roles) renders one forward-lighting frame
+with blend layers and both debug draws, holds its blend-layer launches of K1 and every K5, K6, K8,
 K9 and K10 launch to their twins, renders one frame per view mode (the
 lighting-only mode's K8 launch held to its twin) and checks pick and
 highlight.
@@ -118,11 +128,33 @@ K3_OPS_PER_PIXEL = 45          # 3x4 reprojection, divide, 3-channel bilerp
 K5_OPS_PER_COVERED = 859
 K5_OPS_PER_EXTRAS = 264
 K5_OUT_BYTES = 85
+# K5's stochastic roles, counted from csrc/resolve.cu, per covered pixel:
+# the work but the texture fetch and the LOD, 181 (TBN 45, sRGB 30, the
+# factors 14, normal mapping 38, octahedral encoding 13, world position
+# 41); the anisotropic LOD 15, the uv step 5, floor(lod + xi) 2, four
+# noises to floats 8 (211 in all); per fetch, bilinear one level of 4
+# texels (155 and 4 decodes of 44, 331) or one jittered texel (its
+# address 11 and one decode of 44, 55), and 33 per extras decode; a
+# covered pixel of the checkerboard's other parity fills its 14 channels
+# with 28. Integer operations: the four noise hashes, 9 each, at every
+# pixel (a pixel's uv moves whether it is covered or not).
+K5S_OPS_PER_COVERED = 211
+K5S_OPS_BILINEAR, K5S_OPS_POINT, K5S_OPS_FILL = 331, 55, 28
+K5S_INT_OPS = 36
 # K6, per pixel of the peel: LOD 12, its cap 4, the clamps 2, the bilinear
 # alpha fetch 26, alpha 1, the BLEND threshold 2 (43, on every pixel, hit
 # or not); bytes: 7 interp channels in, alpha and threshold out.
 K6_OPS_PER_PIXEL = 43
 K6_PIXEL_BYTES = 7 * 4 + 8
+# K6's stochastic roles, per pixel: the anisotropic LOD 15, the clamped
+# major axis 4, the uv step 5, floor(lod + xi) 2, five noises to floats
+# 10, the cap 4, the clamps 2, the jittered texel's address 8, alpha 1,
+# the threshold 2 (53); the five noise hashes 45 integer operations;
+# bytes: u, v, the material and 4 derivatives in, alpha and the
+# threshold out
+K6S_OPS_PER_PIXEL = 53
+K6S_INT_OPS = 45
+K6S_PIXEL_BYTES = 7 * 4 + 8
 K5_RTOL = 1e-5             # K5 against its twin: see _k5_error
 # K8, counted from csrc/skylight.cu (pow, sqrt and abs count one each, a
 # fused multiply-add two), per covered pixel: the diffuse lobe 111 (the SH
@@ -141,6 +173,19 @@ K8_OPS_SPECULAR, K8_OPS_CLEARCOAT = 162, 115
 K8_OPS_ANALYTIC, K8_OPS_LUT = 1198, 32
 K8_OPS_HBAO = 3
 K8_TOL = 1e-5              # K8 against its twin: see _k8_error
+# K8's stochastic roles, per covered pixel: the specular lobe's set-up 74
+# (NoV and the reflected direction 29, the cube face 11, f0 and the AO
+# blend 34) and one env-BRDF evaluation (the picked lobe's); the lobe
+# pick with extras 11; per probe fetch one dithered level (the lod 3,
+# bilinear 42) or one RGBE texel (the lod 3, its address 8, the decode
+# 6); the checkerboard's fill 6; four noises to floats 8. Integer
+# operations: the noise hashes, 9 each. Bytes: the mask and output of
+# every pixel, a covered pixel's inputs, the inputs of the fetching
+# pixels that are not covered (n, v, mrao, extras: 52), and the RGBE
+# table (or the cube) once, whole.
+K8S_OPS_SPECULAR, K8S_OPS_LOBE = 82, 11
+K8S_OPS_BILINEAR, K8S_OPS_POINT, K8S_OPS_FILL = 45, 17, 6
+K8S_INT_OPS = 36
 # K9, counted from csrc/setup.cu, per triangle: the corners' clip positions
 # 72, screen mapping 24, edge functions and det 32, the visibility, sign
 # and depth plane 33, the clipped bbox 89 (250 in the depth-only role);
@@ -317,9 +362,15 @@ def main(argv=None) -> int:
     secs, logs = build.timed_build(verbose=True)
     _log(f"kernels built in {secs:.1f} s")
     K4_RESOURCES.update(k4_resources(build, logs.get("bvh")))
-    K5_RESOURCES.update(k5_resources(build, logs.get("resolve")))
-    _log(f"K5 (k5_resolve_kernel): {json.dumps(K5_RESOURCES)}")
-    K8_RESOURCES.update(kernel_resources(build, "skylight", "k8_sky_kernel",
+    K5_RESOURCES.update(kernel_resources(build, "resolve",
+                                         "k5_resolve_kernel",
+                                         logs.get("resolve")))
+    K5_RESOURCES.update(kernel_resources(build, "resolve",
+                                         "k6_masked_alpha_kernel",
+                                         logs.get("resolve")))
+    _log(f"K5 and K6 (k5_resolve_kernel, k6_masked_alpha_kernel, by role): "
+         f"{json.dumps(K5_RESOURCES)}")
+    K8_RESOURCES.update(kernel_resources(build, "skylight", "k8_sky_",
                                          logs.get("skylight")))
     K9_RESOURCES.update(kernel_resources(build, "setup", "k9_setup_kernel",
                                          logs.get("setup")))
@@ -344,36 +395,37 @@ def main(argv=None) -> int:
                resolve.K6, skylight.K8, raster.K9, raster.K10)
     for k in kernels:
         k.reset()
-    history = torch.zeros((H, W, 3), device=dev)
-    prev_vp, frame_ms, outs, per_frame = None, [], [], []
-    outs_history = []
-    for i in range(FRAMES):
-        before = [k.launches for k in kernels]
-        fc = make_fc(i, prev_vp)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = run(fc, history)
-        end.record()
-        torch.cuda.synchronize()
-        frame_ms.append(start.elapsed_time(end))
-        outs.append(out["stats"])
-        outs_history.append(history)
-        history = out["accumulation"]
-        prev_vp = fc.view_proj.cpu().numpy()
-        per_frame.append([k.launches - n for k, n in zip(kernels, before)])
+    # the main path: bench.py's frame, JAX's default Config, its history
+    # zeros on frame 0 (as bench.py gives it), so every frame runs the
+    # stochastic filters
+    seq = run_sequence(run, make_fc, dev, kernels)
+    frame_ms, outs, outs_history = seq.frame_ms, seq.stats, seq.histories
+    per_frame, out, fc, prev_vp = seq.per_frame, seq.out, seq.fc, seq.prev_vp
+    history = out["accumulation"]
     launches = {k.fn: k.launches for k in kernels}
     if launches.pop("k4_trace"):
         raise RuntimeError("the raster frame launched K4")
     k1_by_layer = dict(raster.K1.by_name)
     k10_steps = dict(raster.K10.by_name)
+    roles = {k.fn: dict(k.by_name) for k in (resolve.K5, resolve.K6,
+                                              skylight.K8)}
     _log(f"launches on the main path: {launches}, K1 by layer "
-         f"{k1_by_layer}, K10 by launch {k10_steps}")
+         f"{k1_by_layer}, K10 by launch {k10_steps}, K5, K6 and K8 by role "
+         f"{roles}")
     _log("frame ms: " + ", ".join(f"{t:.2f}" for t in frame_ms))
+    # JAX's default frame: K5 fetches the opaque layer's stack by the
+    # checkerboard of jittered texels and the decal layer's under its
+    # chunk capacity, K6 every peel's alpha under the chunk ladder, K8 the
+    # probe by the checkerboard
+    want_roles = {"k5_resolve": {"jitter_checker": FRAMES,
+                                 "jitter+chunks": FRAMES},
+                  "k6_masked_alpha": {"jitter+chunks": PEELS * FRAMES},
+                  "k8_sky_lighting": {"jitter_checker": FRAMES}}
+    if roles != want_roles:
+        raise RuntimeError(f"K5, K6, K8 roles {roles} != {want_roles}")
 
     for i, st in enumerate(outs):
-        for key in ("bin_overflow", "big_overflow", "peel_overflow",
-                    "shadow_bin_overflow"):
+        for key in ZERO_STATS:
             if int(st[key]) != 0:
                 raise RuntimeError(f"frame {i}: {key} = {int(st[key])}")
     last = outs[-1]
@@ -408,6 +460,39 @@ def main(argv=None) -> int:
                        "raster_shadow_depth": FRAMES}:
         raise RuntimeError(f"K1 layers {k1_by_layer}")
 
+    # 5a. the same sequence with the estimators off (the parent's frame:
+    # exact trilinear fetches, no checkerboard, no chunk capacity), its
+    # K5, K6 and K8 launches the exact roles' on every frame; the two
+    # sequences' frame times and their last frames' PSNR
+    def run_exact(fc, history, config=exact_config(cfg), scene_bvh=None):
+        return run(fc, history, config, scene_bvh)
+
+    for k in kernels:
+        k.reset()
+    ex = run_sequence(run_exact, make_fc, dev, kernels)
+    exact_roles = {k.fn: dict(k.by_name) for k in (resolve.K5, resolve.K6,
+                                                    skylight.K8)}
+    want = {"k5_resolve": {"exact": 2 * FRAMES},
+            "k6_masked_alpha": {"exact": PEELS * FRAMES},
+            "k8_sky_lighting": {"exact": FRAMES}}
+    if exact_roles != want or ex.per_frame != per_frame:
+        raise RuntimeError(f"the exact sequence's launches {ex.per_frame}, "
+                           f"roles {exact_roles}")
+    for i, st in enumerate(ex.stats):
+        for key in ZERO_STATS:
+            if int(st[key]) != 0:
+                raise RuntimeError(f"exact frame {i}: {key} = {int(st[key])}")
+    psnr = _psnr(out["color"], ex.out["color"])
+    _log("frames on vs off (ms, frames 1-7; median, min, max): estimators "
+         f"on {_spread(frame_ms[1:])}, off {_spread(ex.frame_ms[1:])}; "
+         f"frame {FRAMES - 1} on against off: u8 PSNR {psnr:.2f} dB")
+    _log("frame ms with the estimators off: "
+         + ", ".join(f"{t:.2f}" for t in ex.frame_ms))
+    if not 20.0 < psnr < float("inf"):
+        raise RuntimeError(f"the stochastic frame is {psnr:.2f} dB from the "
+                           "exact one")
+    exact_launches = {k.fn: k.launches for k in kernels}
+
     # 5b. the shadow map does something: some, not all, covered pixels of
     # the last frame are in shadow, and the frame is darker than the same
     # frame without the map
@@ -429,14 +514,27 @@ def main(argv=None) -> int:
     if not mean_on < mean_off:
         raise RuntimeError("the shadow map does not darken the frame")
 
-    # 6. each kernel against its twin on one frame's real inputs
+    # 6. each kernel against its twin on one frame's real inputs: the
+    # stochastic roles on the main path's next frame, the exact roles on
+    # the exact sequence's
     fc = make_fc(FRAMES, prev_vp)
     calls = capture_frame(run, fc, history, raster, clustered, taa)
+    exact_calls = capture_frame(run_exact, fc, ex.out["accumulation"],
+                                raster, clustered, taa)
     rows = compare_kernels(calls, raster, clustered, taa, launches,
                            k1_by_layer)
-    rows += [k5_row(resolve, calls, launches["k5_resolve"]),
-             k6_row(resolve, calls, launches["k6_masked_alpha"]),
-             k8_row(skylight, calls, launches["k8_sky_lighting"])]
+    rows += [k5_row(resolve, exact_calls, exact_launches["k5_resolve"],
+                    role="exact"),
+             k6_row(resolve, exact_calls,
+                    exact_launches["k6_masked_alpha"], role="exact"),
+             k8_row(skylight, exact_calls,
+                    exact_launches["k8_sky_lighting"], role="exact")]
+    rows += [k5_row(resolve, calls, n, name=f"k5_resolve[{r}]", role=r)
+             for r, n in roles["k5_resolve"].items()]
+    rows += [k6_row(resolve, calls, n, name=f"k6_masked_alpha[{r}]", role=r)
+             for r, n in roles["k6_masked_alpha"].items()]
+    rows += [k8_row(skylight, calls, n, name=f"k8_sky_lighting[{r}]",
+                    role=r) for r, n in roles["k8_sky_lighting"].items()]
     rows += k9_rows(raster, calls, launches["k9_setup"])
     rows += k10_rows(raster, calls, launches["k10_scatter"])
     k10_no_sync(raster, calls)
@@ -475,6 +573,60 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# the stats every frame of the main path holds at 0: nothing dropped by a
+# capacity, no pixel left on an alpha-failed peel
+ZERO_STATS = ("bin_overflow", "big_overflow", "peel_overflow",
+              "shadow_bin_overflow", "peel_chunk_overflow", "decal_overflow")
+
+
+def exact_config(cfg):
+    """cfg with the stochastic estimators off: exact trilinear fetches, no
+    checkerboard, no chunk capacity (the frame before the JAX package's
+    defaults were ported)."""
+    return cfg.replace(stochastic_mip=False, stochastic_bilinear=False,
+                       checkerboard_gathers=False, peel_chunk_capacity=0,
+                       decal_chunk_capacity=0)
+
+
+def _psnr(a, b) -> float:
+    mse = float(((a.double() - b.double()) ** 2).mean())
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def _spread(ms) -> str:
+    return (f"{float(np.median(ms)):.2f} ({min(ms):.2f}-{max(ms):.2f})")
+
+
+def run_sequence(run, make_fc, dev, kernels):
+    """FRAMES TAA frames of run(fc, history), the camera's small orbit and
+    Halton jitter, from a history of zeros (bench.py's _frame_loop), each
+    timed by CUDA events -> namespace(frame_ms, stats, histories (each
+    frame's input history), per_frame (launches of each kernel per frame),
+    out (the last frame), fc, prev_vp)."""
+    import types
+    import torch
+    history = torch.zeros((H, W, 3), device=dev)
+    prev_vp, frame_ms, stats, per_frame, histories = None, [], [], [], []
+    for i in range(FRAMES):
+        before = [k.launches for k in kernels]
+        fc = make_fc(i, prev_vp)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = run(fc, history)
+        end.record()
+        torch.cuda.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+        stats.append(out["stats"])
+        histories.append(history)
+        history = out["accumulation"]
+        prev_vp = fc.view_proj.cpu().numpy()
+        per_frame.append([k.launches - n for k, n in zip(kernels, before)])
+    return types.SimpleNamespace(frame_ms=frame_ms, stats=stats,
+                                 histories=histories, per_frame=per_frame,
+                                 out=out, fc=fc, prev_vp=prev_vp)
 
 
 def atrium_path(dev):
@@ -620,9 +772,13 @@ def _k1_bound(bins, params, z_limit, mask_table):
     return _bound(nbytes, ops)
 
 
-def _bound(nbytes, ops):
+def _bound(nbytes, ops, int_ops=0):
+    """(the least ms, 'bytes' | 'operations'): bytes over the HBM rate, or
+    the float operations over the f32 rate, or the integer operations
+    over the int32 rate (an SM issues the two kinds on separate units),
+    whichever is longest."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = max(ops / F32_OPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -716,11 +872,38 @@ def k3_row(taa, a, name, n_launches):
 
 
 def _k5_args(a, kw):
-    """A captured resolve_gbuffer call -> (tri, depth, scene, interp,
-    inv_view_proj, width, height, return_normal3)."""
-    tri, depth, scene, interp, ivp, w, h, *rest = a
-    n3 = rest[0] if rest else kw.get("return_normal3", False)
-    return tri, depth, scene, interp, ivp, w, h, bool(n3)
+    """A captured resolve_gbuffer call -> its arguments by name, defaults
+    filled (tri, depth, scene, interp, inv_view_proj, width, height,
+    return_normal3 and the stochastic roles' mip_dither, uv_dither,
+    max_aniso, coverage_capacity, checker_parity, row0)."""
+    from incarnation_tpu_torch.kernels import resolve
+    return dict(_bound_args(resolve.resolve_gbuffer_plain, a, kw))
+
+
+def _k5_role(x) -> str:
+    """The role name a resolve_gbuffer call counts under (_k5_args)."""
+    from incarnation_tpu_torch.kernels import resolve
+    cap = x["coverage_capacity"]
+    return resolve.role_name(resolve._role(
+        x["mip_dither"], x["uv_dither"], resolve._checker_on(
+            x["checker_parity"], x["uv_dither"], x["width"], cap)),
+        cap is not None)
+
+
+def _k6_role(x) -> str:
+    """The role name a masked_alpha call counts under (_k6_args)."""
+    from incarnation_tpu_torch.kernels import resolve
+    return resolve.role_name(resolve._role(x["mip_dither"], x["uv_dither"]),
+                             x["coverage_capacity"] is not None)
+
+
+def _k8_role(x) -> str:
+    """The role name a sky_lighting call counts under (_bound_args)."""
+    if x["dither"] is None:
+        return "exact"
+    return ("jitter" if x["uv_dither"] and x["probe"].prefiltered.packed
+            else "dither") + ("_checker" if x["checker_parity"] is not None
+                              else "")
 
 
 def _k5_error(got, ref):
@@ -751,7 +934,10 @@ def _k5_error(got, ref):
 def _rows_touched(fn, tables):
     """Runs fn (a twin) with mathutils.gather_rows recording the rows it
     gathers from each table of `tables` ({name: (table, pixel mask or
-    None)}), the rows of masked pixels only. -> {name: distinct rows}."""
+    None)}), the rows of masked pixels only; a mask may be a tuple of
+    masks of several shapes (a checkerboard's whole and compacted
+    layers), the one whose shape leads the gather's indices applies.
+    -> {name: distinct rows}."""
     import torch
     from incarnation_tpu_torch.core import mathutils as mu
     seen = {name: [] for name in tables}
@@ -762,7 +948,11 @@ def _rows_touched(fn, tables):
             if table is t:
                 i = torch.clamp(idx, 0, t.shape[0] - 1)
                 if where is not None:
-                    i = i[where.expand(i.shape)]
+                    m = where if not isinstance(where, tuple) else next(
+                        w for w in where
+                        if tuple(i.shape[:w.dim()]) == tuple(w.shape))
+                    i = i[m.reshape(m.shape + (1,) * (i.dim() - m.dim()))
+                          .expand(i.shape)]
                 seen[name].append(i.reshape(-1))
         return gather(table, idx)
     with _swapped(mu, "gather_rows", rec):
@@ -771,23 +961,59 @@ def _rows_touched(fn, tables):
             for name, v in seen.items()}
 
 
-def _k5_bound(resolve, tri, depth, scene, interp, ivp, w, h, n3):
-    """(bound ms, 'bytes' | 'operations') of one K5 launch: see K5_OPS_*."""
+def _k5_bound(resolve, x):
+    """(bound ms, 'bytes' | 'operations') of one K5 launch (_k5_args): see
+    K5_OPS_* and, for the stochastic roles, K5S_*. The texture blocks and
+    rows are those the twin gathers for the pixels that fetch: the
+    covered ones, or under the checkerboard the fetching parity's pixels
+    with a covered pixel among them and their horizontal neighbours."""
+    from incarnation_tpu_torch.kernels import checker
+    tri, scene, interp = x["tri"], x["scene"], x["interp"]
+    w, h, n3 = x["width"], x["height"], bool(x["return_normal3"])
     st = scene.mat_stack
     cov = tri >= 0
+    role = _k5_role(x)
+    fetch = cov
+    if "checker" in role:
+        near = cov.clone()
+        near[:, 1:] |= cov[:, :-1]
+        near[:, :-1] |= cov[:, 1:]
+        fetch = near & checker.fetch_mask(cov.shape, x["checker_parity"],
+                                          tri.device, x["row0"])
+    if x["coverage_capacity"] is not None:
+        fetch = fetch & resolve._keep_pixels(
+            resolve.chunk_keep(cov, x["coverage_capacity"]), cov.shape)
     mat = interp[9].to(dtype=tri.dtype).clamp(0, st.meta.shape[0] - 1)
-    has_ex = cov & (st.meta[mat.long(), 4] >= 0) & (st.extra.shape[0] > 1)
+    has_ex = (st.meta[mat.long(), 4] >= 0) & (st.extra.shape[0] > 1)
+    masks = {"flat": fetch, "extra": fetch & has_ex, "meta": cov | fetch}
+    if "checker" in role:
+        # the twin gathers the texels at the compacted (H, W / 2) layer
+        masks = {k: (m, checker.compact(x["checker_parity"], m, x["row0"]))
+                 for k, m in masks.items()}
     rows = _rows_touched(
-        lambda: resolve.resolve_gbuffer_plain(tri, depth, scene, interp, ivp,
-                                              w, h, n3),
-        {"flat": (st.flat, cov), "extra": (st.extra, has_ex),
-         "meta": (st.meta, cov), "params": (scene.mat_params, cov)})
-    n_cov, n_ex = int(cov.sum()), int(has_ex.sum())
-    nbytes = (w * h * (4 + 8 + K5_OUT_BYTES + 12 * n3) + n_cov * 13 * 4
-              + 64 + 32 * rows["flat"] + 24 * rows["extra"]
+        lambda: resolve.resolve_gbuffer_plain(**x),
+        {"flat": (st.flat, masks["flat"]), "extra": (st.extra, masks["extra"]),
+         "meta": (st.meta, masks["meta"]),
+         "params": (scene.mat_params, cov)})
+    n_cov, n_fetch = int(cov.sum()), int(fetch.sum())
+    n_ex = int((fetch & has_ex).sum())
+    tables = (64 + 32 * rows["flat"] + 24 * rows["extra"]
               + 24 * rows["meta"] + 64 * rows["params"])
-    return _bound(nbytes,
-                  n_cov * K5_OPS_PER_COVERED + n_ex * K5_OPS_PER_EXTRAS)
+    out = w * h * (K5_OUT_BYTES + 12 * n3)
+    if role == "exact":
+        return _bound(w * h * (4 + 8) + out + n_cov * 13 * 4 + tables,
+                      n_cov * K5_OPS_PER_COVERED + n_ex * K5_OPS_PER_EXTRAS)
+    # every pixel reads tri, uv, its material and derivatives (its uv
+    # moves along its major axis), a covered one depth and 7 TBN channels;
+    # the chunk flags a byte a chunk
+    nbytes = (w * h * (4 + 8 + 20) + out + n_cov * 8 * 4 + tables
+              + (w * h // 128 if x["coverage_capacity"] is not None else 0))
+    n_fill = int((cov & ~fetch).sum()) if "checker" in role else 0
+    texel = K5S_OPS_POINT if "jitter" in role else K5S_OPS_BILINEAR
+    ops = (n_cov * K5S_OPS_PER_COVERED + n_fetch * texel
+           + n_ex * (K5_OPS_PER_EXTRAS // 8) * (1 if "jitter" in role else 4)
+           + n_fill * K5S_OPS_FILL)
+    return _bound(nbytes, ops, w * h * K5S_INT_OPS)
 
 
 def k5_footprints(resolve, tri, scene, interp, warp_px: int = 32) -> dict:
@@ -842,37 +1068,42 @@ def k5_footprints(resolve, tri, scene, interp, warp_px: int = 32) -> dict:
         / (w0.numel() + w1.numel()))
 
 
-def k5_row(resolve, calls, n_launches, name="k5_resolve"):
-    """K5 against its twin on each captured resolve_gbuffer launch (error,
-    both times and the bound, each the mean over the launches; the time
-    and bound of each launch, K5's registers and spills, and per launch
-    k5_footprints' skipped share and blocks per footprint) -> the JSON
-    row."""
-    launches = [_k5_args(a, kw) for kind, a, kw in calls if kind == "k5"]
+def k5_row(resolve, calls, n_launches, name="k5_resolve", role=None):
+    """K5 against its twin on each captured resolve_gbuffer launch of
+    `role` (all where None): error, both times and the bound, each the
+    mean over the launches; the time and bound of each launch, K5's
+    registers and spills, and per launch k5_footprints' skipped share and
+    blocks per footprint -> the JSON row."""
+    launches = [x for x in (_k5_args(a, kw) for kind, a, kw in calls
+                            if kind == "k5")
+                if role is None or _k5_role(x) == role]
     if not launches:
         raise RuntimeError(f"{name}: no K5 launch was captured")
     errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
     feet = []
-    for args in launches:
-        feet.append(k5_footprints(resolve, args[0], args[2], args[3]))
-        errs.append(_k5_error(resolve.resolve_gbuffer(*args),
-                              resolve.resolve_gbuffer_plain(*args)))
-        ms.append(device_ms(lambda: resolve.resolve_gbuffer(*args), 20))
+    for x in launches:
+        feet.append(k5_footprints(resolve, x["tri"], x["scene"],
+                                  x["interp"]))
+        errs.append(_k5_error(resolve.resolve_gbuffer(**x),
+                              resolve.resolve_gbuffer_plain(**x)))
+        ms.append(device_ms(lambda: resolve.resolve_gbuffer(**x), 20))
         plain_ms.append(device_ms(
-            lambda: resolve.resolve_gbuffer_plain(*args), 2))
-        b, by = _k5_bound(resolve, *args)
+            lambda: resolve.resolve_gbuffer_plain(**x), 2))
+        b, by = _k5_bound(resolve, x)
         bounds.append(b)
         bound_by.add(by)
     _log(f"{name}: per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
          + "; twin ms " + ", ".join(f"{t:.2f}" for t in plain_ms)
          + "; bound ms " + ", ".join(f"{t:.4f}" for t in bounds)
          + "; covered share " + ", ".join(
-             f"{float((a[0] >= 0).float().mean()):.4f}" for a in launches)
+             f"{float((x['tri'] >= 0).float().mean()):.4f}"
+             for x in launches)
          + "; max abs err " + ", ".join(f"{e[0]:.3e}" for e in errs)
          + ", max relative err " + ", ".join(f"{e[1]:.3e}" for e in errs))
+    res = role_resources("k5", role or "exact")
     _log(f"{name}: texture work per launch {json.dumps(feet)}; "
-         f"{K5_RESOURCES.get('registers')} registers, "
-         f"{K5_RESOURCES.get('spill_bytes')} bytes spilled")
+         f"{res.get('registers')} registers, "
+         f"{res.get('spill_bytes')} bytes spilled")
     return dict(
         name=name, route="cuda",
         source="incarnation_tpu_torch/csrc/resolve.cu",
@@ -883,8 +1114,8 @@ def k5_row(resolve, calls, n_launches, name="k5_resolve"):
         bound_ms=float(np.mean(bounds)),
         bound_by="operations" if "operations" in bound_by else "bytes",
         library_ms=None, ms_per_launch=ms, bound_ms_per_launch=bounds,
-        registers=K5_RESOURCES.get("registers"),
-        spill_bytes=K5_RESOURCES.get("spill_bytes"),
+        registers=res.get("registers"),
+        spill_bytes=res.get("spill_bytes"),
         skipped_share=[f["skipped_share"] for f in feet],
         blocks_per_footprint=[f["blocks_per_footprint"] for f in feet])
 
@@ -909,48 +1140,60 @@ def _k6_error(got, ref, tri):
     return err, rel, int((ga != ra).sum() + (gt != rt).sum())
 
 
-def _k6_bound(resolve, scene, tri, interp, row0=0):
-    """(bound ms, 'bytes' | 'operations') of one K6 launch: see
-    K6_OPS_PER_PIXEL; each alpha-mirror row and material row touched is
-    read once."""
+def _k6_bound(resolve, x):
+    """(bound ms, 'bytes' | 'operations') of one K6 launch (_k6_args): see
+    K6_OPS_PER_PIXEL and K6S_*; each alpha-mirror row and material row
+    touched is read once, a dropped chunk's pixels read none."""
+    scene = x["scene"]
     st = scene.mat_stack
+    tri = x["tri"]
+    keep = None
+    if x["coverage_capacity"] is not None:
+        keep = resolve._keep_pixels(
+            resolve.chunk_keep(tri >= 0, x["coverage_capacity"]), tri.shape)
     rows = _rows_touched(
-        lambda: resolve.masked_alpha_plain(scene, tri, interp, row0),
-        {"alpha": (st.alpha, None), "meta": (st.meta, None),
+        lambda: resolve.masked_alpha_plain(**x),
+        {"alpha": (st.alpha, keep), "meta": (st.meta, None),
          "params": (scene.mat_params, None)})
     px = tri.numel()
-    nbytes = (px * K6_PIXEL_BYTES + 16 * rows["alpha"] + 24 * rows["meta"]
-              + 64 * rows["params"])
-    return _bound(nbytes, px * K6_OPS_PER_PIXEL)
+    nbytes = (16 * rows["alpha"] + 24 * rows["meta"] + 64 * rows["params"])
+    if _k6_role(x).startswith("exact"):
+        return _bound(nbytes + px * K6_PIXEL_BYTES, px * K6_OPS_PER_PIXEL)
+    nbytes += px * K6S_PIXEL_BYTES + (0 if keep is None else px // 128)
+    return _bound(nbytes, px * K6S_OPS_PER_PIXEL, px * K6S_INT_OPS)
 
 
 def _k6_args(a, kw):
-    scene, tri, interp, *rest = a
-    return scene, tri, interp, rest[0] if rest else kw.get("row0", 0)
+    """A captured masked_alpha call -> its arguments by name, defaults
+    filled (scene, tri, interp, row0 and the stochastic roles')."""
+    from incarnation_tpu_torch.kernels import resolve
+    return dict(_bound_args(resolve.masked_alpha_plain, a, kw))
 
 
-def k6_row(resolve, calls, n_launches, name="k6_masked_alpha"):
-    """K6 against its twin on each captured masked_alpha launch (the
-    decisions on hit pixels, the error, both times and the bound, each the
-    mean over the launches) -> the JSON row."""
-    launches = [_k6_args(a, kw) for kind, a, kw in calls if kind == "k6"]
+def k6_row(resolve, calls, n_launches, name="k6_masked_alpha", role=None):
+    """K6 against its twin on each captured masked_alpha launch of `role`
+    (all where None): the decisions on hit pixels, the error, both times
+    and the bound, each the mean over the launches -> the JSON row."""
+    launches = [x for x in (_k6_args(a, kw) for kind, a, kw in calls
+                            if kind == "k6")
+                if role is None or _k6_role(x) == role]
     if not launches:
         raise RuntimeError(f"{name}: no K6 launch was captured")
     errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
-    for args in launches:
-        errs.append(_k6_error(resolve.masked_alpha(*args),
-                              resolve.masked_alpha_plain(*args), args[1]))
-        ms.append(device_ms(lambda: resolve.masked_alpha(*args), 20))
-        plain_ms.append(device_ms(lambda: resolve.masked_alpha_plain(*args),
+    for x in launches:
+        errs.append(_k6_error(resolve.masked_alpha(**x),
+                              resolve.masked_alpha_plain(**x), x["tri"]))
+        ms.append(device_ms(lambda: resolve.masked_alpha(**x), 20))
+        plain_ms.append(device_ms(lambda: resolve.masked_alpha_plain(**x),
                                   2))
-        b, by = _k6_bound(resolve, *args)
+        b, by = _k6_bound(resolve, x)
         bounds.append(b)
         bound_by.add(by)
     _log(f"{name}: per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
          + "; twin ms " + ", ".join(f"{t:.2f}" for t in plain_ms)
          + "; bound ms " + ", ".join(f"{t:.4f}" for t in bounds)
          + "; hit pixels " + ", ".join(
-             str(int((a[1] >= 0).sum())) for a in launches)
+             str(int((x["tri"] >= 0).sum())) for x in launches)
          + "; decisions as the twin's on every hit pixel; max abs err "
          + ", ".join(f"{e[0]:.3e}" for e in errs)
          + "; elements not identical " + ", ".join(str(e[2]) for e in errs))
@@ -963,7 +1206,10 @@ def k6_row(resolve, calls, n_launches, name="k6_masked_alpha"):
         ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
         bound_ms=float(np.mean(bounds)),
         bound_by="operations" if "operations" in bound_by else "bytes",
-        library_ms=None, not_identical=sum(e[2] for e in errs))
+        library_ms=None, not_identical=sum(e[2] for e in errs),
+        registers=role_resources("k6", role or "exact").get("registers"),
+        spill_bytes=role_resources("k6", role or "exact").get(
+            "spill_bytes"))
 
 
 def _bound_args(fn, a, kw) -> dict:
@@ -993,8 +1239,11 @@ def _k8_error(got, ref, mask):
 
 
 def _k8_bound(skylight, a, kw):
-    """(bound ms, 'bytes' | 'operations') of one K8 launch: see K8_OPS_*."""
+    """(bound ms, 'bytes' | 'operations') of one K8 launch: see K8_OPS_*
+    and, for the stochastic roles, K8S_*."""
     x = _bound_args(skylight.sky_lighting_plain, a, kw)
+    if x["dither"] is not None:
+        return _k8s_bound(x)
     mask = x["gb"].mask
     cov = int(mask.sum())
     diffuse, spec = x["diffuse_ibl"], x["specular_ibl"]
@@ -1017,11 +1266,52 @@ def _k8_bound(skylight, a, kw):
     return _bound(nbytes, cov * ops)
 
 
-def k8_row(skylight, calls, n_launches, name="k8_sky_lighting"):
-    """K8 against its twin on each captured sky_lighting launch (error, both
-    times and the bound, each the mean over the launches; K8's registers
-    and spills) -> the JSON row."""
-    launches = [(a, kw) for kind, a, kw in calls if kind == "k8"]
+def _k8s_bound(x):
+    """_k8_bound of a stochastic role (x: the call's arguments by name)."""
+    from incarnation_tpu_torch.kernels import checker
+    mask = x["gb"].mask
+    n_cov = int(mask.sum())
+    diffuse, spec = x["diffuse_ibl"], x["specular_ibl"]
+    bent, hbao, extras = (x[k] is not None for k in ("bent_normals", "hbao",
+                                                     "extras"))
+    fetch = mask
+    if x["checker_parity"] is not None:
+        near = mask.clone()
+        near[:, 1:] |= mask[:, :-1]
+        near[:, :-1] |= mask[:, 1:]
+        fetch = near & checker.fetch_mask(mask.shape, x["checker_parity"],
+                                          mask.device, x["row0"])
+    n_fetch = int(fetch.sum()) if spec else 0
+    n_fill = int((mask & ~fetch).sum()) if spec else 0
+    per_px = 32 - 16 * x["lighting_only"] \
+        + 12 * (spec or (diffuse and not bent)) + 12 * spec \
+        + 12 * (diffuse and bent) + 4 * hbao + 12 * extras
+    nbytes = (mask.numel() * 13 + n_cov * per_px + 108
+              + int((fetch & ~mask).sum()) * 52 * spec)
+    jitter = _k8_role(x).startswith("jitter")
+    if spec:
+        cube = x["probe"].prefiltered
+        nbytes += (cube.rgbe_table().numel() * 4 if jitter
+                   else cube.flat.numel() * 4)
+        if not x["analytic_env_brdf"]:
+            nbytes += x["env_brdf"].numel() * 4
+    env = K8_OPS_ANALYTIC if x["analytic_env_brdf"] else K8_OPS_LUT
+    ops = (n_cov * (diffuse * (K8_OPS_DIFFUSE + K8_OPS_DIFFUSE_EXTRAS * extras)
+                    + spec * (K8S_OPS_SPECULAR + env + 8
+                              + K8S_OPS_LOBE * extras)
+                    + K8_OPS_HBAO * hbao)
+           + n_fetch * (K8S_OPS_POINT if jitter else K8S_OPS_BILINEAR)
+           + n_fill * K8S_OPS_FILL)
+    return _bound(nbytes, ops, mask.numel() * K8S_INT_OPS * spec)
+
+
+def k8_row(skylight, calls, n_launches, name="k8_sky_lighting", role=None):
+    """K8 against its twin on each captured sky_lighting launch of `role`
+    (all where None): error, both times and the bound, each the mean over
+    the launches; K8's registers and spills -> the JSON row."""
+    launches = [(a, kw) for kind, a, kw in calls if kind == "k8"
+                and (role is None or _k8_role(
+                    _bound_args(skylight.sky_lighting_plain, a, kw)) == role)]
     if not launches:
         raise RuntimeError(f"{name}: no K8 launch was captured")
     errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
@@ -1035,7 +1325,7 @@ def k8_row(skylight, calls, n_launches, name="k8_sky_lighting"):
         b, by = _k8_bound(skylight, a, kw)
         bounds.append(b)
         bound_by.add(by)
-    res = next(iter(K8_RESOURCES.values()), {})
+    res = role_resources("k8", role or "exact")
     _log(f"{name}: per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
          + "; twin ms " + ", ".join(f"{t:.2f}" for t in plain_ms)
          + "; bound ms " + ", ".join(f"{t:.4f}" for t in bounds)
@@ -2064,7 +2354,7 @@ def band_phase(dev, path, pt):
     halo = check_twins("(k) band frame", calls, raster, clustered, taa,
                        need=("k1", "k2", "k3", "k5", "k6", "k8", "k9",
                              "k10"))
-    if {_k6_args(a, kw)[3] for kind, a, kw in calls if kind == "k6"} \
+    if {_k6_args(a, kw)["row0"] for kind, a, kw in calls if kind == "k6"} \
             != {0, H // 2}:
         raise RuntimeError("(k) the bands' K6 launches do not start at "
                            "rows 0 and H / 2")
@@ -2145,18 +2435,20 @@ def check_twins(what, calls, raster, clustered, taa, need):
         _log(f"{what}: K3 {i} ({a[3]}x{a[4]}, "
              f"{a[5] if len(a) > 5 else 0} halo rows each way) against the "
              f"twin: max abs err {err:.3e}, max relative err {rel:.3e}")
-    k5 = [_k5_error(resolve.resolve_gbuffer(*args),
-                    resolve.resolve_gbuffer_plain(*args))
-          for args in (_k5_args(a, kw) for _, a, kw in kinds["k5"])]
+    k5_args = [_k5_args(a, kw) for _, a, kw in kinds["k5"]]
+    k5 = [_k5_error(resolve.resolve_gbuffer(**x),
+                    resolve.resolve_gbuffer_plain(**x)) for x in k5_args]
     k6_args = [_k6_args(a, kw) for _, a, kw in kinds["k6"]]
-    k6 = [_k6_error(resolve.masked_alpha(*args),
-                    resolve.masked_alpha_plain(*args), args[1])
-          for args in k6_args]
+    k6 = [_k6_error(resolve.masked_alpha(**x),
+                    resolve.masked_alpha_plain(**x), x["tri"])
+          for x in k6_args]
     if k5 or k6:
-        _log(f"{what}: K5 x{len(k5)} against the twin: max abs err "
-             f"{max([e[0] for e in k5], default=0.0):.3e}, max relative err "
-             f"{max([e[1] for e in k5], default=0.0):.3e}; K6 x{len(k6)} "
-             f"(first rows {sorted({a[3] for a in k6_args})}): decisions "
+        _log(f"{what}: K5 x{len(k5)} (roles "
+             f"{sorted({_k5_role(x) for x in k5_args})}) against the twin: "
+             f"max abs err {max([e[0] for e in k5], default=0.0):.3e}, max "
+             f"relative err {max([e[1] for e in k5], default=0.0):.3e}; K6 "
+             f"x{len(k6)} (roles {sorted({_k6_role(x) for x in k6_args})}, "
+             f"first rows {sorted({x['row0'] for x in k6_args})}): decisions "
              f"as the twin's on every hit pixel, max abs err "
              f"{max([e[0] for e in k6], default=0.0):.3e}, elements not "
              f"identical {sum(e[2] for e in k6)}")
@@ -2169,9 +2461,10 @@ def check_twins(what, calls, raster, clustered, taa, need):
     if k8 or kinds["k9"]:
         given = [_bound_args(skylight.sky_lighting_plain, a, kw)
                  for _, a, kw in kinds["k8"]]
-        roles = sorted({", ".join(k for k in ("hbao", "bent_normals",
-                                              "extras") if x[k] is not None)
-                        or "no optional input" for x in given})
+        roles = sorted({(", ".join(k for k in ("hbao", "bent_normals",
+                                               "extras") if x[k] is not None)
+                         or "no optional input") + f" [{_k8_role(x)}]"
+                        for x in given})
         _log(f"{what}: K8 x{len(k8)} ({'; '.join(roles)}) against the twin: "
              f"max abs err {max([e[0] for e in k8], default=0.0):.3e}, "
              f"{max([e[1] for e in k8], default=0.0):.3e} of the peak; K9 "
@@ -2272,7 +2565,8 @@ def k4_row(bvh, call, role, n_launches):
 # (any_hit, layout, alpha) -> (registers, spill bytes) of K4's kernel in
 # each compiled role, from ptxas (k4_resources); filled by main()
 K4_RESOURCES: dict = {}
-# K5's registers, spill and shared-memory bytes (k5_resources); K8's and
+# K5's and K6's registers, spill and shared-memory bytes by compiled
+# instance (role_resources); K8's and
 # K9's by compiled entry (kernel_resources); filled by main()
 K5_RESOURCES: dict = {}
 K8_RESOURCES: dict = {}
@@ -2350,10 +2644,32 @@ def kernel_resources(build_mod, source: str, kernel: str, log=None) -> dict:
     return out
 
 
+# the template argument of each K5 role's and K6 role's instance
+# (csrc/resolve.cu K5_* and STOCH), as the compiled entry's name spells it
+_K5_INSTANCE = {"exact": "ILi0E", "dither": "ILi1E", "jitter": "ILi2E",
+                "jitter_checker": "ILi3E"}
+
+
 def k5_resources(build_mod, log=None) -> dict:
-    """kernel_resources of csrc/resolve.cu's k5_resolve_kernel."""
-    return next(iter(kernel_resources(build_mod, "resolve",
-                                      "k5_resolve_kernel", log).values()))
+    """kernel_resources of csrc/resolve.cu's k5_resolve_kernel: its exact
+    role's instance, or the one kernel of a tree without roles."""
+    found = kernel_resources(build_mod, "resolve", "k5_resolve_kernel", log)
+    return next((v for k, v in found.items()
+                 if _K5_INSTANCE["exact"] in k), next(iter(found.values())))
+
+
+def role_resources(kind: str, role: str) -> dict:
+    """K5_RESOURCES' or K8_RESOURCES' entry of a K5, K6 or K8 role's
+    compiled instance ({} where none matches)."""
+    base = role.split("+")[0]
+    if kind == "k8":
+        want = "stochastic" if base != "exact" else "k8_sky_kernel"
+        table = K8_RESOURCES
+    else:
+        want = (_K5_INSTANCE.get(base, "") if kind == "k5" else
+                "ILb0E" if base == "exact" else "ILb1E")
+        table = {k: v for k, v in K5_RESOURCES.items() if kind in k}
+    return next((v for k, v in table.items() if want in k), {})
 
 
 def _k4_twin(bvh):

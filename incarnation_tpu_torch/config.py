@@ -2,12 +2,8 @@
 
 Mirror of the reference's FConfig defaults (ref: inc/common.h:6-48), expressed
 as a frozen dataclass. A copy of ``incarnation_tpu/config.py``: the PyTorch
-port imports nothing of the JAX package.
-
-The approximations that exist only to save TPU gathers default to off here,
-and turning one on raises NotImplementedError: the port renders the exact
-path (trilinear texture filtering, exact bilinear TAA history, no chunk
-compaction). See TPU_ONLY_FLAGS.
+port imports nothing of the JAX package, and its defaults are the JAX
+package's, so Config() is the same frame in both.
 """
 
 from __future__ import annotations
@@ -38,13 +34,6 @@ class EnvSkyMode:
     """Environment sky source (ref: inc/demo.h:25-29)."""
     ENVIRONMENT_MAP = 0
     DYNAMIC_SKY = 1
-
-
-# Approximations the JAX package makes only to save TPU gathers; the port
-# keeps them off (Config.__post_init__ raises when one is turned on).
-TPU_ONLY_FLAGS = ("stochastic_mip", "stochastic_bilinear",
-                  "checkerboard_gathers", "stochastic_taa",
-                  "peel_chunk_capacity", "decal_chunk_capacity")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,15 +114,19 @@ class Config:
     big_tri_capacity: int = 512
     # Texture resolution cap (textures are resized to at most this).
     texture_max_dim: int = 2048
-    # Stochastic texture filtering: stochastic_mip dithers to one mip
-    # level, stochastic_bilinear jitters the bilinear footprint to one
-    # texel, and TAA accumulation converges both to the trilinear result.
-    # Approximations the port does not make (TPU_ONLY_FLAGS).
-    stochastic_mip: bool = False
-    stochastic_bilinear: bool = False
+    # Stochastic texture filtering while TAA accumulates (a frame rendered
+    # with a history): stochastic_mip dithers to one mip level (the
+    # material stack, the alpha test and the specular probe),
+    # stochastic_bilinear jitters the bilinear footprint to one texel, and
+    # the TAA accumulation converges both to the filtered result. A frame
+    # without a history stays exact (trilinear).
+    stochastic_mip: bool = True
+    stochastic_bilinear: bool = True
     # Anisotropy limit of the stochastic tap (reference: 16x aniso static
-    # samplers, src/demo.cpp:445-493). Read only by the stochastic filters,
-    # so the port's exact trilinear path ignores it.
+    # samplers, src/demo.cpp:445-493): the mip follows the footprint's
+    # minor axis (at most this many taps across the major one) and the
+    # single tap is jittered along the major axis. Read only by the
+    # stochastic filters.
     max_anisotropy: int = 16
     # Alpha-masked geometry: number of depth-peel layers rastered for
     # MASK/BLEND primitives (a failed alpha test exposes the next fragment
@@ -141,11 +134,17 @@ class Config:
     # path's BLEND layers. Pixels still unresolved after the last peel are
     # counted in the peel_overflow stat.
     masked_depth_peels: int = 2
-    # Chunk capacities of the sparse-layer fetch compaction for the peel
-    # alpha tests and the decal resolve. 0 disables; the port fetches at
-    # every pixel and rejects any other value (TPU_ONLY_FLAGS).
-    peel_chunk_capacity: int = 0
-    decal_chunk_capacity: int = 0
+    # Chunk capacities of the peel alpha tests and the decal resolve, in
+    # 128-pixel chunks (rows of the flat image): only the first `capacity`
+    # chunks holding a covered pixel, in flat order, fetch their textures.
+    # Later chunks read alpha 1.0 on a peel (the fragment passes) and zero
+    # texture channels on the decal layer, counted in the
+    # peel_chunk_overflow and decal_overflow stats. The peels take a
+    # falling ladder (cap, 2 cap / 3, then max(5 cap >> (l + 2), 512)). 0,
+    # or a capacity of at least the frame's chunk count, fetches every
+    # pixel.
+    peel_chunk_capacity: int = 6144
+    decal_chunk_capacity: int = 1024
     # Analytic split-sum env-BRDF (a 16x16 Chebyshev tensor fitted to the
     # reference integration, mimicking the reference's inverted-row fetch
     # quirk) in place of the LUT fetch, at <= 0.5% absolute error in the
@@ -164,20 +163,16 @@ class Config:
     # Side of the square sun shadow map in texels; the depth bias of the
     # visibility test scales with 2 / resolution.
     shadow_map_resolution: int = 1024
-    # Half-rate checkerboard fetch of the sun-shadow sample and the
-    # specular probe while TAA accumulates. Not ported (TPU_ONLY_FLAGS).
-    checkerboard_gathers: bool = False
+    # Half-rate checkerboard fetch while the stochastic filters run and the
+    # width is even: half the pixels (alternating with the row and the
+    # frame) fetch the sun-shadow sample, the specular probe and (with
+    # stochastic_bilinear) the opaque layer's material stack; each other
+    # pixel takes the mean of its two horizontal neighbours' fetches
+    # (kernels/checker.py).
+    checkerboard_gathers: bool = True
     # Stochastic single-texel TAA history fetch in place of the bilinear
-    # one. Not ported (TPU_ONLY_FLAGS).
+    # one.
     stochastic_taa: bool = False
-
-    def __post_init__(self):
-        on = [f for f in TPU_ONLY_FLAGS if getattr(self, f)]
-        if on:
-            raise NotImplementedError(
-                f"{', '.join(on)}: TPU-only approximations are not ported; "
-                "the PyTorch port renders the exact path (set them to "
-                "False / 0)")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

@@ -26,6 +26,16 @@
 // first row), at least 1e-3. Like the twin it computes every pixel, hit or
 // not.
 //
+// Stochastic roles (the JAX package's estimators while TAA accumulates,
+// resolve.py:78-226): the mip floor(lod + xi), with max_aniso > 1 the
+// footprint's minor-axis mip and the uv moved along its major axis; one
+// bilinear level or one jittered texel floor(u s - 0.5 + j) of it; for
+// K5 the checkerboard half-rate fetch and for both a chunk capacity (the
+// first covered 128-pixel chunks fetch; the others read zero channels in
+// K5 and alpha 1.0 in K6). Each noise is the JAX _frame_noise hash of
+// the whole-frame pixel and the frame index, computed here; the twins
+// build the same noise as tensors (resolve.frame_noise).
+//
 // Arithmetic: every operation is the twin's, in the twin's order, built
 // --fmad=false (kernels/build.py), and every constant is the float the
 // twin's Python scalar rounds to. Where torch on the card divides by a
@@ -356,26 +366,106 @@ struct Out {
   float *emis, *wpos, *extras, *n3;
 };
 
-// the resolve of covered pixel i at (x, y), in the twin's operations and
-// order, each plane written as soon as it is known
-__device__ __forceinline__ void resolve_pixel(
-    const float* __restrict__ depth, const float* __restrict__ interp,
-    const float* __restrict__ ivp, const Stack& st,
-    const int* __restrict__ meta, int n_meta,
-    const float* __restrict__ params, int n_params, size_t i, size_t plane,
-    int x, int y, int width, int height, float u, float v, const Out& o) {
-  // the depth and TBN channels, read after the texture work
-  prefetch_l1(depth + i);
-#pragma unroll
-  for (int c = CH_WN; c <= CH_SIGN; ++c) prefetch_l1(interp + c * plane + i);
+// resolve._frame_noise / resolve.frame_noise: a uniform in [0, 1) from the
+// uint32 hash of the whole-frame pixel (x, y) xor the channel's seed
+// (frame_index x mult, wrapped to 32 bits)
+__device__ __forceinline__ float frame_noise(uint32_t x, uint32_t y,
+                                             uint32_t seed) {
+  uint32_t h = (x * 374761393u + y * 668265263u) ^ seed;
+  h = (h ^ (h >> 13)) * 1274126177u;
+  return (float)((h >> 16) & 0xFFFFu) * (1.0f / 65536.0f);
+}
 
-  // the material and its trilinear stack fetch (sample_material_stack);
-  // where the LOD's fraction is 0 (magnified, or clamped to the last
-  // level) the second level's term is acc + b x 0 == acc exactly (texel
-  // values are finite in [0, 1], acc >= +0) and is skipped; a NaN fraction
-  // is not 0 and takes it
-  const int mat = (int)interp[CH_MAT * plane + i];
-  const int* m = meta + (size_t)META_COLS * clampi(mat, 0, n_meta - 1);
+// frame_noise's channels (kernels/resolve.py N_*)
+#define N_ANISO 2428444049u
+#define N_LOD 2654435761u
+#define N_ALPHA_LOD 741103597u
+#define N_JX 1181783497u
+#define N_JY 3267000013u
+#define N_BLEND 1597334677u
+
+// the stochastic roles' settings (kernels/resolve.py R_*): the frame index
+// that seeds the noise, the anisotropy limit and its float reciprocal (the
+// twin's division by a Python number on the card), the checker parity,
+// the band's first row, and the chunk keep flags (NULL: every chunk)
+struct Stoch {
+  uint32_t frame;
+  float max_aniso, inv_aniso;
+  int parity, row0;
+  const uint8_t* keep;
+};
+
+// resolve._stochastic_lod at pixel i, whole-frame (px, py): with
+// max_aniso > 1 the minor-axis mip and (u, v) moved along the major axis
+// by (xi - 0.5) (the step clamped to +-half_cell where half_cell > 0),
+// else the footprint's mip; then floor(lod + noise)
+__device__ __forceinline__ float stochastic_lod(
+    const float* __restrict__ interp, size_t i, size_t plane, int size,
+    uint32_t px, uint32_t py, const Stoch& sc, uint32_t lod_mult,
+    float half_cell, float& u, float& v) {
+  float lod;
+  if (sc.max_aniso > 1.0f) {
+    const float dudx = interp[CH_DUDX * plane + i];
+    const float dudy = interp[CH_DUDY * plane + i];
+    const float dvdx = interp[CH_DVDX * plane + i];
+    const float dvdy = interp[CH_DVDY * plane + i];
+    const float rx = sqrtf(dudx * dudx + dvdx * dvdx);
+    const float ry = sqrtf(dudy * dudy + dvdy * dvdy);
+    const float rmax = tmax(rx, ry), rmin = tmin(rx, ry);
+    const float rho = tmax(rmin, rmax * sc.inv_aniso) * (float)size;
+    lod = log2f(clamp_lo(rho, (float)1e-8));
+    const bool x_major = rx >= ry;
+    float mx = x_major ? dudx : dudy;
+    float my = x_major ? dvdx : dvdy;
+    if (half_cell > 0.0f) {
+      mx = tmin(tmax(mx, -half_cell), half_cell);
+      my = tmin(tmax(my, -half_cell), half_cell);
+    }
+    const float d = frame_noise(px, py, sc.frame * N_ANISO) - 0.5f;
+    u = u + mx * d;
+    v = v + my * d;
+  } else {
+    lod = interp_lod(interp, i, plane, size);
+  }
+  return floorf(lod + frame_noise(px, py, sc.frame * lod_mult));
+}
+
+// textures.py sample_material_stack's fetch of one level: l0 = floor of
+// the LOD clamped to the chain; bilinear (K5_DITHER) or the one texel
+// floor(u s - 0.5 + j) (K5_JITTER, _stack_point), channels 0-13 into ch
+template <bool POINT>
+__device__ __forceinline__ void level_fetch(const Stack& st, const int* m,
+                                            float lod, float u, float v,
+                                            float jx, float jy, float* ch) {
+  const int mbase = m[0], size = m[1], levels = m[2], mode = m[3];
+  const int ebase = m[4];
+  lod = tmin(clamp_lo(lod, 0.0f), (float)(levels - 1));
+  const int l0 = (int)floorf(lod);
+  const int off = level_offset_blocks(size, levels, l0);
+  const int eb = ebase >= 0 ? ebase + off : -1;
+  const int s = max(size >> l0, 1);
+  if (!POINT) {
+    bilinear_level(st, mbase + off, eb, s, u, v, mode, 1.0f, true, ch);
+    return;
+  }
+  const float sf = (float)s;
+  const int xa = address((int)floorf(u * sf - 0.5f + jx), s, mode);
+  const int ya = address((int)floorf(v * sf - 0.5f + jy), s, mode);
+  const bool ex = st.n_extra > 1 && eb >= 0;
+  const int s4 = max(s >> 2, 1);
+  decode_texel(load_block(st, mbase + off, eb, (ya >> 2) * s4 + (xa >> 2),
+                          ex),
+               ex, texel_shift(xa, ya), ch);
+}
+
+// the exact role's trilinear stack fetch (sample_material_stack) of pixel
+// i: where the LOD's fraction is 0 (magnified, or clamped to the last
+// level) the second level's term is acc + b x 0 == acc exactly (texel
+// values are finite in [0, 1], acc >= +0) and is skipped; a NaN fraction
+// is not 0 and takes it
+__device__ __forceinline__ void trilinear_fetch(
+    const Stack& st, const int* m, const float* __restrict__ interp, size_t i,
+    size_t plane, float u, float v, float* ch) {
   const int mbase = m[0], size = m[1], levels = m[2], mode = m[3];
   const int ebase = m[4];
   float lod = interp_lod(interp, i, plane, size);
@@ -383,7 +473,6 @@ __device__ __forceinline__ void resolve_pixel(
   const int l0 = (int)floorf(lod);
   const int l1 = min(l0 + 1, levels - 1);
   const float frac = lod - (float)l0;
-  float ch[NCH];
   const int off0 = level_offset_blocks(size, levels, l0);
   bilinear_level(st, mbase + off0, ebase >= 0 ? ebase + off0 : -1,
                  max(size >> l0, 1), u, v, mode, 1.0f - frac, true, ch);
@@ -392,7 +481,16 @@ __device__ __forceinline__ void resolve_pixel(
     bilinear_level(st, mbase + off1, ebase >= 0 ? ebase + off1 : -1,
                    max(size >> l1, 1), u, v, mode, frac, false, ch);
   }
+}
 
+// the shading of covered pixel i at (x, y) from its stack channels ch, in
+// the twin's operations and order, each plane written as soon as it is
+// known
+__device__ __forceinline__ void shade_pixel(
+    const float* ch, const float* __restrict__ depth,
+    const float* __restrict__ interp, const float* __restrict__ ivp, int mat,
+    const float* __restrict__ params, int n_params, size_t i, size_t plane,
+    int x, int y, int width, int height, const Out& o) {
   // decode_stack_channels and the mat_params factors
   const float* fac =
       params + (size_t)PARAM_COLS * clampi(mat, 0, n_params - 1);
@@ -501,14 +599,37 @@ __device__ __forceinline__ void flush_bytes(uint8_t* __restrict__ g,
   if (lane < n - done) g[done + lane] = s[done + lane];
 }
 
+// K5's roles (kernels/resolve.py R_* and role_name): the exact
+// trilinear fetch; the dithered single mip, bilinear; one jittered texel
+// of it; that texel fetched by half the pixels (the checkerboard)
+#define K5_EXACT 0
+#define K5_DITHER 1
+#define K5_JITTER 2
+#define K5_CHECKER 3
+
 // A block shades a 32 x 8 tile, a warp one row of it: neighbouring rows
 // share texture blocks in the SM's L1. Each pixel's 4- and 2-channel
 // planes go out as one 16- or 8-byte store a lane (a row of the tile is
 // contiguous in (H, W, C)); the 3-channel planes and the mask are staged
 // in shared memory and written as the row's 16-byte words. Lanes past
 // the image's right edge and warps below it store nothing. Three blocks
-// an SM hold it to 80 registers, no spills (an earlier version at 111
-// registers, 2 blocks an SM, ran the opaque layer 1.18x as long).
+// an SM hold the exact role to 80 registers, no spills (an earlier
+// version at 111 registers, 2 blocks an SM, ran the opaque layer 1.18x as
+// long).
+//
+// The stochastic roles compute every pixel's uv moved along its major
+// axis (the twin's gb.uv) and its dithered mip, and fetch one level of
+// the stack for a covered pixel: bilinear, or the one jittered texel. In
+// the checkerboard role (an even width, so a warp's row holds whole
+// x-pairs) a pixel of the fetching parity (x & 1 == (row0 + y + parity)
+// & 1) fetches where it or a horizontal neighbour is covered; a covered
+// pixel of the other parity takes the mean of its two neighbours'
+// channels, read by warp shuffles, edge-clamped at the row's ends. The
+// one neighbour outside the warp (x - 1 of lane 0, x + 1 of the last
+// lane) is fetched by the pixel that needs it, which fetches nothing of
+// its own. With chunk keep flags, a pixel of a dropped 128-pixel chunk
+// reads zero channels.
+template <int ROLE>
 __global__ void __launch_bounds__(RS_THREADS, 3)
 k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
                   const float* __restrict__ interp,
@@ -520,7 +641,7 @@ k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
                   uint8_t* __restrict__ mask_out,
                   float* __restrict__ wpos_out, float* __restrict__ uv_out,
                   float* __restrict__ extras_out, float* __restrict__ n3_out,
-                  int width, int height) {
+                  int width, int height, Stoch sc) {
   __shared__ __align__(16) Stage stage[K5_TH];
   const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;
   const int y = blockIdx.y * K5_TH + row;
@@ -529,21 +650,100 @@ k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
   const int tw = min(K5_TW, width - x0);
   const size_t plane = (size_t)width * height;
   const size_t row0 = (size_t)y * width + x0;
+  const uint32_t py = (uint32_t)(sc.row0 + y);
   Stage& sg = stage[row];
+  const size_t i = row0 + lane;
+  bool covered = false, fetcher = true;
+  int mat = 0;
+  float ch[NCH];
+  if (ROLE == K5_CHECKER) {
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) ch[k] = 0.0f;
+  }
   if (lane < tw) {
-    const size_t i = row0 + lane;
-    const float u = interp[CH_U * plane + i];
-    const float v = interp[CH_V * plane + i];
+    float u = interp[CH_U * plane + i];
+    float v = interp[CH_V * plane + i];
+    covered = tri[i] >= 0;
+    mat = (int)interp[CH_MAT * plane + i];
+    const int* m = meta + (size_t)META_COLS * clampi(mat, 0, n_meta - 1);
+    if (ROLE == K5_EXACT) {
+      if (covered) {
+        // the depth and TBN channels, read after the texture work
+        prefetch_l1(depth + i);
+#pragma unroll
+        for (int c = CH_WN; c <= CH_SIGN; ++c)
+          prefetch_l1(interp + c * plane + i);
+        trilinear_fetch(st, m, interp, i, plane, u, v, ch);
+      }
+    } else {
+      const float lod = stochastic_lod(interp, i, plane, m[1], (uint32_t)x,
+                                       py, sc, N_LOD, 0.0f, u, v);
+      const float jx = frame_noise((uint32_t)x, py, sc.frame * N_JX);
+      const float jy = frame_noise((uint32_t)x, py, sc.frame * N_JY);
+      if (ROLE == K5_CHECKER) {
+        fetcher = (x & 1) == ((sc.row0 + y + sc.parity) & 1);
+        if (fetcher) {
+          const bool left = x > 0 && tri[i - 1] >= 0;
+          const bool right = x + 1 < width && tri[i + 1] >= 0;
+          if (covered || left || right)
+            level_fetch<true>(st, m, lod, u, v, jx, jy, ch);
+        } else if (covered) {
+          // the neighbour outside the warp: x - 1 of lane 0 (fetching
+          // parity odd), x + 1 of the last lane (even)
+          const int xn = lane == 0 && x > 0 ? x - 1
+                         : lane == tw - 1 && x + 1 < width ? x + 1 : -1;
+          if (xn >= 0) {
+            const size_t j = i + (xn - x);
+            float un = interp[CH_U * plane + j];
+            float vn = interp[CH_V * plane + j];
+            const int* mn = meta + (size_t)META_COLS *
+                                       clampi((int)interp[CH_MAT * plane + j],
+                                              0, n_meta - 1);
+            const float ln = stochastic_lod(interp, j, plane, mn[1],
+                                            (uint32_t)xn, py, sc, N_LOD,
+                                            0.0f, un, vn);
+            level_fetch<true>(
+                st, mn, ln, un, vn,
+                frame_noise((uint32_t)xn, py, sc.frame * N_JX),
+                frame_noise((uint32_t)xn, py, sc.frame * N_JY), ch);
+          }
+        }
+      } else if (covered) {
+        level_fetch<ROLE == K5_JITTER>(st, m, lod, u, v, jx, jy, ch);
+      }
+    }
     reinterpret_cast<float2*>(uv_out)[i] = make_float2(u, v);
-    const bool covered = tri[i] >= 0;
+    if (sc.keep && !sc.keep[i >> 7]) {
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) ch[k] = 0.0f;
+    }
+  }
+  if (ROLE == K5_CHECKER) {
+    // the other parity: the mean of the two neighbours' fetches, x - 1
+    // and x + 1 (lane 0's and the last lane's from their own halo fetch;
+    // the row's ends clamped to the one neighbour)
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) {
+      const float up = __shfl_up_sync(0xffffffffu, ch[k], 1);
+      const float dn = __shfl_down_sync(0xffffffffu, ch[k], 1);
+      if (!fetcher) {
+        float l = lane > 0 ? up : ch[k];
+        float r = lane < tw - 1 ? dn : ch[k];
+        if (x == 0) l = r;
+        if (x == width - 1) r = l;
+        ch[k] = 0.5f * (l + r);
+      }
+    }
+  }
+  if (lane < tw) {
     sg.mask[lane] = covered ? 1 : 0;
     const Out o = {reinterpret_cast<float4*>(base_out) + i,
                    reinterpret_cast<float4*>(mrao_out) + i,
                    reinterpret_cast<float2*>(nrm_out) + i, sg.emis + 3 * lane,
                    sg.wpos + 3 * lane, sg.extras + 3 * lane, sg.n3 + 3 * lane};
     if (covered) {
-      resolve_pixel(depth, interp, ivp, st, meta, n_meta, params, n_params,
-                    i, plane, x, y, width, height, u, v, o);
+      shade_pixel(ch, depth, interp, ivp, mat, params, n_params, i, plane, x,
+                  y, width, height, o);
     } else {
       *o.base = *o.mrao = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       *o.nrm = make_float2(0.0f, 0.0f);
@@ -560,6 +760,10 @@ k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
   flush_bytes(mask_out + row0, sg.mask, tw, lane);
 }
 
+// K6's stochastic roles (R_DITHER, with R_JITTER the one texel): the
+// dithered mip with the anisotropic step clamped to half an amask cell's
+// uv, as the twin's masked_alpha_plain
+template <bool STOCH>
 __global__ void __launch_bounds__(RS_THREADS)
 k6_masked_alpha_kernel(const float* __restrict__ interp,
                        const int* __restrict__ meta, int n_meta,
@@ -567,55 +771,81 @@ k6_masked_alpha_kernel(const float* __restrict__ interp,
                        const uint32_t* __restrict__ amirror, int n_alpha,
                        float* __restrict__ alpha_out,
                        float* __restrict__ thresh_out, int width, int height,
-                       int row0) {
+                       Stoch sc, bool jitter) {
   const int i = blockIdx.x * RS_THREADS + threadIdx.x;
   if (i >= width * height) return;
   const size_t plane = (size_t)width * height;
+  const uint32_t px = (uint32_t)(i % width);
+  const uint32_t py = (uint32_t)(sc.row0 + i / width);
   const int mat = (int)interp[CH_MAT * plane + i];
   const int* m = meta + (size_t)META_COLS * clampi(mat, 0, n_meta - 1);
   const int size = m[1], levels = m[2], mode = m[3], abase = m[5];
+  float u = interp[CH_U * plane + i];
+  float v = interp[CH_V * plane + i];
+  float lod;
+  if (STOCH)
+    lod = stochastic_lod(interp, i, plane, size, px, py, sc, N_ALPHA_LOD,
+                         0.5f / AMASK_CELLS, u, v);
+  else
+    lod = interp_lod(interp, i, plane, size);
   // no coarser than half an amask cell (the in-race reject bound)
-  float lod = interp_lod(interp, i, plane, size);
   lod = tmin(lod, log2f(clamp_lo((float)size * (1.0f / (2.0f * AMASK_CELLS)),
                                  1.0f)));
-  // sample_stack_alpha: one bilinear level of the u8 mirror
+  // sample_stack_alpha: one bilinear level of the u8 mirror, or its one
+  // jittered texel
   lod = tmin(clamp_lo(lod, 0.0f), (float)(levels - 1));
   const int l0 = (int)floorf(lod);
   const int b0 = abase + level_offset_texels(size, l0);
   const int s0 = max(size >> l0, 1);
   const float sf = (float)s0;
-  const float fx = interp[CH_U * plane + i] * sf - 0.5f;
-  const float fy = interp[CH_V * plane + i] * sf - 0.5f;
-  const int x0 = (int)floorf(fx);
-  const int y0 = (int)floorf(fy);
-  const float tx = fx - (float)x0;
-  const float ty = fy - (float)y0;
-  const int xs[2] = {address(x0, s0, mode), address(x0 + 1, s0, mode)};
-  const int ys[2] = {address(y0, s0, mode), address(y0 + 1, s0, mode)};
-  float a[4];
+  float a_tex;
+  if (STOCH && jitter) {
+    const float jx = frame_noise(px, py, sc.frame * N_JX);
+    const float jy = frame_noise(px, py, sc.frame * N_JY);
+    const int xa = address((int)floorf(u * sf - 0.5f + jx), s0, mode);
+    const int ya = address((int)floorf(v * sf - 0.5f + jy), s0, mode);
+    const int idx = b0 + ya * s0 + xa;
+    a_tex = u8f(__ldg(amirror + (size_t)ALPHA_WORDS *
+                          clampi(idx >> 4, 0, n_alpha - 1) +
+                      ((idx >> 2) & 3)),
+                (idx & 3) * 8);
+  } else {
+    const float fx = u * sf - 0.5f;
+    const float fy = v * sf - 0.5f;
+    const int x0 = (int)floorf(fx);
+    const int y0 = (int)floorf(fy);
+    const float tx = fx - (float)x0;
+    const float ty = fy - (float)y0;
+    const int xs[2] = {address(x0, s0, mode), address(x0 + 1, s0, mode)};
+    const int ys[2] = {address(y0, s0, mode), address(y0 + 1, s0, mode)};
+    float a[4];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int idx = b0 + ys[k >> 1] * s0 + xs[k & 1];
-    const uint32_t w = __ldg(amirror + (size_t)ALPHA_WORDS *
-                                 clampi(idx >> 4, 0, n_alpha - 1) +
-                             ((idx >> 2) & 3));
-    a[k] = u8f(w, (idx & 3) * 8);
+    for (int k = 0; k < 4; ++k) {
+      const int idx = b0 + ys[k >> 1] * s0 + xs[k & 1];
+      const uint32_t w = __ldg(amirror + (size_t)ALPHA_WORDS *
+                                   clampi(idx >> 4, 0, n_alpha - 1) +
+                               ((idx >> 2) & 3));
+      a[k] = u8f(w, (idx & 3) * 8);
+    }
+    const float top = a[0] * (1.0f - tx) + a[1] * tx;
+    const float bot = a[2] * (1.0f - tx) + a[3] * tx;
+    a_tex = top * (1.0f - ty) + bot * ty;
   }
-  const float top = a[0] * (1.0f - tx) + a[1] * tx;
-  const float bot = a[2] * (1.0f - tx) + a[3] * tx;
-  const float a_tex = top * (1.0f - ty) + bot * ty;
+  // a dropped chunk reads alpha 1.0 (the fragment passes)
+  if (sc.keep && !sc.keep[i >> 7]) a_tex = 1.0f;
   const float* fac =
       params + (size_t)PARAM_COLS * clampi(mat, 0, n_params - 1);
   alpha_out[i] = fac[6] * a_tex;
-  // resolve._pixel_noise: the uint32 hash of the whole-frame pixel
-  const uint32_t px = (uint32_t)(i % width);
-  const uint32_t py = (uint32_t)(row0 + i / width);
-  uint32_t h = px * 374761393u + py * 668265263u;
-  h = (h ^ (h >> 13)) * 1274126177u;
-  const float noise = (float)((h >> 16) & 0xFFFFu) * (1.0f / 65536.0f);
+  // the BLEND screen door: the hash of the whole-frame pixel, seeded by
+  // the frame index (0 on the exact path)
+  const float noise = frame_noise(px, py, sc.frame * N_BLEND);
   thresh_out[i] = fac[12] >= 2.0f ? tmax(noise, (float)1e-3) : fac[11];
 }
 
+// role: kernels/resolve.py's R_* flags (0: exact); frame, max_aniso,
+// parity and row0 as Stoch; keep: a byte per 128-pixel chunk (NULL: every
+// chunk). The checkerboard needs the jittered texel, an even width and no
+// keep flags.
 extern "C" int k5_resolve(const int* tri, const float* depth,
                           const float* interp, const float* inv_view_proj,
                           const uint32_t* flat, int n_flat,
@@ -624,33 +854,62 @@ extern "C" int k5_resolve(const int* tri, const float* depth,
                           int n_params, float* base_color, float* normals,
                           float* mrao, float* emissive, uint8_t* mask,
                           float* world_pos, float* uv, float* extras,
-                          float* n3, int width, int height, void* stream) {
-  if (n_flat < 1 || n_extra < 1 || n_meta < 1 || n_params < 1)
+                          float* n3, int width, int height, int role,
+                          int frame, float max_aniso, int parity, int row0,
+                          const uint8_t* keep, void* stream) {
+  if (n_flat < 1 || n_extra < 1 || n_meta < 1 || n_params < 1 || row0 < 0)
     return (int)cudaErrorInvalidValue;
   // the 16- and 8-byte loads and stores
   if (((uintptr_t)flat | (uintptr_t)base_color | (uintptr_t)mrao) & 15u ||
       ((uintptr_t)extra | (uintptr_t)normals | (uintptr_t)uv) & 7u)
     return (int)cudaErrorInvalidValue;
+  const bool dither = role & 1, jitter = role & 2, checker = role & 4;
+  if ((role & ~7) || (!dither && role) || (checker && (!jitter || width & 1 ||
+                                                      keep)) ||
+      (keep && ((long long)width * height) % 128))
+    return (int)cudaErrorInvalidValue;
   const Stack st = {flat, extra, n_flat, n_extra};
+  const Stoch sc = {(uint32_t)frame, max_aniso, 1.0f / max_aniso, parity & 1,
+                    row0, keep};
   const dim3 grid((width + K5_TW - 1) / K5_TW, (height + K5_TH - 1) / K5_TH);
-  k5_resolve_kernel<<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(
-      tri, depth, interp, inv_view_proj, st, meta, n_meta, params, n_params,
-      base_color, normals, mrao, emissive, mask, world_pos, uv, extras, n3,
-      width, height);
+#define K5_LAUNCH(R)                                                       \
+  k5_resolve_kernel<R><<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(     \
+      tri, depth, interp, inv_view_proj, st, meta, n_meta, params, n_params, \
+      base_color, normals, mrao, emissive, mask, world_pos, uv, extras, n3,  \
+      width, height, sc)
+  if (checker) K5_LAUNCH(K5_CHECKER);
+  else if (jitter) K5_LAUNCH(K5_JITTER);
+  else if (dither) K5_LAUNCH(K5_DITHER);
+  else K5_LAUNCH(K5_EXACT);
+#undef K5_LAUNCH
   return (int)cudaGetLastError();
 }
 
+// role: R_DITHER, with R_JITTER the one texel (0: exact); frame seeds the
+// BLEND threshold on every role
 extern "C" int k6_masked_alpha(const float* interp, const int* meta,
                                int n_meta, const float* params, int n_params,
                                const uint32_t* amirror, int n_alpha,
                                float* alpha, float* thresh, int width,
-                               int height, int row0, void* stream) {
-  if (n_meta < 1 || n_params < 1 || n_alpha < 1 || row0 < 0)
+                               int height, int row0, int role, int frame,
+                               float max_aniso, const uint8_t* keep,
+                               void* stream) {
+  if (n_meta < 1 || n_params < 1 || n_alpha < 1 || row0 < 0 || (role & ~3) ||
+      role == 2 || (keep && ((long long)width * height) % 128))
     return (int)cudaErrorInvalidValue;
+  const Stoch sc = {(uint32_t)frame, max_aniso, 1.0f / max_aniso, 0, row0,
+                    keep};
   const int n = width * height;
   const int blocks = (n + RS_THREADS - 1) / RS_THREADS;
-  k6_masked_alpha_kernel<<<blocks, RS_THREADS, 0, (cudaStream_t)stream>>>(
-      interp, meta, n_meta, params, n_params, amirror, n_alpha, alpha,
-      thresh, width, height, row0);
+  if (role & 1)
+    k6_masked_alpha_kernel<true><<<blocks, RS_THREADS, 0,
+                                   (cudaStream_t)stream>>>(
+        interp, meta, n_meta, params, n_params, amirror, n_alpha, alpha,
+        thresh, width, height, sc, role & 2);
+  else
+    k6_masked_alpha_kernel<false><<<blocks, RS_THREADS, 0,
+                                    (cudaStream_t)stream>>>(
+        interp, meta, n_meta, params, n_params, amirror, n_alpha, alpha,
+        thresh, width, height, sc, false);
   return (int)cudaGetLastError();
 }

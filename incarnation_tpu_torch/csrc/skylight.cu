@@ -19,6 +19,11 @@
 // lobe (a second cube fetch and env-BRDF evaluation); the AO blend, the
 // sky brightness and the HBAO scale.
 //
+// Stochastic roles (k8_sky_stochastic_kernel, skylight.py:62-125 in the
+// JAX package, while TAA accumulates): the probe fetched at one dithered
+// mip, bilinear or one jittered texel of its RGBE table; with extras one
+// lobe a pixel and frame; with the checkerboard half the pixels fetch.
+//
 // Tables: the Chebyshev coefficients (2 x 256 floats) and the cube's level
 // bases and sizes are kernel parameters, passed by value from host tables
 // the wrapper builds once per coefficient set and per probe. The loops over
@@ -73,6 +78,15 @@
 #define F_LIGHTING_ONLY 4
 #define F_ANALYTIC 8
 #define F_LUT_PACKED 16
+#define F_DITHER 32   // the stochastic probe fetch: one dithered mip
+#define F_JITTER 64   // its one jittered texel, from the RGBE table
+#define F_CHECKER 128 // fetched by half the pixels (the checkerboard)
+
+// frame_noise's channels (kernels/skylight.py N_*)
+#define N_PROBE_LOD 2246822519u
+#define N_PROBE_JX 3323198485u
+#define N_PROBE_JY 2654435769u
+#define N_LOBE 2357136044u
 
 struct Cheb {
   float a[CHEB_N * CHEB_N];  // CHEB_A, row-major
@@ -295,6 +309,240 @@ __device__ __forceinline__ void env_brdf_lut(const float* __restrict__ lut,
   ab[1] = top1 * uy + bot1 * ty;
 }
 
+// resolve.frame_noise: a uniform in [0, 1) from the uint32 hash of the
+// whole-frame pixel (x, y) xor the channel's seed (frame x mult, wrapped)
+__device__ __forceinline__ float frame_noise(uint32_t x, uint32_t y,
+                                             uint32_t seed) {
+  uint32_t h = (x * 374761393u + y * 668265263u) ^ seed;
+  h = (h ^ (h >> 13)) * 1274126177u;
+  return (float)((h >> 16) & 0xFFFFu) * (1.0f / 65536.0f);
+}
+
+// The stochastic probe fetch of one pixel: NoV, the reflected direction's
+// face and uv, and the dithered mip; with the lobe (extras) the clearcoat
+// lobe's weight fc and whether this pixel and frame pick it
+struct Tap {
+  float no_v, fc;
+  bool pick;
+  int face;
+  float u, v, lod;
+};
+
+// skylight.py's stochastic specular set-up (sky_lighting_plain): the lod
+// roughness (or, where the coat lobe is picked, its roughness) x (levels
+// - 1) + noise, in the twin's operations
+__device__ __forceinline__ Tap spec_tap(const float* nn, const float* vv,
+                                        float roughness, const float* ex,
+                                        bool lobe, float mips1, uint32_t px,
+                                        uint32_t py, uint32_t frame) {
+  Tap t;
+  t.no_v = clamp_lo(dot3(nn, vv), 0.01f);
+  const float vn2 = 2.0f * dot3(vv, nn);
+  float r[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) r[c] = vn2 * nn[c] - vv[c];
+  const float inv = 1.0f / sqrtf(dot3(r, r) + 1e-20f);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) r[c] = r[c] * inv;
+  face_uv(r, t.face, t.u, t.v);
+  t.fc = 0.0f;
+  t.pick = false;
+  float lod = roughness * mips1;
+  if (lobe) {
+    // shading.f_schlick(NoV, 0.04) x cc, (1 - u)^5 as mathutils.ipow
+    const float x = 1.0f - t.no_v;
+    const float x2 = x * x;
+    const float f = x * (x2 * x2);
+    t.fc = (f + 0.04f * (1.0f - f)) * ex[1];
+    t.pick = frame_noise(px, py, frame * N_LOBE) < t.fc;
+    if (t.pick) lod = clamp_lo(ex[2], 0.03f) * mips1;
+  }
+  t.lod = lod + frame_noise(px, py, frame * N_PROBE_LOD);
+  return t;
+}
+
+// ibl.sample_cube(single_mip=True) at the tap: level floor(lod) of the
+// clamped lod, bilinear, or with rgbe the one texel floor(uv s - 0.5 +
+// j), clamped to the face, decoded as mantissa x 2^(e - 136)
+// (ibl.rgbe_decode; the power of two built from its bits)
+__device__ __forceinline__ void probe_fetch(const float* __restrict__ flat,
+                                            const uint32_t* __restrict__ rgbe,
+                                            const Cube& cube, const Tap& t,
+                                            uint32_t px, uint32_t py,
+                                            uint32_t frame, float* out) {
+  const int last = cube.levels - 1;
+  const float lod = tmin(tmax(t.lod, 0.0f), (float)last);
+  const int l0 = clampi((int)floorf(lod), 0, last);
+  const int s = cube.size[l0];
+  if (!rgbe) {
+    cube_level(flat, cube, cube.base[l0], s, t.face, t.u, t.v, out);
+    return;
+  }
+  const float sf = (float)s;
+  const float jx = frame_noise(px, py, frame * N_PROBE_JX);
+  const float jy = frame_noise(px, py, frame * N_PROBE_JY);
+  const int x = clampi((int)floorf(t.u * sf - 0.5f + jx), 0, s - 1);
+  const int y = clampi((int)floorf(t.v * sf - 0.5f + jy), 0, s - 1);
+  const uint32_t w = __ldg(rgbe + cube.base[l0] + (t.face * s + y) * s + x);
+  const int p = (int)((w >> 24) & 0xFFu) - 136;
+  const float scale = __int_as_float(p >= -126 ? (p + 127) << 23
+                                               : 1 << (p + 149));
+  out[0] = (float)(w & 0xFFu) * scale;
+  out[1] = (float)((w >> 8) & 0xFFu) * scale;
+  out[2] = (float)((w >> 16) & 0xFFu) * scale;
+}
+
+__device__ __forceinline__ void load3(const float* __restrict__ a, int i,
+                                      float* o) {
+  o[0] = __ldg(a + 3 * i);
+  o[1] = __ldg(a + 3 * i + 1);
+  o[2] = __ldg(a + 3 * i + 2);
+}
+
+// K8's stochastic roles (F_DITHER): the exact role's diffuse lobe, and the
+// specular lobe from one dithered mip of the probe (with F_JITTER one
+// texel of its RGBE table); with extras one lobe a pixel and frame, the
+// coat lobe with probability fc, its env BRDF alone evaluated (the twin
+// evaluates both and selects). With F_CHECKER (an even width) a pixel of
+// the fetching parity, x & 1 == (row0 + y + parity) & 1, fetches where it
+// or a horizontal neighbour is covered, and a covered pixel of the other
+// parity takes the mean of its two neighbours' fetches, read by warp
+// shuffles along the warp's 8-pixel rows, clamped at the image's row
+// ends; the neighbour outside the warp (x - 1 of a row's first lane, x +
+// 1 of its last) is fetched by the pixel that needs it. No lane leaves
+// before the shuffles.
+__global__ void __launch_bounds__(K8_THREADS)
+k8_sky_stochastic_kernel(
+    const float4* __restrict__ base_color, const float4* __restrict__ mrao,
+    const uint8_t* __restrict__ mask, const float* __restrict__ n,
+    const float* __restrict__ v, const float* __restrict__ bent,
+    const float* __restrict__ hbao, const float* __restrict__ extras,
+    const float* __restrict__ sh, const float* __restrict__ cube_flat,
+    const uint32_t* __restrict__ rgbe, const float* __restrict__ lut,
+    int lut_size, float sky, int flags, const Cube cube, const Cheb cheb_tab,
+    float* __restrict__ out, int width, int height, uint32_t frame,
+    int parity, int row0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = blockIdx.x * 16 + (warp & 1) * 8 + (lane & 7);
+  const int y = blockIdx.y * 8 + (warp >> 1) * 4 + (lane >> 3);
+  const bool in = x < width && y < height;
+  const int i = in ? y * width + x : 0;
+  const bool cov = in && mask[i];
+  const uint32_t px = (uint32_t)x, py = (uint32_t)(row0 + y);
+  const bool specular = flags & F_SPECULAR;
+  const bool checker = flags & F_CHECKER;
+  const bool lobe = extras != nullptr;
+  const float mips1 = (float)(cube.levels - 1);
+  const uint32_t* tex = (flags & F_JITTER) ? rgbe : nullptr;
+  const bool fetcher = !checker || (x & 1) == ((row0 + y + parity) & 1);
+
+  float pre[3] = {0.0f, 0.0f, 0.0f};
+  Tap tap;
+  if (specular) {
+    if (in) {
+      float nn[3], vv[3], ex[3];
+      load3(n, i, nn);
+      load3(v, i, vv);
+      if (lobe) load3(extras, i, ex);
+      tap = spec_tap(nn, vv, __ldg(mrao + i).y, ex, lobe, mips1, px, py,
+                     frame);
+      if (fetcher) {
+        if (cov || (checker && ((x > 0 && mask[i - 1]) ||
+                                (x + 1 < width && mask[i + 1]))))
+          probe_fetch(cube_flat, tex, cube, tap, px, py, frame, pre);
+      } else if (cov) {
+        const int xn = (lane & 7) == 0 && x > 0           ? x - 1
+                       : (lane & 7) == 7 && x + 1 < width ? x + 1
+                                                          : -1;
+        if (xn >= 0) {
+          const int j = i + (xn - x);
+          load3(n, j, nn);
+          load3(v, j, vv);
+          if (lobe) load3(extras, j, ex);
+          const Tap tn = spec_tap(nn, vv, __ldg(mrao + j).y, ex, lobe, mips1,
+                                  (uint32_t)xn, py, frame);
+          probe_fetch(cube_flat, tex, cube, tn, (uint32_t)xn, py, frame, pre);
+        }
+      }
+    }
+    if (checker) {
+      // the other parity: the mean of the fetches at x - 1 and x + 1
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float up = __shfl_up_sync(0xffffffffu, pre[c], 1);
+        const float dn = __shfl_down_sync(0xffffffffu, pre[c], 1);
+        if (!fetcher) {
+          float l = (lane & 7) > 0 ? up : pre[c];
+          float r = (lane & 7) < 7 ? dn : pre[c];
+          if (x == 0) l = r;
+          if (x == width - 1) r = l;
+          pre[c] = 0.5f * (l + r);
+        }
+      }
+    }
+  }
+  if (!in) return;
+  float* o = out + 3 * i;
+  if (!cov) {
+    o[0] = 0.0f;
+    o[1] = 0.0f;
+    o[2] = 0.0f;
+    return;
+  }
+  const float4 bc = __ldg(base_color + i);
+  const float4 mr = __ldg(mrao + i);
+  float base[3] = {bc.x, bc.y, bc.z};
+  if (flags & F_LIGHTING_ONLY) base[0] = base[1] = base[2] = 0.5f;
+  const float metallic = mr.x, roughness = mr.y, ao = mr.z, ao_blend = mr.w;
+  const float one_m = 1.0f - metallic;
+  const float one_aob = 1.0f - ao_blend;
+  float ex[3] = {0.0f, 0.0f, 0.0f};
+  if (lobe) load3(extras, i, ex);
+  float rad[3] = {0.0f, 0.0f, 0.0f};
+
+  if (flags & F_DIFFUSE) {
+    float sn[3];
+    load3(bent ? bent : n, i, sn);
+    float irr[3];
+    sh_irradiance(sn, sh, irr);
+    const float one_t = 1.0f - ex[0];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float albedo = one_m * base[c];
+      if (lobe) albedo = albedo * one_t;
+      const float d = ((albedo * INV_PI) * irr[c]) * 5.0f;
+      rad[c] = 0.0f + sky * (d * one_aob + (ao * d) * ao_blend);
+    }
+  }
+
+  if (specular) {
+    const bool analytic = flags & F_ANALYTIC;
+    const bool packed_lut = flags & F_LUT_PACKED;
+    // the picked lobe's env BRDF: the coat's at its roughness, scaling
+    // 0.04, or the base lobe's, scaling f0
+    const float rough = tap.pick ? clamp_lo(ex[2], 0.03f) : roughness;
+    float ab[2];
+    if (analytic) env_brdf_analytic(cheb_tab, tap.no_v, 1.0f - rough, ab);
+    else env_brdf_lut(lut, lut_size, packed_lut, tap.no_v, rough, ab);
+    const float one_fc = 1.0f - tap.fc;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float f0 = tap.pick ? 0.04f : metallic * base[c] + one_m * 0.04f;
+      const float spec = pre[c] * (f0 * ab[0] + ab[1]);
+      if (lobe) rad[c] = rad[c] * one_fc;
+      rad[c] = rad[c] + sky * (spec * one_aob + (ao * spec) * ao_blend);
+    }
+  }
+  if (hbao) {
+    const float a = __ldg(hbao + i);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) rad[c] = rad[c] * a;
+  }
+  o[0] = rad[0];
+  o[1] = rad[1];
+  o[2] = rad[2];
+}
+
 __global__ void __launch_bounds__(K8_THREADS)
 k8_sky_kernel(const float4* __restrict__ base_color,
               const float4* __restrict__ mrao,
@@ -418,7 +666,9 @@ k8_sky_kernel(const float4* __restrict__ base_color,
 
 // levels: the cube's bases then its sizes, n_levels each (host memory);
 // cheb: CHEB_A then CHEB_B, 512 floats (host memory), needed with
-// F_ANALYTIC and F_SPECULAR.
+// F_ANALYTIC and F_SPECULAR. The stochastic roles (F_DITHER): rgbe, the
+// cube's RGBE words (F_JITTER); frame, the frame index that seeds the
+// noise; parity (F_CHECKER) and row0, the band's first row in the frame.
 extern "C" int k8_sky_lighting(const float* base_color, const float* mrao,
                                const uint8_t* mask, const float* n,
                                const float* v, const float* bent,
@@ -428,9 +678,17 @@ extern "C" int k8_sky_lighting(const float* base_color, const float* mrao,
                                int cube_packed, const float* lut, int lut_size,
                                const float* cheb, float sky_brightness,
                                int flags, float* out, int width, int height,
-                               void* stream) {
+                               const uint32_t* rgbe, int frame, int parity,
+                               int row0, void* stream) {
   if (width < 0 || height < 0 || n_levels < 1 || n_levels > MAX_LEVELS ||
-      !levels)
+      !levels || row0 < 0 || (flags & ~255))
+    return (int)cudaErrorInvalidValue;
+  // the stochastic roles: the jittered texel reads the RGBE table, the
+  // checkerboard needs an even width, both need the dithered mip
+  const bool dither = flags & F_DITHER;
+  if ((flags & (F_JITTER | F_CHECKER)) && !dither)
+    return (int)cudaErrorInvalidValue;
+  if (((flags & F_JITTER) && !rgbe) || ((flags & F_CHECKER) && (width & 1)))
     return (int)cudaErrorInvalidValue;
   // base colour and mrao load as 16-byte rows, the packed LUT as two
   // 16-byte words, the raw LUT as 8-byte pairs
@@ -463,10 +721,18 @@ extern "C" int k8_sky_lighting(const float* base_color, const float* mrao,
   }
   if (width == 0 || height == 0) return (int)cudaSuccess;
   const dim3 blocks((width + 15) / 16, (height + 7) / 8);
-  k8_sky_kernel<<<blocks, K8_THREADS, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(base_color),
-      reinterpret_cast<const float4*>(mrao), mask, n, v, bent, hbao, extras,
-      sh, cube_flat, lut, lut_size, sky_brightness, flags, cube, tab, out,
-      width, height);
+  if (dither)
+    k8_sky_stochastic_kernel<<<blocks, K8_THREADS, 0,
+                               (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(base_color),
+        reinterpret_cast<const float4*>(mrao), mask, n, v, bent, hbao, extras,
+        sh, cube_flat, rgbe, lut, lut_size, sky_brightness, flags, cube, tab,
+        out, width, height, (uint32_t)frame, parity & 1, row0);
+  else
+    k8_sky_kernel<<<blocks, K8_THREADS, 0, (cudaStream_t)stream>>>(
+        reinterpret_cast<const float4*>(base_color),
+        reinterpret_cast<const float4*>(mrao), mask, n, v, bent, hbao, extras,
+        sh, cube_flat, lut, lut_size, sky_brightness, flags, cube, tab, out,
+        width, height);
   return (int)cudaGetLastError();
 }

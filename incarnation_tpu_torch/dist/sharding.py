@@ -15,10 +15,12 @@ single frame reads however far it moves, and one row of current HDR each
 way for the 3x3 clamp (JAX taa.py:272-290, :363-371). Past the image's
 top and bottom the halo repeats the edge row, as the single frame's clamp
 does. (JAX's bands borrow 16 history rows, its fetch kernel's reach, and
-leave the single frame past 16 rows of vertical motion at a seam.) The
-BLEND screen-door noise of a band is hashed from whole-frame rows
-(render_hdr's band_row; the JAX bands hash their own rows, so their BLEND
-pixels differ from the single frame's). Outputs are assembled on
+leave the single frame past 16 rows of vertical motion at a seam.) Every
+noise of a band (the BLEND screen door and the stochastic filters) and its
+checkerboard parity are taken from whole-frame rows (render_hdr's
+band_row; the JAX bands hash their own rows and take their parity from
+them, so their stochastic pixels differ from the single frame's). A chunk
+capacity holds for each band's own chunks. Outputs are assembled on
 devices[0] and the stats summed.
 
 The scene, probe and BVH are given per device: one object, copied to each
@@ -138,7 +140,9 @@ def render_frame_sharded(scene, fc, *, config, params, devices, probe=None,
     states = [frame_mod.render_hdr(
         scenes[i], _band_constants(fc, n, i, d), config=config,
         params=band_params, probe=probes[i], env_brdf=brdfs[i],
-        scene_bvh=bvhs[i], band_row=i * hb) for i, d in enumerate(devs)]
+        scene_bvh=bvhs[i], band_row=i * hb,
+        taa_active=config.enable_taa and history is not None)
+        for i, d in enumerate(devs)]
 
     # phase 2: every band's TAA, with its neighbours' halo rows
     hist_bands = (None if history is None else

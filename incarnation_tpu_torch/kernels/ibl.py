@@ -5,7 +5,10 @@ Cube mips are one flat (total, 3) texel table per chain. The JAX package
 samples the probes it builds through quad-packed rows whose +x/+y
 neighbour is taken from the CLAMPED texel; CubeMips.packed keeps that
 addressing (it differs from clamp(x0 + 1) at a face's first texel) so both
-packages fetch the same texels.
+packages fetch the same texels. Such a probe's jittered one-texel fetch
+(the stochastic filters) reads its shared-exponent RGBE copy
+(CubeMips.rgbe_table, built once from flat as the JAX package's
+rgbe_encode builds it), not the f32 texel.
 """
 
 from __future__ import annotations
@@ -212,6 +215,16 @@ class CubeMips:
     num_levels: int
     bases: tuple
     packed: bool = False
+    # the u32 RGBE table of a packed cube, built at its first jittered
+    # fetch (rgbe_table)
+    rgbe: torch.Tensor = dataclasses.field(default=None, repr=False,
+                                           compare=False)
+
+    def rgbe_table(self):
+        """(total,) int32 RGBE words of flat (rgbe_encode), built once."""
+        if self.rgbe is None:
+            self.rgbe = rgbe_encode(self.flat)
+        return self.rgbe
 
     @staticmethod
     def from_levels(levels, packed: bool = False):
@@ -227,18 +240,68 @@ class CubeMips:
                         packed=packed)
 
 
-def _sample_cube_level(cube: CubeMips, base, s, d):
+def rgbe_encode(rgb):
+    """(..., 3) f32 -> (...,) int32 words of u32 shared-exponent RGBE
+    (Ward), as the JAX package's rgbe_encode: 8-bit mantissas round(c
+    2^-e 256) of the exponent e = floor(log2(max channel)) + 1, and e +
+    128 in the top byte; -128 (a zero word's exponent) where the max is at
+    most 1e-32. log2 is jnp.log2's log(m) / log(2) in f32, which lands
+    just below the integer at many powers of two (8192 -> 12.999999):
+    there e is one less and the largest mantissa clips at 255, as in the
+    JAX package's tables."""
+    m = torch.amax(rgb, dim=-1)
+    log2 = torch.log(torch.clamp(m, min=1e-32)) / torch.log(
+        torch.tensor(2.0, device=rgb.device))
+    e = torch.where(m > 1e-32, torch.floor(log2) + 1.0, -128.0)
+    scale = torch.exp2(-e)[..., None] * 256.0
+    # a max at most 1e-32 scales by 2^128 = inf, and a zero channel by
+    # inf is NaN, whose mantissa is 0 (as JAX's cast makes it)
+    mant = torch.clamp(torch.nan_to_num(torch.round(rgb * scale), nan=0.0),
+                       0, 255).to(torch.int64)
+    e8 = torch.clamp(e + 128.0, 0, 255).to(torch.int64)
+    word = mant[..., 0] | (mant[..., 1] << 8) | (mant[..., 2] << 16) \
+        | (e8 << 24)
+    return (word - ((word >> 31) << 32)).to(torch.int32)
+
+
+def rgbe_decode(word):
+    """(...,) RGBE words (int32 or int64) -> (..., 3) f32: mantissa x
+    2^(e - 136), the power of two built from its bits (exact; the JAX
+    package's exp2 of an integer is exact too)."""
+    w = word.to(torch.int64) & 0xFFFFFFFF
+    p = ((w >> 24) & 0xFF) - 136                     # in [-136, 119]
+    bits = torch.where(p >= -126, (p + 127) << 23, 1 << (p + 149).clamp(0))
+    scale = bits.to(torch.int32).view(torch.float32)
+    return torch.stack([(w & 0xFF).to(torch.float32),
+                        ((w >> 8) & 0xFF).to(torch.float32),
+                        ((w >> 16) & 0xFF).to(torch.float32)],
+                       dim=-1) * scale[..., None]
+
+
+def _sample_cube_level(cube: CubeMips, base, s, d, jitter=None):
     """Bilinear sample of one cube level at directions d (clamped at face
-    edges). base/s: ints or (...,) int64 tensors."""
+    edges). base/s: ints or (...,) int64 tensors. jitter: (..., 2)
+    uniforms for the one-texel stochastic-bilinear fetch of a packed
+    cube's RGBE table (ibl.py _sample_cube_level); an unpacked cube
+    ignores it, as the JAX package's cubes without the packed tables
+    do."""
     face, uv = dir_to_face_uv(d)
     sf = s.to(torch.float32) if torch.is_tensor(s) else float(s)
     fx = uv[..., 0] * sf - 0.5
     fy = uv[..., 1] * sf - 0.5
+    hi = s - 1
+    if jitter is not None and cube.packed:
+        def clip(c):
+            c = torch.clamp(c, min=0)
+            return torch.minimum(c, hi) if torch.is_tensor(hi) else \
+                torch.clamp(c, max=hi)
+        x = clip(torch.floor(fx + jitter[..., 0]).to(torch.int64))
+        y = clip(torch.floor(fy + jitter[..., 1]).to(torch.int64))
+        return rgbe_decode(cube.rgbe_table()[base + (face * s + y) * s + x])
     x0 = torch.floor(fx).to(torch.int64)
     y0 = torch.floor(fy).to(torch.int64)
     tx = (fx - x0)[..., None]
     ty = (fy - y0)[..., None]
-    hi = s - 1
     x0c = torch.clamp(x0, min=0)
     x0c = torch.minimum(x0c, hi) if torch.is_tensor(hi) else \
         torch.clamp(x0c, max=hi)
@@ -262,10 +325,15 @@ def _sample_cube_level(cube: CubeMips, base, s, d):
     return top * (1 - ty) + bot * ty
 
 
-def sample_cube(cube: CubeMips, d, lod=None):
-    """Trilinear cube sample at float mip `lod` (None = level 0)."""
+def sample_cube(cube: CubeMips, d, lod=None, single_mip: bool = False,
+                jitter=None):
+    """Trilinear cube sample at float mip `lod` (None = level 0).
+    single_mip: only level floor(lod) (pair with a dithered lod and an
+    accumulation); jitter: (..., 2) uniforms, the one-texel fetch of that
+    level (see _sample_cube_level)."""
     if lod is None:
-        return _sample_cube_level(cube, cube.bases[0], cube.size, d)
+        return _sample_cube_level(cube, cube.bases[0], cube.size, d,
+                                  jitter)
     dev = d.device
     bases = torch.as_tensor(np.asarray(cube.bases, np.int64), device=dev)
     sizes = torch.as_tensor(np.asarray(
@@ -273,7 +341,9 @@ def sample_cube(cube: CubeMips, d, lod=None):
         device=dev)
     lod = torch.clamp(lod, 0.0, cube.num_levels - 1.0)
     l0 = torch.floor(lod).to(torch.int64)
-    s0 = _sample_cube_level(cube, bases[l0], sizes[l0], d)
+    s0 = _sample_cube_level(cube, bases[l0], sizes[l0], d, jitter)
+    if single_mip:
+        return s0
     l1 = torch.clamp(l0 + 1, max=cube.num_levels - 1)
     frac = (lod - l0)[..., None]
     s1 = _sample_cube_level(cube, bases[l1], sizes[l1], d)

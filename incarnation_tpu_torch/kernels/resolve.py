@@ -1,10 +1,18 @@
-"""GBuffer material resolve (port of incarnation_tpu/kernels/resolve.py,
-exact path only: trilinear stack fetch, no stochastic taps, no chunk
-compaction).
+"""GBuffer material resolve (port of incarnation_tpu/kernels/resolve.py).
 
 The raster kernel's 16 interpolated channels (u, v, world normal, world
 tangent, sign, material id, analytic UV derivatives) drive one material
 stack fetch per pixel; world position is reconstructed from depth.
+
+Exact path: a trilinear stack fetch. While TAA accumulates the frame may
+ask for the stochastic filters (resolve.py:242-376): a dithered single mip
+floor(lod + xi) (mip_dither, the frame index; with max_aniso > 1 the
+footprint's minor-axis mip and the tap jittered along its major axis),
+one jittered texel of that mip (uv_dither), the checkerboard half-rate
+fetch (checker_parity, kernels/checker.py) and a chunk capacity (only the
+first `capacity` covered 128-pixel chunks fetch). Every noise is
+frame_noise, hashed from the pixel's whole-frame position (row0: a band's
+first row).
 
 resolve_gbuffer is K5 and masked_alpha K6 (csrc/resolve.cu) on CUDA
 tensors; on CPU tensors each runs its plain twin (resolve_gbuffer_plain,
@@ -19,20 +27,74 @@ import dataclasses
 import torch
 
 from .build import Kernel, ptr
+from . import checker
 from ..core import mathutils as mu
 from ..scene import textures as tex_mod
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # tri, depth, interp, inv_view_proj, flat, n_flat, extra, n_extra, meta,
 # n_meta, mat_params, n_params, then the outputs base_color, normals, mrao,
-# emissive, mask, world_pos, uv, extras, n3 (NULL: none), width, height
+# emissive, mask, world_pos, uv, extras, n3 (NULL: none), width, height,
+# then the role (R_* flags), frame index, max anisotropy, checker parity,
+# row0 and the chunk keep flags (NULL: every chunk)
 K5 = Kernel("resolve", "k5_resolve",
             [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I] + [_P] * 9
-            + [_I, _I])
+            + [_I, _I, _I, _I, _F, _I, _I, _P])
 # interp, meta, n_meta, mat_params, n_params, alpha mirror, n_alpha,
-# alpha out, thresh out, width, height, row0
+# alpha out, thresh out, width, height, row0, role, frame index, max
+# anisotropy, chunk keep flags (NULL: every chunk)
 K6 = Kernel("resolve", "k6_masked_alpha",
-            [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I])
+            [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
+             _P])
+# roles (csrc/resolve.cu): the dithered single mip, one jittered texel of
+# it, the checkerboard half-rate fetch (K5, with R_JITTER)
+R_DITHER, R_JITTER, R_CHECKER = 1, 2, 4
+CHUNK_PX = 128
+
+# frame_noise's channels, as the JAX package seeds them (resolve.py,
+# skylight.py, shadow.py, taa.py)
+N_ANISO, N_LOD, N_ALPHA_LOD = 2428444049, 2654435761, 741103597
+N_JX, N_JY, N_BLEND = 1181783497, 3267000013, 1597334677
+
+
+def frame_noise(shape, frame_index: int, mult: int, device, row0: int = 0):
+    """(H, W) f32 uniforms in [0, 1): the JAX package's _frame_noise, a
+    uint32 hash of the pixel (x, y) xor frame_index * mult (wrapped to 32
+    bits), in int64 arithmetic reduced modulo 2^32; mult picks an
+    independent channel. row0: the first row's index in the whole frame
+    (a band of a sharded frame hashes whole-frame rows)."""
+    m32 = 0xFFFFFFFF
+    seed = (int(frame_index) * int(mult)) & m32
+    xs = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :]
+    ys = torch.arange(row0, row0 + shape[0], dtype=torch.int64,
+                      device=device)[:, None]
+    h = ((xs * 374761393 + ys * 668265263) & m32) ^ seed
+    h = ((h ^ (h >> 13)) * 1274126177) & m32
+    return ((h >> 16) & 0xFFFF).to(torch.float32) / 65536.0
+
+
+def chunk_keep(active, capacity: int):
+    """(H*W/128,) bool: the 128-pixel chunks of the flat image that fetch
+    under a chunk capacity, the first `capacity` chunks holding an active
+    pixel, in flat order (JAX _chunk_compact's nonzero(size=capacity));
+    a rank by cumsum, no host sync."""
+    h, w = active.shape
+    if (h * w) % CHUNK_PX:
+        raise ValueError("a chunk capacity needs H * W % 128 == 0")
+    any_ = active.reshape(-1, CHUNK_PX).any(1)
+    return any_ & (torch.cumsum(any_, 0) <= capacity)
+
+
+def chunk_overflow(active, capacity: int):
+    """0-dim int: how many chunks with an active pixel exceed `capacity`
+    (resolve.py chunk_overflow)."""
+    n = active.reshape(-1, CHUNK_PX).any(1).sum()
+    return torch.clamp(n - capacity, min=0)
+
+
+def _keep_pixels(keep, shape):
+    """(H, W) bool of chunk_keep's flags."""
+    return keep[:, None].expand(-1, CHUNK_PX).reshape(shape)
 
 
 @dataclasses.dataclass
@@ -67,18 +129,64 @@ def _interp_lod(scene, mat_id, interp):
     return torch.log2(torch.clamp(rho, min=1e-8))
 
 
-def _pixel_noise(shape, device, row0: int = 0):
-    """Per-pixel uniform in [0, 1): the JAX _frame_noise uint32 hash at
-    frame 0 (the exact path never dithers by frame), in int64 arithmetic
-    reduced modulo 2^32. row0: the first row's index in the whole frame
-    (a band of a sharded frame hashes whole-frame rows)."""
-    m32 = 0xFFFFFFFF
-    xs = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :]
-    ys = torch.arange(row0, row0 + shape[0], dtype=torch.int64,
-                      device=device)[:, None]
-    h = (xs * 374761393 + ys * 668265263) & m32
-    h = ((h ^ (h >> 13)) * 1274126177) & m32
-    return ((h >> 16) & 0xFFFF).to(torch.float32) / 65536.0
+def _interp_lod_aniso(scene, mat_id, interp, max_aniso: float):
+    """(lod, major): the mip of the footprint's minor axis, clamped so the
+    implied tap count stays at most max_aniso, and the (..., 2) uv per
+    pixel of its major axis, along which the single tap is jittered
+    (resolve.py _interp_lod_aniso)."""
+    meta = tex_mod.stack_meta_lookup(scene.mat_stack, mat_id)
+    size_f = meta[..., 1].to(torch.float32)
+    dudx, dudy, dvdx, dvdy = interp[10], interp[11], interp[12], interp[13]
+    rx = torch.sqrt(dudx * dudx + dvdx * dvdx)
+    ry = torch.sqrt(dudy * dudy + dvdy * dvdy)
+    rmax = torch.maximum(rx, ry)
+    rmin = torch.minimum(rx, ry)
+    rho = torch.maximum(rmin, rmax / max_aniso) * size_f
+    lod = torch.log2(torch.clamp(rho, min=1e-8))
+    x_major = rx >= ry
+    major = torch.stack([torch.where(x_major, dudx, dudy),
+                         torch.where(x_major, dvdx, dvdy)], dim=-1)
+    return lod, major
+
+
+def _stochastic_lod(scene, mat_id, interp, uv, frame, max_aniso, lod_mult,
+                    row0, half_cell=None):
+    """The stochastic paths' (lod, uv): the dithered mip floor(lod + xi)
+    and, with max_aniso > 1, the minor-axis mip and uv moved along the
+    major axis by (xi' - 0.5) (its step clamped to +-half_cell where
+    given, the alpha test's)."""
+    shape, dev = mat_id.shape, mat_id.device
+    if max_aniso > 1.0:
+        lod, major = _interp_lod_aniso(scene, mat_id, interp, max_aniso)
+        xi = frame_noise(shape, frame, N_ANISO, dev, row0)
+        if half_cell is not None:
+            major = torch.clamp(major, -half_cell, half_cell)
+        uv = uv + major * (xi - 0.5)[..., None]
+    else:
+        lod = _interp_lod(scene, mat_id, interp)
+    lod = torch.floor(lod + frame_noise(shape, frame, lod_mult, dev, row0))
+    return lod, uv
+
+
+def _texel_jitter(shape, frame, device, row0):
+    """(H, W, 2) uniforms of the one-texel fetch (uv_dither)."""
+    return torch.stack([frame_noise(shape, frame, N_JX, device, row0),
+                        frame_noise(shape, frame, N_JY, device, row0)], -1)
+
+
+def _role(mip_dither, uv_dither, checker_on=False) -> int:
+    if mip_dither is None:
+        return 0
+    return R_DITHER | (R_JITTER if uv_dither else 0) \
+        | (R_CHECKER if checker_on else 0)
+
+
+def role_name(role: int, chunks: bool) -> str:
+    """A K5 / K6 launch's role, the name its launches count under."""
+    name = ("exact" if not role & R_DITHER else
+            "dither" if not role & R_JITTER else
+            "jitter_checker" if role & R_CHECKER else "jitter")
+    return name + ("+chunks" if chunks else "")
 
 
 def _check(name, t, dtype, shape, dev):
@@ -111,14 +219,22 @@ def _check_tables(scene, dev, alpha: bool):
                          "8-byte words and needs an 8-byte aligned table")
 
 
-def masked_alpha(scene, tri, interp, row0: int = 0):
+def masked_alpha(scene, tri, interp, row0: int = 0, mip_dither=None,
+                 uv_dither: bool = False, max_aniso: float = 16.0,
+                 coverage_capacity=None):
     """Per-pixel opacity + pass threshold for a masked layer: MASK prims
-    clip at alphaCutoff; BLEND prims get the screen-door threshold
-    (resolve.py:107-181, exact path), hashed from the pixel's position in
-    the whole frame (row0: the first row's). Fragment survives iff alpha
-    >= thresh. K6 on CUDA tensors, the twin on CPU ones."""
+    clip at alphaCutoff; BLEND prims get the screen-door threshold, hashed
+    from the pixel's position in the whole frame (row0: the first row's)
+    and seeded by the frame index where mip_dither gives one
+    (resolve.py:107-181). mip_dither / uv_dither / max_aniso: the
+    stochastic mip and texel, the mip capped at half an amask cell and
+    the major-axis step at half a cell's uv. coverage_capacity: only the
+    first that many covered chunks fetch, the others read alpha 1.0.
+    Fragment survives iff alpha >= thresh. K6 on CUDA tensors, the twin on
+    CPU ones."""
     if not interp.is_cuda:
-        return masked_alpha_plain(scene, tri, interp, row0)
+        return masked_alpha_plain(scene, tri, interp, row0, mip_dither,
+                                  uv_dither, max_aniso, coverage_capacity)
     dev = interp.device
     h, w = tri.shape
     _check("interp", interp, torch.float32, (16, h, w), dev)
@@ -126,52 +242,92 @@ def masked_alpha(scene, tri, interp, row0: int = 0):
         raise ValueError("masked_alpha: need row0 >= 0")
     _check_tables(scene, dev, alpha=True)
     st = scene.mat_stack
+    keep = None
+    if coverage_capacity is not None:
+        keep = chunk_keep(tri >= 0, coverage_capacity).to(torch.uint8)
+    role = _role(mip_dither, uv_dither)
     alpha = torch.empty((h, w), dtype=torch.float32, device=dev)
     thresh = torch.empty((h, w), dtype=torch.float32, device=dev)
     K6(ptr(interp), ptr(st.meta), st.meta.shape[0], ptr(scene.mat_params),
        scene.mat_params.shape[0], ptr(st.alpha), st.alpha.shape[0],
-       ptr(alpha), ptr(thresh), w, h, int(row0))
+       ptr(alpha), ptr(thresh), w, h, int(row0), role,
+       int(mip_dither or 0), float(max_aniso), ptr(keep),
+       name=role_name(role, keep is not None))
     return alpha, thresh
 
 
-def masked_alpha_plain(scene, tri, interp, row0: int = 0):
+def masked_alpha_plain(scene, tri, interp, row0: int = 0, mip_dither=None,
+                       uv_dither: bool = False, max_aniso: float = 16.0,
+                       coverage_capacity=None):
     """K6's twin: masked_alpha in torch operations."""
     mat_id = interp[9].to(torch.int32)
     uv = torch.stack([interp[0], interp[1]], dim=-1)
-    lod = _interp_lod(scene, mat_id, interp)
+    jitter = None
+    if mip_dither is not None:
+        lod, uv = _stochastic_lod(
+            scene, mat_id, interp, uv, mip_dither, max_aniso, N_ALPHA_LOD,
+            row0, half_cell=0.5 / tex_mod.AMASK_CELLS)
+        if uv_dither:
+            jitter = _texel_jitter(tri.shape, mip_dither, tri.device, row0)
+    else:
+        lod = _interp_lod(scene, mat_id, interp)
     # no coarser than half an amask cell (the in-race reject bound)
     meta = tex_mod.stack_meta_lookup(scene.mat_stack, mat_id)
     lod_max = torch.log2(torch.clamp(
         meta[..., 1].to(torch.float32) / (2.0 * tex_mod.AMASK_CELLS),
         min=1.0))
     lod = torch.minimum(lod, lod_max)
-    a_tex = tex_mod.sample_stack_alpha(scene.mat_stack, mat_id, uv, lod=lod)
+    a_tex = tex_mod.sample_stack_alpha(scene.mat_stack, mat_id, uv, lod=lod,
+                                       jitter=jitter)
+    if coverage_capacity is not None:
+        keep = _keep_pixels(chunk_keep(tri >= 0, coverage_capacity),
+                            tri.shape)
+        a_tex = torch.where(keep, a_tex, 1.0)
     fac = mu.gather_rows(scene.mat_params, mat_id)
     alpha = fac[..., 6] * a_tex
-    blend_noise = _pixel_noise(tri.shape, tri.device, row0)
+    blend_noise = frame_noise(tri.shape, mip_dither or 0, N_BLEND,
+                              tri.device, row0)
     thresh = torch.where(fac[..., 12] >= 2.0,
                          torch.clamp(blend_noise, min=1e-3), fac[..., 11])
     return alpha, thresh
 
 
 def resolve_gbuffer(tri, depth, scene, interp, inv_view_proj,
-                    width: int, height: int, return_normal3: bool = False):
+                    width: int, height: int, return_normal3: bool = False,
+                    mip_dither=None, uv_dither: bool = False,
+                    max_aniso: float = 16.0, coverage_capacity=None,
+                    checker_parity=None, row0: int = 0):
     """tri (H, W) i32 (-1 = background), interp (16, H, W) -> GBuffer
-    (resolve.py:242-376, exact trilinear path); with return_normal3 also
-    the (H, W, 3) mapped world normal before its octahedral encoding. K5
-    on CUDA tensors, the twin on CPU ones."""
+    (resolve.py:242-376); with return_normal3 also the (H, W, 3) mapped
+    world normal before its octahedral encoding. Exact trilinear fetch,
+    or with mip_dither (the frame index) the stochastic single mip, with
+    uv_dither one jittered texel of it, with checker_parity (and
+    uv_dither, an even width) the checkerboard half-rate fetch, with
+    coverage_capacity only the first that many covered chunks fetch (the
+    others read zero channels). row0: the first row's index in the whole
+    frame, for the noise and the parity. K5 on CUDA tensors, the twin on
+    CPU ones."""
     if not tri.is_cuda:
         return resolve_gbuffer_plain(tri, depth, scene, interp,
                                      inv_view_proj, width, height,
-                                     return_normal3)
+                                     return_normal3, mip_dither, uv_dither,
+                                     max_aniso, coverage_capacity,
+                                     checker_parity, row0)
     dev = tri.device
     shape = (height, width)
     _check("tri", tri, torch.int32, shape, dev)
     _check("depth", depth, torch.float32, shape, dev)
     _check("interp", interp, torch.float32, (16,) + shape, dev)
     _check("inv_view_proj", inv_view_proj, torch.float32, (4, 4), dev)
+    if row0 < 0:
+        raise ValueError("resolve_gbuffer: need row0 >= 0")
     _check_tables(scene, dev, alpha=False)
     st = scene.mat_stack
+    keep = None
+    if coverage_capacity is not None:
+        keep = chunk_keep(tri >= 0, coverage_capacity).to(torch.uint8)
+    role = _role(mip_dither, uv_dither, _checker_on(
+        checker_parity, uv_dither, width, coverage_capacity))
 
     def out(c):
         return torch.empty(shape + (c,), dtype=torch.float32, device=dev)
@@ -186,13 +342,25 @@ def resolve_gbuffer(tri, depth, scene, interp, inv_view_proj,
        st.meta.shape[0], ptr(scene.mat_params), scene.mat_params.shape[0],
        ptr(gb.base_color), ptr(gb.normals), ptr(gb.mrao), ptr(gb.emissive),
        ptr(gb.mask), ptr(gb.world_pos), ptr(gb.uv), ptr(gb.extras), ptr(n3),
-       width, height)
+       width, height, role, int(mip_dither or 0), float(max_aniso),
+       int(checker_parity or 0) & 1, int(row0), ptr(keep),
+       name=role_name(role, keep is not None))
     return (gb, n3) if return_normal3 else gb
+
+
+def _checker_on(checker_parity, uv_dither, width, coverage_capacity):
+    """resolve.py's condition for the checkerboard stack fetch (a chunk
+    capacity takes precedence)."""
+    return (coverage_capacity is None and checker_parity is not None
+            and bool(uv_dither) and width % 2 == 0)
 
 
 def resolve_gbuffer_plain(tri, depth, scene, interp, inv_view_proj,
                           width: int, height: int,
-                          return_normal3: bool = False):
+                          return_normal3: bool = False, mip_dither=None,
+                          uv_dither: bool = False, max_aniso: float = 16.0,
+                          coverage_capacity=None, checker_parity=None,
+                          row0: int = 0):
     """K5's twin: resolve_gbuffer in torch operations."""
     mask = tri >= 0
     uv = torch.stack([interp[0], interp[1]], dim=-1)
@@ -205,9 +373,35 @@ def resolve_gbuffer_plain(tri, depth, scene, interp, inv_view_proj,
     t = mu.normalize(wt)
     b = mu.normalize(torch.cross(n, t, dim=-1) * sign)
 
-    lod = _interp_lod(scene, mat_id, interp)
-    chans = tex_mod.sample_material_stack(scene.mat_stack, mat_id, uv,
-                                          lod=lod, trilinear=True)
+    jitter = None
+    trilinear = True
+    if mip_dither is not None:
+        lod, uv = _stochastic_lod(scene, mat_id, interp, uv, mip_dither,
+                                  max_aniso, N_LOD, row0)
+        trilinear = False
+        if uv_dither:
+            jitter = _texel_jitter(tri.shape, mip_dither, tri.device, row0)
+    else:
+        lod = _interp_lod(scene, mat_id, interp)
+
+    def fetch(m, u, l, j):
+        return tex_mod.sample_material_stack(scene.mat_stack, m, u, lod=l,
+                                             trilinear=trilinear, jitter=j)
+
+    if coverage_capacity is not None:
+        keep = _keep_pixels(chunk_keep(mask, coverage_capacity), mask.shape)
+        chans = torch.where(keep[..., None], fetch(mat_id, uv, lod, jitter),
+                            0.0)
+    elif _checker_on(checker_parity, jitter is not None, tri.shape[1],
+                     None):
+        cp = int(checker_parity) & 1
+
+        def half(a):
+            return checker.compact(cp, a, row0)
+        chans = checker.expand(cp, fetch(half(mat_id), half(uv), half(lod),
+                                         half(jitter)), row0)
+    else:
+        chans = fetch(mat_id, uv, lod, jitter)
     tx = tex_mod.decode_stack_channels(chans)
     fac = mu.gather_rows(scene.mat_params, mat_id)
 

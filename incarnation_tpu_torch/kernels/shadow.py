@@ -1,4 +1,4 @@
-"""Sun shadow map (port of incarnation_tpu/kernels/shadow.py, exact path).
+"""Sun shadow map (port of incarnation_tpu/kernels/shadow.py).
 
 The reference traces a per-pixel DXR shadow ray toward the sun in its
 DirectLighting pass (ref: shaders/lighting/common.hlsli:91-116). The raster
@@ -17,7 +17,12 @@ import numpy as np
 import torch
 
 from ..core import mathutils as mu
+from . import checker
 from . import raster as raster_mod
+from .resolve import frame_noise
+
+# frame_noise's channels of the jittered tap (JAX shadow.py)
+N_PCF_X, N_PCF_Y = 2246822519, 3266489917
 
 
 def sun_view_proj(sun_dir, center, radius) -> np.ndarray:
@@ -86,24 +91,42 @@ def render_sun_shadow_map(scene, scene_rotation, sun_vp,
 
 
 def sun_visibility(world_pos, n_dot_l, shadow_depth, sun_vp,
-                   resolution: int):
-    """Per-pixel sun visibility from the shadow map, one exact tap.
+                   resolution: int, dither=None, checker_parity=None,
+                   row0: int = 0):
+    """Per-pixel sun visibility from the shadow map, one tap.
 
     world_pos: (H, W, 3) in the (rotated) space the map was rendered in;
     n_dot_l: (H, W) for the slope-scaled bias; shadow_depth: the (S, S) f32
-    map of render_sun_shadow_map. -> (H, W) f32, 0 (occluded) or 1."""
+    map of render_sun_shadow_map. dither: the frame index, for one tap
+    jittered within a 2-texel box (its expectation the 2x2 box PCF, which
+    the TAA accumulation integrates); checker_parity: the checkerboard
+    half-rate fetch (kernels/checker.py), whose fetching half hashes its
+    noise at its compacted (H, W/2) positions, as the JAX package's
+    (shadow.py:103-154); row0: the first row's index in the whole frame.
+    -> (H, W) f32, 0 (occluded), 1, or a tent of the two."""
+    if checker_parity is not None:
+        cp = int(checker_parity) & 1
+        vis = sun_visibility(checker.compact(cp, world_pos, row0),
+                             checker.compact(cp, n_dot_l, row0),
+                             shadow_depth, sun_vp, resolution, dither,
+                             row0=row0)
+        return checker.expand(cp, vis, row0)
     # orthographic, so w == 1: the affine part of the 4x4 product
     s = torch.matmul(world_pos, sun_vp[:3, :3]) + sun_vp[3, :3]
     sx, sy, sz = s[..., 0], s[..., 1], s[..., 2]
     inside = (sx >= -1.0) & (sx <= 1.0) & (sy >= -1.0) & (sy <= 1.0)
+    u = (sx * 0.5 + 0.5) * resolution
+    v = (0.5 - sy * 0.5) * resolution
+    if dither is not None:
+        shape, dev = world_pos.shape[:2], world_pos.device
+        u = u + (frame_noise(shape, dither, N_PCF_X, dev, row0) - 0.5) * 2.0
+        v = v + (frame_noise(shape, dither, N_PCF_Y, dev, row0) - 0.5) * 2.0
     # clamp as floats, then truncate: a float-to-int cast of a value out
     # of range (or NaN) differs between devices. Inside the map this is
     # the reference's truncate-then-clamp; outside, `inside` decides.
     hi = float(resolution - 1)
-    u = torch.clamp(torch.nan_to_num((sx * 0.5 + 0.5) * resolution),
-                    0.0, hi)
-    v = torch.clamp(torch.nan_to_num((0.5 - sy * 0.5) * resolution),
-                    0.0, hi)
+    u = torch.clamp(torch.nan_to_num(u), 0.0, hi)
+    v = torch.clamp(torch.nan_to_num(v), 0.0, hi)
     lin = v.to(torch.int64) * resolution + u.to(torch.int64)
     d = shadow_depth.reshape(-1)[lin]          # one flat-index fetch
     # Slope-scaled bias in NDC-z units (the depth range spans 2.1 x the

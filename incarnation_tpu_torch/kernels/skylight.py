@@ -1,8 +1,15 @@
 """Sky / image-based lighting pass + environment background (port of
-incarnation_tpu/kernels/skylight.py, exact path: trilinear probe fetch).
+incarnation_tpu/kernels/skylight.py).
 
 diffuse = SH9 cosine-convolved irradiance x5, specular = GGX-prefiltered
-envmap by roughness x env-BRDF, both x SkyBrightness and AO-blended.
+envmap by roughness x env-BRDF, both x SkyBrightness and AO-blended. The
+exact probe fetch is trilinear. While TAA accumulates the frame may ask
+for the stochastic one (dither, the frame index): one dithered mip, with
+uv_dither one jittered texel of a packed probe's RGBE table, with extras
+one lobe a pixel (the clearcoat lobe with probability fc), and with
+checker_parity the checkerboard half-rate probe fetch (kernels/
+checker.py). Every noise is resolve.frame_noise of the pixel's
+whole-frame position (row0: a band's first row).
 
 sky_lighting is K8 (csrc/skylight.cu) on CUDA tensors; on CPU tensors it
 runs its plain twin, sky_lighting_plain, the torch code the kernel was
@@ -19,18 +26,26 @@ import torch
 from ..core import mathutils as mu
 from . import ibl, shading
 from . import sky as sky_mod
+from . import checker
 from .build import Kernel, ptr
+from .resolve import frame_noise
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # base_color, mrao, mask, n, v, bent normals, hbao, extras (NULL: none),
 # sh, cube flat, cube rows, cube levels (host: bases then sizes), levels,
 # packed cube, env-BRDF LUT, its size, Chebyshev table (host), sky
-# brightness, flags, out, width, height
+# brightness, flags, out, width, height, then the cube's RGBE table (NULL:
+# none), the frame index, the checker parity and row0
 K8 = Kernel("skylight", "k8_sky_lighting",
-            [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P, _F, _I, _P, _I, _I])
+            [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P, _F, _I, _P, _I, _I,
+                         _P, _I, _I, _I])
 # K8's flags (csrc/skylight.cu)
 _DIFFUSE, _SPECULAR, _LIGHTING_ONLY, _ANALYTIC, _LUT_PACKED = 1, 2, 4, 8, 16
+_DITHER, _JITTER, _CHECKER = 32, 64, 128
 MAX_CUBE_LEVELS = 16
+# frame_noise's channels, as the JAX package's sky_lighting seeds them
+N_PROBE_LOD, N_PROBE_JX, N_PROBE_JY, N_LOBE = (2246822519, 3323198485,
+                                              2654435769, 2357136044)
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,18 +86,21 @@ def sky_lighting(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
                  sky_brightness, hbao=None, bent_normals=None,
                  diffuse_ibl: bool = True, specular_ibl: bool = True,
                  lighting_only: bool = False, extras=None,
-                 analytic_env_brdf: bool = False):
+                 analytic_env_brdf: bool = False, dither=None,
+                 uv_dither: bool = False, checker_parity=None,
+                 row0: int = 0):
     """Additive sky radiance for covered pixels (ref: sky-lighting.hlsl).
     hbao: (H, W) AO that scales the result; bent_normals: (H, W, 3) normals
     for the diffuse SH lookup. extras: gb.extras when the scene has
     transmission/clearcoat factors. env_brdf: the (S*S, 8) packed or (S, S,
-    2) LUT, read unless analytic_env_brdf. K8 on CUDA tensors, the twin on
-    CPU ones."""
+    2) LUT, read unless analytic_env_brdf. dither, uv_dither,
+    checker_parity, row0: the stochastic probe fetch (see the module). K8
+    on CUDA tensors, the twin on CPU ones."""
     if not gb.mask.is_cuda:
         return sky_lighting_plain(
             gb, n, v, probe, env_brdf, sky_brightness, hbao, bent_normals,
             diffuse_ibl, specular_ibl, lighting_only, extras,
-            analytic_env_brdf)
+            analytic_env_brdf, dither, uv_dither, checker_parity, row0)
     dev = gb.mask.device
     h, w = gb.mask.shape
     f32 = torch.float32
@@ -102,10 +120,24 @@ def sky_lighting(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
            f32, dev)
     levels = _cube_levels(tuple(int(b) for b in cube.bases), int(cube.size),
                           int(cube.num_levels))
+    if row0 < 0:
+        raise ValueError("sky_lighting: need row0 >= 0")
     flags = ((_DIFFUSE if diffuse_ibl else 0)
              | (_SPECULAR if specular_ibl else 0)
              | (_LIGHTING_ONLY if lighting_only else 0)
              | (_ANALYTIC if analytic_env_brdf else 0))
+    rgbe = None
+    if dither is not None:
+        flags |= _DITHER
+        if uv_dither and cube.packed:
+            flags |= _JITTER
+            rgbe = cube.rgbe_table()
+            _check("probe.prefiltered.rgbe", rgbe, (cube.flat.shape[0],),
+                   torch.int32, dev)
+        if checker_parity is not None:
+            if w % 2:
+                raise ValueError("the checkerboard needs an even width")
+            flags |= _CHECKER
     lut, lut_size = None, 0
     if specular_ibl and not analytic_env_brdf:
         lut = env_brdf
@@ -122,15 +154,26 @@ def sky_lighting(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
        ptr(cube.flat), cube.flat.shape[0], levels, cube.num_levels,
        int(cube.packed), ptr(lut), lut_size,
        _cheb_table() if analytic_env_brdf else None, float(sky_brightness),
-       flags, ptr(out), w, h)
+       flags, ptr(out), w, h, ptr(rgbe), int(dither or 0),
+       int(checker_parity or 0) & 1, int(row0), name=_role_name(flags))
     return out
+
+
+def _role_name(flags: int) -> str:
+    """A K8 launch's role, the name its launches count under."""
+    if not flags & _DITHER:
+        return "exact"
+    return ("jitter" if flags & _JITTER else "dither") \
+        + ("_checker" if flags & _CHECKER else "")
 
 
 def sky_lighting_plain(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
                        sky_brightness, hbao=None, bent_normals=None,
                        diffuse_ibl: bool = True, specular_ibl: bool = True,
                        lighting_only: bool = False, extras=None,
-                       analytic_env_brdf: bool = False):
+                       analytic_env_brdf: bool = False, dither=None,
+                       uv_dither: bool = False, checker_parity=None,
+                       row0: int = 0):
     """K8's twin: sky_lighting in torch operations."""
     base = (torch.full_like(gb.base_color[..., :3], 0.5) if lighting_only
             else gb.base_color[..., :3])
@@ -157,12 +200,61 @@ def sky_lighting_plain(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
             return ibl.env_brdf_approx(no_v, 1.0 - rough)
         return ibl.sample_env_brdf(env_brdf, no_v, rough)
 
+    def noise(mult):
+        return frame_noise(roughness.shape, dither, mult, roughness.device,
+                           row0)
+
+    def probe_fetch(r_, lod_, jitter_):
+        """The prefiltered cube at lod_: trilinear, or with dither one
+        dithered mip (and jitter_'s texel), checkerboarded where asked."""
+        cube = probe.prefiltered
+        if dither is None:
+            return ibl.sample_cube(cube, r_, lod=lod_)
+        if checker_parity is None:
+            return ibl.sample_cube(cube, r_, lod=lod_, single_mip=True,
+                                   jitter=jitter_)
+        cp = int(checker_parity) & 1
+
+        def half(a):
+            return None if a is None else checker.compact(cp, a, row0)
+        return checker.expand(cp, ibl.sample_cube(
+            cube, half(r_), lod=half(lod_), single_mip=True,
+            jitter=half(jitter_)), row0)
+
     if specular_ibl:
         no_v = torch.clamp(mu.dot3(n, v), min=0.01)
         f0 = metallic * base + (1.0 - metallic) * 0.04
         r = mu.normalize(2.0 * mu.dot3(v, n, keepdim=True) * n - v)
         mips = probe.prefiltered.num_levels
-        pre = ibl.sample_cube(probe.prefiltered, r, lod=roughness * (mips - 1))
+        jitter = None
+        if dither is not None and uv_dither:
+            jitter = torch.stack([noise(N_PROBE_JX), noise(N_PROBE_JY)], -1)
+    if specular_ibl and extras is not None and dither is not None:
+        # one lobe a pixel and frame: the clearcoat lobe with probability
+        # fc (its weight), the base lobe otherwise -- the single-sample
+        # estimator of the two-lobe mix, which the TAA accumulation
+        # averages (skylight.py:86-119)
+        cc = extras[..., 1:2]
+        ccr = torch.clamp(extras[..., 2], min=0.03)
+        fc = shading.f_schlick(no_v[..., None],
+                               torch.full_like(cc, 0.04)) * cc
+        pick_cc = noise(N_LOBE)[..., None] < fc
+        lod_pick = torch.where(pick_cc[..., 0], ccr * (mips - 1),
+                               roughness * (mips - 1))
+        pre = probe_fetch(r, lod_pick + noise(N_PROBE_LOD), jitter)
+        ab_b = env_brdf_at(no_v, roughness)
+        ab_c = env_brdf_at(no_v, ccr)
+        k_b = f0 * ab_b[..., 0:1] + ab_b[..., 1:2]
+        k_c = 0.04 * ab_c[..., 0:1] + ab_c[..., 1:2]
+        spec = pre * torch.where(pick_cc, k_c, k_b)
+        radiance = radiance * (1.0 - fc)
+        radiance = radiance + sky_brightness * (
+            spec * (1 - ao_blend) + ao * spec * ao_blend)
+    elif specular_ibl:
+        lod = roughness * (mips - 1)
+        if dither is not None:
+            lod = lod + noise(N_PROBE_LOD)
+        pre = probe_fetch(r, lod, jitter)
         ab = env_brdf_at(no_v, roughness)
         spec = pre * (f0 * ab[..., 0:1] + ab[..., 1:2])
         if extras is not None:

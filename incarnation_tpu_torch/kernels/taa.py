@@ -26,6 +26,8 @@ from .build import Kernel, ptr
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # history, depth, m, out, width, height, y_off
 K3 = Kernel("taa", "k3_taa_fetch", [_P, _P, _P, _P, _I, _I, _I])
+# frame_noise's channels of the stochastic history fetch (JAX taa.py)
+N_TAA_X, N_TAA_Y = 2911329625, 3042594569
 
 
 def reproject_uv(depth, m, width: int, height: int):
@@ -69,6 +71,35 @@ def bilinear_image(img, uv, width: int, height: int, y_off: int = 0):
     top = flat[y0c * width + x0c] * (1 - tx) + flat[y0c * width + x1c] * tx
     bot = flat[y1c * width + x0c] * (1 - tx) + flat[y1c * width + x1c] * tx
     return top * (1 - ty) + bot * ty
+
+
+def stochastic_history(history, depth, inv_view_proj, prev_view_proj,
+                       width: int, height: int, frame: int, row0: int = 0):
+    """The stochastic TAA history fetch (taa.py:351-361): each pixel's
+    depth reprojected through world space into the previous frame, and
+    one texel of the history there, floor(uv size - 0.5 + jitter),
+    clamped (JAX _bilinear_image with a jitter; its expectation is the
+    bilinear fetch). history carries (H_h - height) / 2 halo rows above
+    and below the viewport, which rows address before they clamp; row0:
+    the first row's index in the whole frame, for the noise. The floor is
+    kept in [-1 - y_off, size + y_off] before the int conversion."""
+    from .resolve import frame_noise, world_from_depth
+    y_off = (history.shape[0] - height) // 2
+    wp = world_from_depth(depth, inv_view_proj, width, height)
+    prev_clip = torch.matmul(torch.cat([wp, torch.ones_like(wp[..., :1])],
+                                       -1), prev_view_proj)
+    prev_ndc = prev_clip[..., :3] / torch.where(
+        torch.abs(prev_clip[..., 3:]) > 1e-20, prev_clip[..., 3:], 1.0)
+    jx, jy = (frame_noise(depth.shape, frame, m, depth.device, row0)
+              for m in (N_TAA_X, N_TAA_Y))
+    fx = (0.5 * prev_ndc[..., 0] + 0.5) * width - 0.5 + jx
+    fy = (-0.5 * prev_ndc[..., 1] + 0.5) * height - 0.5 + jy
+    x = torch.clamp(torch.floor(fx), -1.0, float(width)).to(torch.int64)
+    y = torch.clamp(torch.floor(fy), -1.0 - y_off,
+                    float(height + y_off)).to(torch.int64)
+    x = torch.clamp(x, 0, width - 1)
+    y = torch.clamp(y, -y_off, height - 1 + y_off) + y_off
+    return history.reshape(-1, history.shape[-1])[y * width + x]
 
 
 def history_fetch(history, depth, m, width: int, height: int,
@@ -170,18 +201,26 @@ def _luminance_weight(c):
 
 def taa_resolve(current_hdr, history, depth, m_np: np.ndarray,
                 history_valid: bool, width: int, height: int,
-                hdr_halo=None):
+                hdr_halo=None, dither=None, inv_view_proj=None,
+                prev_view_proj=None, row0: int = 0):
     """-> new accumulation (H, W, 3). m_np: host (4, 4) f32
     inv_view_proj @ prev_view_proj. history_valid False passes the current
     frame through (frame 0) without fetching. A band of a sharded frame
     passes its history with y_off halo rows above and below (history
     (H + 2 y_off, W, 3)) and hdr_halo, the (1, W, 3) current-HDR rows just
-    above and below the band."""
+    above and below the band. dither: the frame index, for the stochastic
+    one-texel history fetch (stochastic_history, which reads the
+    inv_view_proj and prev_view_proj tensors and row0) in place of the
+    bilinear one."""
     if not history_valid:
         return current_hdr
     y_off = (history.shape[0] - height) // 2
     shift = static_shift(m_np, width, height)
-    if shift is not None:
+    if dither is not None:
+        prev_color = stochastic_history(history, depth, inv_view_proj,
+                                        prev_view_proj, width, height,
+                                        dither, row0)
+    elif shift is not None:
         prev_color = bilinear_const_shift(history, *shift, y_off=y_off)
     else:
         m = torch.as_tensor(m_np, dtype=torch.float32, device=depth.device)

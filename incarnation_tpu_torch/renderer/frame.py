@@ -19,6 +19,13 @@ render_frame runs two phases, render_hdr (everything up to the frame's
 HDR) and finish_frame (TAA, view mode, tonemap, debug draws): the band
 sharder (dist/sharding.py) renders every band's HDR before any band's TAA,
 which reads halo rows of its neighbours' history and HDR.
+
+While TAA accumulates (TAA on and a history given), Config's stochastic
+filters run as the JAX package's do (frame.py:157-549): the dithered mip
+and jittered texel of the material stack, the alpha test and the probe,
+the stochastic clearcoat lobe, the jittered shadow tap, the checkerboard
+half-rate fetches and the chunk capacities of the peels' alpha tests and
+the decal resolve. Their noise is seeded by the frame index.
 """
 
 from __future__ import annotations
@@ -132,20 +139,24 @@ def render_frame(scene, fc: FrameConstants, *, config: Config,
     'accumulation', 'tri', 'depth', 'gbuffer' and 'stats' (tensors).
     scene_bvh: the scene's BVH, for RT sun shadows ("auto" / "rt") and
     HBAO. A band-sharded frame is dist.sharding.render_frame_sharded."""
-    return finish_frame(render_hdr(scene, fc, config=config, params=params,
-                                   probe=probe, env_brdf=env_brdf,
-                                   scene_bvh=scene_bvh), history)
+    return finish_frame(render_hdr(
+        scene, fc, config=config, params=params, probe=probe,
+        env_brdf=env_brdf, scene_bvh=scene_bvh,
+        taa_active=config.enable_taa and history is not None), history)
 
 
 def render_hdr(scene, fc: FrameConstants, *, config: Config,
                params: raster.RasterParams, probe=None, env_brdf=None,
-               scene_bvh=None, band_row: int = 0) -> dict:
+               scene_bvh=None, band_row: int = 0,
+               taa_active: bool = False) -> dict:
     """render_frame's first phase: the frame up to its HDR (raster layers,
     gbuffer, decals, shadows, lighting, sky, blend layers). -> the state
     finish_frame takes. band_row: a band of a sharded frame (fc carrying
-    its band matrix) passes its first row in the whole frame, where the
-    BLEND screen-door noise starts (the single frame's noise, so the bands
-    put together are the single frame)."""
+    its band matrix) passes its first row in the whole frame, where every
+    noise and checkerboard of the frame starts (the single frame's, so the
+    bands put together are the single frame). taa_active: TAA will
+    accumulate this frame into a history, which turns on Config's
+    stochastic filters (render_frame: TAA on and a history given)."""
     dev = scene.tri_prim.device
     prim_visible = torch.ones_like(scene.prim_is_decal, dtype=torch.bool)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
@@ -206,7 +217,15 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
         bin_overflow=layer_bins[0].overflow,
         big_overflow=sum(b.big_overflow for b in layer_bins),
         culled_triangles=torch.sum(~prep.valid),
-        peel_overflow=torch.zeros((), dtype=torch.int64, device=dev))
+        peel_overflow=zero, peel_chunk_overflow=zero)
+    # the stochastic filters run only while TAA accumulates; the frame
+    # index seeds their noise and alternates the checkerboard
+    stoch = config.stochastic_mip and taa_active
+    dither = fc.frame_index if stoch else None
+    uv_dither = config.stochastic_bilinear and stoch
+    aniso = float(config.max_anisotropy)
+    n_chunks = (params.height * params.width) // resolve.CHUNK_PX
+    whole_chunks = n_chunks * resolve.CHUNK_PX == params.height * params.width
     if scene.meta.has_masked:
         # Masked depth peels: K1 drops certainly-transparent fragments in
         # the race; each peel's winners are alpha-tested exactly, and a
@@ -217,12 +236,24 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
         acc_interp = torch.zeros_like(interp)
         zlim = torch.full(depth.shape, 2.0, dtype=torch.float32, device=dev)
         cont = None
-        for _ in range(max(1, config.masked_depth_peels)):
+        # the peels' alpha fetches under a falling chunk-capacity ladder
+        # (frame.py:232-276), where the capacity is below the chunk count
+        cap = config.peel_chunk_capacity
+        use_chunks = 0 < cap < n_chunks and whole_chunks
+        chunk_over = zero
+        for layer in range(max(1, config.masked_depth_peels)):
             m_tri, m_depth, m_interp = raster.rasterize_tiles(
                 layer_bins[masked_idx], params, z_limit=zlim,
                 mask_table=amask_tab, name="raster_peel")
-            alpha, thresh = resolve.masked_alpha(scene, m_tri, m_interp,
-                                                 band_row)
+            lcap = (cap if layer == 0 else (2 * cap) // 3 if layer == 1
+                    else max((5 * cap) >> (layer + 2), 512))
+            alpha, thresh = resolve.masked_alpha(
+                scene, m_tri, m_interp, band_row, mip_dither=dither,
+                uv_dither=uv_dither, max_aniso=aniso,
+                coverage_capacity=lcap if use_chunks else None)
+            if use_chunks:
+                chunk_over = torch.maximum(
+                    chunk_over, resolve.chunk_overflow(m_tri >= 0, lcap))
             hit = m_tri >= 0
             passed = hit & (alpha >= thresh)
             newly = passed & (acc_tri < 0)
@@ -232,6 +263,7 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
             cont = hit & ~passed & (acc_tri < 0)
             zlim = torch.where(cont, m_depth, 0.0)
         stats["peel_overflow"] = cont.sum()
+        stats["peel_chunk_overflow"] = chunk_over
         win = (acc_tri >= 0) & (acc_depth > depth)
         tri = torch.where(win, acc_tri, tri)
         depth = torch.where(win, acc_depth, depth)
@@ -242,23 +274,33 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
     # Forward mode shades from the exact mapped normal (no octahedral round
     # trip, ref: forward-pass.hlsl:108-114); deferred decodes the gbuffer.
     n3 = None
-    if config.forward_lighting:
-        gb, n3 = resolve.resolve_gbuffer(
-            tri, depth, scene, interp, fc.inv_view_proj, params.width,
-            params.height, return_normal3=True)
-    else:
-        gb = resolve.resolve_gbuffer(tri, depth, scene, interp,
-                                     fc.inv_view_proj, params.width,
-                                     params.height)
+    # the checkerboard half-rate stack fetch of the opaque layer (with the
+    # jittered texel and an even width)
+    resolve_cp = (fc.frame_index & 1 if uv_dither
+                  and config.checkerboard_gathers and params.width % 2 == 0
+                  else None)
+    sto = dict(mip_dither=dither, uv_dither=uv_dither, max_aniso=aniso,
+               row0=band_row)
+    out = resolve.resolve_gbuffer(tri, depth, scene, interp, fc.inv_view_proj,
+                                  params.width, params.height,
+                                  return_normal3=config.forward_lighting,
+                                  checker_parity=resolve_cp, **sto)
+    gb, n3 = out if config.forward_lighting else (out, None)
 
     if scene.meta.has_decals:
         # Decals: GREATER_EQUAL against the scene depth; base color
-        # alpha-blended, normals / metal-rough replaced where opaque.
+        # alpha-blended, normals / metal-rough replaced where opaque. The
+        # layer's fetch takes its chunk capacity (frame.py:325-341).
         d_tri, d_depth, d_interp = raster.rasterize_tiles(
             layer_bins[decal_idx], params, name="raster_decal")
-        d_gb = resolve.resolve_gbuffer(d_tri, d_depth, scene, d_interp,
-                                       fc.inv_view_proj, params.width,
-                                       params.height)
+        d_cap = config.decal_chunk_capacity
+        d_chunks = 0 < d_cap < n_chunks and whole_chunks
+        d_gb = resolve.resolve_gbuffer(
+            d_tri, d_depth, scene, d_interp, fc.inv_view_proj, params.width,
+            params.height, coverage_capacity=d_cap if d_chunks else None,
+            **sto)
+        stats["decal_overflow"] = (resolve.chunk_overflow(d_tri >= 0, d_cap)
+                                   if d_chunks else zero)
         covers = d_gb.mask & (d_depth >= depth - 1e-5)
         a = torch.where(covers, d_gb.base_color[..., 3], 0.0)[..., None]
         opaque = a > 0.5
@@ -293,8 +335,9 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
     n = n3 if n3 is not None else mu.oct_decode(gb.normals)
     shade = dict(config=config, params=params, probe=probe,
                  env_brdf=env_brdf, scene_bvh=scene_bvh, mask_grid=mask_grid,
-                 sun_shadow_map=sun_shadow_map)
-    hdr, bent_normals, v = _shade_surface(scene, gb, n, depth, fc, **shade)
+                 sun_shadow_map=sun_shadow_map, band_row=band_row)
+    hdr, bent_normals, v = _shade_surface(scene, gb, n, depth, fc,
+                                          stoch=stoch, **shade)
 
     if config.env_sky_mode == EnvSkyMode.DYNAMIC_SKY:
         hdr = hdr + skylight.environment_background(
@@ -322,7 +365,7 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
                 b_tri, b_depth, scene, b_interp, fc.inv_view_proj,
                 params.width, params.height, return_normal3=True)
             hdr_b, _, _ = _shade_surface(scene, gb_b, n3_b, b_depth, fc,
-                                         **shade)
+                                         stoch=False, **shade)
             # only fragments in front of the opaque winner contribute
             # (reverse-Z: larger z = closer)
             vis_b = gb_b.mask & (b_depth > depth)
@@ -334,7 +377,7 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
     return dict(scene=scene, fc=fc, config=config, params=params,
                 probe=probe, hdr=hdr, tri=tri, depth=depth, gb=gb, n=n, v=v,
                 bent_normals=bent_normals, mask_grid=mask_grid,
-                prim_visible=prim_visible, stats=stats)
+                prim_visible=prim_visible, stats=stats, band_row=band_row)
 
 
 def finish_frame(st: dict, history=None, hdr_halo=None) -> dict:
@@ -354,9 +397,12 @@ def finish_frame(st: dict, history=None, hdr_halo=None) -> dict:
     if config.enable_taa and history is not None:
         m_np = (fc.inv_view_proj_np.astype(np.float32)
                 @ fc.prev_view_proj_np.astype(np.float32))
-        accumulation = taa.taa_resolve(hdr, history, depth, m_np,
-                                       fc.history_valid, params.width,
-                                       params.height, hdr_halo=hdr_halo)
+        accumulation = taa.taa_resolve(
+            hdr, history, depth, m_np, fc.history_valid, params.width,
+            params.height, hdr_halo=hdr_halo,
+            dither=fc.frame_index if config.stochastic_taa else None,
+            inv_view_proj=fc.inv_view_proj, prev_view_proj=fc.prev_view_proj,
+            row0=st["band_row"])
 
     color = _apply_viewmode(config, scene, gb, n, depth, tri, accumulation,
                             fc, v=st["v"], probe=st["probe"],
@@ -388,13 +434,20 @@ def finish_frame(st: dict, history=None, hdr_halo=None) -> dict:
 
 def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
                    probe, env_brdf, scene_bvh, mask_grid,
-                   sun_shadow_map=None):
+                   sun_shadow_map=None, stoch: bool = False,
+                   band_row: int = 0):
     """Emissive + sky IBL (with HBAO when asked for and a BVH is given) +
     sun (shadow-mapped or ray-traced) + clustered punctual lights, shared
     by the deferred frame, the forward frame and the forward blend layers.
-    -> (hdr, bent normals or None, v)."""
+    stoch: the stochastic probe fetch and shadow tap, checkerboarded
+    where the config asks and the width is even. -> (hdr, bent normals or
+    None, v)."""
     hdr = gb.emissive
     v = mu.normalize(fc.eye - gb.world_pos)
+    dither = fc.frame_index if stoch else None
+    checker_parity = (fc.frame_index & 1 if stoch
+                      and config.checkerboard_gathers
+                      and gb.mask.shape[1] % 2 == 0 else None)
     # ray-traced HBAO and bent normals (ref: render-jobs/hbao.inl)
     ao_map = bent_normals = None
     if config.enable_hbao and scene_bvh is not None:
@@ -411,7 +464,9 @@ def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
             specular_ibl=config.enable_specular_ibl,
             lighting_only=(config.viewmode == ViewMode.LIGHTING_ONLY),
             extras=(gb.extras if scene.meta.has_extras else None),
-            analytic_env_brdf=config.analytic_env_brdf)
+            analytic_env_brdf=config.analytic_env_brdf, dither=dither,
+            uv_dither=config.stochastic_bilinear,
+            checker_parity=checker_parity, row0=band_row)
     if config.enable_direct_lighting:
         radiance_in = shading.directional_light_radiance(
             fc.sun_color_intensity[:3], fc.sun_color_intensity[3])
@@ -422,7 +477,8 @@ def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
             ndl = torch.sum(n * fc.sun_dir, -1)
             sun_vis = shadow_mod.sun_visibility(
                 gb.world_pos, ndl, sun_shadow_map, fc.sun_view_proj,
-                config.shadow_map_resolution)[..., None]
+                config.shadow_map_resolution, dither=dither,
+                checker_parity=checker_parity, row0=band_row)[..., None]
         elif rt_shadows:
             sun_vis = rt_sun_visibility(scene, scene_bvh, gb, fc)[..., None]
         has_x = scene.meta.has_extras

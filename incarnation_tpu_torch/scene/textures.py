@@ -15,8 +15,9 @@ Two differences from the JAX module:
   device tables hold int32 and every right shift is followed by a mask
   (torch's >> on int32 is arithmetic).
 
-Only the exact samplers are ported (trilinear, 4-tap bilinear); the
-stochastic single-texel paths are TPU-only approximations.
+The samplers: trilinear and 4-tap bilinear, and the stochastic
+single-texel fetch of one mip (a jitter, with a dithered lod), which the
+frame uses while TAA accumulates.
 """
 
 from __future__ import annotations
@@ -725,7 +726,8 @@ def _stack_point(stack, base, ebase, s, uv, address, jitter):
     """Stochastic-bilinear point fetch: texel floor(u s - 0.5 + j) picks
     the bilinear footprint's x0 + 1 with exactly the bilinear weight, so
     the expectation over the jitter j (uniforms in [0, 1)) is the bilinear
-    result. The path tracer's progressive accumulation integrates it."""
+    result. The TAA accumulation (raster frame) and the path tracer's
+    progressive one integrate it."""
     sf = s.to(torch.float32)
     fx = uv[..., 0] * sf - 0.5 + jitter[..., 0]
     fy = uv[..., 1] * sf - 0.5 + jitter[..., 1]
@@ -745,7 +747,8 @@ def sample_material_stack(stack: MaterialTextureStack, mat_id, uv, lod=None,
     lod (...,) float mip or None. Returns (..., 16) channels in storage
     space (base/emissive rgb still sRGB; see decode_stack_channels).
     jitter: (..., 2) uniforms for a one-texel stochastic-bilinear fetch of
-    mip 0 (lod None), the path tracer's material fetch."""
+    mip floor(lod) (mip 0 where lod is None); pair it with a dithered
+    integer lod and an accumulation."""
     meta = stack_meta_lookup(stack, mat_id)
     base = meta[..., 0]
     size = meta[..., 1]
@@ -761,15 +764,14 @@ def sample_material_stack(stack: MaterialTextureStack, mat_id, uv, lod=None,
             return _stack_point(stack, base, ebase, size, uv, address,
                                 jitter)
         return _stack_bilinear(stack, base, ebase, size, uv, address)
-    if jitter is not None:
-        raise NotImplementedError(
-            "a jittered fetch of a mip other than 0 is the TPU-only "
-            "stochastic_bilinear approximation, not ported")
     lod = torch.minimum(torch.clamp(lod, min=0.0),
                         (levels - 1).to(torch.float32))
     l0 = torch.floor(lod).to(torch.int32)
     off0 = _level_offset_blocks(size, levels, l0)
     s0 = torch.clamp(size >> l0, min=1)
+    if jitter is not None:
+        return _stack_point(stack, base + off0, elevel(off0), s0, uv,
+                            address, jitter)
     out0 = _stack_bilinear(stack, base + off0, elevel(off0), s0, uv, address)
     if not trilinear:
         return out0
@@ -781,8 +783,11 @@ def sample_material_stack(stack: MaterialTextureStack, mat_id, uv, lod=None,
     return out0 * (1 - frac) + out1 * frac
 
 
-def sample_stack_alpha(stack: MaterialTextureStack, mat_id, uv, lod=None):
-    """Base-color alpha only, bilinear from the exact u8 alpha mirror."""
+def sample_stack_alpha(stack: MaterialTextureStack, mat_id, uv, lod=None,
+                       jitter=None):
+    """Base-color alpha only, bilinear from the exact u8 alpha mirror;
+    jitter: (..., 2) uniforms for the one-texel stochastic-bilinear fetch
+    (_stack_point's texel)."""
     meta = stack_meta_lookup(stack, mat_id)
     base = meta[..., 5]          # alpha mirror keeps TEXEL offsets
     size = meta[..., 1]
@@ -804,6 +809,11 @@ def sample_stack_alpha(stack: MaterialTextureStack, mat_id, uv, lod=None):
         return _unpack_u8(word[..., 0], (idx & 3) * 8)
 
     sf = s0.to(torch.float32)
+    if jitter is not None:
+        fx = uv[..., 0] * sf - 0.5 + jitter[..., 0]
+        fy = uv[..., 1] * sf - 0.5 + jitter[..., 1]
+        return fetch(_address(torch.floor(fx).to(torch.int32), s0, address),
+                     _address(torch.floor(fy).to(torch.int32), s0, address))
     fx = uv[..., 0] * sf - 0.5
     fy = uv[..., 1] * sf - 0.5
     x0 = torch.floor(fx).to(torch.int32)

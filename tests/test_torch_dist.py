@@ -39,7 +39,7 @@ DEVICES = ["cpu", "cpu"]
 # accumulation within 1e-2 relative + 2e-2
 COLOR_ATOL = 1
 ACC_RTOL, ACC_ATOL = 1e-2, 2e-2
-# the frame's settings in both packages: the TPU-only approximations off,
+# the frame's settings in both packages: the stochastic estimators off,
 # as tests/test_torch_frame.py runs JAX's frame
 CFG = dict(env_sky_mode=EnvSkyMode.ENVIRONMENT_MAP, sun_shadow_mode="map",
            shadow_map_resolution=128, raster_tile_h=8, masked_depth_peels=2,
@@ -199,6 +199,49 @@ def test_band_sharded_taa_matches_single(rich, eye1, target1):
                     prev=v0.view_proj(), history_valid=True, frame_index=1)
     _assert_matches_jax(b0, s0, j0, cfg, fc0, scene)
     _assert_matches_jax(b1, s1, j1, cfg, fc1, scene)
+
+
+@pytest.mark.parametrize("chunks", [False, True], ids=["defaults",
+                                                      "chunk_capacity"])
+def test_band_sharded_stochastic_matches_single(rich, chunks):
+    """The stochastic estimators (the default Config's) in 2 bands: every
+    noise and the checkerboard parity of a band are taken from
+    whole-frame rows, so two TAA frames (a history of zeros, then a
+    moving camera) equal the single frames: tri exactly, the u8 colour
+    within COLOR_ATOL, the accumulation within ACC_RTOL / ACC_ATOL, the
+    stats summed. With chunk capacities (2 of each band's 32 chunks, the
+    single frame's 4 of 64) both overflow; a band keeps its own first
+    chunks, so only the counts are compared there (each band's top chunks
+    against the single frame's)."""
+    scene, probe, brdf, cfg, params, _ = rich
+    cfg = cfg.replace(enable_taa=True, stochastic_mip=True,
+                      stochastic_bilinear=True, checkerboard_gathers=True)
+    if chunks:
+        cfg = cfg.replace(peel_chunk_capacity=2, decal_chunk_capacity=2)
+    v0 = View.from_lookat([0.0, 1.0, -2.0], [0.0, 0.0, 7.0], aspect=W / H)
+    v1 = View.from_lookat([0.0, 1.6, -2.0], [0.2, 0.0, 7.0], aspect=W / H)
+    kw = dict(config=cfg, params=params, probe=probe, env_brdf=brdf)
+    hs = hb = torch.zeros((H, W, 3))
+    for i, v in enumerate((v0, v1)):
+        fc = _constants(cfg, v, history_valid=i > 0, frame_index=i + 1,
+                        prev_view_proj=v0.view_proj())
+        single = frame.render_frame(scene, fc, history=hs, **kw)
+        band = sharding.render_frame_sharded(scene, fc, devices=DEVICES,
+                                             history=hb, **kw)
+        hs, hb = single["accumulation"], band["accumulation"]
+        if chunks:
+            for k in ("peel_chunk_overflow", "decal_overflow"):
+                assert int(single["stats"][k]) > 0 and int(band["stats"][k]) > 0
+            continue
+        assert torch.equal(band["tri"], single["tri"])
+        assert int((band["color"].int() - single["color"].int()).abs().max()) \
+            <= COLOR_ATOL
+        torch.testing.assert_close(hb, hs, rtol=ACC_RTOL, atol=ACC_ATOL)
+        assert set(band["stats"]) == set(single["stats"])
+    exact = frame.render_frame(scene, fc, history=torch.zeros((H, W, 3)),
+                               **dict(kw, config=cfg.replace(
+                                   stochastic_mip=False)))
+    assert not torch.equal(exact["hdr"], single["hdr"])
 
 
 @pytest.fixture(scope="module")

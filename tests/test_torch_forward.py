@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 W, H = 128, 64
 RASTER = dict(width=W, height=H, tile_h=16, tile_w=128, pair_capacity=256,
               bin_max_span=4, big_tri_capacity=16)
-# no sky; the TPU-only approximations off in the JAX Config too
+# no sky; the stochastic estimators off in the JAX Config too
 CFG = dict(env_sky_mode=0, forward_lighting=True, stochastic_mip=False,
            stochastic_bilinear=False, checkerboard_gathers=False,
            peel_chunk_capacity=0, decal_chunk_capacity=0)

@@ -31,7 +31,7 @@ torch.set_num_threads(1)
 
 W, H = 256, 128
 FRAMES = 3
-# the TPU-only approximations off in the JAX Config too; the sun shadow map
+# the stochastic estimators off in the JAX Config too; the sun shadow map
 # off here, on in SHADOW_CFG
 CFG = dict(stochastic_mip=False, stochastic_bilinear=False,
            checkerboard_gathers=False, peel_chunk_capacity=0,

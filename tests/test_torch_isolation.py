@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, no reference package, no silent
-CPU fallback, and no TPU-only approximation behind a flag."""
+"""The PyTorch port stands alone: no JAX, no reference package and no
+silent CPU fallback; and its Config() is the JAX package's default
+frame."""
 
 import subprocess
 import sys
@@ -57,18 +58,18 @@ def test_default_device_raises_without_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("stochastic_mip", True), ("stochastic_bilinear", True),
-    ("checkerboard_gathers", True), ("stochastic_taa", True),
-    ("peel_chunk_capacity", 6144), ("decal_chunk_capacity", 1024)])
-def test_tpu_only_flags_raise(flag, value):
-    with pytest.raises(NotImplementedError, match=flag):
-        tconfig.Config(**{flag: value})
-
-
-def test_tpu_only_flags_default_off():
-    cfg = tconfig.Config()
-    assert not any(getattr(cfg, f) for f in tconfig.TPU_ONLY_FLAGS)
+@pytest.mark.parametrize("field", [
+    "stochastic_mip", "stochastic_bilinear", "checkerboard_gathers",
+    "stochastic_taa", "peel_chunk_capacity", "decal_chunk_capacity",
+    "max_anisotropy"])
+def test_config_defaults_match_jax(field):
+    """Config() is the JAX package's default frame: its stochastic
+    filters, checkerboard, chunk capacities and anisotropy limit default
+    to JAX's values (the config module of the JAX package imports no
+    JAX)."""
+    from incarnation_tpu import config as jconfig
+    assert getattr(tconfig.Config(), field) \
+        == getattr(jconfig.Config(), field)
 
 
 @pytest.fixture(scope="module")

@@ -895,6 +895,80 @@ def test_k6_matches_twin(dev, row0):
     assert bool(blend.any()) and bool((~blend).any())
 
 
+# the stochastic roles of K5 and K6 (kernels/resolve.py R_*): the frame
+# index, the anisotropy limit, and for K5 the checker parity and a chunk
+# capacity (2 of a layer's chunks: an overflow)
+STOCH_ROLES = {
+    "dither": dict(mip_dither=3),
+    "jitter": dict(mip_dither=4, uv_dither=True),
+    "jitter_iso": dict(mip_dither=5, uv_dither=True, max_aniso=1.0),
+    "checker0": dict(mip_dither=6, uv_dither=True, checker_parity=0),
+    "checker1": dict(mip_dither=7, uv_dither=True, checker_parity=1),
+    "exact_chunks": dict(coverage_capacity=2),
+    "jitter_chunks": dict(mip_dither=8, uv_dither=True, coverage_capacity=2),
+}
+
+
+@pytest.mark.parametrize("row0", [0, 37])
+@pytest.mark.parametrize("shape", [(64, 200), (24, 37), (16, 64)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("role", sorted(STOCH_ROLES))
+def test_k5_stochastic_roles_match_twin(dev, role, shape, row0):
+    """Each stochastic role of K5 against resolve_gbuffer_plain on the
+    card, as test_k5_matches_twin holds the exact one: the mask and the uv
+    (moved along the major axis) identical, every float plane to 1e-5,
+    zeros off the mask; the checkerboard for either parity, its fetching
+    neighbours across K5's 32-pixel warps (a 200-pixel row), at an odd
+    width (37: the checkerboard falls back to every pixel's fetch, as
+    JAX's condition does) and with chunk capacities that overflow (the
+    200 x 64 and 64 x 16 layers hold whole chunks). Each launch counts
+    under its role's name."""
+    h, w = shape
+    kw = dict(STOCH_ROLES[role], row0=row0)
+    if "coverage_capacity" in kw and (h * w) % resolve.CHUNK_PX:
+        pytest.skip("a chunk capacity needs whole 128-pixel chunks")
+    scene, tri, depth, interp, ivp = material_scene(
+        material_inputs(seed=21, h=h, w=w, wild_mats=True), dev)
+    before = dict(resolve.K5.by_name)
+    got, g3 = resolve.resolve_gbuffer(tri, depth, scene, interp, ivp, w, h,
+                                      return_normal3=True, **kw)
+    ref, r3 = resolve.resolve_gbuffer_plain(tri, depth, scene, interp, ivp,
+                                            w, h, return_normal3=True, **kw)
+    name = resolve.role_name(resolve._role(
+        kw.get("mip_dither"), kw.get("uv_dither", False),
+        resolve._checker_on(kw.get("checker_parity"), kw.get("uv_dither"), w,
+                            kw.get("coverage_capacity"))),
+        "coverage_capacity" in kw)
+    assert resolve.K5.by_name.get(name, 0) == before.get(name, 0) + 1
+    assert ("checker" in name) == ("checker" in role and w % 2 == 0)
+    assert torch.equal(got.mask, ref.mask) and torch.equal(got.uv, ref.uv)
+    _close_to_twin(g3, r3, "normal3")
+    for f in ("base_color", "normals", "mrao", "emissive", "world_pos",
+              "extras"):
+        _close_to_twin(getattr(got, f), getattr(ref, f), f)
+        assert not bool(getattr(got, f)[~got.mask].any()), f
+
+
+@pytest.mark.parametrize("row0", [0, 37])
+@pytest.mark.parametrize("role", ["dither", "jitter", "jitter_iso",
+                                  "exact_chunks", "jitter_chunks"])
+def test_k6_stochastic_roles_match_twin(dev, role, row0):
+    """Each stochastic role of K6 against masked_alpha_plain: alpha and the
+    threshold (the BLEND noise seeded by the frame) bit for bit, in a band
+    starting at row0; a dropped chunk reads alpha 1.0."""
+    kw = dict(STOCH_ROLES[role])
+    scene, tri, _, interp, _ = material_scene(
+        material_inputs(seed=22, h=64, w=200, wild_mats=True), dev)
+    before = resolve.K6.launches
+    alpha, thresh = resolve.masked_alpha(scene, tri, interp, row0, **kw)
+    ra, rt = resolve.masked_alpha_plain(scene, tri, interp, row0, **kw)
+    assert resolve.K6.launches == before + 1
+    assert torch.equal(alpha, ra) and torch.equal(thresh, rt)
+    assert 0.05 < float((alpha >= thresh).float().mean()) < 0.95
+    exact_t = resolve.masked_alpha_plain(scene, tri, interp, row0)[1]
+    assert not torch.equal(thresh, exact_t) or "mip_dither" not in kw
+
+
 # ---------------------------------------------------------------------------
 # K8: sky lighting
 # ---------------------------------------------------------------------------
@@ -1036,6 +1110,52 @@ def test_k8_sizes_and_empty_mask(dev, shape, covered):
               f"{w}x{h}")
     if covered == 0.0:
         assert not bool(got.any())
+
+
+def stochastic_sky_inputs(seed, h, w):
+    """sky_inputs' layer with every input finite (under the checkerboard
+    an uncovered pixel's probe fetch may be its covered neighbour's, as
+    in the frame, whose uncovered pixels hold zeros)."""
+    f = sky_inputs(seed=seed, h=h, w=w)
+    r = np.random.default_rng(seed + 100)
+    for k in ("base_color", "mrao", "extras", "n", "v", "bent", "hbao"):
+        bad = ~np.isfinite(f[k])
+        f[k][bad] = r.uniform(0.1, 0.9, int(bad.sum())).astype(np.float32)
+    for k in ("n", "v", "bent"):
+        f[k] /= np.linalg.norm(f[k], axis=-1, keepdims=True)
+    return f
+
+
+@pytest.mark.parametrize("shape", [(24, 40), (13, 22), (9, 31)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("checker", [None, 0, 1])
+@pytest.mark.parametrize("case", ["dither", "jitter", "lobe", "lobe_hbao"])
+@pytest.mark.parametrize("env", ["analytic", "lut_packed"])
+def test_k8_stochastic_roles_match_twin(dev, case, checker, env, shape):
+    """Each stochastic role of K8 against sky_lighting_plain: one dithered
+    mip (bilinear, or with uv_dither one texel of the RGBE table), the
+    stochastic clearcoat lobe (extras) and the checkerboard probe fetch
+    for either parity, whose fetching neighbours cross K8's 8-pixel warp
+    rows: within K8_TOL of the twin's peak, zeros off the mask. An odd
+    width takes no checkerboard (the frame asks for none there)."""
+    h, w = shape
+    if checker is not None and w % 2:
+        pytest.skip("the checkerboard needs an even width")
+    probe, _, packed = sky_probe(dev)
+    opts = dict(extras=case.startswith("lobe"), hbao=case == "lobe_hbao",
+                bent=case == "lobe_hbao")
+    args, kw = sky_call(stochastic_sky_inputs(31, h, w), dev, probe, packed,
+                        opts, env == "analytic")
+    kw.update(dither=9, uv_dither=case != "dither", checker_parity=checker,
+              row0=5)
+    before = skylight.K8.launches
+    got = skylight.sky_lighting(*args, **kw)
+    assert skylight.K8.launches == before + 1
+    _k8_close(got, skylight.sky_lighting_plain(*args, **kw), args[0].mask,
+              case)
+    exact = skylight.sky_lighting_plain(*args, **dict(
+        kw, dither=None, checker_parity=None))
+    assert not torch.equal(exact, got)
 
 
 def test_k8_refuses_and_never_falls_back(dev):

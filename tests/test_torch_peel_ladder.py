@@ -50,7 +50,7 @@ from incarnation_tpu_torch.scene import loader as tloader
 
 torch.set_num_threads(1)
 
-# the TPU-only approximations off in the JAX Config too; no sun shadow map
+# the stochastic estimators off in the JAX Config too; no sun shadow map
 CFG = dict(stochastic_mip=False, stochastic_bilinear=False,
            checkerboard_gathers=False, peel_chunk_capacity=0,
            decal_chunk_capacity=0, sun_shadow_mode="off")

@@ -21,8 +21,9 @@ package), then prints per tree the frame times of both of its runs and
 the phases that the kernels of the last slices move (triangle setup,
 raster.prepare_geometry; sky lighting, skylight.sky_lighting; the camera
 pass's binning, raster.bin_triangles_layered; the sun pass with its own
-setup, binning and raster, shadow.render_sun_shadow_map), and the frame
-glue.
+setup, binning and raster, shadow.render_sun_shadow_map; the resolve, the
+peels' alpha tests and the shadow tap, which the stochastic estimators
+change), and the frame glue.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ import sys
 # the phases PR-to-PR comparisons print
 COMPARED = ("raster.prepare_geometry", "skylight.sky_lighting",
             "raster.bin_triangles_layered", "shadow.render_sun_shadow_map",
-            "glue")
+            "resolve.resolve_gbuffer", "resolve.masked_alpha",
+            "shadow.sun_visibility", "glue")
 
 
 def in_turns(trees, frames: int, out) -> int:

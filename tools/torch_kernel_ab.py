@@ -6,7 +6,8 @@
         [--kernels k1,k2,k3,k4,k5,k8,k9,k10] [--timeline] [--out FILE]
 
 K1-K3: it renders one main-path frame of chip_smoke.py (the atrium at
-1920x1088, sun shadow map, 8 masked peels) and one forward frame of its
+1920x1088, sun shadow map, 8 masked peels, the stochastic estimators off
+so that every checkout runs the same exact roles) and one forward frame of its
 small path (512x256, 4 blend layers), captures every launch of K1, K2 and
 K3 with its inputs, and times each launch with each other checkout's
 wrapper and with this one's on the same inputs, by chip_smoke.device_ms,
@@ -140,12 +141,23 @@ def role(kind, a, kw):
                   "k8": "k8_sky_lighting"}[kind])
 
 
+# the stochastic estimators' arguments of K5, K6 and K8 at their values
+# with the estimators off, as the tool renders: dropped from the captured
+# calls, so that a checkout whose wrappers predate them takes the calls
+ESTIMATORS_OFF = dict(mip_dither=None, uv_dither=False, max_aniso=16.0,
+                      coverage_capacity=None, checker_parity=None, row0=0,
+                      dither=None)
+
+
 def with_roles(calls, k5_names):
     """calls as (kind, args, kwargs, role): a K5 launch's role is
     k5_names[its index among the K5 launches], 'small_blend' past them
-    (the small frame's blend layers); K6's is None."""
+    (the small frame's blend layers); K6's is None. The estimators'
+    arguments at their off values are dropped (ESTIMATORS_OFF)."""
     out, n = [], 0
     for kind, a, kw in calls:
+        kw = {k: v for k, v in kw.items()
+              if not (k in ESTIMATORS_OFF and v == ESTIMATORS_OFF[k])}
         name = "k5_resolve[{}]".format(
             k5_names[n] if n < len(k5_names) else "small_blend") \
             if kind == "k5" else role(kind, a, kw) if kind in WRAPPERS \
@@ -395,12 +407,16 @@ def k1_to_k5(cs, others, this, dev, times, kinds, timelines=None):
     import torch
     raster, clustered, taa = this["raster"], this["clustered"], this["taa"]
     path = cs.atrium_path(dev)
+
+    def run(fc, history):
+        # the estimators off: the exact roles every checkout has
+        return path.run(fc, history, cs.exact_config(path.cfg))
     fc0 = path.make_fc(0, None)
-    warm = path.run(fc0, torch.zeros((cs.H, cs.W, 3), device=dev))
+    warm = run(fc0, torch.zeros((cs.H, cs.W, 3), device=dev))
     fc1 = path.make_fc(1, fc0.view_proj.cpu().numpy())
-    path.run(fc1, warm["accumulation"])
+    run(fc1, warm["accumulation"])
     calls = [c for c in with_roles(cs.capture_frame(
-        path.run, fc1, warm["accumulation"], raster, clustered, taa),
+        run, fc1, warm["accumulation"], raster, clustered, taa),
         K5_MAIN) if c[0] in kinds]
     _, render = cs.small_renderer(dev)
     render(forward_lighting=True)
