@@ -11,9 +11,11 @@ through render_frame, the port's raster frame in the bench configuration
 (bench.py's Config(sun_shadow_mode="map", masked_depth_peels=8), the JAX
 package's defaults otherwise, a history of zeros on frame 0 as bench.py
 gives it): triangle setup (K9) and layered binning (K10) of the camera
-and sun passes, opaque raster, 8 masked depth peels with their alpha
-tests (K6: a jittered texel of a dithered mip under the chunk-capacity
-ladder), decals, the material resolve of the opaque layer (K5: a
+and sun passes, opaque raster, 8 masked depth peels, each with one
+launch of K6's peel step (the alpha test of a jittered texel of a
+dithered mip under the chunk-capacity ladder, the chunk rank, and the
+accumulate; nothing else launches between one peel's K1 call and the
+next's), decals, the material resolve of the opaque layer (K5: a
 checkerboard of jittered texels) and the decal layer (K5: jittered
 texels under its chunk capacity), the 1024 x 1024 sun shadow map (K1's
 depth-only role, every face casting) and its jittered, checkerboarded
@@ -141,6 +143,16 @@ K5_OUT_BYTES = 85
 K5S_OPS_PER_COVERED = 211
 K5S_OPS_BILINEAR, K5S_OPS_POINT, K5S_OPS_FILL = 331, 55, 28
 K5S_INT_OPS = 36
+# K5's checkerboard role (k5_checker_kernel), whose filling pixels compute
+# only their moved uv: every pixel its uv step (the footprint's two axes
+# 8, the step 5, its noise 2: 15) and one noise hash (9 integer
+# operations); a fetching pixel with a covered pixel among it and its
+# neighbours the rest of its mip and its jitter (the minor axis and the
+# log2 7, floor(lod + xi) 2, three noises 6: 15), its texel (55) and three
+# hashes (27); a covered pixel the shading (181) and, filling, the fill
+# (28)
+K5C_OPS_UV, K5C_OPS_LOD, K5C_OPS_SHADE = 15, 15, 181
+K5C_INT_OPS_UV, K5C_INT_OPS_FETCH = 9, 27
 # K6, per pixel of the peel: LOD 12, its cap 4, the clamps 2, the bilinear
 # alpha fetch 26, alpha 1, the BLEND threshold 2 (43, on every pixel, hit
 # or not); bytes: 7 interp channels in, alpha and threshold out.
@@ -155,6 +167,23 @@ K6_PIXEL_BYTES = 7 * 4 + 8
 K6S_OPS_PER_PIXEL = 53
 K6S_INT_OPS = 45
 K6S_PIXEL_BYTES = 7 * 4 + 8
+# K6's peel step (masked_peel), per pixel of the peel: a miss pixel reads
+# its triangle and writes its z_limit (8 B); a hit pixel of a kept chunk
+# takes the alpha test, the K6 or K6S operations above, and reads its 7
+# interp channels and its accumulated triangle (32 B), where none has
+# passed yet also its depth (4 B); a hit pixel of a dropped chunk takes
+# alpha = mat_params[6] and the threshold, 3 operations and the BLEND hash
+# (9 integer ones), and reads its material and accumulated triangle (8 B);
+# a newly passing pixel copies its depth and 16 interp channels and writes
+# its triangle (108 B: the other 9 channels read, all 16 written, the
+# depth and the triangle written; the 7 channels the alpha test reads are
+# counted under K6P_HIT_BYTES, the depth read under K6P_OPEN_BYTES, and
+# the kernel's second read of the 7 from cache not at all). Under a capacity a block writes its look-back word
+# and a later block reads it (16 B); the material, meta and alpha-mirror
+# rows touched read once.
+K6P_PIXEL_BYTES, K6P_HIT_BYTES, K6P_OPEN_BYTES = 8, 32, 4
+K6P_DROPPED_BYTES, K6P_NEWLY_BYTES, K6P_BLOCK_BYTES = 8, 108, 16
+K6P_DROPPED_OPS, K6P_BLEND_INT_OPS = 3, 9
 K5_RTOL = 1e-5             # K5 against its twin: see _k5_error
 # K8, counted from csrc/skylight.cu (pow, sqrt and abs count one each, a
 # fused multiply-add two), per covered pixel: the diffuse lobe 111 (the SH
@@ -365,10 +394,12 @@ def main(argv=None) -> int:
     K5_RESOURCES.update(kernel_resources(build, "resolve",
                                          "k5_resolve_kernel",
                                          logs.get("resolve")))
-    K5_RESOURCES.update(kernel_resources(build, "resolve",
-                                         "k6_masked_alpha_kernel",
-                                         logs.get("resolve")))
-    _log(f"K5 and K6 (k5_resolve_kernel, k6_masked_alpha_kernel, by role): "
+    for kernel in ("k5_checker_kernel", "k6_masked_alpha_kernel",
+                   "k6_peel_kernel"):
+        K5_RESOURCES.update(kernel_resources(build, "resolve", kernel,
+                                             logs.get("resolve")))
+    _log(f"K5 and K6 (k5_resolve_kernel, k5_checker_kernel, "
+         f"k6_masked_alpha_kernel, k6_peel_kernel, by role): "
          f"{json.dumps(K5_RESOURCES)}")
     K8_RESOURCES.update(kernel_resources(build, "skylight", "k8_sky_",
                                          logs.get("skylight")))
@@ -415,11 +446,11 @@ def main(argv=None) -> int:
     _log("frame ms: " + ", ".join(f"{t:.2f}" for t in frame_ms))
     # JAX's default frame: K5 fetches the opaque layer's stack by the
     # checkerboard of jittered texels and the decal layer's under its
-    # chunk capacity, K6 every peel's alpha under the chunk ladder, K8 the
-    # probe by the checkerboard
+    # chunk capacity, K6's peel step tests every peel's alpha under the
+    # chunk ladder and accumulates it, K8 the probe by the checkerboard
     want_roles = {"k5_resolve": {"jitter_checker": FRAMES,
                                  "jitter+chunks": FRAMES},
-                  "k6_masked_alpha": {"jitter+chunks": PEELS * FRAMES},
+                  "k6_masked_alpha": {"step_jitter+chunks": PEELS * FRAMES},
                   "k8_sky_lighting": {"jitter_checker": FRAMES}}
     if roles != want_roles:
         raise RuntimeError(f"K5, K6, K8 roles {roles} != {want_roles}")
@@ -446,7 +477,8 @@ def main(argv=None) -> int:
     # shadow map, K2 once, K3 on every frame with a history (all but
     # frame 0), K4 never (no BVH on this path), K5 for the opaque and the
     # decal layer, K6 for each peel, K8 once, K9 and K10's launches for the
-    # camera and the sun pass (K10: K10_LAUNCHES a binning)
+    # camera and the sun pass (K10: K10_LAUNCHES a binning); K6 is the
+    # peel step
     want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS, 1, 2,
              2 * len(K10_LAUNCHES)] for i in range(FRAMES)]
     if per_frame != want:
@@ -473,7 +505,7 @@ def main(argv=None) -> int:
     exact_roles = {k.fn: dict(k.by_name) for k in (resolve.K5, resolve.K6,
                                                     skylight.K8)}
     want = {"k5_resolve": {"exact": 2 * FRAMES},
-            "k6_masked_alpha": {"exact": PEELS * FRAMES},
+            "k6_masked_alpha": {"step_exact": PEELS * FRAMES},
             "k8_sky_lighting": {"exact": FRAMES}}
     if exact_roles != want or ex.per_frame != per_frame:
         raise RuntimeError(f"the exact sequence's launches {ex.per_frame}, "
@@ -526,12 +558,13 @@ def main(argv=None) -> int:
     rows += [k5_row(resolve, exact_calls, exact_launches["k5_resolve"],
                     role="exact"),
              k6_row(resolve, exact_calls,
-                    exact_launches["k6_masked_alpha"], role="exact"),
+                    exact_launches["k6_masked_alpha"],
+                    name="k6_masked_peel[step_exact]", role="step_exact"),
              k8_row(skylight, exact_calls,
                     exact_launches["k8_sky_lighting"], role="exact")]
     rows += [k5_row(resolve, calls, n, name=f"k5_resolve[{r}]", role=r)
              for r, n in roles["k5_resolve"].items()]
-    rows += [k6_row(resolve, calls, n, name=f"k6_masked_alpha[{r}]", role=r)
+    rows += [k6_row(resolve, calls, n, name=f"k6_masked_peel[{r}]", role=r)
              for r, n in roles["k6_masked_alpha"].items()]
     rows += [k8_row(skylight, calls, n, name=f"k8_sky_lighting[{r}]",
                     role=r) for r, n in roles["k8_sky_lighting"].items()]
@@ -540,6 +573,18 @@ def main(argv=None) -> int:
     k10_no_sync(raster, calls)
     check_twin_frame(run, fc, history, raster, clustered, taa)
     phase_breakdown(run, fc, history)
+    # between one peel's K1 launch and the next's: K6's step, nothing
+    # else
+    per, names, launched = peel_launches(run, fc, history, raster, kernels)
+    _log(f"eager torch launches per masked peel beyond K1's and K6's "
+         f"(between one peel's K1 call and the next's, {len(per)} "
+         f"windows): {per}, the first window's by operator "
+         f"{json.dumps(names)}; hand-written kernels launched per window "
+         f"{launched}")
+    if any(per) or any(w != {"k1_raster": 1, "k6_masked_alpha": 1}
+                       for w in launched):
+        raise RuntimeError("the peel loop launches more than K1's peel and "
+                           "K6's step per peel")
     if args.profile:
         profile_frame(run, fc, history)
 
@@ -711,24 +756,38 @@ def capture_frame(run, fc, history, raster, clustered, taa):
 def _capturing(calls, raster, clustered, taa, limit=None):
     """For the duration of the block, each K1, K2, K3, K5, K6, K8, K9 and
     K10 wrapper call appends (kind, args, kwargs) to calls, at most
-    `limit` per kind."""
+    `limit` per kind. K6 is the peel step (masked_peel), recorded before
+    its launch by name (_k6_args) with a copy of the state it updates; a
+    masked peel's z_limit, which the step overwrites, is copied too."""
     from incarnation_tpu_torch.kernels import resolve, skylight
+
+    def room(kind):
+        return limit is None or sum(c[0] == kind for c in calls) < limit
 
     def keep(kind):
         def after(out, *a, **kw):
-            if limit is None or sum(c[0] == kind for c in calls) < limit:
+            if room(kind):
+                if kw.get("z_limit") is not None:
+                    kw = dict(kw, z_limit=kw["z_limit"].clone())
                 calls.append((kind, a, kw))
         return after
+    step = resolve.masked_peel
+
+    def peel_step(*a, **kw):
+        if room("k6"):
+            x = _k6_args(a, kw)
+            calls.append(("k6", (), dict(x, state=_peel_clone(x["state"]))))
+        return step(*a, **kw)
     with contextlib.ExitStack() as stack:
         for mod, name, kind in ((raster, "rasterize_tiles", "k1"),
                                 (clustered, "clustered_lighting", "k2"),
                                 (taa, "history_fetch", "k3"),
                                 (resolve, "resolve_gbuffer", "k5"),
-                                (resolve, "masked_alpha", "k6"),
                                 (skylight, "sky_lighting", "k8"),
                                 (raster, "prepare_geometry", "k9"),
                                 (raster, "bin_triangles_layered", "k10")):
             stack.enter_context(_hooked(mod, name, keep(kind)))
+        stack.enter_context(_swapped(resolve, "masked_peel", peel_step))
         yield calls
 
 
@@ -890,13 +949,6 @@ def _k5_role(x) -> str:
         cap is not None)
 
 
-def _k6_role(x) -> str:
-    """The role name a masked_alpha call counts under (_k6_args)."""
-    from incarnation_tpu_torch.kernels import resolve
-    return resolve.role_name(resolve._role(x["mip_dither"], x["uv_dither"]),
-                             x["coverage_capacity"] is not None)
-
-
 def _k8_role(x) -> str:
     """The role name a sky_lighting call counts under (_bound_args)."""
     if x["dither"] is None:
@@ -963,7 +1015,8 @@ def _rows_touched(fn, tables):
 
 def _k5_bound(resolve, x):
     """(bound ms, 'bytes' | 'operations') of one K5 launch (_k5_args): see
-    K5_OPS_* and, for the stochastic roles, K5S_*. The texture blocks and
+    K5_OPS_* and, for the stochastic roles, K5S_* (the checkerboard's
+    K5C_*). The texture blocks and
     rows are those the twin gathers for the pixels that fetch: the
     covered ones, or under the checkerboard the fetching parity's pixels
     with a covered pixel among them and their horizontal neighbours."""
@@ -1009,6 +1062,12 @@ def _k5_bound(resolve, x):
     nbytes = (w * h * (4 + 8 + 20) + out + n_cov * 8 * 4 + tables
               + (w * h // 128 if x["coverage_capacity"] is not None else 0))
     n_fill = int((cov & ~fetch).sum()) if "checker" in role else 0
+    if "checker" in role:
+        ops = (w * h * K5C_OPS_UV + n_fetch * (K5C_OPS_LOD + K5S_OPS_POINT)
+               + n_ex * (K5_OPS_PER_EXTRAS // 8) + n_cov * K5C_OPS_SHADE
+               + n_fill * K5S_OPS_FILL)
+        return _bound(nbytes, ops, w * h * K5C_INT_OPS_UV
+                      + n_fetch * K5C_INT_OPS_FETCH)
     texel = K5S_OPS_POINT if "jitter" in role else K5S_OPS_BILINEAR
     ops = (n_cov * K5S_OPS_PER_COVERED + n_fetch * texel
            + n_ex * (K5_OPS_PER_EXTRAS // 8) * (1 if "jitter" in role else 4)
@@ -1120,13 +1179,61 @@ def k5_row(resolve, calls, n_launches, name="k5_resolve", role=None):
         blocks_per_footprint=[f["blocks_per_footprint"] for f in feet])
 
 
-def _k6_error(got, ref, tri):
+def _peel_clone(state):
+    """A copy of a PeelState: K6's peel step updates its argument in
+    place."""
+    import dataclasses
+    return dataclasses.replace(state, **{
+        f.name: getattr(state, f.name).clone()
+        for f in dataclasses.fields(state)})
+
+
+def _k6_args(a, kw):
+    """A captured masked_peel call -> its arguments by name, defaults
+    filled (scene, m_tri, m_depth, m_interp, state (a copy taken before
+    the call), row0 and the stochastic roles')."""
+    from incarnation_tpu_torch.kernels import resolve
+    return dict(_bound_args(resolve.masked_peel_plain, a, kw))
+
+
+def _k6_role(x) -> str:
+    """The role name a masked_peel call counts under (_k6_args)."""
+    from incarnation_tpu_torch.kernels import resolve
+    return "step_" + resolve.role_name(
+        resolve._role(x["mip_dither"], x["uv_dither"]),
+        x["coverage_capacity"] is not None)
+
+
+def _k6_alpha_args(x) -> dict:
+    """The alpha test of a captured peel step as a masked_alpha call (K6's
+    standalone role) on the peel's layer."""
+    return dict(scene=x["scene"], tri=x["m_tri"], interp=x["m_interp"],
+                row0=x["row0"], mip_dither=x["mip_dither"],
+                uv_dither=x["uv_dither"], max_aniso=x["max_aniso"],
+                coverage_capacity=x["coverage_capacity"])
+
+
+def _k6_step(resolve, x):
+    """K6's peel step on a copy of the captured state -> the new state."""
+    return resolve.masked_peel(**dict(x, state=_peel_clone(x["state"])))
+
+
+def _peel_twin(resolve, x):
+    """The peel step's twin in torch throughout (masked_peel_plain with
+    its alpha test by masked_alpha_plain) on a copy of the captured
+    state -> the new state."""
+    with _swapped(resolve, "masked_alpha", resolve.masked_alpha_plain):
+        return resolve.masked_peel_plain(
+            **dict(x, state=_peel_clone(x["state"])))
+
+
+def _k6_alpha_error(got, ref, tri):
     """(max abs error, max relative error, elements not identical) of one
-    K6 launch against its twin. The pass/fail decision alpha >= thresh
-    must be the twin's on every hit pixel (it picks the peel's fragment),
-    and alpha and the threshold must agree to 1e-6 relative; K6 repeats
-    the twin's operations in order, so both are expected to be
-    identical."""
+    launch of K6's standalone role (masked_alpha) against its twin. The
+    pass/fail decision alpha >= thresh must be the twin's on every hit
+    pixel (it picks the peel's fragment), and alpha and the threshold
+    must agree to 1e-6 relative; K6 repeats the twin's operations in
+    order, so both are expected to be identical."""
     (ga, gt), (ra, rt) = got, ref
     hit = tri >= 0
     flips = int(((ga >= gt) != (ra >= rt))[hit].sum())
@@ -1140,40 +1247,90 @@ def _k6_error(got, ref, tri):
     return err, rel, int((ga != ra).sum() + (gt != rt).sum())
 
 
+def _k6_error(resolve, x):
+    """Holds one captured peel step of K6 to its twin, every accumulator,
+    the z_limit and both counts identical, and K6's standalone role
+    (masked_alpha) on the same layer to its twin (_k6_alpha_error);
+    raises otherwise. -> (max abs error of the step's floats, pixels that
+    passed where none had, pixels left to the next peel)."""
+    import dataclasses
+    got, ref = _k6_step(resolve, x), _peel_twin(resolve, x)
+    differ = {}
+    for f in dataclasses.fields(ref):
+        g, r = getattr(got, f.name), getattr(ref, f.name)
+        if g.dtype != r.dtype or g.shape != r.shape:
+            differ[f.name] = f"{g.dtype} {tuple(g.shape)}"
+            continue
+        n = int((g.view(_int_of(g)) != r.view(_int_of(r))).sum())
+        if n:
+            differ[f.name] = n
+    if differ:
+        raise RuntimeError(f"K6's peel step differs from its twin: elements "
+                           f"not identical by field {differ}")
+    a = _k6_alpha_args(x)
+    _k6_alpha_error(resolve.masked_alpha(**a), resolve.masked_alpha_plain(**a),
+                    a["tri"])
+    newly = int(((ref.tri >= 0) & (x["state"].tri < 0)).sum())
+    return 0.0, newly, int(ref.overflow)
+
+
+def _int_of(t):
+    """The integer dtype of t's width, to compare floats bit for bit."""
+    import torch
+    return {1: torch.uint8, 4: torch.int32, 8: torch.int64}[t.element_size()]
+
+
 def _k6_bound(resolve, x):
-    """(bound ms, 'bytes' | 'operations') of one K6 launch (_k6_args): see
-    K6_OPS_PER_PIXEL and K6S_*; each alpha-mirror row and material row
-    touched is read once, a dropped chunk's pixels read none."""
-    scene = x["scene"]
+    """(bound ms, 'bytes' | 'operations') of one launch of K6's peel step
+    (_k6_args): see K6P_*, and K6_OPS_PER_PIXEL or K6S_* a hit pixel of a
+    kept chunk; each alpha-mirror, meta and material row the kept hit
+    pixels touch read once."""
+    scene, tri, state = x["scene"], x["m_tri"], x["state"]
     st = scene.mat_stack
-    tri = x["tri"]
-    keep = None
-    if x["coverage_capacity"] is not None:
-        keep = resolve._keep_pixels(
-            resolve.chunk_keep(tri >= 0, x["coverage_capacity"]), tri.shape)
+    hit = tri >= 0
+    cap = x["coverage_capacity"]
+    kept = hit
+    if cap is not None:
+        kept = hit & resolve._keep_pixels(resolve.chunk_keep(hit, cap),
+                                          tri.shape)
+    ref = _peel_twin(resolve, x)
+    a = _k6_alpha_args(x)
     rows = _rows_touched(
-        lambda: resolve.masked_alpha_plain(**x),
-        {"alpha": (st.alpha, keep), "meta": (st.meta, None),
-         "params": (scene.mat_params, None)})
-    px = tri.numel()
-    nbytes = (16 * rows["alpha"] + 24 * rows["meta"] + 64 * rows["params"])
-    if _k6_role(x).startswith("exact"):
-        return _bound(nbytes + px * K6_PIXEL_BYTES, px * K6_OPS_PER_PIXEL)
-    nbytes += px * K6S_PIXEL_BYTES + (0 if keep is None else px // 128)
-    return _bound(nbytes, px * K6S_OPS_PER_PIXEL, px * K6S_INT_OPS)
+        lambda: resolve.masked_alpha_plain(**a),
+        {"alpha": (st.alpha, kept), "meta": (st.meta, kept),
+         "params": (scene.mat_params, hit)})
+    n_kept, n_hit = int(kept.sum()), int(hit.sum())
+    n_open = int((hit & (state.tri < 0)).sum())
+    n_newly = int(((ref.tri >= 0) & (state.tri < 0)).sum())
+    blocks = -(-tri.numel() // resolve.K6_BLOCK_PX)
+    nbytes = (tri.numel() * K6P_PIXEL_BYTES + n_kept * K6P_HIT_BYTES
+              + (n_hit - n_kept) * K6P_DROPPED_BYTES + n_open * K6P_OPEN_BYTES
+              + n_newly * K6P_NEWLY_BYTES
+              + (blocks * K6P_BLOCK_BYTES if cap is not None else 0)
+              + 16 * rows["alpha"] + 24 * rows["meta"] + 64 * rows["params"])
+    stoch = x["mip_dither"] is not None
+    ops = (n_kept * (K6S_OPS_PER_PIXEL if stoch else K6_OPS_PER_PIXEL)
+           + (n_hit - n_kept) * K6P_DROPPED_OPS)
+    int_ops = (n_kept * (K6S_INT_OPS if stoch else K6P_BLEND_INT_OPS)
+               + (n_hit - n_kept) * K6P_BLEND_INT_OPS)
+    return _bound(nbytes, ops, int_ops)
 
 
-def _k6_args(a, kw):
-    """A captured masked_alpha call -> its arguments by name, defaults
-    filled (scene, tri, interp, row0 and the stochastic roles')."""
-    from incarnation_tpu_torch.kernels import resolve
-    return dict(_bound_args(resolve.masked_alpha_plain, a, kw))
+def _step_ms(step, x, reps: int) -> float:
+    """device_ms of a peel step (masked_peel or its twin) on the captured
+    inputs, each call on a fresh copy of the captured state (a step
+    updates it in place, and a second step on it would find its pixels
+    already passed); the copies are made before the timing."""
+    states = iter([_peel_clone(x["state"]) for _ in range(2 * reps + 1)])
+    return device_ms(lambda: step(**dict(x, state=next(states))), reps)
 
 
-def k6_row(resolve, calls, n_launches, name="k6_masked_alpha", role=None):
-    """K6 against its twin on each captured masked_alpha launch of `role`
-    (all where None): the decisions on hit pixels, the error, both times
-    and the bound, each the mean over the launches -> the JSON row."""
+def k6_row(resolve, calls, n_launches, name="k6_masked_peel", role=None):
+    """K6's peel step against its twin on each captured masked_peel launch
+    of `role` (all where None), and K6's standalone role (masked_alpha)
+    on the same layers against its own twin: identical accumulators and
+    counts, both times and the bound of the step, each the mean over the
+    launches -> the JSON row."""
     launches = [x for x in (_k6_args(a, kw) for kind, a, kw in calls
                             if kind == "k6")
                 if role is None or _k6_role(x) == role]
@@ -1181,11 +1338,10 @@ def k6_row(resolve, calls, n_launches, name="k6_masked_alpha", role=None):
         raise RuntimeError(f"{name}: no K6 launch was captured")
     errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
     for x in launches:
-        errs.append(_k6_error(resolve.masked_alpha(**x),
-                              resolve.masked_alpha_plain(**x), x["tri"]))
-        ms.append(device_ms(lambda: resolve.masked_alpha(**x), 20))
-        plain_ms.append(device_ms(lambda: resolve.masked_alpha_plain(**x),
-                                  2))
+        errs.append(_k6_error(resolve, x))
+        ms.append(_step_ms(resolve.masked_peel, x, 10))
+        with _swapped(resolve, "masked_alpha", resolve.masked_alpha_plain):
+            plain_ms.append(_step_ms(resolve.masked_peel_plain, x, 2))
         b, by = _k6_bound(resolve, x)
         bounds.append(b)
         bound_by.add(by)
@@ -1193,23 +1349,21 @@ def k6_row(resolve, calls, n_launches, name="k6_masked_alpha", role=None):
          + "; twin ms " + ", ".join(f"{t:.2f}" for t in plain_ms)
          + "; bound ms " + ", ".join(f"{t:.4f}" for t in bounds)
          + "; hit pixels " + ", ".join(
-             str(int((x["tri"] >= 0).sum())) for x in launches)
-         + "; decisions as the twin's on every hit pixel; max abs err "
-         + ", ".join(f"{e[0]:.3e}" for e in errs)
-         + "; elements not identical " + ", ".join(str(e[2]) for e in errs))
+             str(int((x["m_tri"] >= 0).sum())) for x in launches)
+         + "; newly passed " + ", ".join(str(e[1]) for e in errs)
+         + "; left to the next peel " + ", ".join(str(e[2]) for e in errs)
+         + "; every accumulator and count identical to the twin's")
+    res = role_resources("k6", role or "step_exact")
     return dict(
         name=name, route="cuda",
         source="incarnation_tpu_torch/csrc/resolve.cu",
         replaces="incarnation_tpu/kernels/resolve.py:107",
         launches=n_launches, max_abs_err=max(e[0] for e in errs),
-        max_rel_err=max(e[1] for e in errs),
         ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
         bound_ms=float(np.mean(bounds)),
         bound_by="operations" if "operations" in bound_by else "bytes",
-        library_ms=None, not_identical=sum(e[2] for e in errs),
-        registers=role_resources("k6", role or "exact").get("registers"),
-        spill_bytes=role_resources("k6", role or "exact").get(
-            "spill_bytes"))
+        library_ms=None, ms_per_launch=ms, bound_ms_per_launch=bounds,
+        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
 
 
 def _bound_args(fn, a, kw) -> dict:
@@ -2396,7 +2550,7 @@ def band_phase(dev, path, pt):
 def check_twins(what, calls, raster, clustered, taa, need):
     """Each captured K1, K2, K3, K5, K6, K8, K9 and K10 launch against its
     twin, at compare_kernels' tolerances (K1 via _k1_error, K2 K2_RTOL, K3
-    1e-6 relative, K5 via _k5_error, K6 via _k6_error, K8 via _k8_error,
+    1e-6 relative, K5 via _k5_error, K6's peel step via _k6_error, K8 via _k8_error,
     K9 and K10 exactly), at the shapes the path gave it; raises if a kind
     in `need` was not captured. Returns the K3 launches' arguments."""
     from incarnation_tpu_torch.kernels import resolve, skylight
@@ -2439,19 +2593,19 @@ def check_twins(what, calls, raster, clustered, taa, need):
     k5 = [_k5_error(resolve.resolve_gbuffer(**x),
                     resolve.resolve_gbuffer_plain(**x)) for x in k5_args]
     k6_args = [_k6_args(a, kw) for _, a, kw in kinds["k6"]]
-    k6 = [_k6_error(resolve.masked_alpha(**x),
-                    resolve.masked_alpha_plain(**x), x["tri"])
-          for x in k6_args]
+    k6 = [_k6_error(resolve, x) for x in k6_args]
     if k5 or k6:
         _log(f"{what}: K5 x{len(k5)} (roles "
              f"{sorted({_k5_role(x) for x in k5_args})}) against the twin: "
              f"max abs err {max([e[0] for e in k5], default=0.0):.3e}, max "
              f"relative err {max([e[1] for e in k5], default=0.0):.3e}; K6 "
-             f"x{len(k6)} (roles {sorted({_k6_role(x) for x in k6_args})}, "
-             f"first rows {sorted({x['row0'] for x in k6_args})}): decisions "
-             f"as the twin's on every hit pixel, max abs err "
-             f"{max([e[0] for e in k6], default=0.0):.3e}, elements not "
-             f"identical {sum(e[2] for e in k6)}")
+             f"x{len(k6)} (peel steps, roles "
+             f"{sorted({_k6_role(x) for x in k6_args})}, first rows "
+             f"{sorted({x['row0'] for x in k6_args})}): every accumulator, "
+             f"z_limit and count identical to the twin's, pixels newly "
+             f"passed {[e[1] for e in k6]}, left to the next peel "
+             f"{[e[2] for e in k6]}; the standalone role on each peel's "
+             f"layer as its twin")
     k8 = [_k8_error(skylight.sky_lighting(*a, **kw),
                     skylight.sky_lighting_plain(*a, **kw), a[0].mask)
           for _, a, kw in kinds["k8"]]
@@ -2644,10 +2798,11 @@ def kernel_resources(build_mod, source: str, kernel: str, log=None) -> dict:
     return out
 
 
-# the template argument of each K5 role's and K6 role's instance
-# (csrc/resolve.cu K5_* and STOCH), as the compiled entry's name spells it
+# the template argument of each K5 role's instance (csrc/resolve.cu K5_*),
+# as the compiled entry's name spells it; the checkerboard role is a
+# kernel of its own
 _K5_INSTANCE = {"exact": "ILi0E", "dither": "ILi1E", "jitter": "ILi2E",
-                "jitter_checker": "ILi3E"}
+                "jitter_checker": "k5_checker_kernel"}
 
 
 def k5_resources(build_mod, log=None) -> dict:
@@ -2665,10 +2820,17 @@ def role_resources(kind: str, role: str) -> dict:
     if kind == "k8":
         want = "stochastic" if base != "exact" else "k8_sky_kernel"
         table = K8_RESOURCES
+    elif kind == "k5":
+        want = _K5_INSTANCE.get(base, "")
+        table = {k: v for k, v in K5_RESOURCES.items() if "k5" in k}
     else:
-        want = (_K5_INSTANCE.get(base, "") if kind == "k5" else
-                "ILb0E" if base == "exact" else "ILb1E")
-        table = {k: v for k, v in K5_RESOURCES.items() if kind in k}
+        # K6's peel step (step_* roles) or its standalone role, each
+        # instance templated on STOCH
+        step = base.startswith("step_")
+        want = ("ILb0E" if base.removeprefix("step_") == "exact"
+                else "ILb1E")
+        table = {k: v for k, v in K5_RESOURCES.items()
+                 if ("k6_peel" if step else "k6_masked_alpha") in k}
     return next((v for k, v in table.items() if want in k), {})
 
 
@@ -2897,6 +3059,7 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
             _swapped(resolve, "resolve_gbuffer",
                      resolve.resolve_gbuffer_plain), \
             _swapped(resolve, "masked_alpha", resolve.masked_alpha_plain), \
+            _swapped(resolve, "masked_peel", resolve.masked_peel_plain), \
             _swapped(skylight, "sky_lighting", skylight.sky_lighting_plain), \
             _swapped(raster, "prepare_geometry",
                      raster.prepare_geometry_plain), \
@@ -2919,7 +3082,8 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
 _PHASES = (("cull", "cull_primitives"), ("raster", "prepare_geometry"),
            ("raster", "bin_triangles_layered"), ("raster", "rasterize_tiles"),
            ("shadow", "render_sun_shadow_map"), ("shadow", "sun_visibility"),
-           ("resolve", "masked_alpha"), ("resolve", "resolve_gbuffer"),
+           ("resolve", "masked_peel"), ("resolve", "masked_alpha"),
+           ("resolve", "resolve_gbuffer"),
            ("clustered", "build_light_clusters"),
            ("clustered", "clustered_lighting"), ("skylight", "sky_lighting"),
            ("shading", "brdf_response"),
@@ -2978,6 +3142,61 @@ def phase_breakdown(run, fc, history, reps: int = 3):
              {k: round(v, 3) for k, v in sorted(ms.items(),
                                                 key=lambda kv: -kv[1])}))
     return ms
+
+
+# operators that launch nothing on the card: allocations (views launch
+# nothing either, _launches_work)
+_NO_LAUNCH = {"aten::empty.memory_format", "aten::empty_strided",
+              "aten::empty_like", "aten::lift_fresh"}
+
+
+def _launches_work(func) -> bool:
+    """Whether an ATen operator runs work on the card: not a view (an
+    output that aliases an input without writing it), not an
+    allocation."""
+    if func.name() in _NO_LAUNCH:
+        return False
+    return not any(r.alias_info is not None and not r.alias_info.is_write
+                   for r in func._schema.returns)
+
+
+def peel_launches(run, fc, history, raster, kernels):
+    """What the frame launches per masked peel beside K1's peel: every
+    eager torch operator that runs work on the card (_launches_work)
+    between one peel's K1 call (rasterize_tiles, name raster_peel) and the
+    next's, outside K1's wrapper, counted by a TorchDispatchMode over one
+    frame, and the hand-written kernels' launches in the same windows
+    (K1's own among them). -> (operators per window, the first window's
+    operators by name, kernel launches per window by kernel)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ops, marks, inside = [], [], [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not inside[0] and _launches_work(func):
+                ops.append(func.name())
+            return func(*args, **(kwargs or {}))
+    k1 = raster.rasterize_tiles
+
+    def k1_marked(*a, **kw):
+        if kw.get("name") == "raster_peel":
+            marks.append((len(ops), [k.launches for k in kernels]))
+        inside[0] += 1
+        try:
+            return k1(*a, **kw)
+        finally:
+            inside[0] -= 1
+    with _swapped(raster, "rasterize_tiles", k1_marked), Count():
+        run(fc, history)
+    torch.cuda.synchronize()
+    per = [b[0] - a[0] for a, b in zip(marks, marks[1:])]
+    names = {}
+    for op in ops[marks[0][0]:marks[1][0]] if len(marks) > 1 else []:
+        names[op] = names.get(op, 0) + 1
+    launched = [{k.fn: n1 - n0 for k, n0, n1 in zip(kernels, a[1], b[1])
+                 if n1 > n0} for a, b in zip(marks, marks[1:])]
+    return per, names, launched
 
 
 def profile_frame(run, fc, history):

@@ -19,12 +19,14 @@
 // mapped normal. A covered pixel reads 4 texels of 2 levels, 14 words
 // each; an empty pixel reads its tri and uv and writes zeros.
 //
-// K6, one thread per pixel of a peel: the LOD capped at half an amask
-// cell, one bilinear level of the u8 alpha mirror, alpha = mat_params[6]
-// x a_tex, and the pass threshold: alphaCutoff, or for BLEND the
-// screen-door hash of the pixel's whole-frame position (row0: a band's
-// first row), at least 1e-3. Like the twin it computes every pixel, hit or
-// not.
+// K6, the alpha test of a masked peel's pixel: the LOD capped at half an
+// amask cell, one bilinear level of the u8 alpha mirror, alpha =
+// mat_params[6] x a_tex, and the pass threshold: alphaCutoff, or for BLEND
+// the screen-door hash of the pixel's whole-frame position (row0: a band's
+// first row), at least 1e-3. Two entries: k6_masked_alpha, one thread per
+// pixel, hit or not, as masked_alpha's contract asks; and k6_masked_peel,
+// the frame's whole peel step (kernels/resolve.py masked_peel): the chunk
+// rank, the alpha test of the hit pixels and the accumulate.
 //
 // Stochastic roles (the JAX package's estimators while TAA accumulates,
 // resolve.py:78-226): the mip floor(lod + xi), with max_aniso > 1 the
@@ -54,9 +56,9 @@
 // floats for a covered one, and each texture block it touches; it writes
 // 85 B a pixel (97 with the mapped normal): at 1920x1088 about 0.09 ms at
 // 3.35 TB/s, against 859-1,123 float operations a covered pixel (about
-// 0.03 ms at 67 TFLOP/s; chip_smoke.py counts both). K6 reads 7 interp
-// channels and writes 8 B a pixel, ~0.02 ms; it is one thread per pixel,
-// no shared memory.
+// 0.03 ms at 67 TFLOP/s; chip_smoke.py counts both). k6_masked_alpha reads
+// 7 interp channels and writes 8 B a pixel, ~0.02 ms; the peel step's
+// bytes are counted at k6_peel_kernel.
 //
 // K5's design for the card. A covered pixel's texture work is bound by
 // instruction throughput (about 200 instructions a texel, 8 texels), a warp's
@@ -126,14 +128,6 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 __device__ __forceinline__ int pymod(int a, int n) {
   const int r = a % n;
   return r < 0 ? r + n : r;
-}
-
-// textures.py _address
-__device__ __forceinline__ int address(int c, int n, int mode) {
-  if (mode == ADDRESS_WRAP) return pymod(c, n);
-  if (mode == ADDRESS_CLAMP) return min(max(c, 0), n - 1);
-  const int p = pymod(c, 2 * n);
-  return p < n ? p : 2 * n - 1 - p;
 }
 
 // textures.py _level_offset_blocks: block offset of mip `level`
@@ -250,9 +244,17 @@ __device__ __forceinline__ int mod_pos(int c, int m) {
   return (m & (m - 1)) == 0 ? (c & (m - 1)) : pymod(c, m);
 }
 
+// textures.py _address: texel c of a size-n axis, wrapped, clamped or
+// mirrored, each remainder a mask where n is a power of two
+__device__ __forceinline__ int address(int c, int n, int mode) {
+  if (mode == ADDRESS_CLAMP) return min(max(c, 0), n - 1);
+  if (mode == ADDRESS_WRAP) return mod_pos(c, n);
+  const int p = mod_pos(c, 2 * n);
+  return p < n ? p : 2 * n - 1 - p;
+}
+
 // textures.py _address of texels c and c + 1: the integers address(c, n,
-// mode) and address(c + 1, n, mode) give, each remainder a mask where the
-// size is a power of two (K6 keeps address())
+// mode) and address(c + 1, n, mode) give
 __device__ __forceinline__ void address_pair(int c, int n, int mode, int& a,
                                              int& b) {
   if (mode == ADDRESS_CLAMP) {
@@ -395,10 +397,29 @@ struct Stoch {
   const uint8_t* keep;
 };
 
+// resolve._stochastic_lod's uv step: with max_aniso > 1, (u, v) moved
+// along the footprint's major axis (rx >= ry: x) by (xi - 0.5), the step
+// clamped to +-half_cell where half_cell > 0
+__device__ __forceinline__ void aniso_step(float dudx, float dudy, float dvdx,
+                                           float dvdy, float rx, float ry,
+                                           uint32_t px, uint32_t py,
+                                           const Stoch& sc, float half_cell,
+                                           float& u, float& v) {
+  const bool x_major = rx >= ry;
+  float mx = x_major ? dudx : dudy;
+  float my = x_major ? dvdx : dvdy;
+  if (half_cell > 0.0f) {
+    mx = tmin(tmax(mx, -half_cell), half_cell);
+    my = tmin(tmax(my, -half_cell), half_cell);
+  }
+  const float d = frame_noise(px, py, sc.frame * N_ANISO) - 0.5f;
+  u = u + mx * d;
+  v = v + my * d;
+}
+
 // resolve._stochastic_lod at pixel i, whole-frame (px, py): with
 // max_aniso > 1 the minor-axis mip and (u, v) moved along the major axis
-// by (xi - 0.5) (the step clamped to +-half_cell where half_cell > 0),
-// else the footprint's mip; then floor(lod + noise)
+// (aniso_step), else the footprint's mip; then floor(lod + noise)
 __device__ __forceinline__ float stochastic_lod(
     const float* __restrict__ interp, size_t i, size_t plane, int size,
     uint32_t px, uint32_t py, const Stoch& sc, uint32_t lod_mult,
@@ -414,20 +435,26 @@ __device__ __forceinline__ float stochastic_lod(
     const float rmax = tmax(rx, ry), rmin = tmin(rx, ry);
     const float rho = tmax(rmin, rmax * sc.inv_aniso) * (float)size;
     lod = log2f(clamp_lo(rho, (float)1e-8));
-    const bool x_major = rx >= ry;
-    float mx = x_major ? dudx : dudy;
-    float my = x_major ? dvdx : dvdy;
-    if (half_cell > 0.0f) {
-      mx = tmin(tmax(mx, -half_cell), half_cell);
-      my = tmin(tmax(my, -half_cell), half_cell);
-    }
-    const float d = frame_noise(px, py, sc.frame * N_ANISO) - 0.5f;
-    u = u + mx * d;
-    v = v + my * d;
+    aniso_step(dudx, dudy, dvdx, dvdy, rx, ry, px, py, sc, half_cell, u, v);
   } else {
     lod = interp_lod(interp, i, plane, size);
   }
   return floorf(lod + frame_noise(px, py, sc.frame * lod_mult));
+}
+
+// the uv of pixel i that stochastic_lod moves, without its mip: the
+// checkerboard's pixels that fetch nothing
+__device__ __forceinline__ void moved_uv(const float* __restrict__ interp,
+                                         size_t i, size_t plane, uint32_t px,
+                                         uint32_t py, const Stoch& sc,
+                                         float& u, float& v) {
+  if (!(sc.max_aniso > 1.0f)) return;
+  const float dudx = interp[CH_DUDX * plane + i];
+  const float dudy = interp[CH_DUDY * plane + i];
+  const float dvdx = interp[CH_DVDX * plane + i];
+  const float dvdy = interp[CH_DVDY * plane + i];
+  aniso_step(dudx, dudy, dvdx, dvdy, sqrtf(dudx * dudx + dvdx * dvdx),
+             sqrtf(dudy * dudy + dvdy * dvdy), px, py, sc, 0.0f, u, v);
 }
 
 // textures.py sample_material_stack's fetch of one level: l0 = floor of
@@ -599,13 +626,51 @@ __device__ __forceinline__ void flush_bytes(uint8_t* __restrict__ g,
   if (lane < n - done) g[done + lane] = s[done + lane];
 }
 
+// pixel i's planes: shaded from its stack channels ch where covered,
+// zeros where not; its 4- and 2-channel planes straight to the GBuffer,
+// its 3-channel ones and its mask to slot s of its warp's stage
+__device__ __forceinline__ void pixel_planes(
+    bool covered, const float* ch, const float* __restrict__ depth,
+    const float* __restrict__ interp, const float* __restrict__ ivp, int mat,
+    const float* __restrict__ params, int n_params, size_t i, size_t plane,
+    int x, int y, int width, int height, float* __restrict__ base_out,
+    float* __restrict__ nrm_out, float* __restrict__ mrao_out, Stage& sg,
+    int s) {
+  sg.mask[s] = covered ? 1 : 0;
+  const Out o = {reinterpret_cast<float4*>(base_out) + i,
+                 reinterpret_cast<float4*>(mrao_out) + i,
+                 reinterpret_cast<float2*>(nrm_out) + i, sg.emis + 3 * s,
+                 sg.wpos + 3 * s, sg.extras + 3 * s, sg.n3 + 3 * s};
+  if (covered) {
+    shade_pixel(ch, depth, interp, ivp, mat, params, n_params, i, plane, x,
+                y, width, height, o);
+  } else {
+    *o.base = *o.mrao = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    *o.nrm = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      o.emis[k] = o.wpos[k] = o.extras[k] = o.n3[k] = 0.0f;
+  }
+}
+
+// a warp's staged row of tw pixels out, from flat pixel r0 on
+__device__ __forceinline__ void flush_row(
+    const Stage& sg, size_t r0, int tw, int lane, float* __restrict__ emis_out,
+    float* __restrict__ wpos_out, float* __restrict__ extras_out,
+    float* __restrict__ n3_out, uint8_t* __restrict__ mask_out) {
+  flush_floats(emis_out + 3 * r0, sg.emis, 3 * tw, lane);
+  flush_floats(wpos_out + 3 * r0, sg.wpos, 3 * tw, lane);
+  flush_floats(extras_out + 3 * r0, sg.extras, 3 * tw, lane);
+  if (n3_out) flush_floats(n3_out + 3 * r0, sg.n3, 3 * tw, lane);
+  flush_bytes(mask_out + r0, sg.mask, tw, lane);
+}
+
 // K5's roles (kernels/resolve.py R_* and role_name): the exact
 // trilinear fetch; the dithered single mip, bilinear; one jittered texel
-// of it; that texel fetched by half the pixels (the checkerboard)
+// of it. The checkerboard of jittered texels is k5_checker_kernel.
 #define K5_EXACT 0
 #define K5_DITHER 1
 #define K5_JITTER 2
-#define K5_CHECKER 3
 
 // A block shades a 32 x 8 tile, a warp one row of it: neighbouring rows
 // share texture blocks in the SM's L1. Each pixel's 4- and 2-channel
@@ -619,16 +684,9 @@ __device__ __forceinline__ void flush_bytes(uint8_t* __restrict__ g,
 //
 // The stochastic roles compute every pixel's uv moved along its major
 // axis (the twin's gb.uv) and its dithered mip, and fetch one level of
-// the stack for a covered pixel: bilinear, or the one jittered texel. In
-// the checkerboard role (an even width, so a warp's row holds whole
-// x-pairs) a pixel of the fetching parity (x & 1 == (row0 + y + parity)
-// & 1) fetches where it or a horizontal neighbour is covered; a covered
-// pixel of the other parity takes the mean of its two neighbours'
-// channels, read by warp shuffles, edge-clamped at the row's ends. The
-// one neighbour outside the warp (x - 1 of lane 0, x + 1 of the last
-// lane) is fetched by the pixel that needs it, which fetches nothing of
-// its own. With chunk keep flags, a pixel of a dropped 128-pixel chunk
-// reads zero channels.
+// the stack for a covered pixel: bilinear, or the one jittered texel.
+// With chunk keep flags, a covered pixel of a dropped 128-pixel chunk
+// fetches nothing and reads zero channels.
 template <int ROLE>
 __global__ void __launch_bounds__(RS_THREADS, 3)
 k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
@@ -653,19 +711,15 @@ k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
   const uint32_t py = (uint32_t)(sc.row0 + y);
   Stage& sg = stage[row];
   const size_t i = row0 + lane;
-  bool covered = false, fetcher = true;
-  int mat = 0;
-  float ch[NCH];
-  if (ROLE == K5_CHECKER) {
-#pragma unroll
-    for (int k = 0; k < NCH; ++k) ch[k] = 0.0f;
-  }
   if (lane < tw) {
     float u = interp[CH_U * plane + i];
     float v = interp[CH_V * plane + i];
-    covered = tri[i] >= 0;
-    mat = (int)interp[CH_MAT * plane + i];
+    const bool covered = tri[i] >= 0;
+    const int mat = (int)interp[CH_MAT * plane + i];
     const int* m = meta + (size_t)META_COLS * clampi(mat, 0, n_meta - 1);
+    // a pixel of a chunk the capacity drops reads zero channels
+    const bool dropped = sc.keep && !sc.keep[i >> 7];
+    float ch[NCH];
     if (ROLE == K5_EXACT) {
       if (covered) {
         // the depth and TBN channels, read after the texture work
@@ -673,96 +727,240 @@ k5_resolve_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
 #pragma unroll
         for (int c = CH_WN; c <= CH_SIGN; ++c)
           prefetch_l1(interp + c * plane + i);
-        trilinear_fetch(st, m, interp, i, plane, u, v, ch);
+        if (!dropped) trilinear_fetch(st, m, interp, i, plane, u, v, ch);
       }
     } else {
       const float lod = stochastic_lod(interp, i, plane, m[1], (uint32_t)x,
                                        py, sc, N_LOD, 0.0f, u, v);
-      const float jx = frame_noise((uint32_t)x, py, sc.frame * N_JX);
-      const float jy = frame_noise((uint32_t)x, py, sc.frame * N_JY);
-      if (ROLE == K5_CHECKER) {
-        fetcher = (x & 1) == ((sc.row0 + y + sc.parity) & 1);
-        if (fetcher) {
-          const bool left = x > 0 && tri[i - 1] >= 0;
-          const bool right = x + 1 < width && tri[i + 1] >= 0;
-          if (covered || left || right)
-            level_fetch<true>(st, m, lod, u, v, jx, jy, ch);
-        } else if (covered) {
-          // the neighbour outside the warp: x - 1 of lane 0 (fetching
-          // parity odd), x + 1 of the last lane (even)
-          const int xn = lane == 0 && x > 0 ? x - 1
-                         : lane == tw - 1 && x + 1 < width ? x + 1 : -1;
-          if (xn >= 0) {
-            const size_t j = i + (xn - x);
-            float un = interp[CH_U * plane + j];
-            float vn = interp[CH_V * plane + j];
-            const int* mn = meta + (size_t)META_COLS *
-                                       clampi((int)interp[CH_MAT * plane + j],
-                                              0, n_meta - 1);
-            const float ln = stochastic_lod(interp, j, plane, mn[1],
-                                            (uint32_t)xn, py, sc, N_LOD,
-                                            0.0f, un, vn);
-            level_fetch<true>(
-                st, mn, ln, un, vn,
-                frame_noise((uint32_t)xn, py, sc.frame * N_JX),
-                frame_noise((uint32_t)xn, py, sc.frame * N_JY), ch);
-          }
-        }
-      } else if (covered) {
-        level_fetch<ROLE == K5_JITTER>(st, m, lod, u, v, jx, jy, ch);
-      }
+      if (covered && !dropped)
+        level_fetch<ROLE == K5_JITTER>(
+            st, m, lod, u, v, frame_noise((uint32_t)x, py, sc.frame * N_JX),
+            frame_noise((uint32_t)x, py, sc.frame * N_JY), ch);
     }
-    reinterpret_cast<float2*>(uv_out)[i] = make_float2(u, v);
-    if (sc.keep && !sc.keep[i >> 7]) {
+    if (dropped) {
 #pragma unroll
       for (int k = 0; k < NCH; ++k) ch[k] = 0.0f;
     }
-  }
-  if (ROLE == K5_CHECKER) {
-    // the other parity: the mean of the two neighbours' fetches, x - 1
-    // and x + 1 (lane 0's and the last lane's from their own halo fetch;
-    // the row's ends clamped to the one neighbour)
-#pragma unroll
-    for (int k = 0; k < NCH; ++k) {
-      const float up = __shfl_up_sync(0xffffffffu, ch[k], 1);
-      const float dn = __shfl_down_sync(0xffffffffu, ch[k], 1);
-      if (!fetcher) {
-        float l = lane > 0 ? up : ch[k];
-        float r = lane < tw - 1 ? dn : ch[k];
-        if (x == 0) l = r;
-        if (x == width - 1) r = l;
-        ch[k] = 0.5f * (l + r);
-      }
-    }
-  }
-  if (lane < tw) {
-    sg.mask[lane] = covered ? 1 : 0;
-    const Out o = {reinterpret_cast<float4*>(base_out) + i,
-                   reinterpret_cast<float4*>(mrao_out) + i,
-                   reinterpret_cast<float2*>(nrm_out) + i, sg.emis + 3 * lane,
-                   sg.wpos + 3 * lane, sg.extras + 3 * lane, sg.n3 + 3 * lane};
-    if (covered) {
-      shade_pixel(ch, depth, interp, ivp, mat, params, n_params, i, plane, x,
-                  y, width, height, o);
-    } else {
-      *o.base = *o.mrao = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      *o.nrm = make_float2(0.0f, 0.0f);
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        o.emis[k] = o.wpos[k] = o.extras[k] = o.n3[k] = 0.0f;
-    }
+    reinterpret_cast<float2*>(uv_out)[i] = make_float2(u, v);
+    pixel_planes(covered, ch, depth, interp, ivp, mat, params, n_params, i,
+                 plane, x, y, width, height, base_out, nrm_out, mrao_out, sg,
+                 lane);
   }
   __syncwarp();
-  flush_floats(emis_out + 3 * row0, sg.emis, 3 * tw, lane);
-  flush_floats(wpos_out + 3 * row0, sg.wpos, 3 * tw, lane);
-  flush_floats(extras_out + 3 * row0, sg.extras, 3 * tw, lane);
-  if (n3_out) flush_floats(n3_out + 3 * row0, sg.n3, 3 * tw, lane);
-  flush_bytes(mask_out + row0, sg.mask, tw, lane);
+  flush_row(sg, row0, tw, lane, emis_out, wpos_out, extras_out, n3_out,
+            mask_out);
 }
 
-// K6's stochastic roles (R_DITHER, with R_JITTER the one texel): the
-// dithered mip with the anisotropic step clamped to half an amask cell's
-// uv, as the twin's masked_alpha_plain
+// The checkerboard role (R_DITHER | R_JITTER | R_CHECKER, an even width):
+// in each horizontal pair of a row the pixel of the fetching parity (x & 1
+// == q = (row0 + y + parity) & 1) fetches one jittered texel of its
+// dithered mip where it or a horizontal neighbour is covered; a covered
+// pixel of the other parity takes the mean of its two neighbours' texels,
+// edge-clamped at the row's ends.
+//
+// A warp shades a span of K5C_PAIRS x-pairs of a row (62 pixels, x0 even)
+// and first fetches the 32 texels those need, one a lane: lane l the
+// pixel x0 + 2 l - q, i.e. the span's own 31 and the one beyond its end
+// (q = 0: x0 + 62) or before its start (q = 1: x0 - 1), which the
+// neighbouring span's warp fetches as well. So every lane fetches, in one
+// round (a warp whose fetching and filling lanes alternate fetches with
+// half its lanes). The texels and the fetching pixels' moved uv go to
+// shared memory; then the warp shades the span's pixels in two rounds of
+// 32, as k5_resolve_kernel shades its row, a filling pixel computing only
+// its moved uv: the pair l's fetching pixel takes lane l + q's texel, its
+// filling pixel the mean of lanes l and l + 1. Four blocks an SM (64
+// registers, no spills) ran it 9% faster than three (80 registers); five
+// and six spill and ran 13% and 36% slower than four. With
+// one texel a fetching pixel, the shading and the planes bound it: the
+// same layer with every covered pixel fetching its texel takes as long
+// (PERF.md).
+#define K5C_PAIRS 31
+#define K5C_SPAN (2 * K5C_PAIRS)
+
+struct Fetched {
+  float ch[NCH][32];
+  float u[32], v[32];
+};
+
+__global__ void __launch_bounds__(RS_THREADS, 4)
+k5_checker_kernel(const int* __restrict__ tri, const float* __restrict__ depth,
+                  const float* __restrict__ interp,
+                  const float* __restrict__ ivp, Stack st,
+                  const int* __restrict__ meta, int n_meta,
+                  const float* __restrict__ params, int n_params,
+                  float* __restrict__ base_out, float* __restrict__ nrm_out,
+                  float* __restrict__ mrao_out, float* __restrict__ emis_out,
+                  uint8_t* __restrict__ mask_out,
+                  float* __restrict__ wpos_out, float* __restrict__ uv_out,
+                  float* __restrict__ extras_out, float* __restrict__ n3_out,
+                  int width, int height, Stoch sc) {
+  __shared__ __align__(16) Stage stage[K5_TH];
+  __shared__ Fetched fetched[K5_TH];
+  const int lane = threadIdx.x & 31, row = threadIdx.x >> 5;
+  const int y = blockIdx.y * K5_TH + row;
+  if (y >= height) return;  // the whole warp
+  const int x0 = blockIdx.x * K5C_SPAN;
+  const size_t plane = (size_t)width * height;
+  const size_t rowpx = (size_t)y * width;
+  const uint32_t py = (uint32_t)(sc.row0 + y);
+  const int q = (sc.row0 + y + sc.parity) & 1;
+  Fetched& f = fetched[row];
+  {
+    const int xf = x0 + 2 * lane - q;
+    float ch[NCH];
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) ch[k] = 0.0f;
+    float u = 0.0f, v = 0.0f;
+    if (xf >= 0 && xf < width) {
+      const size_t i = rowpx + xf;
+      u = interp[CH_U * plane + i];
+      v = interp[CH_V * plane + i];
+      if (tri[i] >= 0 || (xf > 0 && tri[i - 1] >= 0) ||
+          (xf + 1 < width && tri[i + 1] >= 0)) {
+        const int* m = meta + (size_t)META_COLS *
+                                  clampi((int)interp[CH_MAT * plane + i], 0,
+                                         n_meta - 1);
+        const float lod = stochastic_lod(interp, i, plane, m[1],
+                                         (uint32_t)xf, py, sc, N_LOD, 0.0f,
+                                         u, v);
+        level_fetch<true>(st, m, lod, u, v,
+                          frame_noise((uint32_t)xf, py, sc.frame * N_JX),
+                          frame_noise((uint32_t)xf, py, sc.frame * N_JY), ch);
+      } else {
+        moved_uv(interp, i, plane, (uint32_t)xf, py, sc, u, v);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NCH; ++k) f.ch[k][lane] = ch[k];
+    f.u[lane] = u;
+    f.v[lane] = v;
+  }
+  __syncwarp();
+  Stage& sg = stage[row];
+  const int span = min(K5C_SPAN, width - x0);
+  for (int r0 = 0; r0 < span; r0 += 32) {
+    const int tw = min(32, span - r0);
+    const int p = r0 + lane, x = x0 + p, l = p >> 1;
+    const size_t i = rowpx + x;
+    if (lane < tw) {
+      const bool covered = tri[i] >= 0;
+      const int mat = (int)interp[CH_MAT * plane + i];
+      float u, v, ch[NCH];
+      if ((p & 1) == q) {
+        u = f.u[l + q];
+        v = f.v[l + q];
+        if (covered) {
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) ch[k] = f.ch[k][l + q];
+        }
+      } else {
+        u = interp[CH_U * plane + i];
+        v = interp[CH_V * plane + i];
+        moved_uv(interp, i, plane, (uint32_t)x, py, sc, u, v);
+        if (covered) {
+#pragma unroll
+          for (int k = 0; k < NCH; ++k) {
+            float a = f.ch[k][l], b = f.ch[k][l + 1];
+            if (x == 0) a = b;
+            if (x == width - 1) b = a;
+            ch[k] = 0.5f * (a + b);
+          }
+        }
+      }
+      reinterpret_cast<float2*>(uv_out)[i] = make_float2(u, v);
+      pixel_planes(covered, ch, depth, interp, ivp, mat, params, n_params, i,
+                   plane, x, y, width, height, base_out, nrm_out, mrao_out,
+                   sg, lane);
+    }
+    __syncwarp();
+    flush_row(sg, rowpx + x0 + r0, tw, lane, emis_out, wpos_out, extras_out,
+              n3_out, mask_out);
+    __syncwarp();
+  }
+}
+
+// K6's alpha test of pixel i, whole-frame (px, py), as the twin's
+// masked_alpha_plain: the material's mip (the stochastic roles' dithered
+// one, its anisotropic step clamped to half an amask cell's uv) capped at
+// half an amask cell, one bilinear level of the u8 alpha mirror or its one
+// jittered texel, alpha = mat_params[6] x a_tex (a_tex 1.0 in a dropped
+// chunk), and the pass threshold: alphaCutoff, or for BLEND the
+// screen-door hash of the pixel seeded by the frame index (0 on the exact
+// path), at least 1e-3
+template <bool STOCH>
+__device__ __forceinline__ void k6_alpha(
+    const float* __restrict__ interp, size_t i, size_t plane,
+    const int* __restrict__ meta, int n_meta,
+    const float* __restrict__ params, int n_params,
+    const uint32_t* __restrict__ amirror, int n_alpha, uint32_t px,
+    uint32_t py, const Stoch& sc, bool jitter, bool dropped, float& alpha,
+    float& thresh) {
+  const int mat = (int)interp[CH_MAT * plane + i];
+  float a_tex = 1.0f;
+  if (!dropped) {
+    const int* m = meta + (size_t)META_COLS * clampi(mat, 0, n_meta - 1);
+    const int size = m[1], levels = m[2], mode = m[3], abase = m[5];
+    float u = interp[CH_U * plane + i];
+    float v = interp[CH_V * plane + i];
+    float lod;
+    if (STOCH)
+      lod = stochastic_lod(interp, i, plane, size, px, py, sc, N_ALPHA_LOD,
+                           0.5f / AMASK_CELLS, u, v);
+    else
+      lod = interp_lod(interp, i, plane, size);
+    // no coarser than half an amask cell (the in-race reject bound)
+    lod = tmin(lod, log2f(clamp_lo(
+                        (float)size * (1.0f / (2.0f * AMASK_CELLS)), 1.0f)));
+    // sample_stack_alpha: one bilinear level of the u8 mirror, or its one
+    // jittered texel
+    lod = tmin(clamp_lo(lod, 0.0f), (float)(levels - 1));
+    const int l0 = (int)floorf(lod);
+    const int b0 = abase + level_offset_texels(size, l0);
+    const int s0 = max(size >> l0, 1);
+    const float sf = (float)s0;
+    if (STOCH && jitter) {
+      const float jx = frame_noise(px, py, sc.frame * N_JX);
+      const float jy = frame_noise(px, py, sc.frame * N_JY);
+      const int xa = address((int)floorf(u * sf - 0.5f + jx), s0, mode);
+      const int ya = address((int)floorf(v * sf - 0.5f + jy), s0, mode);
+      const int idx = b0 + ya * s0 + xa;
+      a_tex = u8f(__ldg(amirror + (size_t)ALPHA_WORDS *
+                            clampi(idx >> 4, 0, n_alpha - 1) +
+                        ((idx >> 2) & 3)),
+                  (idx & 3) * 8);
+    } else {
+      const float fx = u * sf - 0.5f;
+      const float fy = v * sf - 0.5f;
+      const int x0 = (int)floorf(fx);
+      const int y0 = (int)floorf(fy);
+      const float tx = fx - (float)x0;
+      const float ty = fy - (float)y0;
+      int xs[2], ys[2];
+      address_pair(x0, s0, mode, xs[0], xs[1]);
+      address_pair(y0, s0, mode, ys[0], ys[1]);
+      float a[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int idx = b0 + ys[k >> 1] * s0 + xs[k & 1];
+        const uint32_t w = __ldg(amirror + (size_t)ALPHA_WORDS *
+                                     clampi(idx >> 4, 0, n_alpha - 1) +
+                                 ((idx >> 2) & 3));
+        a[k] = u8f(w, (idx & 3) * 8);
+      }
+      const float top = a[0] * (1.0f - tx) + a[1] * tx;
+      const float bot = a[2] * (1.0f - tx) + a[3] * tx;
+      a_tex = top * (1.0f - ty) + bot * ty;
+    }
+  }
+  const float* fac =
+      params + (size_t)PARAM_COLS * clampi(mat, 0, n_params - 1);
+  alpha = fac[6] * a_tex;
+  const float noise = frame_noise(px, py, sc.frame * N_BLEND);
+  thresh = fac[12] >= 2.0f ? tmax(noise, (float)1e-3) : fac[11];
+}
+
+// K6 alone (masked_alpha): one thread per pixel of the layer, hit or not,
+// as the twin's contract asks; the frame's peels take k6_peel_kernel
 template <bool STOCH>
 __global__ void __launch_bounds__(RS_THREADS)
 k6_masked_alpha_kernel(const float* __restrict__ interp,
@@ -774,72 +972,240 @@ k6_masked_alpha_kernel(const float* __restrict__ interp,
                        Stoch sc, bool jitter) {
   const int i = blockIdx.x * RS_THREADS + threadIdx.x;
   if (i >= width * height) return;
-  const size_t plane = (size_t)width * height;
-  const uint32_t px = (uint32_t)(i % width);
-  const uint32_t py = (uint32_t)(sc.row0 + i / width);
-  const int mat = (int)interp[CH_MAT * plane + i];
-  const int* m = meta + (size_t)META_COLS * clampi(mat, 0, n_meta - 1);
-  const int size = m[1], levels = m[2], mode = m[3], abase = m[5];
-  float u = interp[CH_U * plane + i];
-  float v = interp[CH_V * plane + i];
-  float lod;
-  if (STOCH)
-    lod = stochastic_lod(interp, i, plane, size, px, py, sc, N_ALPHA_LOD,
-                         0.5f / AMASK_CELLS, u, v);
-  else
-    lod = interp_lod(interp, i, plane, size);
-  // no coarser than half an amask cell (the in-race reject bound)
-  lod = tmin(lod, log2f(clamp_lo((float)size * (1.0f / (2.0f * AMASK_CELLS)),
-                                 1.0f)));
-  // sample_stack_alpha: one bilinear level of the u8 mirror, or its one
-  // jittered texel
-  lod = tmin(clamp_lo(lod, 0.0f), (float)(levels - 1));
-  const int l0 = (int)floorf(lod);
-  const int b0 = abase + level_offset_texels(size, l0);
-  const int s0 = max(size >> l0, 1);
-  const float sf = (float)s0;
-  float a_tex;
-  if (STOCH && jitter) {
-    const float jx = frame_noise(px, py, sc.frame * N_JX);
-    const float jy = frame_noise(px, py, sc.frame * N_JY);
-    const int xa = address((int)floorf(u * sf - 0.5f + jx), s0, mode);
-    const int ya = address((int)floorf(v * sf - 0.5f + jy), s0, mode);
-    const int idx = b0 + ya * s0 + xa;
-    a_tex = u8f(__ldg(amirror + (size_t)ALPHA_WORDS *
-                          clampi(idx >> 4, 0, n_alpha - 1) +
-                      ((idx >> 2) & 3)),
-                (idx & 3) * 8);
-  } else {
-    const float fx = u * sf - 0.5f;
-    const float fy = v * sf - 0.5f;
-    const int x0 = (int)floorf(fx);
-    const int y0 = (int)floorf(fy);
-    const float tx = fx - (float)x0;
-    const float ty = fy - (float)y0;
-    const int xs[2] = {address(x0, s0, mode), address(x0 + 1, s0, mode)};
-    const int ys[2] = {address(y0, s0, mode), address(y0 + 1, s0, mode)};
-    float a[4];
+  float alpha, thresh;
+  k6_alpha<STOCH>(interp, i, (size_t)width * height, meta, n_meta, params,
+                  n_params, amirror, n_alpha, (uint32_t)(i % width),
+                  (uint32_t)(sc.row0 + i / width), sc, jitter,
+                  sc.keep && !sc.keep[i >> 7], alpha, thresh);
+  alpha_out[i] = alpha;
+  thresh_out[i] = thresh;
+}
+
+// K6 as one masked peel's step (masked_peel): the chunk rank, the alpha
+// test and the accumulate of renderer/frame.py's peel loop in one launch.
+//
+// A warp takes a 128-pixel chunk of the flat image (kernels/resolve.py
+// CHUNK_PX), a lane its pixels lane + 32 k, k < 4 (each load of the warp
+// 128 contiguous bytes), a block K6_WARPS chunks. Its chunks' "any hit" is
+// a warp vote; under a chunk capacity, a block takes its chunks by an
+// atomic ticket and their rank among the chunks with a hit by a decoupled
+// look-back over the blocks of earlier tickets (as K10's over rows,
+// csrc/bin.cu): the ticket, not blockIdx, orders the blocks, so a block
+// waits only on blocks already running. A chunk ranked at or past the
+// capacity reads alpha 1.0 (the twin's chunk_keep). A miss pixel reads its
+// triangle and writes its z_limit (0); a hit pixel reads its 7 interp
+// channels and its accumulated triangle and takes the alpha test; a pixel
+// whose fragment passes where none has yet copies the peel's triangle,
+// depth and 16 channels into the accumulators, and one that fails there
+// continues: its z_limit is its depth. The blocks sum the continuing
+// pixels and the chunks with a hit; the last block to finish (a
+// __threadfence and an atomic count) writes the peel's overflow (the
+// continuing pixels) and the chunk overflow (max(hit chunks - capacity,
+// 0), folded into the frame's running max), and zeroes the state words,
+// so that the next launch starts from zero with no memset and no host
+// synchronisation. The words lead the wrapper's scratch, per (device,
+// stream): the ticket, the finished blocks, the two sums, then a
+// look-back word a block.
+//
+// What bounds it: bytes. Every pixel's triangle in and z_limit out (8 B);
+// a hit pixel's 7 channels and accumulated triangle (32 B); a newly
+// passing one's depth and 16 channels in, its accumulators out (136 B):
+// about 0.006-0.012 ms a peel at the atrium's coverage (chip_smoke.py
+// counts each launch's). Its floating point work, ~50 operations a hit
+// pixel, is far below that.
+#define K6_WARPS 8
+#define K6_THREADS (K6_WARPS * 32)
+#define K6_CHUNK 128
+#define K6_PX (K6_CHUNK / 32)  // pixels a lane
+#define K6_INTERP 16           // interp channels (kernels/raster.py)
+#define K6_TICKET 0
+#define K6_DONE 1
+#define K6_CONT 2
+#define K6_ACTIVE 3
+#define K6_LOOKBACK 4
+#define K6_LOOKBACK_SPAN 4     // blocks a lane, a round
+// a look-back word: its flag in the high half, a count in the low
+#define LB_AGGREGATE 1ull
+#define LB_PREFIX 2ull
+#define FULL_MASK 0xffffffffu
+
+__device__ __forceinline__ int warp_incl_scan(int v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int idx = b0 + ys[k >> 1] * s0 + xs[k & 1];
-      const uint32_t w = __ldg(amirror + (size_t)ALPHA_WORDS *
-                                   clampi(idx >> 4, 0, n_alpha - 1) +
-                               ((idx >> 2) & 3));
-      a[k] = u8f(w, (idx & 3) * 8);
-    }
-    const float top = a[0] * (1.0f - tx) + a[1] * tx;
-    const float bot = a[2] * (1.0f - tx) + a[3] * tx;
-    a_tex = top * (1.0f - ty) + bot * ty;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(FULL_MASK, v, d);
+    if (lane >= d) v += o;
   }
-  // a dropped chunk reads alpha 1.0 (the fragment passes)
-  if (sc.keep && !sc.keep[i >> 7]) a_tex = 1.0f;
-  const float* fac =
-      params + (size_t)PARAM_COLS * clampi(mat, 0, n_params - 1);
-  alpha_out[i] = fac[6] * a_tex;
-  // the BLEND screen door: the hash of the whole-frame pixel, seeded by
-  // the frame index (0 on the exact path)
-  const float noise = frame_noise(px, py, sc.frame * N_BLEND);
-  thresh_out[i] = fac[12] >= 2.0f ? tmax(noise, (float)1e-3) : fac[11];
+  return v;
+}
+
+// Warp 0 of the block of ticket r: the chunks with a hit in the blocks of
+// earlier tickets (agg: this block's). Publishes the block's count at once
+// and its inclusive prefix when known; a block with no hit chunk needs no
+// prefix and does not wait (the blocks after it add its 0 on their way
+// back; block 0 always publishes a prefix). Each lane reads
+// K6_LOOKBACK_SPAN blocks a round, nearest first.
+__device__ int k6_look_back(volatile unsigned long long* words, int r,
+                            int agg) {
+  const int lane = threadIdx.x & 31;
+  if (r == 0) {
+    if (lane == 0) words[0] = (LB_PREFIX << 32) | (unsigned)agg;
+    return 0;
+  }
+  if (lane == 0) words[r] = (LB_AGGREGATE << 32) | (unsigned)agg;
+  if (agg == 0) return 0;
+  int before = 0;
+  for (int j = r - 1;;) {
+    unsigned long long w[K6_LOOKBACK_SPAN];
+    int first = K6_LOOKBACK_SPAN;  // the lane's nearest prefix
+#pragma unroll
+    for (int u = 0; u < K6_LOOKBACK_SPAN; ++u) {
+      const int at = j - K6_LOOKBACK_SPAN * lane - u;
+      w[u] = at >= 0 ? words[at] : (LB_PREFIX << 32);
+    }
+#pragma unroll
+    for (int u = K6_LOOKBACK_SPAN - 1; u >= 0; --u)
+      if ((w[u] >> 32) == LB_PREFIX) first = u;
+    const unsigned prefixes =
+        __ballot_sync(FULL_MASK, first < K6_LOOKBACK_SPAN);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 32;
+    const int stop_u = __shfl_sync(FULL_MASK, first, stop & 31);
+    const int lim = lane < stop ? K6_LOOKBACK_SPAN
+                                : lane == stop ? stop_u + 1 : 0;
+    int v = 0;
+    bool unready = false;
+#pragma unroll
+    for (int u = 0; u < K6_LOOKBACK_SPAN; ++u)
+      if (u < lim) {
+        unready |= (w[u] >> 32) == 0;
+        v += (int)(unsigned)w[u];
+      }
+    // a block before has not published: spin
+    if (__ballot_sync(FULL_MASK, unready)) continue;
+    before += __shfl_sync(FULL_MASK, warp_incl_scan(v), 31);
+    if (prefixes) break;
+    j -= K6_LOOKBACK_SPAN * 32;
+  }
+  if (lane == 0) words[r] = (LB_PREFIX << 32) | (unsigned)(before + agg);
+  return before;
+}
+
+template <bool STOCH>
+__global__ void __launch_bounds__(K6_THREADS)
+k6_peel_kernel(const int* __restrict__ m_tri,
+               const float* __restrict__ m_depth,
+               const float* __restrict__ m_interp,
+               const int* __restrict__ meta, int n_meta,
+               const float* __restrict__ params, int n_params,
+               const uint32_t* __restrict__ amirror, int n_alpha,
+               int* __restrict__ acc_tri, float* __restrict__ acc_depth,
+               float* __restrict__ acc_interp, float* __restrict__ z_limit,
+               long long* __restrict__ chunk_over,
+               long long* __restrict__ overflow,
+               unsigned long long* __restrict__ state, int width, int height,
+               Stoch sc, bool jitter, int cap) {
+  __shared__ int blk, conts, rank[K6_WARPS];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = width * height;
+  if (threadIdx.x == 0) {
+    int r = blockIdx.x;
+    if (cap >= 0) {
+      r = (int)atomicAdd(&state[K6_TICKET], 1ull);
+      // the last ticket: every block has taken its own
+      if (r == (int)gridDim.x - 1) atomicExch(&state[K6_TICKET], 0ull);
+    }
+    blk = r;
+    conts = 0;
+  }
+  __syncthreads();
+  const int i0 = (blk * K6_WARPS + warp) * K6_CHUNK;
+  int tri[K6_PX];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < K6_PX; ++k) {
+    const int i = i0 + lane + 32 * k;
+    tri[k] = i < n ? m_tri[i] : -1;
+    any |= tri[k] >= 0;
+  }
+  bool dropped = false;
+  if (cap >= 0) {
+    const bool hit_chunk = __any_sync(FULL_MASK, any);
+    if (lane == 0) rank[warp] = hit_chunk;
+    __syncthreads();
+    if (warp == 0) {
+      const int a = lane < K6_WARPS ? rank[lane] : 0;
+      const int incl = warp_incl_scan(a);
+      const int agg = __shfl_sync(FULL_MASK, incl, 31);
+      const int before = k6_look_back(state + K6_LOOKBACK, blk, agg);
+      if (lane < K6_WARPS) rank[lane] = before + incl - a;
+      if (lane == 0 && agg)
+        atomicAdd(&state[K6_ACTIVE], (unsigned long long)agg);
+    }
+    __syncthreads();
+    dropped = rank[warp] >= cap;
+  }
+  // the chunk's first pixel in the whole frame (the rows of a band start
+  // at row0)
+  const int cy = i0 / width, cx = i0 - cy * width;
+  int cont = 0;
+#pragma unroll
+  for (int k = 0; k < K6_PX; ++k) {
+    const int i = i0 + lane + 32 * k;
+    if (i >= n) break;
+    float zl = 0.0f;
+    if (tri[k] >= 0) {
+      int x = cx + lane + 32 * k, y = cy;
+      if (x >= width) {
+        const int wraps = x / width;
+        y += wraps;
+        x -= wraps * width;
+      }
+      const int prev = acc_tri[i];
+      float alpha, thresh;
+      k6_alpha<STOCH>(m_interp, i, n, meta, n_meta, params, n_params,
+                      amirror, n_alpha, (uint32_t)x, (uint32_t)(sc.row0 + y),
+                      sc, jitter, dropped, alpha, thresh);
+      if (prev < 0) {
+        const float d = m_depth[i];
+        if (alpha >= thresh) {
+          acc_tri[i] = tri[k];
+          acc_depth[i] = d;
+#pragma unroll
+          for (int c = 0; c < K6_INTERP; ++c)
+            acc_interp[(size_t)c * n + i] = m_interp[(size_t)c * n + i];
+        } else {
+          zl = d;
+          ++cont;
+        }
+      }
+    }
+    z_limit[i] = zl;
+  }
+  cont = __reduce_add_sync(FULL_MASK, cont);
+  if (lane == 0 && cont) atomicAdd(&conts, cont);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (conts) atomicAdd(&state[K6_CONT], (unsigned long long)conts);
+    __threadfence();
+    last = atomicAdd(&state[K6_DONE], 1ull) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: the peel's counts, and the state zero again
+  __threadfence();
+  if (threadIdx.x == 0) {
+    *overflow = (long long)atomicExch(&state[K6_CONT], 0ull);
+    if (cap >= 0) {
+      const long long act = (long long)atomicExch(&state[K6_ACTIVE], 0ull);
+      const long long over = act > cap ? act - cap : 0;
+      if (over > *chunk_over) *chunk_over = over;
+    }
+    atomicExch(&state[K6_DONE], 0ull);
+  }
+  if (cap >= 0)
+    for (int b = threadIdx.x; b < (int)gridDim.x; b += K6_THREADS)
+      state[K6_LOOKBACK + b] = 0ull;
 }
 
 // role: kernels/resolve.py's R_* flags (0: exact); frame, max_aniso,
@@ -872,16 +1238,23 @@ extern "C" int k5_resolve(const int* tri, const float* depth,
   const Stoch sc = {(uint32_t)frame, max_aniso, 1.0f / max_aniso, parity & 1,
                     row0, keep};
   const dim3 grid((width + K5_TW - 1) / K5_TW, (height + K5_TH - 1) / K5_TH);
-#define K5_LAUNCH(R)                                                       \
-  k5_resolve_kernel<R><<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(     \
-      tri, depth, interp, inv_view_proj, st, meta, n_meta, params, n_params, \
-      base_color, normals, mrao, emissive, mask, world_pos, uv, extras, n3,  \
-      width, height, sc)
-  if (checker) K5_LAUNCH(K5_CHECKER);
-  else if (jitter) K5_LAUNCH(K5_JITTER);
-  else if (dither) K5_LAUNCH(K5_DITHER);
-  else K5_LAUNCH(K5_EXACT);
-#undef K5_LAUNCH
+#define K5_ARGS                                                            \
+  tri, depth, interp, inv_view_proj, st, meta, n_meta, params, n_params,   \
+      base_color, normals, mrao, emissive, mask, world_pos, uv, extras, n3, \
+      width, height, sc
+  if (checker)
+    k5_checker_kernel<<<dim3((width + K5C_SPAN - 1) / K5C_SPAN, grid.y),
+                        RS_THREADS, 0, (cudaStream_t)stream>>>(K5_ARGS);
+  else if (jitter)
+    k5_resolve_kernel<K5_JITTER>
+        <<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(K5_ARGS);
+  else if (dither)
+    k5_resolve_kernel<K5_DITHER>
+        <<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(K5_ARGS);
+  else
+    k5_resolve_kernel<K5_EXACT>
+        <<<grid, RS_THREADS, 0, (cudaStream_t)stream>>>(K5_ARGS);
+#undef K5_ARGS
   return (int)cudaGetLastError();
 }
 
@@ -911,5 +1284,48 @@ extern "C" int k6_masked_alpha(const float* interp, const int* meta,
                                     (cudaStream_t)stream>>>(
         interp, meta, n_meta, params, n_params, amirror, n_alpha, alpha,
         thresh, width, height, sc, false);
+  return (int)cudaGetLastError();
+}
+
+// One masked peel's step (k6_peel_kernel): the peel's m_tri, m_depth and
+// m_interp, the material tables, the accumulators acc_tri, acc_depth,
+// acc_interp and z_limit (updated in place), the frame's running chunk
+// overflow and this peel's overflow (int64 scalars), the scratch (state,
+// state_words int64 words, zero), the size and row0, the role (as
+// k6_masked_alpha's), the frame index, max_aniso and the chunk capacity
+// (-1: none; it needs whole 128-pixel chunks)
+extern "C" int k6_masked_peel(const int* m_tri, const float* m_depth,
+                              const float* m_interp, const int* meta,
+                              int n_meta, const float* params, int n_params,
+                              const uint32_t* amirror, int n_alpha,
+                              int* acc_tri, float* acc_depth,
+                              float* acc_interp, float* z_limit,
+                              long long* chunk_over, long long* overflow,
+                              unsigned long long* state, int state_words,
+                              int width, int height, int row0, int role,
+                              int frame, float max_aniso, int capacity,
+                              void* stream) {
+  const long long n = (long long)width * height;
+  const int blocks = (int)((n + K6_WARPS * K6_CHUNK - 1) /
+                           (K6_WARPS * K6_CHUNK));
+  if (n_meta < 1 || n_params < 1 || n_alpha < 1 || row0 < 0 || (role & ~3) ||
+      role == 2 || n < 1 || n > (1LL << 30) ||
+      (capacity >= 0 && n % K6_CHUNK) ||
+      state_words < K6_LOOKBACK + (capacity >= 0 ? blocks : 0))
+    return (int)cudaErrorInvalidValue;
+  const Stoch sc = {(uint32_t)frame, max_aniso, 1.0f / max_aniso, 0, row0,
+                    nullptr};
+  const int cap = capacity < 0 ? -1 : capacity;
+#define K6_PEEL_ARGS                                                       \
+  m_tri, m_depth, m_interp, meta, n_meta, params, n_params, amirror,       \
+      n_alpha, acc_tri, acc_depth, acc_interp, z_limit, chunk_over,        \
+      overflow, state, width, height, sc
+  if (role & 1)
+    k6_peel_kernel<true><<<blocks, K6_THREADS, 0, (cudaStream_t)stream>>>(
+        K6_PEEL_ARGS, role & 2, cap);
+  else
+    k6_peel_kernel<false><<<blocks, K6_THREADS, 0, (cudaStream_t)stream>>>(
+        K6_PEEL_ARGS, false, cap);
+#undef K6_PEEL_ARGS
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,11 @@ frame_noise, hashed from the pixel's whole-frame position (row0: a band's
 first row).
 
 resolve_gbuffer is K5 and masked_alpha K6 (csrc/resolve.cu) on CUDA
-tensors; on CPU tensors each runs its plain twin (resolve_gbuffer_plain,
-masked_alpha_plain), the torch code the kernels were written from.
+tensors, and masked_peel, one masked depth peel's whole step (the alpha
+test, its chunk capacity and the accumulate), K6's peel step; on CPU
+tensors each runs its plain twin (resolve_gbuffer_plain,
+masked_alpha_plain, masked_peel_plain), the torch code the kernels were
+written from.
 """
 
 from __future__ import annotations
@@ -42,10 +45,18 @@ K5 = Kernel("resolve", "k5_resolve",
             + [_I, _I, _I, _I, _F, _I, _I, _P])
 # interp, meta, n_meta, mat_params, n_params, alpha mirror, n_alpha,
 # alpha out, thresh out, width, height, row0, role, frame index, max
-# anisotropy, chunk keep flags (NULL: every chunk)
+# anisotropy, chunk keep flags (NULL: every chunk). Its variant
+# k6_masked_peel, one masked peel's step: m_tri, m_depth, m_interp, meta,
+# n_meta, mat_params, n_params, alpha mirror, n_alpha, the accumulators
+# tri, depth, interp and z_limit, the chunk overflow and the overflow
+# (int64 scalars), the scratch and its words, width, height, row0, role,
+# frame index, max anisotropy, chunk capacity (-1: none)
 K6 = Kernel("resolve", "k6_masked_alpha",
             [_P, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _F,
-             _P])
+             _P],
+            variants={"k6_masked_peel": [_P, _P, _P, _P, _I, _P, _I, _P, _I,
+                                         _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _I, _I, _F, _I]})
 # roles (csrc/resolve.cu): the dithered single mip, one jittered texel of
 # it, the checkerboard half-rate fetch (K5, with R_JITTER)
 R_DITHER, R_JITTER, R_CHECKER = 1, 2, 4
@@ -290,6 +301,147 @@ def masked_alpha_plain(scene, tri, interp, row0: int = 0, mip_dither=None,
     thresh = torch.where(fac[..., 12] >= 2.0,
                          torch.clamp(blend_noise, min=1e-3), fac[..., 11])
     return alpha, thresh
+
+
+@dataclasses.dataclass
+class PeelState:
+    """The masked depth peels' accumulators (renderer/frame.py): the first
+    fragment whose alpha test passed, per pixel, and what the next peel
+    needs."""
+    tri: torch.Tensor             # (H, W) i32, -1 where none passed yet
+    depth: torch.Tensor           # (H, W)
+    interp: torch.Tensor          # (16, H, W)
+    z_limit: torch.Tensor         # (H, W): the next peel's depth limit
+    chunk_overflow: torch.Tensor  # () int64: the peels' chunk overflow, a
+    #                               running max
+    overflow: torch.Tensor        # () int64: the pixels the latest peel
+    #                               left to the next (failed, none passed)
+
+
+def peel_state(tri, depth, interp) -> PeelState:
+    """The accumulators before the first peel, shaped as the opaque
+    layer's tri, depth and interp: nothing passed, no depth limit (2.0),
+    the counts 0."""
+    counts = torch.zeros(2, dtype=torch.int64, device=tri.device)
+    return PeelState(tri=torch.full_like(tri, -1),
+                     depth=torch.zeros_like(depth),
+                     interp=torch.zeros_like(interp),
+                     z_limit=torch.full_like(depth, 2.0),
+                     chunk_overflow=counts[0], overflow=counts[1])
+
+
+# K6's peel-step scratch per (device, stream): int64 words the kernel
+# leaves zero (csrc/resolve.cu k6_peel_kernel): the ticket, the finished
+# blocks, the two sums, then a look-back word a block of K6_BLOCK_PX
+# pixels. Created zero, replaced by a larger zero buffer where a launch
+# needs more blocks; the launches of one stream run in order, so they
+# share it.
+_K6_STATE_WORDS = 4
+K6_BLOCK_PX = 8 * CHUNK_PX          # csrc/resolve.cu K6_WARPS chunks
+_K6_SCRATCH: dict = {}
+
+
+def _k6_scratch(dev, pixels: int):
+    """K6's peel-step scratch for a layer of `pixels` pixels."""
+    stream = torch.cuda.current_stream(dev)
+    key = (dev.index, stream.cuda_stream)
+    words = _K6_STATE_WORDS + -(-pixels // K6_BLOCK_PX)
+    buf = _K6_SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(words, dtype=torch.int64, device=dev)
+        _K6_SCRATCH[key] = buf
+    return buf
+
+
+def masked_peel(scene, m_tri, m_depth, m_interp, state: PeelState,
+                row0: int = 0, mip_dither=None, uv_dither: bool = False,
+                max_aniso: float = 16.0, coverage_capacity=None) -> PeelState:
+    """One masked depth peel's step (renderer/frame.py's peel loop,
+    frame.py:255-271 in JAX): the peel's winners (m_tri, m_depth,
+    m_interp) alpha-tested as masked_alpha tests them (row0, mip_dither,
+    uv_dither, max_aniso, coverage_capacity as there); a pixel whose
+    fragment passes where none has passed yet takes the peel's triangle,
+    depth and interp channels; one whose fragment fails there continues:
+    its next z_limit is the fragment's depth, every other pixel's 0. The
+    chunk overflow under coverage_capacity is folded into the running
+    max, and overflow counts the continuing pixels. Updates state in
+    place and returns it: K6's peel step on CUDA tensors, the twin on CPU
+    ones."""
+    if not m_tri.is_cuda:
+        return masked_peel_plain(scene, m_tri, m_depth, m_interp, state,
+                                 row0, mip_dither, uv_dither, max_aniso,
+                                 coverage_capacity)
+    dev = m_tri.device
+    h, w = m_tri.shape
+    _check("m_tri", m_tri, torch.int32, (h, w), dev)
+    _check("m_depth", m_depth, torch.float32, (h, w), dev)
+    _check("m_interp", m_interp, torch.float32, (16, h, w), dev)
+    _check("state.tri", state.tri, torch.int32, (h, w), dev)
+    _check("state.depth", state.depth, torch.float32, (h, w), dev)
+    _check("state.interp", state.interp, torch.float32, (16, h, w), dev)
+    _check("state.z_limit", state.z_limit, torch.float32, (h, w), dev)
+    _check("state.chunk_overflow", state.chunk_overflow, torch.int64, (),
+           dev)
+    _check("state.overflow", state.overflow, torch.int64, (), dev)
+    if row0 < 0:
+        raise ValueError("masked_peel: need row0 >= 0")
+    if coverage_capacity is not None and ((h * w) % CHUNK_PX
+                                          or coverage_capacity < 0):
+        raise ValueError("a chunk capacity must be >= 0 and needs H * W "
+                         "% 128 == 0")
+    _check_tables(scene, dev, alpha=True)
+    st = scene.mat_stack
+    scratch = _k6_scratch(dev, h * w)
+    role = _role(mip_dither, uv_dither)
+    chunks = coverage_capacity is not None
+    K6(ptr(m_tri), ptr(m_depth), ptr(m_interp), ptr(st.meta),
+       st.meta.shape[0], ptr(scene.mat_params), scene.mat_params.shape[0],
+       ptr(st.alpha), st.alpha.shape[0], ptr(state.tri), ptr(state.depth),
+       ptr(state.interp), ptr(state.z_limit), ptr(state.chunk_overflow),
+       ptr(state.overflow), ptr(scratch), scratch.numel(), w, h, int(row0),
+       role, int(mip_dither or 0), float(max_aniso),
+       int(coverage_capacity) if chunks else -1,
+       variant="k6_masked_peel", name="step_" + role_name(role, chunks))
+    return state
+
+
+def masked_peel_plain(scene, m_tri, m_depth, m_interp, state: PeelState,
+                      row0: int = 0, mip_dither=None, uv_dither: bool = False,
+                      max_aniso: float = 16.0,
+                      coverage_capacity=None) -> PeelState:
+    """K6's peel step's twin: peel_plain's new state written into state,
+    as the kernel writes it -> state."""
+    new = peel_plain(scene, m_tri, m_depth, m_interp, state, row0,
+                     mip_dither, uv_dither, max_aniso, coverage_capacity)
+    for f in dataclasses.fields(state):
+        getattr(state, f.name).copy_(getattr(new, f.name))
+    return state
+
+
+def peel_plain(scene, m_tri, m_depth, m_interp, state: PeelState,
+               row0: int = 0, mip_dither=None, uv_dither: bool = False,
+               max_aniso: float = 16.0,
+               coverage_capacity=None) -> PeelState:
+    """The peel loop's torch code (JAX frame.py:255-271), its alpha test
+    through masked_alpha: a new state, the one given left as it was."""
+    alpha, thresh = masked_alpha(
+        scene, m_tri, m_interp, row0, mip_dither=mip_dither,
+        uv_dither=uv_dither, max_aniso=max_aniso,
+        coverage_capacity=coverage_capacity)
+    chunk_over = state.chunk_overflow
+    if coverage_capacity is not None:
+        chunk_over = torch.maximum(
+            chunk_over, chunk_overflow(m_tri >= 0, coverage_capacity))
+    hit = m_tri >= 0
+    passed = hit & (alpha >= thresh)
+    newly = passed & (state.tri < 0)
+    acc_tri = torch.where(newly, m_tri, state.tri)
+    acc_depth = torch.where(newly, m_depth, state.depth)
+    acc_interp = torch.where(newly[None], m_interp, state.interp)
+    cont = hit & ~passed & (acc_tri < 0)
+    return PeelState(tri=acc_tri, depth=acc_depth, interp=acc_interp,
+                     z_limit=torch.where(cont, m_depth, 0.0),
+                     chunk_overflow=chunk_over, overflow=cont.sum())
 
 
 def resolve_gbuffer(tri, depth, scene, interp, inv_view_proj,

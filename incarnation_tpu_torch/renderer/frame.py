@@ -231,43 +231,29 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
         # the race; each peel's winners are alpha-tested exactly, and a
         # failed test exposes the next fragment behind it (strict z_limit).
         amask_tab = scene.mat_stack.amask
-        acc_tri = torch.full_like(tri, -1)
-        acc_depth = torch.zeros_like(depth)
-        acc_interp = torch.zeros_like(interp)
-        zlim = torch.full(depth.shape, 2.0, dtype=torch.float32, device=dev)
-        cont = None
+        peel = resolve.peel_state(tri, depth, interp)
         # the peels' alpha fetches under a falling chunk-capacity ladder
         # (frame.py:232-276), where the capacity is below the chunk count
         cap = config.peel_chunk_capacity
         use_chunks = 0 < cap < n_chunks and whole_chunks
-        chunk_over = zero
         for layer in range(max(1, config.masked_depth_peels)):
             m_tri, m_depth, m_interp = raster.rasterize_tiles(
-                layer_bins[masked_idx], params, z_limit=zlim,
+                layer_bins[masked_idx], params, z_limit=peel.z_limit,
                 mask_table=amask_tab, name="raster_peel")
             lcap = (cap if layer == 0 else (2 * cap) // 3 if layer == 1
                     else max((5 * cap) >> (layer + 2), 512))
-            alpha, thresh = resolve.masked_alpha(
-                scene, m_tri, m_interp, band_row, mip_dither=dither,
-                uv_dither=uv_dither, max_aniso=aniso,
+            # the alpha test, the chunk overflow and the accumulate: one
+            # launch of K6's peel step (its twin on the CPU)
+            peel = resolve.masked_peel(
+                scene, m_tri, m_depth, m_interp, peel, band_row,
+                mip_dither=dither, uv_dither=uv_dither, max_aniso=aniso,
                 coverage_capacity=lcap if use_chunks else None)
-            if use_chunks:
-                chunk_over = torch.maximum(
-                    chunk_over, resolve.chunk_overflow(m_tri >= 0, lcap))
-            hit = m_tri >= 0
-            passed = hit & (alpha >= thresh)
-            newly = passed & (acc_tri < 0)
-            acc_tri = torch.where(newly, m_tri, acc_tri)
-            acc_depth = torch.where(newly, m_depth, acc_depth)
-            acc_interp = torch.where(newly[None], m_interp, acc_interp)
-            cont = hit & ~passed & (acc_tri < 0)
-            zlim = torch.where(cont, m_depth, 0.0)
-        stats["peel_overflow"] = cont.sum()
-        stats["peel_chunk_overflow"] = chunk_over
-        win = (acc_tri >= 0) & (acc_depth > depth)
-        tri = torch.where(win, acc_tri, tri)
-        depth = torch.where(win, acc_depth, depth)
-        interp = torch.where(win[None], acc_interp, interp)
+        stats["peel_overflow"] = peel.overflow
+        stats["peel_chunk_overflow"] = peel.chunk_overflow
+        win = (peel.tri >= 0) & (peel.depth > depth)
+        tri = torch.where(win, peel.tri, tri)
+        depth = torch.where(win, peel.depth, depth)
+        interp = torch.where(win[None], peel.interp, interp)
     stats["culled_primitives"] = culled_prims
     stats["culled_meshlets"] = culled_meshlets
 

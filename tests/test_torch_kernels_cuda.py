@@ -8,6 +8,7 @@ This file imports nothing of JAX, so it runs where only the port is
 installed. chip_smoke.py holds the same kernels to their twins at the
 atrium frame's shapes."""
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -967,6 +968,256 @@ def test_k6_stochastic_roles_match_twin(dev, role, row0):
     assert 0.05 < float((alpha >= thresh).float().mean()) < 0.95
     exact_t = resolve.masked_alpha_plain(scene, tri, interp, row0)[1]
     assert not torch.equal(thresh, exact_t) or "mip_dither" not in kw
+
+
+# K5's checkerboard role at even widths that are not multiples of a warp's
+# span (62 pixels) or of 32 or 64, from 2 up
+CHECKER_WIDTHS = (2, 6, 30, 34, 60, 62, 66, 94, 98, 126, 130)
+
+
+@pytest.mark.parametrize("row0", [0, 37])
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("w", CHECKER_WIDTHS)
+def test_k5_checker_widths_match_twin(dev, w, parity, row0):
+    """K5's checkerboard role against resolve_gbuffer_plain, as
+    test_k5_stochastic_roles_match_twin holds it, at even widths from 2 to
+    130 for either parity, on a random layer and on one whose only
+    covered pixels stand alone at the ends of K5's 62-pixel spans (x = 0,
+    61, 62, 63, 123, 124, 125, w - 1): each filling pixel there takes its
+    neighbours' texels across a span's end, edge-clamped at the row's."""
+    h = 9
+    kw = dict(mip_dither=6 + parity, uv_dither=True, checker_parity=parity,
+              row0=row0)
+    for sparse in (False, True):
+        inp = material_inputs(seed=w + 100 * parity + sparse, h=h, w=w,
+                              wild_mats=True)
+        if sparse:
+            tri = np.full((h, w), -1, np.int32)
+            tri[:, sorted({x % w for x in (0, 61, 62, 63, 123, 124, 125,
+                                           w - 1)})] = 5
+            inp["tri"] = tri
+        scene, tri, depth, interp, ivp = material_scene(inp, dev)
+        before = resolve.K5.by_name.get("jitter_checker", 0)
+        got, g3 = resolve.resolve_gbuffer(tri, depth, scene, interp, ivp, w,
+                                          h, return_normal3=True, **kw)
+        ref, r3 = resolve.resolve_gbuffer_plain(tri, depth, scene, interp,
+                                                ivp, w, h,
+                                                return_normal3=True, **kw)
+        assert resolve.K5.by_name["jitter_checker"] == before + 1
+        assert torch.equal(got.mask, ref.mask) and torch.equal(got.uv,
+                                                                ref.uv)
+        _close_to_twin(g3, r3, "normal3")
+        for f in ("base_color", "normals", "mrao", "emissive", "world_pos",
+                  "extras"):
+            _close_to_twin(getattr(got, f), getattr(ref, f), f)
+            assert not bool(getattr(got, f)[~got.mask].any()), f
+
+
+@pytest.fixture
+def peel_twin(monkeypatch):
+    """masked_peel_plain with its alpha test in torch (masked_alpha_plain),
+    not through K6's masked_alpha role."""
+    monkeypatch.setattr(resolve, "masked_alpha", resolve.masked_alpha_plain)
+    return resolve.masked_peel_plain
+
+
+def peel_inputs(dev, h, w, seed=0, hit_chunks=None, hit=0.6, acc=0.4,
+                chunk_over=3):
+    """One masked peel's step on dev, from a seed: (scene, m_tri, m_depth,
+    m_interp, state). material_inputs' tables and channels; m_tri covers a
+    pixel with probability `hit`, in hit_chunks chunks of 128 pixels
+    chosen at random (every chunk where None); the accumulators hold a
+    triangle on an `acc` share of the pixels, random depths and channels,
+    a running chunk overflow of chunk_over and a stale overflow of 7."""
+    r = np.random.default_rng(seed)
+    inp = material_inputs(seed=seed, h=h, w=w, wild_mats=True)
+    on = r.random((h, w)) < hit
+    if hit_chunks is not None:
+        n = (h * w) // 128
+        pick = np.zeros(n, bool)
+        pick[r.choice(n, hit_chunks, replace=False)] = True
+        on &= np.repeat(pick, 128).reshape(h, w)
+        # each picked chunk holds a hit
+        first = np.flatnonzero(pick) * 128 + r.integers(0, 128, hit_chunks)
+        on.reshape(-1)[first] = True
+    tri = np.where(on, r.integers(0, 1000, (h, w)), -1).astype(np.int32)
+    acc_tri = np.where(r.random((h, w)) < acc, r.integers(0, 1000, (h, w)),
+                       -1).astype(np.int32)
+    scene, _, depth, interp, _ = material_scene(inp, dev)
+    t = lambda x, dt=torch.float32: torch.tensor(x, dtype=dt, device=dev)
+    state = resolve.PeelState(
+        tri=t(acc_tri, torch.int32),
+        depth=t(r.random((h, w))), interp=t(r.random((16, h, w))),
+        z_limit=t(r.random((h, w))),
+        chunk_overflow=t(chunk_over, torch.int64),
+        overflow=t(7, torch.int64))
+    return scene, t(tri, torch.int32), depth, interp, state
+
+
+def _peel_clone(state):
+    return resolve.PeelState(*(getattr(state, f.name).clone()
+                               for f in dataclasses.fields(state)))
+
+
+def _assert_peel(got, ref, what):
+    """Every field of two PeelStates identical."""
+    for f in dataclasses.fields(ref):
+        g, r = getattr(got, f.name), getattr(ref, f.name)
+        assert g.dtype == r.dtype and g.shape == r.shape, (what, f.name)
+        assert torch.equal(g, r), (
+            f"{what}: {f.name} differs on {int((g != r).sum())} elements")
+
+
+def assert_peel_in_place(dev):
+    """masked_peel on dev writes its results into the PeelState it is
+    given and returns that state: each field keeps its storage, a field
+    taken before the call (the z_limit the peel's K1 launch was given)
+    holds the new values, and those equal peel_plain's, the peel loop's
+    torch code, which leaves its own argument as it was. A capacity of 4
+    of 6 chunks with a hit, a running chunk overflow of 0 and a stale
+    overflow of 7: both counts change."""
+    scene, m_tri, m_depth, m_interp, state = peel_inputs(
+        dev, 16, 64, seed=3, hit_chunks=6, chunk_over=0)
+    kw = dict(mip_dither=2, uv_dither=True, coverage_capacity=4)
+    arg, orig = _peel_clone(state), _peel_clone(state)
+    want = resolve.peel_plain(scene, m_tri, m_depth, m_interp, arg, **kw)
+    _assert_peel(arg, orig, "peel_plain's argument")
+    z_limit = state.z_limit
+    ptrs = [getattr(state, f.name).data_ptr()
+            for f in dataclasses.fields(state)]
+    got = resolve.masked_peel(scene, m_tri, m_depth, m_interp, state, **kw)
+    assert got is state
+    assert [getattr(state, f.name).data_ptr()
+            for f in dataclasses.fields(state)] == ptrs
+    _assert_peel(state, want, "the state after the step")
+    assert torch.equal(z_limit, want.z_limit)
+    assert int(state.chunk_overflow) == 2 and int(state.overflow) != 7
+
+
+def test_k6_peel_step_updates_state_in_place(dev):
+    """K6's peel step keeps the contract its twin keeps on the CPU
+    (tests/test_torch_masked_peel.py): assert_peel_in_place on the card."""
+    assert_peel_in_place(dev)
+
+
+def _k6_scratch_zero(dev):
+    """K6's peel-step scratch of the current stream is all zero."""
+    dev = torch.device(dev.type, torch.cuda.current_device())
+    buf = resolve._K6_SCRATCH[(dev.index,
+                               torch.cuda.current_stream(dev).cuda_stream)]
+    return not bool(buf.any())
+
+
+# the frame's peel ladder from Config's peel_chunk_capacity (6144): 6144,
+# 4096, 1920, 960, 512
+LADDER = (6144, 4096, 1920, 960, 512)
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("cap", LADDER)
+def test_k6_peel_step_around_each_capacity(dev, peel_twin, cap, delta):
+    """K6's peel step at 1920x1088 (2,040 blocks of 8 chunks, many more
+    than the card holds at once, ranked by the look-back) against its
+    twin, with the chunks holding a hit one fewer than, as many as and
+    one more than each capacity of the frame's ladder, jittered texels in
+    a band starting at row 37: every accumulator, the z_limit and both
+    counts identical (one more than the capacity: a chunk overflow of 1);
+    the launch counted under its role, the scratch left zero."""
+    h, w = 1088, 1920
+    scene, m_tri, m_depth, m_interp, state = peel_inputs(
+        dev, h, w, seed=cap + delta, hit_chunks=cap + delta, chunk_over=0)
+    kw = dict(row0=37, mip_dither=5, uv_dither=True, coverage_capacity=cap)
+    ref = peel_twin(scene, m_tri, m_depth, m_interp, _peel_clone(state), **kw)
+    before = resolve.K6.by_name.get("step_jitter+chunks", 0)
+    got = resolve.masked_peel(scene, m_tri, m_depth, m_interp, state, **kw)
+    assert got is state
+    assert resolve.K6.by_name["step_jitter+chunks"] == before + 1
+    _assert_peel(got, ref, f"capacity {cap}, {cap + delta} chunks")
+    assert int(got.chunk_overflow) == max(delta, 0)
+    assert _k6_scratch_zero(dev)
+
+
+K6_STEP_ROLES = {"exact": {}, "dither": dict(mip_dither=3),
+                 "jitter": dict(mip_dither=4, uv_dither=True),
+                 "jitter_iso": dict(mip_dither=5, uv_dither=True,
+                                    max_aniso=1.0)}
+
+
+@pytest.mark.parametrize("chunks", [False, True], ids=["", "chunks"])
+@pytest.mark.parametrize("row0", [0, 37])
+@pytest.mark.parametrize("shape", [(37, 53), (1, 1), (64, 200), (33, 128)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("role", sorted(K6_STEP_ROLES))
+def test_k6_peel_step_roles_and_sizes(dev, peel_twin, role, shape, row0,
+                                      chunks):
+    """K6's peel step in every role against its twin at sizes that are and
+    are not whole 128-pixel chunks (37x53 and 1x1: the ragged last chunk,
+    no capacity), with a capacity of 3 chunks where the layer has whole
+    ones (an overflow past the running max of 3), in a band starting at
+    row0; identical state, the scratch zero."""
+    h, w = shape
+    if chunks and (h * w) % resolve.CHUNK_PX:
+        pytest.skip("a chunk capacity needs whole 128-pixel chunks")
+    scene, m_tri, m_depth, m_interp, state = peel_inputs(dev, h, w,
+                                                         seed=h + w)
+    kw = dict(K6_STEP_ROLES[role], row0=row0,
+              coverage_capacity=3 if chunks else None)
+    ref = peel_twin(scene, m_tri, m_depth, m_interp, _peel_clone(state), **kw)
+    got = resolve.masked_peel(scene, m_tri, m_depth, m_interp, state, **kw)
+    _assert_peel(got, ref, f"{role} {w}x{h}")
+    assert _k6_scratch_zero(dev)
+
+
+def test_k6_peel_steps_in_a_row_make_no_host_sync(dev, peel_twin):
+    """Eight peels of the frame's ladder in a row on one state, as the
+    frame runs them (the layers' coverage falling, the state carried),
+    under torch.cuda.set_sync_debug_mode("error"): no launch waits for the
+    host; then a 64x200 layer and a 1920x1088 one again on the same
+    scratch. Each step equals the twin's on the twin's state."""
+    h, w = 1088, 1920
+    layers = [peel_inputs(dev, h, w, seed=40 + k, hit=0.6 / 2 ** k)
+              for k in range(8)]
+    scene, state = layers[0][0], layers[0][4]
+    ref = _peel_clone(state)
+    for k, (_, m_tri, m_depth, m_interp, _) in enumerate(layers):
+        cap = LADDER[min(k, len(LADDER) - 1)]
+        kw = dict(mip_dither=6, uv_dither=True, coverage_capacity=cap)
+        ref = peel_twin(scene, m_tri, m_depth, m_interp, ref, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state = resolve.masked_peel(scene, m_tri, m_depth, m_interp,
+                                        state, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        _assert_peel(state, ref, f"peel {k}")
+    for shape in ((64, 200), (1088, 1920)):
+        scene, m_tri, m_depth, m_interp, st = peel_inputs(dev, *shape,
+                                                          seed=9)
+        kw = dict(coverage_capacity=2)
+        ref = peel_twin(scene, m_tri, m_depth, m_interp, _peel_clone(st),
+                        **kw)
+        _assert_peel(resolve.masked_peel(scene, m_tri, m_depth, m_interp,
+                                         st, **kw), ref, f"{shape}")
+        assert _k6_scratch_zero(dev)
+
+
+def test_k6_peel_step_refuses_and_never_falls_back(dev):
+    """masked_peel raises instead of launching where an input is not what
+    K6 takes (a CPU state, the wrong shape, a capacity on a ragged
+    layer), and counts no launch."""
+    scene, m_tri, m_depth, m_interp, state = peel_inputs(dev, 37, 53)
+    n0 = resolve.K6.launches
+    cpu = resolve.PeelState(*(getattr(state, f.name).cpu()
+                              for f in dataclasses.fields(state)))
+    with pytest.raises(ValueError, match="state.tri"):
+        resolve.masked_peel(scene, m_tri, m_depth, m_interp, cpu)
+    with pytest.raises(ValueError, match="m_interp"):
+        resolve.masked_peel(scene, m_tri, m_depth, m_interp[:9], state)
+    with pytest.raises(ValueError, match="chunk capacity"):
+        resolve.masked_peel(scene, m_tri, m_depth, m_interp, state,
+                            coverage_capacity=2)
+    assert resolve.K6.launches == n0
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,11 @@ under TREE/.content_cache; link it to this checkout's to build it once),
 renders two warm-up frames and then FRAMES TAA frames of the main path at
 1920x1088 with the camera's orbit, each timed by CUDA events around
 render_frame, then chip_smoke.phase_breakdown of one more frame (a
-synchronize around each phase, the mean of 3 frames). It prints one JSON
-line {tree, card, frame_ms, phases}.
+synchronize around each phase, the mean of 3 frames), and counts what
+the frame launches per masked peel beside K1's peel (this checkout's
+chip_smoke.peel_launches, on that tree's modules: the eager torch
+operators between one peel's K1 call and the next's). It prints one JSON
+line {tree, card, frame_ms, phases, peel_ops, peel_op_names}.
 
 Given two trees it compares them on one card: it runs itself once per tree
 in turns, a, b, b, a, each run its own process (so each imports its own
@@ -23,12 +26,18 @@ raster.prepare_geometry; sky lighting, skylight.sky_lighting; the camera
 pass's binning, raster.bin_triangles_layered; the sun pass with its own
 setup, binning and raster, shadow.render_sun_shadow_map; the resolve, the
 peels' alpha tests and the shadow tap, which the stochastic estimators
-change), and the frame glue.
+change), the frame glue, and the eager operators per peel. The peels'
+alpha test is resolve.masked_alpha in a tree whose frame runs the
+accumulate in torch, and resolve.masked_peel (K6's peel step, the
+accumulate in it) in one whose frame calls that; the first's accumulate
+counts to its glue, so `peels+glue` (both phases and the glue) is the sum
+that compares like with like.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import pathlib
 import subprocess
@@ -38,7 +47,8 @@ import sys
 COMPARED = ("raster.prepare_geometry", "skylight.sky_lighting",
             "raster.bin_triangles_layered", "shadow.render_sun_shadow_map",
             "resolve.resolve_gbuffer", "resolve.masked_alpha",
-            "shadow.sun_visibility", "glue")
+            "resolve.masked_peel", "shadow.sun_visibility", "glue",
+            "peels+glue")
 
 
 def in_turns(trees, frames: int, out) -> int:
@@ -64,11 +74,17 @@ def in_turns(trees, frames: int, out) -> int:
         mine = [r for r in runs if r["tree"] == str(pathlib.Path(tree)
                                                     .resolve())]
         frames_ms = [t for r in mine for t in r["frame_ms"]]
+        for r in mine:
+            r["phases"]["peels+glue"] = sum(
+                r["phases"].get(k, 0.0) for k in (
+                    "resolve.masked_alpha", "resolve.masked_peel", "glue"))
         phases = {k: [round(r["phases"].get(k, 0.0), 3) for r in mine]
                   for k in COMPARED}
         print(f"{tree}: frames {min(frames_ms):.2f}-{max(frames_ms):.2f} ms "
-              f"over {len(frames_ms)}; phases ms (runs in order) "
-              f"{json.dumps(phases)}", flush=True)
+              f"over {len(frames_ms)} (median "
+              f"{sorted(frames_ms)[len(frames_ms) // 2]:.2f}); phases ms "
+              f"(runs in order) {json.dumps(phases)}; eager operators per "
+              f"peel {[r['peel_ops'] for r in mine]}", flush=True)
     return 0
 
 
@@ -117,11 +133,20 @@ def main(argv=None) -> int:
         end.record()
         torch.cuda.synchronize()
         frame_ms.append(start.elapsed_time(end))
-    phases = cs.phase_breakdown(path.run, path.make_fc(2 + args.frames,
-                                                       fc.view_proj.cpu()
-                                                       .numpy()), hist)
+    fc_next = path.make_fc(2 + args.frames, fc.view_proj.cpu().numpy())
+    phases = cs.phase_breakdown(path.run, fc_next, hist)
+    # this checkout's launch count, on the tree's K1 wrapper and kernels
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    from incarnation_tpu_torch.kernels import raster, resolve
+    per, names, _ = here.peel_launches(path.run, fc_next, hist, raster,
+                                       (raster.K1, resolve.K6))
     line = json.dumps(dict(tree=str(tree), card=cs.card_line(),
-                           frame_ms=frame_ms, phases=phases))
+                           frame_ms=frame_ms, phases=phases, peel_ops=per,
+                           peel_op_names=names))
     print(line, flush=True)
     if args.out:
         with open(args.out, "a") as f:

@@ -3,7 +3,8 @@
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
-        [--kernels k1,k2,k3,k4,k5,k8,k9,k10] [--timeline] [--out FILE]
+        [--kernels k1,k2,k3,k4,k5,k5s,k6,k8,k9,k10] [--timeline]
+        [--out FILE]
 
 K1-K3: it renders one main-path frame of chip_smoke.py (the atrium at
 1920x1088, sun shadow map, 8 masked peels, the stochastic estimators off
@@ -26,6 +27,23 @@ Each checkout's planes must be bit-identical to the other's, and each
 within chip_smoke.K5_RTOL of its own twin (resolve_gbuffer_plain). It
 prints K5's registers, spill and shared-memory bytes per checkout, and
 the count of each SASS opcode in its kernel (cuobjdump).
+
+K6 and K5's checkerboard (k6, k5s): one main-path frame with the
+estimators on (bench.py's frame: K6's peel step with the jittered texel
+under the chunk ladder, K5's checkerboard role) and one with them off
+(the step's exact role), their launches captured in this checkout
+(chip_smoke.capture_frame). Each peel step is timed against each other
+checkout's peel as its frame runs it where it predates the step: its
+K6 role (masked_alpha) and the accumulate in torch (this checkout's
+peel_plain, the peel loop's code, with the other's masked_alpha), and
+the two must give
+identical accumulators, z_limit and counts; each call of this checkout's
+step takes a fresh copy of the captured state (the step updates it in
+place); a checkout that has the step is timed by its own step. Then
+each other checkout's K6 role alone against this one's on
+the same layer, alpha and threshold identical. The checkerboard launch
+of K5 is timed as the other K5 launches, its planes bit-identical
+between checkouts.
 
 K8 and K9: the main-path frame's launches of sky lighting (one) and of
 triangle setup (the camera pass with attribute planes and the sun's
@@ -415,6 +433,7 @@ def k1_to_k5(cs, others, this, dev, times, kinds, timelines=None):
     warm = run(fc0, torch.zeros((cs.H, cs.W, 3), device=dev))
     fc1 = path.make_fc(1, fc0.view_proj.cpu().numpy())
     run(fc1, warm["accumulation"])
+    kinds = kinds & set(WRAPPERS)
     calls = [c for c in with_roles(cs.capture_frame(
         run, fc1, warm["accumulation"], raster, clustered, taa),
         K5_MAIN) if c[0] in kinds]
@@ -466,6 +485,91 @@ def k1_to_k5(cs, others, this, dev, times, kinds, timelines=None):
                                      {"other": [], "this": []})
                 t["other"].append(t_o)
                 t["this"].append(t_t)
+
+
+def _record(times, key, t_o, t_t):
+    t = times.setdefault(key, {"other": [], "this": []})
+    t["other"].append(t_o)
+    t["this"].append(t_t)
+
+
+def peel_and_checker(cs, others, this, dev, times, kinds):
+    """K6's peel steps (k6) and K5's checkerboard launch (k5s) of two
+    main-path frames, the estimators on and off, each timed against each
+    other checkout's (see the module's doc); appends to
+    times[(other, role)]."""
+    import dataclasses
+    import torch
+    res = this["resolve"]
+    path = cs.atrium_path(dev)
+    reps = 10
+    for config in (path.cfg, cs.exact_config(path.cfg)):
+        def run(fc, history, config=config):
+            return path.run(fc, history, config)
+        fc0 = path.make_fc(0, None)
+        warm = run(fc0, torch.zeros((cs.H, cs.W, 3), device=dev))
+        fc1 = path.make_fc(1, fc0.view_proj.cpu().numpy())
+        run(fc1, warm["accumulation"])
+        calls = cs.capture_frame(run, fc1, warm["accumulation"],
+                                 this["raster"], this["clustered"],
+                                 this["taa"])
+        steps = [cs._k6_args(a, kw) for kind, a, kw in calls if kind == "k6"]
+        checker = [x for x in (cs._k5_args(a, kw) for kind, a, kw in calls
+                               if kind == "k5")
+                   if cs._k5_role(x) == "jitter_checker"]
+        for name, other in others:
+            for x in steps if "k6" in kinds else []:
+                role = cs._k6_role(x)
+
+                if hasattr(other["resolve"], "masked_peel"):
+                    # a checkout with the step: its step, on fresh copies
+                    ostates = iter([cs._peel_clone(x["state"])
+                                    for _ in range(2 * (2 * reps + 1) + 1)])
+
+                    def glue(x=x, other=other, ostates=ostates):
+                        return other["resolve"].masked_peel(
+                            **dict(x, state=next(ostates)))
+                else:
+                    # one without: its K6 role and the peel loop's torch
+                    # code, which leaves the state as it was
+                    def glue(x=x, other=other):
+                        with cs._swapped(res, "masked_alpha",
+                                         other["resolve"].masked_alpha):
+                            return res.peel_plain(**x)
+                got, ref = cs._k6_step(res, x), glue()
+                for f in dataclasses.fields(ref):
+                    if not torch.equal(getattr(got, f.name),
+                                       getattr(ref, f.name)):
+                        raise RuntimeError(f"k6_peel[{role}]: {f.name} "
+                                           "differs from the other's peel")
+                states = iter([cs._peel_clone(x["state"])
+                               for _ in range(2 * (2 * reps + 1))])
+                _record(times, (name, f"k6_peel[{role}]"), *time_pair(
+                    cs, glue, lambda x=x: res.masked_peel(
+                        **dict(x, state=next(states))), reps))
+                a = cs._k6_alpha_args(x)
+                impls = (other["resolve"].masked_alpha, res.masked_alpha)
+                outs = [f(**a) for f in impls]
+                if not all(torch.equal(p, q) for p, q in zip(*outs)):
+                    raise RuntimeError(f"k6_masked_alpha[{role}]: the "
+                                       "checkouts' alpha tests differ")
+                _record(times, (name, f"k6_masked_alpha[{role[5:]}]"),
+                        *time_pair(cs, lambda: impls[0](**a),
+                                   lambda: impls[1](**a), 20))
+            for x in checker if "k5s" in kinds else []:
+                impls = (other["resolve"].resolve_gbuffer,
+                         res.resolve_gbuffer)
+                k5_agree(cs, (), x, [f(**x) for f in impls], (other, this),
+                         "k5_resolve[jitter_checker]")
+                _record(times, (name, "k5_resolve[jitter_checker]"),
+                        *time_pair(cs, lambda: impls[0](**x),
+                                   lambda: impls[1](**x), 20))
+                # the same layer with every covered pixel fetching its
+                # jittered texel (the role without the checkerboard)
+                y = dict(x, checker_parity=None)
+                _record(times, (name, "k5_resolve[jitter, same layer]"),
+                        *time_pair(cs, lambda: impls[0](**y),
+                                   lambda: impls[1](**y), 20))
 
 
 # K4 launches captured from the binary layout and the alpha role: (group,
@@ -619,7 +723,10 @@ def main(argv=None) -> int:
     ap.add_argument("others", nargs="+", help="the other checkouts' roots")
     ap.add_argument("--kernels", default="k1,k2,k3,k4",
                     help="comma-separated: k1, k2, k3, k5 (two frames' "
-                         "launches), k8, k9, k10 (the main frame's), k4")
+                         "launches), k8, k9, k10 (the main frame's), k4, "
+                         "k6 and k5s (the peel steps and K5's "
+                         "checkerboard of frames with the estimators on "
+                         "and off)")
     ap.add_argument("--timeline", action="store_true",
                     help="with k10: each checkout's per-block timeline of "
                          "its counting and scatter steps")
@@ -662,6 +769,11 @@ def main(argv=None) -> int:
                 mods["build"], "resolve", "k5_resolve_kernel")
             print(f"{name} checkout's K5: {json.dumps(k5_registers[name])}",
                   flush=True)
+        if kinds & {"k6", "k5s"}:
+            res = cs.kernel_resources(mods["build"], "resolve", "k[56]_",
+                                      logs.get("resolve"))
+            print(f"{name} checkout's K5 and K6 kernels (registers, spill "
+                  f"and shared bytes): {json.dumps(res)}", flush=True)
         for kind in sorted(kinds & set(SASS)):
             src, fn = SASS[kind]
             res = cs.kernel_resources(mods["build"], src, fn, logs.get(src))
@@ -680,6 +792,8 @@ def main(argv=None) -> int:
     times: dict = {}
     if kinds & set(WRAPPERS):
         k1_to_k5(cs, others, this, dev, times, kinds, timelines)
+    if kinds & {"k6", "k5s"}:
+        peel_and_checker(cs, others, this, dev, times, kinds)
     totals, ends = {}, {}
     if "k4" in kinds:
         totals, ends = k4_ab(cs, others, this, dev, times)
