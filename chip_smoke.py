@@ -32,11 +32,12 @@ Then it captures each kernel's inputs from one more frame of each
 sequence, runs each kernel and its plain PyTorch twin on those inputs on
 the card (a row per role of K5, K6 and K8), compares them, times both on
 the card's clock (device_ms), prints each kernel's bound (the work its
-inputs need) and work diagnostics, renders that frame again with every
-kernel swapped for its twin and compares the images, and prints the
-frame's time by phase (phase_breakdown). The frame's two binnings run
-once more under torch.cuda.set_sync_debug_mode("error"): K10 makes the
-host wait for nothing.
+inputs need) and work diagnostics (K8's checkerboard row: its fetching
+lanes, halos included, beside the twin's fetches), renders that frame
+again with every kernel swapped for its twin and compares the images,
+and prints the frame's time by phase (phase_breakdown). The frame's two
+binnings run once more under torch.cuda.set_sync_debug_mode("error"):
+K10 makes the host wait for nothing.
 
 A second, small path (512x256, the port's scene/testing.py scene with a
 BLEND quad, TAA off: the exact roles) renders one forward-lighting frame
@@ -65,7 +66,9 @@ twin; (i) the CLI in-process on the atrium's glTF: 8 raster frames at
 1920x1088 (the PNG equals render_frame on what the CLI built), an RT
 shadow + HBAO frame, and a 4-sample path trace at 640x360 checkpointed
 after 2 and resumed (equal to the uninterrupted run); (j) the web viewer
-serving the atrium at 960x540 (the frame after an orbit input differs);
+serving the atrium at 959x540 (the frame after an orbit input differs;
+an odd width, so the frame's stochastic roles run without the
+checkerboard, and K8's tile kernel gets a row of its own);
 (k) band sharding over two devices (two cards if the machine shows them,
 else cuda:0 twice): a 1920x1088 frame and a second TAA frame against the
 single frame, a band-sharded path-traced sample (identical) and an
@@ -261,7 +264,10 @@ K4_OPS_INTERNAL = 1
 K4_RAY_BYTES = 24 + 16
 K4_ROW_BYTES, K4_BOX_BYTES, K4_SLOT_BYTES = 12, 24, 44
 PT_W, PT_H = 640, 360      # the JAX bench's path-tracing size (bench.py:156)
-VIEW_W, VIEW_H = 960, 540  # the web viewer's frame
+# the web viewer's frame: an odd width, at which the frame takes no
+# checkerboard (renderer/frame.py), so the viewer runs the stochastic
+# roles without it (K8's tile kernel)
+VIEW_W, VIEW_H = 959, 540
 BAND_TRI_SHARE = 1e-3      # band_phase: see there
 K2_RTOL = 1e-5             # K2 against its twin: see compare_kernels
 PT_SAMPLES = 8             # timed samples, after one warm-up
@@ -601,7 +607,7 @@ def main(argv=None) -> int:
     rows += binary_phase(dev, path, pt)
     rows += alpha_phase(dev, path, pt)
     cli_phase(dev, path)
-    viewer_phase(dev, path)
+    rows += viewer_phase(dev, path)
     rows += band_phase(dev, path, pt)
     # a bound counts the least work the inputs need: no kernel beats it
     shares = {r["name"]: r["bound_ms"] / r["ms"] for r in rows}
@@ -1469,7 +1475,16 @@ def k8_row(skylight, calls, n_launches, name="k8_sky_lighting", role=None):
     if not launches:
         raise RuntimeError(f"{name}: no K8 launch was captured")
     errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
+    lanes, twin_fetches = [], []
     for a, kw in launches:
+        x = _bound_args(skylight.sky_lighting_plain, a, kw)
+        if x["checker_parity"] is not None and x["specular_ibl"]:
+            # the checkerboard kernel's fetching lanes (halos included,
+            # counted on the host from the mask) beside the twin's
+            # fetches, half the layer: a diagnostic, not in the row
+            lanes.append(skylight.checker_fetch_lanes(
+                x["gb"].mask, int(x["checker_parity"]) & 1, x["row0"]))
+            twin_fetches.append(x["gb"].mask.numel() // 2)
         errs.append(_k8_error(skylight.sky_lighting(*a, **kw),
                               skylight.sky_lighting_plain(*a, **kw),
                               a[0].mask))
@@ -1489,7 +1504,10 @@ def k8_row(skylight, calls, n_launches, name="k8_sky_lighting", role=None):
          + "; max abs err " + ", ".join(f"{e[0]:.3e}" for e in errs)
          + ", over the twin's peak " + ", ".join(f"{e[1]:.3e}" for e in errs)
          + f"; {res.get('registers')} registers, {res.get('spill_bytes')} "
-         "bytes spilled")
+         "bytes spilled"
+         + ("; fetching lanes (halos included) " + ", ".join(map(str, lanes))
+            + " against the twin's fetches "
+            + ", ".join(map(str, twin_fetches)) if lanes else ""))
     return dict(
         name=name, route="cuda",
         source="incarnation_tpu_torch/csrc/skylight.cu",
@@ -2377,14 +2395,16 @@ def viewer_phase(dev, path):
     """(j) The web viewer serving the atrium at VIEW_W x VIEW_H on a free
     port: the
     page, two frames, an orbit input after which the next frame differs,
-    then /quit, which ends the render loop."""
+    then /quit, which ends the render loop. -> the row of K8's stochastic
+    role without the checkerboard (`jitter`), which only this path
+    launches."""
     import threading
     import urllib.request
     from incarnation_tpu_torch.app import viewer
-    from incarnation_tpu_torch.kernels import clustered, raster, taa
+    from incarnation_tpu_torch.kernels import clustered, raster, skylight, taa
     from incarnation_tpu_torch.scene import png
     w, h = VIEW_W, VIEW_H
-    for k in (raster.K1, clustered.K2):
+    for k in (raster.K1, clustered.K2, skylight.K8):
         k.reset()
     calls = []
     with _capturing(calls, raster, clustered, taa, limit=8):
@@ -2444,6 +2464,12 @@ def viewer_phase(dev, path):
                            f"{state.error}")
     check_twins("(j) viewer", calls, raster, clustered, taa,
                 need=("k1", "k2", "k5", "k6", "k8", "k9", "k10"))
+    n = skylight.K8.by_name.get("jitter", 0)
+    if not n:
+        raise RuntimeError(f"(j) the viewer's frames launched K8's roles "
+                           f"{skylight.K8.by_name}, not `jitter`")
+    return [k8_row(skylight, calls, n, name="k8_sky_lighting[jitter]",
+                   role="jitter")]
 
 
 def band_phase(dev, path, pt):
@@ -2818,7 +2844,9 @@ def role_resources(kind: str, role: str) -> dict:
     compiled instance ({} where none matches)."""
     base = role.split("+")[0]
     if kind == "k8":
-        want = "stochastic" if base != "exact" else "k8_sky_kernel"
+        # the checkerboard roles have a kernel of their own
+        want = ("k8_sky_kernel" if base == "exact" else "checker"
+                if base.endswith("_checker") else "stochastic")
         table = K8_RESOURCES
     elif kind == "k5":
         want = _K5_INSTANCE.get(base, "")

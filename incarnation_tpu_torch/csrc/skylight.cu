@@ -19,10 +19,13 @@
 // lobe (a second cube fetch and env-BRDF evaluation); the AO blend, the
 // sky brightness and the HBAO scale.
 //
-// Stochastic roles (k8_sky_stochastic_kernel, skylight.py:62-125 in the
-// JAX package, while TAA accumulates): the probe fetched at one dithered
-// mip, bilinear or one jittered texel of its RGBE table; with extras one
-// lobe a pixel and frame; with the checkerboard half the pixels fetch.
+// Stochastic roles (skylight.py:62-125 in the JAX package, while TAA
+// accumulates): the probe fetched at one dithered mip, bilinear or one
+// jittered texel of its RGBE table; with extras one lobe a pixel and
+// frame (k8_sky_stochastic_kernel); with the checkerboard half the pixels
+// fetch (k8_sky_checker_kernel: a fetching and a filling warp over a row
+// span of 31 pairs, every lane of the fetching warp fetching in one
+// round).
 //
 // Tables: the Chebyshev coefficients (2 x 256 floats) and the cube's level
 // bases and sizes are kernel parameters, passed by value from host tables
@@ -49,12 +52,13 @@
 // So K8 equals its twin bit for bit (chip_smoke.py holds it to K8_TOL of
 // the peak radiance and logs the error).
 //
-// Mapping: a warp shades an 8 x 4 tile of pixels, so the warps that
-// straddle a coverage edge, whose lanes diverge, are fewer than with 32
-// pixels of a row, and a warp's reflected directions lie closer together;
-// a block of 128 threads (a 16 x 8 tile) leaves less of an SM idle at the
-// end of a launch than one of 256 (each a few percent on the bench frame;
-// PERF.md).
+// Mapping: a warp of k8_sky_kernel and k8_sky_stochastic_kernel shades an
+// 8 x 4 tile of pixels, so the warps that straddle a coverage edge, whose
+// lanes diverge, are fewer than with 32 pixels of a row, and a warp's
+// reflected directions lie closer together; a block of 128 threads (a
+// 16 x 8 tile) leaves less of an SM idle at the end of a launch than one
+// of 256 (each a few percent on the bench frame; PERF.md). The
+// checkerboard's mapping is its own (k8_sky_checker_kernel).
 //
 // What bounds it: a covered pixel reads 57 bytes (base colour and mrao as
 // 16-byte rows, n, v, the mask byte), +12 with extras, +4 with HBAO, +12
@@ -63,7 +67,11 @@
 // lobe (a fused multiply-add counts two), about 0.034 ms at 67 TFLOP/s for
 // 1.6 M covered pixels (chip_smoke.py counts both), so the pass sits near
 // the line between the two bounds; as 552 FFMAs the fit issues about 650
-// instructions a lobe, about 1,200 with each multiply and add apart.
+// instructions a lobe, about 1,200 with each multiply and add apart. The
+// checkerboard role moves less (half the pixels fetch one texel, 0.035
+// ms at 3.35 TB/s) and still evaluates the fit for every covered pixel:
+// the fit and the loads of each pixel's 12-byte rows, at two pixels'
+// stride in a warp of the row span, bound it, not the fetch (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -318,12 +326,37 @@ __device__ __forceinline__ float frame_noise(uint32_t x, uint32_t y,
   return (float)((h >> 16) & 0xFFFFu) * (1.0f / 65536.0f);
 }
 
-// The stochastic probe fetch of one pixel: NoV, the reflected direction's
-// face and uv, and the dithered mip; with the lobe (extras) the clearcoat
-// lobe's weight fc and whether this pixel and frame pick it
-struct Tap {
+// A pixel's NoV and, with the lobe (extras), the clearcoat lobe's weight
+// fc and whether this pixel and frame pick it
+struct Lobe {
   float no_v, fc;
   bool pick;
+};
+
+// skylight.py's NoV and lobe pick (sky_lighting_plain): shading.f_schlick
+// (NoV, 0.04) x cc, (1 - u)^5 as mathutils.ipow, picked where the pixel's
+// noise is below it
+__device__ __forceinline__ Lobe pixel_lobe(const float* nn, const float* vv,
+                                           const float* ex, bool lobe,
+                                           uint32_t px, uint32_t py,
+                                           uint32_t frame) {
+  Lobe b;
+  b.no_v = clamp_lo(dot3(nn, vv), 0.01f);
+  b.fc = 0.0f;
+  b.pick = false;
+  if (lobe) {
+    const float x = 1.0f - b.no_v;
+    const float x2 = x * x;
+    const float f = x * (x2 * x2);
+    b.fc = (f + 0.04f * (1.0f - f)) * ex[1];
+    b.pick = frame_noise(px, py, frame * N_LOBE) < b.fc;
+  }
+  return b;
+}
+
+// The stochastic probe fetch of one pixel: the reflected direction's face
+// and uv, and the dithered mip
+struct Tap {
   int face;
   float u, v, lod;
 };
@@ -333,10 +366,10 @@ struct Tap {
 // - 1) + noise, in the twin's operations
 __device__ __forceinline__ Tap spec_tap(const float* nn, const float* vv,
                                         float roughness, const float* ex,
-                                        bool lobe, float mips1, uint32_t px,
-                                        uint32_t py, uint32_t frame) {
+                                        const Lobe& b, float mips1,
+                                        uint32_t px, uint32_t py,
+                                        uint32_t frame) {
   Tap t;
-  t.no_v = clamp_lo(dot3(nn, vv), 0.01f);
   const float vn2 = 2.0f * dot3(vv, nn);
   float r[3];
 #pragma unroll
@@ -345,18 +378,8 @@ __device__ __forceinline__ Tap spec_tap(const float* nn, const float* vv,
 #pragma unroll
   for (int c = 0; c < 3; ++c) r[c] = r[c] * inv;
   face_uv(r, t.face, t.u, t.v);
-  t.fc = 0.0f;
-  t.pick = false;
-  float lod = roughness * mips1;
-  if (lobe) {
-    // shading.f_schlick(NoV, 0.04) x cc, (1 - u)^5 as mathutils.ipow
-    const float x = 1.0f - t.no_v;
-    const float x2 = x * x;
-    const float f = x * (x2 * x2);
-    t.fc = (f + 0.04f * (1.0f - f)) * ex[1];
-    t.pick = frame_noise(px, py, frame * N_LOBE) < t.fc;
-    if (t.pick) lod = clamp_lo(ex[2], 0.03f) * mips1;
-  }
+  const float lod = b.pick ? clamp_lo(ex[2], 0.03f) * mips1
+                           : roughness * mips1;
   t.lod = lod + frame_noise(px, py, frame * N_PROBE_LOD);
   return t;
 }
@@ -399,110 +422,54 @@ __device__ __forceinline__ void load3(const float* __restrict__ a, int i,
   o[2] = __ldg(a + 3 * i + 2);
 }
 
-// K8's stochastic roles (F_DITHER): the exact role's diffuse lobe, and the
-// specular lobe from one dithered mip of the probe (with F_JITTER one
-// texel of its RGBE table); with extras one lobe a pixel and frame, the
-// coat lobe with probability fc, its env BRDF alone evaluated (the twin
-// evaluates both and selects). With F_CHECKER (an even width) a pixel of
-// the fetching parity, x & 1 == (row0 + y + parity) & 1, fetches where it
-// or a horizontal neighbour is covered, and a covered pixel of the other
-// parity takes the mean of its two neighbours' fetches, read by warp
-// shuffles along the warp's 8-pixel rows, clamped at the image's row
-// ends; the neighbour outside the warp (x - 1 of a row's first lane, x +
-// 1 of its last) is fetched by the pixel that needs it. No lane leaves
-// before the shuffles.
-__global__ void __launch_bounds__(K8_THREADS)
-k8_sky_stochastic_kernel(
-    const float4* __restrict__ base_color, const float4* __restrict__ mrao,
-    const uint8_t* __restrict__ mask, const float* __restrict__ n,
-    const float* __restrict__ v, const float* __restrict__ bent,
-    const float* __restrict__ hbao, const float* __restrict__ extras,
-    const float* __restrict__ sh, const float* __restrict__ cube_flat,
-    const uint32_t* __restrict__ rgbe, const float* __restrict__ lut,
-    int lut_size, float sky, int flags, const Cube cube, const Cheb cheb_tab,
-    float* __restrict__ out, int width, int height, uint32_t frame,
-    int parity, int row0) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int x = blockIdx.x * 16 + (warp & 1) * 8 + (lane & 7);
-  const int y = blockIdx.y * 8 + (warp >> 1) * 4 + (lane >> 3);
-  const bool in = x < width && y < height;
-  const int i = in ? y * width + x : 0;
-  const bool cov = in && mask[i];
-  const uint32_t px = (uint32_t)x, py = (uint32_t)(row0 + y);
-  const bool specular = flags & F_SPECULAR;
-  const bool checker = flags & F_CHECKER;
-  const bool lobe = extras != nullptr;
-  const float mips1 = (float)(cube.levels - 1);
-  const uint32_t* tex = (flags & F_JITTER) ? rgbe : nullptr;
-  const bool fetcher = !checker || (x & 1) == ((row0 + y + parity) & 1);
+// The arguments both stochastic kernels take
+#define K8S_PARAMS                                                           \
+  const float4 *__restrict__ base_color, const float4 *__restrict__ mrao,    \
+      const uint8_t *__restrict__ mask, const float *__restrict__ n,         \
+      const float *__restrict__ v, const float *__restrict__ bent,           \
+      const float *__restrict__ hbao, const float *__restrict__ extras,      \
+      const float *__restrict__ sh, const float *__restrict__ cube_flat,     \
+      const uint32_t *__restrict__ rgbe, const float *__restrict__ lut,      \
+      int lut_size, float sky, int flags, const Cube cube,                   \
+      const Cheb cheb_tab, float *__restrict__ out, int width, int height,   \
+      uint32_t frame, int parity, int row0
 
-  float pre[3] = {0.0f, 0.0f, 0.0f};
-  Tap tap;
-  if (specular) {
-    if (in) {
-      float nn[3], vv[3], ex[3];
-      load3(n, i, nn);
-      load3(v, i, vv);
-      if (lobe) load3(extras, i, ex);
-      tap = spec_tap(nn, vv, __ldg(mrao + i).y, ex, lobe, mips1, px, py,
-                     frame);
-      if (fetcher) {
-        if (cov || (checker && ((x > 0 && mask[i - 1]) ||
-                                (x + 1 < width && mask[i + 1]))))
-          probe_fetch(cube_flat, tex, cube, tap, px, py, frame, pre);
-      } else if (cov) {
-        const int xn = (lane & 7) == 0 && x > 0           ? x - 1
-                       : (lane & 7) == 7 && x + 1 < width ? x + 1
-                                                          : -1;
-        if (xn >= 0) {
-          const int j = i + (xn - x);
-          load3(n, j, nn);
-          load3(v, j, vv);
-          if (lobe) load3(extras, j, ex);
-          const Tap tn = spec_tap(nn, vv, __ldg(mrao + j).y, ex, lobe, mips1,
-                                  (uint32_t)xn, py, frame);
-          probe_fetch(cube_flat, tex, cube, tn, (uint32_t)xn, py, frame, pre);
-        }
-      }
-    }
-    if (checker) {
-      // the other parity: the mean of the fetches at x - 1 and x + 1
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        const float up = __shfl_up_sync(0xffffffffu, pre[c], 1);
-        const float dn = __shfl_down_sync(0xffffffffu, pre[c], 1);
-        if (!fetcher) {
-          float l = (lane & 7) > 0 ? up : pre[c];
-          float r = (lane & 7) < 7 ? dn : pre[c];
-          if (x == 0) l = r;
-          if (x == width - 1) r = l;
-          pre[c] = 0.5f * (l + r);
-        }
-      }
-    }
-  }
-  if (!in) return;
-  float* o = out + 3 * i;
-  if (!cov) {
-    o[0] = 0.0f;
-    o[1] = 0.0f;
-    o[2] = 0.0f;
-    return;
-  }
+// A covered pixel's radiance in a stochastic role but for its probe
+// fetch: the diffuse lobe (scaled by 1 - fc with the lobe), and the
+// specular term's factor k = f0 A + B of the picked lobe (the coat's env
+// BRDF at its roughness with f0 0.04, or the base lobe's with its f0)
+struct Lit {
+  float rad[3], k[3];
+  float ao, ao_blend, one_aob;
+};
+
+// The exact role's diffuse lobe and the picked lobe's env BRDF of
+// covered pixel i, its lobe b given, in the twin's operations (the twin
+// evaluates both lobes' env BRDF and selects; only the picked one is
+// evaluated here)
+__device__ __forceinline__ Lit stochastic_lit(
+    const float4* __restrict__ base_color, const float4* __restrict__ mrao,
+    const float* __restrict__ bent, const float* __restrict__ sh,
+    const float* __restrict__ lut, int lut_size, float sky, int flags,
+    const Cheb& cheb_tab, int i, const float* nn, const float* ex,
+    bool lobe, const Lobe& b) {
+  Lit L;
   const float4 bc = __ldg(base_color + i);
   const float4 mr = __ldg(mrao + i);
   float base[3] = {bc.x, bc.y, bc.z};
   if (flags & F_LIGHTING_ONLY) base[0] = base[1] = base[2] = 0.5f;
-  const float metallic = mr.x, roughness = mr.y, ao = mr.z, ao_blend = mr.w;
+  const float metallic = mr.x, roughness = mr.y;
+  L.ao = mr.z;
+  L.ao_blend = mr.w;
   const float one_m = 1.0f - metallic;
-  const float one_aob = 1.0f - ao_blend;
-  float ex[3] = {0.0f, 0.0f, 0.0f};
-  if (lobe) load3(extras, i, ex);
-  float rad[3] = {0.0f, 0.0f, 0.0f};
+  L.one_aob = 1.0f - L.ao_blend;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) L.rad[c] = L.k[c] = 0.0f;
 
   if (flags & F_DIFFUSE) {
     float sn[3];
-    load3(bent ? bent : n, i, sn);
+    if (bent) load3(bent, i, sn);
+    else sn[0] = nn[0], sn[1] = nn[1], sn[2] = nn[2];
     float irr[3];
     sh_irradiance(sn, sh, irr);
     const float one_t = 1.0f - ex[0];
@@ -511,26 +478,39 @@ k8_sky_stochastic_kernel(
       float albedo = one_m * base[c];
       if (lobe) albedo = albedo * one_t;
       const float d = ((albedo * INV_PI) * irr[c]) * 5.0f;
-      rad[c] = 0.0f + sky * (d * one_aob + (ao * d) * ao_blend);
+      L.rad[c] = 0.0f + sky * (d * L.one_aob + (L.ao * d) * L.ao_blend);
     }
   }
 
-  if (specular) {
-    const bool analytic = flags & F_ANALYTIC;
-    const bool packed_lut = flags & F_LUT_PACKED;
-    // the picked lobe's env BRDF: the coat's at its roughness, scaling
-    // 0.04, or the base lobe's, scaling f0
-    const float rough = tap.pick ? clamp_lo(ex[2], 0.03f) : roughness;
+  if (flags & F_SPECULAR) {
+    const float rough = b.pick ? clamp_lo(ex[2], 0.03f) : roughness;
     float ab[2];
-    if (analytic) env_brdf_analytic(cheb_tab, tap.no_v, 1.0f - rough, ab);
-    else env_brdf_lut(lut, lut_size, packed_lut, tap.no_v, rough, ab);
-    const float one_fc = 1.0f - tap.fc;
+    if (flags & F_ANALYTIC)
+      env_brdf_analytic(cheb_tab, b.no_v, 1.0f - rough, ab);
+    else
+      env_brdf_lut(lut, lut_size, flags & F_LUT_PACKED, b.no_v, rough, ab);
+    const float one_fc = 1.0f - b.fc;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      const float f0 = tap.pick ? 0.04f : metallic * base[c] + one_m * 0.04f;
-      const float spec = pre[c] * (f0 * ab[0] + ab[1]);
-      if (lobe) rad[c] = rad[c] * one_fc;
-      rad[c] = rad[c] + sky * (spec * one_aob + (ao * spec) * ao_blend);
+      const float f0 = b.pick ? 0.04f : metallic * base[c] + one_m * 0.04f;
+      L.k[c] = f0 * ab[0] + ab[1];
+      if (lobe) L.rad[c] = L.rad[c] * one_fc;
+    }
+  }
+  return L;
+}
+
+// ... and with its probe fetch (or the checkerboard's fill) pre: the
+// specular term pre k, the AO blend and the HBAO scale
+__device__ __forceinline__ void stochastic_radiance(
+    const Lit& L, const float* pre, const float* __restrict__ hbao,
+    float sky, int flags, int i, float* rad) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    rad[c] = L.rad[c];
+    if (flags & F_SPECULAR) {
+      const float spec = pre[c] * L.k[c];
+      rad[c] = rad[c] + sky * (spec * L.one_aob + (L.ao * spec) * L.ao_blend);
     }
   }
   if (hbao) {
@@ -538,6 +518,165 @@ k8_sky_stochastic_kernel(
 #pragma unroll
     for (int c = 0; c < 3; ++c) rad[c] = rad[c] * a;
   }
+}
+
+// K8's stochastic roles without the checkerboard (F_DITHER, with or
+// without F_JITTER): the exact role's diffuse lobe, and the specular lobe
+// from one dithered mip of the probe (with F_JITTER one texel of its RGBE
+// table); with extras one lobe a pixel and frame, the coat lobe with
+// probability fc, its env BRDF alone evaluated (the twin evaluates both
+// and selects). One thread a pixel, a warp an 8 x 4 tile as
+// k8_sky_kernel's.
+__global__ void __launch_bounds__(K8_THREADS)
+k8_sky_stochastic_kernel(K8S_PARAMS) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x = blockIdx.x * 16 + (warp & 1) * 8 + (lane & 7);
+  const int y = blockIdx.y * 8 + (warp >> 1) * 4 + (lane >> 3);
+  if (x >= width || y >= height) return;
+  const int i = y * width + x;
+  float* o = out + 3 * i;
+  if (!mask[i]) {
+    o[0] = 0.0f;
+    o[1] = 0.0f;
+    o[2] = 0.0f;
+    return;
+  }
+  const uint32_t px = (uint32_t)x, py = (uint32_t)(row0 + y);
+  const bool specular = flags & F_SPECULAR;
+  const bool lobe = extras != nullptr;
+  float nn[3], vv[3], ex[3] = {0.0f, 0.0f, 0.0f};
+  float pre[3] = {0.0f, 0.0f, 0.0f};
+  load3(n, i, nn);
+  if (lobe) load3(extras, i, ex);
+  Lobe b = {0.0f, 0.0f, false};
+  if (specular) {
+    load3(v, i, vv);
+    b = pixel_lobe(nn, vv, ex, lobe, px, py, frame);
+    const Tap t = spec_tap(nn, vv, __ldg(mrao + i).y, ex, b,
+                           (float)(cube.levels - 1), px, py, frame);
+    probe_fetch(cube_flat, (flags & F_JITTER) ? rgbe : nullptr, cube, t, px,
+                py, frame, pre);
+  }
+  const Lit L = stochastic_lit(base_color, mrao, bent, sh, lut, lut_size,
+                               sky, flags, cheb_tab, i, nn, ex, lobe, b);
+  float rad[3];
+  stochastic_radiance(L, pre, hbao, sky, flags, i, rad);
+  o[0] = rad[0];
+  o[1] = rad[1];
+  o[2] = rad[2];
+}
+
+// K8's checkerboard roles (F_DITHER | F_CHECKER, with or without
+// F_JITTER; an even width), skylight.py:62-125 of the JAX package with
+// kernels/checker.py:30-61 (compact and expand): the probe of the
+// stochastic roles, fetched by half the pixels. In each horizontal pair
+// of a row the pixel of the fetching parity, x & 1 == q = (row0 + y +
+// parity) & 1, fetches where it or a horizontal neighbour is covered; a
+// covered pixel of the other parity takes the mean of its two
+// neighbours' fetches, 0.5 (l + r), edge-clamped at the image's row ends
+// (x == 0: l = r; x == width - 1: r = l).
+//
+// A block takes a span of K8C_PAIRS x-pairs (K8C_SPAN pixels, x0 even)
+// in each of K8C_ROWS image rows, with two warps a row. The fetching warp
+// takes the pixels x0 + 2 k - q, lane k: the span's K8C_PAIRS fetching
+// pixels and the one beyond its end (q = 0: x0 + K8C_SPAN) or before its
+// start (q = 1: x0 - 1), the halo, which the neighbouring span fetches as
+// well. So every lane of it fetches, in one round (the tile kernel before
+// this one alternated fetching and filling lanes in 8-pixel rows, and the
+// filling lane at each row's end fetched its outer neighbour in a second
+// round of its own: the set-up and fetch twice a warp). A fetching lane
+// puts its fetch in shared memory, arrives at the block's named barrier
+// without waiting, and shades its own pixel (the halo lane shades
+// nothing). The filling warp shades the span's filling pixels, lane l
+// the pixel x0 + 2 l + 1 - q: all but the probe term first (the
+// env-BRDF fit, which hides the fetch round), then it waits at the
+// barrier and takes the mean of the fetching lanes l and l + 1. Each
+// pixel's inputs are loaded once, by the lane that shades it. A lane
+// past the image's edge keeps zeros; an uncovered pixel writes zeros.
+//
+// What was measured against it (PERF.md): a fetch round of lanes
+// apart from the shading ones loaded the fetching pixels' inputs twice
+// and ran slower than the tile kernel fetching every pixel; a warp
+// looping over two shading rounds made nvcc hoist the fit's Chebyshev
+// coefficients out of the loop and spill them; 2-D spans (7 pairs x 4
+// rows, 3 x 8), the inputs or the output staged in shared memory for
+// 16-byte words, and register caps for more blocks an SM ran slower.
+#define K8C_PAIRS 31
+#define K8C_SPAN (2 * K8C_PAIRS)
+#define K8C_ROWS 2
+#define K8C_THREADS (64 * K8C_ROWS)  // a fetching and a filling warp a row
+static_assert(K8C_PAIRS + 1 == 32, "a fetching warp: the pairs and halo");
+
+__global__ void __launch_bounds__(K8C_THREADS)
+k8_sky_checker_kernel(K8S_PARAMS) {
+  __shared__ float fetched[K8C_ROWS][3][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool filling = warp >= K8C_ROWS;
+  const int r = filling ? warp - K8C_ROWS : warp;
+  const int x0 = blockIdx.x * K8C_SPAN, y = blockIdx.y * K8C_ROWS + r;
+  const int span = min(K8C_SPAN, width - x0);
+  const int q = (row0 + y + parity) & 1;
+  // this lane's pixel: a fetching one (the halo included) or a filling one
+  const int dx = filling ? 2 * lane + 1 - q : 2 * lane - q;
+  const int x = x0 + dx;
+  const bool in = y < height && x >= 0 && x < width;
+  const bool shade = in && dx >= 0 && dx < span;
+  const int i = in ? y * width + x : 0;
+  const bool cov = in && mask[i];
+  const bool specular = flags & F_SPECULAR;
+  const bool lobe = extras != nullptr;
+  const uint32_t px = (uint32_t)x, py = (uint32_t)(row0 + y);
+
+  float nn[3], vv[3], ex[3] = {0.0f, 0.0f, 0.0f};
+  Lobe b = {0.0f, 0.0f, false};
+  float pre[3] = {0.0f, 0.0f, 0.0f};
+  if (!filling) {
+    // the fetch, where the pixel or a horizontal neighbour is covered
+    if (specular && in &&
+        (cov || (x > 0 && mask[i - 1]) || (x + 1 < width && mask[i + 1]))) {
+      load3(n, i, nn);
+      load3(v, i, vv);
+      if (lobe) load3(extras, i, ex);
+      b = pixel_lobe(nn, vv, ex, lobe, px, py, frame);
+      const Tap tap = spec_tap(nn, vv, __ldg(mrao + i).y, ex, b,
+                               (float)(cube.levels - 1), px, py, frame);
+      probe_fetch(cube_flat, (flags & F_JITTER) ? rgbe : nullptr, cube, tap,
+                  px, py, frame, pre);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) fetched[r][c][lane] = pre[c];
+    // the fetches are out: the filling warps may read them
+    asm volatile("bar.arrive 1, %0;" ::"n"(K8C_THREADS) : "memory");
+    if (!shade) return;
+    if (cov && !specular && !bent) load3(n, i, nn);
+    if (cov && !specular && lobe) load3(extras, i, ex);
+  } else if (cov) {
+    if (specular || !bent) load3(n, i, nn);
+    if (lobe) load3(extras, i, ex);
+    if (specular) {
+      load3(v, i, vv);
+      b = pixel_lobe(nn, vv, ex, lobe, px, py, frame);
+    }
+  }
+  Lit L;
+  if (cov)
+    L = stochastic_lit(base_color, mrao, bent, sh, lut, lut_size, sky, flags,
+                       cheb_tab, i, nn, ex, lobe, b);
+  if (filling) {
+    asm volatile("bar.sync 1, %0;" ::"n"(K8C_THREADS) : "memory");
+    if (!shade) return;
+    // the mean of the fetching lanes l and l + 1, edge-clamped
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float a = fetched[r][c][lane], e = fetched[r][c][lane + 1];
+      if (x == 0) a = e;
+      if (x == width - 1) e = a;
+      pre[c] = 0.5f * (a + e);
+    }
+  }
+  float rad[3] = {0.0f, 0.0f, 0.0f};
+  if (cov) stochastic_radiance(L, pre, hbao, sky, flags, i, rad);
+  float* o = out + 3 * i;
   o[0] = rad[0];
   o[1] = rad[1];
   o[2] = rad[2];
@@ -721,13 +860,21 @@ extern "C" int k8_sky_lighting(const float* base_color, const float* mrao,
   }
   if (width == 0 || height == 0) return (int)cudaSuccess;
   const dim3 blocks((width + 15) / 16, (height + 7) / 8);
-  if (dither)
+  const float4* bc4 = reinterpret_cast<const float4*>(base_color);
+  const float4* mr4 = reinterpret_cast<const float4*>(mrao);
+  if (flags & F_CHECKER) {
+    const dim3 spans((width + K8C_SPAN - 1) / K8C_SPAN,
+                     (height + K8C_ROWS - 1) / K8C_ROWS);
+    k8_sky_checker_kernel<<<spans, K8C_THREADS, 0, (cudaStream_t)stream>>>(
+        bc4, mr4, mask, n, v, bent, hbao, extras, sh, cube_flat, rgbe, lut,
+        lut_size, sky_brightness, flags, cube, tab, out, width, height,
+        (uint32_t)frame, parity & 1, row0);
+  } else if (dither)
     k8_sky_stochastic_kernel<<<blocks, K8_THREADS, 0,
                                (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(base_color),
-        reinterpret_cast<const float4*>(mrao), mask, n, v, bent, hbao, extras,
-        sh, cube_flat, rgbe, lut, lut_size, sky_brightness, flags, cube, tab,
-        out, width, height, (uint32_t)frame, parity & 1, row0);
+        bc4, mr4, mask, n, v, bent, hbao, extras, sh, cube_flat, rgbe, lut,
+        lut_size, sky_brightness, flags, cube, tab, out, width, height,
+        (uint32_t)frame, parity & 1, row0);
   else
     k8_sky_kernel<<<blocks, K8_THREADS, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const float4*>(base_color),

@@ -43,6 +43,11 @@ K8 = Kernel("skylight", "k8_sky_lighting",
 _DIFFUSE, _SPECULAR, _LIGHTING_ONLY, _ANALYTIC, _LUT_PACKED = 1, 2, 4, 8, 16
 _DITHER, _JITTER, _CHECKER = 32, 64, 128
 MAX_CUBE_LEVELS = 16
+# K8's checkerboard kernel (csrc/skylight.cu k8_sky_checker_kernel): a
+# row's span of K8C_PAIRS x-pairs, its fetching pixels and its halo in
+# one warp
+K8C_PAIRS = 31
+K8C_SPAN = 2 * K8C_PAIRS
 # frame_noise's channels, as the JAX package's sky_lighting seeds them
 N_PROBE_LOD, N_PROBE_JX, N_PROBE_JY, N_LOBE = (2246822519, 3323198485,
                                               2654435769, 2357136044)
@@ -71,6 +76,28 @@ def _cube_levels(bases: tuple, size: int, num_levels: int):
                          f"{num_levels} ({len(bases)} bases)")
     vals = list(bases) + [size >> l for l in range(num_levels)]
     return (ctypes.c_int * len(vals))(*vals)
+
+
+def checker_fetch_lanes(mask, parity: int, row0: int = 0) -> int:
+    """Lanes of one launch of K8's checkerboard kernel that fetch the
+    probe, halos included. In an image row whose fetching parity is q,
+    lane k of the span at x0 (a multiple of K8C_SPAN) takes the pixel
+    x0 + 2 k - q, k <= K8C_PAIRS (csrc/skylight.cu
+    k8_sky_checker_kernel); it fetches where that pixel lies in the image
+    and it or a horizontal neighbour is covered."""
+    m = mask.detach().to("cpu", torch.bool).numpy()
+    h, w = m.shape
+    near = m.copy()
+    near[:, 1:] |= m[:, :-1]
+    near[:, :-1] |= m[:, 1:]
+    x0 = np.arange(0, w, K8C_SPAN)[:, None]
+    total = 0
+    for q in (0, 1):
+        xs = (x0 + 2 * np.arange(K8C_PAIRS + 1) - q).ravel()
+        xs = xs[(xs >= 0) & (xs < w)]
+        rows = near[((np.arange(row0, row0 + h) + parity) & 1) == q]
+        total += int(rows[:, xs].sum())
+    return total
 
 
 def _check(name, t, shape, dtype, dev, align=4):

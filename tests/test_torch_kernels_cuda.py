@@ -1386,9 +1386,10 @@ def test_k8_stochastic_roles_match_twin(dev, case, checker, env, shape):
     """Each stochastic role of K8 against sky_lighting_plain: one dithered
     mip (bilinear, or with uv_dither one texel of the RGBE table), the
     stochastic clearcoat lobe (extras) and the checkerboard probe fetch
-    for either parity, whose fetching neighbours cross K8's 8-pixel warp
-    rows: within K8_TOL of the twin's peak, zeros off the mask. An odd
-    width takes no checkerboard (the frame asks for none there)."""
+    for either parity, on layers narrower than one of its 62-pixel spans
+    (wider ones: test_k8_checker_spans_match_twin): within K8_TOL of the
+    twin's peak, zeros off the mask. An odd width takes no checkerboard
+    (the frame asks for none there)."""
     h, w = shape
     if checker is not None and w % 2:
         pytest.skip("the checkerboard needs an even width")
@@ -1407,6 +1408,84 @@ def test_k8_stochastic_roles_match_twin(dev, case, checker, env, shape):
     exact = skylight.sky_lighting_plain(*args, **dict(
         kw, dither=None, checker_parity=None))
     assert not torch.equal(exact, got)
+
+
+def _k8_checker_case(dev, inputs, case, env, parity, row0):
+    """One checkerboard launch of K8 on sky_inputs-style arrays against
+    its twin: within K8_TOL of the twin's peak, zeros off the mask, one K8
+    launch under its role."""
+    probe, _, packed = sky_probe(dev)
+    opts = dict(extras=case.startswith("lobe"), hbao=case == "lobe_hbao",
+                bent=case == "lobe_hbao")
+    args, kw = sky_call(inputs, dev, probe, packed, opts, env == "analytic")
+    kw.update(dither=11, uv_dither=case != "dither", checker_parity=parity,
+              row0=row0)
+    before = skylight.K8.launches
+    role = ("dither" if case == "dither" else "jitter") + "_checker"
+    n_role = skylight.K8.by_name.get(role, 0)
+    got = skylight.sky_lighting(*args, **kw)
+    assert skylight.K8.launches == before + 1
+    assert skylight.K8.by_name[role] == n_role + 1
+    _k8_close(got, skylight.sky_lighting_plain(*args, **kw), args[0].mask,
+              f"{case} {env} parity {parity} row0 {row0}")
+    return got
+
+
+@pytest.mark.parametrize("shape", [(5, 64), (6, 124), (11, 130), (3, 248)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("parity,row0", [(0, 4), (1, 4), (0, 7), (1, 7)])
+@pytest.mark.parametrize("case", ["dither", "jitter", "lobe", "lobe_hbao"])
+@pytest.mark.parametrize("env", ["analytic", "lut_packed"])
+def test_k8_checker_spans_match_twin(dev, case, env, parity, row0, shape):
+    """K8's checkerboard kernel on widths that cross its 62-pixel spans and
+    end ragged (the last span's halo lane at x = width, outside the row),
+    both parities, row0 even and odd, the bilinear and RGBE fetches, the
+    lobe and HBAO cases, the analytic and packed-LUT env BRDF: within
+    K8_TOL of the twin, zeros off the mask, one launch."""
+    h, w = shape
+    _k8_checker_case(dev, stochastic_sky_inputs(41, h, w), case, env,
+                     parity, row0)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("case", ["jitter", "lobe"])
+def test_k8_checker_isolated_pixels_at_span_ends(dev, case, parity):
+    """Single covered pixels at and beside K8's span ends, both parities:
+    a row's pattern covers one of x0 - 2 .. x0 + 1 at every span start x0
+    (so a span's halo pixel is covered while its fetching neighbour is
+    not, a filling pixel's neighbour in the next span is fetched as a halo
+    only, and the other way round), plus the image's first and last
+    columns. Each against the twin within K8_TOL, zeros elsewhere."""
+    h, w = 12, 3 * skylight.K8C_SPAN + 6
+    inputs = stochastic_sky_inputs(43, h, w)
+    mask = np.zeros((h, w), bool)
+    for y in range(h):
+        off = (-2, -1, 0, 1)[y % 4]
+        for x0 in range(skylight.K8C_SPAN, w, skylight.K8C_SPAN):
+            mask[y, x0 + off] = True
+        mask[y, 0 if y % 2 else w - 1] = True
+    inputs["mask"] = mask
+    got = _k8_checker_case(dev, inputs, case, "lut_packed", parity, 6)
+    assert bool((got[torch.tensor(mask, device=dev)] != 0).all())
+
+
+@pytest.mark.parametrize("opts", ["diffuse_only", "specular_only", "no_lobe",
+                                  "lighting_only", "all_inputs"])
+@pytest.mark.parametrize("parity", [0, 1])
+def test_k8_checker_lobes_match_twin(dev, opts, parity):
+    """K8's checkerboard kernel with either IBL lobe off (no fetch round
+    without the specular one), lighting_only, and every optional input,
+    on a width with a ragged last span: within K8_TOL of the twin, zeros
+    off the mask, one launch."""
+    probe, _, packed = sky_probe(dev)
+    args, kw = sky_call(stochastic_sky_inputs(45, 7, 130), dev, probe, packed,
+                        SKY_OPTIONS[opts], True)
+    kw.update(dither=3, uv_dither=True, checker_parity=parity, row0=3)
+    before = skylight.K8.launches
+    got = skylight.sky_lighting(*args, **kw)
+    assert skylight.K8.launches == before + 1
+    _k8_close(got, skylight.sky_lighting_plain(*args, **kw), args[0].mask,
+              opts)
 
 
 def test_k8_refuses_and_never_falls_back(dev):

@@ -3,7 +3,7 @@
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
-        [--kernels k1,k2,k3,k4,k5,k5s,k6,k8,k9,k10] [--timeline]
+        [--kernels k1,k2,k3,k4,k5,k5s,k6,k8,k8s,k9,k10] [--timeline]
         [--out FILE]
 
 K1-K3: it renders one main-path frame of chip_smoke.py (the atrium at
@@ -44,6 +44,15 @@ each other checkout's K6 role alone against this one's on
 the same layer, alpha and threshold identical. The checkerboard launch
 of K5 is timed as the other K5 launches, its planes bit-identical
 between checkouts.
+
+K8's checkerboard (k8s): the sky lighting launch of the same frame with
+the estimators on (K8's `jitter_checker` role), and the same layer in
+K8's other stochastic roles (sky_cases): without the checkerboard (every
+covered pixel fetching its texel: the `jitter` role), with the bilinear
+fetch (`dither_checker`, `dither`) and with one lobe a pixel (`+lobe`,
+extras from a seed), each checkout's output held to its own twin by
+chip_smoke._k8_error and timed as above. It prints each checkout's
+registers and SASS opcode counts of every k8_sky_ kernel.
 
 K8 and K9: the main-path frame's launches of sky lighting (one) and of
 triangle setup (the camera pass with attribute planes and the sun's
@@ -110,9 +119,10 @@ WRAPPERS = {"k1": ("raster", "rasterize_tiles", 10),
             "k8": ("skylight", "sky_lighting", 20),
             "k9": ("raster", "prepare_geometry", 20),
             "k10": ("raster", "bin_triangles_layered", 20)}
-# K8's and K9's sources and kernel names, whose registers and SASS opcode
-# counts are printed
+# K8's and K9's sources and kernel names (a part of the compiled entry's
+# name), whose registers and SASS opcode counts are printed
 SASS = {"k8": ("skylight", "k8_sky_kernel"),
+        "k8s": ("skylight", "k8_sky_"),
         "k9": ("setup", "k9_setup_kernel")}
 # the K5 launches of a main-path frame and of the small forward frame, in
 # launch order (renderer/frame.py): their roles
@@ -494,9 +504,9 @@ def _record(times, key, t_o, t_t):
 
 
 def peel_and_checker(cs, others, this, dev, times, kinds):
-    """K6's peel steps (k6) and K5's checkerboard launch (k5s) of two
-    main-path frames, the estimators on and off, each timed against each
-    other checkout's (see the module's doc); appends to
+    """K6's peel steps (k6), K5's checkerboard launch (k5s) and K8's
+    (k8s) of two main-path frames, the estimators on and off, each timed
+    against each other checkout's (see the module's doc); appends to
     times[(other, role)]."""
     import dataclasses
     import torch
@@ -517,6 +527,11 @@ def peel_and_checker(cs, others, this, dev, times, kinds):
         checker = [x for x in (cs._k5_args(a, kw) for kind, a, kw in calls
                                if kind == "k5")
                    if cs._k5_role(x) == "jitter_checker"]
+        sky = [case for x in (
+            cs._bound_args(this["skylight"].sky_lighting_plain, a, kw)
+            for kind, a, kw in calls if kind == "k8")
+            if cs._k8_role(x) == "jitter_checker"
+            for case in sky_cases(dict(x), dev)]
         for name, other in others:
             for x in steps if "k6" in kinds else []:
                 role = cs._k6_role(x)
@@ -570,6 +585,42 @@ def peel_and_checker(cs, others, this, dev, times, kinds):
                 _record(times, (name, "k5_resolve[jitter, same layer]"),
                         *time_pair(cs, lambda: impls[0](**y),
                                    lambda: impls[1](**y), 20))
+            for role, y in sky if "k8s" in kinds else []:
+                impls = (other["skylight"].sky_lighting,
+                         this["skylight"].sky_lighting)
+                for what, f, m in (("other", impls[0], other),
+                                   ("this", impls[1], this)):
+                    err, _ = cs._k8_error(
+                        f(**y), m["skylight"].sky_lighting_plain(**y),
+                        y["gb"].mask)
+                    print(f"k8_sky_lighting[{role}]: {what} checkout's "
+                          f"K8 max abs error {err:.3e} against its own "
+                          "twin", flush=True)
+                _record(times, (name, f"k8_sky_lighting[{role}]"),
+                        *time_pair(cs, lambda: impls[0](**y),
+                                   lambda: impls[1](**y), 20))
+
+
+def sky_cases(x, dev):
+    """The k8s cases of a captured `jitter_checker` launch x of K8:
+    (role, arguments) for the launch itself and the same layer in K8's
+    other stochastic roles: without the checkerboard (every covered pixel
+    fetching: `jitter`), the bilinear fetch of the dithered mip
+    (uv_dither off: `dither_checker`, `dither`), and one lobe a pixel
+    (`+lobe`: extras, transmission, clearcoat and its roughness, uniform
+    in [0, 1) from seed 0)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(0)
+    extras = torch.rand(x["gb"].mask.shape + (3,), generator=g, device=dev)
+    flat = dict(checker_parity=None)
+    bilinear = dict(uv_dither=False)
+    lobe = dict(extras=extras)
+    return [("jitter_checker", x),
+            ("jitter, same layer", dict(x, **flat)),
+            ("dither_checker, same layer", dict(x, **bilinear)),
+            ("dither, same layer", dict(x, **bilinear, **flat)),
+            ("jitter_checker+lobe, same layer", dict(x, **lobe)),
+            ("jitter+lobe, same layer", dict(x, **lobe, **flat))]
 
 
 # K4 launches captured from the binary layout and the alpha role: (group,
@@ -724,9 +775,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default="k1,k2,k3,k4",
                     help="comma-separated: k1, k2, k3, k5 (two frames' "
                          "launches), k8, k9, k10 (the main frame's), k4, "
-                         "k6 and k5s (the peel steps and K5's "
-                         "checkerboard of frames with the estimators on "
-                         "and off)")
+                         "k6, k5s and k8s (the peel steps and K5's and "
+                         "K8's checkerboards of frames with the "
+                         "estimators on and off)")
     ap.add_argument("--timeline", action="store_true",
                     help="with k10: each checkout's per-block timeline of "
                          "its counting and scatter steps")
@@ -792,7 +843,7 @@ def main(argv=None) -> int:
     times: dict = {}
     if kinds & set(WRAPPERS):
         k1_to_k5(cs, others, this, dev, times, kinds, timelines)
-    if kinds & {"k6", "k5s"}:
+    if kinds & {"k6", "k5s", "k8s"}:
         peel_and_checker(cs, others, this, dev, times, kinds)
     totals, ends = {}, {}
     if "k4" in kinds:
