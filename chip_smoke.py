@@ -19,8 +19,9 @@ next's), decals, the material resolve of the opaque layer (K5: a
 checkerboard of jittered texels) and the decal layer (K5: jittered
 texels under its chunk capacity), the 1024 x 1024 sun shadow map (K1's
 depth-only role, every face casting) and its jittered, checkerboarded
-tap, sky IBL (K8: a checkerboard of jittered RGBE probe texels), shadowed
-sun, clustered lights, TAA and tonemap. The camera is the atrium's glTF
+tap, the light-cluster grid (K11), sky IBL (K8: a checkerboard of
+jittered RGBE probe texels), shadowed sun, clustered lights (K2), the sky
+background (K12), TAA and tonemap. The camera is the atrium's glTF
 camera with Halton jitter and a small orbit every frame. Every zero gate
 must read 0 on every frame (peel_chunk_overflow and decal_overflow
 among them), and each launch of K5, K6 and K8 counts under its role.
@@ -37,12 +38,15 @@ lanes, halos included, beside the twin's fetches), renders that frame
 again with every kernel swapped for its twin and compares the images,
 and prints the frame's time by phase (phase_breakdown). The frame's two
 binnings run once more under torch.cuda.set_sync_debug_mode("error"):
-K10 makes the host wait for nothing.
+K10 makes the host wait for nothing. Inside the light-cluster grid and
+the sky background of one more frame, nothing but K11's and K12's one
+launch each runs on the card: no eager torch operator, no copy from host
+memory, no synchronize (host_free_phases).
 
 A second, small path (512x256, the port's scene/testing.py scene with a
 BLEND quad, TAA off: the exact roles) renders one forward-lighting frame
 with blend layers and both debug draws, holds its blend-layer launches of K1 and every K5, K6, K8,
-K9 and K10 launch to their twins, renders one frame per view mode (the
+K9, K10, K11 and K12 launch to their twins, renders one frame per view mode (the
 lighting-only mode's K8 launch held to its twin) and checks pick and
 highlight.
 
@@ -55,8 +59,8 @@ ray; (d) one sample with K4 swapped for its twin (identical radiance);
 (e) one 1920x1088 render_frame with RT sun shadows and HBAO through the
 same BVH (RT shadows darken the frame, AO in [0, 1], unit bent normals,
 the share of covered pixels where RT and shadow-map visibility agree; its
-K5, K6, K8 (with HBAO and bent normals), K9 and K10 launches against
-their twins).
+K5, K6, K8 (with HBAO and bent normals), K9, K10, K11 and K12 launches
+against their twins).
 
 Then the rest of the port: (g) the atrium's binary BVH (merged table) and
 K4's binary role on the captured primary, bounce and shadow rays, against
@@ -73,8 +77,8 @@ checkerboard, and K8's tile kernel gets a row of its own);
 else cuda:0 twice): a 1920x1088 frame and a second TAA frame against the
 single frame, a band-sharded path-traced sample (identical) and an
 SPP-sharded round (the batch-mean rule within 1e-6). (i)-(k) capture
-their K1, K2, K3, K5, K6, K8, K9 and K10 launches and hold each to its
-twin.
+their K1, K2, K3, K5, K6, K8, K9, K10, K11 and K12 launches and hold each
+to its twin.
 
 It prints one JSON line of kernel figures; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises, and the script
@@ -237,6 +241,22 @@ K9_OPS_DEPTH, K9_OPS_ATTR, K9_OPS_PER_MESH = 250, 216, 224
 # (4 x (pair_capacity + 1)), a tile's start and count (8), each layer's big
 # list (4 x big_tri_capacity) and its three counters written once.
 K10_OPS_PER_TRI, K10_OPS_PER_PAIR = 17, 6
+# K11, counted from csrc/clustered.cu, per cluster: its corners' NDC x and
+# y 8, the two slices' view depth (the exponent 2, powf 1, the scaling 1)
+# and NDC z (a 4-term product 7 each for z and w, the division 1) 38, 8
+# corners' 4x4 products (28), the +0.0 of each coordinate (3) and the
+# division by w (3) 272, 6 planes (the two edges 6, the cross product 9,
+# the offset 5, |n| 6) 156: 474; per (cluster, light, plane) the test n.p
+# 5, + d 1, |n| r 1 and the sum 1: 8. Bytes: the two matrices (128), each
+# light's position, range and type (20), the words and the count.
+K11_OPS_PER_CLUSTER, K11_OPS_PER_TEST = 474, 8
+# K12, counted from csrc/skylight.cu (acosf, cosf and expf count one
+# each), per uncovered pixel: NDC 8, the 4x4 product 28, the division by w
+# and the eye 7, normalize 11, theta and gamma 11, Perez 39 (cos theta and
+# its clamp, cos gamma, then 12 a channel), the ratio to the zenith's 6,
+# Yxy to RGB and the scale 24: 134. Bytes: the mask byte and the 12-byte
+# output of every pixel, the matrix, eye and sun once.
+K12_OPS_PER_SKY = 134
 # K10's launches a binning, by entry (kernels/raster.py K10)
 K10_LAUNCHES = ("k10_count", "k10_scan", "k10_scatter")
 # H100 SXM int32 rate: 64 INT32 lanes an SM (NVIDIA's Hopper white paper)
@@ -411,6 +431,11 @@ def main(argv=None) -> int:
                                          logs.get("skylight")))
     K9_RESOURCES.update(kernel_resources(build, "setup", "k9_setup_kernel",
                                          logs.get("setup")))
+    K11_K12_RESOURCES.update(kernel_resources(
+        build, "clustered", "k11_light_grid_kernel", logs.get("clustered")))
+    K11_K12_RESOURCES.update(kernel_resources(
+        build, "skylight", "k12_sky_background_kernel",
+        logs.get("skylight")))
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -429,7 +454,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4, resolve.K5,
-               resolve.K6, skylight.K8, raster.K9, raster.K10)
+               resolve.K6, skylight.K8, raster.K9, raster.K10, clustered.K11,
+               skylight.K12)
     for k in kernels:
         k.reset()
     # the main path: bench.py's frame, JAX's default Config, its history
@@ -483,13 +509,13 @@ def main(argv=None) -> int:
     # shadow map, K2 once, K3 on every frame with a history (all but
     # frame 0), K4 never (no BVH on this path), K5 for the opaque and the
     # decal layer, K6 for each peel, K8 once, K9 and K10's launches for the
-    # camera and the sun pass (K10: K10_LAUNCHES a binning); K6 is the
-    # peel step
+    # camera and the sun pass (K10: K10_LAUNCHES a binning), K11 and K12
+    # once; K6 is the peel step
     want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS, 1, 2,
-             2 * len(K10_LAUNCHES)] for i in range(FRAMES)]
+             2 * len(K10_LAUNCHES), 1, 1] for i in range(FRAMES)]
     if per_frame != want:
         raise RuntimeError(f"launches per frame (K1, K2, K3, K4, K5, K6, K8, "
-                           f"K9, K10) {per_frame} != {want}")
+                           f"K9, K10, K11, K12) {per_frame} != {want}")
     if k10_steps != {k: 2 * FRAMES for k in K10_LAUNCHES}:
         raise RuntimeError(f"K10 launches {k10_steps}: not two binnings a "
                            f"frame of {len(K10_LAUNCHES)} launches each")
@@ -576,6 +602,11 @@ def main(argv=None) -> int:
                     role=r) for r, n in roles["k8_sky_lighting"].items()]
     rows += k9_rows(raster, calls, launches["k9_setup"])
     rows += k10_rows(raster, calls, launches["k10_scatter"])
+    rows += [k11_row(clustered, calls, launches["k11_light_grid"]),
+             k12_row(skylight, calls, launches["k12_sky_background"])]
+    check_twins("the exact sequence's next frame",
+                [c for c in exact_calls if c[0] in ("k11", "k12")], raster,
+                clustered, taa, need=("k11", "k12"))
     k10_no_sync(raster, calls)
     check_twin_frame(run, fc, history, raster, clustered, taa)
     phase_breakdown(run, fc, history)
@@ -591,6 +622,7 @@ def main(argv=None) -> int:
                        for w in launched):
         raise RuntimeError("the peel loop launches more than K1's peel and "
                            "K6's step per peel")
+    host_free_phases(run, fc, history, clustered, skylight, kernels)
     if args.profile:
         profile_frame(run, fc, history)
 
@@ -760,8 +792,8 @@ def capture_frame(run, fc, history, raster, clustered, taa):
 
 @contextlib.contextmanager
 def _capturing(calls, raster, clustered, taa, limit=None):
-    """For the duration of the block, each K1, K2, K3, K5, K6, K8, K9 and
-    K10 wrapper call appends (kind, args, kwargs) to calls, at most
+    """For the duration of the block, each K1, K2, K3, K5, K6, K8, K9, K10,
+    K11 and K12 wrapper call appends (kind, args, kwargs) to calls, at most
     `limit` per kind. K6 is the peel step (masked_peel), recorded before
     its launch by name (_k6_args) with a copy of the state it updates; a
     masked peel's z_limit, which the step overwrites, is copied too."""
@@ -791,7 +823,10 @@ def _capturing(calls, raster, clustered, taa, limit=None):
                                 (resolve, "resolve_gbuffer", "k5"),
                                 (skylight, "sky_lighting", "k8"),
                                 (raster, "prepare_geometry", "k9"),
-                                (raster, "bin_triangles_layered", "k10")):
+                                (raster, "bin_triangles_layered", "k10"),
+                                (clustered, "build_light_clusters", "k11"),
+                                (skylight, "environment_background",
+                                 "k12")):
             stack.enter_context(_hooked(mod, name, keep(kind)))
         stack.enter_context(_swapped(resolve, "masked_peel", peel_step))
         yield calls
@@ -1783,6 +1818,160 @@ def k10_no_sync(raster, calls):
          "(k1_max_items, from shapes): " + "; ".join(sizes))
 
 
+def _k11_error(got, ref):
+    """Raises unless one K11 launch equals its twin: every word and the
+    culled count (the same float tests in the same order; a word is a
+    discrete result, and K2 reads it as it is)."""
+    import torch
+    (words, culled), (ref_words, ref_culled) = got, ref
+    if words.dtype != torch.int32 or words.shape != ref_words.shape \
+            or culled.dtype != torch.int64:
+        raise RuntimeError(f"K11 gave {words.dtype} {tuple(words.shape)} "
+                           f"words and a {culled.dtype} count")
+    if not torch.equal(words, ref_words):
+        raise RuntimeError(f"K11 differs from its twin in "
+                           f"{int((words != ref_words).sum())} words")
+    if int(culled) != int(ref_culled):
+        raise RuntimeError(f"K11 culled {int(culled)}, its twin "
+                           f"{int(ref_culled)}")
+
+
+def _k12_error(got, ref):
+    """Raises unless one K12 launch equals its twin bit for bit (the same
+    operations in the same order, the transcendentals the functions torch
+    calls; +0.0 where covered)."""
+    import torch
+    if got.dtype != torch.float32 or got.shape != ref.shape:
+        raise RuntimeError(f"K12 gave {got.dtype} {tuple(got.shape)}")
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        diff = (got - ref).abs()
+        raise RuntimeError(
+            f"K12 differs from its twin on {int((got != ref).sum())} values "
+            f"(max abs {float(diff.nan_to_num(float('inf')).max()):.3e})")
+
+
+def k11_row(clustered, calls, n_launches):
+    """K11 against its twin, identical in every word and the count, on the
+    captured build_light_clusters launch, timed, with its bound, the
+    launch floor (K10's empty kernel) and its registers -> the JSON row."""
+    launches = [(a, kw) for kind, a, kw in calls if kind == "k11"]
+    if len(launches) != 1:
+        raise RuntimeError(f"k11: {len(launches)} launches captured")
+    (a, kw), = launches
+    _k11_error(clustered.build_light_clusters(*a, **kw),
+               clustered.build_light_clusters_plain(*a, **kw))
+    x = _bound_args(clustered.build_light_clusters_plain, a, kw)
+    gx, gy, gz = clustered.cluster_grid_shape(x["config"])
+    c, n_lights = gx * gy * gz, x["lights"].type.shape[0]
+    w32 = (n_lights + 31) // 32
+    bound, by = _bound(128 + 20 * n_lights + 4 * c * w32 + 8,
+                       c * (K11_OPS_PER_CLUSTER
+                            + 6 * n_lights * K11_OPS_PER_TEST))
+    floor = k10_launch_ms()
+    ms = device_ms(lambda: clustered.build_light_clusters(*a, **kw), 50)
+    plain = device_ms(lambda: clustered.build_light_clusters_plain(*a, **kw),
+                      5)
+    res = next((v for k, v in K11_K12_RESOURCES.items() if "k11" in k), {})
+    _log(f"k11_light_grid: {gx}x{gy}x{gz} clusters, {n_lights} lights; "
+         f"{ms:.4f} ms a launch against the launch floor {floor:.4f} ms "
+         f"(an empty kernel, back to back) and the bound {bound:.6f} ms "
+         f"({by}); twin {plain:.3f} ms; identical to the twin; "
+         f"{res.get('registers')} registers, {res.get('spill_bytes')} "
+         "bytes spilled")
+    return dict(
+        name="k11_light_grid", route="cuda",
+        source="incarnation_tpu_torch/csrc/clustered.cu",
+        replaces="incarnation_tpu/kernels/clustered.py:103",
+        launches=n_launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, launch_floor_ms=floor, library_ms=None,
+        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
+
+
+def k12_row(skylight, calls, n_launches):
+    """K12 against its twin, bit for bit, on the captured dynamic-sky
+    environment_background launch, timed, with its bound and registers
+    -> the JSON row."""
+    launches = [(a, kw) for kind, a, kw in calls if kind == "k12"]
+    if len(launches) != 1:
+        raise RuntimeError(f"k12: {len(launches)} launches captured")
+    (a, kw), = launches
+    _k12_error(skylight.environment_background(*a, **kw),
+               skylight.environment_background_plain(*a, **kw))
+    x = _bound_args(skylight.environment_background_plain, a, kw)
+    mask = x["mask"]
+    sky = int((~mask).sum())
+    bound, by = _bound(mask.numel() * 13 + 64 + 24, sky * K12_OPS_PER_SKY)
+    ms = device_ms(lambda: skylight.environment_background(*a, **kw), 20)
+    plain = device_ms(
+        lambda: skylight.environment_background_plain(*a, **kw), 3)
+    res = next((v for k, v in K11_K12_RESOURCES.items() if "k12" in k), {})
+    _log(f"k12_sky_background: {x['width']}x{x['height']}, {sky} uncovered "
+         f"pixels ({sky / mask.numel():.4f}); {ms:.4f} ms a launch against "
+         f"the bound {bound:.4f} ms ({by}); twin {plain:.3f} ms; identical "
+         f"to the twin; {res.get('registers')} registers, "
+         f"{res.get('spill_bytes')} bytes spilled")
+    return dict(
+        name="k12_sky_background", route="cuda",
+        source="incarnation_tpu_torch/csrc/skylight.cu",
+        replaces="incarnation_tpu/kernels/skylight.py:159",
+        launches=n_launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, library_ms=None,
+        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
+
+
+def host_free_phases(run, fc, history, clustered, skylight, kernels):
+    """Inside build_light_clusters and environment_background on one
+    frame: every eager torch operator that runs work on the card
+    (_launches_work, counted by a TorchDispatchMode), the hand-written
+    kernels launched, and, under torch.cuda.set_sync_debug_mode("error"),
+    any synchronize or copy from pageable host memory (which raises).
+    Raises unless each call is its one K11 or K12 launch and nothing
+    else."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ops, seen = [], []
+    inside = [False]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if inside[0] and _launches_work(func):
+                ops[-1].append(func.name())
+            return func(*args, **(kwargs or {}))
+
+    def watched(fn, what):
+        def call(*a, **kw):
+            before = [k.launches for k in kernels]
+            ops.append([])
+            inside[0] = True
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                inside[0] = False
+                seen.append((what, ops[-1], {
+                    k.fn: k.launches - n for k, n in zip(kernels, before)
+                    if k.launches > n}))
+        return call
+    with _swapped(clustered, "build_light_clusters", watched(
+            clustered.build_light_clusters, "build_light_clusters")), \
+            _swapped(skylight, "environment_background", watched(
+                skylight.environment_background, "environment_background")), \
+            Count():
+        run(fc, history)
+    torch.cuda.synchronize()
+    _log("inside the light-cluster grid and the sky background (eager "
+         "operators running on the card, kernels launched; no synchronize "
+         "and no copy from host memory under set_sync_debug_mode): "
+         + json.dumps(seen))
+    want = {"build_light_clusters": {"k11_light_grid": 1},
+            "environment_background": {"k12_sky_background": 1}}
+    if sorted(w for w, _, _ in seen) != sorted(want) \
+            or any(o or k != want[w] for w, o, k in seen):
+        raise RuntimeError("build_light_clusters or environment_background "
+                           "ran more on the card than its one launch")
+
+
 def k1_row(raster, layer, launches_captured, n_launches):
     """Kernel-vs-twin on the captured K1 launches of one raster layer
     (error, both times and the bound, each the mean over the launches)
@@ -1890,11 +2079,13 @@ def small_path(dev, raster, clustered, taa):
                show_object_bounds=True)
     render(**fwd)                               # warm-up
     kernels = (raster.K1, clustered.K2, taa.K3, resolve.K5, resolve.K6,
-               skylight.K8, raster.K9, raster.K10)
+               skylight.K8, raster.K9, raster.K10, clustered.K11,
+               skylight.K12)
     for k in kernels:
         k.reset()
     calls = capture_frame(lambda fc, history: render(**fwd), None, None,
                           raster, clustered, taa)
+    k11_k12 = [clustered.K11.launches, skylight.K12.launches]
     by_name, k2_launches = dict(raster.K1.by_name), clustered.K2.launches
     k5_launches, k6_launches = resolve.K5.launches, resolve.K6.launches
     k8_launches, k9_launches = skylight.K8.launches, raster.K9.launches
@@ -1915,13 +2106,15 @@ def small_path(dev, raster, clustered, taa):
             or k2_launches != 1 + SMALL_PEELS \
             or k5_launches != 2 + SMALL_PEELS or k6_launches != SMALL_PEELS \
             or k8_launches != 1 + SMALL_PEELS or k9_launches != 2 \
-            or k10_binnings != 2:
+            or k10_binnings != 2 or k11_k12 != [1, 1]:
         raise RuntimeError(f"small path launches {by_name}, K2 "
                            f"{k2_launches}, K5 {k5_launches}, K6 "
                            f"{k6_launches}, K8 {k8_launches}, K9 "
-                           f"{k9_launches}, K10 {k10_binnings} binnings")
+                           f"{k9_launches}, K10 {k10_binnings} binnings, "
+                           f"K11 and K12 {k11_k12}")
     check_twins("small path, forward frame", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10"))
+                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10", "k11",
+                      "k12"))
     if stats["debug_draws"] <= 0:
         raise RuntimeError("no debug draw was appended")
     for key in ("bin_overflow", "big_overflow", "peel_overflow",
@@ -2175,9 +2368,10 @@ def bvh_paths(dev, path, profile: bool):
                           for x in k8_hbao):
         raise RuntimeError("(e) K8 was not given the HBAO and bent normals")
     check_twins("(e) RT frame", [c for c in raster_calls
-                                 if c[0] in ("k5", "k6", "k8", "k9", "k10")],
+                                 if c[0] in ("k5", "k6", "k8", "k9", "k10",
+                                             "k11", "k12")],
                 raster, clustered, taa,
-                need=("k5", "k6", "k8", "k9", "k10"))
+                need=("k5", "k6", "k8", "k9", "k10", "k11", "k12"))
     rows += [k4_row(bvh, rt_calls[role], role, rt_launches.get(role, 0))
              for role in ("hbao", "rt_sun")]
     return rows, types.SimpleNamespace(sbvh=sbvh, calls=calls, fc=fc_pt,
@@ -2344,7 +2538,8 @@ def cli_phase(dev, path):
         raise RuntimeError(f"(i) the CLI's frames skipped a kernel: "
                            f"{counts}")
     check_twins("(i) CLI raster", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10"))
+                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10", "k11",
+                      "k12"))
     img = _png_check(out_dir / "raster.png", W, H)
     ref = frame.render_frame(res["scene"], res["fc"], config=res["config"],
                              params=res["params"], probe=res["probe"],
@@ -2463,7 +2658,8 @@ def viewer_phase(dev, path):
         raise RuntimeError(f"(j) the render loop did not end cleanly: "
                            f"{state.error}")
     check_twins("(j) viewer", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10"))
+                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10", "k11",
+                      "k12"))
     n = skylight.K8.by_name.get("jitter", 0)
     if not n:
         raise RuntimeError(f"(j) the viewer's frames launched K8's roles "
@@ -2533,7 +2729,7 @@ def band_phase(dev, path, pt):
         raise RuntimeError(f"(k) the band frames skipped a kernel: {counts}")
     halo = check_twins("(k) band frame", calls, raster, clustered, taa,
                        need=("k1", "k2", "k3", "k5", "k6", "k8", "k9",
-                             "k10"))
+                             "k10", "k11", "k12"))
     if {_k6_args(a, kw)["row0"] for kind, a, kw in calls if kind == "k6"} \
             != {0, H // 2}:
         raise RuntimeError("(k) the bands' K6 launches do not start at "
@@ -2574,14 +2770,19 @@ def band_phase(dev, path, pt):
 
 
 def check_twins(what, calls, raster, clustered, taa, need):
-    """Each captured K1, K2, K3, K5, K6, K8, K9 and K10 launch against its
-    twin, at compare_kernels' tolerances (K1 via _k1_error, K2 K2_RTOL, K3
-    1e-6 relative, K5 via _k5_error, K6's peel step via _k6_error, K8 via _k8_error,
-    K9 and K10 exactly), at the shapes the path gave it; raises if a kind
-    in `need` was not captured. Returns the K3 launches' arguments."""
+    """Each captured K1, K2, K3, K5, K6, K8, K9, K10, K11 and K12 launch
+    against its twin, at compare_kernels' tolerances (K1 via _k1_error, K2
+    K2_RTOL, K3 1e-6 relative, K5 via _k5_error, K6's peel step via
+    _k6_error, K8 via _k8_error, K9, K10, K11 and K12 exactly), at the
+    shapes the path gave it; raises if a kind in `need` was not captured.
+    Returns the K3 launches' arguments."""
     from incarnation_tpu_torch.kernels import resolve, skylight
     kinds = {k: [c for c in calls if c[0] == k]
-             for k in ("k1", "k2", "k3", "k5", "k6", "k8", "k9", "k10")}
+             for k in ("k1", "k2", "k3", "k5", "k6", "k8", "k9", "k10",
+                       "k11")}
+    # environment_background's envmap role is torch on every device
+    kinds["k12"] = [c for c in calls if c[0] == "k12" and _bound_args(
+        skylight.environment_background_plain, c[1], c[2])["dynamic_sky"]]
     if not all(kinds[k] for k in need):
         raise RuntimeError(f"{what}: captured launches per kernel "
                            f"{ {k: len(v) for k, v in kinds.items()} }")
@@ -2657,6 +2858,21 @@ def check_twins(what, calls, raster, clustered, taa, need):
                           kw.get("n_layers", 1)) for _, a, kw in kinds["k10"]})
         _log(f"{what}: K10 x{len(kinds['k10'])} at (triangles, width, "
              f"height, layers) {shapes} identical to the twin")
+    for _, a, kw in kinds["k11"]:
+        _k11_error(clustered.build_light_clusters(*a, **kw),
+                   clustered.build_light_clusters_plain(*a, **kw))
+    for _, a, kw in kinds["k12"]:
+        _k12_error(skylight.environment_background(*a, **kw),
+                   skylight.environment_background_plain(*a, **kw))
+    if kinds["k11"] or kinds["k12"]:
+        grids = sorted({(*clustered.cluster_grid_shape(x["config"]),
+                         x["lights"].type.shape[0]) for x in (
+            _bound_args(clustered.build_light_clusters_plain, a, kw)
+            for _, a, kw in kinds["k11"])})
+        _log(f"{what}: K11 x{len(kinds['k11'])} (gx, gy, gz, lights "
+             f"{grids}) and K12 x{len(kinds['k12'])} (frames "
+             f"{sorted({(a[3], a[4]) for _, a, _ in kinds['k12']})}) "
+             "identical to the twin")
     return [a for _, a, _ in kinds["k3"]]
 
 
@@ -2751,6 +2967,7 @@ K4_RESOURCES: dict = {}
 K5_RESOURCES: dict = {}
 K8_RESOURCES: dict = {}
 K9_RESOURCES: dict = {}
+K11_K12_RESOURCES: dict = {}
 
 
 def _ptxas_log(build_mod, source: str, log=None) -> str:
@@ -3092,7 +3309,11 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
             _swapped(raster, "prepare_geometry",
                      raster.prepare_geometry_plain), \
             _swapped(raster, "bin_triangles_layered",
-                     raster.bin_triangles_layered_plain):
+                     raster.bin_triangles_layered_plain), \
+            _swapped(clustered, "build_light_clusters",
+                     clustered.build_light_clusters_plain), \
+            _swapped(skylight, "environment_background",
+                     skylight.environment_background_plain):
         ref = run(fc, history)
     torch.cuda.synchronize()
     share = float((got["tri"] != ref["tri"]).float().mean())

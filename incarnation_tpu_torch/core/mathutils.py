@@ -163,6 +163,26 @@ def normalize(v, eps=1e-20):
     return v * (1.0 / torch.sqrt(dot3(v, v, keepdim=True) + eps))
 
 
+def cross3(u, v):
+    """Cross product of (..., 3) tensors, each component one product
+    minus another, every operation rounded on its own (torch.cross on the
+    card may fuse them)."""
+    return torch.stack([u[..., 1] * v[..., 2] - u[..., 2] * v[..., 1],
+                        u[..., 2] * v[..., 0] - u[..., 0] * v[..., 2],
+                        u[..., 0] * v[..., 1] - u[..., 1] * v[..., 0]], -1)
+
+
+def rows_mat(v, m):
+    """v @ m for (..., K) rows v and a (K, N) matrix m, each entry's sum
+    left to right over k with every multiply and add rounded on its own:
+    the same bits on the CPU and on the card, where a matmul's order is
+    its library's own."""
+    out = v[..., 0:1] * m[0]
+    for k in range(1, m.shape[0]):
+        out = out + v[..., k:k + 1] * m[k]
+    return out
+
+
 def ipow(x, n: int):
     """x ** n for a small positive integer n by repeated squaring, the
     multiplications XLA's integer_pow makes (torch's pow rounds otherwise,

@@ -233,3 +233,204 @@ extern "C" int k2_clustered(const float* base_color, const float* mrao,
       height);
   return (int)cudaGetLastError();
 }
+
+// K11: the light-cluster grid, the (C, W32) bitmask words K2 reads.
+//
+// It replaces no Pallas kernel: the JAX package writes this pass in jnp
+// (incarnation_tpu/kernels/clustered.py build_light_clusters :103-148 with
+// _cluster_corners :47-100). Its torch twin (kernels/clustered.py
+// build_light_clusters_plain) runs about 40 eager operators a frame over
+// tensors of a few thousand rows; here it is one launch, which takes the
+// projection, the inverse view-projection and the light table as device
+// pointers (no copy to the host, no synchronize).
+//
+// A warp per cluster (id x + gx y + gx gy z, the reference's). First the
+// block stages each light's position, range (MAX_LIGHT_RANGE where range
+// <= 0) and whether it is active (punctual, index < count) in shared
+// memory, while its warps go on to the planes: lanes 0-7 form the
+// cluster's 8 NDC corners (the slice's view depths by powf, projected to
+// NDC z) and their world positions; lanes 0-5 its 6 planes from three
+// corners each (shuffles): the normal cross(b - a, c - a), the offset -n.a
+// and |n|; every lane then takes the 30 plane values (shuffles). For each
+// word w of 32 lights, lane k tests light 32 w + k: it is inside where it
+// is active and dot(n, p) + d + |n| r >= 0 for all six planes, and the
+// warp's ballot is the word. culled = active x C - sum(inside): each warp
+// adds popc(active) - popc(inside) of its words; a block sums its warps'
+// in shared memory and adds the sum to a 64-bit counter of the wrapper's
+// scratch; the last block (an atomic ticket) writes the count and leaves
+// the scratch zero. Integer sums, so the count is exact in any order.
+//
+// Arithmetic: the twin's, operation by operation (--fmad=false): the
+// products with the projection and the inverse view-projection are sums
+// left to right (mathutils.rows_mat), the cross products and dot products
+// mathutils.cross3 and dot3, each division by a Python number (a grid
+// size) a multiplication by its float reciprocal as torch does it on the
+// card, the others IEEE divisions; powf and sqrtf are the functions torch
+// calls. So the words equal the twin's bit for bit.
+//
+// What bounds it: not bytes (the two matrices, 20 bytes a light, 4 bytes a
+// word and the count: about 43 KB at 16 x 9 x 24 and 66 lights, 13 ns at
+// 3.35 TB/s) nor operations (1.3 x 10^7, 0.19 us at 67 TFLOP/s): a
+// launch and latency. A block of K11_WARPS clusters, so that the 3,456
+// clusters of the default grid spread over every SM in one wave; the light
+// rows staged once a block, so that no warp waits on a load of them after
+// its planes (14% faster than each lane loading its light per word;
+// PERF.md).
+
+#define K11_WARPS 8
+#define K11_THREADS (K11_WARPS * 32)
+#define K11_MAX_LIGHT_RANGE 4.0f   // clustered.py MAX_LIGHT_RANGE
+#define K11_LIGHT_DIRECTIONAL 0    // scene/lights.py LIGHT_DIRECTIONAL
+
+// the three corners (a, b, c) of each plane: near, far, left, right, top,
+// bottom (clustered.py build_light_clusters_plain)
+__constant__ int k11_plane_corners[6][3] = {
+    {0, 1, 3}, {4, 7, 5}, {0, 3, 4}, {1, 5, 2}, {2, 6, 3}, {0, 4, 1}};
+
+__global__ void __launch_bounds__(K11_THREADS)
+k11_light_grid_kernel(const float* __restrict__ proj,      // (4, 4)
+                      const float* __restrict__ ivp,       // (4, 4)
+                      const float* __restrict__ xform,     // (L, 4, 4)
+                      const float* __restrict__ range,     // (L,)
+                      const int* __restrict__ type,        // (L,)
+                      int num_lights, int count, int w32, int gx, int gy,
+                      int gz, float near_plane, float depth_ratio,
+                      float step_x, float step_y,
+                      int* __restrict__ words,             // (C, w32)
+                      long long* __restrict__ culled,      // ()
+                      unsigned long long* __restrict__ scratch) {
+  __shared__ int s_culled[K11_WARPS];
+  extern __shared__ float4 s_light[];          // (L,) x, y, z, r
+  int* s_active = (int*)(s_light + num_lights);
+  for (int l = threadIdx.x; l < num_lights; l += K11_THREADS) {
+    const float rg = __ldg(range + l);
+    s_light[l] = make_float4(__ldg(xform + 16 * l + 12),
+                             __ldg(xform + 16 * l + 13),
+                             __ldg(xform + 16 * l + 14),
+                             rg > 0.0f ? rg : K11_MAX_LIGHT_RANGE);
+    s_active[l] = __ldg(type + l) != K11_LIGHT_DIRECTIONAL && l < count;
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int clusters = gx * gy * gz;
+  const int cid = blockIdx.x * K11_WARPS + warp;
+  int warp_culled = 0;
+  float pl[6][5];
+  if (cid < clusters) {
+    const int cx = cid % gx, cy = (cid / gx) % gy, cz = cid / (gx * gy);
+    // corner k of lane k & 7 (_cluster_corners): x0 or x0 + sx, y0 - sy or
+    // y0, the near slice for k < 4, the far one after
+    const int k = lane & 7;
+    const float x0 = 2.0f * (float)cx * (1.0f / (float)gx) - 1.0f;
+    const float y0 = -(2.0f * (float)cy * (1.0f / (float)gy) - 1.0f);
+    const float e = (k < 4 ? (float)cz : (float)cz + 1.0f) *
+                    (1.0f / (float)gz);
+    const float zv = near_plane * powf(depth_ratio, e);
+    const float pz = ((0.0f * __ldg(proj + 2) + 0.0f * __ldg(proj + 6)) +
+                      zv * __ldg(proj + 10)) + 1.0f * __ldg(proj + 14);
+    const float pw = ((0.0f * __ldg(proj + 3) + 0.0f * __ldg(proj + 7)) +
+                      zv * __ldg(proj + 11)) + 1.0f * __ldg(proj + 15);
+    const bool right = k == 1 || k == 2 || k == 5 || k == 6;
+    const bool bottom = k == 0 || k == 1 || k == 4 || k == 5;
+    const float nx = (right ? x0 + step_x : x0) + 0.0f;
+    const float ny = (bottom ? y0 - step_y : y0) + 0.0f;
+    const float nz = pz / pw + 0.0f;
+    float w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = ((nx * __ldg(ivp + j) + ny * __ldg(ivp + 4 + j)) +
+              nz * __ldg(ivp + 8 + j)) + 1.0f * __ldg(ivp + 12 + j);
+    const float px = w[0] / w[3], py = w[1] / w[3], pzw = w[2] / w[3];
+
+    // plane p of lane p (lanes 6-31 form plane 0 again, unused)
+    const int p = lane < 6 ? lane : 0;
+    const int ia = k11_plane_corners[p][0], ib = k11_plane_corners[p][1],
+              ic = k11_plane_corners[p][2];
+    const float ax = __shfl_sync(0xffffffffu, px, ia),
+                ay = __shfl_sync(0xffffffffu, py, ia),
+                az = __shfl_sync(0xffffffffu, pzw, ia);
+    const float bx = __shfl_sync(0xffffffffu, px, ib),
+                by = __shfl_sync(0xffffffffu, py, ib),
+                bz = __shfl_sync(0xffffffffu, pzw, ib);
+    const float qx = __shfl_sync(0xffffffffu, px, ic),
+                qy = __shfl_sync(0xffffffffu, py, ic),
+                qz = __shfl_sync(0xffffffffu, pzw, ic);
+    const float ux = bx - ax, uy = by - ay, uz = bz - az;
+    const float vx = qx - ax, vy = qy - ay, vz = qz - az;
+    const float n0 = uy * vz - uz * vy;
+    const float n1 = uz * vx - ux * vz;
+    const float n2 = ux * vy - uy * vx;
+    const float d = -((n0 * ax + n1 * ay) + n2 * az);
+    const float len = sqrtf((n0 * n0 + n1 * n1) + n2 * n2);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+      pl[q][0] = __shfl_sync(0xffffffffu, n0, q);
+      pl[q][1] = __shfl_sync(0xffffffffu, n1, q);
+      pl[q][2] = __shfl_sync(0xffffffffu, n2, q);
+      pl[q][3] = __shfl_sync(0xffffffffu, d, q);
+      pl[q][4] = __shfl_sync(0xffffffffu, len, q);
+    }
+  }
+  __syncthreads();
+  if (cid < clusters) {
+    for (int wi = 0; wi < w32; ++wi) {
+      const int li = wi * 32 + lane;
+      bool active = false, inside = false;
+      if (li < num_lights) {
+        const float4 lt = s_light[li];
+        const float lx = lt.x, ly = lt.y, lz = lt.z, r = lt.w;
+        active = s_active[li] != 0;
+        inside = active;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+          const float t = (((pl[q][0] * lx + pl[q][1] * ly) + pl[q][2] * lz) +
+                           pl[q][3]) + pl[q][4] * r;
+          inside = inside && t >= 0.0f;
+        }
+      }
+      const unsigned int word = __ballot_sync(0xffffffffu, inside);
+      const unsigned int on = __ballot_sync(0xffffffffu, active);
+      if (lane == 0) words[(size_t)cid * w32 + wi] = (int)word;
+      warp_culled += __popc(on) - __popc(word);
+    }
+  }
+  if (lane == 0) s_culled[warp] = warp_culled;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long sum = 0;
+    for (int i = 0; i < K11_WARPS; ++i) sum += s_culled[i];
+    atomicAdd(scratch, (unsigned long long)sum);
+    __threadfence();
+    const unsigned long long ticket = atomicAdd(scratch + 1, 1ull);
+    if (ticket == gridDim.x - 1) {
+      // every other block's sum is in: write the count, leave zeros
+      __threadfence();
+      *culled = (long long)atomicExch(scratch, 0ull);
+      atomicExch(scratch + 1, 0ull);
+    }
+  }
+}
+
+extern "C" int k11_light_grid(const float* proj, const float* ivp,
+                              const float* xform, const float* range,
+                              const int* type, int num_lights, int count,
+                              int w32, int gx, int gy, int gz,
+                              float near_plane, float depth_ratio,
+                              float step_x, float step_y, int* words,
+                              long long* culled,
+                              unsigned long long* scratch, void* stream) {
+  if (gx < 1 || gy < 1 || gz < 1 || num_lights < 1 || count < 0 ||
+      w32 != (num_lights + 31) / 32 || !scratch)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (gx * gy * gz + K11_WARPS - 1) / K11_WARPS;
+  const size_t smem = (size_t)num_lights * (sizeof(float4) + sizeof(int));
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        k11_light_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  k11_light_grid_kernel<<<blocks, K11_THREADS, smem, (cudaStream_t)stream>>>(
+      proj, ivp, xform, range, type, num_lights, count, w32, gx, gy, gz,
+      near_plane, depth_ratio, step_x, step_y, words, culled, scratch);
+  return (int)cudaGetLastError();
+}

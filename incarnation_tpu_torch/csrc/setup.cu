@@ -33,7 +33,7 @@
 //
 // Arithmetic: every operation is the twin's, in the twin's order, each
 // multiply and add rounded on its own (--fmad=false, kernels/build.py), the
-// sums left to right (the 4x4 products too: raster._mat4_product); a
+// sums left to right (the 4x4 products too: mathutils.rows_mat); a
 // division by the Python number eps is, as torch does it on the card, a
 // multiplication by its float reciprocal; 1 / |det| is an IEEE division
 // (torch's reciprocal); minimum, maximum and clamp propagate a NaN as
@@ -75,7 +75,7 @@ __device__ __forceinline__ int ifloor(float x) {
 
 // row i of local_to_world = T @ R (T one mesh's transform, R the scene
 // rotation), each entry's sum left to right over k, every multiply and add
-// rounded on its own (--fmad=false), as the twin's raster._mat4_product
+// rounded on its own (--fmad=false), as the twin's mathutils.rows_mat
 __device__ __forceinline__ void world_row(const float4* __restrict__ xf,
                                           const float4* __restrict__ rot,
                                           int i, float* r) {

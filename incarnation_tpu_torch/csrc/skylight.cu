@@ -883,3 +883,219 @@ extern "C" int k8_sky_lighting(const float* base_color, const float* mrao,
         width, height);
   return (int)cudaGetLastError();
 }
+
+// K12: the sky background, environment_background's dynamic-sky role.
+//
+// It replaces no Pallas kernel: the JAX package writes this pass in jnp
+// (incarnation_tpu/kernels/skylight.py environment_background :159-177,
+// with kernels/sky.py sky_radiance :95-107). Its torch twin (kernels/
+// skylight.py environment_background_plain) evaluates the Preetham sky at
+// every pixel of the frame in about 60 full-frame elementwise passes and
+// then masks out the covered ones; here it is one launch, and a covered
+// pixel only writes its zeros.
+//
+// Each pixel (x, y) not covered by geometry gets 1000 x Preetham radiance
+// along its view ray: the pixel centre at reverse-Z depth 1e-4 through the
+// inverse view-projection (a device pointer), minus the eye, normalized;
+// theta = acos(clamp(d.y)), gamma = acos(clamp(d . sun)), the Perez
+// function of both over its value at the zenith, times the zenith's Yxy,
+// to RGB. A covered pixel writes +0.0 (the twin's torch.where(mask, 0,
+// radiance)).
+//
+// The per-frame values (theta_s = acos(clamp(sun.y)), the zenith Yxy,
+// Perez(0, theta_s)) and the Perez coefficients are functions of the sun
+// direction (a device pointer) and the turbidity (by value, as a double):
+// each thread forms them once, in the twin's order, from the same double
+// expressions the twin's Python evaluates (sky.py perez_coefficients,
+// _zenith_yxy) rounded to float as torch rounds a Python scalar, so no
+// table is copied from host memory. The blocks are persistent (as many as
+// fit on the card at once), each thread walking pixels a grid apart, so
+// that work is done once per thread, not once per pixel.
+//
+// Arithmetic: every operation is the twin's, in the twin's order
+// (--fmad=false): the 4x4 product and the XYZ -> RGB product are sums left
+// to right (mathutils.rows_mat), the dot products mathutils.dot3, each
+// division by a Python number (the width and height) a multiplication by
+// its float reciprocal as torch does it on the card; acosf, cosf, expf,
+// tanf and sqrtf are the functions torch calls; clamp propagates a NaN as
+// torch's does. So K12 equals its twin bit for bit.
+//
+// What bounds it: by the count of operations, bytes. It reads the 1-byte
+// mask and writes 12 bytes of every pixel (27.16 MB at 1920 x 1088, 0.0081
+// ms at 3.35 TB/s); the uncovered pixels' Preetham chain is 134 float
+// operations a pixel, each transcendental counted one (chip_smoke.py
+// K12_OPS_PER_SKY). In instructions it costs more: 11 IEEE divisions, two
+// acosf, two cosf and six expf, several hundred a pixel, which bound it
+// on the card by the variants measured. So each pixel's cos(theta), cos(gamma) and Y / y are
+// taken once (the twin's values, 15% faster than once a channel);
+// writing a tile's output through shared memory (0.0340 against 0.0264
+// ms) or four pixels a thread with one 4-byte mask load (0.0358 against
+// 0.0268) were slower (PERF.md).
+
+#define K12_TILE_W 32
+#define K12_TILE_H 8
+#define K12_THREADS (K12_TILE_W * K12_TILE_H)
+
+__device__ __forceinline__ float k12_clamp(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float k12_clamp_min(float x, float lo) {
+  return isnan(x) ? x : fmaxf(x, lo);
+}
+
+// sky.py _perez of one channel: (1 + A e^(B / cos_t)) (1 + C e^(D g) +
+// E cos(g)^2), given cos_t = max(cos(theta), 1e-5) and cos(g), which the
+// three channels share
+__device__ __forceinline__ float k12_perez(float cos_t, float gamma,
+                                           float cg, float a, float b,
+                                           float c, float d, float e) {
+  return (1.0f + a * expf(b / cos_t)) *
+         ((1.0f + c * expf(d * gamma)) + (e * cg) * cg);
+}
+
+__global__ void __launch_bounds__(K12_THREADS)
+k12_sky_background_kernel(const uint8_t* __restrict__ mask,  // (H, W)
+                          const float* __restrict__ eye,     // (3,)
+                          const float* __restrict__ ivp,     // (4, 4)
+                          const float* __restrict__ sun,     // (3,)
+                          double t, int width, int height,
+                          float* __restrict__ out) {          // (H, W, 3)
+  // the Perez coefficients (sky.py perez_coefficients), the float of each
+  // double expression
+  const float pa[3] = {(float)(0.1787 * t - 1.4630),
+                       (float)(-0.0193 * t - 0.2592),
+                       (float)(-0.0167 * t - 0.2608)};
+  const float pb[3] = {(float)(-0.3554 * t + 0.4275),
+                       (float)(-0.0665 * t + 0.0008),
+                       (float)(-0.0950 * t + 0.0092)};
+  const float pc[3] = {(float)(-0.0227 * t + 5.3251),
+                       (float)(-0.0004 * t + 0.2125),
+                       (float)(-0.0079 * t + 0.2102)};
+  const float pd[3] = {(float)(0.1206 * t - 2.5771),
+                       (float)(-0.0641 * t - 0.8989),
+                       (float)(-0.0441 * t - 1.6537)};
+  const float pe[3] = {(float)(-0.0670 * t + 0.3703),
+                       (float)(-0.0033 * t + 0.0452),
+                       (float)(-0.0109 * t + 0.0529)};
+  const float sx = __ldg(sun), sy = __ldg(sun + 1), sz = __ldg(sun + 2);
+  // the zenith (sky.py _zenith_yxy), t a float where the twin multiplies
+  // a tensor by it
+  const float tf = (float)t;
+  const float ths = acosf(k12_clamp(sy, 0.0f, 1.0f));
+  const float chi = (float)(4.0 / 9.0 - t / 120.0) *
+                    ((float)3.141592653589793 - 2.0f * ths);
+  const float zen_y = (((float)(4.0453 * t - 4.9710) * tanf(chi)) -
+                       (float)(0.2155 * t)) + (float)2.4192;
+  const float th = ths, th2 = ths * ths, th3 = th2 * ths;
+  const float zen_x =
+      (((((float)0.00165 * th3 - (float)0.00375 * th2) +
+         (float)0.00209 * th) * tf) * tf +
+       (((((float)-0.02903 * th3 + (float)0.06377 * th2) -
+          (float)0.03202 * th) + (float)0.00394) * tf)) +
+      ((((float)0.11693 * th3 - (float)0.21196 * th2) +
+        (float)0.06052 * th) + (float)0.25886);
+  const float zen_z =
+      (((((float)0.00275 * th3 - (float)0.00610 * th2) +
+         (float)0.00317 * th) * tf) * tf +
+       (((((float)-0.04214 * th3 + (float)0.08970 * th2) -
+          (float)0.04153 * th) + (float)0.00516) * tf)) +
+      ((((float)0.15346 * th3 - (float)0.26756 * th2) +
+        (float)0.06670 * th) + (float)0.26688);
+  const float zen[3] = {zen_y, zen_x, zen_z};
+  float f0[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    f0[c] = k12_perez(k12_clamp_min(cosf(0.0f), (float)1e-5), ths,
+                      cosf(ths), pa[c], pb[c], pc[c], pd[c], pe[c]);
+  float m[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) m[i] = __ldg(ivp + i);
+  const float ex = __ldg(eye), ey = __ldg(eye + 1), ez = __ldg(eye + 2);
+  const float inv_w = 1.0f / (float)width, inv_h = 1.0f / (float)height;
+  // sky.py _XYZ2RGB, row k the weights of X, Y, Z
+  const float rgb[3][3] = {
+      {(float)3.2404542, (float)-0.9692660, (float)0.0556434},
+      {(float)-1.5371385, (float)1.8760108, (float)-0.2040259},
+      {(float)-0.4985314, (float)0.0415560, (float)1.0572252}};
+
+  const int tiles_x = (width + K12_TILE_W - 1) / K12_TILE_W;
+  const int tiles = tiles_x * ((height + K12_TILE_H - 1) / K12_TILE_H);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int x = (tile % tiles_x) * K12_TILE_W + (threadIdx.x % K12_TILE_W);
+    const int y = (tile / tiles_x) * K12_TILE_H + (threadIdx.x / K12_TILE_W);
+    if (x >= width || y >= height) continue;
+    const size_t i = (size_t)y * width + x;
+    float o[3] = {0.0f, 0.0f, 0.0f};
+    if (!mask[i]) {
+      // the view ray (environment_background_plain): NDC of the pixel
+      // centre at depth 1e-4, through the inverse view-projection
+      const float n0 = 2.0f * ((float)x + 0.5f) * inv_w - 1.0f;
+      const float n1 = -2.0f * ((float)y + 0.5f) * inv_h + 1.0f;
+      const float n2 = (float)1e-4;
+      float w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[j] = ((n0 * m[j] + n1 * m[4 + j]) + n2 * m[8 + j]) +
+               1.0f * m[12 + j];
+      const float den = fabsf(w[3]) > (float)1e-20 ? w[3] : 1.0f;
+      const float vx = w[0] / den - ex, vy = w[1] / den - ey,
+                  vz = w[2] / den - ez;
+      const float rn =
+          1.0f / sqrtf(((vx * vx + vy * vy) + vz * vz) + (float)1e-20);
+      const float dx = vx * rn, dy = vy * rn, dz = vz * rn;
+      // sky.py sky_radiance
+      const float theta = acosf(k12_clamp(dy, 0.0f, 1.0f));
+      const float gamma =
+          acosf(k12_clamp((dx * sx + dy * sy) + dz * sz, 0.0f, 1.0f));
+      const float cos_t = k12_clamp_min(cosf(theta), (float)1e-5);
+      const float cg = cosf(gamma);
+      float yxy[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        yxy[c] = zen[c] * (k12_perez(cos_t, gamma, cg, pa[c], pb[c], pc[c],
+                                     pd[c], pe[c]) / f0[c]);
+      // sky.py _yxy_to_rgb
+      const float yl = yxy[0], cx = yxy[1];
+      const float cy = k12_clamp_min(yxy[2], (float)1e-6);
+      const float q = yl / cy;
+      const float big_x = cx * q;
+      const float big_z = ((1.0f - cx) - cy) * q;
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        o[j] = 1000.0f *
+               ((big_x * rgb[0][j] + yl * rgb[1][j]) + big_z * rgb[2][j]);
+    }
+    out[3 * i] = o[0];
+    out[3 * i + 1] = o[1];
+    out[3 * i + 2] = o[2];
+  }
+}
+
+extern "C" int k12_sky_background(const uint8_t* mask, const float* eye,
+                                  const float* ivp, const float* sun,
+                                  double turbidity, int width, int height,
+                                  float* out, void* stream) {
+  if (width < 0 || height < 0) return (int)cudaErrorInvalidValue;
+  if (width == 0 || height == 0) return (int)cudaSuccess;
+  static int grid = 0;  // persistent blocks: as many as fit at once
+  if (grid == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, k12_sky_background_kernel, K12_THREADS, 0);
+    if (e != cudaSuccess) return (int)e;
+    grid = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const long long tiles =
+      (long long)((width + K12_TILE_W - 1) / K12_TILE_W) *
+      ((height + K12_TILE_H - 1) / K12_TILE_H);
+  const int blocks = tiles < grid ? (int)tiles : grid;
+  k12_sky_background_kernel<<<blocks, K12_THREADS, 0,
+                              (cudaStream_t)stream>>>(
+      mask, eye, ivp, sun, turbidity, width, height, out);
+  return (int)cudaGetLastError();
+}

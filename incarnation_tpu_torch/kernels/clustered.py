@@ -2,9 +2,10 @@
 
 A gx x gy x gz cluster grid with exponential view-space z slices; each
 cluster keeps a light BITMASK ((C, W32) int32 words) from one dense
-(clusters x lights) sphere-vs-frustum test. Shading: K2 (csrc/clustered.cu)
-on CUDA tensors, the dense all-lights twin clustered_lighting_dense on CPU
-ones.
+(clusters x lights) sphere-vs-frustum test: K11 (csrc/clustered.cu) on
+CUDA tensors, its twin build_light_clusters_plain on CPU ones. Shading: K2
+(csrc/clustered.cu) on CUDA tensors, the dense all-lights twin
+clustered_lighting_dense on CPU ones.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ def cluster_grid_shape(config):
 
 
 def _cluster_corners(config, proj, inv_view_proj, near: float):
-    """World-space corner points for every cluster: (Z, Y, X, 8, 3)."""
+    """World-space corner points for every cluster: (Z, Y, X, 8, 3). The
+    two products with proj and inv_view_proj are mathutils.rows_mat's
+    sums (K11's order; a matmul's is its library's own)."""
     gx, gy, gz = cluster_grid_shape(config)
     far = config.cluster_depth_extent
     dev = proj.device
@@ -45,8 +48,9 @@ def _cluster_corners(config, proj, inv_view_proj, near: float):
     z1_view = near * (far / near) ** ((iz + 1.0) / gz)
 
     def ndc_z(zv):
-        p = torch.stack([torch.zeros_like(zv), torch.zeros_like(zv), zv,
-                         torch.ones_like(zv)], -1) @ proj
+        p = mu.rows_mat(torch.stack([torch.zeros_like(zv),
+                                     torch.zeros_like(zv), zv,
+                                     torch.ones_like(zv)], -1), proj)
         return p[..., 2] / p[..., 3]
 
     nz0 = ndc_z(z0_view)
@@ -71,19 +75,75 @@ def _cluster_corners(config, proj, inv_view_proj, near: float):
         corner(x0 + sx, y0, z_far),
         corner(x0, y0, z_far),
     ], dim=-2)                                # (gz, gy, gx, 8, 4)
-    w = torch.matmul(corners_ndc, inv_view_proj)
+    w = mu.rows_mat(corners_ndc, inv_view_proj)
     return w[..., :3] / w[..., 3:]
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# proj, inv_view_proj, light transforms, ranges, types, lights, count, W32,
+# gx, gy, gz, near, far / near, 2 / gx, 2 / gy, words, culled, scratch
+K11 = Kernel("clustered", "k11_light_grid",
+             [_P] * 5 + [_I] * 6 + [_F] * 4 + [_P] * 3)
+_K11_SCRATCH: dict = {}
+
+
+def _k11_scratch(dev):
+    """K11's two 64-bit words (the culled sum, the block ticket) per device
+    and stream, zero between launches (the last block zeroes them)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _K11_SCRATCH.get(key)
+    if buf is None:
+        buf = torch.zeros(2, dtype=torch.int64, device=dev)
+        _K11_SCRATCH[key] = buf
+    return buf
 
 
 def build_light_clusters(lights: lights_mod.LightTable, config, proj,
                          inv_view_proj, near: float):
-    """-> (mask (C, W32) int32, culled count). C = gx*gy*gz flattened as
-    x + gx*y + gx*gy*z (the reference's cluster id)."""
+    """-> (mask (C, W32) int32, culled count int64). C = gx*gy*gz
+    flattened as x + gx*y + gx*gy*z (the reference's cluster id). CUDA
+    tensors launch K11 (csrc/clustered.cu) once; CPU tensors take the
+    twin, build_light_clusters_plain."""
+    if not proj.is_cuda:
+        return build_light_clusters_plain(lights, config, proj,
+                                          inv_view_proj, near)
+    gx, gy, gz = cluster_grid_shape(config)
+    dev = proj.device
+    for name, t, shape, dt in (
+            ("proj", proj, (4, 4), torch.float32),
+            ("inv_view_proj", inv_view_proj, (4, 4), torch.float32),
+            ("lights.transform", lights.transform, None, torch.float32),
+            ("lights.range", lights.range, None, torch.float32),
+            ("lights.type", lights.type, None, torch.int32)):
+        if t.dtype != dt or t.device != dev or not t.is_contiguous() \
+                or (shape is not None and tuple(t.shape) != shape):
+            raise ValueError(f"{name}: need a contiguous {dt} tensor "
+                             f"{shape or ''} on {dev}")
+    l_total = lights.type.shape[0]
+    if tuple(lights.transform.shape) != (l_total, 4, 4) \
+            or tuple(lights.range.shape) != (l_total,):
+        raise ValueError("lights: need (L, 4, 4) transforms, (L,) ranges")
+    w32 = (l_total + 31) // 32
+    words = torch.empty((gx * gy * gz, w32), dtype=torch.int32, device=dev)
+    culled = torch.empty((), dtype=torch.int64, device=dev)
+    far = config.cluster_depth_extent
+    K11(ptr(proj), ptr(inv_view_proj), ptr(lights.transform),
+        ptr(lights.range), ptr(lights.type), l_total, int(lights.count), w32,
+        gx, gy, gz, float(near), far / near, 2.0 / gx, 2.0 / gy, ptr(words),
+        ptr(culled), ptr(_k11_scratch(dev)))
+    return words, culled
+
+
+def build_light_clusters_plain(lights: lights_mod.LightTable, config, proj,
+                               inv_view_proj, near: float):
+    """K11's plain twin: the dense (clusters x lights) sphere-against-planes
+    test in torch, each sum in K11's fixed order (mathutils.rows_mat,
+    cross3, dot3) -> (mask (C, W32) int32, culled count)."""
     p = _cluster_corners(config, proj, inv_view_proj, near)
 
     def plane(a, b, c):
-        n = torch.cross(b - a, c - a, dim=-1)
-        d = -torch.sum(n * a, -1, keepdim=True)
+        n = mu.cross3(b - a, c - a)
+        d = -mu.dot3(n, a, keepdim=True)
         return torch.cat([n, d], -1)
 
     planes = torch.stack([
@@ -101,10 +161,12 @@ def build_light_clusters(lights: lights_mod.LightTable, config, proj,
     li = torch.arange(l_total, device=lp.device)
     active = (lights.type != lights_mod.LIGHT_DIRECTIONAL) \
         & (li < lights.count)
-    d = (torch.einsum("cpk,lk->cpl", planes[..., :3], lp)
-         + planes[..., 3:4]
-         + torch.linalg.vector_norm(planes[..., :3], dim=-1, keepdim=True)
-         * lrange[None, None, :])
+    n = planes[..., :3]
+    # (C, 6, L): n . p + d + |n| r, the sum (C, 6, 1) x (L,) left to right
+    dot = (n[..., 0:1] * lp[:, 0] + n[..., 1:2] * lp[:, 1]
+           + n[..., 2:3] * lp[:, 2])
+    d = (dot + planes[..., 3:4]
+         + torch.sqrt(mu.dot3(n, n, keepdim=True)) * lrange)
     inside = torch.all(d >= 0.0, dim=1) & active[None, :]    # (C, L)
     culled = torch.sum(active) * planes.shape[0] - torch.sum(inside)
 
@@ -171,7 +233,6 @@ def pixel_cluster_id(depth, config, near: float, width: int, height: int):
     return (gx * gy) * cz + gx * cy + cx
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 K2 = Kernel("clustered", "k2_clustered",
             [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I, _F,
              _P, _I, _I])

@@ -107,25 +107,13 @@ K9 = Kernel("setup", "k9_setup",
             + [_I, _P] + [_I] * 3 + [_P] * 5)
 
 
-def _mat4_product(a, b):
-    """a @ b for (..., 4, 4) a and a (4, 4) b in f32, each entry's sum
-    left to right over k with every multiply and add rounded on its own,
-    as K9 (csrc/setup.cu) computes it: elementwise torch operations, the
-    same bits on the CPU and on the card (a matmul's order is its
-    library's own)."""
-    out = a[..., :, 0:1] * b[0]
-    for k in range(1, 4):
-        out = out + a[..., :, k:k + 1] * b[k]
-    return out
-
-
 def _mesh_rows(scene, scene_rotation, view_proj):
     """(M, 25) f32 per mesh instance: local-to-clip (16), then the 3x3 of
     local-to-world (9), where local_to_world = T @ scene_rotation and
-    local_to_clip = local_to_world @ view_proj (_mat4_product). K9
+    local_to_clip = local_to_world @ view_proj (mathutils.rows_mat). K9
     computes the same rows inside the kernel; the twin gathers them."""
-    local_to_world = _mat4_product(scene.mesh_transforms, scene_rotation)
-    local_to_clip = _mat4_product(local_to_world, view_proj)
+    local_to_world = mu.rows_mat(scene.mesh_transforms, scene_rotation)
+    local_to_clip = mu.rows_mat(local_to_world, view_proj)
     return torch.cat([local_to_clip.reshape(-1, 16),
                       local_to_world[:, :3, :3].reshape(-1, 9)],
                      dim=-1).contiguous()

@@ -5,6 +5,7 @@ Scale conventions are the reference's: the lat-long probe source stores
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -37,24 +38,33 @@ def perez_coefficients(turbidity: float) -> PerezCoefficients:
     )
 
 
+@functools.lru_cache(maxsize=16)
+def _perez_on(turbidity: float, device) -> PerezCoefficients:
+    """perez_coefficients as (3,) f32 tensors on `device`, made once per
+    key: a copy from host memory waits for the stream, and each call of
+    sky_radiance would make ten."""
+    return PerezCoefficients(*(torch.as_tensor(x, device=device)
+                               for x in perez_coefficients(turbidity)))
+
+
 def _perez(theta, gamma, pc: PerezCoefficients):
+    """pc: _perez_on's tensors on theta's device."""
     t = theta[..., None]
     g = gamma[..., None]
-    dev = theta.device
-
-    def k(x):
-        return torch.as_tensor(x, device=dev)
-
     cos_t = torch.clamp(torch.cos(t), min=1e-5)
-    return ((1.0 + k(pc.a) * torch.exp(k(pc.b) / cos_t))
-            * (1.0 + k(pc.c) * torch.exp(k(pc.d) * g)
-               + k(pc.e) * torch.cos(g) * torch.cos(g)))
+    return ((1.0 + pc.a * torch.exp(pc.b / cos_t))
+            * (1.0 + pc.c * torch.exp(pc.d * g)
+               + pc.e * torch.cos(g) * torch.cos(g)))
 
 
 def _zenith_yxy(t: float, theta_s):
     chi = (4.0 / 9.0 - t / 120.0) * (mu.PI - 2.0 * theta_s)
     y_lum = (4.0453 * t - 4.9710) * torch.tan(chi) - 0.2155 * t + 2.4192
-    th, th2, th3 = theta_s, theta_s ** 2, theta_s ** 3
+    # the powers as products (XLA's integer_pow multiplies so), which K12
+    # (csrc/skylight.cu) repeats
+    th = theta_s
+    th2 = th * th
+    th3 = th2 * th
     x_z = ((0.00165 * th3 - 0.00375 * th2 + 0.00209 * th) * t * t
            + (-0.02903 * th3 + 0.06377 * th2 - 0.03202 * th + 0.00394) * t
            + (0.11693 * th3 - 0.21196 * th2 + 0.06052 * th + 0.25886))
@@ -70,6 +80,12 @@ _XYZ2RGB = np.array([
     [-0.4985314, 0.0415560, 1.0572252]], np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _xyz2rgb_on(device):
+    """_XYZ2RGB as an f32 tensor on `device`, made once per device."""
+    return torch.as_tensor(_XYZ2RGB, device=device)
+
+
 def _yxy_to_rgb(yxy):
     y_lum = yxy[..., 0]
     x = yxy[..., 1]
@@ -77,17 +93,19 @@ def _yxy_to_rgb(yxy):
     big_x = x * (y_lum / y)
     big_z = (1.0 - x - y) * (y_lum / y)
     xyz = torch.stack([big_x, y_lum, big_z], dim=-1)
-    return xyz @ torch.as_tensor(_XYZ2RGB, device=yxy.device)
+    return mu.rows_mat(xyz, _xyz2rgb_on(yxy.device))
 
 
 def sky_radiance(sun_dir, directions, turbidity: float):
     """Preetham radiance for unit `directions` (..., 3), unscaled.
-    sun_dir: (3,) tensor on the directions' device."""
-    pc = perez_coefficients(turbidity)
+    sun_dir: (3,) tensor on the directions' device. The dot product and
+    the XYZ -> RGB product sum left to right (mathutils.dot3, rows_mat):
+    K12 (csrc/skylight.cu) repeats every operation in this order."""
+    pc = _perez_on(float(turbidity), directions.device)
     theta_s = torch.arccos(torch.clamp(sun_dir[1], 0.0, 1.0))
     theta_e = torch.arccos(torch.clamp(directions[..., 1], 0.0, 1.0))
-    gamma_e = torch.arccos(torch.clamp(
-        torch.sum(directions * sun_dir, dim=-1), 0.0, 1.0))
+    gamma_e = torch.arccos(torch.clamp(mu.dot3(directions, sun_dir), 0.0,
+                                       1.0))
     yxy_zenith = _zenith_yxy(turbidity, theta_s)
     f = _perez(theta_e, gamma_e, pc)
     f0 = _perez(torch.zeros_like(theta_s), theta_s, pc)

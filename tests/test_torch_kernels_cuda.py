@@ -1,4 +1,4 @@
-"""K1-K10 against their plain PyTorch twins on a CUDA card, at small
+"""K1-K12 against their plain PyTorch twins on a CUDA card, at small
 shapes from a seed. Marked `cuda`: they skip on a host without a card and
 run on the card with
 
@@ -1979,3 +1979,184 @@ def test_k10_lookback_rows_and_state(dev, case):
                 assert torch.equal(g, r), (case, l, f, int((g != r).sum()))
         assert sum(int(b.big_overflow) for b in ref) > 0
         assert int(ref[0].overflow) == 0
+
+
+def light_grid_inputs(n_lights=66, seed=0, width=1920, height=1088, pad=5):
+    """numpy inputs of one light-cluster grid: n_lights lights from a seed
+    spread over the cluster depths (points and spots, every fifth with
+    range 0, which reads MAX_LIGHT_RANGE, every seventh directional, a few
+    far outside the frustum), then `pad` rows past `count` that are point
+    lights inside it (only index < count leaves them out), and the camera's
+    proj and inv_view_proj at width:height -> dict(arrays
+    (lights.light_arrays' columns), proj, inv_view_proj)."""
+    from incarnation_tpu_torch.core.view import View
+    r = np.random.default_rng(seed)
+    defs, xforms = [], []
+    for i in range(n_lights):
+        xf = np.eye(4, dtype=np.float32)
+        xf[:3, :3] = np.linalg.qr(r.normal(size=(3, 3)))[0]
+        z = float(np.exp(r.uniform(np.log(1.5), np.log(180.0))))
+        spread = 1.5 * z if i % 11 else 6.0 * z
+        xf[3, :3] = [r.uniform(-spread, spread),
+                     r.uniform(-0.6 * spread, 0.6 * spread), z]
+        kind = "directional" if i % 7 == 6 else ["point", "spot"][i % 2]
+        d = {"type": kind, "intensity": float(r.uniform(5, 50))}
+        if i % 5:
+            d["range"] = float(r.uniform(0.3, 0.25 * z + 2.0))
+        defs.append(d)
+        xforms.append(xf)
+    arrays = lights_mod.light_arrays(defs, xforms, pad_to=n_lights + pad)
+    arrays["type"][n_lights:] = lights_mod.LIGHT_POINT
+    arrays["range"][n_lights:] = 3.0
+    arrays["transform"][n_lights:, 3, :3] = [0.0, 0.0, 12.0]
+    view = View.from_lookat([0.5, 0.5, -2.0], [0.0, 0.0, 8.0],
+                            aspect=width / height)
+    return dict(arrays=arrays,
+                proj=np.asarray(view.projection_transform(), np.float32),
+                inv_view_proj=np.linalg.inv(view.view_proj())
+                .astype(np.float32))
+
+
+def background_inputs(sun_y, seed=0, width=64, height=40, covered=0.75):
+    """numpy inputs of one sky background: a mask covering about `covered`
+    of the frame (a random blob and noise), a camera looking slightly up
+    and the sun at height sun_y (<= 0: below the horizon, where acos's
+    clamp holds theta_s at pi / 2) -> dict(mask, eye, inv_view_proj,
+    sun_dir)."""
+    from incarnation_tpu_torch.core.view import View
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:height, 0:width]
+    blob = (yy / height) > 0.45 + 0.2 * np.sin(xx / width * 6.0)
+    mask = blob | (r.random((height, width)) < covered - blob.mean())
+    view = View.from_lookat([0.0, 1.0, -4.0], [0.3, 1.6, 3.0],
+                            aspect=width / height)
+    sun = np.float32([0.4, sun_y, 0.6])
+    sun /= np.linalg.norm(sun)
+    return dict(mask=mask, eye=np.asarray(view.position, np.float32),
+                inv_view_proj=np.linalg.inv(view.view_proj())
+                .astype(np.float32), sun_dir=sun.astype(np.float32))
+
+
+def _k11_case(dev, n_lights, dims, seed=0):
+    inp = light_grid_inputs(n_lights, seed)
+    cfg = Config(light_cluster_dim_x=dims[0], light_cluster_dim_y=dims[1],
+                 light_cluster_dim_z=dims[2])
+    f = lambda x: torch.tensor(np.asarray(x), device=dev)
+    return (lights_mod.light_table(inp["arrays"], dev), cfg, f(inp["proj"]),
+            f(inp["inv_view_proj"]), 1.0)
+
+
+@pytest.mark.parametrize("dims", [(16, 9, 24), (5, 3, 7)],
+                         ids=["16x9x24", "5x3x7"])
+@pytest.mark.parametrize("n_lights", [1, 31, 32, 33, 66])
+def test_k11_matches_twin_bit_for_bit(dev, n_lights, dims):
+    """Every word and the culled count equal the twin's, one launch a grid,
+    with lights past a word's end, padding rows past count, range-0 and
+    directional rows."""
+    args = _k11_case(dev, n_lights, dims, seed=n_lights)
+    n0 = clustered.K11.launches
+    words, culled = clustered.build_light_clusters(*args)
+    assert clustered.K11.launches == n0 + 1
+    ref_words, ref_culled = clustered.build_light_clusters_plain(*args)
+    assert words.dtype == torch.int32 and culled.dtype == torch.int64
+    assert words.shape == ref_words.shape
+    assert torch.equal(words, ref_words), int((words != ref_words).sum())
+    assert int(culled) == int(ref_culled)
+    if n_lights >= 31:
+        assert 0 < int((ref_words != 0).sum()) < ref_words.numel()
+
+
+def test_k11_back_to_back_and_no_host_sync(dev):
+    """Two grids of different shapes and a third like the first, launched
+    back to back with no synchronisation between them and under
+    set_sync_debug_mode("error"): each equals its twin (the count's
+    scratch is zero between launches), and K11 neither copies from host
+    memory nor waits for the card."""
+    runs = [_k11_case(dev, 66, (16, 9, 24), 1),
+            _k11_case(dev, 33, (5, 3, 7), 2),
+            _k11_case(dev, 66, (16, 9, 24), 3)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [clustered.build_light_clusters(*a) for a in runs]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for (words, culled), a in zip(got, runs):
+        ref_words, ref_culled = clustered.build_light_clusters_plain(*a)
+        assert torch.equal(words, ref_words)
+        assert int(culled) == int(ref_culled)
+    assert all(int(x) == 0 for x in clustered._k11_scratch(dev))
+
+
+def test_k11_refuses_and_never_falls_back(dev):
+    lights, cfg, proj, ivp, near = _k11_case(dev, 33, (16, 9, 24))
+    n0 = clustered.K11.launches
+    with pytest.raises(ValueError, match="proj"):
+        clustered.build_light_clusters(lights, cfg, proj.double(), ivp, near)
+    with pytest.raises(ValueError, match="inv_view_proj"):
+        clustered.build_light_clusters(lights, cfg, proj, ivp.t(), near)
+    with pytest.raises(ValueError, match="lights.transform"):
+        clustered.build_light_clusters(dataclasses.replace(
+            lights, transform=lights.transform.cpu()), cfg, proj, ivp, near)
+    assert clustered.K11.launches == n0
+
+
+def _k12_args(dev, inp, width, height, turbidity=2.0):
+    f = lambda x: torch.tensor(np.asarray(x), device=dev)
+    return (f(inp["mask"]), f(inp["eye"]), f(inp["inv_view_proj"]), width,
+            height), dict(sun_dir=f(inp["sun_dir"]), turbidity=turbidity,
+                          dynamic_sky=True)
+
+
+@pytest.mark.parametrize("sun_y", [0.9, 0.08, -0.3])
+@pytest.mark.parametrize("shape", [(1088, 1920), (97, 333), (1, 1)],
+                         ids=["1920x1088", "333x97", "1x1"])
+def test_k12_matches_twin_bit_for_bit(dev, shape, sun_y):
+    """Every pixel equals the twin's bit for bit: +0.0 where covered, the
+    sky elsewhere, with the sun high, low and below the horizon."""
+    h, w = shape
+    a, kw = _k12_args(dev, background_inputs(sun_y, seed=h, width=w,
+                                             height=h), w, h)
+    n0 = skylight.K12.launches
+    got = skylight.environment_background(*a, **kw)
+    assert skylight.K12.launches == n0 + 1
+    ref = skylight.environment_background_plain(*a, **kw)
+    assert got.shape == ref.shape == (h, w, 3)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+        float((got - ref).abs().max())
+    if h > 1:
+        assert bool(torch.isfinite(ref).all()) and float(ref.max()) > 0
+
+
+def test_k12_turbidity_and_no_host_sync(dev):
+    """Other turbidities (the Perez coefficients and the zenith formed in
+    the kernel from the double), back to back under
+    set_sync_debug_mode("error"): K12 equals its twin and makes no copy
+    from host memory and no synchronize."""
+    cases = [_k12_args(dev, background_inputs(0.5, seed=s, width=200,
+                                              height=120), 200, 120, t)
+             for s, t in ((1, 2.0), (2, 3.7), (3, 9.0))]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [skylight.environment_background(*a, **kw) for a, kw in cases]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, (a, kw) in zip(got, cases):
+        ref = skylight.environment_background_plain(*a, **kw)
+        assert torch.equal(g.view(torch.int32), ref.view(torch.int32))
+
+
+def test_k12_refuses_and_never_falls_back(dev):
+    a, kw = _k12_args(dev, background_inputs(0.5), 64, 40)
+    mask, eye, ivp, w, h = a
+    n0 = skylight.K12.launches
+    with pytest.raises(ValueError, match="mask"):
+        skylight.environment_background(mask.to(torch.uint8), eye, ivp, w,
+                                        h, **kw)
+    with pytest.raises(ValueError, match="sun_dir"):
+        skylight.environment_background(mask, eye, ivp, w, h,
+                                        **dict(kw, sun_dir=None))
+    with pytest.raises(ValueError, match="mask"):
+        skylight.environment_background(mask, eye, ivp, w + 1, h, **kw)
+    assert skylight.K12.launches == n0

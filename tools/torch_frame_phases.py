@@ -11,18 +11,23 @@ checkout's kernels, builds the atrium (chip_smoke.atrium_path: its cache
 under TREE/.content_cache; link it to this checkout's to build it once),
 renders two warm-up frames and then FRAMES TAA frames of the main path at
 1920x1088 with the camera's orbit, each timed by CUDA events around
-render_frame, then chip_smoke.phase_breakdown of one more frame (a
+render_frame, then the same FRAMES frames with the stochastic estimators
+off (chip_smoke.exact_config), then chip_smoke.phase_breakdown of one more
+frame of the main path (a
 synchronize around each phase, the mean of 3 frames), and counts what
 the frame launches per masked peel beside K1's peel (this checkout's
 chip_smoke.peel_launches, on that tree's modules: the eager torch
 operators between one peel's K1 call and the next's). It prints one JSON
-line {tree, card, frame_ms, phases, peel_ops, peel_op_names}.
+line {tree, card, frame_ms, frame_ms_exact, phases, peel_ops,
+peel_op_names}.
 
 Given two trees it compares them on one card: it runs itself once per tree
 in turns, a, b, b, a, each run its own process (so each imports its own
 package), then prints per tree the frame times of both of its runs and
 the phases that the kernels of the last slices move (triangle setup,
-raster.prepare_geometry; sky lighting, skylight.sky_lighting; the camera
+raster.prepare_geometry; sky lighting, skylight.sky_lighting; the
+light-cluster grid, clustered.build_light_clusters; the sky background,
+skylight.environment_background; the camera
 pass's binning, raster.bin_triangles_layered; the sun pass with its own
 setup, binning and raster, shadow.render_sun_shadow_map; the resolve, the
 peels' alpha tests and the shadow tap, which the stochastic estimators
@@ -45,6 +50,8 @@ import sys
 
 # the phases PR-to-PR comparisons print
 COMPARED = ("raster.prepare_geometry", "skylight.sky_lighting",
+            "clustered.build_light_clusters",
+            "skylight.environment_background",
             "raster.bin_triangles_layered", "shadow.render_sun_shadow_map",
             "resolve.resolve_gbuffer", "resolve.masked_alpha",
             "resolve.masked_peel", "shadow.sun_visibility", "glue",
@@ -74,6 +81,8 @@ def in_turns(trees, frames: int, out) -> int:
         mine = [r for r in runs if r["tree"] == str(pathlib.Path(tree)
                                                     .resolve())]
         frames_ms = [t for r in mine for t in r["frame_ms"]]
+        exact_ms = sorted(t for r in mine for t in r.get("frame_ms_exact",
+                                                          []))
         for r in mine:
             r["phases"]["peels+glue"] = sum(
                 r["phases"].get(k, 0.0) for k in (
@@ -82,7 +91,11 @@ def in_turns(trees, frames: int, out) -> int:
                   for k in COMPARED}
         print(f"{tree}: frames {min(frames_ms):.2f}-{max(frames_ms):.2f} ms "
               f"over {len(frames_ms)} (median "
-              f"{sorted(frames_ms)[len(frames_ms) // 2]:.2f}); phases ms "
+              f"{sorted(frames_ms)[len(frames_ms) // 2]:.2f}), the "
+              f"estimators off "
+              + (f"{exact_ms[0]:.2f}-{exact_ms[-1]:.2f} (median "
+                 f"{exact_ms[len(exact_ms) // 2]:.2f})" if exact_ms
+                 else "not run") + "; phases ms "
               f"(runs in order) {json.dumps(phases)}; eager operators per "
               f"peel {[r['peel_ops'] for r in mine]}", flush=True)
     return 0
@@ -122,17 +135,24 @@ def main(argv=None) -> int:
     fc = path.make_fc(1, prev)
     hist = path.run(fc, hist)["accumulation"]
     torch.cuda.synchronize()
-    frame_ms = []
-    for i in range(2, 2 + args.frames):
-        prev = fc.view_proj.cpu().numpy()
-        fc = path.make_fc(i, prev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        hist = path.run(fc, hist)["accumulation"]
-        end.record()
-        torch.cuda.synchronize()
-        frame_ms.append(start.elapsed_time(end))
+    fc1, hist1 = fc, hist
+
+    def frames(config):
+        nonlocal fc, hist
+        fc, hist, times = fc1, hist1, []
+        for i in range(2, 2 + args.frames):
+            prev = fc.view_proj.cpu().numpy()
+            fc = path.make_fc(i, prev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            hist = path.run(fc, hist, config)["accumulation"]
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return times
+    frame_ms_exact = frames(cs.exact_config(path.cfg))
+    frame_ms = frames(path.cfg)
     fc_next = path.make_fc(2 + args.frames, fc.view_proj.cpu().numpy())
     phases = cs.phase_breakdown(path.run, fc_next, hist)
     # this checkout's launch count, on the tree's K1 wrapper and kernels
@@ -145,7 +165,9 @@ def main(argv=None) -> int:
     per, names, _ = here.peel_launches(path.run, fc_next, hist, raster,
                                        (raster.K1, resolve.K6))
     line = json.dumps(dict(tree=str(tree), card=cs.card_line(),
-                           frame_ms=frame_ms, phases=phases, peel_ops=per,
+                           frame_ms=frame_ms,
+                           frame_ms_exact=frame_ms_exact, phases=phases,
+                           peel_ops=per,
                            peel_op_names=names))
     print(line, flush=True)
     if args.out:

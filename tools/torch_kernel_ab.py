@@ -3,7 +3,8 @@
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
-        [--kernels k1,k2,k3,k4,k5,k5s,k6,k8,k8s,k9,k10] [--timeline]
+        [--kernels k1,k2,k3,k4,k5,k5s,k6,k8,k8s,k9,k10,k11,k12]
+        [--timeline]
         [--out FILE]
 
 K1-K3: it renders one main-path frame of chip_smoke.py (the atrium at
@@ -76,6 +77,14 @@ start and end and their clock64() marks, printed as the median and the
 longest block, when the last block starts, and the longest block's time
 between its marks (k10_timeline).
 
+K11 and K12: the main-path frame's light-cluster grid and sky background
+(build_light_clusters, environment_background with the dynamic sky),
+timed the same way: this checkout's K11 and K12 must equal its twins bit
+for bit, and each other checkout's output this checkout's twin (K11
+every word and the count; K12 within 1e-5 relative, since a checkout
+whose background is eager torch sums its 4x4 product in cuBLAS's
+order). A checkout that predates them is timed by its eager torch code.
+
 K4: it builds the atrium's wide and binary BVHs, captures every K4 launch
 of one path-traced sample at 640x360 (primary, bounce, shadow and their
 alpha peels) and of one RT shadow + HBAO frame at 1920x1088 (HBAO, RT sun
@@ -118,7 +127,9 @@ WRAPPERS = {"k1": ("raster", "rasterize_tiles", 10),
             "k5": ("resolve", "resolve_gbuffer", 20),
             "k8": ("skylight", "sky_lighting", 20),
             "k9": ("raster", "prepare_geometry", 20),
-            "k10": ("raster", "bin_triangles_layered", 20)}
+            "k10": ("raster", "bin_triangles_layered", 20),
+            "k11": ("clustered", "build_light_clusters", 50),
+            "k12": ("skylight", "environment_background", 20)}
 # K8's and K9's sources and kernel names (a part of the compiled entry's
 # name), whose registers and SASS opcode counts are printed
 SASS = {"k8": ("skylight", "k8_sky_kernel"),
@@ -166,7 +177,8 @@ def role(kind, a, kw):
                 else "k9_setup[sun_depth_only]")
     return (f"k1_raster[{kw.get('name', 'fine_raster')}]" if kind == "k1"
             else {"k2": "k2_clustered", "k3": "k3_taa_fetch",
-                  "k8": "k8_sky_lighting"}[kind])
+                  "k8": "k8_sky_lighting", "k11": "k11_light_grid",
+                  "k12": "k12_sky_background"}[kind])
 
 
 # the stochastic estimators' arguments of K5, K6 and K8 at their values
@@ -243,9 +255,24 @@ def agree(cs, kind, a, kw, outs, this, other, name):
     identical, K2 each within 1e-3 of the twin's value (the ceiling a K2
     tolerance may take; chip_smoke.py holds this checkout's to 1e-4); K5
     by k5_agree; K8, K9 and K10 each held to its own checkout's twin (K10
-    also to the other checkout's bins)."""
+    also to the other checkout's bins); K11 and K12 this checkout's
+    exactly, the other's K11 identical to this checkout's twin and its K12
+    within 1e-5 relative."""
     import torch
     (other_out, this_out) = outs
+    if kind == "k11":
+        ref = this["clustered"].build_light_clusters_plain(*a, **kw)
+        for out in (other_out, this_out):
+            cs._k11_error(out, ref)
+        return
+    if kind == "k12":
+        ref = this["skylight"].environment_background_plain(*a, **kw)
+        cs._k12_error(this_out, ref)
+        _, rel = cs._close("other K12", other_out, ref, rtol=1e-5,
+                           atol_frac=1e-6)
+        print(f"{name}: other checkout's max relative error {rel:.3e} "
+              "against this checkout's twin", flush=True)
+        return
     if kind == "k5":
         k5_agree(cs, a, kw, outs, (other, this), name)
         return
@@ -428,7 +455,7 @@ def time_pair(cs, f_other, f_this, reps):
 
 
 def k1_to_k5(cs, others, this, dev, times, kinds, timelines=None):
-    """K1-K3, K5, K8, K9 and K10 (those of kinds) of one main-path frame and
+    """K1-K3, K5 and K8-K12 (those of kinds) of one main-path frame and
     the small path's blend layers (K1) and K5 launches, each launch timed
     with each other checkout's wrapper and this one's; appends to
     times[(other, role)]."""
@@ -774,7 +801,8 @@ def main(argv=None) -> int:
     ap.add_argument("others", nargs="+", help="the other checkouts' roots")
     ap.add_argument("--kernels", default="k1,k2,k3,k4",
                     help="comma-separated: k1, k2, k3, k5 (two frames' "
-                         "launches), k8, k9, k10 (the main frame's), k4, "
+                         "launches), k8, k9, k10, k11, k12 (the main "
+                         "frame's), k4, "
                          "k6, k5s and k8s (the peel steps and K5's and "
                          "K8's checkerboards of frames with the "
                          "estimators on and off)")
