@@ -10,7 +10,8 @@ masked foliage, decals) onto the card and renders 8 TAA frames at 1920x1088
 through render_frame, the port's raster frame in the bench configuration
 (bench.py's Config(sun_shadow_mode="map", masked_depth_peels=8), the JAX
 package's defaults otherwise, a history of zeros on frame 0 as bench.py
-gives it): triangle setup (K9) and layered binning (K10) of the camera
+gives it): the frustum cull of the primitives and the meshlets (K13),
+triangle setup (K9) and layered binning (K10) of the camera
 and sun passes, opaque raster, 8 masked depth peels, each with one
 launch of K6's peel step (the alpha test of a jittered texel of a
 dithered mip under the chunk-capacity ladder, the chunk rank, and the
@@ -19,7 +20,7 @@ next's), decals, the material resolve of the opaque layer (K5: a
 checkerboard of jittered texels) and the decal layer (K5: jittered
 texels under its chunk capacity), the 1024 x 1024 sun shadow map (K1's
 depth-only role, every face casting) and its jittered, checkerboarded
-tap, the light-cluster grid (K11), sky IBL (K8: a checkerboard of
+tap (K14), the light-cluster grid (K11), sky IBL (K8: a checkerboard of
 jittered RGBE probe texels), shadowed sun, clustered lights (K2), the sky
 background (K12), TAA and tonemap. The camera is the atrium's glTF
 camera with Halton jitter and a small orbit every frame. Every zero gate
@@ -38,17 +39,18 @@ lanes, halos included, beside the twin's fetches), renders that frame
 again with every kernel swapped for its twin and compares the images,
 and prints the frame's time by phase (phase_breakdown). The frame's two
 binnings run once more under torch.cuda.set_sync_debug_mode("error"):
-K10 makes the host wait for nothing. Inside the light-cluster grid and
-the sky background of one more frame, nothing but K11's and K12's one
-launch each runs on the card: no eager torch operator, no copy from host
-memory, no synchronize (host_free_phases).
+K10 makes the host wait for nothing. Inside the light-cluster grid, the
+sky background, the two frustum culls and the shadow tap of one more
+frame, nothing but K11's, K12's, K13's and K14's one launch each runs on
+the card: no eager torch operator, no copy from host memory, no
+synchronize (host_free_phases).
 
 A second, small path (512x256, the port's scene/testing.py scene with a
 BLEND quad, TAA off: the exact roles) renders one forward-lighting frame
-with blend layers and both debug draws, holds its blend-layer launches of K1 and every K5, K6, K8,
-K9, K10, K11 and K12 launch to their twins, renders one frame per view mode (the
-lighting-only mode's K8 launch held to its twin) and checks pick and
-highlight.
+with blend layers and both debug draws, holds its blend-layer launches
+of K1 and every K5, K6, K8, K9, K10, K11, K12, K13 and K14 launch to
+their twins, renders one frame per view mode (the lighting-only mode's K8
+launch held to its twin) and checks pick and highlight.
 
 Then the BVH paths on the atrium: (a) the scene BVH built on the host;
 (b) the path tracer (render_pathtrace) at the JAX bench's 640x360, one
@@ -59,8 +61,8 @@ ray; (d) one sample with K4 swapped for its twin (identical radiance);
 (e) one 1920x1088 render_frame with RT sun shadows and HBAO through the
 same BVH (RT shadows darken the frame, AO in [0, 1], unit bent normals,
 the share of covered pixels where RT and shadow-map visibility agree; its
-K5, K6, K8 (with HBAO and bent normals), K9, K10, K11 and K12 launches
-against their twins).
+K5, K6, K8 (with HBAO and bent normals), K9, K10, K11, K12 and K13
+launches against their twins).
 
 Then the rest of the port: (g) the atrium's binary BVH (merged table) and
 K4's binary role on the captured primary, bounce and shadow rays, against
@@ -72,13 +74,14 @@ shadow + HBAO frame, and a 4-sample path trace at 640x360 checkpointed
 after 2 and resumed (equal to the uninterrupted run); (j) the web viewer
 serving the atrium at 959x540 (the frame after an orbit input differs;
 an odd width, so the frame's stochastic roles run without the
-checkerboard, and K8's tile kernel gets a row of its own);
+checkerboard, and K8's tile kernel and K14's `dither` role get rows of
+their own);
 (k) band sharding over two devices (two cards if the machine shows them,
 else cuda:0 twice): a 1920x1088 frame and a second TAA frame against the
 single frame, a band-sharded path-traced sample (identical) and an
 SPP-sharded round (the batch-mean rule within 1e-6). (i)-(k) capture
-their K1, K2, K3, K5, K6, K8, K9, K10, K11 and K12 launches and hold each
-to its twin.
+their K1, K2, K3, K5, K6, K8, K9, K10, K11, K12, K13 and K14 launches and
+hold each to its twin (the bands' K14 launches from row 544).
 
 It prints one JSON line of kernel figures; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises, and the script
@@ -257,6 +260,32 @@ K11_OPS_PER_CLUSTER, K11_OPS_PER_TEST = 474, 8
 # Yxy to RGB and the scale 24: 134. Bytes: the mask byte and the 12-byte
 # output of every pixel, the matrix, eye and sun once.
 K12_OPS_PER_SKY = 134
+# K13, counted from csrc/cull.cu, per sphere: the centre ([c, 1] by the
+# world rows, 4 mul + 3 add a coordinate) 21, the three row norms (3 mul,
+# 2 add, sqrt) 18, their largest 2, the radius and its negation 2, six
+# plane distances (3 mul + 3 add) 36: 79; per mesh the world matrix's
+# rows 0-3, columns 0-2 that the test reads (4 mul + 3 add each) 84; the
+# planes once (5 sums of 4, 6 norms of 6 with the floor, 24 divisions)
+# 86. Bytes: each sphere (16), mesh id (4) and mask byte (1), each mesh's
+# transform (64) and visibility (4), the two matrices (128), the count.
+K13_OPS_PER_SPHERE, K13_OPS_PER_MESH, K13_OPS_PLANES = 79, 84, 86
+K13_SPHERE_BYTES, K13_MESH_BYTES = 21, 68
+# K14, counted from csrc/shadow.cu, per fetching pixel: the sun-space
+# product (3 x (3 mul + 3 add)) 18, u and v 6, their clamps 4, the bias
+# (clamp 2, 4 more) 6, sz + bias 1: 35; with dither two noises to floats
+# and their steps (convert, scale, - 0.5, x 2, add) 10, and 18 integer
+# operations (two hashes of 9); the texel's address 2 integer operations;
+# a filling pixel's tent 2. Bytes: a fetching pixel's position and n.l
+# (16), every pixel's output (4), each map texel a launch reads (4, the
+# distinct ones) and sun_vp's rows (48).
+K14_OPS_TAP, K14_OPS_DITHER, K14_OPS_FILL = 35, 10, 2
+K14_INT_OPS_TAP, K14_INT_OPS_DITHER = 2, 18
+K14_FETCH_BYTES, K14_PIXEL_BYTES = 16, 4
+# K1's depth-only role, counted from csrc/raster.cu, per (pair, pixel)
+# whose test passes: the 16 float operations of K1_OPS_PER_PAIR_PIXEL and
+# 5 integer ones (the key's high word, an and; the 64-bit compare 2 and
+# select 2)
+K1D_INT_OPS_PER_PAIR_PIXEL = 5
 # K10's launches a binning, by entry (kernels/raster.py K10)
 K10_LAUNCHES = ("k10_count", "k10_scan", "k10_scatter")
 # H100 SXM int32 rate: 64 INT32 lanes an SM (NVIDIA's Hopper white paper)
@@ -398,9 +427,9 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from incarnation_tpu_torch.core import mathutils as mu
-    from incarnation_tpu_torch.kernels import (build, bvh, clustered, raster,
-                                               resolve, shadow, skylight,
-                                               taa)
+    from incarnation_tpu_torch.kernels import (build, bvh, clustered, cull,
+                                               raster, resolve, shadow,
+                                               skylight, taa)
     # the port's small matmuls (the band matrix, the RT frame's rotated
     # rays, the debug draws) need full f32
     if torch.backends.cuda.matmul.allow_tf32:
@@ -431,11 +460,15 @@ def main(argv=None) -> int:
                                          logs.get("skylight")))
     K9_RESOURCES.update(kernel_resources(build, "setup", "k9_setup_kernel",
                                          logs.get("setup")))
-    K11_K12_RESOURCES.update(kernel_resources(
+    K11_K14_RESOURCES.update(kernel_resources(
         build, "clustered", "k11_light_grid_kernel", logs.get("clustered")))
-    K11_K12_RESOURCES.update(kernel_resources(
+    K11_K14_RESOURCES.update(kernel_resources(
         build, "skylight", "k12_sky_background_kernel",
         logs.get("skylight")))
+    K11_K14_RESOURCES.update(kernel_resources(
+        build, "cull", "k13_cull_kernel", logs.get("cull")))
+    K11_K14_RESOURCES.update(kernel_resources(
+        build, "shadow", "k14_", logs.get("shadow")))
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -455,7 +488,7 @@ def main(argv=None) -> int:
 
     kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4, resolve.K5,
                resolve.K6, skylight.K8, raster.K9, raster.K10, clustered.K11,
-               skylight.K12)
+               skylight.K12, cull.K13, shadow.K14)
     for k in kernels:
         k.reset()
     # the main path: bench.py's frame, JAX's default Config, its history
@@ -471,21 +504,23 @@ def main(argv=None) -> int:
     k1_by_layer = dict(raster.K1.by_name)
     k10_steps = dict(raster.K10.by_name)
     roles = {k.fn: dict(k.by_name) for k in (resolve.K5, resolve.K6,
-                                              skylight.K8)}
+                                              skylight.K8, shadow.K14)}
     _log(f"launches on the main path: {launches}, K1 by layer "
-         f"{k1_by_layer}, K10 by launch {k10_steps}, K5, K6 and K8 by role "
-         f"{roles}")
+         f"{k1_by_layer}, K10 by launch {k10_steps}, K5, K6, K8 and K14 by "
+         f"role {roles}")
     _log("frame ms: " + ", ".join(f"{t:.2f}" for t in frame_ms))
     # JAX's default frame: K5 fetches the opaque layer's stack by the
     # checkerboard of jittered texels and the decal layer's under its
     # chunk capacity, K6's peel step tests every peel's alpha under the
-    # chunk ladder and accumulates it, K8 the probe by the checkerboard
+    # chunk ladder and accumulates it, K8 the probe and K14 the sun map by
+    # the checkerboard
     want_roles = {"k5_resolve": {"jitter_checker": FRAMES,
                                  "jitter+chunks": FRAMES},
                   "k6_masked_alpha": {"step_jitter+chunks": PEELS * FRAMES},
-                  "k8_sky_lighting": {"jitter_checker": FRAMES}}
+                  "k8_sky_lighting": {"jitter_checker": FRAMES},
+                  "k14_sun_tap": {"dither_checker": FRAMES}}
     if roles != want_roles:
-        raise RuntimeError(f"K5, K6, K8 roles {roles} != {want_roles}")
+        raise RuntimeError(f"K5, K6, K8, K14 roles {roles} != {want_roles}")
 
     for i, st in enumerate(outs):
         for key in ZERO_STATS:
@@ -510,12 +545,14 @@ def main(argv=None) -> int:
     # frame 0), K4 never (no BVH on this path), K5 for the opaque and the
     # decal layer, K6 for each peel, K8 once, K9 and K10's launches for the
     # camera and the sun pass (K10: K10_LAUNCHES a binning), K11 and K12
-    # once; K6 is the peel step
+    # once, K13 for the primitives and the meshlets, K14 once; K6 is the
+    # peel step
     want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS, 1, 2,
-             2 * len(K10_LAUNCHES), 1, 1] for i in range(FRAMES)]
+             2 * len(K10_LAUNCHES), 1, 1, 2, 1] for i in range(FRAMES)]
     if per_frame != want:
         raise RuntimeError(f"launches per frame (K1, K2, K3, K4, K5, K6, K8, "
-                           f"K9, K10, K11, K12) {per_frame} != {want}")
+                           f"K9, K10, K11, K12, K13, K14) {per_frame} != "
+                           f"{want}")
     if k10_steps != {k: 2 * FRAMES for k in K10_LAUNCHES}:
         raise RuntimeError(f"K10 launches {k10_steps}: not two binnings a "
                            f"frame of {len(K10_LAUNCHES)} launches each")
@@ -535,10 +572,11 @@ def main(argv=None) -> int:
         k.reset()
     ex = run_sequence(run_exact, make_fc, dev, kernels)
     exact_roles = {k.fn: dict(k.by_name) for k in (resolve.K5, resolve.K6,
-                                                    skylight.K8)}
+                                                    skylight.K8, shadow.K14)}
     want = {"k5_resolve": {"exact": 2 * FRAMES},
             "k6_masked_alpha": {"step_exact": PEELS * FRAMES},
-            "k8_sky_lighting": {"exact": FRAMES}}
+            "k8_sky_lighting": {"exact": FRAMES},
+            "k14_sun_tap": {"exact": FRAMES}}
     if exact_roles != want or ex.per_frame != per_frame:
         raise RuntimeError(f"the exact sequence's launches {ex.per_frame}, "
                            f"roles {exact_roles}")
@@ -604,9 +642,15 @@ def main(argv=None) -> int:
     rows += k10_rows(raster, calls, launches["k10_scatter"])
     rows += [k11_row(clustered, calls, launches["k11_light_grid"]),
              k12_row(skylight, calls, launches["k12_sky_background"])]
+    rows += k13_rows(cull, calls, launches["k13_cull"])
+    rows += [k14_row(shadow, calls, launches["k14_sun_tap"],
+                     role="dither_checker"),
+             k14_row(shadow, exact_calls, exact_launches["k14_sun_tap"],
+                     name="k14_sun_tap[exact]", role="exact")]
     check_twins("the exact sequence's next frame",
-                [c for c in exact_calls if c[0] in ("k11", "k12")], raster,
-                clustered, taa, need=("k11", "k12"))
+                [c for c in exact_calls
+                 if c[0] in ("k11", "k12", "k13", "k14")], raster,
+                clustered, taa, need=("k11", "k12", "k13", "k14"))
     k10_no_sync(raster, calls)
     check_twin_frame(run, fc, history, raster, clustered, taa)
     phase_breakdown(run, fc, history)
@@ -622,7 +666,7 @@ def main(argv=None) -> int:
                        for w in launched):
         raise RuntimeError("the peel loop launches more than K1's peel and "
                            "K6's step per peel")
-    host_free_phases(run, fc, history, clustered, skylight, kernels)
+    host_free_phases(run, fc, history, kernels)
     if args.profile:
         profile_frame(run, fc, history)
 
@@ -793,11 +837,12 @@ def capture_frame(run, fc, history, raster, clustered, taa):
 @contextlib.contextmanager
 def _capturing(calls, raster, clustered, taa, limit=None):
     """For the duration of the block, each K1, K2, K3, K5, K6, K8, K9, K10,
-    K11 and K12 wrapper call appends (kind, args, kwargs) to calls, at most
+    K11, K12, K13 and K14 wrapper call appends (kind, args, kwargs) to
+    calls, at most
     `limit` per kind. K6 is the peel step (masked_peel), recorded before
     its launch by name (_k6_args) with a copy of the state it updates; a
     masked peel's z_limit, which the step overwrites, is copied too."""
-    from incarnation_tpu_torch.kernels import resolve, skylight
+    from incarnation_tpu_torch.kernels import cull, resolve, shadow, skylight
 
     def room(kind):
         return limit is None or sum(c[0] == kind for c in calls) < limit
@@ -826,14 +871,17 @@ def _capturing(calls, raster, clustered, taa, limit=None):
                                 (raster, "bin_triangles_layered", "k10"),
                                 (clustered, "build_light_clusters", "k11"),
                                 (skylight, "environment_background",
-                                 "k12")):
+                                 "k12"),
+                                (cull, "cull_primitives", "k13"),
+                                (shadow, "sun_visibility", "k14")):
             stack.enter_context(_hooked(mod, name, keep(kind)))
         stack.enter_context(_swapped(resolve, "masked_peel", peel_step))
         yield calls
 
 
 def _k1_bound(bins, params, z_limit, mask_table):
-    """(bound ms, 'bytes' | 'operations') of one K1 launch on these bins:
+    """(bound ms, 'bytes' | 'operations', the operations' ms) of one K1
+    launch on these bins:
     the pair lists, setup and attribute rows of the triangles they name and
     the z limits read once, 72 B/px of outputs written once (the depth-only
     role: no attribute rows, 8 B/px); 16 operations per (pair, tile pixel)
@@ -868,8 +916,11 @@ def _k1_bound(bins, params, z_limit, mask_table):
         nbytes += 4 * p.width * p.height
     if mask_table is not None:
         nbytes += mask_table.numel() * 4
-    ops = K1_OPS_PER_PAIR_PIXEL * raster.covered_pair_pixels(bins, p, z_limit)
-    return _bound(nbytes, ops)
+    covered = raster.covered_pair_pixels(bins, p, z_limit)
+    ops = K1_OPS_PER_PAIR_PIXEL * covered
+    # the depth-only role's integer operations (its key race) counted too
+    int_ops = K1D_INT_OPS_PER_PAIR_PIXEL * covered if p.depth_only else 0
+    return (*_bound(nbytes, ops, int_ops), _bound(0, ops, int_ops)[0])
 
 
 def _bound(nbytes, ops, int_ops=0):
@@ -1871,7 +1922,7 @@ def k11_row(clustered, calls, n_launches):
     ms = device_ms(lambda: clustered.build_light_clusters(*a, **kw), 50)
     plain = device_ms(lambda: clustered.build_light_clusters_plain(*a, **kw),
                       5)
-    res = next((v for k, v in K11_K12_RESOURCES.items() if "k11" in k), {})
+    res = next((v for k, v in K11_K14_RESOURCES.items() if "k11" in k), {})
     _log(f"k11_light_grid: {gx}x{gy}x{gz} clusters, {n_lights} lights; "
          f"{ms:.4f} ms a launch against the launch floor {floor:.4f} ms "
          f"(an empty kernel, back to back) and the bound {bound:.6f} ms "
@@ -1904,7 +1955,7 @@ def k12_row(skylight, calls, n_launches):
     ms = device_ms(lambda: skylight.environment_background(*a, **kw), 20)
     plain = device_ms(
         lambda: skylight.environment_background_plain(*a, **kw), 3)
-    res = next((v for k, v in K11_K12_RESOURCES.items() if "k12" in k), {})
+    res = next((v for k, v in K11_K14_RESOURCES.items() if "k12" in k), {})
     _log(f"k12_sky_background: {x['width']}x{x['height']}, {sky} uncovered "
          f"pixels ({sky / mask.numel():.4f}); {ms:.4f} ms a launch against "
          f"the bound {bound:.4f} ms ({by}); twin {plain:.3f} ms; identical "
@@ -1919,14 +1970,162 @@ def k12_row(skylight, calls, n_launches):
         registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
 
 
-def host_free_phases(run, fc, history, clustered, skylight, kernels):
-    """Inside build_light_clusters and environment_background on one
-    frame: every eager torch operator that runs work on the card
-    (_launches_work, counted by a TorchDispatchMode), the hand-written
-    kernels launched, and, under torch.cuda.set_sync_debug_mode("error"),
-    any synchronize or copy from pageable host memory (which raises).
-    Raises unless each call is its one K11 or K12 launch and nothing
-    else."""
+def _k13_error(got, ref):
+    """Raises unless one K13 launch equals its twin: every mask bit and the
+    culled count (the same float tests in the same order)."""
+    import torch
+    (inside, culled), (ref_inside, ref_culled) = got, ref
+    if inside.dtype != torch.bool or inside.shape != ref_inside.shape \
+            or culled.dtype != torch.int64 or culled.shape != ():
+        raise RuntimeError(f"K13 gave {inside.dtype} {tuple(inside.shape)} "
+                           f"and a {culled.dtype} count")
+    if not torch.equal(inside, ref_inside):
+        raise RuntimeError(f"K13 differs from its twin on "
+                           f"{int((inside != ref_inside).sum())} spheres")
+    if int(culled) != int(ref_culled):
+        raise RuntimeError(f"K13 culled {int(culled)}, its twin "
+                           f"{int(ref_culled)}")
+
+
+def _k14_role(x) -> str:
+    """The K14 role of a captured sun_visibility call (its arguments by
+    name)."""
+    from incarnation_tpu_torch.kernels import shadow
+    return shadow.role_name(x["dither"], x["checker_parity"])
+
+
+def _k14_error(got, ref):
+    """Raises unless one K14 launch equals its twin bit for bit."""
+    import torch
+    if got.dtype != torch.float32 or got.shape != ref.shape:
+        raise RuntimeError(f"K14 gave {got.dtype} {tuple(got.shape)}")
+    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+        raise RuntimeError(f"K14 differs from its twin on "
+                           f"{int((got != ref).sum())} pixels")
+
+
+def k13_rows(cull, calls, n_launches):
+    """K13 against its twin, identical in every mask bit and the count, on
+    a frame's two captured cull_primitives launches (the primitives, then
+    the meshlets), each timed, with its bound, the launch floor (K10's
+    empty kernel) and K13's registers -> a JSON row for each: k13_cull
+    (the meshlets, the larger list) and k13_cull[primitives]."""
+    launches = [(a, kw) for kind, a, kw in calls if kind == "k13"]
+    if len(launches) != 2 or n_launches != 2 * FRAMES:
+        raise RuntimeError(f"k13: {len(launches)} launches captured, "
+                           f"{n_launches} on the main path")
+    floor = k10_launch_ms()
+    res = next((v for k, v in K11_K14_RESOURCES.items() if "k13" in k), {})
+    rows = []
+    for (a, kw), name in zip(launches, ("k13_cull[primitives]",
+                                        "k13_cull")):
+        _k13_error(cull.cull_primitives(*a, **kw),
+                   cull.cull_primitives_plain(*a, **kw))
+        x = _bound_args(cull.cull_primitives_plain, a, kw)
+        p, m = x["bsphere"].shape[0], x["mesh_transforms"].shape[0]
+        bound, by = _bound(K13_SPHERE_BYTES * p + K13_MESH_BYTES * m + 136,
+                           K13_OPS_PER_SPHERE * p + K13_OPS_PER_MESH * m
+                           + K13_OPS_PLANES)
+        ms = device_ms(lambda: cull.cull_primitives(*a, **kw), 50)
+        plain = device_ms(lambda: cull.cull_primitives_plain(*a, **kw), 5)
+        _log(f"{name}: {p} spheres of {m} meshes, "
+             f"{int(cull.cull_primitives_plain(*a, **kw)[1])} culled; "
+             f"{ms:.4f} ms a launch against the launch floor {floor:.4f} ms "
+             f"(an empty kernel, back to back) and the bound {bound:.6f} ms "
+             f"({by}); twin {plain:.3f} ms; identical to the twin; "
+             f"{res.get('registers')} registers, {res.get('spill_bytes')} "
+             "bytes spilled")
+        rows.append(dict(
+            name=name, route="cuda",
+            source="incarnation_tpu_torch/csrc/cull.cu",
+            replaces="incarnation_tpu/kernels/cull.py:34",
+            launches=n_launches // 2, max_abs_err=0.0, ms=ms,
+            plain_ms=plain, bound_ms=bound, bound_by=by,
+            launch_floor_ms=floor, library_ms=None,
+            registers=res.get("registers"),
+            spill_bytes=res.get("spill_bytes")))
+    return rows
+
+
+def _k14_bound(shadow, x):
+    """(bound ms, by, fetching pixels, distinct texels) of one K14 launch:
+    each fetching pixel's position and n.l read once, every output written
+    once, each texel the launch reads read once, K14_OPS_* and
+    K14_INT_OPS_* a fetching pixel, K14_OPS_FILL a filling one."""
+    import torch
+    from incarnation_tpu_torch.kernels import checker
+    wp, cp, row0 = x["world_pos"], x["checker_parity"], x["row0"]
+    pixels = wp.shape[0] * wp.shape[1]
+    if cp is not None:
+        wp = checker.compact(int(cp) & 1, wp, row0)
+    _, _, lin = shadow.sun_map_tap(wp, x["sun_vp"], x["resolution"],
+                                   x["dither"], row0)
+    fetch, texels = lin.numel(), int(torch.unique(lin).numel())
+    dither = x["dither"] is not None
+    bound, by = _bound(
+        K14_FETCH_BYTES * fetch + K14_PIXEL_BYTES * pixels + 4 * texels
+        + 48,
+        fetch * (K14_OPS_TAP + dither * K14_OPS_DITHER)
+        + (pixels - fetch) * K14_OPS_FILL,
+        fetch * (K14_INT_OPS_TAP + dither * K14_INT_OPS_DITHER))
+    return bound, by, fetch, texels
+
+
+def k14_row(shadow, calls, n_launches, name="k14_sun_tap", role=None):
+    """K14 against its twin, bit for bit, on the captured sun_visibility
+    launch of `role`, timed, with its bound and registers -> the JSON
+    row."""
+    launches = [x for x in (_bound_args(shadow.sun_visibility_plain, a, kw)
+                            for kind, a, kw in calls if kind == "k14")
+                if _k14_role(x) == role]
+    if not launches or not n_launches:
+        raise RuntimeError(f"{name}: {len(launches)} launches captured, "
+                           f"{n_launches} on the path")
+    x = launches[0]
+    _k14_error(shadow.sun_visibility(**x), shadow.sun_visibility_plain(**x))
+    bound, by, fetch, texels = _k14_bound(shadow, x)
+    h, w = x["n_dot_l"].shape
+    ms = device_ms(lambda: shadow.sun_visibility(**x), 20)
+    plain = device_ms(lambda: shadow.sun_visibility_plain(**x), 3)
+    kernel = "checker" if x["checker_parity"] is not None else "tap"
+    res = next((v for k, v in K11_K14_RESOURCES.items()
+                if f"k14_{kernel}" in k), {})
+    whole_map, _ = _bound(K14_FETCH_BYTES * fetch + K14_PIXEL_BYTES * h * w
+                          + 4 * x["resolution"] ** 2 + 48, 0)
+    _log(f"{name}: {w}x{h}, map {x['resolution']}^2, {fetch} fetching "
+         f"pixels, {texels} distinct texels; {ms:.4f} ms a launch against "
+         f"the bound {bound:.4f} ms ({by}; the whole map counted: "
+         f"{whole_map:.4f}); "
+         f"twin {plain:.3f} ms; identical to the twin; k14_{kernel}_kernel "
+         f"{res.get('registers')} registers, {res.get('spill_bytes')} bytes "
+         "spilled")
+    return dict(
+        name=name, route="cuda",
+        source="incarnation_tpu_torch/csrc/shadow.cu",
+        replaces="incarnation_tpu/kernels/shadow.py:103",
+        launches=n_launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, library_ms=None,
+        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
+
+
+# the functions host_free_phases watches: (module, function, the one
+# kernel each call launches, calls a frame)
+_HOST_FREE = (("clustered", "build_light_clusters", "k11_light_grid", 1),
+              ("skylight", "environment_background", "k12_sky_background",
+               1),
+              ("cull", "cull_primitives", "k13_cull", 2),
+              ("shadow", "sun_visibility", "k14_sun_tap", 1))
+
+
+def host_free_phases(run, fc, history, kernels):
+    """Inside build_light_clusters, environment_background, both
+    cull_primitives calls and sun_visibility on one frame: every eager
+    torch operator that runs work on the card (_launches_work, counted by
+    a TorchDispatchMode), the hand-written kernels launched, and, under
+    torch.cuda.set_sync_debug_mode("error"), any synchronize or copy from
+    pageable host memory (which raises). Raises unless each call is its
+    one K11, K12, K13 or K14 launch and nothing else."""
+    import importlib
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     ops, seen = [], []
@@ -1953,30 +2152,35 @@ def host_free_phases(run, fc, history, clustered, skylight, kernels):
                     k.fn: k.launches - n for k, n in zip(kernels, before)
                     if k.launches > n}))
         return call
-    with _swapped(clustered, "build_light_clusters", watched(
-            clustered.build_light_clusters, "build_light_clusters")), \
-            _swapped(skylight, "environment_background", watched(
-                skylight.environment_background, "environment_background")), \
-            Count():
+    with contextlib.ExitStack() as stack:
+        for mod_name, fn_name, _, _ in _HOST_FREE:
+            mod = importlib.import_module(
+                f"incarnation_tpu_torch.kernels.{mod_name}")
+            stack.enter_context(_swapped(mod, fn_name, watched(
+                getattr(mod, fn_name), fn_name)))
+        stack.enter_context(Count())
         run(fc, history)
     torch.cuda.synchronize()
-    _log("inside the light-cluster grid and the sky background (eager "
-         "operators running on the card, kernels launched; no synchronize "
-         "and no copy from host memory under set_sync_debug_mode): "
-         + json.dumps(seen))
-    want = {"build_light_clusters": {"k11_light_grid": 1},
-            "environment_background": {"k12_sky_background": 1}}
-    if sorted(w for w, _, _ in seen) != sorted(want) \
+    _log("inside the light-cluster grid, the sky background, the frustum "
+         "culls and the shadow tap (eager operators running on the card, "
+         "kernels launched; no synchronize and no copy from host memory "
+         "under set_sync_debug_mode): " + json.dumps(seen))
+    want = {fn: {kernel: 1} for _, fn, kernel, _ in _HOST_FREE}
+    calls = sorted(fn for _, fn, _, n in _HOST_FREE for _ in range(n))
+    if sorted(w for w, _, _ in seen) != calls \
             or any(o or k != want[w] for w, o, k in seen):
-        raise RuntimeError("build_light_clusters or environment_background "
-                           "ran more on the card than its one launch")
+        raise RuntimeError("build_light_clusters, environment_background, "
+                           "cull_primitives or sun_visibility ran more on "
+                           "the card than its one launch")
 
 
 def k1_row(raster, layer, launches_captured, n_launches):
     """Kernel-vs-twin on the captured K1 launches of one raster layer
-    (error, both times and the bound, each the mean over the launches)
-    -> the layer's JSON row."""
+    (error, both times and the bound, each the mean over the launches;
+    the operations' bound beside it, bound_ops_ms) -> the layer's JSON
+    row."""
     errs, ms, plain_ms, bounds, bound_by = [], [], [], [], set()
+    op_bounds = []
     for a, kw in launches_captured:
         bins, p = a
         zl, mt = kw.get("z_limit"), kw.get("mask_table")
@@ -1988,14 +2192,16 @@ def k1_row(raster, layer, launches_captured, n_launches):
             bins, p, z_limit=zl, mask_table=mt), 10))
         plain_ms.append(device_ms(lambda: raster.rasterize_tiles_plain(
             bins, p, z_limit=zl, mask_table=mt), 2))
-        b, by = _k1_bound(bins, p, zl, mt)
+        b, by, b_ops = _k1_bound(bins, p, zl, mt)
         bounds.append(b)
+        op_bounds.append(b_ops)
         bound_by.add(by)
     bins, p = launches_captured[0][0]
     items, largest = raster.k1_work_items(bins, p)
     _log(f"K1 {layer}: per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
          + "; bound ms " + ", ".join(f"{t:.4f}" for t in bounds)
-         + "; tri mismatch share "
+         + " (operations alone " + ", ".join(f"{t:.4f}" for t in op_bounds)
+         + "); tri mismatch share "
          + ", ".join(f"{e[2]:.2e}" for e in errs)
          + f"; {int(bins.counts.sum())} pairs in {p.num_tiles} tiles of "
          f"{p.tile_h}x{p.tile_w}, at most {int(bins.counts.max())} in one, "
@@ -2012,7 +2218,7 @@ def k1_row(raster, layer, launches_captured, n_launches):
         ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
         bound_ms=float(np.mean(bounds)),
         bound_by="operations" if "operations" in bound_by else "bytes",
-        library_ms=None)
+        bound_ops_ms=float(np.mean(op_bounds)), library_ms=None)
 
 
 def small_renderer(dev):
@@ -2061,7 +2267,7 @@ def small_path(dev, raster, clustered, taa):
     launches are this path's."""
     import torch
     from incarnation_tpu_torch.config import ViewMode
-    from incarnation_tpu_torch.kernels import resolve, skylight
+    from incarnation_tpu_torch.kernels import cull, resolve, shadow, skylight
     from incarnation_tpu_torch.renderer import frame
     w, h = SMALL_W, SMALL_H
     scene, render = small_renderer(dev)
@@ -2080,12 +2286,13 @@ def small_path(dev, raster, clustered, taa):
     render(**fwd)                               # warm-up
     kernels = (raster.K1, clustered.K2, taa.K3, resolve.K5, resolve.K6,
                skylight.K8, raster.K9, raster.K10, clustered.K11,
-               skylight.K12)
+               skylight.K12, cull.K13, shadow.K14)
     for k in kernels:
         k.reset()
     calls = capture_frame(lambda fc, history: render(**fwd), None, None,
                           raster, clustered, taa)
-    k11_k12 = [clustered.K11.launches, skylight.K12.launches]
+    k11_k14 = [clustered.K11.launches, skylight.K12.launches,
+               cull.K13.launches, shadow.K14.launches]
     by_name, k2_launches = dict(raster.K1.by_name), clustered.K2.launches
     k5_launches, k6_launches = resolve.K5.launches, resolve.K6.launches
     k8_launches, k9_launches = skylight.K8.launches, raster.K9.launches
@@ -2101,20 +2308,23 @@ def small_path(dev, raster, clustered, taa):
         raise RuntimeError(f"raster_blend launches {by_name}")
     # K2 and K8 shade the opaque surface and each blend layer; K5 resolves
     # the opaque, decal and blend layers, K6 tests each masked peel, K9
-    # sets up and K10 bins the camera and the sun pass
+    # sets up and K10 bins the camera and the sun pass, K13 culls the
+    # primitives and the meshlets, K14 taps the sun map for the opaque
+    # surface and each blend layer
     if by_name.get("raster_shadow_depth") != 1 \
             or k2_launches != 1 + SMALL_PEELS \
             or k5_launches != 2 + SMALL_PEELS or k6_launches != SMALL_PEELS \
             or k8_launches != 1 + SMALL_PEELS or k9_launches != 2 \
-            or k10_binnings != 2 or k11_k12 != [1, 1]:
+            or k10_binnings != 2 \
+            or k11_k14 != [1, 1, 2, 1 + SMALL_PEELS]:
         raise RuntimeError(f"small path launches {by_name}, K2 "
                            f"{k2_launches}, K5 {k5_launches}, K6 "
                            f"{k6_launches}, K8 {k8_launches}, K9 "
                            f"{k9_launches}, K10 {k10_binnings} binnings, "
-                           f"K11 and K12 {k11_k12}")
+                           f"K11-K14 {k11_k14}")
     check_twins("small path, forward frame", calls, raster, clustered, taa,
                 need=("k1", "k2", "k5", "k6", "k8", "k9", "k10", "k11",
-                      "k12"))
+                      "k12", "k13", "k14"))
     if stats["debug_draws"] <= 0:
         raise RuntimeError("no debug draw was appended")
     for key in ("bin_overflow", "big_overflow", "peel_overflow",
@@ -2369,9 +2579,9 @@ def bvh_paths(dev, path, profile: bool):
         raise RuntimeError("(e) K8 was not given the HBAO and bent normals")
     check_twins("(e) RT frame", [c for c in raster_calls
                                  if c[0] in ("k5", "k6", "k8", "k9", "k10",
-                                             "k11", "k12")],
+                                             "k11", "k12", "k13")],
                 raster, clustered, taa,
-                need=("k5", "k6", "k8", "k9", "k10", "k11", "k12"))
+                need=("k5", "k6", "k8", "k9", "k10", "k11", "k12", "k13"))
     rows += [k4_row(bvh, rt_calls[role], role, rt_launches.get(role, 0))
              for role in ("hbao", "rt_sun")]
     return rows, types.SimpleNamespace(sbvh=sbvh, calls=calls, fc=fc_pt,
@@ -2539,7 +2749,7 @@ def cli_phase(dev, path):
                            f"{counts}")
     check_twins("(i) CLI raster", calls, raster, clustered, taa,
                 need=("k1", "k2", "k5", "k6", "k8", "k9", "k10", "k11",
-                      "k12"))
+                      "k12", "k13", "k14"))
     img = _png_check(out_dir / "raster.png", W, H)
     ref = frame.render_frame(res["scene"], res["fc"], config=res["config"],
                              params=res["params"], probe=res["probe"],
@@ -2590,16 +2800,17 @@ def viewer_phase(dev, path):
     """(j) The web viewer serving the atrium at VIEW_W x VIEW_H on a free
     port: the
     page, two frames, an orbit input after which the next frame differs,
-    then /quit, which ends the render loop. -> the row of K8's stochastic
-    role without the checkerboard (`jitter`), which only this path
-    launches."""
+    then /quit, which ends the render loop. -> the rows of K8's and K14's
+    stochastic roles without the checkerboard (`jitter`, `dither`), which
+    only this path launches."""
     import threading
     import urllib.request
     from incarnation_tpu_torch.app import viewer
-    from incarnation_tpu_torch.kernels import clustered, raster, skylight, taa
+    from incarnation_tpu_torch.kernels import (clustered, raster, shadow,
+                                               skylight, taa)
     from incarnation_tpu_torch.scene import png
     w, h = VIEW_W, VIEW_H
-    for k in (raster.K1, clustered.K2, skylight.K8):
+    for k in (raster.K1, clustered.K2, skylight.K8, shadow.K14):
         k.reset()
     calls = []
     with _capturing(calls, raster, clustered, taa, limit=8):
@@ -2659,13 +2870,19 @@ def viewer_phase(dev, path):
                            f"{state.error}")
     check_twins("(j) viewer", calls, raster, clustered, taa,
                 need=("k1", "k2", "k5", "k6", "k8", "k9", "k10", "k11",
-                      "k12"))
+                      "k12", "k13", "k14"))
     n = skylight.K8.by_name.get("jitter", 0)
     if not n:
         raise RuntimeError(f"(j) the viewer's frames launched K8's roles "
                            f"{skylight.K8.by_name}, not `jitter`")
+    n14 = shadow.K14.by_name.get("dither", 0)
+    if not n14:
+        raise RuntimeError(f"(j) the viewer's frames launched K14's roles "
+                           f"{shadow.K14.by_name}, not `dither`")
     return [k8_row(skylight, calls, n, name="k8_sky_lighting[jitter]",
-                   role="jitter")]
+                   role="jitter"),
+            k14_row(shadow, calls, n14, name="k14_sun_tap[dither]",
+                    role="dither")]
 
 
 def band_phase(dev, path, pt):
@@ -2729,7 +2946,15 @@ def band_phase(dev, path, pt):
         raise RuntimeError(f"(k) the band frames skipped a kernel: {counts}")
     halo = check_twins("(k) band frame", calls, raster, clustered, taa,
                        need=("k1", "k2", "k3", "k5", "k6", "k8", "k9",
-                             "k10", "k11", "k12"))
+                             "k10", "k11", "k12", "k13", "k14"))
+    from incarnation_tpu_torch.kernels import shadow
+    k14_rows0 = {(_bound_args(shadow.sun_visibility_plain, a, kw)["row0"],
+                  _k14_role(_bound_args(shadow.sun_visibility_plain, a, kw)))
+                 for kind, a, kw in calls if kind == "k14"}
+    if k14_rows0 != {(0, "dither_checker"), (H // 2, "dither_checker")}:
+        raise RuntimeError(f"(k) the bands' K14 launches (first row, role) "
+                           f"{sorted(k14_rows0)}: not the checkerboard from "
+                           "rows 0 and H / 2")
     if {_k6_args(a, kw)["row0"] for kind, a, kw in calls if kind == "k6"} \
             != {0, H // 2}:
         raise RuntimeError("(k) the bands' K6 launches do not start at "
@@ -2770,16 +2995,16 @@ def band_phase(dev, path, pt):
 
 
 def check_twins(what, calls, raster, clustered, taa, need):
-    """Each captured K1, K2, K3, K5, K6, K8, K9, K10, K11 and K12 launch
-    against its twin, at compare_kernels' tolerances (K1 via _k1_error, K2
-    K2_RTOL, K3 1e-6 relative, K5 via _k5_error, K6's peel step via
-    _k6_error, K8 via _k8_error, K9, K10, K11 and K12 exactly), at the
-    shapes the path gave it; raises if a kind in `need` was not captured.
+    """Each captured K1, K2, K3, K5, K6, K8, K9, K10, K11, K12, K13 and K14
+    launch against its twin, at compare_kernels' tolerances (K1 via
+    _k1_error, K2 K2_RTOL, K3 1e-6 relative, K5 via _k5_error, K6's peel
+    step via _k6_error, K8 via _k8_error, K9-K14 exactly), at the shapes
+    the path gave it; raises if a kind in `need` was not captured.
     Returns the K3 launches' arguments."""
-    from incarnation_tpu_torch.kernels import resolve, skylight
+    from incarnation_tpu_torch.kernels import cull, resolve, shadow, skylight
     kinds = {k: [c for c in calls if c[0] == k]
              for k in ("k1", "k2", "k3", "k5", "k6", "k8", "k9", "k10",
-                       "k11")}
+                       "k11", "k13", "k14")}
     # environment_background's envmap role is torch on every device
     kinds["k12"] = [c for c in calls if c[0] == "k12" and _bound_args(
         skylight.environment_background_plain, c[1], c[2])["dynamic_sky"]]
@@ -2872,6 +3097,21 @@ def check_twins(what, calls, raster, clustered, taa, need):
         _log(f"{what}: K11 x{len(kinds['k11'])} (gx, gy, gz, lights "
              f"{grids}) and K12 x{len(kinds['k12'])} (frames "
              f"{sorted({(a[3], a[4]) for _, a, _ in kinds['k12']})}) "
+             "identical to the twin")
+    for _, a, kw in kinds["k13"]:
+        _k13_error(cull.cull_primitives(*a, **kw),
+                   cull.cull_primitives_plain(*a, **kw))
+    k14 = [_bound_args(shadow.sun_visibility_plain, a, kw)
+           for _, a, kw in kinds["k14"]]
+    for x in k14:
+        _k14_error(shadow.sun_visibility(**x),
+                   shadow.sun_visibility_plain(**x))
+    if kinds["k13"] or k14:
+        spheres = sorted({a[0].shape[0] for _, a, _ in kinds["k13"]})
+        taps = sorted({(_k14_role(x), x["row0"], tuple(x["n_dot_l"].shape))
+                       for x in k14})
+        _log(f"{what}: K13 x{len(kinds['k13'])} (spheres {spheres}) and "
+             f"K14 x{len(k14)} (roles, first rows and shapes {taps}) "
              "identical to the twin")
     return [a for _, a, _ in kinds["k3"]]
 
@@ -2967,7 +3207,7 @@ K4_RESOURCES: dict = {}
 K5_RESOURCES: dict = {}
 K8_RESOURCES: dict = {}
 K9_RESOURCES: dict = {}
-K11_K12_RESOURCES: dict = {}
+K11_K14_RESOURCES: dict = {}
 
 
 def _ptxas_log(build_mod, source: str, log=None) -> str:
@@ -3290,7 +3530,7 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
     images must agree (tri on all but 1e-4 of the pixels, u8 colour
     >= 50 dB PSNR)."""
     import torch
-    from incarnation_tpu_torch.kernels import resolve, skylight
+    from incarnation_tpu_torch.kernels import cull, resolve, shadow, skylight
     got = run(fc, history)
     def raster_plain(bins, params, z_limit=None, mask_table=None,
                      name=None):
@@ -3313,7 +3553,9 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
             _swapped(clustered, "build_light_clusters",
                      clustered.build_light_clusters_plain), \
             _swapped(skylight, "environment_background",
-                     skylight.environment_background_plain):
+                     skylight.environment_background_plain), \
+            _swapped(cull, "cull_primitives", cull.cull_primitives_plain), \
+            _swapped(shadow, "sun_visibility", shadow.sun_visibility_plain):
         ref = run(fc, history)
     torch.cuda.synchronize()
     share = float((got["tri"] != ref["tri"]).float().mean())

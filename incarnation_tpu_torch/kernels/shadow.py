@@ -4,7 +4,9 @@ The reference traces a per-pixel DXR shadow ray toward the sun in its
 DirectLighting pass (ref: shaders/lighting/common.hlsli:91-116). The raster
 frame's stand-in is a rasterized orthographic shadow map: K1 renders the
 sun view's depth in its depth-only role once per frame, and the screen pass
-compares each pixel's sun-space depth with one tap of the map.
+compares each pixel's sun-space depth with one tap of the map:
+sun_visibility, K14 (csrc/shadow.cu) on CUDA tensors and its plain twin
+sun_visibility_plain on CPU ones.
 
 The map stays float32: the JAX package's packing to u16 words is an
 approximation the port does not make, so the port's depth agrees with it to
@@ -13,16 +15,27 @@ half a quantisation step.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ..core import mathutils as mu
 from . import checker
 from . import raster as raster_mod
+from .build import Kernel, ptr
 from .resolve import frame_noise
 
 # frame_noise's channels of the jittered tap (JAX shadow.py)
 N_PCF_X, N_PCF_Y = 2246822519, 3266489917
+_M32 = 0xFFFFFFFF
+
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+# world_pos, n_dot_l, the map, sun_vp, width, height, the map's side, the
+# bias scale 2 / side, dither on, the two noise seeds, the checker parity
+# (-1: none), row0, the output
+K14 = Kernel("shadow", "k14_sun_tap",
+             [_P] * 4 + [_I, _I, _I, _F, _I, _U, _U, _I, _I, _P])
 
 
 def sun_view_proj(sun_dir, center, radius) -> np.ndarray:
@@ -103,16 +116,57 @@ def sun_visibility(world_pos, n_dot_l, shadow_depth, sun_vp,
     half-rate fetch (kernels/checker.py), whose fetching half hashes its
     noise at its compacted (H, W/2) positions, as the JAX package's
     (shadow.py:103-154); row0: the first row's index in the whole frame.
-    -> (H, W) f32, 0 (occluded), 1, or a tent of the two."""
-    if checker_parity is not None:
-        cp = int(checker_parity) & 1
-        vis = sun_visibility(checker.compact(cp, world_pos, row0),
-                             checker.compact(cp, n_dot_l, row0),
-                             shadow_depth, sun_vp, resolution, dither,
-                             row0=row0)
-        return checker.expand(cp, vis, row0)
-    # orthographic, so w == 1: the affine part of the 4x4 product
-    s = torch.matmul(world_pos, sun_vp[:3, :3]) + sun_vp[3, :3]
+    -> (H, W) f32, 0 (occluded), 1, or a tent of the two.
+
+    CUDA tensors launch K14 (csrc/shadow.cu) once, which reads world_pos
+    and n_dot_l in place (contiguous, never copied); CPU tensors take the
+    twin, sun_visibility_plain."""
+    if not world_pos.is_cuda:
+        return sun_visibility_plain(world_pos, n_dot_l, shadow_depth, sun_vp,
+                                    resolution, dither, checker_parity, row0)
+    dev = world_pos.device
+    h, w = world_pos.shape[:2]
+    s = int(resolution)
+    for name, t, shape in (("world_pos", world_pos, (h, w, 3)),
+                           ("n_dot_l", n_dot_l, (h, w)),
+                           ("shadow_depth", shadow_depth, (s, s)),
+                           ("sun_vp", sun_vp, (4, 4))):
+        if t.dtype != torch.float32 or t.device != dev \
+                or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: need a contiguous float32 tensor "
+                             f"{shape} on {dev}")
+    if s < 1:
+        raise ValueError("resolution: need a map of at least one texel")
+    cp = -1 if checker_parity is None else int(checker_parity) & 1
+    if cp >= 0 and w % 2:
+        raise ValueError("the checkerboard needs an even width")
+    out = torch.empty((h, w), dtype=torch.float32, device=dev)
+    if not h * w:
+        return out
+    frame = 0 if dither is None else int(dither)
+    K14(ptr(world_pos), ptr(n_dot_l), ptr(shadow_depth), ptr(sun_vp), w, h,
+        s, 2.0 / s, int(dither is not None), (frame * N_PCF_X) & _M32,
+        (frame * N_PCF_Y) & _M32, cp, int(row0), ptr(out),
+        name=role_name(dither, checker_parity))
+    return out
+
+
+def role_name(dither, checker_parity) -> str:
+    """K14's role of a call, the name its launch counts under in
+    K14.by_name: exact, dither, checker or dither_checker."""
+    parts = (["dither"] if dither is not None else []) \
+        + (["checker"] if checker_parity is not None else [])
+    return "_".join(parts) or "exact"
+
+
+def sun_map_tap(world_pos, sun_vp, resolution: int, dither=None,
+                row0: int = 0):
+    """The map tap of sun_visibility_plain's fetching pixels, in K14's
+    order: -> (sun-space depth (H, W), inside the map (H, W) bool, flat
+    texel index (H, W) int64). The sun-space product is
+    mathutils.rows_mat's sum and the affine row; each Python number is
+    the float torch rounds it to."""
+    s = mu.rows_mat(world_pos, sun_vp[:3, :3]) + sun_vp[3, :3]
     sx, sy, sz = s[..., 0], s[..., 1], s[..., 2]
     inside = (sx >= -1.0) & (sx <= 1.0) & (sy >= -1.0) & (sy <= 1.0)
     u = (sx * 0.5 + 0.5) * resolution
@@ -127,7 +181,22 @@ def sun_visibility(world_pos, n_dot_l, shadow_depth, sun_vp,
     hi = float(resolution - 1)
     u = torch.clamp(torch.nan_to_num(u), 0.0, hi)
     v = torch.clamp(torch.nan_to_num(v), 0.0, hi)
-    lin = v.to(torch.int64) * resolution + u.to(torch.int64)
+    return sz, inside, v.to(torch.int64) * resolution + u.to(torch.int64)
+
+
+def sun_visibility_plain(world_pos, n_dot_l, shadow_depth, sun_vp,
+                         resolution: int, dither=None, checker_parity=None,
+                         row0: int = 0):
+    """K14's plain twin in torch (sun_visibility's arguments and result):
+    the checkerboard as checker.compact, the tap, checker.expand."""
+    if checker_parity is not None:
+        cp = int(checker_parity) & 1
+        vis = sun_visibility_plain(checker.compact(cp, world_pos, row0),
+                                   checker.compact(cp, n_dot_l, row0),
+                                   shadow_depth, sun_vp, resolution, dither,
+                                   row0=row0)
+        return checker.expand(cp, vis, row0)
+    sz, inside, lin = sun_map_tap(world_pos, sun_vp, resolution, dither, row0)
     d = shadow_depth.reshape(-1)[lin]          # one flat-index fetch
     # Slope-scaled bias in NDC-z units (the depth range spans 2.1 x the
     # radius; 2-texel worst-case slope + a constant offset).

@@ -1,4 +1,4 @@
-"""K1-K12 against their plain PyTorch twins on a CUDA card, at small
+"""K1-K14 against their plain PyTorch twins on a CUDA card, at small
 shapes from a seed. Marked `cuda`: they skip on a host without a card and
 run on the card with
 
@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from incarnation_tpu_torch.config import Config
-from incarnation_tpu_torch.kernels import (bvh, clustered, raster, resolve,
-                                           skylight, taa)
+from incarnation_tpu_torch.kernels import (bvh, clustered, cull, raster,
+                                           resolve, shadow, skylight, taa)
 from incarnation_tpu_torch.scene import lights as lights_mod
 
 pytestmark = pytest.mark.cuda
@@ -2160,3 +2160,272 @@ def test_k12_refuses_and_never_falls_back(dev):
     with pytest.raises(ValueError, match="mask"):
         skylight.environment_background(mask, eye, ivp, w + 1, h, **kw)
     assert skylight.K12.launches == n0
+
+
+def _unproject(vp, ndc):
+    """World points (f64) of NDC points (..., 3) under a row-vector
+    view-projection."""
+    h = np.concatenate([ndc, np.ones_like(ndc[..., :1])], -1) \
+        @ np.linalg.inv(vp.astype(np.float64))
+    return h[..., :3] / h[..., 3:]
+
+
+# the NDC coordinate (axis, value) on each frustum plane of
+# cull.frustum_planes: left, right, bottom, top, z = 0, z = w
+_PLANE_NDC = ((0, -1.0), (0, 1.0), (1, -1.0), (1, 1.0), (2, 0.0), (2, 1.0))
+
+
+def cull_inputs(n, seed=0, view="camera", graze=1e-2):
+    """numpy inputs of one frustum cull: n spheres of three meshes (each a
+    rotated, unevenly scaled, translated transform; mesh 2 hidden), a
+    rotated scene_rotation and either the camera's infinite reverse-Z
+    view-projection ("camera": its z = 0 plane is at infinity, a zero
+    normal that the 1e-12 floor meets) or the sun's orthographic one
+    ("sun": six finite planes). Sphere centres spread in NDC over about
+    twice the frustum; every 13th radius is 0; every 17th mesh id is
+    negative (it wraps); the first spheres graze the planes, one inside
+    and one outside each finite plane by `graze` of their radius ->
+    dict(bsphere, mesh, mesh_transforms, mesh_visible, scene_rotation,
+    view_proj, graze (n,) int: 1 inside, -1 outside, 0 no graze)."""
+    from incarnation_tpu_torch.core.view import View
+    from incarnation_tpu_torch.kernels.shadow import sun_view_proj
+    r = np.random.default_rng(seed)
+    xf = np.tile(np.eye(4), (3, 1, 1))
+    for k in range(3):
+        q = np.linalg.qr(r.normal(size=(3, 3)))[0]
+        xf[k, :3, :3] = q * r.uniform(0.5, 2.0, 3)[:, None]
+        xf[k, 3, :3] = r.uniform(-2.0, 2.0, 3)
+    xf = xf.astype(np.float32)
+    rot = np.eye(4)
+    rot[:3, :3] = np.linalg.qr(r.normal(size=(3, 3)))[0]
+    rot = rot.astype(np.float32)
+    if view == "camera":
+        vp = View.from_lookat([0.5, 1.0, -6.0], [0.0, 0.0, 6.0],
+                              aspect=1920 / 1088).view_proj()
+        zlo, zhi, finite = 0.04, 1.2, (0, 1, 2, 3, 5)
+    else:
+        vp = sun_view_proj([0.3, 0.8, -0.5], [0.0, 0.0, 4.0], 12.0)
+        zlo, zhi, finite = -0.3, 1.3, (0, 1, 2, 3, 4, 5)
+    vp = np.asarray(vp, np.float32)
+    mesh = r.integers(0, 3, n)
+    radius = r.uniform(0.2, 2.0, n)
+    radius[::13] = 0.0
+    ndc = np.stack([r.uniform(-2.0, 2.0, n), r.uniform(-2.0, 2.0, n),
+                    r.uniform(zlo, zhi, n)], -1)
+    center = _unproject(vp, ndc)
+    # normalised planes (f64), their normals pointing inside
+    m = vp.astype(np.float64)
+    planes = np.stack([m[:, 3] + m[:, 0], m[:, 3] - m[:, 0],
+                       m[:, 3] + m[:, 1], m[:, 3] - m[:, 1], m[:, 2],
+                       m[:, 3] - m[:, 2]])
+    planes /= np.maximum(np.linalg.norm(planes[:, :3], axis=-1),
+                         1e-12)[:, None]
+    graze_of = np.zeros(n, np.int64)
+    for g in range(min(n, 2 * len(finite))):
+        q = finite[g // 2]
+        axis, value = _PLANE_NDC[q]
+        p = np.concatenate([r.uniform(-0.8, 0.8, 2), r.uniform(0.2, 0.8, 1)])
+        p[axis] = value
+        side = 1 if g % 2 == 0 else -1
+        center[g] = _unproject(vp, p) + planes[q, :3] * (
+            -radius[g] + side * graze * max(radius[g], 0.2))
+        mesh[g] = g % 2                          # visible meshes
+        graze_of[g] = side
+    world = xf.astype(np.float64) @ rot.astype(np.float64)
+    obj = np.empty((n, 3))
+    for k in range(3):
+        sel = mesh == k
+        h = np.concatenate([center[sel], np.ones((sel.sum(), 1))], -1)
+        obj[sel] = (h @ np.linalg.inv(world[k]))[:, :3]
+    scale = np.linalg.norm(world[:, :3, :3], axis=-1).max(-1)
+    bsphere = np.concatenate([obj, (radius / scale[mesh])[:, None]], -1)
+    mesh[16::17] -= 3
+    return dict(bsphere=bsphere.astype(np.float32),
+                mesh=mesh.astype(np.int32), mesh_transforms=xf,
+                mesh_visible=np.int32([1, 1, 0]), scene_rotation=rot,
+                view_proj=vp, graze=graze_of)
+
+
+def _k13_args(dev, inp):
+    f = lambda k: torch.tensor(inp[k], device=dev)
+    return tuple(f(k) for k in ("bsphere", "mesh", "mesh_transforms",
+                                "mesh_visible", "scene_rotation",
+                                "view_proj"))
+
+
+@pytest.mark.parametrize("view", ["camera", "sun"])
+@pytest.mark.parametrize("n", [0, 1, 3434, 100_000])
+def test_k13_matches_twin_bit_for_bit(dev, n, view):
+    """Every mask bit and the culled count equal the twin's, one launch a
+    list: the empty list (count 0), one sphere, the atrium's meshlet count
+    and 100k spheres (97 rounds of the block), with grazing spheres, zero
+    radii, wrapped mesh ids and a hidden mesh."""
+    args = _k13_args(dev, cull_inputs(n, seed=n + 1, view=view))
+    n0 = cull.K13.launches
+    inside, culled = cull.cull_primitives(*args)
+    assert cull.K13.launches == n0 + 1
+    ref_inside, ref_culled = cull.cull_primitives_plain(*args)
+    assert inside.dtype == torch.bool and culled.dtype == torch.int64
+    assert inside.shape == ref_inside.shape == (n,) and culled.shape == ()
+    assert torch.equal(inside, ref_inside), \
+        int((inside != ref_inside).sum())
+    assert int(culled) == int(ref_culled)
+    if n >= 3434:
+        assert 0 < int(ref_culled) < n
+
+
+def test_k13_back_to_back_and_no_host_sync(dev):
+    """Three lists of different lengths launched back to back under
+    set_sync_debug_mode("error"): each equals its twin, and K13 neither
+    copies from host memory nor waits for the card."""
+    runs = [_k13_args(dev, cull_inputs(n, seed=s, view=v))
+            for n, s, v in ((64, 1, "camera"), (3434, 2, "sun"),
+                            (0, 3, "camera"), (5000, 4, "camera"))]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [cull.cull_primitives(*a) for a in runs]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for (inside, culled), a in zip(got, runs):
+        ref_inside, ref_culled = cull.cull_primitives_plain(*a)
+        assert torch.equal(inside, ref_inside)
+        assert int(culled) == int(ref_culled)
+
+
+def test_k13_refuses_and_never_falls_back(dev):
+    bs, mesh, xf, vis, rot, vp = _k13_args(dev, cull_inputs(64))
+    n0 = cull.K13.launches
+    with pytest.raises(ValueError, match="bsphere"):
+        cull.cull_primitives(bs.double(), mesh, xf, vis, rot, vp)
+    with pytest.raises(ValueError, match="mesh"):
+        cull.cull_primitives(bs, mesh.long(), xf, vis, rot, vp)
+    with pytest.raises(ValueError, match="view_proj"):
+        cull.cull_primitives(bs, mesh, xf, vis, rot, vp.t())
+    with pytest.raises(ValueError, match="scene_rotation"):
+        cull.cull_primitives(bs, mesh, xf, vis, rot.cpu(), vp)
+    with pytest.raises(ValueError, match="mesh_visible"):
+        cull.cull_primitives(bs, mesh, xf, vis[:2], rot, vp)
+    shifted = torch.empty(bs.numel() + 1, device=dev)[1:].view(-1, 4)
+    shifted.copy_(bs)
+    with pytest.raises(ValueError, match="aligned"):
+        cull.cull_primitives(shifted, mesh, xf, vis, rot, vp)
+    assert cull.K13.launches == n0
+
+
+def sun_tap_inputs(h, w, seed=0, side=64):
+    """numpy inputs of one sun-map tap: an (H, W) frame of world points
+    spread over a little more than the sun's orthographic box (some
+    outside it; one far outside, one NaN), n.l in [-0.2, 1] (one NaN), a
+    random (side, side) f32 depth map and the sun's view-projection ->
+    dict(world_pos, n_dot_l, depth, sun_vp)."""
+    r = np.random.default_rng(seed)
+    vp = np.asarray(shadow.sun_view_proj([0.3, 0.8, -0.5], [0.0, 0.0, 0.0],
+                                         4.0), np.float32)
+    ndc = np.stack([r.uniform(-1.1, 1.1, (h, w)), r.uniform(-1.1, 1.1, (h, w)),
+                    r.uniform(0.0, 1.0, (h, w))], -1)
+    wp = _unproject(vp, ndc).astype(np.float32)
+    ndl = r.uniform(-0.2, 1.0, (h, w)).astype(np.float32)
+    wp[0, 0] = [1e30, 0.0, 0.0]
+    if h * w > 2:
+        wp[h // 2, w // 2] = np.nan
+        ndl[h - 1, w - 1] = np.nan
+    depth = r.uniform(0.0, 1.0, (side, side)).astype(np.float32)
+    return dict(world_pos=wp, n_dot_l=ndl, depth=depth, sun_vp=vp)
+
+
+# K14's roles: (dither, checker_parity)
+K14_ROLES = {"exact": (None, None), "dither": (9, None),
+             "dither_checker0": (9, 0), "dither_checker1": (10, 1),
+             "checker0": (None, 0)}
+
+
+def _k14_args(dev, inp, side):
+    f = lambda k: torch.tensor(inp[k], device=dev)
+    return f("world_pos"), f("n_dot_l"), f("depth"), f("sun_vp"), side
+
+
+@pytest.mark.parametrize("shape,role", [
+    ((1088, 1920), r) for r in K14_ROLES] + [
+    ((540, 959), "exact"), ((540, 959), "dither"),
+    ((33, 70), "dither_checker1"), ((1, 2), "dither_checker0"),
+    ((3, 66), "checker0")])
+def test_k14_matches_twin_bit_for_bit(dev, shape, role):
+    """Every value equals the twin's bit for bit, one launch a call, in
+    each role: 1920x1088 on a 1024 map, the viewer's odd 959 width, a
+    width of 35 pairs (a warp and 3 more), one pair, rows of 33 pairs."""
+    h, w = shape
+    side = 1024 if w >= 959 else 64
+    args = _k14_args(dev, sun_tap_inputs(h, w, seed=h, side=side), side)
+    dither, parity = K14_ROLES[role]
+    name = shadow.role_name(dither, parity)
+    n0 = shadow.K14.by_name.get(name, 0)
+    got = shadow.sun_visibility(*args, dither=dither, checker_parity=parity)
+    assert shadow.K14.by_name.get(name, 0) == n0 + 1
+    ref = shadow.sun_visibility_plain(*args, dither=dither,
+                                      checker_parity=parity)
+    assert got.dtype == torch.float32 and got.shape == ref.shape == (h, w)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+        int((got != ref).sum())
+    if h * w > 1000:
+        assert 0.05 < float((ref == 0).float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("role", ["dither_checker0", "dither_checker1",
+                                  "dither"])
+def test_k14_band_rows_match_whole(dev, role):
+    """A band of rows 544-1087 (row0 544) and one of rows 7-30 (row0 7,
+    odd: the checkerboard's rows swap lanes) equal the same rows of the
+    whole-frame launch and the twin's band."""
+    inp = sun_tap_inputs(1088, 1920, seed=5, side=1024)
+    wp, ndl, depth, vp, side = _k14_args(dev, inp, 1024)
+    dither, parity = K14_ROLES[role]
+    whole = shadow.sun_visibility(wp, ndl, depth, vp, side, dither=dither,
+                                  checker_parity=parity)
+    for r0, r1 in ((544, 1088), (7, 31)):
+        band = shadow.sun_visibility(
+            wp[r0:r1].contiguous(), ndl[r0:r1].contiguous(), depth, vp, side,
+            dither=dither, checker_parity=parity, row0=r0)
+        ref = shadow.sun_visibility_plain(
+            wp[r0:r1], ndl[r0:r1], depth, vp, side, dither=dither,
+            checker_parity=parity, row0=r0)
+        assert torch.equal(band, whole[r0:r1])
+        assert torch.equal(band, ref)
+
+
+def test_k14_back_to_back_and_no_host_sync(dev):
+    """Every role back to back under set_sync_debug_mode("error"): each
+    launch equals its twin, with no copy from host memory and no
+    synchronize."""
+    args = _k14_args(dev, sun_tap_inputs(200, 320, seed=3, side=256), 256)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = {role: shadow.sun_visibility(*args, dither=d, checker_parity=c,
+                                           row0=4)
+               for role, (d, c) in K14_ROLES.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for role, (d, c) in K14_ROLES.items():
+        ref = shadow.sun_visibility_plain(*args, dither=d, checker_parity=c,
+                                          row0=4)
+        assert torch.equal(got[role], ref), role
+
+
+def test_k14_refuses_and_never_falls_back(dev):
+    wp, ndl, depth, vp, side = _k14_args(
+        dev, sun_tap_inputs(16, 31, seed=1), 64)
+    n0 = shadow.K14.launches
+    with pytest.raises(ValueError, match="even width"):
+        shadow.sun_visibility(wp, ndl, depth, vp, side, dither=3,
+                              checker_parity=0)
+    with pytest.raises(ValueError, match="world_pos"):
+        shadow.sun_visibility(wp.permute(1, 0, 2).contiguous()
+                              .permute(1, 0, 2), ndl, depth, vp, side)
+    with pytest.raises(ValueError, match="n_dot_l"):
+        shadow.sun_visibility(wp, ndl.double(), depth, vp, side)
+    with pytest.raises(ValueError, match="shadow_depth"):
+        shadow.sun_visibility(wp, ndl, depth, vp, 32)
+    with pytest.raises(ValueError, match="sun_vp"):
+        shadow.sun_visibility(wp, ndl, depth, vp.cpu(), side)
+    assert shadow.K14.launches == n0

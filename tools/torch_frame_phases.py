@@ -31,12 +31,13 @@ skylight.environment_background; the camera
 pass's binning, raster.bin_triangles_layered; the sun pass with its own
 setup, binning and raster, shadow.render_sun_shadow_map; the resolve, the
 peels' alpha tests and the shadow tap, which the stochastic estimators
-change), the frame glue, and the eager operators per peel. The peels'
-alpha test is resolve.masked_alpha in a tree whose frame runs the
-accumulate in torch, and resolve.masked_peel (K6's peel step, the
-accumulate in it) in one whose frame calls that; the first's accumulate
-counts to its glue, so `peels+glue` (both phases and the glue) is the sum
-that compares like with like.
+change; the two frustum culls, cull.cull_primitives), the frame glue,
+and the eager operators per peel. The peels' alpha test is
+resolve.masked_alpha in a tree whose frame runs the accumulate in torch,
+and resolve.masked_peel (K6's peel step, the accumulate in it) in one
+whose frame calls that; the first's accumulate counts to its glue, so
+`peels+glue` (both phases and the glue) is the sum that compares like
+with like.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ COMPARED = ("raster.prepare_geometry", "skylight.sky_lighting",
             "skylight.environment_background",
             "raster.bin_triangles_layered", "shadow.render_sun_shadow_map",
             "resolve.resolve_gbuffer", "resolve.masked_alpha",
-            "resolve.masked_peel", "shadow.sun_visibility", "glue",
-            "peels+glue")
+            "resolve.masked_peel", "shadow.sun_visibility",
+            "cull.cull_primitives", "glue", "peels+glue")
 
 
 def in_turns(trees, frames: int, out) -> int:
