@@ -20,15 +20,21 @@ next's), decals, the material resolve of the opaque layer (K5: a
 checkerboard of jittered texels) and the decal layer (K5: jittered
 texels under its chunk capacity), the 1024 x 1024 sun shadow map (K1's
 depth-only role, every face casting) and its jittered, checkerboarded
-tap (K14), the light-cluster grid (K11), sky IBL (K8: a checkerboard of
-jittered RGBE probe texels), shadowed sun, clustered lights (K2), the sky
-background (K12), TAA and tonemap. The camera is the atrium's glTF
+tap (K14, forming the slope bias's n.l from the normal itself), the
+light-cluster grid (K11), sky IBL (K8: a checkerboard of jittered RGBE
+probe texels), the sun's direct term (K15 on K14's visibility), clustered
+lights (K2), the sky background (K12), the TAA resolve (K3's resolve
+role: the reprojected fetch, the 3x3 clamp and the blend in one launch)
+and tonemap. The camera is the atrium's glTF
 camera with Halton jitter and a small orbit every frame. Every zero gate
 must read 0 on every frame (peel_chunk_overflow and decal_overflow
-among them), and each launch of K5, K6 and K8 counts under its role.
-Then the same 8 frames with the estimators off (the exact roles of K5,
-K6 and K8 on every frame): both sequences' frame times and the last
-frames' PSNR. It checks that the shadow map darkens the frame.
+among them), and each launch of K3, K5, K6, K8, K14 and K15 counts under
+its role. Then the same 8 frames with the estimators off (the exact roles
+of K5, K6, K8 and K14 on every frame): both sequences' frame times and the
+last frames' PSNR. It checks that the shadow map darkens the frame, on a
+frame without the map and with the stochastic history fetch (K15's role
+without a visibility, K3's resolve of a given prev_color), whose K15 and
+K3 launches it holds to their twins.
 
 Then it captures each kernel's inputs from one more frame of each
 sequence, runs each kernel and its plain PyTorch twin on those inputs on
@@ -40,16 +46,19 @@ again with every kernel swapped for its twin and compares the images,
 and prints the frame's time by phase (phase_breakdown). The frame's two
 binnings run once more under torch.cuda.set_sync_debug_mode("error"):
 K10 makes the host wait for nothing. Inside the light-cluster grid, the
-sky background, the two frustum culls and the shadow tap of one more
-frame, nothing but K11's, K12's, K13's and K14's one launch each runs on
-the card: no eager torch operator, no copy from host memory, no
-synchronize (host_free_phases).
+sky background, the two frustum culls, the shadow tap, the sun term and
+the TAA resolve of one more frame, nothing but K11's, K12's, K13's and
+K14's one launch each, K14's and K15's (the sun term) and K3's (the
+resolve) runs on the card: no eager torch operator, no copy from host
+memory, no synchronize (host_free_phases).
 
 A second, small path (512x256, the port's scene/testing.py scene with a
 BLEND quad, TAA off: the exact roles) renders one forward-lighting frame
 with blend layers and both debug draws, holds its blend-layer launches
-of K1 and every K5, K6, K8, K9, K10, K11, K12, K13 and K14 launch to
-their twins, renders one frame per view mode (the lighting-only mode's K8
+of K1 and every K5, K6, K8, K9, K10, K11, K12, K13, K14 and K15 launch to
+their twins, renders a frame of the scene with transmission and
+clearcoat on its materials (K15's extras role, K5's and K8's with
+extras), renders one frame per view mode (the lighting-only mode's K8
 launch held to its twin) and checks pick and highlight.
 
 Then the BVH paths on the atrium: (a) the scene BVH built on the host;
@@ -61,8 +70,8 @@ ray; (d) one sample with K4 swapped for its twin (identical radiance);
 (e) one 1920x1088 render_frame with RT sun shadows and HBAO through the
 same BVH (RT shadows darken the frame, AO in [0, 1], unit bent normals,
 the share of covered pixels where RT and shadow-map visibility agree; its
-K5, K6, K8 (with HBAO and bent normals), K9, K10, K11, K12 and K13
-launches against their twins).
+K5, K6, K8 (with HBAO and bent normals), K9, K10, K11, K12, K13 and K15
+(its given visibility) launches against their twins).
 
 Then the rest of the port: (g) the atrium's binary BVH (merged table) and
 K4's binary role on the captured primary, bounce and shadow rays, against
@@ -80,8 +89,10 @@ their own);
 else cuda:0 twice): a 1920x1088 frame and a second TAA frame against the
 single frame, a band-sharded path-traced sample (identical) and an
 SPP-sharded round (the batch-mean rule within 1e-6). (i)-(k) capture
-their K1, K2, K3, K5, K6, K8, K9, K10, K11, K12, K13 and K14 launches and
-hold each to its twin (the bands' K14 launches from row 544).
+their K1, K2, K3 (its resolve: the CLI's static camera takes its shift
+role), K5, K6, K8, K9, K10, K11, K12, K13, K14 and K15 launches and hold
+each to its twin (the bands' K14 launches from row 544, their K3 resolves
+with the halo rows).
 
 It prints one JSON line of kernel figures; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises, and the script
@@ -281,6 +292,32 @@ K13_SPHERE_BYTES, K13_MESH_BYTES = 21, 68
 K14_OPS_TAP, K14_OPS_DITHER, K14_OPS_FILL = 35, 10, 2
 K14_INT_OPS_TAP, K14_INT_OPS_DITHER = 2, 18
 K14_FETCH_BYTES, K14_PIXEL_BYTES = 16, 4
+# K14's "+nl" roles: a fetching pixel reads its normal (12) in n.l's place
+# (4) and forms n.l (3 mul + 2 add); sun_dir once (12)
+K14_NL_BYTES, K14_NL_OPS = 8, 5
+# K15, counted from csrc/shading.cu: every pixel its HDR add (3); a
+# covered pixel n.l and its clamp (7); one whose n.l > 0 the rest: n.v,
+# n.h, v.h with their clamps (21), the half vector (3 adds, its dot 5,
+# + eps, sqrt, reciprocal, 3 scalings: 14), 1 - metallic (1), GGX D (11),
+# the Schlick weight (4), Smith G (17), the denominator (3), the
+# radiance's scale (1) and per channel f0 3, albedo 1, F 3, the specular
+# 3, the diffuse 1, their sum 3, the radiance and n.l 3, the visibility 1
+# (54): 133; with extras 48 more (the clearcoat roughness's clamp 1, its
+# Fresnel 4, D 11, G 17, its term 3, and per channel the transmission 1
+# and the layering 3). Bytes: every pixel its mask, HDR and output (25); a
+# covered pixel its normal (12); a lit one its view vector (12), base
+# colour and mrao (16 each: whole pixels), visibility (4) and extras (12)
+K15_OPS_PIXEL, K15_OPS_COVERED, K15_OPS_LIT, K15_OPS_EXTRAS = 3, 7, 133, 48
+K15_PIXEL_BYTES, K15_COVERED_BYTES, K15_LIT_BYTES = 25, 12, 44
+K15_VIS_BYTES, K15_EXTRAS_BYTES = 4, 12
+# K3's resolve, counted from csrc/taa.cu, per pixel: the fetch (the
+# reprojection K3_OPS_PER_PIXEL; the shift's 3-channel bilerp 18; a given
+# prev_color 0), the 3x3 min and max of 3 channels (48), the clamp (6),
+# two luminance weights (7 each), their scalings and sum (3), the blend
+# (12): 83. Bytes: the current HDR (12) and the output (12) of every
+# pixel; the fetch's depth (4, reprojection) and history or prev_color
+# texel (12); the halo rows (2 x 12 W) and m (64) once.
+K3R_OPS_RESOLVE, K3R_OPS_SHIFT = 83, 18
 # K1's depth-only role, counted from csrc/raster.cu, per (pair, pixel)
 # whose test passes: the 16 float operations of K1_OPS_PER_PAIR_PIXEL and
 # 5 integer ones (the key's high word, an and; the 64-bit compare 2 and
@@ -373,6 +410,25 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean ms of the host's work per fn() call (its wrapper's checks, the
+    ctypes call, the launch): the host clock around reps back-to-back
+    calls queued behind a spin kernel, so that no call waits for the
+    card. A call that waits for the card itself (a synchronize, a copy
+    from pageable host memory) waits for the spin too, and then the time
+    is not its host work. A warm-up call first."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SPIN_CYCLES_PER_S * 0.05))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s * 1e3 / reps
+
+
 def once_ms(fn) -> float:
     """ms of one fn() call between CUDA events, for a twin that takes
     seconds (K4's): its host time dominates, and it has just run once for
@@ -428,8 +484,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     from incarnation_tpu_torch.core import mathutils as mu
     from incarnation_tpu_torch.kernels import (build, bvh, clustered, cull,
-                                               raster, resolve, shadow,
-                                               skylight, taa)
+                                               raster, resolve, shading,
+                                               shadow, skylight, taa)
     # the port's small matmuls (the band matrix, the RT frame's rotated
     # rays, the debug draws) need full f32
     if torch.backends.cuda.matmul.allow_tf32:
@@ -460,15 +516,19 @@ def main(argv=None) -> int:
                                          logs.get("skylight")))
     K9_RESOURCES.update(kernel_resources(build, "setup", "k9_setup_kernel",
                                          logs.get("setup")))
-    K11_K14_RESOURCES.update(kernel_resources(
+    K11_K15_RESOURCES.update(kernel_resources(
         build, "clustered", "k11_light_grid_kernel", logs.get("clustered")))
-    K11_K14_RESOURCES.update(kernel_resources(
+    K11_K15_RESOURCES.update(kernel_resources(
         build, "skylight", "k12_sky_background_kernel",
         logs.get("skylight")))
-    K11_K14_RESOURCES.update(kernel_resources(
+    K11_K15_RESOURCES.update(kernel_resources(
         build, "cull", "k13_cull_kernel", logs.get("cull")))
-    K11_K14_RESOURCES.update(kernel_resources(
+    K11_K15_RESOURCES.update(kernel_resources(
         build, "shadow", "k14_", logs.get("shadow")))
+    K11_K15_RESOURCES.update(kernel_resources(
+        build, "shading", "k15_", logs.get("shading")))
+    K11_K15_RESOURCES.update(kernel_resources(
+        build, "taa", "k3_", logs.get("taa")))
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -488,7 +548,7 @@ def main(argv=None) -> int:
 
     kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4, resolve.K5,
                resolve.K6, skylight.K8, raster.K9, raster.K10, clustered.K11,
-               skylight.K12, cull.K13, shadow.K14)
+               skylight.K12, cull.K13, shadow.K14, shading.K15)
     for k in kernels:
         k.reset()
     # the main path: bench.py's frame, JAX's default Config, its history
@@ -503,24 +563,30 @@ def main(argv=None) -> int:
         raise RuntimeError("the raster frame launched K4")
     k1_by_layer = dict(raster.K1.by_name)
     k10_steps = dict(raster.K10.by_name)
-    roles = {k.fn: dict(k.by_name) for k in (resolve.K5, resolve.K6,
-                                              skylight.K8, shadow.K14)}
+    roles = {k.fn: dict(k.by_name) for k in (
+        resolve.K5, resolve.K6, skylight.K8, shadow.K14, taa.K3,
+        shading.K15)}
     _log(f"launches on the main path: {launches}, K1 by layer "
-         f"{k1_by_layer}, K10 by launch {k10_steps}, K5, K6, K8 and K14 by "
-         f"role {roles}")
+         f"{k1_by_layer}, K10 by launch {k10_steps}, K3, K5, K6, K8, K14 "
+         f"and K15 by role {roles}")
     _log("frame ms: " + ", ".join(f"{t:.2f}" for t in frame_ms))
     # JAX's default frame: K5 fetches the opaque layer's stack by the
     # checkerboard of jittered texels and the decal layer's under its
     # chunk capacity, K6's peel step tests every peel's alpha under the
     # chunk ladder and accumulates it, K8 the probe and K14 the sun map by
-    # the checkerboard
+    # the checkerboard (n.l formed from the normal); K15 shades the sun on
+    # K14's visibility; K3 resolves every frame with a history, the camera
+    # moving, by its reprojected fetch
     want_roles = {"k5_resolve": {"jitter_checker": FRAMES,
                                  "jitter+chunks": FRAMES},
                   "k6_masked_alpha": {"step_jitter+chunks": PEELS * FRAMES},
                   "k8_sky_lighting": {"jitter_checker": FRAMES},
-                  "k14_sun_tap": {"dither_checker": FRAMES}}
+                  "k14_sun_tap": {"dither_checker+nl": FRAMES},
+                  "k3_taa_resolve": {"reproject": FRAMES - 1},
+                  "k15_sun_term": {"map": FRAMES}}
     if roles != want_roles:
-        raise RuntimeError(f"K5, K6, K8, K14 roles {roles} != {want_roles}")
+        raise RuntimeError(f"K3, K5, K6, K8, K14, K15 roles {roles} != "
+                           f"{want_roles}")
 
     for i, st in enumerate(outs):
         for key in ZERO_STATS:
@@ -545,14 +611,14 @@ def main(argv=None) -> int:
     # frame 0), K4 never (no BVH on this path), K5 for the opaque and the
     # decal layer, K6 for each peel, K8 once, K9 and K10's launches for the
     # camera and the sun pass (K10: K10_LAUNCHES a binning), K11 and K12
-    # once, K13 for the primitives and the meshlets, K14 once; K6 is the
-    # peel step
+    # once, K13 for the primitives and the meshlets, K14 and K15 once; K6
+    # is the peel step, K3 the whole resolve
     want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS, 1, 2,
-             2 * len(K10_LAUNCHES), 1, 1, 2, 1] for i in range(FRAMES)]
+             2 * len(K10_LAUNCHES), 1, 1, 2, 1, 1] for i in range(FRAMES)]
     if per_frame != want:
         raise RuntimeError(f"launches per frame (K1, K2, K3, K4, K5, K6, K8, "
-                           f"K9, K10, K11, K12, K13, K14) {per_frame} != "
-                           f"{want}")
+                           f"K9, K10, K11, K12, K13, K14, K15) {per_frame} "
+                           f"!= {want}")
     if k10_steps != {k: 2 * FRAMES for k in K10_LAUNCHES}:
         raise RuntimeError(f"K10 launches {k10_steps}: not two binnings a "
                            f"frame of {len(K10_LAUNCHES)} launches each")
@@ -571,12 +637,15 @@ def main(argv=None) -> int:
     for k in kernels:
         k.reset()
     ex = run_sequence(run_exact, make_fc, dev, kernels)
-    exact_roles = {k.fn: dict(k.by_name) for k in (resolve.K5, resolve.K6,
-                                                    skylight.K8, shadow.K14)}
+    exact_roles = {k.fn: dict(k.by_name) for k in (
+        resolve.K5, resolve.K6, skylight.K8, shadow.K14, taa.K3,
+        shading.K15)}
     want = {"k5_resolve": {"exact": 2 * FRAMES},
             "k6_masked_alpha": {"step_exact": PEELS * FRAMES},
             "k8_sky_lighting": {"exact": FRAMES},
-            "k14_sun_tap": {"exact": FRAMES}}
+            "k14_sun_tap": {"exact+nl": FRAMES},
+            "k3_taa_resolve": {"reproject": FRAMES - 1},
+            "k15_sun_term": {"map": FRAMES}}
     if exact_roles != want or ex.per_frame != per_frame:
         raise RuntimeError(f"the exact sequence's launches {ex.per_frame}, "
                            f"roles {exact_roles}")
@@ -606,8 +675,16 @@ def main(argv=None) -> int:
         gb.world_pos, torch.sum(mu.oct_decode(gb.normals) * fc.sun_dir, -1),
         smap, fc.sun_view_proj, cfg.shadow_map_resolution)
     shadowed = float((vis[gb.mask] == 0).float().mean())
-    unshadowed = run(fc, outs_history[-1],
-                     cfg.replace(sun_shadow_mode="off"))["hdr"]
+    # the same frame without the map (K15 with no visibility) and with the
+    # stochastic history fetch (K3's resolve of a given prev_color)
+    off_calls = []
+    with _capturing(off_calls, raster, clustered, taa):
+        unshadowed = run(fc, outs_history[-1], cfg.replace(
+            sun_shadow_mode="off", stochastic_taa=True))["hdr"]
+    torch.cuda.synchronize()
+    check_twins("the frame without the map, stochastic TAA",
+                [c for c in off_calls if c[0] in ("k3r", "k15")], raster,
+                clustered, taa, need=("k3r", "k15"))
     mean_on, mean_off = float(hdr.mean()), float(unshadowed.mean())
     _log(f"sun shadow map: {shadowed:.4f} of the covered pixels in shadow; "
          f"mean hdr {mean_on:.2f} with the map, {mean_off:.2f} without")
@@ -644,13 +721,21 @@ def main(argv=None) -> int:
              k12_row(skylight, calls, launches["k12_sky_background"])]
     rows += k13_rows(cull, calls, launches["k13_cull"])
     rows += [k14_row(shadow, calls, launches["k14_sun_tap"],
-                     role="dither_checker"),
+                     role="dither_checker+nl"),
              k14_row(shadow, exact_calls, exact_launches["k14_sun_tap"],
-                     name="k14_sun_tap[exact]", role="exact")]
+                     name="k14_sun_tap[exact]", role="exact+nl")]
+    rows += [k15_row(shading, calls, launches["k15_sun_term"], role="map"),
+             k15_row(shading, off_calls, 0, name="k15_sun_term[none]",
+                     role="none"),
+             k3r_row(taa, calls, launches["k3_taa_resolve"],
+                     role="reproject"),
+             k3r_row(taa, off_calls, 0, name="k3_taa_resolve[given]",
+                     role="given")]
     check_twins("the exact sequence's next frame",
                 [c for c in exact_calls
-                 if c[0] in ("k11", "k12", "k13", "k14")], raster,
-                clustered, taa, need=("k11", "k12", "k13", "k14"))
+                 if c[0] in ("k3r", "k11", "k12", "k13", "k14", "k15")],
+                raster, clustered, taa,
+                need=("k3r", "k11", "k12", "k13", "k14", "k15"))
     k10_no_sync(raster, calls)
     check_twin_frame(run, fc, history, raster, clustered, taa)
     phase_breakdown(run, fc, history)
@@ -682,7 +767,7 @@ def main(argv=None) -> int:
     # the CLI, the web viewer and band sharding
     rows += binary_phase(dev, path, pt)
     rows += alpha_phase(dev, path, pt)
-    cli_phase(dev, path)
+    rows += cli_phase(dev, path)
     rows += viewer_phase(dev, path)
     rows += band_phase(dev, path, pt)
     # a bound counts the least work the inputs need: no kernel beats it
@@ -836,13 +921,14 @@ def capture_frame(run, fc, history, raster, clustered, taa):
 
 @contextlib.contextmanager
 def _capturing(calls, raster, clustered, taa, limit=None):
-    """For the duration of the block, each K1, K2, K3, K5, K6, K8, K9, K10,
-    K11, K12, K13 and K14 wrapper call appends (kind, args, kwargs) to
-    calls, at most
+    """For the duration of the block, each K1, K2, K3 (its fetch, k3, and
+    its resolve, k3r), K5, K6, K8, K9, K10, K11, K12, K13, K14 and K15
+    wrapper call appends (kind, args, kwargs) to calls, at most
     `limit` per kind. K6 is the peel step (masked_peel), recorded before
     its launch by name (_k6_args) with a copy of the state it updates; a
     masked peel's z_limit, which the step overwrites, is copied too."""
-    from incarnation_tpu_torch.kernels import cull, resolve, shadow, skylight
+    from incarnation_tpu_torch.kernels import (cull, resolve, shading, shadow,
+                                               skylight)
 
     def room(kind):
         return limit is None or sum(c[0] == kind for c in calls) < limit
@@ -865,6 +951,8 @@ def _capturing(calls, raster, clustered, taa, limit=None):
         for mod, name, kind in ((raster, "rasterize_tiles", "k1"),
                                 (clustered, "clustered_lighting", "k2"),
                                 (taa, "history_fetch", "k3"),
+                                (taa, "taa_resolve", "k3r"),
+                                (shading, "sun_term", "k15"),
                                 (resolve, "resolve_gbuffer", "k5"),
                                 (skylight, "sky_lighting", "k8"),
                                 (raster, "prepare_geometry", "k9"),
@@ -977,15 +1065,19 @@ def compare_kernels(calls, raster, clustered, taa, launches, k1_by_layer):
         **dict(zip(("bound_ms", "bound_by"), _k2_bound(k2_ops, *a, **kw))),
         library_ms=None))
 
-    (_, a, kw), = [c for c in calls if c[0] == "k3"]
-    rows.append(k3_row(taa, a, "k3_taa_fetch", launches["k3_taa_fetch"]))
+    # K3's fetch alone, on the inputs of the frame's resolve: no path
+    # launches it since the resolve took the fetch in (0 launches)
+    x, = _k3r_calls(taa, calls)
+    rows.append(k3_row(taa, _k3_fetch_args(x), "k3_taa_fetch", 0))
     return rows
 
 
 def k3_row(taa, a, name, n_launches):
-    """K3 against its twin on one captured launch (history, depth, m, w, h
-    and, for a band, its y_off halo rows), both timed, with its bound and
-    grid_sample's time on the same fetch -> the JSON row."""
+    """K3's fetch alone (history_fetch, the k3_taa_fetch entry) against its
+    twin on one fetch (history, depth, m, w, h and, for a band, its y_off
+    halo rows; the main path's resolve makes it inside its one launch),
+    both timed, with its bound and grid_sample's time on the same fetch ->
+    the JSON row."""
     import torch
     history, depth, m, w, h, *rest = a
     y_off = rest[0] if rest else 0
@@ -1020,6 +1112,174 @@ def k3_row(taa, a, name, n_launches):
         **dict(zip(("bound_ms", "bound_by"), _bound(
             w * h * (12 + 4 + 12) + 64, K3_OPS_PER_PIXEL * w * h))),
         library_ms=device_ms(library, 50))
+
+
+def _k3r_calls(taa, calls) -> list:
+    """The captured taa_resolve calls that launched K3's resolve (a history
+    to resolve against, CUDA tensors), their arguments by name."""
+    xs = [_bound_args(taa.taa_resolve_plain, a, kw)
+          for kind, a, kw in calls if kind == "k3r"]
+    return [x for x in xs if x["history_valid"] and x["current_hdr"].is_cuda]
+
+
+def _k3r_role(taa, x) -> str:
+    """K3's resolve role of a captured call: given (the stochastic
+    history), shift (a static camera) or reproject."""
+    if x["dither"] is not None:
+        return "given"
+    return "shift" if taa.static_shift(x["m_np"], x["width"],
+                                       x["height"]) else "reproject"
+
+
+def _k3_fetch_args(x):
+    """history_fetch's arguments for a resolve's fetch: its history, depth,
+    m as a tensor, the size and the halo rows."""
+    import torch
+    h = x["height"]
+    return (x["history"], x["depth"],
+            torch.as_tensor(x["m_np"], dtype=torch.float32,
+                            device=x["depth"].device),
+            x["width"], h, (x["history"].shape[0] - h) // 2)
+
+
+def _same_or_nan(what, got, ref):
+    """Raises unless got equals ref bit for bit where ref is a number and is
+    NaN where ref is NaN (a NaN's payload is the instruction's)."""
+    import torch
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise RuntimeError(f"{what} gave {got.dtype} {tuple(got.shape)}")
+    nan = torch.isnan(ref)
+    same = torch.where(nan, 0.0, got).view(torch.int32) \
+        == torch.where(nan, 0.0, ref).view(torch.int32)
+    bad = int((~same | (torch.isnan(got) != nan)).sum())
+    if bad:
+        raise RuntimeError(f"{what} differs from its twin on {bad} of "
+                           f"{ref.numel()} values")
+
+
+def _k3r_bound(taa, x):
+    """(bound ms, by) of one K3 resolve: the current HDR and the output of
+    every pixel, the fetch's depth and texel, the halo rows and m; its
+    operations (K3R_*)."""
+    w, h, role = x["width"], x["height"], _k3r_role(taa, x)
+    px = w * h
+    nbytes = px * (12 + 12 + 12 + (4 if role == "reproject" else 0)) + 64
+    if x["hdr_halo"] is not None:
+        nbytes += 2 * 12 * w
+    fetch = {"reproject": K3_OPS_PER_PIXEL, "shift": K3R_OPS_SHIFT,
+             "given": 0}[role]
+    return _bound(nbytes, px * (K3R_OPS_RESOLVE + fetch))
+
+
+def k3r_row(taa, calls, n_launches, name="k3_taa_resolve", role=None,
+            halo=False):
+    """K3's resolve against its twin (taa_resolve_plain), bit for bit (NaN
+    for NaN), on a captured launch of `role` (with the band's halo rows if
+    halo), timed, with its bound and registers -> the JSON row. The given
+    role's time is its kernel's device time (torch.profiler): its call
+    runs the stochastic history fetch in torch first."""
+    xs = [x for x in _k3r_calls(taa, calls) if _k3r_role(taa, x) == role
+          and (x["hdr_halo"] is not None) == halo]
+    if not xs:
+        raise RuntimeError(f"{name}: no K3 resolve of role {role} captured")
+    x = xs[0]
+    _same_or_nan(name, taa.taa_resolve(**x), taa.taa_resolve_plain(**x))
+    bound, by = _k3r_bound(taa, x)
+    if role == "given":
+        ms = _k10_steps_ms(lambda: taa.taa_resolve(**x), prefix="k3_")[
+            "k3_taa_resolve_kernel"]
+    else:
+        ms = device_ms(lambda: taa.taa_resolve(**x), 50)
+    plain = device_ms(lambda: taa.taa_resolve_plain(**x), 10)
+    host = host_ms(lambda: taa.taa_resolve(**x), 50)
+    res = next((v for k, v in K11_K15_RESOURCES.items()
+                if "k3_taa_resolve" in k), {})
+    y_off = (x["history"].shape[0] - x["height"]) // 2
+    _log(f"{name}: {x['width']}x{x['height']}, {role} fetch, {y_off} "
+         f"history halo rows each way, HDR halo rows "
+         f"{x['hdr_halo'] is not None}; {ms:.4f} ms a launch against the "
+         f"bound {bound:.4f} ms ({by}), the host's work {host:.4f} ms a "
+         f"call; twin {plain:.3f} ms; identical to the twin; "
+         f"{res.get('registers')} registers, "
+         f"{res.get('spill_bytes')} bytes spilled")
+    return dict(
+        name=name, route="cuda", source="incarnation_tpu_torch/csrc/taa.cu",
+        replaces="incarnation_tpu/kernels/taa.py:195",
+        launches=n_launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, library_ms=None, host_ms=host,
+        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
+
+
+def _k15_role(x) -> str:
+    """K15's role of a captured sun_term call (its arguments by name):
+    map, given or none, +extras."""
+    src = ("map" if x["shadow_map"] is not None else
+           "given" if x["visibility"] is not None else "none")
+    return src + ("+extras" if x["extras"] is not None else "")
+
+
+def _k15_bound(x, visibility: bool):
+    """(bound ms, by, covered pixels, lit pixels) of one K15 launch on these
+    inputs: K15_* bytes and operations by pixel class, a lit pixel covered
+    with n.l > 0 (the twin's dot3 and clamp)."""
+    import torch
+    from incarnation_tpu_torch.core import mathutils as mu
+    gb, n = x["gb"], x["n"]
+    px = gb.mask.numel()
+    no_l = torch.clamp(mu.dot3(n, x["sun_dir"]), 0.0, 1.0)
+    covered = int(gb.mask.sum())
+    lit = int((gb.mask & (no_l > 0.0)).sum())
+    extras = x["extras"] is not None
+    lit_bytes = K15_LIT_BYTES + (K15_VIS_BYTES if visibility else 0) \
+        + (K15_EXTRAS_BYTES if extras else 0)
+    bound, by = _bound(
+        px * K15_PIXEL_BYTES + covered * K15_COVERED_BYTES + lit * lit_bytes
+        + 28, px * K15_OPS_PIXEL + covered * K15_OPS_COVERED
+        + lit * (K15_OPS_LIT + (K15_OPS_EXTRAS if extras else 0)))
+    return bound, by, covered, lit
+
+
+def k15_row(shading, calls, n_launches, name="k15_sun_term", role=None):
+    """K15 against its twin on a captured sun_term launch of `role`: the
+    whole call (K14 and K15 with the map) bit for bit (NaN for NaN); then
+    K15 alone, timed on the call's visibility (the map's tap computed
+    once), against the twin's BRDF on it, with its bound and registers ->
+    the JSON row."""
+    from incarnation_tpu_torch.kernels import shadow
+    xs = [x for x in (_bound_args(shading.sun_term_plain, a, kw)
+                      for kind, a, kw in calls if kind == "k15")
+          if _k15_role(x) == role]
+    if not xs:
+        raise RuntimeError(f"{name}: no K15 launch of role {role} captured")
+    x = dict(xs[0])
+    _same_or_nan(name, shading.sun_term(**x), shading.sun_term_plain(**x))
+    # the whole call's host work (with the map, K14's wrapper too)
+    host = host_ms(lambda: shading.sun_term(**xs[0]), 50)
+    if x["shadow_map"] is not None:
+        x["visibility"] = shadow.sun_visibility(
+            x["gb"].world_pos, None, x["shadow_map"], x["sun_vp"],
+            x["resolution"], dither=x["dither"],
+            checker_parity=x["checker_parity"], row0=x["row0"],
+            normal=x["n"], sun_dir=x["sun_dir"])
+        x["shadow_map"] = None
+    bound, by, covered, lit = _k15_bound(x, x["visibility"] is not None)
+    ms = device_ms(lambda: shading.sun_term(**x), 50)
+    plain = device_ms(lambda: shading.sun_term_plain(**x), 5)
+    res = next((v for k, v in K11_K15_RESOURCES.items() if "k15" in k), {})
+    h, w = x["gb"].mask.shape
+    _log(f"{name}: {w}x{h}, {covered} covered pixels, {lit} with n.l > 0; "
+         f"K15 alone {ms:.4f} ms a launch against the bound {bound:.4f} ms "
+         f"({by}); the call's host work {host:.4f} ms; twin {plain:.3f} ms; "
+         "identical to the twin; "
+         f"{res.get('registers')} registers, {res.get('spill_bytes')} bytes "
+         "spilled")
+    return dict(
+        name=name, route="cuda",
+        source="incarnation_tpu_torch/csrc/shading.cu",
+        replaces="incarnation_tpu/kernels/shading.py:77",
+        launches=n_launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, library_ms=None, host_ms=host,
+        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
 
 
 def _k5_args(a, kw):
@@ -1736,9 +1996,10 @@ def _k10_work(raster, a, kw, ref):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _k10_steps_ms(fn, reps: int = 10) -> dict:
-    """Device ms of each K10 kernel in one fn() call (torch.profiler's CUDA
-    times, the mean over reps calls)."""
+def _k10_steps_ms(fn, reps: int = 10, prefix: str = "k10_") -> dict:
+    """Device ms of each K10 kernel (each kernel whose name starts with
+    prefix) in one fn() call (torch.profiler's CUDA times, the mean over
+    reps calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1749,7 +2010,7 @@ def _k10_steps_ms(fn, reps: int = 10) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in prof.key_averages():
-        if e.key.startswith("k10_"):
+        if e.key.startswith(prefix):
             us = getattr(e, "device_time_total", None)
             if us is None:
                 us = e.cuda_time_total
@@ -1922,7 +2183,7 @@ def k11_row(clustered, calls, n_launches):
     ms = device_ms(lambda: clustered.build_light_clusters(*a, **kw), 50)
     plain = device_ms(lambda: clustered.build_light_clusters_plain(*a, **kw),
                       5)
-    res = next((v for k, v in K11_K14_RESOURCES.items() if "k11" in k), {})
+    res = next((v for k, v in K11_K15_RESOURCES.items() if "k11" in k), {})
     _log(f"k11_light_grid: {gx}x{gy}x{gz} clusters, {n_lights} lights; "
          f"{ms:.4f} ms a launch against the launch floor {floor:.4f} ms "
          f"(an empty kernel, back to back) and the bound {bound:.6f} ms "
@@ -1955,10 +2216,13 @@ def k12_row(skylight, calls, n_launches):
     ms = device_ms(lambda: skylight.environment_background(*a, **kw), 20)
     plain = device_ms(
         lambda: skylight.environment_background_plain(*a, **kw), 3)
-    res = next((v for k, v in K11_K14_RESOURCES.items() if "k12" in k), {})
+    # a one-launch wrapper's host work, beside K3's and K15's
+    host = host_ms(lambda: skylight.environment_background(*a, **kw), 50)
+    res = next((v for k, v in K11_K15_RESOURCES.items() if "k12" in k), {})
     _log(f"k12_sky_background: {x['width']}x{x['height']}, {sky} uncovered "
          f"pixels ({sky / mask.numel():.4f}); {ms:.4f} ms a launch against "
-         f"the bound {bound:.4f} ms ({by}); twin {plain:.3f} ms; identical "
+         f"the bound {bound:.4f} ms ({by}), the host's work {host:.4f} ms a "
+         f"call; twin {plain:.3f} ms; identical "
          f"to the twin; {res.get('registers')} registers, "
          f"{res.get('spill_bytes')} bytes spilled")
     return dict(
@@ -1966,7 +2230,7 @@ def k12_row(skylight, calls, n_launches):
         source="incarnation_tpu_torch/csrc/skylight.cu",
         replaces="incarnation_tpu/kernels/skylight.py:159",
         launches=n_launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
-        bound_ms=bound, bound_by=by, library_ms=None,
+        bound_ms=bound, bound_by=by, library_ms=None, host_ms=host,
         registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
 
 
@@ -1991,7 +2255,8 @@ def _k14_role(x) -> str:
     """The K14 role of a captured sun_visibility call (its arguments by
     name)."""
     from incarnation_tpu_torch.kernels import shadow
-    return shadow.role_name(x["dither"], x["checker_parity"])
+    return shadow.role_name(x["dither"], x["checker_parity"],
+                            x["n_dot_l"] is None)
 
 
 def _k14_error(got, ref):
@@ -2015,7 +2280,7 @@ def k13_rows(cull, calls, n_launches):
         raise RuntimeError(f"k13: {len(launches)} launches captured, "
                            f"{n_launches} on the main path")
     floor = k10_launch_ms()
-    res = next((v for k, v in K11_K14_RESOURCES.items() if "k13" in k), {})
+    res = next((v for k, v in K11_K15_RESOURCES.items() if "k13" in k), {})
     rows = []
     for (a, kw), name in zip(launches, ("k13_cull[primitives]",
                                         "k13_cull")):
@@ -2062,10 +2327,11 @@ def _k14_bound(shadow, x):
                                    x["dither"], row0)
     fetch, texels = lin.numel(), int(torch.unique(lin).numel())
     dither = x["dither"] is not None
+    nl = x["n_dot_l"] is None
     bound, by = _bound(
-        K14_FETCH_BYTES * fetch + K14_PIXEL_BYTES * pixels + 4 * texels
-        + 48,
-        fetch * (K14_OPS_TAP + dither * K14_OPS_DITHER)
+        (K14_FETCH_BYTES + nl * K14_NL_BYTES) * fetch
+        + K14_PIXEL_BYTES * pixels + 4 * texels + 48 + 12 * nl,
+        fetch * (K14_OPS_TAP + dither * K14_OPS_DITHER + nl * K14_NL_OPS)
         + (pixels - fetch) * K14_OPS_FILL,
         fetch * (K14_INT_OPS_TAP + dither * K14_INT_OPS_DITHER))
     return bound, by, fetch, texels
@@ -2084,14 +2350,16 @@ def k14_row(shadow, calls, n_launches, name="k14_sun_tap", role=None):
     x = launches[0]
     _k14_error(shadow.sun_visibility(**x), shadow.sun_visibility_plain(**x))
     bound, by, fetch, texels = _k14_bound(shadow, x)
-    h, w = x["n_dot_l"].shape
+    h, w = x["world_pos"].shape[:2]
     ms = device_ms(lambda: shadow.sun_visibility(**x), 20)
     plain = device_ms(lambda: shadow.sun_visibility_plain(**x), 3)
     kernel = "checker" if x["checker_parity"] is not None else "tap"
-    res = next((v for k, v in K11_K14_RESOURCES.items()
+    res = next((v for k, v in K11_K15_RESOURCES.items()
                 if f"k14_{kernel}" in k), {})
-    whole_map, _ = _bound(K14_FETCH_BYTES * fetch + K14_PIXEL_BYTES * h * w
-                          + 4 * x["resolution"] ** 2 + 48, 0)
+    nl = x["n_dot_l"] is None
+    whole_map, _ = _bound((K14_FETCH_BYTES + nl * K14_NL_BYTES) * fetch
+                          + K14_PIXEL_BYTES * h * w
+                          + 4 * x["resolution"] ** 2 + 48 + 12 * nl, 0)
     _log(f"{name}: {w}x{h}, map {x['resolution']}^2, {fetch} fetching "
          f"pixels, {texels} distinct texels; {ms:.4f} ms a launch against "
          f"the bound {bound:.4f} ms ({by}; the whole map counted: "
@@ -2108,47 +2376,52 @@ def k14_row(shadow, calls, n_launches, name="k14_sun_tap", role=None):
         registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
 
 
-# the functions host_free_phases watches: (module, function, the one
-# kernel each call launches, calls a frame)
-_HOST_FREE = (("clustered", "build_light_clusters", "k11_light_grid", 1),
-              ("skylight", "environment_background", "k12_sky_background",
+# the functions host_free_phases watches: (module, function, the kernels
+# each call launches once, calls a frame); sun_visibility runs inside
+# sun_term
+_HOST_FREE = (("clustered", "build_light_clusters", ("k11_light_grid",), 1),
+              ("skylight", "environment_background", ("k12_sky_background",),
                1),
-              ("cull", "cull_primitives", "k13_cull", 2),
-              ("shadow", "sun_visibility", "k14_sun_tap", 1))
+              ("cull", "cull_primitives", ("k13_cull",), 2),
+              ("shadow", "sun_visibility", ("k14_sun_tap",), 1),
+              ("shading", "sun_term", ("k14_sun_tap", "k15_sun_term"), 1),
+              ("taa", "taa_resolve", ("k3_taa_resolve",), 1))
 
 
 def host_free_phases(run, fc, history, kernels):
     """Inside build_light_clusters, environment_background, both
-    cull_primitives calls and sun_visibility on one frame: every eager
-    torch operator that runs work on the card (_launches_work, counted by
-    a TorchDispatchMode), the hand-written kernels launched, and, under
-    torch.cuda.set_sync_debug_mode("error"), any synchronize or copy from
-    pageable host memory (which raises). Raises unless each call is its
-    one K11, K12, K13 or K14 launch and nothing else."""
+    cull_primitives calls, sun_visibility, sun_term and taa_resolve on one
+    frame: every eager torch operator that runs work on the card
+    (_launches_work, counted by a TorchDispatchMode), the hand-written
+    kernels launched, and, under torch.cuda.set_sync_debug_mode("error"),
+    any synchronize or copy from pageable host memory (which raises).
+    Raises unless each call is its kernels' one launch each (K11, K12,
+    K13, K14; K14 and K15 in sun_term, K14's inside the sun_visibility
+    call it makes; K3 in taa_resolve) and nothing else."""
     import importlib
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
-    ops, seen = [], []
-    inside = [False]
+    seen, active = [], []
 
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if inside[0] and _launches_work(func):
-                ops[-1].append(func.name())
+            if _launches_work(func):
+                for ops in active:
+                    ops.append(func.name())
             return func(*args, **(kwargs or {}))
 
     def watched(fn, what):
         def call(*a, **kw):
             before = [k.launches for k in kernels]
-            ops.append([])
-            inside[0] = True
-            torch.cuda.set_sync_debug_mode("error")
+            active.append([])
+            if len(active) == 1:
+                torch.cuda.set_sync_debug_mode("error")
             try:
                 return fn(*a, **kw)
             finally:
-                torch.cuda.set_sync_debug_mode(0)
-                inside[0] = False
-                seen.append((what, ops[-1], {
+                if len(active) == 1:
+                    torch.cuda.set_sync_debug_mode(0)
+                seen.append((what, active.pop(), {
                     k.fn: k.launches - n for k, n in zip(kernels, before)
                     if k.launches > n}))
         return call
@@ -2162,16 +2435,18 @@ def host_free_phases(run, fc, history, kernels):
         run(fc, history)
     torch.cuda.synchronize()
     _log("inside the light-cluster grid, the sky background, the frustum "
-         "culls and the shadow tap (eager operators running on the card, "
-         "kernels launched; no synchronize and no copy from host memory "
-         "under set_sync_debug_mode): " + json.dumps(seen))
-    want = {fn: {kernel: 1} for _, fn, kernel, _ in _HOST_FREE}
+         "culls, the shadow tap, the sun term and the TAA resolve (eager "
+         "operators running on the card, kernels launched; no synchronize "
+         "and no copy from host memory under set_sync_debug_mode): "
+         + json.dumps(seen))
+    want = {fn: {k: 1 for k in ks} for _, fn, ks, _ in _HOST_FREE}
     calls = sorted(fn for _, fn, _, n in _HOST_FREE for _ in range(n))
     if sorted(w for w, _, _ in seen) != calls \
             or any(o or k != want[w] for w, o, k in seen):
         raise RuntimeError("build_light_clusters, environment_background, "
-                           "cull_primitives or sun_visibility ran more on "
-                           "the card than its one launch")
+                           "cull_primitives, sun_visibility, sun_term or "
+                           "taa_resolve ran more on the card than its "
+                           "kernels' one launch each")
 
 
 def k1_row(raster, layer, launches_captured, n_launches):
@@ -2221,10 +2496,13 @@ def k1_row(raster, layer, launches_captured, n_launches):
         bound_ops_ms=float(np.mean(op_bounds)), library_ms=None)
 
 
-def small_renderer(dev):
+def small_renderer(dev, extras: bool = False):
     """The small path's scene (the port's scene/testing.py scene with a
-    BLEND quad), lit by a small sky probe, and render(**Config overrides)
-    of one 512x256 frame. -> (scene, render)."""
+    BLEND quad; with extras, every material given transmission 0.3,
+    clearcoat 0.6 and clearcoat roughness 0.25), lit by a small sky probe,
+    and render(**Config overrides) of one 512x256 frame. -> (scene,
+    render)."""
+    import dataclasses
     import torch
     from incarnation_tpu_torch.config import Config
     from incarnation_tpu_torch.core.view import View
@@ -2235,6 +2513,13 @@ def small_renderer(dev):
     scene = testing.make_rich_scene(device=dev, blend_quad=True)
     if not scene.meta.has_blend:
         raise RuntimeError("the small scene lost its BLEND quad")
+    if extras:
+        # mat_params columns 13-15: transmission, clearcoat, its roughness
+        mp = scene.mat_params.clone()
+        mp[:, 13], mp[:, 14], mp[:, 15] = 0.3, 0.6, 0.25
+        scene = dataclasses.replace(
+            scene, mat_params=mp,
+            meta=dataclasses.replace(scene.meta, has_extras=True))
     params = raster.RasterParams(width=w, height=h, pair_capacity=4096,
                                  bin_max_span=8, big_tri_capacity=64)
     base = dict(masked_depth_peels=SMALL_PEELS, sun_shadow_mode="map",
@@ -2267,7 +2552,8 @@ def small_path(dev, raster, clustered, taa):
     launches are this path's."""
     import torch
     from incarnation_tpu_torch.config import ViewMode
-    from incarnation_tpu_torch.kernels import cull, resolve, shadow, skylight
+    from incarnation_tpu_torch.kernels import (cull, resolve, shading, shadow,
+                                               skylight)
     from incarnation_tpu_torch.renderer import frame
     w, h = SMALL_W, SMALL_H
     scene, render = small_renderer(dev)
@@ -2286,13 +2572,13 @@ def small_path(dev, raster, clustered, taa):
     render(**fwd)                               # warm-up
     kernels = (raster.K1, clustered.K2, taa.K3, resolve.K5, resolve.K6,
                skylight.K8, raster.K9, raster.K10, clustered.K11,
-               skylight.K12, cull.K13, shadow.K14)
+               skylight.K12, cull.K13, shadow.K14, shading.K15)
     for k in kernels:
         k.reset()
     calls = capture_frame(lambda fc, history: render(**fwd), None, None,
                           raster, clustered, taa)
-    k11_k14 = [clustered.K11.launches, skylight.K12.launches,
-               cull.K13.launches, shadow.K14.launches]
+    k11_k15 = [clustered.K11.launches, skylight.K12.launches,
+               cull.K13.launches, shadow.K14.launches, shading.K15.launches]
     by_name, k2_launches = dict(raster.K1.by_name), clustered.K2.launches
     k5_launches, k6_launches = resolve.K5.launches, resolve.K6.launches
     k8_launches, k9_launches = skylight.K8.launches, raster.K9.launches
@@ -2309,22 +2595,22 @@ def small_path(dev, raster, clustered, taa):
     # K2 and K8 shade the opaque surface and each blend layer; K5 resolves
     # the opaque, decal and blend layers, K6 tests each masked peel, K9
     # sets up and K10 bins the camera and the sun pass, K13 culls the
-    # primitives and the meshlets, K14 taps the sun map for the opaque
-    # surface and each blend layer
+    # primitives and the meshlets, K14 taps the sun map and K15 shades the
+    # sun for the opaque surface and each blend layer
     if by_name.get("raster_shadow_depth") != 1 \
             or k2_launches != 1 + SMALL_PEELS \
             or k5_launches != 2 + SMALL_PEELS or k6_launches != SMALL_PEELS \
             or k8_launches != 1 + SMALL_PEELS or k9_launches != 2 \
             or k10_binnings != 2 \
-            or k11_k14 != [1, 1, 2, 1 + SMALL_PEELS]:
+            or k11_k15 != [1, 1, 2, 1 + SMALL_PEELS, 1 + SMALL_PEELS]:
         raise RuntimeError(f"small path launches {by_name}, K2 "
                            f"{k2_launches}, K5 {k5_launches}, K6 "
                            f"{k6_launches}, K8 {k8_launches}, K9 "
                            f"{k9_launches}, K10 {k10_binnings} binnings, "
-                           f"K11-K14 {k11_k14}")
+                           f"K11-K15 {k11_k15}")
     check_twins("small path, forward frame", calls, raster, clustered, taa,
                 need=("k1", "k2", "k5", "k6", "k8", "k9", "k10", "k11",
-                      "k12", "k13", "k14"))
+                      "k12", "k13", "k14", "k15"))
     if stats["debug_draws"] <= 0:
         raise RuntimeError("no debug draw was appended")
     for key in ("bin_overflow", "big_overflow", "peel_overflow",
@@ -2346,6 +2632,28 @@ def small_path(dev, raster, clustered, taa):
         raise RuntimeError("the blend layers are not z_limit peels")
     rows = [k1_row(raster, "raster_blend", blends, by_name["raster_blend"]),
             k5_row(resolve, calls, k5_launches, name="k5_resolve[small_path]")]
+
+    # the scene with transmission and clearcoat: K15's extras role (and
+    # K5's and K8's), forward lighting with the blend layers
+    _, render_x = small_renderer(dev, extras=True)
+    render_x(**fwd)                             # warm-up
+    shading.K15.reset()
+    x_calls = []
+    with _capturing(x_calls, raster, clustered, taa):
+        out_x = render_x(**fwd)
+    torch.cuda.synchronize()
+    check_color(out_x, "extras frame")
+    x_roles = dict(shading.K15.by_name)
+    _log(f"small path, extras frame: K15 by role {x_roles}")
+    if x_roles != {"map+extras": 1 + SMALL_PEELS}:
+        raise RuntimeError(f"the extras frame's K15 roles {x_roles}")
+    if float((out_x["hdr"] - out["hdr"]).abs().max()) == 0.0:
+        raise RuntimeError("transmission and clearcoat changed nothing")
+    check_twins("small path, extras frame",
+                [c for c in x_calls if c[0] in ("k5", "k8", "k15")], raster,
+                clustered, taa, need=("k5", "k8", "k15"))
+    rows.append(k15_row(shading, x_calls, x_roles["map+extras"],
+                        name="k15_sun_term[extras]", role="map+extras"))
 
     # one frame per view mode
     modes = {n: v for n, v in vars(ViewMode).items()
@@ -2407,8 +2715,8 @@ def bvh_paths(dev, path, profile: bool):
     import types
     import torch
     from incarnation_tpu_torch.kernels import (bvh, clustered, hbao,
-                                               pathtrace, raster, shadow,
-                                               skylight, taa)
+                                               pathtrace, raster, shading,
+                                               shadow, skylight, taa)
     from incarnation_tpu_torch.renderer import frame
     from incarnation_tpu_torch.core import mathutils as mu
 
@@ -2516,7 +2824,7 @@ def bvh_paths(dev, path, profile: bool):
     fc = path.make_fc(0, None)
     hist0 = torch.zeros((H, W, 3), device=dev)
     path.run(fc, hist0, rt_cfg, sbvh)                    # warm-up
-    for k in (bvh.K4,):
+    for k in (bvh.K4, shading.K15):
         k.reset()
     rt_calls, raster_calls = {}, []
     start = torch.cuda.Event(enable_timing=True)
@@ -2531,11 +2839,16 @@ def bvh_paths(dev, path, profile: bool):
         end.record()
         torch.cuda.synchronize()
     rt_launches = dict(bvh.K4.by_name)
+    k15_rt = dict(shading.K15.by_name)
     _log(f"(e) RT shadow + HBAO frame {W}x{H}: {start.elapsed_time(end):.2f}"
-         f" ms, K4 launches by role {json.dumps(rt_launches)}")
+         f" ms, K4 launches by role {json.dumps(rt_launches)}, K15 by role "
+         f"{json.dumps(k15_rt)}")
     if rt_launches.get("rt_sun") != 1 or not 1 <= rt_launches.get(
             "hbao", 0) <= 2 * hbao.NUM_SLICES * hbao.MAX_TRACES_PER_SLICE:
         raise RuntimeError(f"RT frame K4 launches {rt_launches}")
+    # K15 on the RT visibility: one launch of its given role a frame
+    if k15_rt != {"given": 1}:
+        raise RuntimeError(f"RT frame K15 launches by role {k15_rt}")
     for key in ("bin_overflow", "big_overflow", "peel_overflow"):
         if int(out["stats"][key]) != 0:
             raise RuntimeError(f"RT frame: {key} = {int(out['stats'][key])}")
@@ -2579,11 +2892,14 @@ def bvh_paths(dev, path, profile: bool):
         raise RuntimeError("(e) K8 was not given the HBAO and bent normals")
     check_twins("(e) RT frame", [c for c in raster_calls
                                  if c[0] in ("k5", "k6", "k8", "k9", "k10",
-                                             "k11", "k12", "k13")],
+                                             "k11", "k12", "k13", "k15")],
                 raster, clustered, taa,
-                need=("k5", "k6", "k8", "k9", "k10", "k11", "k12", "k13"))
+                need=("k5", "k6", "k8", "k9", "k10", "k11", "k12", "k13",
+                      "k15"))
     rows += [k4_row(bvh, rt_calls[role], role, rt_launches.get(role, 0))
              for role in ("hbao", "rt_sun")]
+    rows.append(k15_row(shading, raster_calls, k15_rt["given"],
+                        name="k15_sun_term[given]", role="given"))
     return rows, types.SimpleNamespace(sbvh=sbvh, calls=calls, fc=fc_pt,
                                        history=pt_history)
 
@@ -2721,7 +3037,8 @@ def cli_phase(dev, path):
     View and constants the CLI built; an RT shadow + HBAO frame; a
     path-traced run of 4 samples at PT_W x PT_H checkpointed after 2 and
     resumed, equal to an uninterrupted run. Every PNG decodes and is not
-    black."""
+    black. Returns the row of K3's resolve in its shift role, which only
+    this path launches."""
     import torch
     from incarnation_tpu_torch.app import cli
     from incarnation_tpu_torch.kernels import bvh, clustered, raster, taa
@@ -2742,14 +3059,14 @@ def cli_phase(dev, path):
     counts = [k.launches for k in kernels]
     _log(f"(i) CLI raster {W}x{H}: frame ms " + ", ".join(
         f"{t:.2f}" for t in res["frame_ms"]) + f"; launches K1-K4 {counts}")
-    # the CLI's camera is static (jitter only): TAA takes the constant
-    # shift and K3 does not run
-    if 0 in counts[:2]:
+    # the CLI's camera is static (jitter only): K3's resolve takes the
+    # constant shift
+    if 0 in counts[:3] or taa.K3.by_name.get("shift", 0) != FRAMES - 1:
         raise RuntimeError(f"(i) the CLI's frames skipped a kernel: "
-                           f"{counts}")
-    check_twins("(i) CLI raster", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10", "k11",
-                      "k12", "k13", "k14"))
+                           f"{counts}, K3 by role {taa.K3.by_name}")
+    k3r = check_twins("(i) CLI raster", calls, raster, clustered, taa,
+                      need=("k1", "k2", "k3r", "k5", "k6", "k8", "k9",
+                            "k10", "k11", "k12", "k13", "k14", "k15"))
     img = _png_check(out_dir / "raster.png", W, H)
     ref = frame.render_frame(res["scene"], res["fc"], config=res["config"],
                              params=res["params"], probe=res["probe"],
@@ -2760,6 +3077,11 @@ def cli_phase(dev, path):
          f"last frame's constants and history: {same}")
     if not same:
         raise RuntimeError("(i) the CLI's PNG differs from render_frame's")
+    if {_k3r_role(taa, x) for x in k3r} != {"shift"}:
+        raise RuntimeError("(i) the CLI's resolves took another role than "
+                           "the static shift")
+    row = k3r_row(taa, calls, FRAMES - 1, name="k3_taa_resolve[shift]",
+                  role="shift")
 
     for k in kernels:
         k.reset()
@@ -2794,6 +3116,7 @@ def cli_phase(dev, path):
     if not np.array_equal(a, _png_check(out_dir / "pt_resumed.png", PT_W,
                                         PT_H)):
         raise RuntimeError("(i) the resumed PNG differs")
+    return [row]
 
 
 def viewer_phase(dev, path):
@@ -2869,20 +3192,20 @@ def viewer_phase(dev, path):
         raise RuntimeError(f"(j) the render loop did not end cleanly: "
                            f"{state.error}")
     check_twins("(j) viewer", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10", "k11",
-                      "k12", "k13", "k14"))
+                need=("k1", "k2", "k3r", "k5", "k6", "k8", "k9", "k10",
+                      "k11", "k12", "k13", "k14", "k15"))
     n = skylight.K8.by_name.get("jitter", 0)
     if not n:
         raise RuntimeError(f"(j) the viewer's frames launched K8's roles "
                            f"{skylight.K8.by_name}, not `jitter`")
-    n14 = shadow.K14.by_name.get("dither", 0)
+    n14 = shadow.K14.by_name.get("dither+nl", 0)
     if not n14:
         raise RuntimeError(f"(j) the viewer's frames launched K14's roles "
                            f"{shadow.K14.by_name}, not `dither`")
     return [k8_row(skylight, calls, n, name="k8_sky_lighting[jitter]",
                    role="jitter"),
             k14_row(shadow, calls, n14, name="k14_sun_tap[dither]",
-                    role="dither")]
+                    role="dither+nl")]
 
 
 def band_phase(dev, path, pt):
@@ -2944,14 +3267,15 @@ def band_phase(dev, path, pt):
          f"launches K1, K2, K3 {counts}")
     if 0 in counts:
         raise RuntimeError(f"(k) the band frames skipped a kernel: {counts}")
-    halo = check_twins("(k) band frame", calls, raster, clustered, taa,
-                       need=("k1", "k2", "k3", "k5", "k6", "k8", "k9",
-                             "k10", "k11", "k12", "k13", "k14"))
+    k3r = check_twins("(k) band frame", calls, raster, clustered, taa,
+                      need=("k1", "k2", "k3r", "k5", "k6", "k8", "k9",
+                            "k10", "k11", "k12", "k13", "k14", "k15"))
     from incarnation_tpu_torch.kernels import shadow
     k14_rows0 = {(_bound_args(shadow.sun_visibility_plain, a, kw)["row0"],
                   _k14_role(_bound_args(shadow.sun_visibility_plain, a, kw)))
                  for kind, a, kw in calls if kind == "k14"}
-    if k14_rows0 != {(0, "dither_checker"), (H // 2, "dither_checker")}:
+    if k14_rows0 != {(0, "dither_checker+nl"),
+                     (H // 2, "dither_checker+nl")}:
         raise RuntimeError(f"(k) the bands' K14 launches (first row, role) "
                            f"{sorted(k14_rows0)}: not the checkerboard from "
                            "rows 0 and H / 2")
@@ -2959,9 +3283,14 @@ def band_phase(dev, path, pt):
             != {0, H // 2}:
         raise RuntimeError("(k) the bands' K6 launches do not start at "
                            "rows 0 and H / 2")
-    if len(halo) < 2 or any(len(a) < 6 or a[5] <= 0 for a in halo):
-        raise RuntimeError("(k) a band's K3 launch had no halo rows")
-    rows = [k3_row(taa, halo[0], "k3_taa_fetch[band_halo]", counts[2])]
+    if len(k3r) != 2 or any(x["hdr_halo"] is None or _k3_fetch_args(x)[5]
+                            <= 0 for x in k3r) \
+            or {x["row0"] for x in k3r} != {0, H // 2}:
+        raise RuntimeError("(k) a band's K3 resolve had no halo rows")
+    rows = [k3r_row(taa, calls, counts[2], name="k3_taa_resolve[band_halo]",
+                    role="reproject", halo=True),
+            k3_row(taa, _k3_fetch_args(k3r[0]), "k3_taa_fetch[band_halo]",
+                   0)]
 
     hist = pt.history
     single = frame.render_pathtrace(path.scene, pt.sbvh, pt.fc, hist, 20,
@@ -2995,16 +3324,21 @@ def band_phase(dev, path, pt):
 
 
 def check_twins(what, calls, raster, clustered, taa, need):
-    """Each captured K1, K2, K3, K5, K6, K8, K9, K10, K11, K12, K13 and K14
-    launch against its twin, at compare_kernels' tolerances (K1 via
-    _k1_error, K2 K2_RTOL, K3 1e-6 relative, K5 via _k5_error, K6's peel
-    step via _k6_error, K8 via _k8_error, K9-K14 exactly), at the shapes
-    the path gave it; raises if a kind in `need` was not captured.
-    Returns the K3 launches' arguments."""
-    from incarnation_tpu_torch.kernels import cull, resolve, shadow, skylight
+    """Each captured K1, K2, K3, K5, K6, K8, K9, K10, K11, K12, K13, K14
+    and K15 launch against its twin, at compare_kernels' tolerances (K1 via
+    _k1_error, K2 K2_RTOL, K3's fetch 1e-6 relative, K5 via _k5_error,
+    K6's peel step via _k6_error, K8 via _k8_error, K9-K15 and K3's
+    resolve exactly, NaN for NaN), at the shapes the path gave it; raises
+    if a kind in `need` was not captured. Returns the K3 resolves'
+    arguments by name."""
+    from incarnation_tpu_torch.kernels import (cull, resolve, shading, shadow,
+                                               skylight)
     kinds = {k: [c for c in calls if c[0] == k]
              for k in ("k1", "k2", "k3", "k5", "k6", "k8", "k9", "k10",
-                       "k11", "k13", "k14")}
+                       "k11", "k13", "k14", "k15")}
+    # taa_resolve launches K3's resolve only with a history on the card
+    kinds["k3r"] = [c for c in calls if c[0] == "k3r"
+                    and _k3r_calls(taa, [c])]
     # environment_background's envmap role is torch on every device
     kinds["k12"] = [c for c in calls if c[0] == "k12" and _bound_args(
         skylight.environment_background_plain, c[1], c[2])["dynamic_sky"]]
@@ -3108,12 +3442,30 @@ def check_twins(what, calls, raster, clustered, taa, need):
                    shadow.sun_visibility_plain(**x))
     if kinds["k13"] or k14:
         spheres = sorted({a[0].shape[0] for _, a, _ in kinds["k13"]})
-        taps = sorted({(_k14_role(x), x["row0"], tuple(x["n_dot_l"].shape))
-                       for x in k14})
+        taps = sorted({(_k14_role(x), x["row0"],
+                        tuple(x["world_pos"].shape[:2])) for x in k14})
         _log(f"{what}: K13 x{len(kinds['k13'])} (spheres {spheres}) and "
              f"K14 x{len(k14)} (roles, first rows and shapes {taps}) "
              "identical to the twin")
-    return [a for _, a, _ in kinds["k3"]]
+    k15 = [_bound_args(shading.sun_term_plain, a, kw)
+           for _, a, kw in kinds["k15"]]
+    for x in k15:
+        _same_or_nan(f"{what} K15", shading.sun_term(**x),
+                     shading.sun_term_plain(**x))
+    k3r = _k3r_calls(taa, kinds["k3r"])
+    for x in k3r:
+        _same_or_nan(f"{what} K3 resolve", taa.taa_resolve(**x),
+                     taa.taa_resolve_plain(**x))
+    if k15 or k3r:
+        roles15 = sorted({(_k15_role(x), x["row0"],
+                           tuple(x["gb"].mask.shape)) for x in k15})
+        roles3 = sorted({(_k3r_role(taa, x), x["row0"], x["width"],
+                          x["height"], x["hdr_halo"] is not None)
+                         for x in k3r})
+        _log(f"{what}: K15 x{len(k15)} (roles, first rows and shapes "
+             f"{roles15}) and K3's resolve x{len(k3r)} (roles, first rows, "
+             f"sizes and HDR halos {roles3}) identical to the twin")
+    return k3r
 
 
 def k4_row(bvh, call, role, n_launches):
@@ -3207,7 +3559,7 @@ K4_RESOURCES: dict = {}
 K5_RESOURCES: dict = {}
 K8_RESOURCES: dict = {}
 K9_RESOURCES: dict = {}
-K11_K14_RESOURCES: dict = {}
+K11_K15_RESOURCES: dict = {}
 
 
 def _ptxas_log(build_mod, source: str, log=None) -> str:
@@ -3530,7 +3882,8 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
     images must agree (tri on all but 1e-4 of the pixels, u8 colour
     >= 50 dB PSNR)."""
     import torch
-    from incarnation_tpu_torch.kernels import cull, resolve, shadow, skylight
+    from incarnation_tpu_torch.kernels import (cull, resolve, shading, shadow,
+                                               skylight)
     got = run(fc, history)
     def raster_plain(bins, params, z_limit=None, mask_table=None,
                      name=None):
@@ -3540,7 +3893,8 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
     with _swapped(raster, "rasterize_tiles", raster_plain), \
             _swapped(clustered, "clustered_lighting",
                      clustered.clustered_lighting_plain), \
-            _swapped(taa, "history_fetch", taa.history_fetch_plain), \
+            _swapped(taa, "taa_resolve", taa.taa_resolve_plain), \
+            _swapped(shading, "sun_term", shading.sun_term_plain), \
             _swapped(resolve, "resolve_gbuffer",
                      resolve.resolve_gbuffer_plain), \
             _swapped(resolve, "masked_alpha", resolve.masked_alpha_plain), \
@@ -3577,7 +3931,7 @@ _PHASES = (("cull", "cull_primitives"), ("raster", "prepare_geometry"),
            ("resolve", "resolve_gbuffer"),
            ("clustered", "build_light_clusters"),
            ("clustered", "clustered_lighting"), ("skylight", "sky_lighting"),
-           ("shading", "brdf_response"),
+           ("shading", "sun_term"),
            ("skylight", "environment_background"), ("taa", "taa_resolve"),
            ("post", "tonemap"), ("post", "to_uint8"))
 

@@ -12,7 +12,12 @@
 //
 // Roles (one C entry, k14_sun_tap): exact (no dither, no checkerboard), a
 // tap jittered by the frame noise (dither), and either of them under the
-// checkerboard half-rate fetch (parity >= 0; kernels/checker.py).
+// checkerboard half-rate fetch (parity >= 0; kernels/checker.py). In each,
+// the slope bias's n.l is given as an (H, W) plane, or formed from the
+// normal (H, W, 3) and the sun direction (3,) read on the card (the "+nl"
+// roles, which the frame's sun term takes: kernels/shading.py sun_term),
+// as the twin's torch.sum(normal * sun_dir, -1) sums three on the card:
+// (x + z) + y, each product rounded.
 // - Without the checkerboard, k14_tap_kernel: a thread a pixel.
 // - With it, k14_checker_kernel: a thread per horizontal pair of a row,
 //   rows in blockIdx.y. The fetching lane of pair i in row y is
@@ -38,7 +43,7 @@
 // every value equals the twin's bit for bit.
 //
 // What bounds it: bytes. Each fetching pixel reads 16 B (position and
-// n.l), every pixel writes 4 B, and each texel read comes once from the
+// n.l; 24 B with the normal in n.l's place), every pixel writes 4 B, and each texel read comes once from the
 // 4 MiB map (about 48,000 texels on the atrium frame): 42 MB (0.0125 ms
 // at 3.35 TB/s) without the checkerboard, 25 MB (0.0075 ms) with it.
 // Operations are 35 a fetching pixel, 45 with dither and its 20 integer
@@ -57,7 +62,20 @@ struct K14Map {
   bool dither;
   unsigned seed_x, seed_y;          // frame * N_PCF_X, frame * N_PCF_Y
   const float* __restrict__ vp;     // sun_vp (4, 4), on the card
+  const float* __restrict__ nrm;    // (H, W, 3) normals, or NULL: n.l given
+  const float* __restrict__ sun;    // sun_dir (3,), on the card, with nrm
 };
+
+// the slope bias's n.l of pixel px: given, or formed from the normal as
+// torch.sum(n * sun_dir, -1) on the card, (x + z) + y
+__device__ __forceinline__ float k14_ndl(const K14Map& mp,
+                                         const float* __restrict__ ndl,
+                                         size_t px) {
+  if (!mp.nrm) return __ldg(ndl + px);
+  const float* n = mp.nrm + 3 * px;
+  return (__ldg(n) * __ldg(mp.sun) + __ldg(n + 2) * __ldg(mp.sun + 2)) +
+         __ldg(n + 1) * __ldg(mp.sun + 1);
+}
 
 // sun_vp's rows 0-3, columns 0-2: the product's matrix and the affine row
 __device__ __forceinline__ void k14_load_vp(const K14Map& mp,
@@ -120,7 +138,7 @@ k14_tap_kernel(K14Map mp, const float* __restrict__ wp,
   const int x = (int)(i % width), y = (int)(i / width);
   float m[4][3];
   k14_load_vp(mp, m);
-  out[i] = k14_tap(mp, m, wp + 3 * i, __ldg(ndl + i), (unsigned)x,
+  out[i] = k14_tap(mp, m, wp + 3 * i, k14_ndl(mp, ndl, i), (unsigned)x,
                    (unsigned)(row0 + y));
 }
 
@@ -139,7 +157,8 @@ k14_checker_kernel(K14Map mp, const float* __restrict__ wp,
   float val = 0.0f;
   if (i < hw) {
     const size_t px = row + 2 * i + rp;
-    val = k14_tap(mp, m, wp + 3 * px, __ldg(ndl + px), (unsigned)i, ny);
+    val = k14_tap(mp, m, wp + 3 * px, k14_ndl(mp, ndl, px), (unsigned)i,
+                  ny);
   }
   // the neighbour pair's value: i + 1 where lane 0 fetches, i - 1 where
   // lane 1 does (rp is the same for the whole row, so for the warp)
@@ -152,7 +171,8 @@ k14_checker_kernel(K14Map mp, const float* __restrict__ wp,
     nb = val;                                   // the row's end: clamped
   } else if (rp == 0 ? lane == 31 : lane == 0) {
     const size_t px = row + 2 * j + rp;         // across the warp's edge
-    nb = k14_tap(mp, m, wp + 3 * px, __ldg(ndl + px), (unsigned)j, ny);
+    nb = k14_tap(mp, m, wp + 3 * px, k14_ndl(mp, ndl, px), (unsigned)j,
+                 ny);
   } else {
     nb = from;
   }
@@ -165,9 +185,11 @@ extern "C" int k14_sun_tap(const float* wp, const float* ndl,
                            const float* depth, const float* sun_vp,
                            int width, int height, int side, float bias_scale,
                            int dither, unsigned seed_x, unsigned seed_y,
-                           int parity, int row0, float* out, void* stream) {
+                           int parity, int row0, float* out,
+                           const float* nrm, const float* sun, void* stream) {
   if (width < 1 || height < 1 || side < 1 || parity < -1 || parity > 1 ||
-      row0 < 0 || (parity >= 0 && width % 2))
+      row0 < 0 || (parity >= 0 && width % 2) || (!nrm) != (!sun) ||
+      (!nrm) == (!ndl))
     return (int)cudaErrorInvalidValue;
   K14Map mp;
   mp.depth = depth;
@@ -179,6 +201,8 @@ extern "C" int k14_sun_tap(const float* wp, const float* ndl,
   mp.seed_x = seed_x;
   mp.seed_y = seed_y;
   mp.vp = sun_vp;                 // read on the card: no copy to the host
+  mp.nrm = nrm;
+  mp.sun = sun;
   const cudaStream_t s = (cudaStream_t)stream;
   if (parity < 0) {
     const long long n = (long long)width * height;

@@ -31,7 +31,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = ("raster", "clustered", "taa", "bvh", "resolve", "skylight",
-           "setup", "bin", "cull", "shadow")
+           "setup", "bin", "cull", "shadow", "shading")
 
 _LIBS: dict = {}
 

@@ -1,13 +1,24 @@
 """PBR BRDF + analytic light evaluation over pixel tensors (port of
 incarnation_tpu/kernels/shading.py), including the reference's scale
-factors: directional x100, punctual x10000."""
+factors: directional x100, punctual x10000. The frame's sun term
+(sun_term) is K15 (csrc/shading.cu) on CUDA tensors and its twin
+sun_term_plain on CPU ones."""
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from . import shadow as shadow_mod
+from .build import Kernel, ptr
 from ..core import mathutils as mu
 from ..scene import lights as lights_mod
+
+_P = ctypes.c_void_p
+# hdr, base_color, mrao, n, v, mask, visibility, extras (NULL: none),
+# sun_dir, sun_color_intensity, out, the pixel count
+K15 = Kernel("shading", "k15_sun_term", [_P] * 11 + [ctypes.c_longlong])
 
 _PI = mu.PI
 
@@ -127,3 +138,95 @@ def punctual_light(light_type, transform, color, intensity, rng, spot_angles,
                           torch.where(cd > cos_outer, ang, 0.0), 1.0)
     radiance = 10000.0 * intensity * color * radial * angular
     return l, radiance
+
+
+def sun_term(hdr, gb, n, v, sun_dir, sun_color_intensity, *,
+             visibility=None, shadow_map=None, sun_vp=None,
+             resolution: int = 0, dither=None, checker_parity=None,
+             row0: int = 0, extras=None):
+    """hdr plus the sun's direct term where gb.mask is set -> a new
+    (H, W, 3) tensor. The sun's radiance is 100 x intensity x colour
+    (sun_color_intensity (4,): rgb, intensity), its BRDF brdf_response's
+    with the transmission, clearcoat and clearcoat roughness of extras
+    (H, W, 3) where given, its visibility one of: the sun map's tap
+    (shadow_map with sun_vp, resolution, dither, checker_parity and row0:
+    shadow.sun_visibility, the bias's n.l from n and sun_dir), a given
+    (H, W) visibility (the RT frame's), or 1.
+
+    CUDA tensors launch K14 (with a map, forming n.l itself) and then K15
+    (csrc/shading.cu) once, which reads every plane in place (contiguous,
+    base_color and mrao 16-byte aligned) and nothing else runs on the
+    card; CPU tensors take the twin, sun_term_plain."""
+    if shadow_map is not None and visibility is not None:
+        raise ValueError("sun_term: a shadow map or a visibility, not both")
+    if not hdr.is_cuda:
+        return sun_term_plain(
+            hdr, gb, n, v, sun_dir, sun_color_intensity,
+            visibility=visibility, shadow_map=shadow_map, sun_vp=sun_vp,
+            resolution=resolution, dither=dither,
+            checker_parity=checker_parity, row0=row0, extras=extras)
+    dev = hdr.device
+    h, w = hdr.shape[:2]
+    role = "given" if visibility is not None else "none"
+    if shadow_map is not None:
+        role = "map"
+        visibility = shadow_mod.sun_visibility(
+            gb.world_pos, None, shadow_map, sun_vp, resolution,
+            dither=dither, checker_parity=checker_parity, row0=row0,
+            normal=n, sun_dir=sun_dir)
+    f32, hw3 = torch.float32, (h, w, 3)
+    # each tensor K15 reads (None: not given), in one pass
+    for name, t, shape, dtype in (
+            ("hdr", hdr, hw3, f32),
+            ("base_color", gb.base_color, (h, w, 4), f32),
+            ("mrao", gb.mrao, (h, w, 4), f32), ("n", n, hw3, f32),
+            ("v", v, hw3, f32), ("mask", gb.mask, (h, w), torch.bool),
+            ("sun_dir", sun_dir, (3,), f32),
+            ("sun_color_intensity", sun_color_intensity, (4,), f32),
+            ("visibility", visibility, (h, w), f32),
+            ("extras", extras, hw3, f32)):
+        if t is not None and (t.dtype != dtype or t.device != dev
+                              or not t.is_contiguous() or t.shape != shape):
+            raise ValueError(f"{name}: need a contiguous {dtype} {shape} "
+                             f"tensor on {dev}")
+    if gb.base_color.data_ptr() % 16 or gb.mrao.data_ptr() % 16:
+        raise ValueError("base_color, mrao: need 16-byte aligned pixels")
+    out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
+    if not h * w:
+        return out
+    K15(ptr(hdr), ptr(gb.base_color), ptr(gb.mrao), ptr(n), ptr(v),
+        ptr(gb.mask), ptr(visibility), ptr(extras), ptr(sun_dir),
+        ptr(sun_color_intensity), ptr(out), h * w,
+        name=role + ("+extras" if extras is not None else ""))
+    return out
+
+
+def sun_term_plain(hdr, gb, n, v, sun_dir, sun_color_intensity, *,
+                   visibility=None, shadow_map=None, sun_vp=None,
+                   resolution: int = 0, dither=None, checker_parity=None,
+                   row0: int = 0, extras=None):
+    """sun_term's twin in torch (its arguments and result): the frame's
+    composition of the JAX package's renderer/frame.py:535-570, with the
+    map's tap by shadow.sun_visibility_plain, so it launches no kernel on
+    the card either."""
+    if shadow_map is not None and visibility is not None:
+        raise ValueError("sun_term: a shadow map or a visibility, not both")
+    radiance_in = directional_light_radiance(sun_color_intensity[:3],
+                                             sun_color_intensity[3])
+    sun_vis = 1.0
+    if shadow_map is not None:
+        ndl = torch.sum(n * sun_dir, -1)
+        sun_vis = shadow_mod.sun_visibility_plain(
+            gb.world_pos, ndl, shadow_map, sun_vp, resolution,
+            dither=dither, checker_parity=checker_parity,
+            row0=row0)[..., None]
+    elif visibility is not None:
+        sun_vis = visibility[..., None]
+    has_x = extras is not None
+    sun = brdf_response(
+        gb.base_color[..., :3], gb.mrao[..., 0], gb.mrao[..., 1], n, v,
+        sun_dir, radiance_in, visibility=sun_vis,
+        transmission=extras[..., 0] if has_x else None,
+        clearcoat=extras[..., 1] if has_x else None,
+        cc_roughness=extras[..., 2] if has_x else None)
+    return hdr + torch.where(gb.mask[..., None], sun, 0.0)

@@ -33,9 +33,10 @@ _M32 = 0xFFFFFFFF
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # world_pos, n_dot_l, the map, sun_vp, width, height, the map's side, the
 # bias scale 2 / side, dither on, the two noise seeds, the checker parity
-# (-1: none), row0, the output
+# (-1: none), row0, the output, the normals and sun_dir (NULL: n_dot_l
+# given)
 K14 = Kernel("shadow", "k14_sun_tap",
-             [_P] * 4 + [_I, _I, _I, _F, _I, _U, _U, _I, _I, _P])
+             [_P] * 4 + [_I, _I, _I, _F, _I, _U, _U, _I, _I, _P, _P, _P])
 
 
 def sun_view_proj(sun_dir, center, radius) -> np.ndarray:
@@ -105,7 +106,7 @@ def render_sun_shadow_map(scene, scene_rotation, sun_vp,
 
 def sun_visibility(world_pos, n_dot_l, shadow_depth, sun_vp,
                    resolution: int, dither=None, checker_parity=None,
-                   row0: int = 0):
+                   row0: int = 0, *, normal=None, sun_dir=None):
     """Per-pixel sun visibility from the shadow map, one tap.
 
     world_pos: (H, W, 3) in the (rotated) space the map was rendered in;
@@ -116,19 +117,25 @@ def sun_visibility(world_pos, n_dot_l, shadow_depth, sun_vp,
     half-rate fetch (kernels/checker.py), whose fetching half hashes its
     noise at its compacted (H, W/2) positions, as the JAX package's
     (shadow.py:103-154); row0: the first row's index in the whole frame.
-    -> (H, W) f32, 0 (occluded), 1, or a tent of the two.
+    normal (H, W, 3) and sun_dir (3,) with n_dot_l None: the bias's n.l is
+    torch.sum(normal * sun_dir, -1), which K14 forms itself (its "+nl"
+    roles). -> (H, W) f32, 0 (occluded), 1, or a tent of the two.
 
     CUDA tensors launch K14 (csrc/shadow.cu) once, which reads world_pos
-    and n_dot_l in place (contiguous, never copied); CPU tensors take the
-    twin, sun_visibility_plain."""
+    and n_dot_l (or the normals and sun_dir) in place (contiguous, never
+    copied); CPU tensors take the twin, sun_visibility_plain."""
     if not world_pos.is_cuda:
         return sun_visibility_plain(world_pos, n_dot_l, shadow_depth, sun_vp,
-                                    resolution, dither, checker_parity, row0)
+                                    resolution, dither, checker_parity, row0,
+                                    normal=normal, sun_dir=sun_dir)
     dev = world_pos.device
     h, w = world_pos.shape[:2]
     s = int(resolution)
+    from_normal = n_dot_l is None
     for name, t, shape in (("world_pos", world_pos, (h, w, 3)),
-                           ("n_dot_l", n_dot_l, (h, w)),
+                           *((("normal", normal, (h, w, 3)),
+                              ("sun_dir", sun_dir, (3,))) if from_normal
+                             else (("n_dot_l", n_dot_l, (h, w)),)),
                            ("shadow_depth", shadow_depth, (s, s)),
                            ("sun_vp", sun_vp, (4, 4))):
         if t.dtype != torch.float32 or t.device != dev \
@@ -147,16 +154,19 @@ def sun_visibility(world_pos, n_dot_l, shadow_depth, sun_vp,
     K14(ptr(world_pos), ptr(n_dot_l), ptr(shadow_depth), ptr(sun_vp), w, h,
         s, 2.0 / s, int(dither is not None), (frame * N_PCF_X) & _M32,
         (frame * N_PCF_Y) & _M32, cp, int(row0), ptr(out),
-        name=role_name(dither, checker_parity))
+        ptr(normal if from_normal else None),
+        ptr(sun_dir if from_normal else None),
+        name=role_name(dither, checker_parity, from_normal))
     return out
 
 
-def role_name(dither, checker_parity) -> str:
+def role_name(dither, checker_parity, from_normal: bool = False) -> str:
     """K14's role of a call, the name its launch counts under in
-    K14.by_name: exact, dither, checker or dither_checker."""
+    K14.by_name: exact, dither, checker or dither_checker, with "+nl"
+    where it forms n.l from the normal."""
     parts = (["dither"] if dither is not None else []) \
         + (["checker"] if checker_parity is not None else [])
-    return "_".join(parts) or "exact"
+    return ("_".join(parts) or "exact") + ("+nl" if from_normal else "")
 
 
 def sun_map_tap(world_pos, sun_vp, resolution: int, dither=None,
@@ -186,9 +196,12 @@ def sun_map_tap(world_pos, sun_vp, resolution: int, dither=None,
 
 def sun_visibility_plain(world_pos, n_dot_l, shadow_depth, sun_vp,
                          resolution: int, dither=None, checker_parity=None,
-                         row0: int = 0):
+                         row0: int = 0, *, normal=None, sun_dir=None):
     """K14's plain twin in torch (sun_visibility's arguments and result):
-    the checkerboard as checker.compact, the tap, checker.expand."""
+    n.l from the normal where it is not given, the checkerboard as
+    checker.compact, the tap, checker.expand."""
+    if n_dot_l is None:
+        n_dot_l = torch.sum(normal * sun_dir, -1)
     if checker_parity is not None:
         cp = int(checker_parity) & 1
         vis = sun_visibility_plain(checker.compact(cp, world_pos, row0),

@@ -2,11 +2,13 @@
 
 Depth-based reprojection through m = inv_view_proj @ prev_view_proj, an
 exact bilinear history fetch, 3x3 neighbourhood clamp and a
-luminance-weighted 0.1 / 0.9 blend. The fetch is K3 (csrc/taa.cu) on CUDA
-tensors and its twin (reproject_uv + bilinear_image) on CPU ones. When the
-camera is static and only the jitter moved, m is a pure NDC translation and
-the fetch is one constant sub-pixel shift; that choice is made on the host
-from the numpy matrices, with no device sync.
+luminance-weighted 0.1 / 0.9 blend. On CUDA tensors the whole resolve is
+one launch of K3 (csrc/taa.cu k3_taa_resolve), on CPU tensors its twin
+taa_resolve_plain; history_fetch is K3's fetch alone (k3_taa_fetch; its
+twin reproject_uv + bilinear_image). When the camera is static and only
+the jitter moved, m is a pure NDC translation and the fetch is one
+constant sub-pixel shift; that choice is made on the host from the numpy
+matrices, with no device sync, and K3 takes m or the shift by value.
 
 A band of a band-sharded frame (dist/sharding.py) resolves with halos
 copied from its neighbours: history rows above and below its viewport, so a
@@ -23,9 +25,28 @@ import torch
 
 from .build import Kernel, ptr
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# history, depth, m, out, width, height, y_off
-K3 = Kernel("taa", "k3_taa_fetch", [_P, _P, _P, _P, _I, _I, _I])
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# K3's resolve roles (csrc/taa.cu): the fetch reprojects through m, takes
+# the static camera's constant shift, or reads a given prev_color
+K3_REPROJECT, K3_SHIFT, K3_GIVEN = 0, 1, 2
+K3_ROLES = {K3_REPROJECT: "reproject", K3_SHIFT: "shift", K3_GIVEN: "given"}
+
+
+class K3Params(ctypes.Structure):
+    """The resolve's fetch, passed by value (csrc/taa.cu K3Params): m
+    row-major, the shift's whole pixels, its fractions and their
+    complements, the role."""
+    _fields_ = [("m", _F * 16), ("ix", _I), ("iy", _I), ("tx", _F),
+                ("ty", _F), ("rx", _F), ("ry", _F), ("role", _I)]
+
+
+# current HDR, history, depth, prev_color, the halo rows above and below,
+# the fetch by value, out, width, height, y_off; the fetch alone
+# (variant k3_taa_fetch): history, depth, m, out, width, height, y_off
+K3 = Kernel("taa", "k3_taa_resolve",
+            [_P] * 6 + [K3Params, _P, _I, _I, _I],
+            variants={"k3_taa_fetch": [_P, _P, _P, _P, _I, _I, _I]})
 # frame_noise's channels of the stochastic history fetch (JAX taa.py)
 N_TAA_X, N_TAA_Y = 2911329625, 3042594569
 
@@ -119,7 +140,8 @@ def history_fetch(history, depth, m, width: int, height: int,
             raise ValueError(f"{name}: need a contiguous float32 {shape} "
                              f"tensor on {dev}")
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    K3(ptr(history), ptr(depth), ptr(m), ptr(out), width, height, y_off)
+    K3(ptr(history), ptr(depth), ptr(m), ptr(out), width, height, y_off,
+       variant="k3_taa_fetch", name="fetch")
     return out
 
 
@@ -129,15 +151,21 @@ def history_fetch_plain(history, depth, m, width: int, height: int,
                           width, height, y_off)
 
 
+def shift_parts(sx: float, sy: float):
+    """(ix, iy, tx, ty): a shift's whole pixels (floors) and fractions,
+    each fraction a float32 difference as a Python float."""
+    ix = int(np.floor(sx))
+    iy = int(np.floor(sy))
+    return (ix, iy, float(np.float32(sx) - np.float32(ix)),
+            float(np.float32(sy) - np.float32(iy)))
+
+
 def bilinear_const_shift(img, sx: float, sy: float, y_off: int = 0):
     """Bilinear fetch at pixel + (sx, sy), a constant sub-pixel shift with
     edge clamp (|sx|, |sy| <= 3; the static-camera reprojection). img
     carries y_off halo rows above and below the viewport."""
     h, w = img.shape[0] - 2 * y_off, img.shape[1]
-    ix = int(np.floor(sx))
-    iy = int(np.floor(sy))
-    tx = float(np.float32(sx) - np.float32(ix))
-    ty = float(np.float32(sy) - np.float32(iy))
+    ix, iy, tx, ty = shift_parts(sx, sy)
     pad = 4
     padded = torch.nn.functional.pad(
         img.permute(2, 0, 1)[None], (pad, pad, pad, pad),
@@ -203,6 +231,77 @@ def taa_resolve(current_hdr, history, depth, m_np: np.ndarray,
                 history_valid: bool, width: int, height: int,
                 hdr_halo=None, dither=None, inv_view_proj=None,
                 prev_view_proj=None, row0: int = 0):
+    """-> new accumulation (H, W, 3); taa_resolve_plain's arguments.
+    history_valid False passes the current frame through. CUDA tensors
+    launch K3's resolve once (csrc/taa.cu k3_taa_resolve; with dither after
+    the stochastic history fetch in torch, whose prev_color it reads), with
+    m or the static camera's shift by value: no copy from the host and no
+    other work on the card. The inputs are read in place and must be
+    contiguous. CPU tensors take the twin, taa_resolve_plain."""
+    if not history_valid:
+        return current_hdr
+    if not current_hdr.is_cuda:
+        return taa_resolve_plain(current_hdr, history, depth, m_np,
+                                 history_valid, width, height, hdr_halo,
+                                 dither, inv_view_proj, prev_view_proj, row0)
+    dev = current_hdr.device
+    y_off = (history.shape[0] - height) // 2
+    prev = None
+    if dither is not None:
+        prev = stochastic_history(history, depth, inv_view_proj,
+                                  prev_view_proj, width, height, dither, row0)
+        p = k3_params(m_np, None, given=True)
+    else:
+        p = k3_params(m_np, static_shift(m_np, width, height))
+    given, reproject = p.role == K3_GIVEN, p.role == K3_REPROJECT
+    above, below = hdr_halo if hdr_halo is not None else (None, None)
+    hw3 = (height, width, 3)
+    # each tensor the role reads (None: not read), in one pass
+    for name, t, shape in (
+            ("current_hdr", current_hdr, hw3),
+            ("prev_color", prev, hw3),
+            ("history", None if given else history,
+             (height + 2 * y_off, width, 3)),
+            ("depth", depth if reproject else None, (height, width)),
+            ("hdr_halo", above, (1, width, 3)),
+            ("hdr_halo", below, (1, width, 3))):
+        if t is not None and (t.dtype != torch.float32 or t.device != dev
+                              or not t.is_contiguous() or t.shape != shape):
+            raise ValueError(f"{name}: need a contiguous float32 {shape} "
+                             f"tensor on {dev}")
+    out = torch.empty(hw3, dtype=torch.float32, device=dev)
+    if not height * width:
+        return out
+    K3(ptr(current_hdr), ptr(None if given else history),
+       ptr(depth if reproject else None), ptr(prev), ptr(above), ptr(below),
+       p, ptr(out), width, height, 0 if given else y_off,
+       name=K3_ROLES[p.role])
+    return out
+
+
+def k3_params(m_np: np.ndarray, shift=None, given: bool = False) -> K3Params:
+    """K3's resolve fetch by value: m_np's float32 bits row-major (the
+    twin's torch.as_tensor(m_np, float32)); with a static shift (sx, sy)
+    its shift_parts and float(1 - tx), float(1 - ty), the weights torch
+    rounds the twin's Python products to; given: a prev_color tensor."""
+    p = K3Params()
+    p.m = (_F * 16).from_buffer_copy(np.ascontiguousarray(m_np, np.float32))
+    if given:
+        p.role = K3_GIVEN
+    elif shift is not None:
+        ix, iy, tx, ty = shift_parts(*shift)
+        p.ix, p.iy, p.tx, p.ty = ix, iy, tx, ty
+        p.rx, p.ry = 1 - tx, 1 - ty
+        p.role = K3_SHIFT
+    else:
+        p.role = K3_REPROJECT
+    return p
+
+
+def taa_resolve_plain(current_hdr, history, depth, m_np: np.ndarray,
+                      history_valid: bool, width: int, height: int,
+                      hdr_halo=None, dither=None, inv_view_proj=None,
+                      prev_view_proj=None, row0: int = 0):
     """-> new accumulation (H, W, 3). m_np: host (4, 4) f32
     inv_view_proj @ prev_view_proj. history_valid False passes the current
     frame through (frame 0) without fetching. A band of a sharded frame
@@ -211,7 +310,8 @@ def taa_resolve(current_hdr, history, depth, m_np: np.ndarray,
     above and below the band. dither: the frame index, for the stochastic
     one-texel history fetch (stochastic_history, which reads the
     inv_view_proj and prev_view_proj tensors and row0) in place of the
-    bilinear one."""
+    bilinear one. taa_resolve's twin in torch, all of it: its fetch is
+    history_fetch_plain, so it launches no kernel on the card either."""
     if not history_valid:
         return current_hdr
     y_off = (history.shape[0] - height) // 2
@@ -224,8 +324,8 @@ def taa_resolve(current_hdr, history, depth, m_np: np.ndarray,
         prev_color = bilinear_const_shift(history, *shift, y_off=y_off)
     else:
         m = torch.as_tensor(m_np, dtype=torch.float32, device=depth.device)
-        prev_color = history_fetch(history.contiguous(), depth.contiguous(),
-                                   m, width, height, y_off)
+        prev_color = history_fetch_plain(history, depth, m, width, height,
+                                         y_off)
     mins, maxs = _neighborhood_minmax(current_hdr, hdr_halo)
     clamped = torch.minimum(torch.maximum(prev_color, mins), maxs)
     w_cur = 0.1 * _luminance_weight(current_hdr)

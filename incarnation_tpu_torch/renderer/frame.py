@@ -454,27 +454,18 @@ def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
             uv_dither=config.stochastic_bilinear,
             checker_parity=checker_parity, row0=band_row)
     if config.enable_direct_lighting:
-        radiance_in = shading.directional_light_radiance(
-            fc.sun_color_intensity[:3], fc.sun_color_intensity[3])
-        sun_vis = 1.0
+        # the sun: shadow-mapped (K14's tap and K15) or ray-traced
         rt_shadows = (scene_bvh is not None
                       and config.sun_shadow_mode in ("auto", "rt"))
-        if sun_shadow_map is not None and not rt_shadows:
-            ndl = torch.sum(n * fc.sun_dir, -1)
-            sun_vis = shadow_mod.sun_visibility(
-                gb.world_pos, ndl, sun_shadow_map, fc.sun_view_proj,
-                config.shadow_map_resolution, dither=dither,
-                checker_parity=checker_parity, row0=band_row)[..., None]
-        elif rt_shadows:
-            sun_vis = rt_sun_visibility(scene, scene_bvh, gb, fc)[..., None]
-        has_x = scene.meta.has_extras
-        sun = shading.brdf_response(
-            gb.base_color[..., :3], gb.mrao[..., 0], gb.mrao[..., 1], n, v,
-            fc.sun_dir, radiance_in, visibility=sun_vis,
-            transmission=gb.extras[..., 0] if has_x else None,
-            clearcoat=gb.extras[..., 1] if has_x else None,
-            cc_roughness=gb.extras[..., 2] if has_x else None)
-        hdr = hdr + torch.where(gb.mask[..., None], sun, 0.0)
+        hdr = shading.sun_term(
+            hdr, gb, n, v, fc.sun_dir, fc.sun_color_intensity,
+            visibility=(rt_sun_visibility(scene, scene_bvh, gb, fc)
+                        if rt_shadows else None),
+            shadow_map=None if rt_shadows else sun_shadow_map,
+            sun_vp=fc.sun_view_proj,
+            resolution=config.shadow_map_resolution, dither=dither,
+            checker_parity=checker_parity, row0=band_row,
+            extras=gb.extras if scene.meta.has_extras else None)
     if mask_grid is not None:
         hdr = hdr + clustered.clustered_lighting(
             gb, n.contiguous(), v.contiguous(), depth.contiguous(),

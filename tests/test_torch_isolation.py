@@ -14,7 +14,8 @@ from incarnation_tpu_torch.core.view import View
 from incarnation_tpu_torch.device import resolve_device
 from incarnation_tpu_torch.dist import sharding
 from incarnation_tpu_torch.kernels import (bvh, clustered, ibl, raster,
-                                           resolve, sky, skylight, taa)
+                                           resolve, shading, sky, skylight,
+                                           taa)
 from incarnation_tpu_torch.renderer import frame as tframe
 from incarnation_tpu_torch.scene import testing as ttesting
 
@@ -151,7 +152,7 @@ def test_cpu_tensors_take_the_twins(tiny):
     triangle setup (K9's wrapper, twice: camera and sun) and sky lighting
     (K8's) go through the wrappers."""
     kernels = (raster.K1, clustered.K2, taa.K3, bvh.K4, resolve.K5,
-               resolve.K6, skylight.K8, raster.K9)
+               resolve.K6, skylight.K8, raster.K9, shading.K15)
     for k in kernels:
         k.launches = 0
     h, w = 16, 8

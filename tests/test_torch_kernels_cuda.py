@@ -1,4 +1,4 @@
-"""K1-K14 against their plain PyTorch twins on a CUDA card, at small
+"""K1-K15 against their plain PyTorch twins on a CUDA card, at small
 shapes from a seed. Marked `cuda`: they skip on a host without a card and
 run on the card with
 
@@ -17,7 +17,8 @@ import torch
 
 from incarnation_tpu_torch.config import Config
 from incarnation_tpu_torch.kernels import (bvh, clustered, cull, raster,
-                                           resolve, shadow, skylight, taa)
+                                           resolve, shading, shadow, skylight,
+                                           taa)
 from incarnation_tpu_torch.scene import lights as lights_mod
 
 pytestmark = pytest.mark.cuda
@@ -2429,3 +2430,401 @@ def test_k14_refuses_and_never_falls_back(dev):
     with pytest.raises(ValueError, match="sun_vp"):
         shadow.sun_visibility(wp, ndl, depth, vp.cpu(), side)
     assert shadow.K14.launches == n0
+
+
+def _unit_np(r, shape):
+    v = r.normal(size=shape)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def sun_term_inputs(h, w, seed=0, side=64, extras=False, nan=True):
+    """numpy inputs of one sun term (shading.sun_term): an HDR plane
+    (uncovered pixels among them -0.0), a gbuffer's base_color and mrao
+    (H, W, 4), unit normals leaning toward the sun and view vectors in
+    their hemisphere (NoV >= ~0.1, as the JAX comparison of the BRDF
+    wants), a 90% mask, world points spread over the sun's orthographic
+    box at NDC depths 0-0.8, a (side, side) map of 8x8 blocks at depth 0
+    or 1 (a tap's compare is then never near its threshold, whatever the
+    packing), a given visibility of 0, 0.5 or 1, the sun's direction and
+    colour-intensity and, with extras, transmission, clearcoat and
+    clearcoat roughness in [0, 1]; with nan, one NaN in each of n, v,
+    base colour, the visibility and an uncovered pixel's HDR ->
+    dict(hdr, base_color, mrao, n, v, mask, world_pos, shadow_map, sun_vp,
+    visibility, sun_dir, sun_color_intensity, extras)."""
+    r = np.random.default_rng(seed)
+    sun = np.float32([0.3, 0.8, -0.5])
+    sun = sun / np.linalg.norm(sun)
+    vp = np.asarray(shadow.sun_view_proj(sun, [0.0, 0.0, 0.0], 4.0),
+                    np.float32)
+    ndc = np.stack([r.uniform(-1.1, 1.1, (h, w)), r.uniform(-1.1, 1.1, (h, w)),
+                    r.uniform(0.0, 0.8, (h, w))], -1)
+    n = _unit_np(r, (h, w, 3)) + 0.6 * sun
+    n = n / np.linalg.norm(n, axis=-1, keepdims=True)
+    v = n + 0.9 * _unit_np(r, (h, w, 3))
+    v = v / np.linalg.norm(v, axis=-1, keepdims=True)
+    mask = r.random((h, w)) > 0.1
+    hdr = r.uniform(0.0, 2.0, (h, w, 3))
+    hdr[~mask] *= r.choice([-0.0, 1.0], (int((~mask).sum()), 1))
+    blocks = (r.random((max(side // 8, 1),) * 2) > 0.5).astype(np.float32)
+    smap = np.kron(blocks, np.ones((8, 8), np.float32))[:side, :side]
+    f = lambda x: np.ascontiguousarray(x, np.float32)
+    out = dict(hdr=f(hdr), base_color=f(r.uniform(0, 1, (h, w, 4))),
+               mrao=f(r.uniform(0.05, 1, (h, w, 4))), n=f(n), v=f(v),
+               mask=mask, world_pos=f(_unproject(vp, ndc)),
+               shadow_map=f(smap), sun_vp=vp,
+               visibility=f(r.choice([0.0, 0.5, 1.0], (h, w))),
+               sun_dir=f(sun), sun_color_intensity=np.float32(
+                   [1.0, 0.9, 0.8, 3.0]),
+               extras=f(r.uniform(0, 1, (h, w, 3))) if extras else None)
+    if nan and h * w >= 8:
+        ys, xs = np.nonzero(mask)
+        for k, name, ch in ((1, "n", 0), (2, "v", 1), (3, "base_color", 2),
+                            (4, "visibility", None)):
+            idx = (ys[k * len(ys) // 6], xs[k * len(xs) // 6])
+            out[name][idx + ((ch,) if ch is not None else ())] = np.nan
+        uy, ux = np.nonzero(~mask)
+        if len(uy):
+            out["hdr"][uy[0], ux[0], 0] = np.nan
+    return out
+
+
+# sun_term's roles: (visibility source, dither, checker_parity)
+K15_ROLES = {"map_exact": ("map", None, None),
+             "map_dither": ("map", 9, None),
+             "map_dither_checker": ("map", 10, 0),
+             "given": ("given", None, None), "none": (None, None, None)}
+
+
+def sun_term_call(inp, role, device, row0=0):
+    """(positional, keyword) arguments of shading.sun_term for `role` on
+    sun_term_inputs' arrays."""
+    src, dither, parity = K15_ROLES[role]
+    t = lambda x: None if x is None else torch.tensor(x, device=device)
+    gb = resolve.GBuffer(
+        base_color=t(inp["base_color"]), normals=None, mrao=t(inp["mrao"]),
+        emissive=None, mask=t(inp["mask"]), world_pos=t(inp["world_pos"]),
+        uv=None, extras=t(inp["extras"]))
+    kw = dict(extras=gb.extras, row0=row0)
+    if src == "map":
+        kw.update(shadow_map=t(inp["shadow_map"]), sun_vp=t(inp["sun_vp"]),
+                  resolution=inp["shadow_map"].shape[0], dither=dither,
+                  checker_parity=parity)
+    elif src == "given":
+        kw["visibility"] = t(inp["visibility"])
+    return (t(inp["hdr"]), gb, t(inp["n"]), t(inp["v"]), t(inp["sun_dir"]),
+            t(inp["sun_color_intensity"])), kw
+
+
+def _same_or_nan(got, ref):
+    """Equal bit for bit where ref is a number, NaN where ref is NaN (a
+    NaN's payload is the instruction's, not the function's)."""
+    nan = torch.isnan(ref)
+    return got.shape == ref.shape and got.dtype == ref.dtype \
+        and torch.equal(torch.isnan(got), nan) \
+        and torch.equal(torch.where(nan, 0.0, got).view(torch.int32),
+                        torch.where(nan, 0.0, ref).view(torch.int32))
+
+
+def _k15_cases():
+    cases = []
+    for role in K15_ROLES:
+        for shape in ((1088, 1920), (540, 959), (33, 70), (1, 2)):
+            if role == "map_dither_checker" and shape[1] % 2:
+                continue
+            for extras in (False, True):
+                cases.append((role, shape, extras))
+    return cases
+
+
+@pytest.mark.parametrize("role,shape,extras", _k15_cases())
+def test_k15_matches_twin_bit_for_bit(dev, role, shape, extras):
+    """sun_term (K14 with the map, then K15) equals sun_term_plain bit for
+    bit, NaN where it is NaN, in every role: the map's exact, dithered and
+    checkerboard taps, a given visibility, none; with and without extras;
+    1920x1088, the viewer's odd 959 width, 35 pairs, one pair. One K15
+    launch a call, counted under its role."""
+    h, w = shape
+    inp = sun_term_inputs(h, w, seed=h + w, side=1024 if w >= 959 else 64,
+                          extras=extras)
+    a, kw = sun_term_call(inp, role, dev)
+    name = {"map": "map", "given": "given", None: "none"}[
+        K15_ROLES[role][0]] + ("+extras" if extras else "")
+    n0 = shading.K15.by_name.get(name, 0)
+    got = shading.sun_term(*a, **kw)
+    assert shading.K15.by_name.get(name, 0) == n0 + 1
+    ref = shading.sun_term_plain(*a, **kw)
+    assert got.dtype == torch.float32 and got.shape == (h, w, 3)
+    assert _same_or_nan(got, ref), int((got != ref).sum())
+    if h * w > 1000:
+        lit = (ref - a[0]).abs().sum(-1) > 0
+        assert 0.2 < float(lit.float().mean()) < 0.95
+    if h * w >= 8:
+        assert bool(torch.isnan(ref).any())          # the NaNs got through
+
+
+def test_k15_band_rows_and_no_host_sync(dev):
+    """A band of rows 544-1087 (row0 544) of the map's checkerboard role
+    equals the same rows of the whole frame, and every role runs back to
+    back under set_sync_debug_mode("error") (no copy from host memory, no
+    synchronize): K14 and K15, nothing else on the card."""
+    inp = sun_term_inputs(1088, 1920, seed=3, side=1024)
+    a, kw = sun_term_call(inp, "map_dither_checker", dev)
+    whole = shading.sun_term(*a, **kw)
+    band = {k: (v[544:] if isinstance(v, np.ndarray) and v.ndim >= 2
+                and v.shape[0] == 1088 else v) for k, v in inp.items()}
+    ab, kwb = sun_term_call(band, "map_dither_checker", dev, row0=544)
+    assert _same_or_nan(shading.sun_term(*ab, **kwb), whole[544:])
+    calls = [sun_term_call(inp, role, dev) for role in K15_ROLES]
+    torch.cuda.synchronize()
+    n14, n15 = shadow.K14.launches, shading.K15.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [shading.sun_term(*a, **kw) for a, kw in calls]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert shading.K15.launches == n15 + len(K15_ROLES)
+    assert shadow.K14.launches == n14 + 3
+    for g, (a, kw) in zip(got, calls):
+        assert _same_or_nan(g, shading.sun_term_plain(*a, **kw))
+
+
+def test_k15_refuses_and_never_falls_back(dev):
+    inp = sun_term_inputs(16, 32, seed=1)
+    a, kw = sun_term_call(inp, "given", dev)
+    n0 = shading.K15.launches
+    hdr, gb, n, v, sun, ci = a
+    with pytest.raises(ValueError, match="hdr"):
+        shading.sun_term(hdr.double(), *a[1:], **kw)
+    with pytest.raises(ValueError, match="n:"):
+        shading.sun_term(hdr, gb, n.permute(1, 0, 2).contiguous()
+                         .permute(1, 0, 2), v, sun, ci, **kw)
+    with pytest.raises(ValueError, match="mask"):
+        shading.sun_term(hdr, dataclasses.replace(gb, mask=gb.mask.float()),
+                         n, v, sun, ci, **kw)
+    with pytest.raises(ValueError, match="base_color"):
+        shifted = torch.empty(gb.base_color.numel() + 1,
+                              device=dev)[1:].view(gb.base_color.shape)
+        shifted.copy_(gb.base_color)
+        shading.sun_term(hdr, dataclasses.replace(gb, base_color=shifted),
+                         n, v, sun, ci, **kw)
+    with pytest.raises(ValueError, match="sun_color_intensity"):
+        shading.sun_term(hdr, gb, n, v, sun, ci.cpu(), **kw)
+    with pytest.raises(ValueError, match="not both"):
+        shading.sun_term(*a, **kw, shadow_map=torch.tensor(
+            inp["shadow_map"], device=dev))
+    assert shading.K15.launches == n0
+
+
+def ndl_threshold_inputs(h=64, w=128, side=256, seed=0):
+    """World points on distinct texel centres of a (side, side) sun map
+    (exact taps, so each pixel reads its own texel), at NDC depths
+    0.001-0.01 (where sz + bias keeps most of the bias's bits), random unit
+    normals and the sun's direction -> dict(world_pos,
+    normal, sun_dir, sun_vp); the map is set on the card to each pixel's
+    own sz + bias."""
+    r = np.random.default_rng(seed)
+    sun = np.float32([0.3, 0.8, -0.5])
+    sun = sun / np.linalg.norm(sun)
+    vp = np.asarray(shadow.sun_view_proj(sun, [0.0, 0.0, 0.0], 4.0),
+                    np.float32)
+    texel = r.choice(side * side, h * w, replace=False)
+    u, v = texel % side, texel // side
+    ndc = np.stack([(u + 0.5) / side * 2.0 - 1.0,
+                    1.0 - (v + 0.5) / side * 2.0,
+                    r.uniform(0.001, 0.01, h * w)], -1).reshape(h, w, 3)
+    return dict(world_pos=_unproject(vp, ndc).astype(np.float32),
+                normal=_unit_np(r, (h, w, 3)).astype(np.float32),
+                sun_dir=sun.astype(np.float32), sun_vp=vp)
+
+
+@pytest.mark.parametrize("shape,role", [
+    ((1088, 1920), r) for r in K14_ROLES] + [
+    ((540, 959), "dither"), ((33, 70), "dither_checker1"),
+    ((1, 2), "dither_checker0")])
+def test_k14_normal_role_matches_twin_bit_for_bit(dev, shape, role):
+    """K14's "+nl" roles (n.l formed from the normal and sun_dir in the
+    launch) equal sun_visibility_plain given torch.sum(normal * sun_dir,
+    -1), bit for bit, in every role, with a NaN normal."""
+    h, w = shape
+    side = 1024 if w >= 959 else 64
+    wp, _, depth, vp, _ = _k14_args(
+        dev, sun_tap_inputs(h, w, seed=h + 2, side=side), side)
+    r = np.random.default_rng(h)
+    nrm = torch.tensor(_unit_np(r, (h, w, 3)), dtype=torch.float32,
+                       device=dev)
+    if h * w > 2:
+        nrm[h // 3, w // 3, 1] = float("nan")
+    sun = torch.tensor([0.3, 0.8, -0.5], device=dev)
+    sun = sun / torch.linalg.vector_norm(sun)
+    dither, parity = K14_ROLES[role]
+    name = shadow.role_name(dither, parity, True)
+    n0 = shadow.K14.by_name.get(name, 0)
+    got = shadow.sun_visibility(wp, None, depth, vp, side, dither=dither,
+                                checker_parity=parity, normal=nrm,
+                                sun_dir=sun)
+    assert shadow.K14.by_name.get(name, 0) == n0 + 1
+    ref = shadow.sun_visibility_plain(wp, torch.sum(nrm * sun, -1), depth,
+                                      vp, side, dither=dither,
+                                      checker_parity=parity)
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+        int((got != ref).sum())
+
+
+def test_k14_normal_role_sums_as_torch(dev):
+    """n.l decides the bias, and the bias a discrete test: a map whose
+    texel under each pixel holds exactly sz + bias of torch's n.l on the
+    card leaves every pixel lit in the twin and in K14's "+nl" role, while
+    n.l summed left to right, (x + y) + z, would shadow some of them."""
+    inp = ndl_threshold_inputs()
+    f = lambda k: torch.tensor(inp[k], device=dev)
+    wp, nrm, sun, vp = f("world_pos"), f("normal"), f("sun_dir"), f("sun_vp")
+    side = 256
+    ndl = torch.sum(nrm * sun, -1)
+    sz, inside, lin = shadow.sun_map_tap(wp, vp, side)
+    scale = 2.0 / side
+
+    def edge(nl):
+        return sz + (1.5 + 2.0 * (1.0 - torch.clamp(nl, 0.0, 1.0))) * scale
+    assert bool(inside.all()) and int(torch.unique(lin).numel()) == lin.numel()
+    depth = torch.zeros(side * side, device=dev)
+    depth[lin.reshape(-1)] = edge(ndl).reshape(-1)
+    depth = depth.view(side, side)
+    ref = shadow.sun_visibility_plain(wp, ndl, depth, vp, side)
+    got = shadow.sun_visibility(wp, None, depth, vp, side, normal=nrm,
+                                sun_dir=sun)
+    assert bool((ref == 1.0).all()) and torch.equal(got, ref)
+    p = nrm * sun
+    left = (p[..., 0] + p[..., 1]) + p[..., 2]
+    assert int((edge(left) < edge(ndl)).sum()) > 0
+
+
+def taa_inputs(h, w, seed=0, role="reproject", y_off=0, nan=True):
+    """numpy inputs of one TAA resolve (taa.taa_resolve) in a K3 fetch
+    role: reproject (a moving camera), shift (a jitter-only change: a pure
+    NDC translation, taa.static_shift) or given (a moving camera and the
+    stochastic history fetch, dither FRAME); the current HDR, the history
+    with y_off halo rows above and below, depth, m_np = inv_view_proj @
+    prev_view_proj (f32), the two matrices and, with y_off, the HDR rows
+    above and below (hdr_halo); with nan, a NaN in the HDR and one in the
+    history -> dict(current_hdr, history, depth, m_np, inv_view_proj,
+    prev_view_proj, hdr_halo, dither)."""
+    from incarnation_tpu_torch.core.view import View
+    r = np.random.default_rng(seed)
+    aspect = w / max(h, 1)
+    if role == "shift":
+        view = View.from_lookat([0.0, 2.0, -8.0], [0.0, 0.0, 0.0],
+                                aspect=aspect)
+        px = 2.0 / np.array([w, max(h, 1)])
+        prev = np.asarray(view.view_proj(np.array([0.3, -0.2]) * px),
+                          np.float32)
+        cur = np.asarray(view.view_proj(np.array([-0.4, 0.1]) * px),
+                         np.float32)
+    else:
+        prev = np.asarray(View.from_lookat(
+            [0.0, 2.0, -8.0], [0.0, 0.0, 0.0], aspect=aspect).view_proj(),
+            np.float32)
+        cur = np.asarray(View.from_lookat(
+            [0.1, 2.0, -7.9], [0.05, 0.0, 0.0], aspect=aspect).view_proj(),
+            np.float32)
+    ivp = np.linalg.inv(cur).astype(np.float32)
+    m_np = ivp @ prev
+    assert (taa.static_shift(m_np, w, h) is not None) == (role == "shift")
+    hdr = r.uniform(0.0, 4.0, (h, w, 3)).astype(np.float32)
+    hist = r.uniform(0.0, 4.0, (h + 2 * y_off, w, 3)).astype(np.float32)
+    if nan and h * w >= 4:
+        hdr[h // 2, w // 2, 1] = np.nan
+        hist[y_off + h // 3, w // 3, 0] = np.nan
+    halo = None
+    if y_off:
+        halo = tuple(r.uniform(0.0, 4.0, (1, w, 3)).astype(np.float32)
+                     for _ in range(2))
+    return dict(current_hdr=hdr, history=hist,
+                depth=r.uniform(0.05, 0.9, (h, w)).astype(np.float32),
+                m_np=m_np, inv_view_proj=ivp, prev_view_proj=prev,
+                hdr_halo=halo, dither=7 if role == "given" else None)
+
+
+def taa_call(inp, device, row0=0):
+    """taa.taa_resolve's keyword arguments on taa_inputs' arrays."""
+    t = lambda x: torch.tensor(x, device=device)
+    h, w = inp["depth"].shape
+    return dict(current_hdr=t(inp["current_hdr"]), history=t(inp["history"]),
+                depth=t(inp["depth"]), m_np=inp["m_np"], history_valid=True,
+                width=w, height=h,
+                hdr_halo=(None if inp["hdr_halo"] is None
+                          else tuple(t(x) for x in inp["hdr_halo"])),
+                dither=inp["dither"], inv_view_proj=t(inp["inv_view_proj"]),
+                prev_view_proj=t(inp["prev_view_proj"]), row0=row0)
+
+
+@pytest.mark.parametrize("y_off", [0, 16], ids=["whole", "band_halo"])
+@pytest.mark.parametrize("role", ["reproject", "shift", "given"])
+@pytest.mark.parametrize("shape", [(1088, 1920), (540, 959), (37, 53),
+                                   (1, 1)], ids=str)
+def test_k3_resolve_matches_twin_bit_for_bit(dev, shape, role, y_off):
+    """K3's resolve equals taa_resolve_plain bit for bit, NaN where it is
+    NaN (torch.minimum and maximum pass a NaN through the clamp), in each
+    fetch role, on a whole frame and on a band with 16 history halo rows
+    each way and the HDR rows above and below: one K3 launch a call,
+    counted under its role."""
+    h, w = shape
+    kw = taa_call(taa_inputs(h, w, seed=h + w, role=role, y_off=y_off), dev)
+    n0 = taa.K3.by_name.get(role, 0)
+    got = taa.taa_resolve(**kw)
+    assert taa.K3.by_name.get(role, 0) == n0 + 1
+    ref = taa.taa_resolve_plain(**kw)
+    assert _same_or_nan(got, ref), int((got != ref).sum())
+    if h * w >= 4:
+        assert bool(torch.isnan(ref).any())
+    if h * w > 1000:
+        assert float((ref - kw["current_hdr"]).abs().nan_to_num().max()) \
+            > 0.1                                # the history blended in
+
+
+def test_k3_resolve_band_halo_is_read(dev):
+    """A band's resolve reads its halo rows: the HDR rows above and below
+    change the first and last rows' clamp, and the history's halo the
+    reprojected fetch near the band's edges."""
+    inp = taa_inputs(64, 256, seed=5, y_off=16, nan=False)
+    kw = taa_call(inp, dev)
+    got = taa.taa_resolve(**kw)
+    edge = dict(kw, hdr_halo=(kw["current_hdr"][:1].contiguous(),
+                              kw["current_hdr"][-1:].contiguous()))
+    clamped = taa.taa_resolve(**edge)
+    assert not torch.equal(got[0], clamped[0])
+    assert not torch.equal(got[-1], clamped[-1])
+    assert torch.equal(got[1:-1], clamped[1:-1])
+    inner = dict(kw, history=kw["history"][16:-16].contiguous())
+    assert not torch.equal(got, taa.taa_resolve(**inner))
+
+
+def test_k3_resolve_no_host_sync_and_refuses(dev):
+    """Every role back to back under set_sync_debug_mode("error"): m and
+    the shift go by value, so no copy from host memory and no synchronize;
+    each equals its twin. Wrong inputs raise and launch nothing."""
+    calls = [taa_call(taa_inputs(72, 200, seed=s, role=role, y_off=y),
+                      dev) for s, (role, y) in enumerate(
+        (("reproject", 0), ("shift", 8), ("given", 0), ("reproject", 8)))]
+    torch.cuda.synchronize()
+    n0 = taa.K3.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [taa.taa_resolve(**kw) for kw in calls
+               if kw["dither"] is None]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert taa.K3.launches == n0 + 3
+    for g, kw in zip(got, [kw for kw in calls if kw["dither"] is None]):
+        assert _same_or_nan(g, taa.taa_resolve_plain(**kw))
+    kw = calls[0]
+    n0 = taa.K3.launches
+    with pytest.raises(ValueError, match="current_hdr"):
+        taa.taa_resolve(**dict(kw, current_hdr=kw["current_hdr"].double()))
+    with pytest.raises(ValueError, match="history"):
+        taa.taa_resolve(**dict(kw, history=kw["history"][:-1]))
+    with pytest.raises(ValueError, match="depth"):
+        taa.taa_resolve(**dict(kw, depth=kw["depth"].t().contiguous().t()))
+    with pytest.raises(ValueError, match="hdr_halo"):
+        taa.taa_resolve(**dict(kw, hdr_halo=(kw["current_hdr"][:1],
+                                             kw["current_hdr"][:2])))
+    assert taa.K3.launches == n0

@@ -31,13 +31,16 @@ skylight.environment_background; the camera
 pass's binning, raster.bin_triangles_layered; the sun pass with its own
 setup, binning and raster, shadow.render_sun_shadow_map; the resolve, the
 peels' alpha tests and the shadow tap, which the stochastic estimators
-change; the two frustum culls, cull.cull_primitives), the frame glue,
+change; the two frustum culls, cull.cull_primitives; the sun's BRDF,
+shading.brdf_response, or the whole sun term with the tap inside it,
+shading.sun_term; the TAA resolve, taa.taa_resolve), the frame glue,
 and the eager operators per peel. The peels' alpha test is
 resolve.masked_alpha in a tree whose frame runs the accumulate in torch,
 and resolve.masked_peel (K6's peel step, the accumulate in it) in one
 whose frame calls that; the first's accumulate counts to its glue, so
 `peels+glue` (both phases and the glue) is the sum that compares like
-with like.
+with like; `sun+tap` (the tap and the sun's BRDF or its whole term) is
+the same for the sun.
 """
 
 from __future__ import annotations
@@ -56,7 +59,16 @@ COMPARED = ("raster.prepare_geometry", "skylight.sky_lighting",
             "raster.bin_triangles_layered", "shadow.render_sun_shadow_map",
             "resolve.resolve_gbuffer", "resolve.masked_alpha",
             "resolve.masked_peel", "shadow.sun_visibility",
-            "cull.cull_primitives", "glue", "peels+glue")
+            "shading.brdf_response", "shading.sun_term", "sun+tap",
+            "taa.taa_resolve", "cull.cull_primitives", "glue", "peels+glue")
+# phases summed to compare like with like across trees: the peels with the
+# glue (a tree whose frame accumulates the peels in torch), and the sun's
+# tap with its BRDF (a tree whose sun term is shading.sun_term, the tap
+# inside it, or brdf_response beside the tap)
+SUMS = {"peels+glue": ("resolve.masked_alpha", "resolve.masked_peel",
+                       "glue"),
+        "sun+tap": ("shadow.sun_visibility", "shading.brdf_response",
+                    "shading.sun_term")}
 
 
 def in_turns(trees, frames: int, out) -> int:
@@ -85,9 +97,9 @@ def in_turns(trees, frames: int, out) -> int:
         exact_ms = sorted(t for r in mine for t in r.get("frame_ms_exact",
                                                           []))
         for r in mine:
-            r["phases"]["peels+glue"] = sum(
-                r["phases"].get(k, 0.0) for k in (
-                    "resolve.masked_alpha", "resolve.masked_peel", "glue"))
+            for name, parts in SUMS.items():
+                r["phases"][name] = sum(r["phases"].get(k, 0.0)
+                                        for k in parts)
         phases = {k: [round(r["phases"].get(k, 0.0), 3) for r in mine]
                   for k in COMPARED}
         print(f"{tree}: frames {min(frames_ms):.2f}-{max(frames_ms):.2f} ms "

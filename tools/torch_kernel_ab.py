@@ -3,7 +3,7 @@
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
-        [--kernels k1,k2,k3,k4,k5,k5s,k6,k8,k8s,k9,k10,k11,k12]
+        [--kernels k1,k2,k3,k3r,k4,k5,k5s,k6,k8,k8s,k9,k10,k11,k12]
         [--timeline]
         [--out FILE]
 
@@ -20,6 +20,12 @@ each C entry alone on the C-level arguments this checkout's wrapper makes
 (`k2_clustered[entry]`), since the wrappers may differ in their host work.
 Both must agree: K1 and K3 identical outputs, K2 each within 1e-3 of the
 twin.
+
+K3's resolve (k3r): the main-path frame's TAA resolve (taa_resolve, the
+reprojected fetch), timed the same way: each checkout's output must equal
+this checkout's twin (taa_resolve_plain) bit for bit, NaN for NaN. A
+checkout that predates the resolve role is timed by its torch resolve
+around its K3 fetch.
 
 K5: the same two frames' launches of the material resolve (the main
 frame's opaque and decal layers; the small frame's opaque layer with the
@@ -124,15 +130,18 @@ PKG = "incarnation_tpu_torch"
 WRAPPERS = {"k1": ("raster", "rasterize_tiles", 10),
             "k2": ("clustered", "clustered_lighting", 20),
             "k3": ("taa", "history_fetch", 50),
+            "k3r": ("taa", "taa_resolve", 50),
             "k5": ("resolve", "resolve_gbuffer", 20),
             "k8": ("skylight", "sky_lighting", 20),
             "k9": ("raster", "prepare_geometry", 20),
             "k10": ("raster", "bin_triangles_layered", 20),
             "k11": ("clustered", "build_light_clusters", 50),
             "k12": ("skylight", "environment_background", 20)}
-# K8's and K9's sources and kernel names (a part of the compiled entry's
-# name), whose registers and SASS opcode counts are printed
-SASS = {"k8": ("skylight", "k8_sky_kernel"),
+# K3's resolve's, K8's and K9's sources and kernel names (a part of the
+# compiled entry's name), whose registers and SASS opcode counts are
+# printed
+SASS = {"k3r": ("taa", "k3_taa_resolve_kernel"),
+        "k8": ("skylight", "k8_sky_kernel"),
         "k8s": ("skylight", "k8_sky_"),
         "k9": ("setup", "k9_setup_kernel")}
 # the K5 launches of a main-path frame and of the small forward frame, in
@@ -177,6 +186,7 @@ def role(kind, a, kw):
                 else "k9_setup[sun_depth_only]")
     return (f"k1_raster[{kw.get('name', 'fine_raster')}]" if kind == "k1"
             else {"k2": "k2_clustered", "k3": "k3_taa_fetch",
+                  "k3r": "k3_taa_resolve",
                   "k8": "k8_sky_lighting", "k11": "k11_light_grid",
                   "k12": "k12_sky_background"}[kind])
 
@@ -252,7 +262,7 @@ def k5_agree(cs, a, kw, outs, mods, name):
 
 def agree(cs, kind, a, kw, outs, this, other, name):
     """The two checkouts' outputs of one launch agree, or raise: K1 and K3
-    identical, K2 each within 1e-3 of the twin's value (the ceiling a K2
+    identical, K3's resolve each equal to this checkout's twin, K2 each within 1e-3 of the twin's value (the ceiling a K2
     tolerance may take; chip_smoke.py holds this checkout's to 1e-4); K5
     by k5_agree; K8, K9 and K10 each held to its own checkout's twin (K10
     also to the other checkout's bins); K11 and K12 this checkout's
@@ -260,6 +270,11 @@ def agree(cs, kind, a, kw, outs, this, other, name):
     within 1e-5 relative."""
     import torch
     (other_out, this_out) = outs
+    if kind == "k3r":
+        ref = this["taa"].taa_resolve_plain(*a, **kw)
+        for what, out in (("other", other_out), ("this", this_out)):
+            cs._same_or_nan(f"{name} ({what} checkout)", out, ref)
+        return
     if kind == "k11":
         ref = this["clustered"].build_light_clusters_plain(*a, **kw)
         for out in (other_out, this_out):
@@ -473,7 +488,8 @@ def k1_to_k5(cs, others, this, dev, times, kinds, timelines=None):
     kinds = kinds & set(WRAPPERS)
     calls = [c for c in with_roles(cs.capture_frame(
         run, fc1, warm["accumulation"], raster, clustered, taa),
-        K5_MAIN) if c[0] in kinds]
+        K5_MAIN) if c[0] in kinds
+        and (c[0] != "k3r" or cs._k3r_calls(taa, [c[:3]]))]
     _, render = cs.small_renderer(dev)
     render(forward_lighting=True)
     small = cs.capture_frame(
@@ -801,7 +817,7 @@ def main(argv=None) -> int:
     ap.add_argument("others", nargs="+", help="the other checkouts' roots")
     ap.add_argument("--kernels", default="k1,k2,k3,k4",
                     help="comma-separated: k1, k2, k3, k5 (two frames' "
-                         "launches), k8, k9, k10, k11, k12 (the main "
+                         "launches), k3r, k8, k9, k10, k11, k12 (the main "
                          "frame's), k4, "
                          "k6, k5s and k8s (the peel steps and K5's and "
                          "K8's checkerboards of frames with the "
@@ -855,7 +871,12 @@ def main(argv=None) -> int:
                   f"and shared bytes): {json.dumps(res)}", flush=True)
         for kind in sorted(kinds & set(SASS)):
             src, fn = SASS[kind]
-            res = cs.kernel_resources(mods["build"], src, fn, logs.get(src))
+            try:
+                res = cs.kernel_resources(mods["build"], src, fn,
+                                          logs.get(src))
+            except RuntimeError:        # a checkout that predates it
+                print(f"{name} checkout has no {fn}", flush=True)
+                continue
             for entry, r in res.items():
                 r["sass"] = sass_mix(mods["build"], src, entry)
             sass.setdefault(name, {})[kind] = res
