@@ -19,18 +19,20 @@ accumulate; nothing else launches between one peel's K1 call and the
 next's), decals, the material resolve of the opaque layer (K5: a
 checkerboard of jittered texels) and the decal layer (K5: jittered
 texels under its chunk capacity), the 1024 x 1024 sun shadow map (K1's
-depth-only role, every face casting) and its jittered, checkerboarded
-tap (K14, forming the slope bias's n.l from the normal itself), the
-light-cluster grid (K11), sky IBL (K8: a checkerboard of jittered RGBE
-probe texels), the sun's direct term (K15 on K14's visibility), clustered
-lights (K2), the sky background (K12), the TAA resolve (K3's resolve
+depth-only role, every face casting), the light-cluster grid (K11),
+sky IBL (K8: a checkerboard of jittered RGBE probe texels), the sun's
+direct term (K15, whose map role taps the map itself, jittered and
+checkerboarded, at the pixels the sun lights: K14's tap inside its
+launch), clustered lights (K2), the sky background written into the
+frame's HDR (K12's accumulate role), the TAA resolve (K3's resolve
 role: the reprojected fetch, the 3x3 clamp and the blend in one launch)
 and tonemap. The camera is the atrium's glTF
 camera with Halton jitter and a small orbit every frame. Every zero gate
 must read 0 on every frame (peel_chunk_overflow and decal_overflow
-among them), and each launch of K3, K5, K6, K8, K14 and K15 counts under
-its role. Then the same 8 frames with the estimators off (the exact roles
-of K5, K6, K8 and K14 on every frame): both sequences' frame times and the
+among them), each launch of K3, K5, K6, K8 and K15 counts under its
+role, and K14 launches on no frame. Then the same 8 frames with the
+estimators off (the exact roles of K5, K6, K8 and K15's tap on every
+frame): both sequences' frame times and the
 last frames' PSNR. It checks that the shadow map darkens the frame, on a
 frame without the map and with the stochastic history fetch (K15's role
 without a visibility, K3's resolve of a given prev_color), whose K15 and
@@ -41,22 +43,28 @@ sequence, runs each kernel and its plain PyTorch twin on those inputs on
 the card (a row per role of K5, K6 and K8), compares them, times both on
 the card's clock (device_ms), prints each kernel's bound (the work its
 inputs need) and work diagnostics (K8's checkerboard row: its fetching
-lanes, halos included, beside the twin's fetches), renders that frame
+lanes, halos included, beside the twin's fetches; K14's rows: its tap
+alone, the "+nl" roles on the inputs of K15's map role; K15's map role
+also on a view whose sun lights at least half of the covered pixels,
+each beside the two launches it replaced, K14 then K15 on the tap's
+visibility, and K12's accumulate role beside K12 and the eager add, in
+turns), renders that frame
 again with every kernel swapped for its twin and compares the images,
 and prints the frame's time by phase (phase_breakdown). The frame's two
 binnings run once more under torch.cuda.set_sync_debug_mode("error"):
 K10 makes the host wait for nothing. Inside the light-cluster grid, the
-sky background, the two frustum culls, the shadow tap, the sun term and
-the TAA resolve of one more frame, nothing but K11's, K12's, K13's and
-K14's one launch each, K14's and K15's (the sun term) and K3's (the
-resolve) runs on the card: no eager torch operator, no copy from host
-memory, no synchronize (host_free_phases).
+sky background, the two frustum culls, the sun term and the TAA resolve
+of one more frame, nothing but K11's, K12's, K13's, K15's and K3's one
+launch each runs on the card: no eager torch operator, no copy from host
+memory, no synchronize; and no eager operator reads the sky background's
+output before the TAA resolve, so nothing adds it to the HDR again
+(host_free_phases).
 
 A second, small path (512x256, the port's scene/testing.py scene with a
 BLEND quad, TAA off: the exact roles) renders one forward-lighting frame
 with blend layers and both debug draws, holds its blend-layer launches
-of K1 and every K5, K6, K8, K9, K10, K11, K12, K13, K14 and K15 launch to
-their twins, renders a frame of the scene with transmission and
+of K1 and every K5, K6, K8, K9, K10, K11, K12, K13 and K15 launch to
+their twins (K14 alone on each K15 map launch's inputs), renders a frame of the scene with transmission and
 clearcoat on its materials (K15's extras role, K5's and K8's with
 extras), renders one frame per view mode (the lighting-only mode's K8
 launch held to its twin) and checks pick and highlight.
@@ -83,16 +91,16 @@ shadow + HBAO frame, and a 4-sample path trace at 640x360 checkpointed
 after 2 and resumed (equal to the uninterrupted run); (j) the web viewer
 serving the atrium at 959x540 (the frame after an orbit input differs;
 an odd width, so the frame's stochastic roles run without the
-checkerboard, and K8's tile kernel and K14's `dither` role get rows of
-their own);
+checkerboard, and K8's tile kernel and K14's `dither` role (on the
+inputs of K15's map role) get rows of their own);
 (k) band sharding over two devices (two cards if the machine shows them,
 else cuda:0 twice): a 1920x1088 frame and a second TAA frame against the
 single frame, a band-sharded path-traced sample (identical) and an
 SPP-sharded round (the batch-mean rule within 1e-6). (i)-(k) capture
 their K1, K2, K3 (its resolve: the CLI's static camera takes its shift
-role), K5, K6, K8, K9, K10, K11, K12, K13, K14 and K15 launches and hold
-each to its twin (the bands' K14 launches from row 544, their K3 resolves
-with the halo rows).
+role), K5, K6, K8, K9, K10, K11, K12, K13 and K15 launches and hold
+each to its twin (the bands' K15 map launches from row 544, with K14
+alone on their inputs; their K3 resolves with the halo rows).
 
 It prints one JSON line of kernel figures; the last line is
 {"ok": true, "device": {...}}. Any failed phase raises, and the script
@@ -295,6 +303,13 @@ K14_FETCH_BYTES, K14_PIXEL_BYTES = 16, 4
 # K14's "+nl" roles: a fetching pixel reads its normal (12) in n.l's place
 # (4) and forms n.l (3 mul + 2 add); sun_dir once (12)
 K14_NL_BYTES, K14_NL_OPS = 8, 5
+# K15's map role (csrc/shading.cu with csrc/k14_tap.cuh) in place of the
+# visibility plane: each tap the rule needs (_k15_taps) K14's operations
+# (K14_OPS_TAP + K14_NL_OPS, + K14_OPS_DITHER and the integer ones with
+# dither), a lit filling pixel's tent (K14_OPS_FILL); bytes: the 32-byte
+# sectors of world_pos and of the map that the taps touch, each once, and
+# the normal (12) of a tapped pixel that is not covered
+SECTOR_BYTES = 32
 # K15, counted from csrc/shading.cu: every pixel its HDR add (3); a
 # covered pixel n.l and its clamp (7); one whose n.l > 0 the rest: n.v,
 # n.h, v.h with their clamps (21), the half vector (3 adds, its dot 5,
@@ -573,15 +588,15 @@ def main(argv=None) -> int:
     # JAX's default frame: K5 fetches the opaque layer's stack by the
     # checkerboard of jittered texels and the decal layer's under its
     # chunk capacity, K6's peel step tests every peel's alpha under the
-    # chunk ladder and accumulates it, K8 the probe and K14 the sun map by
-    # the checkerboard (n.l formed from the normal); K15 shades the sun on
-    # K14's visibility; K3 resolves every frame with a history, the camera
-    # moving, by its reprojected fetch
+    # chunk ladder and accumulates it, K8 the probe by the checkerboard;
+    # K15 shades the sun, tapping the map by the checkerboard itself (K14
+    # launches on no frame); K3 resolves every frame with a history, the
+    # camera moving, by its reprojected fetch
     want_roles = {"k5_resolve": {"jitter_checker": FRAMES,
                                  "jitter+chunks": FRAMES},
                   "k6_masked_alpha": {"step_jitter+chunks": PEELS * FRAMES},
                   "k8_sky_lighting": {"jitter_checker": FRAMES},
-                  "k14_sun_tap": {"dither_checker+nl": FRAMES},
+                  "k14_sun_tap": {},
                   "k3_taa_resolve": {"reproject": FRAMES - 1},
                   "k15_sun_term": {"map": FRAMES}}
     if roles != want_roles:
@@ -611,10 +626,10 @@ def main(argv=None) -> int:
     # frame 0), K4 never (no BVH on this path), K5 for the opaque and the
     # decal layer, K6 for each peel, K8 once, K9 and K10's launches for the
     # camera and the sun pass (K10: K10_LAUNCHES a binning), K11 and K12
-    # once, K13 for the primitives and the meshlets, K14 and K15 once; K6
-    # is the peel step, K3 the whole resolve
+    # once, K13 for the primitives and the meshlets, K14 never (K15 taps
+    # the map), K15 once; K6 is the peel step, K3 the whole resolve
     want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS, 1, 2,
-             2 * len(K10_LAUNCHES), 1, 1, 2, 1, 1] for i in range(FRAMES)]
+             2 * len(K10_LAUNCHES), 1, 1, 2, 0, 1] for i in range(FRAMES)]
     if per_frame != want:
         raise RuntimeError(f"launches per frame (K1, K2, K3, K4, K5, K6, K8, "
                            f"K9, K10, K11, K12, K13, K14, K15) {per_frame} "
@@ -643,7 +658,7 @@ def main(argv=None) -> int:
     want = {"k5_resolve": {"exact": 2 * FRAMES},
             "k6_masked_alpha": {"step_exact": PEELS * FRAMES},
             "k8_sky_lighting": {"exact": FRAMES},
-            "k14_sun_tap": {"exact+nl": FRAMES},
+            "k14_sun_tap": {},
             "k3_taa_resolve": {"reproject": FRAMES - 1},
             "k15_sun_term": {"map": FRAMES}}
     if exact_roles != want or ex.per_frame != per_frame:
@@ -672,8 +687,9 @@ def main(argv=None) -> int:
         scene, fc.scene_rotation, fc.sun_view_proj,
         shadow.shadow_params(cfg.shadow_map_resolution, cfg))
     vis = shadow.sun_visibility(
-        gb.world_pos, torch.sum(mu.oct_decode(gb.normals) * fc.sun_dir, -1),
-        smap, fc.sun_view_proj, cfg.shadow_map_resolution)
+        gb.world_pos, None, smap, fc.sun_view_proj,
+        cfg.shadow_map_resolution,
+        normal=mu.oct_decode(gb.normals).contiguous(), sun_dir=fc.sun_dir)
     shadowed = float((vis[gb.mask] == 0).float().mean())
     # the same frame without the map (K15 with no visibility) and with the
     # stochastic history fetch (K3's resolve of a given prev_color)
@@ -720,11 +736,24 @@ def main(argv=None) -> int:
     rows += [k11_row(clustered, calls, launches["k11_light_grid"]),
              k12_row(skylight, calls, launches["k12_sky_background"])]
     rows += k13_rows(cull, calls, launches["k13_cull"])
+    # K14 alone on the inputs of K15's map role (0 launches on the path)
     rows += [k14_row(shadow, calls, launches["k14_sun_tap"],
                      role="dither_checker+nl"),
              k14_row(shadow, exact_calls, exact_launches["k14_sun_tap"],
                      name="k14_sun_tap[exact]", role="exact+nl")]
+    # K15's map role on the frame (about 2% of its pixels lit), the exact
+    # sequence's, and a view whose sun lights at least half of the covered
+    # pixels
+    lit_calls, lit_exact = half_lit_view(run, run_exact, make_fc, calls,
+                                         prev_vp, history,
+                                         ex.out["accumulation"])
     rows += [k15_row(shading, calls, launches["k15_sun_term"], role="map"),
+             k15_row(shading, exact_calls, exact_launches["k15_sun_term"],
+                     name="k15_sun_term[exact]", role="map"),
+             k15_row(shading, lit_calls, 0, name="k15_sun_term[lit_half]",
+                     role="map"),
+             k15_row(shading, lit_exact, 0,
+                     name="k15_sun_term[lit_half_exact]", role="map"),
              k15_row(shading, off_calls, 0, name="k15_sun_term[none]",
                      role="none"),
              k3r_row(taa, calls, launches["k3_taa_resolve"],
@@ -736,6 +765,9 @@ def main(argv=None) -> int:
                  if c[0] in ("k3r", "k11", "k12", "k13", "k14", "k15")],
                 raster, clustered, taa,
                 need=("k3r", "k11", "k12", "k13", "k14", "k15"))
+    check_twins("the half-lit view", [c for c in lit_calls + lit_exact
+                                      if c[0] in ("k12", "k15")],
+                raster, clustered, taa, need=("k12", "k14", "k15"))
     k10_no_sync(raster, calls)
     check_twin_frame(run, fc, history, raster, clustered, taa)
     phase_breakdown(run, fc, history)
@@ -889,9 +921,10 @@ def atrium_path(dev):
     shadow_bounds = (host.bounds_center,
                      float(np.linalg.norm(host.bounds_extent)) + 1e-3)
 
-    def make_fc(i, prev_vp):
+    def make_fc(i, prev_vp, sun_dir=None):
         return frame.FrameConstants.make(
-            orbit(view0, ORBIT_RAD * i), cfg, sun_dir=sun,
+            orbit(view0, ORBIT_RAD * i), cfg,
+            sun_dir=sun if sun_dir is None else sun_dir,
             sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
             jitter=jitters[i % 16] * 2.0 / np.array([W, H]),
             prev_view_proj=prev_vp, history_valid=i > 0, frame_index=i,
@@ -1218,68 +1251,195 @@ def _k15_role(x) -> str:
     return src + ("+extras" if x["extras"] is not None else "")
 
 
-def _k15_bound(x, visibility: bool):
-    """(bound ms, by, covered pixels, lit pixels) of one K15 launch on these
-    inputs: K15_* bytes and operations by pixel class, a lit pixel covered
-    with n.l > 0 (the twin's dot3 and clamp)."""
+def _k14_from_k15(x) -> dict:
+    """sun_visibility's arguments by name (the "+nl" form) for the tap of
+    a captured sun_term call with a map (x: its arguments by name)."""
+    return dict(world_pos=x["gb"].world_pos, n_dot_l=None,
+                shadow_depth=x["shadow_map"], sun_vp=x["sun_vp"],
+                resolution=x["resolution"], dither=x["dither"],
+                checker_parity=x["checker_parity"], row0=x["row0"],
+                normal=x["n"], sun_dir=x["sun_dir"])
+
+
+def _k15_lit(x):
+    """(H, W) bool: the covered pixels whose n.l > 0 (the twin's dot3 and
+    clamp), where K15's visibility counts."""
     import torch
     from incarnation_tpu_torch.core import mathutils as mu
-    gb, n = x["gb"], x["n"]
+    no_l = torch.clamp(mu.dot3(x["n"], x["sun_dir"]), 0.0, 1.0)
+    return x["gb"].mask & (no_l > 0.0)
+
+
+def _k15_taps(shadow, x):
+    """The taps K15's map role needs on these inputs (x: a sun_term call's
+    arguments by name): -> (flat indices of the tapped pixels, their flat
+    texel indices, the lit filling pixels). Without the checkerboard a lit
+    pixel taps itself; with it, pair i's fetching pixel is tapped when
+    pair i holds a lit pixel or the pair whose fill reads it (i - 1 where
+    lane 0 fetches, i + 1 where lane 1 does) has a lit filling pixel."""
+    import torch
+    from incarnation_tpu_torch.kernels import checker
+    lit = _k15_lit(x)
+    h, w = lit.shape
+    wp, row0, dither = x["gb"].world_pos, x["row0"], x["dither"]
+    cp = x["checker_parity"]
+    if cp is None:
+        _, _, lin = shadow.sun_map_tap(wp, x["sun_vp"], x["resolution"],
+                                       dither, row0)
+        px = torch.nonzero(lit.reshape(-1)).squeeze(1)
+        return px, lin.reshape(-1)[px], 0
+    cp = int(cp) & 1
+    fetch = checker.fetch_mask((h, w), cp, lit.device, row0)
+    lit_f = lit[fetch].view(h, w // 2)
+    lit_n = lit[~fetch].view(h, w // 2)
+    rp = (torch.arange(row0, row0 + h, device=lit.device)[:, None]
+          + cp) & 1
+    off = torch.zeros_like(lit_n)
+    reader = torch.where(rp == 0, torch.cat([off[:, :1], lit_n[:, :-1]], 1),
+                         torch.cat([lit_n[:, 1:], off[:, :1]], 1))
+    need = lit_f | lit_n | reader
+    px = torch.nonzero(fetch.reshape(-1)).squeeze(1).view(h, w // 2)[need]
+    _, _, lin = shadow.sun_map_tap(checker.compact(cp, wp, row0),
+                                   x["sun_vp"], x["resolution"], dither,
+                                   row0)
+    return px, lin[need], int(lit_n.sum())
+
+
+def _k15_bound(x, visibility: bool, taps=None):
+    """(bound ms, by, covered pixels, lit pixels) of one K15 launch on these
+    inputs: K15_* bytes and operations by pixel class, a lit pixel covered
+    with n.l > 0 (the twin's dot3 and clamp); with the map role's taps
+    (_k15_tap_work) in place of a visibility plane."""
+    gb = x["gb"]
     px = gb.mask.numel()
-    no_l = torch.clamp(mu.dot3(n, x["sun_dir"]), 0.0, 1.0)
     covered = int(gb.mask.sum())
-    lit = int((gb.mask & (no_l > 0.0)).sum())
+    lit = int(_k15_lit(x).sum())
     extras = x["extras"] is not None
     lit_bytes = K15_LIT_BYTES + (K15_VIS_BYTES if visibility else 0) \
         + (K15_EXTRAS_BYTES if extras else 0)
+    tap_bytes, tap_ops = taps or (0, 0)
     bound, by = _bound(
         px * K15_PIXEL_BYTES + covered * K15_COVERED_BYTES + lit * lit_bytes
-        + 28, px * K15_OPS_PIXEL + covered * K15_OPS_COVERED
-        + lit * (K15_OPS_LIT + (K15_OPS_EXTRAS if extras else 0)))
+        + 28 + tap_bytes, px * K15_OPS_PIXEL + covered * K15_OPS_COVERED
+        + lit * (K15_OPS_LIT + (K15_OPS_EXTRAS if extras else 0)) + tap_ops)
     return bound, by, covered, lit
 
 
+def _k15_tap_work(shadow, x):
+    """(bytes, float operations, taps, sectors of world_pos, sectors of the
+    map, distinct texels) of K15's map role's taps on these inputs: each
+    32-byte sector of world_pos and of the map that the taps touch once,
+    the normal of a tapped pixel that is not covered, K14's operations a
+    tap and a lit filling pixel's tent; sun_vp's rows once."""
+    import torch
+    px, lin, fills = _k15_taps(shadow, x)
+    wp_sec = torch.unique(torch.cat([(12 * px) // SECTOR_BYTES,
+                                     (12 * px + 11) // SECTOR_BYTES]))
+    map_sec = torch.unique((4 * lin) // SECTOR_BYTES)
+    uncovered = int((~x["gb"].mask.reshape(-1)[px]).sum())
+    n = int(px.numel())
+    dither = x["dither"] is not None
+    nbytes = SECTOR_BYTES * (int(wp_sec.numel()) + int(map_sec.numel())) \
+        + 12 * uncovered + 48
+    ops = n * (K14_OPS_TAP + K14_NL_OPS + dither * K14_OPS_DITHER) \
+        + fills * K14_OPS_FILL
+    return (nbytes, ops, n, int(wp_sec.numel()), int(map_sec.numel()),
+            int(torch.unique(lin).numel()))
+
+
 def k15_row(shading, calls, n_launches, name="k15_sun_term", role=None):
-    """K15 against its twin on a captured sun_term launch of `role`: the
-    whole call (K14 and K15 with the map) bit for bit (NaN for NaN); then
-    K15 alone, timed on the call's visibility (the map's tap computed
-    once), against the twin's BRDF on it, with its bound and registers ->
-    the JSON row."""
+    """K15 against its twin on a captured sun_term launch of `role`, bit
+    for bit (NaN for NaN), timed, with its bound and registers -> the JSON
+    row. The map role's row also times, in turns with it (fused, two, two,
+    fused), the two launches it replaced: K14's tap alone, then K15 on that
+    visibility (two_launch_ms), and counts its taps."""
     from incarnation_tpu_torch.kernels import shadow
     xs = [x for x in (_bound_args(shading.sun_term_plain, a, kw)
                       for kind, a, kw in calls if kind == "k15")
           if _k15_role(x) == role]
     if not xs:
         raise RuntimeError(f"{name}: no K15 launch of role {role} captured")
-    x = dict(xs[0])
+    x = xs[0]
     _same_or_nan(name, shading.sun_term(**x), shading.sun_term_plain(**x))
-    # the whole call's host work (with the map, K14's wrapper too)
-    host = host_ms(lambda: shading.sun_term(**xs[0]), 50)
+    host = host_ms(lambda: shading.sun_term(**x), 50)
+    extra, note = {}, ""
     if x["shadow_map"] is not None:
-        x["visibility"] = shadow.sun_visibility(
-            x["gb"].world_pos, None, x["shadow_map"], x["sun_vp"],
-            x["resolution"], dither=x["dither"],
-            checker_parity=x["checker_parity"], row0=x["row0"],
-            normal=x["n"], sun_dir=x["sun_dir"])
-        x["shadow_map"] = None
-    bound, by, covered, lit = _k15_bound(x, x["visibility"] is not None)
-    ms = device_ms(lambda: shading.sun_term(**x), 50)
+        nbytes, ops, n_taps, wp_sec, map_sec, texels = _k15_tap_work(shadow,
+                                                                     x)
+        bound, by, covered, lit = _k15_bound(x, False, (nbytes, ops))
+        given = dict(x, shadow_map=None)
+
+        def two():
+            return shading.sun_term(**dict(given, visibility=(
+                shadow.sun_visibility(**_k14_from_k15(x)))))
+        _same_or_nan(f"{name} (K14 + K15)", two(),
+                     shading.sun_term_plain(**x))
+        runs = [device_ms(f, 50) for f in (
+            lambda: shading.sun_term(**x), two, two,
+            lambda: shading.sun_term(**x))]
+        ms, two_ms = min(runs[0], runs[3]), min(runs[1], runs[2])
+        extra = dict(two_launch_ms=two_ms, lit_pixels=lit, taps=n_taps)
+        note = (f"; {n_taps} taps ({wp_sec} sectors of world_pos, "
+                f"{map_sec} of the map, {texels} distinct texels); K14 + "
+                f"K15 on its visibility {two_ms:.4f} ms in turns")
+    else:
+        bound, by, covered, lit = _k15_bound(x, x["visibility"] is not None)
+        ms = device_ms(lambda: shading.sun_term(**x), 50)
     plain = device_ms(lambda: shading.sun_term_plain(**x), 5)
-    res = next((v for k, v in K11_K15_RESOURCES.items() if "k15" in k), {})
+    # the compiled kernel of this role: the map's pair a thread under the
+    # checkerboard, else a thread a pixel with or without the map's tap
+    kernel = ("k15_sun_checker" if x["shadow_map"] is not None
+              and x["checker_parity"] is not None else
+              f"k15_sun_term_kernelILb{int(x['shadow_map'] is not None)}")
+    res = next((v for k, v in K11_K15_RESOURCES.items() if kernel in k), {})
     h, w = x["gb"].mask.shape
-    _log(f"{name}: {w}x{h}, {covered} covered pixels, {lit} with n.l > 0; "
-         f"K15 alone {ms:.4f} ms a launch against the bound {bound:.4f} ms "
-         f"({by}); the call's host work {host:.4f} ms; twin {plain:.3f} ms; "
-         "identical to the twin; "
-         f"{res.get('registers')} registers, {res.get('spill_bytes')} bytes "
-         "spilled")
+    _log(f"{name}: {w}x{h}, {role} role (dither {x['dither']}, checker "
+         f"{x['checker_parity']}), {covered} covered pixels, {lit} with "
+         f"n.l > 0; {ms:.4f} ms a launch against the bound {bound:.4f} ms "
+         f"({by}){note}; the call's host work {host:.4f} ms; twin "
+         f"{plain:.3f} ms; identical to the twin; {kernel}: "
+         f"{json.dumps(res)}")
     return dict(
         name=name, route="cuda",
         source="incarnation_tpu_torch/csrc/shading.cu",
         replaces="incarnation_tpu/kernels/shading.py:77",
         launches=n_launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=None, host_ms=host,
-        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
+        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"),
+        **extra)
+
+
+def half_lit_view(run, run_exact, make_fc, calls, prev_vp, history,
+                  exact_history):
+    """The main path's next frame lit by another sun: of 256 directions
+    over the upper hemisphere, the one whose n.l > 0 at the largest share
+    of the frame's covered pixels (every 16th of them, from the captured
+    normals), which must be at least half; its frame rendered with the
+    estimators on and off, each captured -> (calls, exact calls)."""
+    import torch
+    from incarnation_tpu_torch.kernels import clustered, raster, shading, taa
+    x = next(_bound_args(shading.sun_term_plain, a, kw)
+             for kind, a, kw in calls if kind == "k15")
+    k = torch.arange(256, dtype=torch.float64)
+    y = 0.05 + 0.95 * (k + 0.5) / 256
+    r = torch.sqrt(1.0 - y * y)
+    phi = k * (np.pi * (3.0 - np.sqrt(5.0)))
+    dirs = torch.stack([r * torch.cos(phi), y, r * torch.sin(phi)], -1).to(
+        device=x["n"].device, dtype=torch.float32)
+    mask = x["gb"].mask
+    share = ((x["n"][mask][::16] @ dirs.T) > 0.0).float().mean(0)
+    best = int(torch.argmax(share))
+    sun = dirs[best].cpu().numpy()
+    _log(f"half-lit view: the sun {sun.round(4).tolist()} faces "
+         f"{float(share[best]):.4f} of the covered pixels sampled (the "
+         f"frame's sun {float(_k15_lit(x)[mask].float().mean()):.4f})")
+    if float(share[best]) < 0.5:
+        raise RuntimeError("no sun direction lights half of the covered "
+                           "pixels")
+    fc = make_fc(FRAMES, prev_vp, sun_dir=sun)
+    return (capture_frame(run, fc, history, raster, clustered, taa),
+            capture_frame(run_exact, fc, exact_history, raster, clustered,
+                          taa))
 
 
 def _k5_args(a, kw):
@@ -2149,13 +2309,17 @@ def _k11_error(got, ref):
 
 
 def _k12_error(got, ref):
-    """Raises unless one K12 launch equals its twin bit for bit (the same
-    operations in the same order, the transcendentals the functions torch
-    calls; +0.0 where covered)."""
+    """Raises unless one K12 launch equals its twin bit for bit, NaN where
+    the twin is NaN (the same operations in the same order, the
+    transcendentals the functions torch calls; +0.0 where covered, or the
+    HDR plus +0.0 in the accumulate role)."""
     import torch
     if got.dtype != torch.float32 or got.shape != ref.shape:
         raise RuntimeError(f"K12 gave {got.dtype} {tuple(got.shape)}")
-    if not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+    nan = torch.isnan(ref)
+    if not (torch.equal(torch.isnan(got), nan) and torch.equal(
+            torch.where(nan, 0.0, got).view(torch.int32),
+            torch.where(nan, 0.0, ref).view(torch.int32))):
         diff = (got - ref).abs()
         raise RuntimeError(
             f"K12 differs from its twin on {int((got != ref).sum())} values "
@@ -2201,29 +2365,46 @@ def k11_row(clustered, calls, n_launches):
 
 def k12_row(skylight, calls, n_launches):
     """K12 against its twin, bit for bit, on the captured dynamic-sky
-    environment_background launch, timed, with its bound and registers
-    -> the JSON row."""
+    environment_background launch (the frame's accumulate role: the HDR
+    given), timed in turns (K12, the background alone then the eager add,
+    twice, K12) beside the two launches it replaced (with_add_ms), with its
+    bound and registers -> the JSON row."""
     launches = [(a, kw) for kind, a, kw in calls if kind == "k12"]
     if len(launches) != 1:
         raise RuntimeError(f"k12: {len(launches)} launches captured")
     (a, kw), = launches
+    x = _bound_args(skylight.environment_background_plain, a, kw)
+    hdr = x["hdr"]
+    if hdr is None:
+        raise RuntimeError("k12: the frame's sky background was not given "
+                           "the HDR")
     _k12_error(skylight.environment_background(*a, **kw),
                skylight.environment_background_plain(*a, **kw))
-    x = _bound_args(skylight.environment_background_plain, a, kw)
+    alone = dict(x, hdr=None)
+
+    def with_add():
+        return hdr + skylight.environment_background(**alone)
+    _k12_error(with_add(), skylight.environment_background_plain(**x))
     mask = x["mask"]
     sky = int((~mask).sum())
-    bound, by = _bound(mask.numel() * 13 + 64 + 24, sky * K12_OPS_PER_SKY)
-    ms = device_ms(lambda: skylight.environment_background(*a, **kw), 20)
+    # the mask byte, the HDR read and written; the matrix, eye and sun once
+    bound, by = _bound(mask.numel() * 25 + 64 + 24,
+                       sky * K12_OPS_PER_SKY + 3 * mask.numel())
+    runs = [device_ms(f, 20) for f in (
+        lambda: skylight.environment_background(*a, **kw), with_add,
+        with_add, lambda: skylight.environment_background(*a, **kw))]
+    ms, add_ms = min(runs[0], runs[3]), min(runs[1], runs[2])
     plain = device_ms(
         lambda: skylight.environment_background_plain(*a, **kw), 3)
     # a one-launch wrapper's host work, beside K3's and K15's
     host = host_ms(lambda: skylight.environment_background(*a, **kw), 50)
     res = next((v for k, v in K11_K15_RESOURCES.items() if "k12" in k), {})
     _log(f"k12_sky_background: {x['width']}x{x['height']}, {sky} uncovered "
-         f"pixels ({sky / mask.numel():.4f}); {ms:.4f} ms a launch against "
-         f"the bound {bound:.4f} ms ({by}), the host's work {host:.4f} ms a "
-         f"call; twin {plain:.3f} ms; identical "
-         f"to the twin; {res.get('registers')} registers, "
+         f"pixels ({sky / mask.numel():.4f}), the HDR accumulated; {ms:.4f} "
+         f"ms a launch against the bound {bound:.4f} ms ({by}); K12 alone "
+         f"and the eager add {add_ms:.4f} ms in turns; the host's work "
+         f"{host:.4f} ms a call; twin {plain:.3f} ms; identical to the "
+         f"twin; {res.get('registers')} registers, "
          f"{res.get('spill_bytes')} bytes spilled")
     return dict(
         name="k12_sky_background", route="cuda",
@@ -2231,7 +2412,8 @@ def k12_row(skylight, calls, n_launches):
         replaces="incarnation_tpu/kernels/skylight.py:159",
         launches=n_launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=None, host_ms=host,
-        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
+        with_add_ms=add_ms, registers=res.get("registers"),
+        spill_bytes=res.get("spill_bytes"))
 
 
 def _k13_error(got, ref):
@@ -2252,11 +2434,9 @@ def _k13_error(got, ref):
 
 
 def _k14_role(x) -> str:
-    """The K14 role of a captured sun_visibility call (its arguments by
-    name)."""
+    """The K14 role ("+nl") of sun_visibility's arguments by name."""
     from incarnation_tpu_torch.kernels import shadow
-    return shadow.role_name(x["dither"], x["checker_parity"],
-                            x["n_dot_l"] is None)
+    return shadow.role_name(x["dither"], x["checker_parity"], True)
 
 
 def _k14_error(got, ref):
@@ -2313,10 +2493,11 @@ def k13_rows(cull, calls, n_launches):
 
 
 def _k14_bound(shadow, x):
-    """(bound ms, by, fetching pixels, distinct texels) of one K14 launch:
-    each fetching pixel's position and n.l read once, every output written
-    once, each texel the launch reads read once, K14_OPS_* and
-    K14_INT_OPS_* a fetching pixel, K14_OPS_FILL a filling one."""
+    """(bound ms, by, fetching pixels, distinct texels) of one K14 launch
+    (a "+nl" role): each fetching pixel's position and normal read once,
+    every output written once, each texel the launch reads read once,
+    sun_vp's rows and sun_dir once, K14_OPS_* and K14_INT_OPS_* a fetching
+    pixel, K14_OPS_FILL a filling one."""
     import torch
     from incarnation_tpu_torch.kernels import checker
     wp, cp, row0 = x["world_pos"], x["checker_parity"], x["row0"]
@@ -2327,26 +2508,34 @@ def _k14_bound(shadow, x):
                                    x["dither"], row0)
     fetch, texels = lin.numel(), int(torch.unique(lin).numel())
     dither = x["dither"] is not None
-    nl = x["n_dot_l"] is None
     bound, by = _bound(
-        (K14_FETCH_BYTES + nl * K14_NL_BYTES) * fetch
-        + K14_PIXEL_BYTES * pixels + 4 * texels + 48 + 12 * nl,
-        fetch * (K14_OPS_TAP + dither * K14_OPS_DITHER + nl * K14_NL_OPS)
+        (K14_FETCH_BYTES + K14_NL_BYTES) * fetch + K14_PIXEL_BYTES * pixels
+        + 4 * texels + 60,
+        fetch * (K14_OPS_TAP + dither * K14_OPS_DITHER + K14_NL_OPS)
         + (pixels - fetch) * K14_OPS_FILL,
         fetch * (K14_INT_OPS_TAP + dither * K14_INT_OPS_DITHER))
     return bound, by, fetch, texels
 
 
+def _k14_calls(calls) -> list:
+    """K14's "+nl" calls by name on a path: the tap of each captured
+    sun_term call with a map (no frame launches K14 itself)."""
+    from incarnation_tpu_torch.kernels import shading
+    return [_k14_from_k15(x) for x in (
+        _bound_args(shading.sun_term_plain, a, kw)
+        for kind, a, kw in calls if kind == "k15")
+        if x["shadow_map"] is not None]
+
+
 def k14_row(shadow, calls, n_launches, name="k14_sun_tap", role=None):
-    """K14 against its twin, bit for bit, on the captured sun_visibility
-    launch of `role`, timed, with its bound and registers -> the JSON
-    row."""
-    launches = [x for x in (_bound_args(shadow.sun_visibility_plain, a, kw)
-                            for kind, a, kw in calls if kind == "k14")
-                if _k14_role(x) == role]
-    if not launches or not n_launches:
-        raise RuntimeError(f"{name}: {len(launches)} launches captured, "
-                           f"{n_launches} on the path")
+    """K14's tap alone against its twin, bit for bit, on the inputs of a
+    captured sun_term call of the map in `role` (n_launches: K14's
+    launches on the path, 0 since K15 taps the map), timed, with its bound
+    and registers -> the JSON row."""
+    launches = [x for x in _k14_calls(calls) if _k14_role(x) == role]
+    if not launches:
+        raise RuntimeError(f"{name}: no K15 map launch of role {role} "
+                           "captured")
     x = launches[0]
     _k14_error(shadow.sun_visibility(**x), shadow.sun_visibility_plain(**x))
     bound, by, fetch, texels = _k14_bound(shadow, x)
@@ -2356,15 +2545,19 @@ def k14_row(shadow, calls, n_launches, name="k14_sun_tap", role=None):
     kernel = "checker" if x["checker_parity"] is not None else "tap"
     res = next((v for k, v in K11_K15_RESOURCES.items()
                 if f"k14_{kernel}" in k), {})
-    nl = x["n_dot_l"] is None
-    whole_map, _ = _bound((K14_FETCH_BYTES + nl * K14_NL_BYTES) * fetch
+    # the whole map, and the planes as 32-byte sectors: the fetching lanes
+    # of the checkerboard touch every sector of world_pos and the normals
+    whole_map, _ = _bound((K14_FETCH_BYTES + K14_NL_BYTES) * fetch
                           + K14_PIXEL_BYTES * h * w
-                          + 4 * x["resolution"] ** 2 + 48 + 12 * nl, 0)
+                          + 4 * x["resolution"] ** 2 + 60, 0)
+    sectors, _ = _bound(2 * 12 * h * w + K14_PIXEL_BYTES * h * w
+                        + 4 * texels + 60, 0)
     _log(f"{name}: {w}x{h}, map {x['resolution']}^2, {fetch} fetching "
          f"pixels, {texels} distinct texels; {ms:.4f} ms a launch against "
          f"the bound {bound:.4f} ms ({by}; the whole map counted: "
-         f"{whole_map:.4f}); "
-         f"twin {plain:.3f} ms; identical to the twin; k14_{kernel}_kernel "
+         f"{whole_map:.4f}; world_pos and the normals read whole, as "
+         f"their 32-byte sectors: {sectors:.4f}); twin {plain:.3f} ms; "
+         f"identical to the twin; k14_{kernel}_kernel "
          f"{res.get('registers')} registers, {res.get('spill_bytes')} bytes "
          "spilled")
     return dict(
@@ -2373,51 +2566,63 @@ def k14_row(shadow, calls, n_launches, name="k14_sun_tap", role=None):
         replaces="incarnation_tpu/kernels/shadow.py:103",
         launches=n_launches, max_abs_err=0.0, ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=None,
-        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
+        bound_sectors_ms=sectors, registers=res.get("registers"),
+        spill_bytes=res.get("spill_bytes"))
 
 
 # the functions host_free_phases watches: (module, function, the kernels
-# each call launches once, calls a frame); sun_visibility runs inside
-# sun_term
+# each call launches once, calls a frame)
 _HOST_FREE = (("clustered", "build_light_clusters", ("k11_light_grid",), 1),
               ("skylight", "environment_background", ("k12_sky_background",),
                1),
               ("cull", "cull_primitives", ("k13_cull",), 2),
-              ("shadow", "sun_visibility", ("k14_sun_tap",), 1),
-              ("shading", "sun_term", ("k14_sun_tap", "k15_sun_term"), 1),
+              ("shading", "sun_term", ("k15_sun_term",), 1),
               ("taa", "taa_resolve", ("k3_taa_resolve",), 1))
 
 
 def host_free_phases(run, fc, history, kernels):
     """Inside build_light_clusters, environment_background, both
-    cull_primitives calls, sun_visibility, sun_term and taa_resolve on one
-    frame: every eager torch operator that runs work on the card
-    (_launches_work, counted by a TorchDispatchMode), the hand-written
-    kernels launched, and, under torch.cuda.set_sync_debug_mode("error"),
-    any synchronize or copy from pageable host memory (which raises).
-    Raises unless each call is its kernels' one launch each (K11, K12,
-    K13, K14; K14 and K15 in sun_term, K14's inside the sun_visibility
-    call it makes; K3 in taa_resolve) and nothing else."""
+    cull_primitives calls, sun_term and taa_resolve on one frame: every
+    eager torch operator that runs work on the card (_launches_work,
+    counted by a TorchDispatchMode), the hand-written kernels launched,
+    and, under torch.cuda.set_sync_debug_mode("error"), any synchronize or
+    copy from pageable host memory (which raises). Raises unless each call
+    is its kernel's one launch (K11, K12, K13, K15 with the map's tap, K3)
+    and nothing else, and unless no eager operator reads the sky
+    background's output between its return and the TAA resolve (the frame
+    adds nothing to it: K12's launch wrote the HDR)."""
     import importlib
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     seen, active = [], []
+    sky = {"out": None, "readers": []}
 
     class Count(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             if _launches_work(func):
                 for ops in active:
                     ops.append(func.name())
+                out = sky["out"]
+                if out is not None and any(
+                        isinstance(t, torch.Tensor)
+                        and t.data_ptr() == out.data_ptr()
+                        for t in (*args, *(kwargs or {}).values())):
+                    sky["readers"].append(func.name())
             return func(*args, **(kwargs or {}))
 
     def watched(fn, what):
         def call(*a, **kw):
             before = [k.launches for k in kernels]
             active.append([])
+            if what == "taa_resolve":
+                sky["out"] = None
             if len(active) == 1:
                 torch.cuda.set_sync_debug_mode("error")
             try:
-                return fn(*a, **kw)
+                out = fn(*a, **kw)
+                if what == "environment_background":
+                    sky["out"] = out
+                return out
             finally:
                 if len(active) == 1:
                     torch.cuda.set_sync_debug_mode(0)
@@ -2435,18 +2640,21 @@ def host_free_phases(run, fc, history, kernels):
         run(fc, history)
     torch.cuda.synchronize()
     _log("inside the light-cluster grid, the sky background, the frustum "
-         "culls, the shadow tap, the sun term and the TAA resolve (eager "
-         "operators running on the card, kernels launched; no synchronize "
-         "and no copy from host memory under set_sync_debug_mode): "
-         + json.dumps(seen))
+         "culls, the sun term and the TAA resolve (eager operators running "
+         "on the card, kernels launched; no synchronize and no copy from "
+         "host memory under set_sync_debug_mode): " + json.dumps(seen)
+         + "; eager operators reading the sky background's output before "
+         f"the TAA resolve: {sky['readers']}")
     want = {fn: {k: 1 for k in ks} for _, fn, ks, _ in _HOST_FREE}
     calls = sorted(fn for _, fn, _, n in _HOST_FREE for _ in range(n))
     if sorted(w for w, _, _ in seen) != calls \
             or any(o or k != want[w] for w, o, k in seen):
         raise RuntimeError("build_light_clusters, environment_background, "
-                           "cull_primitives, sun_visibility, sun_term or "
-                           "taa_resolve ran more on the card than its "
-                           "kernels' one launch each")
+                           "cull_primitives, sun_term or taa_resolve ran "
+                           "more on the card than its kernel's one launch")
+    if sky["readers"]:
+        raise RuntimeError(f"eager operators {sky['readers']} read the sky "
+                           "background's output before the TAA resolve")
 
 
 def k1_row(raster, layer, launches_captured, n_launches):
@@ -2595,14 +2803,14 @@ def small_path(dev, raster, clustered, taa):
     # K2 and K8 shade the opaque surface and each blend layer; K5 resolves
     # the opaque, decal and blend layers, K6 tests each masked peel, K9
     # sets up and K10 bins the camera and the sun pass, K13 culls the
-    # primitives and the meshlets, K14 taps the sun map and K15 shades the
-    # sun for the opaque surface and each blend layer
+    # primitives and the meshlets, K15 shades the sun for the opaque
+    # surface and each blend layer, tapping the map itself (no K14)
     if by_name.get("raster_shadow_depth") != 1 \
             or k2_launches != 1 + SMALL_PEELS \
             or k5_launches != 2 + SMALL_PEELS or k6_launches != SMALL_PEELS \
             or k8_launches != 1 + SMALL_PEELS or k9_launches != 2 \
             or k10_binnings != 2 \
-            or k11_k15 != [1, 1, 2, 1 + SMALL_PEELS, 1 + SMALL_PEELS]:
+            or k11_k15 != [1, 1, 2, 0, 1 + SMALL_PEELS]:
         raise RuntimeError(f"small path launches {by_name}, K2 "
                            f"{k2_launches}, K5 {k5_launches}, K6 "
                            f"{k6_launches}, K8 {k8_launches}, K9 "
@@ -2865,8 +3073,9 @@ def bvh_paths(dev, path, profile: bool):
         path.scene, fc.scene_rotation, fc.sun_view_proj,
         shadow.shadow_params(cfg.shadow_map_resolution, cfg))
     vis_map = shadow.sun_visibility(
-        gb.world_pos, torch.sum(mu.oct_decode(gb.normals) * fc.sun_dir, -1),
-        smap, fc.sun_view_proj, cfg.shadow_map_resolution)
+        gb.world_pos, None, smap, fc.sun_view_proj,
+        cfg.shadow_map_resolution,
+        normal=mu.oct_decode(gb.normals).contiguous(), sun_dir=fc.sun_dir)
     agree = float(((vis_rt[m] > 0.5) == (vis_map[m] > 0.5)).float().mean())
     _log(f"(e) mean hdr {float(hdr.mean()):.2f} with RT shadows, "
          f"{float(off.mean()):.2f} without; RT shadow share "
@@ -3124,8 +3333,9 @@ def viewer_phase(dev, path):
     port: the
     page, two frames, an orbit input after which the next frame differs,
     then /quit, which ends the render loop. -> the rows of K8's and K14's
-    stochastic roles without the checkerboard (`jitter`, `dither`), which
-    only this path launches."""
+    stochastic roles without the checkerboard (`jitter`, `dither`: K14
+    alone on the inputs of K15's map role, which taps the map itself),
+    which only this path takes."""
     import threading
     import urllib.request
     from incarnation_tpu_torch.app import viewer
@@ -3133,7 +3343,9 @@ def viewer_phase(dev, path):
                                                skylight, taa)
     from incarnation_tpu_torch.scene import png
     w, h = VIEW_W, VIEW_H
-    for k in (raster.K1, clustered.K2, skylight.K8, shadow.K14):
+    from incarnation_tpu_torch.kernels import shading
+    for k in (raster.K1, clustered.K2, skylight.K8, shadow.K14,
+              shading.K15):
         k.reset()
     calls = []
     with _capturing(calls, raster, clustered, taa, limit=8):
@@ -3191,6 +3403,7 @@ def viewer_phase(dev, path):
     if loop.is_alive() or state.error:
         raise RuntimeError(f"(j) the render loop did not end cleanly: "
                            f"{state.error}")
+    n14, k15_roles = shadow.K14.launches, dict(shading.K15.by_name)
     check_twins("(j) viewer", calls, raster, clustered, taa,
                 need=("k1", "k2", "k3r", "k5", "k6", "k8", "k9", "k10",
                       "k11", "k12", "k13", "k14", "k15"))
@@ -3198,10 +3411,12 @@ def viewer_phase(dev, path):
     if not n:
         raise RuntimeError(f"(j) the viewer's frames launched K8's roles "
                            f"{skylight.K8.by_name}, not `jitter`")
-    n14 = shadow.K14.by_name.get("dither+nl", 0)
-    if not n14:
-        raise RuntimeError(f"(j) the viewer's frames launched K14's roles "
-                           f"{shadow.K14.by_name}, not `dither`")
+    if n14 or not k15_roles.get("map", 0) \
+            or not any(_k14_role(x) == "dither+nl"
+                       for x in _k14_calls(calls)):
+        raise RuntimeError(f"(j) the viewer's frames launched K14 {n14} "
+                           f"times, K15 {k15_roles}: not K15's map role "
+                           "with the `dither` tap alone")
     return [k8_row(skylight, calls, n, name="k8_sky_lighting[jitter]",
                    role="jitter"),
             k14_row(shadow, calls, n14, name="k14_sun_tap[dither]",
@@ -3270,13 +3485,10 @@ def band_phase(dev, path, pt):
     k3r = check_twins("(k) band frame", calls, raster, clustered, taa,
                       need=("k1", "k2", "k3r", "k5", "k6", "k8", "k9",
                             "k10", "k11", "k12", "k13", "k14", "k15"))
-    from incarnation_tpu_torch.kernels import shadow
-    k14_rows0 = {(_bound_args(shadow.sun_visibility_plain, a, kw)["row0"],
-                  _k14_role(_bound_args(shadow.sun_visibility_plain, a, kw)))
-                 for kind, a, kw in calls if kind == "k14"}
+    k14_rows0 = {(x["row0"], _k14_role(x)) for x in _k14_calls(calls)}
     if k14_rows0 != {(0, "dither_checker+nl"),
                      (H // 2, "dither_checker+nl")}:
-        raise RuntimeError(f"(k) the bands' K14 launches (first row, role) "
+        raise RuntimeError(f"(k) the bands' K15 map taps (first row, role) "
                            f"{sorted(k14_rows0)}: not the checkerboard from "
                            "rows 0 and H / 2")
     if {_k6_args(a, kw)["row0"] for kind, a, kw in calls if kind == "k6"} \
@@ -3324,18 +3536,23 @@ def band_phase(dev, path, pt):
 
 
 def check_twins(what, calls, raster, clustered, taa, need):
-    """Each captured K1, K2, K3, K5, K6, K8, K9, K10, K11, K12, K13, K14
-    and K15 launch against its twin, at compare_kernels' tolerances (K1 via
+    """Each captured K1, K2, K3, K5, K6, K8, K9, K10, K11, K12, K13 and
+    K15 launch against its twin, at compare_kernels' tolerances (K1 via
     _k1_error, K2 K2_RTOL, K3's fetch 1e-6 relative, K5 via _k5_error,
     K6's peel step via _k6_error, K8 via _k8_error, K9-K15 and K3's
-    resolve exactly, NaN for NaN), at the shapes the path gave it; raises
-    if a kind in `need` was not captured. Returns the K3 resolves'
-    arguments by name."""
+    resolve exactly, NaN for NaN), and K14's tap alone on the inputs of
+    each K15 launch with a map (kind k14), at the shapes the path gave
+    it; raises if a kind in `need` was not captured, or if the path
+    launched K14 itself. Returns the K3 resolves' arguments by name."""
     from incarnation_tpu_torch.kernels import (cull, resolve, shading, shadow,
                                                skylight)
+    if any(c[0] == "k14" for c in calls):
+        raise RuntimeError(f"{what}: the path launched K14 (K15 taps the "
+                           "map)")
     kinds = {k: [c for c in calls if c[0] == k]
              for k in ("k1", "k2", "k3", "k5", "k6", "k8", "k9", "k10",
-                       "k11", "k13", "k14", "k15")}
+                       "k11", "k13", "k15")}
+    kinds["k14"] = _k14_calls(calls)
     # taa_resolve launches K3's resolve only with a history on the card
     kinds["k3r"] = [c for c in calls if c[0] == "k3r"
                     and _k3r_calls(taa, [c])]
@@ -3435,8 +3652,7 @@ def check_twins(what, calls, raster, clustered, taa, need):
     for _, a, kw in kinds["k13"]:
         _k13_error(cull.cull_primitives(*a, **kw),
                    cull.cull_primitives_plain(*a, **kw))
-    k14 = [_bound_args(shadow.sun_visibility_plain, a, kw)
-           for _, a, kw in kinds["k14"]]
+    k14 = kinds["k14"]
     for x in k14:
         _k14_error(shadow.sun_visibility(**x),
                    shadow.sun_visibility_plain(**x))
@@ -3445,8 +3661,8 @@ def check_twins(what, calls, raster, clustered, taa, need):
         taps = sorted({(_k14_role(x), x["row0"],
                         tuple(x["world_pos"].shape[:2])) for x in k14})
         _log(f"{what}: K13 x{len(kinds['k13'])} (spheres {spheres}) and "
-             f"K14 x{len(k14)} (roles, first rows and shapes {taps}) "
-             "identical to the twin")
+             f"K14 alone x{len(k14)} on K15's map inputs (roles, first "
+             f"rows and shapes {taps}) identical to the twin")
     k15 = [_bound_args(shading.sun_term_plain, a, kw)
            for _, a, kw in kinds["k15"]]
     for x in k15:
@@ -3882,7 +4098,7 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
     images must agree (tri on all but 1e-4 of the pixels, u8 colour
     >= 50 dB PSNR)."""
     import torch
-    from incarnation_tpu_torch.kernels import (cull, resolve, shading, shadow,
+    from incarnation_tpu_torch.kernels import (cull, resolve, shading,
                                                skylight)
     got = run(fc, history)
     def raster_plain(bins, params, z_limit=None, mask_table=None,
@@ -3908,8 +4124,7 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
                      clustered.build_light_clusters_plain), \
             _swapped(skylight, "environment_background",
                      skylight.environment_background_plain), \
-            _swapped(cull, "cull_primitives", cull.cull_primitives_plain), \
-            _swapped(shadow, "sun_visibility", shadow.sun_visibility_plain):
+            _swapped(cull, "cull_primitives", cull.cull_primitives_plain):
         ref = run(fc, history)
     torch.cuda.synchronize()
     share = float((got["tri"] != ref["tri"]).float().mean())
@@ -3926,8 +4141,7 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
 # (module, function) pairs render_frame calls, timed by phase_breakdown
 _PHASES = (("cull", "cull_primitives"), ("raster", "prepare_geometry"),
            ("raster", "bin_triangles_layered"), ("raster", "rasterize_tiles"),
-           ("shadow", "render_sun_shadow_map"), ("shadow", "sun_visibility"),
-           ("resolve", "masked_peel"), ("resolve", "masked_alpha"),
+           ("shadow", "render_sun_shadow_map"), ("resolve", "masked_peel"), ("resolve", "masked_alpha"),
            ("resolve", "resolve_gbuffer"),
            ("clustered", "build_light_clusters"),
            ("clustered", "clustered_lighting"), ("skylight", "sky_lighting"),

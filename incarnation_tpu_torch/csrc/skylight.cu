@@ -888,29 +888,38 @@ extern "C" int k8_sky_lighting(const float* base_color, const float* mrao,
 //
 // It replaces no Pallas kernel: the JAX package writes this pass in jnp
 // (incarnation_tpu/kernels/skylight.py environment_background :159-177,
-// with kernels/sky.py sky_radiance :95-107). Its torch twin (kernels/
-// skylight.py environment_background_plain) evaluates the Preetham sky at
-// every pixel of the frame in about 60 full-frame elementwise passes and
-// then masks out the covered ones; here it is one launch, and a covered
-// pixel only writes its zeros.
+// with kernels/sky.py sky_radiance :95-107), and its frame adds it to the
+// HDR (renderer/frame.py:397). Its torch twin (kernels/skylight.py
+// environment_background_plain) evaluates the Preetham sky at every pixel
+// of the frame in about 60 full-frame elementwise passes, masks out the
+// covered ones and adds the result to the HDR; here it is one launch.
 //
 // Each pixel (x, y) not covered by geometry gets 1000 x Preetham radiance
 // along its view ray: the pixel centre at reverse-Z depth 1e-4 through the
 // inverse view-projection (a device pointer), minus the eye, normalized;
 // theta = acos(clamp(d.y)), gamma = acos(clamp(d . sun)), the Perez
 // function of both over its value at the zenith, times the zenith's Yxy,
-// to RGB. A covered pixel writes +0.0 (the twin's torch.where(mask, 0,
-// radiance)).
+// to RGB. A covered pixel's background is +0.0 (the twin's
+// torch.where(mask, 0, radiance)).
+//
+// Roles: the background alone (hdr NULL: a covered pixel writes +0.0),
+// and the accumulate role the frame takes, which reads the (H, W, 3) HDR
+// and writes hdr + background to a new tensor (never in place: the HDR
+// may be the gbuffer's emissive plane): an uncovered pixel hdr + rad, a
+// covered one hdr + 0.0f, so a -0.0 becomes +0.0 and a NaN stays NaN, as
+// the twin's add.
 //
 // The per-frame values (theta_s = acos(clamp(sun.y)), the zenith Yxy,
-// Perez(0, theta_s)) and the Perez coefficients are functions of the sun
-// direction (a device pointer) and the turbidity (by value, as a double):
-// each thread forms them once, in the twin's order, from the same double
+// Perez(0, theta_s)), the Perez coefficients, the inverse view-projection,
+// the eye and the sun are functions of the sun direction and the matrices
+// (device pointers) and the turbidity (by value, as a double): one thread
+// of each block forms them, in the twin's order, from the same double
 // expressions the twin's Python evaluates (sky.py perez_coefficients,
-// _zenith_yxy) rounded to float as torch rounds a Python scalar, so no
-// table is copied from host memory. The blocks are persistent (as many as
-// fit on the card at once), each thread walking pixels a grid apart, so
-// that work is done once per thread, not once per pixel.
+// _zenith_yxy) rounded to float as torch rounds a Python scalar, into
+// shared memory behind one barrier, so no table is copied from host
+// memory and every thread reads the same bits. The blocks are persistent
+// (as many as fit on the card at once), each walking tiles a grid apart,
+// so that work is done once a block.
 //
 // Arithmetic: every operation is the twin's, in the twin's order
 // (--fmad=false): the 4x4 product and the XYZ -> RGB product are sums left
@@ -920,17 +929,21 @@ extern "C" int k8_sky_lighting(const float* base_color, const float* mrao,
 // tanf and sqrtf are the functions torch calls; clamp propagates a NaN as
 // torch's does. So K12 equals its twin bit for bit.
 //
-// What bounds it: by the count of operations, bytes. It reads the 1-byte
-// mask and writes 12 bytes of every pixel (27.16 MB at 1920 x 1088, 0.0081
-// ms at 3.35 TB/s); the uncovered pixels' Preetham chain is 134 float
-// operations a pixel, each transcendental counted one (chip_smoke.py
-// K12_OPS_PER_SKY). In instructions it costs more: 11 IEEE divisions, two
-// acosf, two cosf and six expf, several hundred a pixel, which bound it
-// on the card by the variants measured. So each pixel's cos(theta), cos(gamma) and Y / y are
-// taken once (the twin's values, 15% faster than once a channel);
-// writing a tile's output through shared memory (0.0340 against 0.0264
-// ms) or four pixels a thread with one 4-byte mask load (0.0358 against
-// 0.0268) were slower (PERF.md).
+// What bounds it: by the count of operations, bytes. The accumulate role
+// reads the 1-byte mask and the 12-byte HDR and writes 12 bytes of every
+// pixel (52.2 MB at 1920 x 1088, 0.0156 ms at 3.35 TB/s); the uncovered
+// pixels' Preetham chain is 134 float operations a pixel, each
+// transcendental counted one (chip_smoke.py K12_OPS_PER_SKY). In
+// instructions it costs more: 11 IEEE divisions, two acosf, two cosf and
+// six expf, several hundred a pixel. So each pixel's cos(theta),
+// cos(gamma) and Y / y are taken once (the twin's values, 15% faster than
+// once a channel), and the HDR's loads start before the mask test
+// (0.0267 against 0.0303 ms after it); writing a tile's output through
+// shared memory (0.0340 against 0.0264 ms), four pixels a thread with one
+// 4-byte mask load (0.0358 against 0.0268), two tiles a thread's
+// iteration (0.0263, no faster than the loads first) and a tile's sky
+// pixels handed to whole warps by a ballot and a prefix sum (0.0337
+// against 0.0297) were slower or no faster (PERF.md).
 
 #define K12_TILE_W 32
 #define K12_TILE_H 8
@@ -954,31 +967,39 @@ __device__ __forceinline__ float k12_perez(float cos_t, float gamma,
          ((1.0f + c * expf(d * gamma)) + (e * cg) * cg);
 }
 
-__global__ void __launch_bounds__(K12_THREADS)
-k12_sky_background_kernel(const uint8_t* __restrict__ mask,  // (H, W)
-                          const float* __restrict__ eye,     // (3,)
-                          const float* __restrict__ ivp,     // (4, 4)
-                          const float* __restrict__ sun,     // (3,)
-                          double t, int width, int height,
-                          float* __restrict__ out) {          // (H, W, 3)
+// the per-frame values every pixel reads
+struct K12Frame {
+  float pa[3], pb[3], pc[3], pd[3], pe[3];  // the Perez coefficients
+  float zen[3];                             // the zenith's Yxy
+  float f0[3];                              // Perez(0, theta_s)
+  float m[16];                              // the inverse view-projection
+  float eye[3], sun[3];
+  float inv_w, inv_h;
+};
+
+// K12Frame's values, as the twin forms them
+__device__ void k12_frame(K12Frame& f, const float* __restrict__ eye,
+                          const float* __restrict__ ivp,
+                          const float* __restrict__ sun, double t,
+                          int width, int height) {
   // the Perez coefficients (sky.py perez_coefficients), the float of each
   // double expression
-  const float pa[3] = {(float)(0.1787 * t - 1.4630),
-                       (float)(-0.0193 * t - 0.2592),
-                       (float)(-0.0167 * t - 0.2608)};
-  const float pb[3] = {(float)(-0.3554 * t + 0.4275),
-                       (float)(-0.0665 * t + 0.0008),
-                       (float)(-0.0950 * t + 0.0092)};
-  const float pc[3] = {(float)(-0.0227 * t + 5.3251),
-                       (float)(-0.0004 * t + 0.2125),
-                       (float)(-0.0079 * t + 0.2102)};
-  const float pd[3] = {(float)(0.1206 * t - 2.5771),
-                       (float)(-0.0641 * t - 0.8989),
-                       (float)(-0.0441 * t - 1.6537)};
-  const float pe[3] = {(float)(-0.0670 * t + 0.3703),
-                       (float)(-0.0033 * t + 0.0452),
-                       (float)(-0.0109 * t + 0.0529)};
-  const float sx = __ldg(sun), sy = __ldg(sun + 1), sz = __ldg(sun + 2);
+  f.pa[0] = (float)(0.1787 * t - 1.4630);
+  f.pa[1] = (float)(-0.0193 * t - 0.2592);
+  f.pa[2] = (float)(-0.0167 * t - 0.2608);
+  f.pb[0] = (float)(-0.3554 * t + 0.4275);
+  f.pb[1] = (float)(-0.0665 * t + 0.0008);
+  f.pb[2] = (float)(-0.0950 * t + 0.0092);
+  f.pc[0] = (float)(-0.0227 * t + 5.3251);
+  f.pc[1] = (float)(-0.0004 * t + 0.2125);
+  f.pc[2] = (float)(-0.0079 * t + 0.2102);
+  f.pd[0] = (float)(0.1206 * t - 2.5771);
+  f.pd[1] = (float)(-0.0641 * t - 0.8989);
+  f.pd[2] = (float)(-0.0441 * t - 1.6537);
+  f.pe[0] = (float)(-0.0670 * t + 0.3703);
+  f.pe[1] = (float)(-0.0033 * t + 0.0452);
+  f.pe[2] = (float)(-0.0109 * t + 0.0529);
+  const float sy = __ldg(sun + 1);
   // the zenith (sky.py _zenith_yxy), t a float where the twin multiplies
   // a tensor by it
   const float tf = (float)t;
@@ -1002,23 +1023,82 @@ k12_sky_background_kernel(const uint8_t* __restrict__ mask,  // (H, W)
           (float)0.04153 * th) + (float)0.00516) * tf)) +
       ((((float)0.15346 * th3 - (float)0.26756 * th2) +
         (float)0.06670 * th) + (float)0.26688);
-  const float zen[3] = {zen_y, zen_x, zen_z};
-  float f0[3];
+  f.zen[0] = zen_y;
+  f.zen[1] = zen_x;
+  f.zen[2] = zen_z;
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    f0[c] = k12_perez(k12_clamp_min(cosf(0.0f), (float)1e-5), ths,
-                      cosf(ths), pa[c], pb[c], pc[c], pd[c], pe[c]);
-  float m[16];
+    f.f0[c] = k12_perez(k12_clamp_min(cosf(0.0f), (float)1e-5), ths,
+                        cosf(ths), f.pa[c], f.pb[c], f.pc[c], f.pd[c],
+                        f.pe[c]);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) m[i] = __ldg(ivp + i);
-  const float ex = __ldg(eye), ey = __ldg(eye + 1), ez = __ldg(eye + 2);
-  const float inv_w = 1.0f / (float)width, inv_h = 1.0f / (float)height;
-  // sky.py _XYZ2RGB, row k the weights of X, Y, Z
+  for (int i = 0; i < 16; ++i) f.m[i] = __ldg(ivp + i);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    f.eye[k] = __ldg(eye + k);
+    f.sun[k] = __ldg(sun + k);
+  }
+  f.inv_w = 1.0f / (float)width;
+  f.inv_h = 1.0f / (float)height;
+}
+
+// 1000 x Preetham radiance along the view ray of pixel (x, y)
+__device__ __forceinline__ void k12_sky(const K12Frame& f, int x, int y,
+                                        float (&o)[3]) {
+  // the view ray (environment_background_plain): NDC of the pixel centre
+  // at depth 1e-4, through the inverse view-projection
+  const float n0 = 2.0f * ((float)x + 0.5f) * f.inv_w - 1.0f;
+  const float n1 = -2.0f * ((float)y + 0.5f) * f.inv_h + 1.0f;
+  const float n2 = (float)1e-4;
+  float w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    w[j] = ((n0 * f.m[j] + n1 * f.m[4 + j]) + n2 * f.m[8 + j]) +
+           1.0f * f.m[12 + j];
+  const float den = fabsf(w[3]) > (float)1e-20 ? w[3] : 1.0f;
+  const float vx = w[0] / den - f.eye[0], vy = w[1] / den - f.eye[1],
+              vz = w[2] / den - f.eye[2];
+  const float rn =
+      1.0f / sqrtf(((vx * vx + vy * vy) + vz * vz) + (float)1e-20);
+  const float dx = vx * rn, dy = vy * rn, dz = vz * rn;
+  // sky.py sky_radiance
+  const float theta = acosf(k12_clamp(dy, 0.0f, 1.0f));
+  const float gamma = acosf(k12_clamp(
+      (dx * f.sun[0] + dy * f.sun[1]) + dz * f.sun[2], 0.0f, 1.0f));
+  const float cos_t = k12_clamp_min(cosf(theta), (float)1e-5);
+  const float cg = cosf(gamma);
+  float yxy[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    yxy[c] = f.zen[c] * (k12_perez(cos_t, gamma, cg, f.pa[c], f.pb[c],
+                                   f.pc[c], f.pd[c], f.pe[c]) / f.f0[c]);
+  // sky.py _yxy_to_rgb, row k of _XYZ2RGB the weights of X, Y, Z
   const float rgb[3][3] = {
       {(float)3.2404542, (float)-0.9692660, (float)0.0556434},
       {(float)-1.5371385, (float)1.8760108, (float)-0.2040259},
       {(float)-0.4985314, (float)0.0415560, (float)1.0572252}};
+  const float yl = yxy[0], cx = yxy[1];
+  const float cy = k12_clamp_min(yxy[2], (float)1e-6);
+  const float q = yl / cy;
+  const float big_x = cx * q;
+  const float big_z = ((1.0f - cx) - cy) * q;
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    o[j] = 1000.0f *
+           ((big_x * rgb[0][j] + yl * rgb[1][j]) + big_z * rgb[2][j]);
+}
 
+__global__ void __launch_bounds__(K12_THREADS)
+k12_sky_background_kernel(const uint8_t* __restrict__ mask,  // (H, W)
+                          const float* __restrict__ eye,     // (3,)
+                          const float* __restrict__ ivp,     // (4, 4)
+                          const float* __restrict__ sun,     // (3,)
+                          double t, int width, int height,
+                          const float* __restrict__ hdr,     // or NULL
+                          float* __restrict__ out) {          // (H, W, 3)
+  __shared__ K12Frame f;
+  if (threadIdx.x == 0) k12_frame(f, eye, ivp, sun, t, width, height);
+  __syncthreads();
   const int tiles_x = (width + K12_TILE_W - 1) / K12_TILE_W;
   const int tiles = tiles_x * ((height + K12_TILE_H - 1) / K12_TILE_H);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -1026,45 +1106,18 @@ k12_sky_background_kernel(const uint8_t* __restrict__ mask,  // (H, W)
     const int y = (tile / tiles_x) * K12_TILE_H + (threadIdx.x / K12_TILE_W);
     if (x >= width || y >= height) continue;
     const size_t i = (size_t)y * width + x;
+    // the HDR's loads first, in flight through the mask test and the sky
+    float h[3] = {0.0f, 0.0f, 0.0f};
+    if (hdr) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) h[k] = __ldg(hdr + 3 * i + k);
+    }
     float o[3] = {0.0f, 0.0f, 0.0f};
-    if (!mask[i]) {
-      // the view ray (environment_background_plain): NDC of the pixel
-      // centre at depth 1e-4, through the inverse view-projection
-      const float n0 = 2.0f * ((float)x + 0.5f) * inv_w - 1.0f;
-      const float n1 = -2.0f * ((float)y + 0.5f) * inv_h + 1.0f;
-      const float n2 = (float)1e-4;
-      float w[4];
+    if (!mask[i]) k12_sky(f, x, y, o);
+    if (hdr) {
+      // torch's hdr + background: +0.0 where covered
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        w[j] = ((n0 * m[j] + n1 * m[4 + j]) + n2 * m[8 + j]) +
-               1.0f * m[12 + j];
-      const float den = fabsf(w[3]) > (float)1e-20 ? w[3] : 1.0f;
-      const float vx = w[0] / den - ex, vy = w[1] / den - ey,
-                  vz = w[2] / den - ez;
-      const float rn =
-          1.0f / sqrtf(((vx * vx + vy * vy) + vz * vz) + (float)1e-20);
-      const float dx = vx * rn, dy = vy * rn, dz = vz * rn;
-      // sky.py sky_radiance
-      const float theta = acosf(k12_clamp(dy, 0.0f, 1.0f));
-      const float gamma =
-          acosf(k12_clamp((dx * sx + dy * sy) + dz * sz, 0.0f, 1.0f));
-      const float cos_t = k12_clamp_min(cosf(theta), (float)1e-5);
-      const float cg = cosf(gamma);
-      float yxy[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        yxy[c] = zen[c] * (k12_perez(cos_t, gamma, cg, pa[c], pb[c], pc[c],
-                                     pd[c], pe[c]) / f0[c]);
-      // sky.py _yxy_to_rgb
-      const float yl = yxy[0], cx = yxy[1];
-      const float cy = k12_clamp_min(yxy[2], (float)1e-6);
-      const float q = yl / cy;
-      const float big_x = cx * q;
-      const float big_z = ((1.0f - cx) - cy) * q;
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        o[j] = 1000.0f *
-               ((big_x * rgb[0][j] + yl * rgb[1][j]) + big_z * rgb[2][j]);
+      for (int k = 0; k < 3; ++k) o[k] = h[k] + o[k];
     }
     out[3 * i] = o[0];
     out[3 * i + 1] = o[1];
@@ -1075,7 +1128,8 @@ k12_sky_background_kernel(const uint8_t* __restrict__ mask,  // (H, W)
 extern "C" int k12_sky_background(const uint8_t* mask, const float* eye,
                                   const float* ivp, const float* sun,
                                   double turbidity, int width, int height,
-                                  float* out, void* stream) {
+                                  const float* hdr, float* out,
+                                  void* stream) {
   if (width < 0 || height < 0) return (int)cudaErrorInvalidValue;
   if (width == 0 || height == 0) return (int)cudaSuccess;
   static int grid = 0;  // persistent blocks: as many as fit at once
@@ -1096,6 +1150,6 @@ extern "C" int k12_sky_background(const uint8_t* mask, const float* eye,
   const int blocks = tiles < grid ? (int)tiles : grid;
   k12_sky_background_kernel<<<blocks, K12_THREADS, 0,
                               (cudaStream_t)stream>>>(
-      mask, eye, ivp, sun, turbidity, width, height, out);
+      mask, eye, ivp, sun, turbidity, width, height, hdr, out);
   return (int)cudaGetLastError();
 }

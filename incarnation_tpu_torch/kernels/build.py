@@ -3,7 +3,8 @@
 Each source is compiled by nvcc for sm_90a into a shared library with a
 plain C interface and loaded with ctypes (no PyTorch headers, so a build
 takes seconds). Libraries land in ``build/kernels/`` at the repo root
-(gitignored), named by a hash of source and flags, at first use or all at
+(gitignored), named by a hash of the source, the csrc headers it includes
+and the flags, at first use or all at
 once through build_all(). Nothing here runs at import time.
 
 Each C entry point launches on the stream it is given and returns
@@ -17,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -48,8 +50,30 @@ def _nvcc() -> str:
     return str(path)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> list:
+    """csrc/<name>.cu and every csrc header it includes by a quoted
+    #include, directly or through another header, in the order met."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        todo += [CSRC / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def _target(name: str) -> pathlib.Path:
-    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    """The library's path, named by a hash of its source, the headers it
+    includes and the flags: an edited header rebuilds every library that
+    includes it."""
+    h = hashlib.sha1()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

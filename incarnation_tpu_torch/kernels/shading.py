@@ -15,10 +15,14 @@ from .build import Kernel, ptr
 from ..core import mathutils as mu
 from ..scene import lights as lights_mod
 
-_P = ctypes.c_void_p
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # hdr, base_color, mrao, n, v, mask, visibility, extras (NULL: none),
-# sun_dir, sun_color_intensity, out, the pixel count
-K15 = Kernel("shading", "k15_sun_term", [_P] * 11 + [ctypes.c_longlong])
+# sun_dir, sun_color_intensity, out, width, height; then the map role's
+# world_pos, map (NULL: no map), sun_vp, the map's side, the bias scale,
+# dither on, the two noise seeds, the checker parity (-1: none) and row0
+K15 = Kernel("shading", "k15_sun_term",
+             [_P] * 11 + [_I, _I] + [_P] * 3
+             + [_I, _F, _I, _U, _U, _I, _I])
 
 _PI = mu.PI
 
@@ -150,13 +154,14 @@ def sun_term(hdr, gb, n, v, sun_dir, sun_color_intensity, *,
     with the transmission, clearcoat and clearcoat roughness of extras
     (H, W, 3) where given, its visibility one of: the sun map's tap
     (shadow_map with sun_vp, resolution, dither, checker_parity and row0:
-    shadow.sun_visibility, the bias's n.l from n and sun_dir), a given
-    (H, W) visibility (the RT frame's), or 1.
+    shadow.sun_visibility of gb.world_pos, the bias's n.l from n and
+    sun_dir), a given (H, W) visibility (the RT frame's), or 1.
 
-    CUDA tensors launch K14 (with a map, forming n.l itself) and then K15
-    (csrc/shading.cu) once, which reads every plane in place (contiguous,
-    base_color and mrao 16-byte aligned) and nothing else runs on the
-    card; CPU tensors take the twin, sun_term_plain."""
+    CUDA tensors launch K15 (csrc/shading.cu) once, which reads every
+    plane in place (contiguous, base_color and mrao 16-byte aligned) and
+    with a map taps it itself at the pixels where the visibility counts;
+    nothing else runs on the card. CPU tensors take the twin,
+    sun_term_plain."""
     if shadow_map is not None and visibility is not None:
         raise ValueError("sun_term: a shadow map or a visibility, not both")
     if not hdr.is_cuda:
@@ -167,13 +172,6 @@ def sun_term(hdr, gb, n, v, sun_dir, sun_color_intensity, *,
             checker_parity=checker_parity, row0=row0, extras=extras)
     dev = hdr.device
     h, w = hdr.shape[:2]
-    role = "given" if visibility is not None else "none"
-    if shadow_map is not None:
-        role = "map"
-        visibility = shadow_mod.sun_visibility(
-            gb.world_pos, None, shadow_map, sun_vp, resolution,
-            dither=dither, checker_parity=checker_parity, row0=row0,
-            normal=n, sun_dir=sun_dir)
     f32, hw3 = torch.float32, (h, w, 3)
     # each tensor K15 reads (None: not given), in one pass
     for name, t, shape, dtype in (
@@ -191,12 +189,21 @@ def sun_term(hdr, gb, n, v, sun_dir, sun_color_intensity, *,
                              f"tensor on {dev}")
     if gb.base_color.data_ptr() % 16 or gb.mrao.data_ptr() % 16:
         raise ValueError("base_color, mrao: need 16-byte aligned pixels")
+    role, wp, tap = "none", None, (1, 1.0, 0, 0, 0, -1)
+    if visibility is not None:
+        role = "given"
+    elif shadow_map is not None:
+        role, wp = "map", gb.world_pos
+        shadow_mod.check_map_inputs(dev, h, w, wp, shadow_map, sun_vp,
+                                    resolution, checker_parity)
+        tap = shadow_mod.map_args(resolution, dither, checker_parity)
     out = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     if not h * w:
         return out
     K15(ptr(hdr), ptr(gb.base_color), ptr(gb.mrao), ptr(n), ptr(v),
         ptr(gb.mask), ptr(visibility), ptr(extras), ptr(sun_dir),
-        ptr(sun_color_intensity), ptr(out), h * w,
+        ptr(sun_color_intensity), ptr(out), w, h, ptr(wp), ptr(shadow_map),
+        ptr(sun_vp), *tap, int(row0),
         name=role + ("+extras" if extras is not None else ""))
     return out
 

@@ -5,8 +5,10 @@ DirectLighting pass (ref: shaders/lighting/common.hlsli:91-116). The raster
 frame's stand-in is a rasterized orthographic shadow map: K1 renders the
 sun view's depth in its depth-only role once per frame, and the screen pass
 compares each pixel's sun-space depth with one tap of the map:
-sun_visibility, K14 (csrc/shadow.cu) on CUDA tensors and its plain twin
-sun_visibility_plain on CPU ones.
+shading.sun_term's map role, whose K15 launch taps the map itself (csrc/
+shading.cu with csrc/k14_tap.cuh), and its twin sun_visibility_plain.
+The tap alone is sun_visibility: K14 (csrc/shadow.cu) on CUDA tensors,
+the twin on CPU ones.
 
 The map stays float32: the JAX package's packing to u16 words is an
 approximation the port does not make, so the port's depth agrees with it to
@@ -31,12 +33,22 @@ N_PCF_X, N_PCF_Y = 2246822519, 3266489917
 _M32 = 0xFFFFFFFF
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-# world_pos, n_dot_l, the map, sun_vp, width, height, the map's side, the
-# bias scale 2 / side, dither on, the two noise seeds, the checker parity
-# (-1: none), row0, the output, the normals and sun_dir (NULL: n_dot_l
-# given)
+# world_pos, the map, sun_vp, width, height, the map's side, the bias scale
+# 2 / side, dither on, the two noise seeds, the checker parity (-1: none),
+# row0, the output, the normals and sun_dir
 K14 = Kernel("shadow", "k14_sun_tap",
-             [_P] * 4 + [_I, _I, _I, _F, _I, _U, _U, _I, _I, _P, _P, _P])
+             [_P] * 3 + [_I, _I, _I, _F, _I, _U, _U, _I, _I, _P, _P, _P])
+
+
+def map_args(resolution: int, dither, checker_parity) -> tuple:
+    """The map's constants that K14's and K15's C entries take: (side,
+    bias scale 2 / side, dither on, the two noise seeds, the checker parity
+    or -1)."""
+    s = int(resolution)
+    frame = 0 if dither is None else int(dither)
+    cp = -1 if checker_parity is None else int(checker_parity) & 1
+    return (s, 2.0 / s, int(dither is not None), (frame * N_PCF_X) & _M32,
+            (frame * N_PCF_Y) & _M32, cp)
 
 
 def sun_view_proj(sun_dir, center, radius) -> np.ndarray:
@@ -118,46 +130,57 @@ def sun_visibility(world_pos, n_dot_l, shadow_depth, sun_vp,
     noise at its compacted (H, W/2) positions, as the JAX package's
     (shadow.py:103-154); row0: the first row's index in the whole frame.
     normal (H, W, 3) and sun_dir (3,) with n_dot_l None: the bias's n.l is
-    torch.sum(normal * sun_dir, -1), which K14 forms itself (its "+nl"
-    roles). -> (H, W) f32, 0 (occluded), 1, or a tent of the two.
+    torch.sum(normal * sun_dir, -1) (K14's "+nl" roles form it
+    themselves). -> (H, W) f32, 0 (occluded), 1, or a tent of the two.
 
-    CUDA tensors launch K14 (csrc/shadow.cu) once, which reads world_pos
-    and n_dot_l (or the normals and sun_dir) in place (contiguous, never
-    copied); CPU tensors take the twin, sun_visibility_plain."""
+    CUDA tensors launch K14 (csrc/shadow.cu) once in a "+nl" role, which
+    reads world_pos and the normals in place (contiguous, never copied); a
+    given n_dot_l is refused there. The frame's sun term taps the map
+    inside K15 (shading.sun_term), so no frame calls this on the card.
+    CPU tensors take the twin, sun_visibility_plain, in either form."""
     if not world_pos.is_cuda:
         return sun_visibility_plain(world_pos, n_dot_l, shadow_depth, sun_vp,
                                     resolution, dither, checker_parity, row0,
                                     normal=normal, sun_dir=sun_dir)
+    if n_dot_l is not None or normal is None or sun_dir is None:
+        raise ValueError("sun_visibility on the card takes the \"+nl\" form: "
+                         "n_dot_l None, normal and sun_dir given")
     dev = world_pos.device
     h, w = world_pos.shape[:2]
     s = int(resolution)
-    from_normal = n_dot_l is None
-    for name, t, shape in (("world_pos", world_pos, (h, w, 3)),
-                           *((("normal", normal, (h, w, 3)),
-                              ("sun_dir", sun_dir, (3,))) if from_normal
-                             else (("n_dot_l", n_dot_l, (h, w)),)),
-                           ("shadow_depth", shadow_depth, (s, s)),
-                           ("sun_vp", sun_vp, (4, 4))):
-        if t.dtype != torch.float32 or t.device != dev \
+    check_map_inputs(dev, h, w, world_pos, shadow_depth, sun_vp, s,
+                     checker_parity, normal=normal, sun_dir=sun_dir)
+    out = torch.empty((h, w), dtype=torch.float32, device=dev)
+    if not h * w:
+        return out
+    side, scale, dith, seed_x, seed_y, cp = map_args(s, dither,
+                                                     checker_parity)
+    K14(ptr(world_pos), ptr(shadow_depth), ptr(sun_vp), w, h, side, scale,
+        dith, seed_x, seed_y, cp, int(row0), ptr(out), ptr(normal),
+        ptr(sun_dir), name=role_name(dither, checker_parity, True))
+    return out
+
+
+def check_map_inputs(dev, h: int, w: int, world_pos, shadow_depth, sun_vp,
+                     resolution: int, checker_parity, **more):
+    """Raises ValueError unless the map tap's tensors (and `more`, name to
+    tensor: the normals (H, W, 3), sun_dir (3,)) are contiguous float32 on
+    dev of their shapes, the map has a texel, and a checkerboard's width
+    is even."""
+    s = int(resolution)
+    shapes = {"world_pos": (h, w, 3), "normal": (h, w, 3),
+              "sun_dir": (3,), "shadow_depth": (s, s), "sun_vp": (4, 4)}
+    for name, t in (("world_pos", world_pos), *more.items(),
+                    ("shadow_depth", shadow_depth), ("sun_vp", sun_vp)):
+        shape = shapes[name]
+        if t is None or t.dtype != torch.float32 or t.device != dev \
                 or not t.is_contiguous() or tuple(t.shape) != shape:
             raise ValueError(f"{name}: need a contiguous float32 tensor "
                              f"{shape} on {dev}")
     if s < 1:
         raise ValueError("resolution: need a map of at least one texel")
-    cp = -1 if checker_parity is None else int(checker_parity) & 1
-    if cp >= 0 and w % 2:
+    if checker_parity is not None and w % 2:
         raise ValueError("the checkerboard needs an even width")
-    out = torch.empty((h, w), dtype=torch.float32, device=dev)
-    if not h * w:
-        return out
-    frame = 0 if dither is None else int(dither)
-    K14(ptr(world_pos), ptr(n_dot_l), ptr(shadow_depth), ptr(sun_vp), w, h,
-        s, 2.0 / s, int(dither is not None), (frame * N_PCF_X) & _M32,
-        (frame * N_PCF_Y) & _M32, cp, int(row0), ptr(out),
-        ptr(normal if from_normal else None),
-        ptr(sun_dir if from_normal else None),
-        name=role_name(dither, checker_parity, from_normal))
-    return out
 
 
 def role_name(dither, checker_parity, from_normal: bool = False) -> str:

@@ -14,7 +14,8 @@ whole-frame position (row0: a band's first row).
 sky_lighting is K8 (csrc/skylight.cu) on CUDA tensors; on CPU tensors it
 runs its plain twin, sky_lighting_plain, the torch code the kernel was
 written from. environment_background's dynamic sky is K12 (csrc/
-skylight.cu) on CUDA tensors, environment_background_plain on CPU ones."""
+skylight.cu) on CUDA tensors, its add to the frame's HDR in the same
+launch, and environment_background_plain on CPU ones."""
 
 from __future__ import annotations
 
@@ -41,9 +42,9 @@ K8 = Kernel("skylight", "k8_sky_lighting",
             [_P] * 10 + [_I, _P, _I, _I, _P, _I, _P, _F, _I, _P, _I, _I,
                          _P, _I, _I, _I])
 # mask, eye, inv_view_proj, sun_dir, turbidity (a double), width, height,
-# out
+# hdr (NULL: the background alone), out
 K12 = Kernel("skylight", "k12_sky_background",
-             [_P] * 4 + [ctypes.c_double, _I, _I, _P])
+             [_P] * 4 + [ctypes.c_double, _I, _I, _P, _P])
 # K8's flags (csrc/skylight.cu)
 _DIFFUSE, _SPECULAR, _LIGHTING_ONLY, _ANALYTIC, _LUT_PACKED = 1, 2, 4, 8, 16
 _DITHER, _JITTER, _CHECKER = 32, 64, 128
@@ -309,28 +310,35 @@ def sky_lighting_plain(gb, n, v, probe: ibl.EnvironmentProbe, env_brdf,
 
 def environment_background(mask, eye, inv_view_proj, width, height,
                            probe=None, sun_dir=None, turbidity: float = 2.0,
-                           sky_brightness=25000.0, dynamic_sky: bool = True):
+                           sky_brightness=25000.0, dynamic_sky: bool = True,
+                           hdr=None):
     """Background radiance for uncovered pixels: 1000 x Preetham
-    (dynamic sky) or sky_brightness x envmap. The dynamic sky on CUDA
-    tensors is one K12 launch (csrc/skylight.cu); on CPU tensors, and the
-    envmap role on every device, the twin environment_background_plain."""
+    (dynamic sky) or sky_brightness x envmap, 0 where covered; given hdr
+    (H, W, 3), hdr + that background in a new tensor (hdr is not
+    modified). The dynamic sky on CUDA tensors is one K12 launch (csrc/
+    skylight.cu), its add to hdr included; on CPU tensors, and the envmap
+    role on every device, the twin environment_background_plain."""
     if not (dynamic_sky and mask.is_cuda):
         return environment_background_plain(
             mask, eye, inv_view_proj, width, height, probe, sun_dir,
-            turbidity, sky_brightness, dynamic_sky)
+            turbidity, sky_brightness, dynamic_sky, hdr=hdr)
     dev = mask.device
     for name, t, shape, dt in (("mask", mask, (height, width), torch.bool),
                                ("eye", eye, (3,), torch.float32),
                                ("inv_view_proj", inv_view_proj, (4, 4),
                                 torch.float32),
-                               ("sun_dir", sun_dir, (3,), torch.float32)):
+                               ("sun_dir", sun_dir, (3,), torch.float32),
+                               *((("hdr", hdr, (height, width, 3),
+                                   torch.float32),) if hdr is not None
+                                 else ())):
         if t is None or t.dtype != dt or t.device != dev \
                 or not t.is_contiguous() or tuple(t.shape) != shape:
             raise ValueError(f"{name}: need a contiguous {shape} {dt} "
                              f"tensor on {dev}")
     out = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
     K12(ptr(mask), ptr(eye), ptr(inv_view_proj), ptr(sun_dir),
-        float(turbidity), width, height, ptr(out))
+        float(turbidity), width, height, ptr(hdr), ptr(out),
+        name="background" if hdr is None else "accumulate")
     return out
 
 
@@ -338,11 +346,12 @@ def environment_background_plain(mask, eye, inv_view_proj, width, height,
                                  probe=None, sun_dir=None,
                                  turbidity: float = 2.0,
                                  sky_brightness=25000.0,
-                                 dynamic_sky: bool = True):
+                                 dynamic_sky: bool = True, hdr=None):
     """K12's plain twin, and the envmap role: each pixel centre's view ray
     at reverse-Z depth 1e-4 (resolve.world_from_depth's arithmetic, its
     4x4 product summed left to right by mathutils.rows_mat), then the sky
-    along it, 0 where covered."""
+    along it, 0 where covered; given hdr, hdr plus that (the frame's add,
+    JAX's renderer/frame.py:397)."""
     xs, ys = mu.pixel_centers(height, width, mask.device)
     depth = torch.full((height, width), 1e-4, dtype=torch.float32,
                        device=mask.device)
@@ -356,4 +365,5 @@ def environment_background_plain(mask, eye, inv_view_proj, width, height,
         rad = 1000.0 * sky_mod.sky_radiance(sun_dir, d, turbidity)
     else:
         rad = sky_brightness * ibl.sample_cube(probe.envmap, d)
-    return torch.where(mask[..., None], 0.0, rad)
+    background = torch.where(mask[..., None], 0.0, rad)
+    return background if hdr is None else hdr + background

@@ -325,14 +325,18 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
     hdr, bent_normals, v = _shade_surface(scene, gb, n, depth, fc,
                                           stoch=stoch, **shade)
 
+    # the background added to the HDR (on the card the dynamic sky's add
+    # is inside K12's launch)
     if config.env_sky_mode == EnvSkyMode.DYNAMIC_SKY:
-        hdr = hdr + skylight.environment_background(
+        hdr = skylight.environment_background(
             gb.mask, fc.eye, fc.inv_view_proj, params.width, params.height,
-            sun_dir=fc.sun_dir, turbidity=config.turbidity, dynamic_sky=True)
+            sun_dir=fc.sun_dir, turbidity=config.turbidity, dynamic_sky=True,
+            hdr=hdr)
     elif probe is not None:
-        hdr = hdr + skylight.environment_background(
+        hdr = skylight.environment_background(
             gb.mask, fc.eye, fc.inv_view_proj, params.width, params.height,
-            probe=probe, sky_brightness=fc.sky_brightness, dynamic_sky=False)
+            probe=probe, sky_brightness=fc.sky_brightness, dynamic_sky=False,
+            hdr=hdr)
 
     if has_blend_layer:
         # Forward alpha-composited BLEND layers: depth-peel the blend
@@ -454,7 +458,7 @@ def _shade_surface(scene, gb, n, depth, fc, *, config: Config, params,
             uv_dither=config.stochastic_bilinear,
             checker_parity=checker_parity, row0=band_row)
     if config.enable_direct_lighting:
-        # the sun: shadow-mapped (K14's tap and K15) or ray-traced
+        # the sun: shadow-mapped (K15 with the map's tap) or ray-traced
         rt_shadows = (scene_bvh is not None
                       and config.sun_shadow_mode in ("auto", "rt"))
         hdr = shading.sun_term(

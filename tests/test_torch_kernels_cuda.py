@@ -2160,6 +2160,14 @@ def test_k12_refuses_and_never_falls_back(dev):
                                         **dict(kw, sun_dir=None))
     with pytest.raises(ValueError, match="mask"):
         skylight.environment_background(mask, eye, ivp, w + 1, h, **kw)
+    with pytest.raises(ValueError, match="hdr"):
+        skylight.environment_background(mask, eye, ivp, w, h, **kw,
+                                        hdr=torch.zeros((h, w, 4),
+                                                        device=dev))
+    with pytest.raises(ValueError, match="hdr"):
+        skylight.environment_background(
+            mask, eye, ivp, w, h, **kw,
+            hdr=torch.zeros((w, h, 3), device=dev).transpose(0, 1))
     assert skylight.K12.launches == n0
 
 
@@ -2342,8 +2350,26 @@ K14_ROLES = {"exact": (None, None), "dither": (9, None),
 
 
 def _k14_args(dev, inp, side):
+    """(world_pos, depth, sun_vp, side, normal, sun_dir) on the card: K14's
+    "+nl" form, its normals random units (seeded by the frame's size) with
+    one NaN, the sun's direction sun_tap_inputs' map's."""
     f = lambda k: torch.tensor(inp[k], device=dev)
-    return f("world_pos"), f("n_dot_l"), f("depth"), f("sun_vp"), side
+    h, w = inp["n_dot_l"].shape
+    nrm = _unit_np(np.random.default_rng(h * 7 + w), (h, w, 3)).astype(
+        np.float32)
+    if h * w > 2:
+        nrm[h // 3, w // 3, 1] = np.nan
+    sun = np.float32([0.3, 0.8, -0.5])
+    sun /= np.linalg.norm(sun)
+    t = lambda x: torch.tensor(x, device=dev)
+    return f("world_pos"), f("depth"), f("sun_vp"), side, t(nrm), t(sun)
+
+
+def _k14_call(fn, args, **kw):
+    """sun_visibility or its twin on _k14_args' tensors, n.l from the
+    normals."""
+    wp, depth, vp, side, nrm, sun = args
+    return fn(wp, None, depth, vp, side, normal=nrm, sun_dir=sun, **kw)
 
 
 @pytest.mark.parametrize("shape,role", [
@@ -2352,19 +2378,21 @@ def _k14_args(dev, inp, side):
     ((33, 70), "dither_checker1"), ((1, 2), "dither_checker0"),
     ((3, 66), "checker0")])
 def test_k14_matches_twin_bit_for_bit(dev, shape, role):
-    """Every value equals the twin's bit for bit, one launch a call, in
-    each role: 1920x1088 on a 1024 map, the viewer's odd 959 width, a
-    width of 35 pairs (a warp and 3 more), one pair, rows of 33 pairs."""
+    """Every value of K14's "+nl" roles equals the twin's bit for bit, one
+    launch a call, in each role: 1920x1088 on a 1024 map, the viewer's
+    odd 959 width, a width of 35 pairs (a warp and 3 more), one pair, rows
+    of 33 pairs."""
     h, w = shape
     side = 1024 if w >= 959 else 64
     args = _k14_args(dev, sun_tap_inputs(h, w, seed=h, side=side), side)
     dither, parity = K14_ROLES[role]
-    name = shadow.role_name(dither, parity)
+    name = shadow.role_name(dither, parity, True)
     n0 = shadow.K14.by_name.get(name, 0)
-    got = shadow.sun_visibility(*args, dither=dither, checker_parity=parity)
+    got = _k14_call(shadow.sun_visibility, args, dither=dither,
+                    checker_parity=parity)
     assert shadow.K14.by_name.get(name, 0) == n0 + 1
-    ref = shadow.sun_visibility_plain(*args, dither=dither,
-                                      checker_parity=parity)
+    ref = _k14_call(shadow.sun_visibility_plain, args, dither=dither,
+                    checker_parity=parity)
     assert got.dtype == torch.float32 and got.shape == ref.shape == (h, w)
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
         int((got != ref).sum())
@@ -2377,58 +2405,67 @@ def test_k14_matches_twin_bit_for_bit(dev, shape, role):
 def test_k14_band_rows_match_whole(dev, role):
     """A band of rows 544-1087 (row0 544) and one of rows 7-30 (row0 7,
     odd: the checkerboard's rows swap lanes) equal the same rows of the
-    whole-frame launch and the twin's band."""
+    whole-frame launch and the twin's band ("+nl" roles)."""
     inp = sun_tap_inputs(1088, 1920, seed=5, side=1024)
-    wp, ndl, depth, vp, side = _k14_args(dev, inp, 1024)
+    wp, depth, vp, side, nrm, sun = _k14_args(dev, inp, 1024)
     dither, parity = K14_ROLES[role]
-    whole = shadow.sun_visibility(wp, ndl, depth, vp, side, dither=dither,
-                                  checker_parity=parity)
+    kw = dict(dither=dither, checker_parity=parity)
+    whole = _k14_call(shadow.sun_visibility, (wp, depth, vp, side, nrm, sun),
+                      **kw)
     for r0, r1 in ((544, 1088), (7, 31)):
-        band = shadow.sun_visibility(
-            wp[r0:r1].contiguous(), ndl[r0:r1].contiguous(), depth, vp, side,
-            dither=dither, checker_parity=parity, row0=r0)
-        ref = shadow.sun_visibility_plain(
-            wp[r0:r1], ndl[r0:r1], depth, vp, side, dither=dither,
-            checker_parity=parity, row0=r0)
-        assert torch.equal(band, whole[r0:r1])
-        assert torch.equal(band, ref)
+        band = (wp[r0:r1].contiguous(), depth, vp, side,
+                nrm[r0:r1].contiguous(), sun)
+        got = _k14_call(shadow.sun_visibility, band, row0=r0, **kw)
+        ref = _k14_call(shadow.sun_visibility_plain, band, row0=r0, **kw)
+        assert torch.equal(got, whole[r0:r1])
+        assert torch.equal(got, ref)
 
 
 def test_k14_back_to_back_and_no_host_sync(dev):
-    """Every role back to back under set_sync_debug_mode("error"): each
-    launch equals its twin, with no copy from host memory and no
+    """Every "+nl" role back to back under set_sync_debug_mode("error"):
+    each launch equals its twin, with no copy from host memory and no
     synchronize."""
     args = _k14_args(dev, sun_tap_inputs(200, 320, seed=3, side=256), 256)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        got = {role: shadow.sun_visibility(*args, dither=d, checker_parity=c,
-                                           row0=4)
+        got = {role: _k14_call(shadow.sun_visibility, args, dither=d,
+                               checker_parity=c, row0=4)
                for role, (d, c) in K14_ROLES.items()}
     finally:
         torch.cuda.set_sync_debug_mode(0)
     for role, (d, c) in K14_ROLES.items():
-        ref = shadow.sun_visibility_plain(*args, dither=d, checker_parity=c,
-                                          row0=4)
+        ref = _k14_call(shadow.sun_visibility_plain, args, dither=d,
+                        checker_parity=c, row0=4)
         assert torch.equal(got[role], ref), role
 
 
 def test_k14_refuses_and_never_falls_back(dev):
-    wp, ndl, depth, vp, side = _k14_args(
+    """Bad tensors raise before any launch, and so does a given n_dot_l:
+    on the card K14 takes only the "+nl" form."""
+    wp, depth, vp, side, nrm, sun = _k14_args(
         dev, sun_tap_inputs(16, 31, seed=1), 64)
+    ndl = torch.sum(nrm * sun, -1)
     n0 = shadow.K14.launches
+
+    def call(wp=wp, depth=depth, vp=vp, side=side, nrm=nrm, sun=sun, **kw):
+        return shadow.sun_visibility(wp, None, depth, vp, side, normal=nrm,
+                                     sun_dir=sun, **kw)
     with pytest.raises(ValueError, match="even width"):
-        shadow.sun_visibility(wp, ndl, depth, vp, side, dither=3,
-                              checker_parity=0)
+        call(dither=3, checker_parity=0)
     with pytest.raises(ValueError, match="world_pos"):
-        shadow.sun_visibility(wp.permute(1, 0, 2).contiguous()
-                              .permute(1, 0, 2), ndl, depth, vp, side)
-    with pytest.raises(ValueError, match="n_dot_l"):
-        shadow.sun_visibility(wp, ndl.double(), depth, vp, side)
+        call(wp=wp.permute(1, 0, 2).contiguous().permute(1, 0, 2))
+    with pytest.raises(ValueError, match="normal"):
+        call(nrm=nrm.double())
     with pytest.raises(ValueError, match="shadow_depth"):
-        shadow.sun_visibility(wp, ndl, depth, vp, 32)
+        call(side=32)
     with pytest.raises(ValueError, match="sun_vp"):
-        shadow.sun_visibility(wp, ndl, depth, vp.cpu(), side)
+        call(vp=vp.cpu())
+    with pytest.raises(ValueError, match=r"\+nl"):
+        shadow.sun_visibility(wp, ndl, depth, vp, side)
+    with pytest.raises(ValueError, match=r"\+nl"):
+        shadow.sun_visibility(wp, ndl, depth, vp, side, normal=nrm,
+                              sun_dir=sun)
     assert shadow.K14.launches == n0
 
 
@@ -2492,6 +2529,7 @@ def sun_term_inputs(h, w, seed=0, side=64, extras=False, nan=True):
 K15_ROLES = {"map_exact": ("map", None, None),
              "map_dither": ("map", 9, None),
              "map_dither_checker": ("map", 10, 0),
+             "map_checker1": ("map", None, 1),
              "given": ("given", None, None), "none": (None, None, None)}
 
 
@@ -2529,7 +2567,7 @@ def _k15_cases():
     cases = []
     for role in K15_ROLES:
         for shape in ((1088, 1920), (540, 959), (33, 70), (1, 2)):
-            if role == "map_dither_checker" and shape[1] % 2:
+            if K15_ROLES[role][2] is not None and shape[1] % 2:
                 continue
             for extras in (False, True):
                 cases.append((role, shape, extras))
@@ -2538,9 +2576,10 @@ def _k15_cases():
 
 @pytest.mark.parametrize("role,shape,extras", _k15_cases())
 def test_k15_matches_twin_bit_for_bit(dev, role, shape, extras):
-    """sun_term (K14 with the map, then K15) equals sun_term_plain bit for
-    bit, NaN where it is NaN, in every role: the map's exact, dithered and
-    checkerboard taps, a given visibility, none; with and without extras;
+    """sun_term (one K15 launch, with the map tapping it itself) equals
+    sun_term_plain bit for bit, NaN where it is NaN, in every role: the
+    map's exact, dithered and checkerboard taps (both parities), a given
+    visibility, none; with and without extras;
     1920x1088, the viewer's odd 959 width, 35 pairs, one pair. One K15
     launch a call, counted under its role."""
     h, w = shape
@@ -2566,7 +2605,7 @@ def test_k15_band_rows_and_no_host_sync(dev):
     """A band of rows 544-1087 (row0 544) of the map's checkerboard role
     equals the same rows of the whole frame, and every role runs back to
     back under set_sync_debug_mode("error") (no copy from host memory, no
-    synchronize): K14 and K15, nothing else on the card."""
+    synchronize): K15 alone, no K14 launch, nothing else on the card."""
     inp = sun_term_inputs(1088, 1920, seed=3, side=1024)
     a, kw = sun_term_call(inp, "map_dither_checker", dev)
     whole = shading.sun_term(*a, **kw)
@@ -2583,7 +2622,7 @@ def test_k15_band_rows_and_no_host_sync(dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert shading.K15.launches == n15 + len(K15_ROLES)
-    assert shadow.K14.launches == n14 + 3
+    assert shadow.K14.launches == n14
     for g, (a, kw) in zip(got, calls):
         assert _same_or_nan(g, shading.sun_term_plain(*a, **kw))
 
@@ -2613,6 +2652,95 @@ def test_k15_refuses_and_never_falls_back(dev):
         shading.sun_term(*a, **kw, shadow_map=torch.tensor(
             inp["shadow_map"], device=dev))
     assert shading.K15.launches == n0
+
+
+def lit_share_inputs(h, w, share, seed=0, side=64):
+    """sun_term_inputs with normals that face the sun at about `share` of
+    the pixels (n = sun + 0.5 u normalized, n.l >= 0.5) and face away
+    elsewhere (-sun + 0.5 u), view vectors in each normal's hemisphere, no
+    NaN: the share of covered pixels the map role taps."""
+    inp = sun_term_inputs(h, w, seed=seed, side=side, nan=False)
+    r = np.random.default_rng(seed + 1)
+    sun = inp["sun_dir"]
+    sign = np.where(r.random((h, w, 1)) < share, 1.0, -1.0)
+    n = sign * sun + 0.5 * _unit_np(r, (h, w, 3))
+    n = n / np.linalg.norm(n, axis=-1, keepdims=True)
+    v = n + 0.9 * _unit_np(r, (h, w, 3))
+    v = v / np.linalg.norm(v, axis=-1, keepdims=True)
+    inp["n"] = np.ascontiguousarray(n, np.float32)
+    inp["v"] = np.ascontiguousarray(v, np.float32)
+    return inp
+
+
+def _lit_cases():
+    cases = []
+    for share in (0.02, 0.5, 1.0):
+        for role in ("map_exact", "map_dither", "map_dither_checker",
+                     "map_checker1"):
+            shapes = [(1088, 1920), (33, 70), (5, 128), (4, 2)]
+            if "checker" not in role:
+                shapes += [(540, 959), (7, 33)]
+            cases += [(share, role, s) for s in shapes]
+    return cases
+
+
+@pytest.mark.parametrize("share,role,shape", _lit_cases())
+def test_k15_map_role_lit_shares_match_twin(dev, share, role, shape):
+    """The map role taps only where the sun lights a covered pixel, and the
+    result still equals sun_term_plain bit for bit: about 2%, 50% and 100%
+    of the pixels lit; 1920x1088, 35 pairs (a row's end past a warp's),
+    64 pairs (two warps' edges), one pair, the odd 959 and 33 widths
+    without the checkerboard; whole frames (row0 0) and a band's rows from
+    row0 544 and 7. One K15 launch a call, none of K14."""
+    h, w = shape
+    inp = lit_share_inputs(h, w, share, seed=h * 3 + w,
+                           side=1024 if w >= 959 else 64)
+    for row0 in (0, 544, 7):
+        a, kw = sun_term_call(inp, role, dev, row0=row0)
+        n14, n15 = shadow.K14.launches, shading.K15.by_name.get("map", 0)
+        got = shading.sun_term(*a, **kw)
+        assert shading.K15.by_name.get("map", 0) == n15 + 1
+        assert shadow.K14.launches == n14
+        ref = shading.sun_term_plain(*a, **kw)
+        assert _same_or_nan(got, ref), int((got != ref).sum())
+    if h * w > 1000:
+        lit = a[1].mask & ((a[2] * a[4]).sum(-1) > 0)
+        assert abs(float(lit.float().mean()) - 0.9 * share) < 0.02
+
+
+def test_k12_accumulate_matches_twin_bit_for_bit(dev):
+    """The accumulate role (hdr given) equals hdr + the twin's background
+    bit for bit, NaN for NaN: -0.0, NaN and inf planted in hdr at covered
+    and uncovered pixels (a covered -0.0 comes back +0.0); hdr is left as
+    it was; one K12 launch a call, at 1920x1088, 333x97 and 1x1."""
+    for (h, w), sun_y in (((1088, 1920), 0.5), ((97, 333), 0.08),
+                          ((1, 1), -0.3)):
+        a, kw = _k12_args(dev, background_inputs(sun_y, seed=w, width=w,
+                                                 height=h), w, h)
+        mask = a[0]
+        r = np.random.default_rng(h)
+        hdr = torch.tensor(r.uniform(0.0, 3.0, (h, w, 3)), dtype=torch.float32,
+                           device=dev)
+        for k, val in enumerate((-0.0, float("nan"), float("inf"),
+                                 -float("inf"), -0.0)):
+            ys, xs = torch.nonzero(mask if k % 2 == 0 else ~mask,
+                                   as_tuple=True)
+            if len(ys):
+                j = (k * 7919) % len(ys)
+                hdr[ys[j], xs[j], k % 3] = val
+        before = hdr.clone()
+        n0 = skylight.K12.launches
+        got = skylight.environment_background(*a, **kw, hdr=hdr)
+        assert skylight.K12.launches == n0 + 1
+        ref = skylight.environment_background_plain(*a, **kw, hdr=hdr)
+        assert _same_or_nan(got, ref)
+        assert torch.equal(hdr.view(torch.int32), before.view(torch.int32))
+        assert got.data_ptr() != hdr.data_ptr()
+        covered_zero = mask[..., None] & (before == 0)
+        assert not bool(torch.signbit(got[covered_zero]).any())
+        if h > 1:
+            assert bool(torch.isnan(got).any()) and bool(
+                torch.isinf(got).any())
 
 
 def ndl_threshold_inputs(h=64, w=128, side=256, seed=0):
@@ -2647,7 +2775,7 @@ def test_k14_normal_role_matches_twin_bit_for_bit(dev, shape, role):
     -1), bit for bit, in every role, with a NaN normal."""
     h, w = shape
     side = 1024 if w >= 959 else 64
-    wp, _, depth, vp, _ = _k14_args(
+    wp, depth, vp, _, _, _ = _k14_args(
         dev, sun_tap_inputs(h, w, seed=h + 2, side=side), side)
     r = np.random.default_rng(h)
     nrm = torch.tensor(_unit_np(r, (h, w, 3)), dtype=torch.float32,

@@ -40,7 +40,10 @@ and resolve.masked_peel (K6's peel step, the accumulate in it) in one
 whose frame calls that; the first's accumulate counts to its glue, so
 `peels+glue` (both phases and the glue) is the sum that compares like
 with like; `sun+tap` (the tap and the sun's BRDF or its whole term) is
-the same for the sun.
+the same for the sun (a tree whose sun term taps the map inside K15 has
+no shadow.sun_visibility phase), and `sky+glue` for the sky background
+(a tree whose frame adds the background to the HDR in torch books that
+add in its glue; one whose K12 writes the HDR, in the background).
 """
 
 from __future__ import annotations
@@ -60,15 +63,18 @@ COMPARED = ("raster.prepare_geometry", "skylight.sky_lighting",
             "resolve.resolve_gbuffer", "resolve.masked_alpha",
             "resolve.masked_peel", "shadow.sun_visibility",
             "shading.brdf_response", "shading.sun_term", "sun+tap",
-            "taa.taa_resolve", "cull.cull_primitives", "glue", "peels+glue")
+            "taa.taa_resolve", "cull.cull_primitives", "glue", "peels+glue",
+            "sky+glue")
 # phases summed to compare like with like across trees: the peels with the
 # glue (a tree whose frame accumulates the peels in torch), and the sun's
 # tap with its BRDF (a tree whose sun term is shading.sun_term, the tap
-# inside it, or brdf_response beside the tap)
+# inside it, or brdf_response beside the tap), and the sky background with
+# the glue (where the frame's add of the background to the HDR runs)
 SUMS = {"peels+glue": ("resolve.masked_alpha", "resolve.masked_peel",
                        "glue"),
         "sun+tap": ("shadow.sun_visibility", "shading.brdf_response",
-                    "shading.sun_term")}
+                    "shading.sun_term"),
+        "sky+glue": ("skylight.environment_background", "glue")}
 
 
 def in_turns(trees, frames: int, out) -> int:

@@ -3,7 +3,7 @@
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
-        [--kernels k1,k2,k3,k3r,k4,k5,k5s,k6,k8,k8s,k9,k10,k11,k12]
+        [--kernels k1,k2,k3,k3r,k4,k5,k5s,k6,k8,k8s,k9,k10,k11,k12,k15]
         [--timeline]
         [--out FILE]
 
@@ -84,12 +84,23 @@ longest block, when the last block starts, and the longest block's time
 between its marks (k10_timeline).
 
 K11 and K12: the main-path frame's light-cluster grid and sky background
-(build_light_clusters, environment_background with the dynamic sky),
-timed the same way: this checkout's K11 and K12 must equal its twins bit
-for bit, and each other checkout's output this checkout's twin (K11
-every word and the count; K12 within 1e-5 relative, since a checkout
-whose background is eager torch sums its 4x4 product in cuBLAS's
-order). A checkout that predates them is timed by its eager torch code.
+(build_light_clusters, environment_background with the dynamic sky and
+the frame's HDR given: K12's accumulate role), timed the same way: this
+checkout's K11 and K12 must equal its twins bit for bit, and each other
+checkout's output this checkout's twin (K11 every word and the count;
+K12 within 1e-5 relative, since a checkout whose background is eager
+torch sums its 4x4 product in cuBLAS's order). A checkout that predates
+them is timed by its eager torch code, and one whose
+environment_background takes no HDR by its background and the frame's
+eager add to the HDR (as its frame runs them).
+
+K15's map role (k15): the sun term with the map (shading.sun_term) of
+the main-path frame with the estimators on and off, and of the same frame
+lit by a sun that faces at least half of its covered pixels
+(chip_smoke.half_lit_view), each checkout's sun_term on the captured
+inputs timed the same way (a checkout that predates the tap inside K15
+launches K14 and then K15), each output equal to this checkout's twin
+(sun_term_plain) bit for bit, NaN for NaN.
 
 K4: it builds the atrium's wide and binary BVHs, captures every K4 launch
 of one path-traced sample at 640x360 (primary, bounce, shadow and their
@@ -165,7 +176,7 @@ def load_kernels(tree: pathlib.Path) -> dict:
     try:
         mods = {n: importlib.import_module(f"{PKG}.kernels.{n}")
                 for n in ("build", "raster", "clustered", "taa", "bvh",
-                          "pathtrace", "resolve", "skylight")}
+                          "pathtrace", "resolve", "skylight", "shading")}
     finally:
         sys.path.remove(str(tree))
         for k in _package_modules():
@@ -508,6 +519,8 @@ def k1_to_k5(cs, others, this, dev, times, kinds, timelines=None):
         for kind, a, kw, role_name in calls:
             mod, fn, reps = WRAPPERS[kind]
             impls = (getattr(other[mod], fn), getattr(this[mod], fn))
+            if kind == "k12":
+                impls = (with_hdr(impls[0]), impls[1])
             agree(cs, kind, a, kw, [f(*a, **kw) for f in impls], this, other,
                   role_name)
             t_o, t_t = time_pair(cs, lambda: impls[0](*a, **kw),
@@ -538,6 +551,70 @@ def k1_to_k5(cs, others, this, dev, times, kinds, timelines=None):
                                      {"other": [], "this": []})
                 t["other"].append(t_o)
                 t["this"].append(t_t)
+
+
+def with_hdr(fn):
+    """environment_background of a checkout, taking hdr= as this
+    checkout's does: its own where it has the accumulate role, else its
+    background plus the eager add to the HDR, as its frame ran them."""
+    import inspect
+    if "hdr" in inspect.signature(fn).parameters:
+        return fn
+
+    def call(*a, hdr=None, **kw):
+        out = fn(*a, **kw)
+        return out if hdr is None else hdr + out
+    return call
+
+
+def sun_term_ab(cs, others, this, dev, times):
+    """K15's map role (k15): the sun term of the main-path frame with the
+    estimators on and off and of the half-lit view, each checkout's
+    sun_term timed on the captured inputs in turns and held to this
+    checkout's twin bit for bit; appends to times[(other, role)]."""
+    import torch
+    raster, clustered, taa = this["raster"], this["clustered"], this["taa"]
+    shading = this["shading"]
+    path = cs.atrium_path(dev)
+    exact = cs.exact_config(path.cfg)
+
+    def run(fc, history):
+        return path.run(fc, history)
+
+    def run_exact(fc, history):
+        return path.run(fc, history, exact)
+    hist = {}
+    for what, r in (("on", run), ("off", run_exact)):
+        fc0 = path.make_fc(0, None)
+        warm = r(fc0, torch.zeros((cs.H, cs.W, 3), device=dev))
+        hist[what] = warm["accumulation"]
+    fc1 = path.make_fc(1, fc0.view_proj.cpu().numpy())
+    on = cs.capture_frame(run, fc1, hist["on"], raster, clustered, taa)
+    off = cs.capture_frame(run_exact, fc1, hist["off"], raster, clustered,
+                           taa)
+    lit_on, lit_off = cs.half_lit_view(run, run_exact, path.make_fc, on,
+                                       fc1.view_proj.cpu().numpy(),
+                                       hist["on"], hist["off"])
+    cases = []
+    for role_name, calls in (("on", on), ("off", off), ("lit_half", lit_on),
+                             ("lit_half_exact", lit_off)):
+        xs = [cs._bound_args(shading.sun_term_plain, a, kw)
+              for kind, a, kw in calls if kind == "k15"]
+        x = next(x for x in xs if x["shadow_map"] is not None)
+        lit = int(cs._k15_lit(x).sum())
+        print(f"k15_sun_term[{role_name}]: {int(x['gb'].mask.sum())} "
+              f"covered pixels, {lit} lit", flush=True)
+        cases.append((f"k15_sun_term[{role_name}]", x))
+    for name, other in others:
+        for role_name, x in cases:
+            impls = (other["shading"].sun_term, shading.sun_term)
+            ref = shading.sun_term_plain(**x)
+            for what, f in (("other", impls[0]), ("this", impls[1])):
+                cs._same_or_nan(f"{role_name} ({what} checkout)", f(**x),
+                                ref)
+            t_o, t_t = time_pair(cs, lambda: impls[0](**x),
+                                 lambda: impls[1](**x), 50)
+            _record(times, (name, role_name), t_o, t_t)
 
 
 def _record(times, key, t_o, t_t):
@@ -818,7 +895,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default="k1,k2,k3,k4",
                     help="comma-separated: k1, k2, k3, k5 (two frames' "
                          "launches), k3r, k8, k9, k10, k11, k12 (the main "
-                         "frame's), k4, "
+                         "frame's), k15 (the sun term with the map), k4, "
                          "k6, k5s and k8s (the peel steps and K5's and "
                          "K8's checkerboards of frames with the "
                          "estimators on and off)")
@@ -839,10 +916,10 @@ def main(argv=None) -> int:
               for o in args.others]
     from incarnation_tpu_torch.kernels import (build, bvh, clustered,
                                                pathtrace, raster, resolve,
-                                               skylight, taa)
+                                               shading, skylight, taa)
     this = dict(build=build, raster=raster, clustered=clustered, taa=taa,
                 bvh=bvh, pathtrace=pathtrace, resolve=resolve,
-                skylight=skylight)
+                skylight=skylight, shading=shading)
     dev = torch.device("cuda")
     card = cs.card_line()
     print(f"card: {card}", flush=True)
@@ -894,6 +971,8 @@ def main(argv=None) -> int:
         k1_to_k5(cs, others, this, dev, times, kinds, timelines)
     if kinds & {"k6", "k5s", "k8s"}:
         peel_and_checker(cs, others, this, dev, times, kinds)
+    if "k15" in kinds:
+        sun_term_ab(cs, others, this, dev, times)
     totals, ends = {}, {}
     if "k4" in kinds:
         totals, ends = k4_ab(cs, others, this, dev, times)
