@@ -10,15 +10,18 @@ masked foliage, decals) onto the card and renders 8 TAA frames at 1920x1088
 through render_frame, the port's raster frame in the bench configuration
 (bench.py's Config(sun_shadow_mode="map", masked_depth_peels=8), the JAX
 package's defaults otherwise, a history of zeros on frame 0 as bench.py
-gives it): the frustum cull of the primitives and the meshlets (K13),
+gives it): the frustum cull of the primitives and the meshlets (K13,
+one launch for both lists),
 triangle setup (K9) and layered binning (K10) of the camera
 and sun passes, opaque raster, 8 masked depth peels, each with one
 launch of K6's peel step (the alpha test of a jittered texel of a
 dithered mip under the chunk-capacity ladder, the chunk rank, and the
 accumulate; nothing else launches between one peel's K1 call and the
-next's), decals, the material resolve of the opaque layer (K5: a
-checkerboard of jittered texels) and the decal layer (K5: jittered
-texels under its chunk capacity), the 1024 x 1024 sun shadow map (K1's
+next's), the material resolve of the opaque layer (K5: a checkerboard
+of jittered texels), the decal layer (K1, then K5's decal step: its
+jittered texels under its chunk capacity, the depth test and the
+composite into the GBuffer in one launch, nothing else launching before
+the sun pass), the 1024 x 1024 sun shadow map (K1's
 depth-only role, every face casting), the light-cluster grid (K11),
 sky IBL (K8: a checkerboard of jittered RGBE probe texels), the sun's
 direct term (K15, whose map role taps the map itself, jittered and
@@ -48,14 +51,18 @@ alone, the "+nl" roles on the inputs of K15's map role; K15's map role
 also on a view whose sun lights at least half of the covered pixels,
 each beside the two launches it replaced, K14 then K15 on the tap's
 visibility, and K12's accumulate role beside K12 and the eager add, in
-turns), renders that frame
+turns; K5's decal step, on that frame and on a view whose decal layer
+covers at least 10,000 pixels, beside the K5 decal launch it replaced
+and beside that launch with the frame's eager decal code; K13's two
+lists beside two one-list launches),
+renders that frame
 again with every kernel swapped for its twin and compares the images,
 and prints the frame's time by phase (phase_breakdown). The frame's two
 binnings run once more under torch.cuda.set_sync_debug_mode("error"):
 K10 makes the host wait for nothing. Inside the light-cluster grid, the
-sky background, the two frustum culls, the sun term and the TAA resolve
-of one more frame, nothing but K11's, K12's, K13's, K15's and K3's one
-launch each runs on the card: no eager torch operator, no copy from host
+sky background, the frustum cull of both lists, the decal step, the sun
+term and the TAA resolve of one more frame, nothing but K11's, K12's,
+K13's, K5's, K15's and K3's one launch each runs on the card: no eager torch operator, no copy from host
 memory, no synchronize; and no eager operator reads the sky background's
 output before the TAA resolve, so nothing adds it to the HDR again
 (host_free_phases).
@@ -213,6 +220,28 @@ K6S_PIXEL_BYTES = 7 * 4 + 8
 K6P_PIXEL_BYTES, K6P_HIT_BYTES, K6P_OPEN_BYTES = 8, 32, 4
 K6P_DROPPED_BYTES, K6P_NEWLY_BYTES, K6P_BLOCK_BYTES = 8, 108, 16
 K6P_DROPPED_OPS, K6P_BLEND_INT_OPS = 3, 9
+# K5's decal step (k5_decal_kernel), counted from csrc/resolve.cu: every
+# pixel's d_tri read (4 B); a decal pixel of a chunk the capacity keeps
+# reads d_depth and depth (8 B); one that passes the depth test reads its
+# 7 interp channels and reads and writes the base colour's rgb (28 + 24
+# B), and where its decal is opaque reads the 7 TBN channels and writes
+# the normals and mrao (28 + 8 + 16 B) and n3 where given (12 B); under a
+# capacity a block writes its look-back word and a later one reads it (16
+# B); the overflow 8 B; each stack block and material row touched read
+# once. Operations of a passing pixel: its fetch (the exact role K5's LOD
+# 16 and two bilinear levels 662, 264 more with extras blocks; the
+# stochastic roles' LOD, uv step and noises 30 and one bilinear level 331
+# (4 extras decodes of 33) or one jittered texel 55 (one, 33)), then the
+# sRGB decode of 3 channels 15, the factors 4, the blend 10 and the test
+# 1; an opaque one the TBN basis 45, normal mapping 38, the octahedral
+# encoding 13, the mrao factors 2 and the decode into n3 22. Integer
+# operations: the stochastic roles' four noise hashes, 9 each.
+K5D_PIXEL_BYTES, K5D_DECAL_BYTES, K5D_PASS_BYTES = 4, 8, 28 + 24
+K5D_OPAQUE_BYTES, K5D_N3_BYTES, K5D_BLOCK_BYTES = 28 + 8 + 16, 12, 16
+K5D_OPS_PASS, K5D_OPS_OPAQUE, K5D_OPS_N3 = 30, 98, 22
+K5D_OPS_FETCH = {"exact": 678, "dither": 361, "jitter": 85}
+K5D_OPS_EXTRAS = {"exact": 264, "dither": 132, "jitter": 33}
+K5D_INT_OPS = 36
 K5_RTOL = 1e-5             # K5 against its twin: see _k5_error
 # K8, counted from csrc/skylight.cu (pow, sqrt and abs count one each, a
 # fused multiply-add two), per covered pixel: the diffuse lobe 111 (the SH
@@ -520,12 +549,13 @@ def main(argv=None) -> int:
     K5_RESOURCES.update(kernel_resources(build, "resolve",
                                          "k5_resolve_kernel",
                                          logs.get("resolve")))
-    for kernel in ("k5_checker_kernel", "k6_masked_alpha_kernel",
-                   "k6_peel_kernel"):
+    for kernel in ("k5_checker_kernel", "k5_decal_kernel",
+                   "k6_masked_alpha_kernel", "k6_peel_kernel"):
         K5_RESOURCES.update(kernel_resources(build, "resolve", kernel,
                                              logs.get("resolve")))
     _log(f"K5 and K6 (k5_resolve_kernel, k5_checker_kernel, "
-         f"k6_masked_alpha_kernel, k6_peel_kernel, by role): "
+         f"k5_decal_kernel, k6_masked_alpha_kernel, k6_peel_kernel, by "
+         f"role): "
          f"{json.dumps(K5_RESOURCES)}")
     K8_RESOURCES.update(kernel_resources(build, "skylight", "k8_sky_",
                                          logs.get("skylight")))
@@ -537,7 +567,7 @@ def main(argv=None) -> int:
         build, "skylight", "k12_sky_background_kernel",
         logs.get("skylight")))
     K11_K15_RESOURCES.update(kernel_resources(
-        build, "cull", "k13_cull_kernel", logs.get("cull")))
+        build, "cull", "k13_cull", logs.get("cull")))
     K11_K15_RESOURCES.update(kernel_resources(
         build, "shadow", "k14_", logs.get("shadow")))
     K11_K15_RESOURCES.update(kernel_resources(
@@ -586,14 +616,14 @@ def main(argv=None) -> int:
          f"and K15 by role {roles}")
     _log("frame ms: " + ", ".join(f"{t:.2f}" for t in frame_ms))
     # JAX's default frame: K5 fetches the opaque layer's stack by the
-    # checkerboard of jittered texels and the decal layer's under its
-    # chunk capacity, K6's peel step tests every peel's alpha under the
+    # checkerboard of jittered texels, and its decal step the decal
+    # layer's jittered texels under its chunk capacity, K6's peel step tests every peel's alpha under the
     # chunk ladder and accumulates it, K8 the probe by the checkerboard;
     # K15 shades the sun, tapping the map by the checkerboard itself (K14
     # launches on no frame); K3 resolves every frame with a history, the
     # camera moving, by its reprojected fetch
     want_roles = {"k5_resolve": {"jitter_checker": FRAMES,
-                                 "jitter+chunks": FRAMES},
+                                 "decal_jitter+chunks": FRAMES},
                   "k6_masked_alpha": {"step_jitter+chunks": PEELS * FRAMES},
                   "k8_sky_lighting": {"jitter_checker": FRAMES},
                   "k14_sun_tap": {},
@@ -623,13 +653,14 @@ def main(argv=None) -> int:
         raise RuntimeError("the atrium frame is mostly empty")
     # per frame: K1 for the opaque layer, each peel, the decals and the
     # shadow map, K2 once, K3 on every frame with a history (all but
-    # frame 0), K4 never (no BVH on this path), K5 for the opaque and the
-    # decal layer, K6 for each peel, K8 once, K9 and K10's launches for the
-    # camera and the sun pass (K10: K10_LAUNCHES a binning), K11 and K12
-    # once, K13 for the primitives and the meshlets, K14 never (K15 taps
-    # the map), K15 once; K6 is the peel step, K3 the whole resolve
+    # frame 0), K4 never (no BVH on this path), K5 for the opaque layer
+    # and the decal layer's step, K6 for each peel, K8 once, K9 and K10's
+    # launches for the camera and the sun pass (K10: K10_LAUNCHES a
+    # binning), K11 and K12 once, K13 once for the primitives and the
+    # meshlets, K14 never (K15 taps the map), K15 once; K6 is the peel
+    # step, K3 the whole resolve
     want = [[3 + PEELS, 1, int(i > 0), 0, 2, PEELS, 1, 2,
-             2 * len(K10_LAUNCHES), 1, 1, 2, 0, 1] for i in range(FRAMES)]
+             2 * len(K10_LAUNCHES), 1, 1, 1, 0, 1] for i in range(FRAMES)]
     if per_frame != want:
         raise RuntimeError(f"launches per frame (K1, K2, K3, K4, K5, K6, K8, "
                            f"K9, K10, K11, K12, K13, K14, K15) {per_frame} "
@@ -655,7 +686,7 @@ def main(argv=None) -> int:
     exact_roles = {k.fn: dict(k.by_name) for k in (
         resolve.K5, resolve.K6, skylight.K8, shadow.K14, taa.K3,
         shading.K15)}
-    want = {"k5_resolve": {"exact": 2 * FRAMES},
+    want = {"k5_resolve": {"exact": FRAMES, "decal_exact": FRAMES},
             "k6_masked_alpha": {"step_exact": PEELS * FRAMES},
             "k8_sky_lighting": {"exact": FRAMES},
             "k14_sun_tap": {},
@@ -718,7 +749,7 @@ def main(argv=None) -> int:
                                 raster, clustered, taa)
     rows = compare_kernels(calls, raster, clustered, taa, launches,
                            k1_by_layer)
-    rows += [k5_row(resolve, exact_calls, exact_launches["k5_resolve"],
+    rows += [k5_row(resolve, exact_calls, exact_roles["k5_resolve"]["exact"],
                     role="exact"),
              k6_row(resolve, exact_calls,
                     exact_launches["k6_masked_alpha"],
@@ -726,7 +757,23 @@ def main(argv=None) -> int:
              k8_row(skylight, exact_calls,
                     exact_launches["k8_sky_lighting"], role="exact")]
     rows += [k5_row(resolve, calls, n, name=f"k5_resolve[{r}]", role=r)
-             for r, n in roles["k5_resolve"].items()]
+             for r, n in roles["k5_resolve"].items()
+             if not r.startswith("decal_")]
+    # K5's decal step on the frame (its decal layer empty at bench.py's
+    # view), the exact sequence's, and a view whose decal layer covers at
+    # least 10,000 pixels, each timed in turns against the K5 decal launch
+    # it replaced
+    decal_calls, decal_exact = decal_view(path, run_exact, prev_vp, history,
+                                          ex.out["accumulation"])
+    rows += [k5d_row(resolve, calls,
+                     roles["k5_resolve"]["decal_jitter+chunks"]),
+             k5d_row(resolve, exact_calls,
+                     exact_roles["k5_resolve"]["decal_exact"],
+                     name="k5_decal_step[exact]"),
+             k5d_row(resolve, decal_calls, 0,
+                     name="k5_decal_step[decal_view]"),
+             k5d_row(resolve, decal_exact, 0,
+                     name="k5_decal_step[decal_view_exact]")]
     rows += [k6_row(resolve, calls, n, name=f"k6_masked_peel[{r}]", role=r)
              for r, n in roles["k6_masked_alpha"].items()]
     rows += [k8_row(skylight, calls, n, name=f"k8_sky_lighting[{r}]",
@@ -762,9 +809,13 @@ def main(argv=None) -> int:
                      role="given")]
     check_twins("the exact sequence's next frame",
                 [c for c in exact_calls
-                 if c[0] in ("k3r", "k11", "k12", "k13", "k14", "k15")],
+                 if c[0] in ("k3r", "k5d", "k11", "k12", "k13", "k14",
+                             "k15")],
                 raster, clustered, taa,
-                need=("k3r", "k11", "k12", "k13", "k14", "k15"))
+                need=("k3r", "k5d", "k11", "k12", "k13", "k14", "k15"))
+    check_twins("the decal view", [c for c in decal_calls + decal_exact
+                                   if c[0] in ("k5", "k5d", "k13")],
+                raster, clustered, taa, need=("k5", "k5d", "k13"))
     check_twins("the half-lit view", [c for c in lit_calls + lit_exact
                                       if c[0] in ("k12", "k15")],
                 raster, clustered, taa, need=("k12", "k14", "k15"))
@@ -783,6 +834,14 @@ def main(argv=None) -> int:
                        for w in launched):
         raise RuntimeError("the peel loop launches more than K1's peel and "
                            "K6's step per peel")
+    # from K1's decal layer to the sun pass: K5's decal step, nothing else
+    ops, names, launched = decal_launches(run, fc, history, raster, kernels)
+    _log(f"eager torch launches of the decal layer (from K1's decal call "
+         f"to the sun pass): {ops}, by operator {json.dumps(names)}; "
+         f"hand-written kernels launched there {launched}")
+    if ops or launched != {"k5_resolve": 1}:
+        raise RuntimeError("the decal layer launches more than K5's decal "
+                           "step")
     host_free_phases(run, fc, history, kernels)
     if args.profile:
         profile_frame(run, fc, history)
@@ -921,9 +980,9 @@ def atrium_path(dev):
     shadow_bounds = (host.bounds_center,
                      float(np.linalg.norm(host.bounds_extent)) + 1e-3)
 
-    def make_fc(i, prev_vp, sun_dir=None):
+    def make_fc(i, prev_vp, sun_dir=None, view=None):
         return frame.FrameConstants.make(
-            orbit(view0, ORBIT_RAD * i), cfg,
+            orbit(view0, ORBIT_RAD * i) if view is None else view, cfg,
             sun_dir=sun if sun_dir is None else sun_dir,
             sun_color_intensity=[1.0, 1.0, 1.0, 100.0],
             jitter=jitters[i % 16] * 2.0 / np.array([W, H]),
@@ -955,11 +1014,14 @@ def capture_frame(run, fc, history, raster, clustered, taa):
 @contextlib.contextmanager
 def _capturing(calls, raster, clustered, taa, limit=None):
     """For the duration of the block, each K1, K2, K3 (its fetch, k3, and
-    its resolve, k3r), K5, K6, K8, K9, K10, K11, K12, K13, K14 and K15
-    wrapper call appends (kind, args, kwargs) to calls, at most
-    `limit` per kind. K6 is the peel step (masked_peel), recorded before
-    its launch by name (_k6_args) with a copy of the state it updates; a
-    masked peel's z_limit, which the step overwrites, is copied too."""
+    its resolve, k3r), K5 (k5, and its decal step, k5d), K6, K8, K9, K10,
+    K11, K12, K13 (cull_lists), K14 and K15 wrapper call appends (kind,
+    args, kwargs) to calls, at most `limit` per kind. K6 is the peel step
+    (masked_peel), recorded before its launch by name (_k6_args) with a
+    copy of the state it updates; a masked peel's z_limit, which the step
+    overwrites, is copied too; the decal step is recorded before its
+    launch by name (_k5d_args) with copies of the planes and n3 it
+    updates."""
     from incarnation_tpu_torch.kernels import (cull, resolve, shading, shadow,
                                                skylight)
 
@@ -980,6 +1042,12 @@ def _capturing(calls, raster, clustered, taa, limit=None):
             x = _k6_args(a, kw)
             calls.append(("k6", (), dict(x, state=_peel_clone(x["state"]))))
         return step(*a, **kw)
+    dstep = resolve.decal_step
+
+    def decal_step(*a, **kw):
+        if room("k5d"):
+            calls.append(("k5d", (), _k5d_clone(_k5d_args(a, kw))))
+        return dstep(*a, **kw)
     with contextlib.ExitStack() as stack:
         for mod, name, kind in ((raster, "rasterize_tiles", "k1"),
                                 (clustered, "clustered_lighting", "k2"),
@@ -993,10 +1061,11 @@ def _capturing(calls, raster, clustered, taa, limit=None):
                                 (clustered, "build_light_clusters", "k11"),
                                 (skylight, "environment_background",
                                  "k12"),
-                                (cull, "cull_primitives", "k13"),
+                                (cull, "cull_lists", "k13"),
                                 (shadow, "sun_visibility", "k14")):
             stack.enter_context(_hooked(mod, name, keep(kind)))
         stack.enter_context(_swapped(resolve, "masked_peel", peel_step))
+        stack.enter_context(_swapped(resolve, "decal_step", decal_step))
         yield calls
 
 
@@ -1689,6 +1758,309 @@ def k5_row(resolve, calls, n_launches, name="k5_resolve", role=None):
         spill_bytes=res.get("spill_bytes"),
         skipped_share=[f["skipped_share"] for f in feet],
         blocks_per_footprint=[f["blocks_per_footprint"] for f in feet])
+
+
+def _k5d_args(a, kw):
+    """A captured decal_step call -> its arguments by name, defaults
+    filled (scene, d_tri, d_depth, d_interp, depth, gb, n3,
+    inv_view_proj, width, height, coverage_capacity, mip_dither,
+    uv_dither, max_aniso, row0)."""
+    from incarnation_tpu_torch.kernels import resolve
+    return dict(_bound_args(resolve.decal_step_plain, a, kw))
+
+
+def _k5d_clone(x):
+    """x (_k5d_args) with copies of the planes and n3 the decal step
+    updates in place."""
+    import dataclasses
+    gb = x["gb"]
+    return dict(x, gb=dataclasses.replace(
+        gb, base_color=gb.base_color.clone(), normals=gb.normals.clone(),
+        mrao=gb.mrao.clone()),
+        n3=None if x["n3"] is None else x["n3"].clone())
+
+
+def _k5d_role(x) -> str:
+    """The role name a decal_step call counts under (_k5d_args)."""
+    from incarnation_tpu_torch.kernels import resolve
+    return "decal_" + resolve.role_name(
+        resolve._role(x["mip_dither"], x["uv_dither"]),
+        x["coverage_capacity"] is not None)
+
+
+def _k5d_run(step, x):
+    """step (decal_step or its twin) on fresh copies of x's planes ->
+    (overflow, base_color, normals, mrao, n3)."""
+    y = _k5d_clone(x)
+    over = step(**y)
+    gb = y["gb"]
+    return over, gb.base_color, gb.normals, gb.mrao, y["n3"]
+
+
+def _k5d_pixels(resolve, x) -> dict:
+    """The decal step's pixels on x's layer: (H, W) bool masks of the
+    decal pixels (decal), those of chunks the capacity keeps (kept), those
+    that pass the depth test (passing) and those whose decal is opaque
+    there (opaque, from the twin's opacity)."""
+    import torch
+    dec = x["d_tri"] >= 0
+    cap = x["coverage_capacity"]
+    kept = dec if cap is None else dec & resolve._keep_pixels(
+        resolve.chunk_keep(dec, cap), dec.shape)
+    passing = kept & (x["d_depth"] >= x["depth"] - 1e-5)
+    d_gb = resolve.resolve_gbuffer_plain(
+        x["d_tri"], x["d_depth"], x["scene"], x["d_interp"],
+        x["inv_view_proj"], x["width"], x["height"],
+        mip_dither=x["mip_dither"], uv_dither=x["uv_dither"],
+        max_aniso=x["max_aniso"], coverage_capacity=cap, row0=x["row0"])
+    opaque = passing & (d_gb.base_color[..., 3] > 0.5)
+    return dict(decal=dec, kept=kept, passing=passing, opaque=opaque)
+
+
+def _k5d_error(resolve, x) -> int:
+    """Raises unless one decal step equals its twin bit for bit: the
+    overflow, the base colour, normals, mrao and n3 it writes (NaN
+    payloads included). -> the decal pixels that pass the depth test."""
+    import torch
+    got = _k5d_run(resolve.decal_step, x)
+    ref = _k5d_run(resolve.decal_step_plain, x)
+    if got[0].dtype != torch.int64 or got[0].shape != () \
+            or int(got[0]) != int(ref[0]):
+        raise RuntimeError(f"K5's decal step: overflow {got[0]}, its twin "
+                           f"{int(ref[0])}")
+    for name, g, r in zip(("base_color", "normals", "mrao", "n3"), got[1:],
+                          ref[1:]):
+        if g is None and r is None:
+            continue
+        if not torch.equal(g.view(torch.int32), r.view(torch.int32)):
+            raise RuntimeError(f"K5's decal step: {name} differs from its "
+                               f"twin on {int((g != r).sum())} elements")
+    return int(((x["d_tri"] >= 0)
+                & (x["d_depth"] >= x["depth"] - 1e-5)).sum())
+
+
+def _k5d_bound(resolve, x):
+    """((bound ms, 'bytes' | 'operations'), pixel counts) of one decal
+    step (_k5d_args): see K5D_*. The texture blocks and material rows are
+    those the twin gathers for the passing pixels."""
+    import torch
+    w, h = x["width"], x["height"]
+    px = _k5d_pixels(resolve, x)
+    n = {k: int(v.sum()) for k, v in px.items()}
+    st, scene = x["scene"].mat_stack, x["scene"]
+    mat = x["d_interp"][9].to(torch.int32).clamp(0, st.meta.shape[0] - 1)
+    has_ex = (st.meta[mat.long(), 4] >= 0) & (st.extra.shape[0] > 1)
+    n_ex = int((px["passing"] & has_ex).sum())
+    rows = _rows_touched(
+        lambda: resolve.resolve_gbuffer_plain(
+            x["d_tri"], x["d_depth"], scene, x["d_interp"],
+            x["inv_view_proj"], w, h, mip_dither=x["mip_dither"],
+            uv_dither=x["uv_dither"], max_aniso=x["max_aniso"],
+            coverage_capacity=x["coverage_capacity"], row0=x["row0"]),
+        {"flat": (st.flat, px["passing"]),
+         "extra": (st.extra, px["passing"] & has_ex),
+         "meta": (st.meta, px["passing"]),
+         "params": (scene.mat_params, px["passing"])})
+    role = _k5d_role(x).removeprefix("decal_").split("+")[0]
+    n3 = x["n3"] is not None
+    blocks = -(-w * h // (8 * 128))
+    nbytes = (w * h * K5D_PIXEL_BYTES + n["kept"] * K5D_DECAL_BYTES
+              + n["passing"] * K5D_PASS_BYTES
+              + n["opaque"] * (K5D_OPAQUE_BYTES + K5D_N3_BYTES * n3)
+              + 32 * rows["flat"] + 24 * rows["extra"] + 24 * rows["meta"]
+              + 64 * rows["params"] + 8
+              + (blocks * K5D_BLOCK_BYTES
+                 if x["coverage_capacity"] is not None else 0))
+    ops = (n["passing"] * (K5D_OPS_FETCH[role] + K5D_OPS_PASS)
+           + n_ex * K5D_OPS_EXTRAS[role]
+           + n["opaque"] * (K5D_OPS_OPAQUE + K5D_OPS_N3 * n3))
+    int_ops = n["passing"] * K5D_INT_OPS if role != "exact" else 0
+    return _bound(nbytes, ops, int_ops), n
+
+
+def _k5d_parent(resolve, x):
+    """The frame's decal code before K5's decal step, on x: K5's launch
+    on the decal layer (resolve_gbuffer under the capacity), the chunk
+    overflow and the eager composite -> (overflow, base_color, normals,
+    mrao, n3), new tensors."""
+    import torch
+    from incarnation_tpu_torch.core import mathutils as mu
+    cap, gb, n3 = x["coverage_capacity"], x["gb"], x["n3"]
+    d_gb = resolve.resolve_gbuffer(
+        x["d_tri"], x["d_depth"], x["scene"], x["d_interp"],
+        x["inv_view_proj"], x["width"], x["height"],
+        coverage_capacity=cap, mip_dither=x["mip_dither"],
+        uv_dither=x["uv_dither"], max_aniso=x["max_aniso"], row0=x["row0"])
+    over = (resolve.chunk_overflow(x["d_tri"] >= 0, cap) if cap is not None
+            else None)
+    covers = d_gb.mask & (x["d_depth"] >= x["depth"] - 1e-5)
+    a = torch.where(covers, d_gb.base_color[..., 3], 0.0)[..., None]
+    opaque = a > 0.5
+    base = torch.cat([gb.base_color[..., :3] * (1 - a)
+                      + d_gb.base_color[..., :3] * a,
+                      gb.base_color[..., 3:]], -1)
+    normals = torch.where(opaque, d_gb.normals, gb.normals)
+    mrao = torch.where(opaque, d_gb.mrao, gb.mrao)
+    if n3 is not None:
+        n3 = torch.where(opaque, mu.oct_decode(d_gb.normals), n3)
+    return over, base, normals, mrao, n3
+
+
+def k5d_row(resolve, calls, n_launches, name="k5_decal_step"):
+    """K5's decal step against its twin (bit for bit) on each captured
+    decal_step launch, timed in turns (step, K5, K5 + glue, K5 + glue,
+    K5, step; the smaller of each's two times) against the K5 decal
+    launch it replaced (resolve_gbuffer on the layer under its capacity)
+    and against that launch with the frame's eager decal code around it
+    (_k5d_parent), with its twin's time, its bound (K5D_*, of the step's
+    own work) and its registers -> the JSON row (means over the
+    launches)."""
+    launches = [kw for kind, _, kw in calls if kind == "k5d"]
+    if not launches:
+        raise RuntimeError(f"{name}: no decal step was captured")
+    ms, k5_ms, glue_ms, plain_ms, bounds, bound_by, counts = \
+        [], [], [], [], [], set(), []
+    for x in launches:
+        _k5d_error(resolve, x)
+        y = _k5d_clone(x)
+        fns = (lambda: resolve.decal_step(**y),
+               lambda: resolve.resolve_gbuffer(
+                   x["d_tri"], x["d_depth"], x["scene"], x["d_interp"],
+                   x["inv_view_proj"], x["width"], x["height"],
+                   coverage_capacity=x["coverage_capacity"],
+                   mip_dither=x["mip_dither"], uv_dither=x["uv_dither"],
+                   max_aniso=x["max_aniso"], row0=x["row0"]),
+               lambda: _k5d_parent(resolve, x))
+        t = [device_ms(fns[i], 20) for i in (0, 1, 2, 2, 1, 0)]
+        ms.append(min(t[0], t[5]))
+        k5_ms.append(min(t[1], t[4]))
+        glue_ms.append(min(t[2], t[3]))
+        z = _k5d_clone(x)
+        plain_ms.append(device_ms(lambda: resolve.decal_step_plain(**z), 2))
+        (b, by), n = _k5d_bound(resolve, x)
+        bounds.append(b)
+        bound_by.add(by)
+        counts.append(n)
+    res = role_resources("k5", _k5d_role(launches[0]))
+    _log(f"{name} ({', '.join(sorted({_k5d_role(x) for x in launches}))}): "
+         "per launch ms " + ", ".join(f"{t:.4f}" for t in ms)
+         + "; the K5 decal launch it replaced ms "
+         + ", ".join(f"{t:.4f}" for t in k5_ms)
+         + "; K5 and the frame's eager decal code ms "
+         + ", ".join(f"{t:.4f}" for t in glue_ms)
+         + "; twin ms " + ", ".join(f"{t:.3f}" for t in plain_ms)
+         + "; bound ms " + ", ".join(f"{t:.5f}" for t in bounds)
+         + f"; pixels (decal, in kept chunks, passing the depth test, "
+         f"opaque) {[tuple(c.values()) for c in counts]}; identical to the "
+         f"twin; {res.get('registers')} registers, "
+         f"{res.get('spill_bytes')} bytes spilled")
+    return dict(
+        name=name, route="cuda",
+        source="incarnation_tpu_torch/csrc/resolve.cu",
+        replaces="incarnation_tpu/renderer/frame.py:329",
+        launches=n_launches, max_abs_err=0.0,
+        ms=float(np.mean(ms)), plain_ms=float(np.mean(plain_ms)),
+        bound_ms=float(np.mean(bounds)),
+        bound_by="operations" if "operations" in bound_by else "bytes",
+        library_ms=None, k5_decal_launch_ms=float(np.mean(k5_ms)),
+        k5_and_glue_ms=float(np.mean(glue_ms)), ms_per_launch=ms,
+        passing_pixels=[c["passing"] for c in counts],
+        registers=res.get("registers"), spill_bytes=res.get("spill_bytes"))
+
+
+def decal_view(path, run_exact, prev_vp, history, exact_history):
+    """A view of the atrium whose decal layer covers at least 10,000
+    pixels that pass its depth test: for each decal primitive (its
+    bounding sphere's world centre), a camera 2 and then 3.5 units above
+    it and behind it, looking at it, the first whose frame (estimators on,
+    captured) has that many; its frame rendered with the estimators on and
+    off, each captured -> (calls, exact calls)."""
+    import torch
+    from incarnation_tpu_torch.core import mathutils as mu
+    from incarnation_tpu_torch.core.view import View
+    from incarnation_tpu_torch.kernels import clustered, raster, taa
+    scene = path.scene
+    fc = path.make_fc(FRAMES, prev_vp)
+    decal = torch.nonzero(scene.prim_is_decal > 0).flatten()
+    world = mu.rows_mat(scene.mesh_transforms, fc.scene_rotation)
+    xf = world[scene.prim_mesh.long()[decal]]
+    c = scene.prim_bsphere[decal, :3]
+    centers = (c[:, 0:1] * xf[:, 0, :3] + c[:, 1:2] * xf[:, 1, :3]
+               + c[:, 2:3] * xf[:, 2, :3] + xf[:, 3, :3]).cpu().numpy()
+    tried = []
+    for height in (2.0, 3.5):
+        for k, center in enumerate(centers):
+            # the glTF camera's handedness (bench_view): right = look x up
+            pos = (center + np.float32([0.0, height, -0.6 * height])) \
+                .astype(np.float32)
+            look = (center - pos) / np.linalg.norm(center - pos)
+            right = np.cross(look, [0.0, 1.0, 0.0])
+            right /= np.linalg.norm(right)
+            view = View(position=pos, right=right.astype(np.float32),
+                        up=np.cross(right, look).astype(np.float32),
+                        look=look.astype(np.float32), aspect=W / H)
+            fc = path.make_fc(FRAMES, prev_vp, view=view)
+            calls = capture_frame(path.run, fc, history, raster, clustered,
+                                  taa)
+            x, = [kw for kind, _, kw in calls if kind == "k5d"]
+            covered = int(((x["d_tri"] >= 0)
+                           & (x["d_depth"] >= x["depth"] - 1e-5)).sum())
+            tried.append((int(decal[k]), height, covered))
+            if covered >= 10_000:
+                _log(f"decal view: decal primitive {int(decal[k])} from "
+                     f"{height} units above, {covered} decal pixels pass "
+                     f"the depth test (tried: primitive, height, pixels "
+                     f"{tried})")
+                return calls, capture_frame(run_exact, fc, exact_history,
+                                            raster, clustered, taa)
+    raise RuntimeError(f"no view of a decal covers 10,000 pixels: {tried}")
+
+
+def decal_launches(run, fc, history, raster, kernels):
+    """What the frame launches for its decal layer beside K1's: every
+    eager torch operator that runs work on the card (_launches_work)
+    from the return of K1's decal call (rasterize_tiles, name
+    raster_decal) to the sun pass (shadow.render_sun_shadow_map), counted
+    by a TorchDispatchMode over one frame, and the hand-written kernels
+    launched there. -> (operators, operators by name, kernel launches by
+    kernel)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from incarnation_tpu_torch.kernels import shadow
+    ops, marks = [], []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if _launches_work(func):
+                ops.append(func.name())
+            return func(*args, **(kwargs or {}))
+    k1, smap = raster.rasterize_tiles, shadow.render_sun_shadow_map
+
+    def mark():
+        marks.append((len(ops), [k.launches for k in kernels]))
+
+    def k1_marked(*a, **kw):
+        out = k1(*a, **kw)
+        if kw.get("name") == "raster_decal":
+            mark()
+        return out
+
+    def sun_marked(*a, **kw):
+        if len(marks) == 1:
+            mark()
+        return smap(*a, **kw)
+    with _swapped(raster, "rasterize_tiles", k1_marked), \
+            _swapped(shadow, "render_sun_shadow_map", sun_marked), Count():
+        run(fc, history)
+    torch.cuda.synchronize()
+    if len(marks) != 2:
+        raise RuntimeError("the frame has no decal layer before its sun pass")
+    (o0, n0), (o1, n1) = marks
+    names = {}
+    for op in ops[o0:o1]:
+        names[op] = names.get(op, 0) + 1
+    return o1 - o0, names, {k.fn: b - a for k, a, b in zip(kernels, n0, n1)
+                            if b > a}
 
 
 def _peel_clone(state):
@@ -2450,46 +2822,52 @@ def _k14_error(got, ref):
 
 
 def k13_rows(cull, calls, n_launches):
-    """K13 against its twin, identical in every mask bit and the count, on
-    a frame's two captured cull_primitives launches (the primitives, then
-    the meshlets), each timed, with its bound, the launch floor (K10's
-    empty kernel) and K13's registers -> a JSON row for each: k13_cull
-    (the meshlets, the larger list) and k13_cull[primitives]."""
+    """K13 against its twin, identical in every mask bit and each list's
+    count, on the frame's captured cull_lists launch (the primitives and
+    the meshlets in one launch), timed in turns against the two one-list
+    launches of the same kernel that the frame made before
+    (`two_launch_ms`), with the bound (K13_*), the launch floor (K10's
+    empty kernel) and K13's registers -> [the row k13_cull]."""
     launches = [(a, kw) for kind, a, kw in calls if kind == "k13"]
-    if len(launches) != 2 or n_launches != 2 * FRAMES:
+    if len(launches) != 1 or n_launches != FRAMES:
         raise RuntimeError(f"k13: {len(launches)} launches captured, "
                            f"{n_launches} on the main path")
+    (a, kw), = launches
+    x = dict(_bound_args(cull.cull_lists_plain, a, kw))
+    ref = cull.cull_lists_plain(**x)
+    for got, r in zip(cull.cull_lists(**x), ref):
+        _k13_error(got, r)
+    rest = [x[k] for k in ("mesh_transforms", "mesh_visible",
+                           "scene_rotation", "view_proj")]
+    fns = {"one": lambda: cull.cull_lists(**x),
+           "two": lambda: [cull.cull_primitives(b, m, *rest)
+                           for b, m in x["lists"]]}
+    order = ("one", "two", "two", "one")
+    t = [device_ms(fns[k], 50) for k in order]
+    ms = {k: min(v for o, v in zip(order, t) if o == k) for k in fns}
+    plain = device_ms(lambda: cull.cull_lists_plain(**x), 5)
     floor = k10_launch_ms()
+    sizes = [b.shape[0] for b, _ in x["lists"]]
+    p, m = sum(sizes), x["mesh_transforms"].shape[0]
+    bound, by = _bound(K13_SPHERE_BYTES * p + K13_MESH_BYTES * m + 136,
+                       K13_OPS_PER_SPHERE * p + K13_OPS_PER_MESH * m
+                       + K13_OPS_PLANES)
     res = next((v for k, v in K11_K15_RESOURCES.items() if "k13" in k), {})
-    rows = []
-    for (a, kw), name in zip(launches, ("k13_cull[primitives]",
-                                        "k13_cull")):
-        _k13_error(cull.cull_primitives(*a, **kw),
-                   cull.cull_primitives_plain(*a, **kw))
-        x = _bound_args(cull.cull_primitives_plain, a, kw)
-        p, m = x["bsphere"].shape[0], x["mesh_transforms"].shape[0]
-        bound, by = _bound(K13_SPHERE_BYTES * p + K13_MESH_BYTES * m + 136,
-                           K13_OPS_PER_SPHERE * p + K13_OPS_PER_MESH * m
-                           + K13_OPS_PLANES)
-        ms = device_ms(lambda: cull.cull_primitives(*a, **kw), 50)
-        plain = device_ms(lambda: cull.cull_primitives_plain(*a, **kw), 5)
-        _log(f"{name}: {p} spheres of {m} meshes, "
-             f"{int(cull.cull_primitives_plain(*a, **kw)[1])} culled; "
-             f"{ms:.4f} ms a launch against the launch floor {floor:.4f} ms "
-             f"(an empty kernel, back to back) and the bound {bound:.6f} ms "
-             f"({by}); twin {plain:.3f} ms; identical to the twin; "
-             f"{res.get('registers')} registers, {res.get('spill_bytes')} "
-             "bytes spilled")
-        rows.append(dict(
-            name=name, route="cuda",
-            source="incarnation_tpu_torch/csrc/cull.cu",
-            replaces="incarnation_tpu/kernels/cull.py:34",
-            launches=n_launches // 2, max_abs_err=0.0, ms=ms,
-            plain_ms=plain, bound_ms=bound, bound_by=by,
-            launch_floor_ms=floor, library_ms=None,
-            registers=res.get("registers"),
-            spill_bytes=res.get("spill_bytes")))
-    return rows
+    _log(f"k13_cull: lists of {sizes} spheres of {m} meshes, "
+         f"{[int(c) for _, c in ref]} culled; {ms['one']:.4f} ms a launch "
+         f"(the two one-list launches {ms['two']:.4f} ms) against the "
+         f"launch floor {floor:.4f} ms (an empty kernel, back to back) and "
+         f"the bound {bound:.6f} ms ({by}); twin {plain:.3f} ms; identical "
+         f"to the twin; {res.get('registers')} registers, "
+         f"{res.get('spill_bytes')} bytes spilled")
+    return [dict(
+        name="k13_cull", route="cuda",
+        source="incarnation_tpu_torch/csrc/cull.cu",
+        replaces="incarnation_tpu/kernels/cull.py:34", launches=n_launches,
+        max_abs_err=0.0, ms=ms["one"], plain_ms=plain, bound_ms=bound,
+        bound_by=by, launch_floor_ms=floor, library_ms=None,
+        two_launch_ms=ms["two"], registers=res.get("registers"),
+        spill_bytes=res.get("spill_bytes"))]
 
 
 def _k14_bound(shadow, x):
@@ -2575,20 +2953,21 @@ def k14_row(shadow, calls, n_launches, name="k14_sun_tap", role=None):
 _HOST_FREE = (("clustered", "build_light_clusters", ("k11_light_grid",), 1),
               ("skylight", "environment_background", ("k12_sky_background",),
                1),
-              ("cull", "cull_primitives", ("k13_cull",), 2),
+              ("cull", "cull_lists", ("k13_cull",), 1),
+              ("resolve", "decal_step", ("k5_resolve",), 1),
               ("shading", "sun_term", ("k15_sun_term",), 1),
               ("taa", "taa_resolve", ("k3_taa_resolve",), 1))
 
 
 def host_free_phases(run, fc, history, kernels):
-    """Inside build_light_clusters, environment_background, both
-    cull_primitives calls, sun_term and taa_resolve on one frame: every
+    """Inside build_light_clusters, environment_background, cull_lists
+    (both lists), decal_step, sun_term and taa_resolve on one frame: every
     eager torch operator that runs work on the card (_launches_work,
     counted by a TorchDispatchMode), the hand-written kernels launched,
     and, under torch.cuda.set_sync_debug_mode("error"), any synchronize or
     copy from pageable host memory (which raises). Raises unless each call
-    is its kernel's one launch (K11, K12, K13, K15 with the map's tap, K3)
-    and nothing else, and unless no eager operator reads the sky
+    is its kernel's one launch (K11, K12, K13, K5's decal step, K15 with
+    the map's tap, K3) and nothing else, and unless no eager operator reads the sky
     background's output between its return and the TAA resolve (the frame
     adds nothing to it: K12's launch wrote the HDR)."""
     import importlib
@@ -2640,7 +3019,8 @@ def host_free_phases(run, fc, history, kernels):
         run(fc, history)
     torch.cuda.synchronize()
     _log("inside the light-cluster grid, the sky background, the frustum "
-         "culls, the sun term and the TAA resolve (eager operators running "
+         "cull, the decal step, the sun term and the TAA resolve (eager "
+         "operators running "
          "on the card, kernels launched; no synchronize and no copy from "
          "host memory under set_sync_debug_mode): " + json.dumps(seen)
          + "; eager operators reading the sky background's output before "
@@ -2650,8 +3030,9 @@ def host_free_phases(run, fc, history, kernels):
     if sorted(w for w, _, _ in seen) != calls \
             or any(o or k != want[w] for w, o, k in seen):
         raise RuntimeError("build_light_clusters, environment_background, "
-                           "cull_primitives, sun_term or taa_resolve ran "
-                           "more on the card than its kernel's one launch")
+                           "cull_lists, decal_step, sun_term or "
+                           "taa_resolve ran more on the card than its "
+                           "kernel's one launch")
     if sky["readers"]:
         raise RuntimeError(f"eager operators {sky['readers']} read the sky "
                            "background's output before the TAA resolve")
@@ -2756,8 +3137,9 @@ def small_path(dev, raster, clustered, taa):
     """The forward / view-mode / debug-draw path on the port's own test
     scene with a BLEND quad, 512x256, every launch on the card. Returns the
     k1_raster[raster_blend] row and the row of the forward frame's K5
-    launches (opaque with the mapped normal, decal, each blend layer); their
-    launches are this path's."""
+    launches (opaque with the mapped normal, each blend layer; the decal
+    layer is K5's decal step, held to its twin); their launches are this
+    path's."""
     import torch
     from incarnation_tpu_torch.config import ViewMode
     from incarnation_tpu_torch.kernels import (cull, resolve, shading, shadow,
@@ -2789,6 +3171,8 @@ def small_path(dev, raster, clustered, taa):
                cull.K13.launches, shadow.K14.launches, shading.K15.launches]
     by_name, k2_launches = dict(raster.K1.by_name), clustered.K2.launches
     k5_launches, k6_launches = resolve.K5.launches, resolve.K6.launches
+    k5_decal = {r: n for r, n in resolve.K5.by_name.items()
+                if r.startswith("decal_")}
     k8_launches, k9_launches = skylight.K8.launches, raster.K9.launches
     k10_binnings = raster.K10.by_name.get("k10_scatter", 0)
     out = render(**fwd)
@@ -2801,24 +3185,26 @@ def small_path(dev, raster, clustered, taa):
     if by_name.get("raster_blend") != SMALL_PEELS:
         raise RuntimeError(f"raster_blend launches {by_name}")
     # K2 and K8 shade the opaque surface and each blend layer; K5 resolves
-    # the opaque, decal and blend layers, K6 tests each masked peel, K9
-    # sets up and K10 bins the camera and the sun pass, K13 culls the
-    # primitives and the meshlets, K15 shades the sun for the opaque
-    # surface and each blend layer, tapping the map itself (no K14)
+    # the opaque and blend layers and steps the decal layer, K6 tests each
+    # masked peel, K9 sets up and K10 bins the camera and the sun pass,
+    # K13 culls the primitives and the meshlets in one launch, K15 shades
+    # the sun for the opaque surface and each blend layer, tapping the map
+    # itself (no K14)
     if by_name.get("raster_shadow_depth") != 1 \
             or k2_launches != 1 + SMALL_PEELS \
             or k5_launches != 2 + SMALL_PEELS or k6_launches != SMALL_PEELS \
+            or k5_decal != {"decal_exact": 1} \
             or k8_launches != 1 + SMALL_PEELS or k9_launches != 2 \
             or k10_binnings != 2 \
-            or k11_k15 != [1, 1, 2, 0, 1 + SMALL_PEELS]:
+            or k11_k15 != [1, 1, 1, 0, 1 + SMALL_PEELS]:
         raise RuntimeError(f"small path launches {by_name}, K2 "
                            f"{k2_launches}, K5 {k5_launches}, K6 "
                            f"{k6_launches}, K8 {k8_launches}, K9 "
                            f"{k9_launches}, K10 {k10_binnings} binnings, "
                            f"K11-K15 {k11_k15}")
     check_twins("small path, forward frame", calls, raster, clustered, taa,
-                need=("k1", "k2", "k5", "k6", "k8", "k9", "k10", "k11",
-                      "k12", "k13", "k14", "k15"))
+                need=("k1", "k2", "k5", "k5d", "k6", "k8", "k9", "k10",
+                      "k11", "k12", "k13", "k14", "k15"))
     if stats["debug_draws"] <= 0:
         raise RuntimeError("no debug draw was appended")
     for key in ("bin_overflow", "big_overflow", "peel_overflow",
@@ -2839,7 +3225,8 @@ def small_path(dev, raster, clustered, taa):
             is not None or blends[0][1].get("z_limit") is None:
         raise RuntimeError("the blend layers are not z_limit peels")
     rows = [k1_row(raster, "raster_blend", blends, by_name["raster_blend"]),
-            k5_row(resolve, calls, k5_launches, name="k5_resolve[small_path]")]
+            k5_row(resolve, calls, k5_launches - 1,
+                   name="k5_resolve[small_path]")]
 
     # the scene with transmission and clearcoat: K15's extras role (and
     # K5's and K8's), forward lighting with the blend layers
@@ -2858,8 +3245,8 @@ def small_path(dev, raster, clustered, taa):
     if float((out_x["hdr"] - out["hdr"]).abs().max()) == 0.0:
         raise RuntimeError("transmission and clearcoat changed nothing")
     check_twins("small path, extras frame",
-                [c for c in x_calls if c[0] in ("k5", "k8", "k15")], raster,
-                clustered, taa, need=("k5", "k8", "k15"))
+                [c for c in x_calls if c[0] in ("k5", "k5d", "k8", "k15")],
+                raster, clustered, taa, need=("k5", "k5d", "k8", "k15"))
     rows.append(k15_row(shading, x_calls, x_roles["map+extras"],
                         name="k15_sun_term[extras]", role="map+extras"))
 
@@ -3100,10 +3487,12 @@ def bvh_paths(dev, path, profile: bool):
                           for x in k8_hbao):
         raise RuntimeError("(e) K8 was not given the HBAO and bent normals")
     check_twins("(e) RT frame", [c for c in raster_calls
-                                 if c[0] in ("k5", "k6", "k8", "k9", "k10",
-                                             "k11", "k12", "k13", "k15")],
+                                 if c[0] in ("k5", "k5d", "k6", "k8", "k9",
+                                             "k10", "k11", "k12", "k13",
+                                             "k15")],
                 raster, clustered, taa,
-                need=("k5", "k6", "k8", "k9", "k10", "k11", "k12", "k13",
+                need=("k5", "k5d", "k6", "k8", "k9", "k10", "k11", "k12",
+                      "k13",
                       "k15"))
     rows += [k4_row(bvh, rt_calls[role], role, rt_launches.get(role, 0))
              for role in ("hbao", "rt_sun")]
@@ -3274,8 +3663,9 @@ def cli_phase(dev, path):
         raise RuntimeError(f"(i) the CLI's frames skipped a kernel: "
                            f"{counts}, K3 by role {taa.K3.by_name}")
     k3r = check_twins("(i) CLI raster", calls, raster, clustered, taa,
-                      need=("k1", "k2", "k3r", "k5", "k6", "k8", "k9",
-                            "k10", "k11", "k12", "k13", "k14", "k15"))
+                      need=("k1", "k2", "k3r", "k5", "k5d", "k6", "k8",
+                            "k9", "k10", "k11", "k12", "k13", "k14",
+                            "k15"))
     img = _png_check(out_dir / "raster.png", W, H)
     ref = frame.render_frame(res["scene"], res["fc"], config=res["config"],
                              params=res["params"], probe=res["probe"],
@@ -3405,8 +3795,8 @@ def viewer_phase(dev, path):
                            f"{state.error}")
     n14, k15_roles = shadow.K14.launches, dict(shading.K15.by_name)
     check_twins("(j) viewer", calls, raster, clustered, taa,
-                need=("k1", "k2", "k3r", "k5", "k6", "k8", "k9", "k10",
-                      "k11", "k12", "k13", "k14", "k15"))
+                need=("k1", "k2", "k3r", "k5", "k5d", "k6", "k8", "k9",
+                      "k10", "k11", "k12", "k13", "k14", "k15"))
     n = skylight.K8.by_name.get("jitter", 0)
     if not n:
         raise RuntimeError(f"(j) the viewer's frames launched K8's roles "
@@ -3483,8 +3873,9 @@ def band_phase(dev, path, pt):
     if 0 in counts:
         raise RuntimeError(f"(k) the band frames skipped a kernel: {counts}")
     k3r = check_twins("(k) band frame", calls, raster, clustered, taa,
-                      need=("k1", "k2", "k3r", "k5", "k6", "k8", "k9",
-                            "k10", "k11", "k12", "k13", "k14", "k15"))
+                      need=("k1", "k2", "k3r", "k5", "k5d", "k6", "k8",
+                            "k9", "k10", "k11", "k12", "k13", "k14",
+                            "k15"))
     k14_rows0 = {(x["row0"], _k14_role(x)) for x in _k14_calls(calls)}
     if k14_rows0 != {(0, "dither_checker+nl"),
                      (H // 2, "dither_checker+nl")}:
@@ -3539,8 +3930,9 @@ def check_twins(what, calls, raster, clustered, taa, need):
     """Each captured K1, K2, K3, K5, K6, K8, K9, K10, K11, K12, K13 and
     K15 launch against its twin, at compare_kernels' tolerances (K1 via
     _k1_error, K2 K2_RTOL, K3's fetch 1e-6 relative, K5 via _k5_error,
-    K6's peel step via _k6_error, K8 via _k8_error, K9-K15 and K3's
-    resolve exactly, NaN for NaN), and K14's tap alone on the inputs of
+    K5's decal step via _k5d_error (bit for bit), K6's peel step via
+    _k6_error, K8 via _k8_error, K9-K15 and K3's resolve exactly, NaN for
+    NaN), and K14's tap alone on the inputs of
     each K15 launch with a map (kind k14), at the shapes the path gave
     it; raises if a kind in `need` was not captured, or if the path
     launched K14 itself. Returns the K3 resolves' arguments by name."""
@@ -3550,8 +3942,8 @@ def check_twins(what, calls, raster, clustered, taa, need):
         raise RuntimeError(f"{what}: the path launched K14 (K15 taps the "
                            "map)")
     kinds = {k: [c for c in calls if c[0] == k]
-             for k in ("k1", "k2", "k3", "k5", "k6", "k8", "k9", "k10",
-                       "k11", "k13", "k15")}
+             for k in ("k1", "k2", "k3", "k5", "k5d", "k6", "k8", "k9",
+                       "k10", "k11", "k13", "k15")}
     kinds["k14"] = _k14_calls(calls)
     # taa_resolve launches K3's resolve only with a history on the card
     kinds["k3r"] = [c for c in calls if c[0] == "k3r"
@@ -3597,6 +3989,14 @@ def check_twins(what, calls, raster, clustered, taa, need):
                     resolve.resolve_gbuffer_plain(**x)) for x in k5_args]
     k6_args = [_k6_args(a, kw) for _, a, kw in kinds["k6"]]
     k6 = [_k6_error(resolve, x) for x in k6_args]
+    k5d = [kw for _, _, kw in kinds["k5d"]]
+    covers = [_k5d_error(resolve, x) for x in k5d]
+    if k5d:
+        _log(f"{what}: K5's decal step x{len(k5d)} (roles "
+             f"{sorted({_k5d_role(x) for x in k5d})}, first rows "
+             f"{sorted({x['row0'] for x in k5d})}, decal pixels passing "
+             f"the depth test {covers}): the overflow, base colour, "
+             f"normals, mrao and n3 identical to the twin's")
     if k5 or k6:
         _log(f"{what}: K5 x{len(k5)} (roles "
              f"{sorted({_k5_role(x) for x in k5_args})}) against the twin: "
@@ -3650,17 +4050,20 @@ def check_twins(what, calls, raster, clustered, taa, need):
              f"{sorted({(a[3], a[4]) for _, a, _ in kinds['k12']})}) "
              "identical to the twin")
     for _, a, kw in kinds["k13"]:
-        _k13_error(cull.cull_primitives(*a, **kw),
-                   cull.cull_primitives_plain(*a, **kw))
+        for got, ref in zip(cull.cull_lists(*a, **kw),
+                            cull.cull_lists_plain(*a, **kw)):
+            _k13_error(got, ref)
     k14 = kinds["k14"]
     for x in k14:
         _k14_error(shadow.sun_visibility(**x),
                    shadow.sun_visibility_plain(**x))
     if kinds["k13"] or k14:
-        spheres = sorted({a[0].shape[0] for _, a, _ in kinds["k13"]})
+        spheres = sorted({tuple(b.shape[0] for b, _ in a[0])
+                          for _, a, _ in kinds["k13"]})
         taps = sorted({(_k14_role(x), x["row0"],
                         tuple(x["world_pos"].shape[:2])) for x in k14})
-        _log(f"{what}: K13 x{len(kinds['k13'])} (spheres {spheres}) and "
+        _log(f"{what}: K13 x{len(kinds['k13'])} (spheres a list "
+             f"{spheres}) and "
              f"K14 alone x{len(k14)} on K15's map inputs (roles, first "
              f"rows and shapes {taps}) identical to the twin")
     k15 = [_bound_args(shading.sun_term_plain, a, kw)
@@ -3874,8 +4277,11 @@ def role_resources(kind: str, role: str) -> dict:
                 if base.endswith("_checker") else "stochastic")
         table = K8_RESOURCES
     elif kind == "k5":
-        want = _K5_INSTANCE.get(base, "")
-        table = {k: v for k, v in K5_RESOURCES.items() if "k5" in k}
+        # the decal step's roles are instances of k5_decal_kernel
+        decal = base.startswith("decal_")
+        want = _K5_INSTANCE.get(base.removeprefix("decal_"), "")
+        table = {k: v for k, v in K5_RESOURCES.items()
+                 if "k5" in k and ("k5_decal" in k) == decal}
     else:
         # K6's peel step (step_* roles) or its standalone role, each
         # instance templated on STOCH
@@ -4115,6 +4521,7 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
                      resolve.resolve_gbuffer_plain), \
             _swapped(resolve, "masked_alpha", resolve.masked_alpha_plain), \
             _swapped(resolve, "masked_peel", resolve.masked_peel_plain), \
+            _swapped(resolve, "decal_step", resolve.decal_step_plain), \
             _swapped(skylight, "sky_lighting", skylight.sky_lighting_plain), \
             _swapped(raster, "prepare_geometry",
                      raster.prepare_geometry_plain), \
@@ -4124,7 +4531,7 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
                      clustered.build_light_clusters_plain), \
             _swapped(skylight, "environment_background",
                      skylight.environment_background_plain), \
-            _swapped(cull, "cull_primitives", cull.cull_primitives_plain):
+            _swapped(cull, "cull_lists", cull.cull_lists_plain):
         ref = run(fc, history)
     torch.cuda.synchronize()
     share = float((got["tri"] != ref["tri"]).float().mean())
@@ -4139,10 +4546,10 @@ def check_twin_frame(run, fc, history, raster, clustered, taa):
 
 
 # (module, function) pairs render_frame calls, timed by phase_breakdown
-_PHASES = (("cull", "cull_primitives"), ("raster", "prepare_geometry"),
+_PHASES = (("cull", "cull_lists"), ("raster", "prepare_geometry"),
            ("raster", "bin_triangles_layered"), ("raster", "rasterize_tiles"),
            ("shadow", "render_sun_shadow_map"), ("resolve", "masked_peel"), ("resolve", "masked_alpha"),
-           ("resolve", "resolve_gbuffer"),
+           ("resolve", "resolve_gbuffer"), ("resolve", "decal_step"),
            ("clustered", "build_light_clusters"),
            ("clustered", "clustered_lighting"), ("skylight", "sky_lighting"),
            ("shading", "sun_term"),

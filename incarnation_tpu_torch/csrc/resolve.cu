@@ -19,6 +19,10 @@
 // mapped normal. A covered pixel reads 4 texels of 2 levels, 14 words
 // each; an empty pixel reads its tri and uv and writes zeros.
 //
+// K5's decal role, k5_decal_step, is the decal layer's whole step: the
+// fetch of the decal pixels that pass the depth test under the layer's
+// chunk capacity, and their composite into the GBuffer (k5_decal_kernel).
+//
 // K6, the alpha test of a masked peel's pixel: the LOD capped at half an
 // amask cell, one bilinear level of the u8 alpha mirror, alpha =
 // mat_params[6] x a_tex, and the pass threshold: alphaCutoff, or for BLEND
@@ -43,11 +47,13 @@
 // twin's Python scalar rounds to. Where torch on the card divides by a
 // Python number it multiplies by the scalar's float reciprocal, and so do
 // these kernels; torch.sum of a row of three adds (x + z) + y there (the
-// octahedral encoding's L1 norm), and so does K5. What K5 cannot follow is
-// torch.cross and torch.matmul (world_from_depth), which round in their
-// own order (fused multiply-adds, cuBLAS): K5 adds left to right, and its
-// floats agree with the twin to a tolerance (chip_smoke.py K5_RTOL), the
-// mask exactly. K6 follows the twin operation for operation (sqrt and
+// octahedral encoding's L1 norm), and so does K5. The twin's cross
+// product is mathutils.cross3 (each product and difference rounded on its
+// own, as here). What K5 cannot follow is torch.matmul (world_from_depth),
+// which rounds in cuBLAS's order: K5 adds left to right, and its floats
+// agree with the twin to a tolerance (chip_smoke.py K5_RTOL), the mask
+// exactly; its decal step writes no world position and is expected to
+// equal its twin bit for bit. K6 follows the twin operation for operation (sqrt and
 // log2 are the same libdevice functions), so its alpha and threshold are
 // expected to equal the twin's bit for bit, and its pass/fail decisions
 // must.
@@ -335,12 +341,15 @@ __device__ __forceinline__ float interp_lod(const float* interp, size_t i,
 }
 
 // textures.srgb_to_linear; the two divisions by Python numbers are torch's
-// multiplications by their float reciprocals on the card
+// multiplications by their reciprocals on the card, each taken in double
+// and rounded to float ((float)(1.0 / 1.055), not 1.0f / 1.055f: the two
+// differ, and with the latter K5's base colour and emissive missed the
+// twin's bits at 83% of the covered pixels)
 __device__ __forceinline__ float srgb_to_linear(float c) {
   c = fminf(fmaxf(c, 0.0f), 1.0f);
   return c <= (float)0.04045
-             ? c * (1.0f / (float)12.92)
-             : powf((c + (float)0.055) * (1.0f / (float)1.055), (float)2.4);
+             ? c * (float)(1.0 / 12.92)
+             : powf((c + (float)0.055) * (float)(1.0 / 1.055), (float)2.4);
 }
 
 // mathutils.normalize: v (1 / sqrt(dot3(v, v) + 1e-20)), dot3 left to right
@@ -510,6 +519,46 @@ __device__ __forceinline__ void trilinear_fetch(
   }
 }
 
+// the mapped world normal of pixel i from its stack channels ch and its
+// material's factors fac, in the twin's operations and order: the TBN
+// basis from the interp channels (mathutils.cross3's products), the
+// normal map's xy and its z, normalized
+__device__ __forceinline__ void mapped_normal(
+    const float* ch, const float* fac, const float* __restrict__ interp,
+    size_t i, size_t plane, float* nm) {
+  float n[3], t[3], b[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    n[k] = interp[(CH_WN + k) * plane + i];
+    t[k] = interp[(CH_WT + k) * plane + i];
+  }
+  normalize3(n);
+  normalize3(t);
+  const float sign = interp[CH_SIGN * plane + i];
+  b[0] = (n[1] * t[2] - n[2] * t[1]) * sign;
+  b[1] = (n[2] * t[0] - n[0] * t[2]) * sign;
+  b[2] = (n[0] * t[1] - n[1] * t[0]) * sign;
+  normalize3(b);
+  const float nx = (ch[4] * 2.0f - 1.0f) * fac[10];
+  const float ny = (ch[5] * 2.0f - 1.0f) * fac[10];
+  const float nz = sqrtf(clamp_lo(1.0f - (nx * nx + ny * ny), (float)1e-6));
+#pragma unroll
+  for (int k = 0; k < 3; ++k) nm[k] = (nx * t[k] + ny * b[k]) + nz * n[k];
+  normalize3(nm);
+}
+
+// mathutils.oct_encode (torch.sum of the row of three: (x + z) + y)
+__device__ __forceinline__ float2 oct_encode(const float* nm) {
+  const float l1n = (fabsf(nm[0]) + fabsf(nm[2])) + fabsf(nm[1]);
+  const float ox = nm[0] / l1n, oy = nm[1] / l1n, oz = nm[2] / l1n;
+  float ex = ox, ey = oy;
+  if (!(oz >= 0.0f)) {
+    ex = (1.0f - fabsf(oy)) * (ox >= 0.0f ? 1.0f : -1.0f);
+    ey = (1.0f - fabsf(ox)) * (oy >= 0.0f ? 1.0f : -1.0f);
+  }
+  return make_float2(ex * 0.5f + 0.5f, ey * 0.5f + 0.5f);
+}
+
 // the shading of covered pixel i at (x, y) from its stack channels ch, in
 // the twin's operations and order, each plane written as soon as it is
 // known
@@ -532,40 +581,11 @@ __device__ __forceinline__ void shade_pixel(
   o.extras[1] = fac[14] * ch[13];
   o.extras[2] = fac[15];
 
-  // the TBN basis
-  float n[3], t[3], b[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    n[k] = interp[(CH_WN + k) * plane + i];
-    t[k] = interp[(CH_WT + k) * plane + i];
-  }
-  normalize3(n);
-  normalize3(t);
-  const float sign = interp[CH_SIGN * plane + i];
-  b[0] = (n[1] * t[2] - n[2] * t[1]) * sign;
-  b[1] = (n[2] * t[0] - n[0] * t[2]) * sign;
-  b[2] = (n[0] * t[1] - n[1] * t[0]) * sign;
-  normalize3(b);
-
-  // normal mapping
-  const float nx = (ch[4] * 2.0f - 1.0f) * fac[10];
-  const float ny = (ch[5] * 2.0f - 1.0f) * fac[10];
-  const float nz = sqrtf(clamp_lo(1.0f - (nx * nx + ny * ny), (float)1e-6));
   float nm[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) nm[k] = (nx * t[k] + ny * b[k]) + nz * n[k];
-  normalize3(nm);
+  mapped_normal(ch, fac, interp, i, plane, nm);
 #pragma unroll
   for (int k = 0; k < 3; ++k) o.n3[k] = nm[k];
-  // mathutils.oct_encode (torch.sum of the row of three: (x + z) + y)
-  const float l1n = (fabsf(nm[0]) + fabsf(nm[2])) + fabsf(nm[1]);
-  const float ox = nm[0] / l1n, oy = nm[1] / l1n, oz = nm[2] / l1n;
-  float ex = ox, ey = oy;
-  if (!(oz >= 0.0f)) {
-    ex = (1.0f - fabsf(oy)) * (ox >= 0.0f ? 1.0f : -1.0f);
-    ey = (1.0f - fabsf(ox)) * (oy >= 0.0f ? 1.0f : -1.0f);
-  }
-  *o.nrm = make_float2(ex * 0.5f + 0.5f, ey * 0.5f + 0.5f);
+  *o.nrm = oct_encode(nm);
 
   // world_from_depth: (2 xs / width - 1, -2 ys / height + 1, depth, 1)
   // times inv_view_proj (row vector), divided by w
@@ -1090,6 +1110,45 @@ __device__ int k6_look_back(volatile unsigned long long* words, int r,
   return before;
 }
 
+// Thread 0 of a block of K6's peel step or K5's decal step: under a chunk
+// capacity (cap >= 0) the block's ticket, which orders the look-back (the
+// last ticket resets the counter: every block has taken its own);
+// without one, blockIdx.x
+__device__ __forceinline__ int k6_ticket(unsigned long long* state,
+                                         int cap) {
+  int r = blockIdx.x;
+  if (cap >= 0) {
+    r = (int)atomicAdd(&state[K6_TICKET], 1ull);
+    if (r == (int)gridDim.x - 1) atomicExch(&state[K6_TICKET], 0ull);
+  }
+  return r;
+}
+
+// Every thread of the block of ticket blk, under a chunk capacity: whether
+// its warp's chunk (any: the lane's pixels hold a hit) ranks at or past
+// cap among the chunks with a hit, by the block's scan and the look-back;
+// adds the block's chunks with a hit to state[K6_ACTIVE]. rank: the
+// block's K6_WARPS shared words.
+__device__ __forceinline__ bool k6_chunk_dropped(bool any, int cap, int blk,
+                                                 unsigned long long* state,
+                                                 int* rank) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool hit_chunk = __any_sync(FULL_MASK, any);
+  if (lane == 0) rank[warp] = hit_chunk;
+  __syncthreads();
+  if (warp == 0) {
+    const int a = lane < K6_WARPS ? rank[lane] : 0;
+    const int incl = warp_incl_scan(a);
+    const int agg = __shfl_sync(FULL_MASK, incl, 31);
+    const int before = k6_look_back(state + K6_LOOKBACK, blk, agg);
+    if (lane < K6_WARPS) rank[lane] = before + incl - a;
+    if (lane == 0 && agg)
+      atomicAdd(&state[K6_ACTIVE], (unsigned long long)agg);
+  }
+  __syncthreads();
+  return rank[warp] >= cap;
+}
+
 template <bool STOCH>
 __global__ void __launch_bounds__(K6_THREADS)
 k6_peel_kernel(const int* __restrict__ m_tri,
@@ -1109,13 +1168,7 @@ k6_peel_kernel(const int* __restrict__ m_tri,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n = width * height;
   if (threadIdx.x == 0) {
-    int r = blockIdx.x;
-    if (cap >= 0) {
-      r = (int)atomicAdd(&state[K6_TICKET], 1ull);
-      // the last ticket: every block has taken its own
-      if (r == (int)gridDim.x - 1) atomicExch(&state[K6_TICKET], 0ull);
-    }
-    blk = r;
+    blk = k6_ticket(state, cap);
     conts = 0;
   }
   __syncthreads();
@@ -1128,23 +1181,8 @@ k6_peel_kernel(const int* __restrict__ m_tri,
     tri[k] = i < n ? m_tri[i] : -1;
     any |= tri[k] >= 0;
   }
-  bool dropped = false;
-  if (cap >= 0) {
-    const bool hit_chunk = __any_sync(FULL_MASK, any);
-    if (lane == 0) rank[warp] = hit_chunk;
-    __syncthreads();
-    if (warp == 0) {
-      const int a = lane < K6_WARPS ? rank[lane] : 0;
-      const int incl = warp_incl_scan(a);
-      const int agg = __shfl_sync(FULL_MASK, incl, 31);
-      const int before = k6_look_back(state + K6_LOOKBACK, blk, agg);
-      if (lane < K6_WARPS) rank[lane] = before + incl - a;
-      if (lane == 0 && agg)
-        atomicAdd(&state[K6_ACTIVE], (unsigned long long)agg);
-    }
-    __syncthreads();
-    dropped = rank[warp] >= cap;
-  }
+  const bool dropped =
+      cap >= 0 && k6_chunk_dropped(any, cap, blk, state, rank);
   // the chunk's first pixel in the whole frame (the rows of a band start
   // at row0)
   const int cy = i0 / width, cx = i0 - cy * width;
@@ -1206,6 +1244,173 @@ k6_peel_kernel(const int* __restrict__ m_tri,
   if (cap >= 0)
     for (int b = threadIdx.x; b < (int)gridDim.x; b += K6_THREADS)
       state[K6_LOOKBACK + b] = 0ull;
+}
+
+// K5's decal role: the decal layer's whole step (kernels/resolve.py
+// decal_step; renderer/frame.py's decal pass, frame.py:339-359 in JAX):
+// the decal layer's material fetch under its chunk capacity, its depth
+// test against the scene and its composite into the GBuffer, in one
+// launch. It replaces the decal layer's K5 launch, which wrote all nine
+// GBuffer planes of every pixel, and the eager torch around it: the chunk
+// keep flags, the chunk overflow and the composite (about 23 operators
+// over full-frame planes).
+//
+// The grid is K6's peel step's: a warp takes a 128-pixel chunk, a lane
+// its pixels lane + 32 k, k < 4, a block K6_WARPS chunks; under a chunk
+// capacity a block takes its chunks by an atomic ticket and their rank
+// among the chunks with a decal pixel by the decoupled look-back over the
+// blocks of earlier tickets (k6_look_back), and the last block to finish
+// writes the overflow (max(chunks with a decal pixel - capacity, 0)) and
+// leaves the state words zero (the same scratch as K6's step). Without a
+// capacity block 0 writes the overflow 0. A pixel outside the decal layer,
+// or in a chunk ranked at or past the capacity, fetches and writes
+// nothing. A decal pixel that passes the depth test d_depth >= depth -
+// 1e-5 takes K5's fetch of its role (its uv step and mip, then the
+// trilinear, bilinear or one jittered texel) and blends gb (1 - a) + d a
+// into the base colour (a the decal's opacity); where a > 0.5 it replaces
+// the normals and mrao with the decal's and writes the octahedral decode
+// of the decal's normal into n3 (where given). Every operation is the
+// twin's, in its order (K5's fetch and normal, then the composite; the
+// twin's cross product is mathutils.cross3 and its decode sums the norm
+// as dot3 does), so the planes equal decal_step_plain's bit for bit.
+//
+// What bounds it: bytes. Every pixel's d_tri read once (4 B, 8.4 MB at
+// 1920x1088: 0.0025 ms at 3.35 TB/s) and a look-back word a block; a decal
+// pixel reads d_depth and depth (8 B); one that passes reads its 7 interp
+// channels (uv, material, derivatives; 7 more, the TBN basis, where it
+// replaces the normal), its texture blocks and material rows, and
+// reads and writes 16-52 B of planes. Its float work (K5's fetch and
+// normal, ~1,000 operations a passing pixel) is far below that unless
+// most of the frame is decal.
+
+// mathutils' decode of the octahedral normal e into n (3 floats), the
+// norm a dot3 sum (kernels/resolve.py _oct_decode)
+__device__ __forceinline__ void oct_decode(float2 e, float* n) {
+  const float fx = e.x * 2.0f - 1.0f, fy = e.y * 2.0f - 1.0f;
+  const float nz = (1.0f - fabsf(fx)) - fabsf(fy);
+  const float m = -nz;
+  const float t = m != m ? m : fminf(fmaxf(m, 0.0f), 1.0f);  // torch.clamp
+  const float nx = fx + (fx >= 0.0f ? -t : t);
+  const float ny = fy + (fy >= 0.0f ? -t : t);
+  const float len = sqrtf((nx * nx + ny * ny) + nz * nz);
+  n[0] = nx / len;
+  n[1] = ny / len;
+  n[2] = nz / len;
+}
+
+// one decal pixel i at whole-frame (px, py) that passed the depth test:
+// its fetch (K5's, of ROLE), then the composite into base, nrm, mrao, n3
+template <int ROLE>
+__device__ __forceinline__ void decal_pixel(
+    const Stack& st, const int* __restrict__ meta, int n_meta,
+    const float* __restrict__ params, int n_params,
+    const float* __restrict__ interp, size_t i, size_t plane, uint32_t px,
+    uint32_t py, const Stoch& sc, float* __restrict__ base,
+    float* __restrict__ nrm, float* __restrict__ mrao,
+    float* __restrict__ n3) {
+  float u = interp[CH_U * plane + i];
+  float v = interp[CH_V * plane + i];
+  const int mat = (int)interp[CH_MAT * plane + i];
+  const int* m = meta + (size_t)META_COLS * clampi(mat, 0, n_meta - 1);
+  float ch[NCH];
+  if (ROLE == K5_EXACT) {
+    trilinear_fetch(st, m, interp, i, plane, u, v, ch);
+  } else {
+    const float lod = stochastic_lod(interp, i, plane, m[1], px, py, sc,
+                                     N_LOD, 0.0f, u, v);
+    level_fetch<ROLE == K5_JITTER>(st, m, lod, u, v,
+                                   frame_noise(px, py, sc.frame * N_JX),
+                                   frame_noise(px, py, sc.frame * N_JY), ch);
+  }
+  const float* fac =
+      params + (size_t)PARAM_COLS * clampi(mat, 0, n_params - 1);
+  const float a = fac[6] * ch[3];
+  const float oma = 1.0f - a;
+  float4* bp = reinterpret_cast<float4*>(base) + i;
+  float4 g = *bp;
+  g.x = g.x * oma + (fac[3] * srgb_to_linear(ch[0])) * a;
+  g.y = g.y * oma + (fac[4] * srgb_to_linear(ch[1])) * a;
+  g.z = g.z * oma + (fac[5] * srgb_to_linear(ch[2])) * a;
+  *bp = g;
+  if (a > 0.5f) {
+    float nm[3];
+    mapped_normal(ch, fac, interp, i, plane, nm);
+    const float2 e = oct_encode(nm);
+    reinterpret_cast<float2*>(nrm)[i] = e;
+    reinterpret_cast<float4*>(mrao)[i] =
+        make_float4(fac[7] * ch[6], fac[8] * ch[7], ch[11], fac[9]);
+    if (n3) oct_decode(e, n3 + 3 * i);
+  }
+}
+
+template <int ROLE>
+__global__ void __launch_bounds__(K6_THREADS)
+k5_decal_kernel(const int* __restrict__ d_tri,
+                const float* __restrict__ d_depth,
+                const float* __restrict__ d_interp,
+                const float* __restrict__ depth, Stack st,
+                const int* __restrict__ meta, int n_meta,
+                const float* __restrict__ params, int n_params,
+                float* __restrict__ base, float* __restrict__ nrm,
+                float* __restrict__ mrao, float* __restrict__ n3,
+                long long* __restrict__ overflow,
+                unsigned long long* __restrict__ state, int width,
+                int height, Stoch sc, int cap) {
+  __shared__ int blk, rank[K6_WARPS];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = width * height;
+  if (threadIdx.x == 0) blk = k6_ticket(state, cap);
+  __syncthreads();
+  const int i0 = (blk * K6_WARPS + warp) * K6_CHUNK;
+  int tri[K6_PX];
+  bool any = false;
+#pragma unroll
+  for (int k = 0; k < K6_PX; ++k) {
+    const int i = i0 + lane + 32 * k;
+    tri[k] = i < n ? d_tri[i] : -1;
+    any |= tri[k] >= 0;
+  }
+  const bool dropped =
+      cap >= 0 && k6_chunk_dropped(any, cap, blk, state, rank);
+  if (any && !dropped) {
+    // the chunk's first pixel (a band's rows start at row0)
+    const int cy = i0 / width, cx = i0 - cy * width;
+#pragma unroll
+    for (int k = 0; k < K6_PX; ++k) {
+      const int i = i0 + lane + 32 * k;
+      if (tri[k] < 0 || !(d_depth[i] >= depth[i] - 1e-5f)) continue;
+      int x = cx + lane + 32 * k, y = cy;
+      if (x >= width) {
+        const int wraps = x / width;
+        y += wraps;
+        x -= wraps * width;
+      }
+      decal_pixel<ROLE>(st, meta, n_meta, params, n_params, d_interp, i, n,
+                        (uint32_t)x, (uint32_t)(sc.row0 + y), sc, base, nrm,
+                        mrao, n3);
+    }
+  }
+  if (cap < 0) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) *overflow = 0;
+    return;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(&state[K6_DONE], 1ull) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // the last block: the overflow, and the state zero again
+  __threadfence();
+  if (threadIdx.x == 0) {
+    const long long act = (long long)atomicExch(&state[K6_ACTIVE], 0ull);
+    *overflow = act > cap ? act - cap : 0;
+    atomicExch(&state[K6_DONE], 0ull);
+  }
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += K6_THREADS)
+    state[K6_LOOKBACK + b] = 0ull;
 }
 
 // role: kernels/resolve.py's R_* flags (0: exact); frame, max_aniso,
@@ -1327,5 +1532,57 @@ extern "C" int k6_masked_peel(const int* m_tri, const float* m_depth,
     k6_peel_kernel<false><<<blocks, K6_THREADS, 0, (cudaStream_t)stream>>>(
         K6_PEEL_ARGS, false, cap);
 #undef K6_PEEL_ARGS
+  return (int)cudaGetLastError();
+}
+
+// The decal layer's step (k5_decal_kernel): the decal layer's d_tri,
+// d_depth and d_interp, the scene's depth, the material tables, the
+// GBuffer's base colour, normals and mrao and n3 (NULL: none), updated in
+// place, the overflow out (an int64 scalar), the scratch (state,
+// state_words int64 words, zero: K6's step's), the size, the role (R_*
+// without the checkerboard), the frame index, max_aniso, row0 and the
+// chunk capacity (-1: none; it needs whole 128-pixel chunks)
+extern "C" int k5_decal_step(const int* d_tri, const float* d_depth,
+                             const float* d_interp, const float* depth,
+                             const uint32_t* flat, int n_flat,
+                             const uint32_t* extra, int n_extra,
+                             const int* meta, int n_meta,
+                             const float* params, int n_params,
+                             float* base_color, float* normals, float* mrao,
+                             float* n3, long long* overflow,
+                             unsigned long long* state, int state_words,
+                             int width, int height, int role, int frame,
+                             float max_aniso, int row0, int capacity,
+                             void* stream) {
+  const long long n = (long long)width * height;
+  const int blocks = (int)((n + K6_WARPS * K6_CHUNK - 1) /
+                           (K6_WARPS * K6_CHUNK));
+  if (n_flat < 1 || n_extra < 1 || n_meta < 1 || n_params < 1 || row0 < 0 ||
+      (role & ~3) || role == 2 || n < 1 || n > (1LL << 30) ||
+      (capacity >= 0 && n % K6_CHUNK) ||
+      state_words < K6_LOOKBACK + (capacity >= 0 ? blocks : 0))
+    return (int)cudaErrorInvalidValue;
+  // the 16- and 8-byte loads and stores
+  if (((uintptr_t)flat | (uintptr_t)base_color | (uintptr_t)mrao) & 15u ||
+      ((uintptr_t)extra | (uintptr_t)normals) & 7u)
+    return (int)cudaErrorInvalidValue;
+  const Stack st = {flat, extra, n_flat, n_extra};
+  const Stoch sc = {(uint32_t)frame, max_aniso, 1.0f / max_aniso, 0, row0,
+                    nullptr};
+  const int cap = capacity < 0 ? -1 : capacity;
+#define K5D_ARGS                                                         \
+  d_tri, d_depth, d_interp, depth, st, meta, n_meta, params, n_params,   \
+      base_color, normals, mrao, n3, overflow, state, width, height, sc, \
+      cap
+  if (role & 2)
+    k5_decal_kernel<K5_JITTER>
+        <<<blocks, K6_THREADS, 0, (cudaStream_t)stream>>>(K5D_ARGS);
+  else if (role & 1)
+    k5_decal_kernel<K5_DITHER>
+        <<<blocks, K6_THREADS, 0, (cudaStream_t)stream>>>(K5D_ARGS);
+  else
+    k5_decal_kernel<K5_EXACT>
+        <<<blocks, K6_THREADS, 0, (cudaStream_t)stream>>>(K5D_ARGS);
+#undef K5D_ARGS
   return (int)cudaGetLastError();
 }

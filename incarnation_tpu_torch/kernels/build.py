@@ -187,3 +187,22 @@ def timed_build(verbose: bool = False):
 def ptr(t) -> int:
     """Device pointer of a tensor (None -> NULL)."""
     return 0 if t is None else t.data_ptr()
+
+
+def zero_scratch(cache: dict, dev, words: int, dtype, stream=None):
+    """A kernel's scratch of at least `words` words of `dtype` on dev, one
+    buffer per (device, stream) in the kernel's `cache`: counters, tickets
+    and look-back words that every launch leaves zero (its last block
+    zeroes them), so a call needs no memset. Created zero, replaced by a
+    larger zero buffer where a launch needs more; the launches of one
+    stream run in order, so they share it. stream: the launch's
+    cuda_stream handle, or None for the current stream's."""
+    import torch
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev.index, stream)
+    buf = cache.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(words, dtype=dtype, device=dev)
+        cache[key] = buf
+    return buf

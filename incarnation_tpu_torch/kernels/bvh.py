@@ -61,7 +61,7 @@ import torch
 
 from ..core.mathutils import fma as _fma
 from ..device import resolve_device
-from .build import Kernel, ptr
+from .build import Kernel, ptr, zero_scratch
 
 ROW_LANES = 48
 LEAF_K = 4                 # triangles per leaf quad
@@ -771,19 +771,12 @@ class _K4Alpha(ctypes.Structure):
                 ("noise", _P), ("mat_stride", _I), ("n_meta", _I),
                 ("alpha_rows", _I), ("n_mat", _I)]
 
-# K4's trunc, arrival and work counters, per (device, stream): zero
-# between launches, which leave them zero (csrc/bvh.cu), so a call needs
-# no memset.
+# K4's trunc, arrival and work counters (csrc/bvh.cu), build.zero_scratch
 _K4_COUNTERS: dict = {}
 
 
 def _k4_counters(dev):
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _K4_COUNTERS.get(key)
-    if buf is None:
-        buf = torch.zeros(3, dtype=torch.int32, device=dev)
-        _K4_COUNTERS[key] = buf
-    return buf
+    return zero_scratch(_K4_COUNTERS, dev, 3, torch.int32)
 
 
 def _cross(a, b):

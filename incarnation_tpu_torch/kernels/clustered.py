@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from . import shading
-from .build import Kernel, ptr
+from .build import Kernel, ptr, zero_scratch
 from ..core import mathutils as mu
 from ..scene import lights as lights_mod
 
@@ -88,14 +88,9 @@ _K11_SCRATCH: dict = {}
 
 
 def _k11_scratch(dev):
-    """K11's two 64-bit words (the culled sum, the block ticket) per device
-    and stream, zero between launches (the last block zeroes them)."""
-    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    buf = _K11_SCRATCH.get(key)
-    if buf is None:
-        buf = torch.zeros(2, dtype=torch.int64, device=dev)
-        _K11_SCRATCH[key] = buf
-    return buf
+    """K11's two 64-bit words, the culled sum and the block ticket
+    (build.zero_scratch)."""
+    return zero_scratch(_K11_SCRATCH, dev, 2, torch.int64)
 
 
 def build_light_clusters(lights: lights_mod.LightTable, config, proj,

@@ -2,9 +2,11 @@
 incarnation_tpu/kernels/cull.py). Works at primitive and at meshlet
 granularity (pass the meshlet spheres and their mesh ids).
 
-cull_primitives is K13 (csrc/cull.cu) on CUDA tensors, one launch a call;
-on CPU tensors it runs its plain twin, cull_primitives_plain, the torch
-code the kernel was written from.
+cull_lists culls a frame's lists of spheres (its primitives and its
+meshlets) in one launch of K13 (csrc/cull.cu) on CUDA tensors, and
+cull_primitives one list by the same kernel; on CPU tensors they run the
+plain twin, cull_primitives_plain (once a list), the torch code the
+kernel was written from.
 """
 
 from __future__ import annotations
@@ -13,13 +15,27 @@ import ctypes
 
 import torch
 
-from .build import Kernel, ptr
+from .build import Kernel, zero_scratch
 from ..core import mathutils as mu
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# spheres, mesh ids, mesh transforms, mesh visibility, scene rotation,
-# view_proj, the sphere count, the mesh count, the mask and the count out
-K13 = Kernel("cull", "k13_cull", [_P] * 6 + [_I, _I, _P, _P])
+K13_MAX_LISTS = 2              # csrc/cull.cu
+# the list count, each list's spheres, mesh ids and length (K13_MAX_LISTS
+# of them), the masks out (one buffer, list after list), the mesh
+# transforms, mesh visibility, scene rotation, view_proj, the mesh count,
+# the counts out (int64 a list) and the ticket's scratch
+K13 = Kernel("cull", "k13_cull",
+             [_I] + [_P, _P, _I] * K13_MAX_LISTS + [_P] * 5 + [_I, _P, _P])
+# K13's ticket and a culled sum a list, int32 words it leaves zero
+_K13_SCRATCH: dict = {}
+_NO_LIST = (0, 0, 0)
+
+
+def _check(name, t, dtype, shape, dev):
+    if t.dtype != dtype or t.shape != shape or t.device != dev \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor "
+                         f"{shape} on {dev}")
 
 
 def frustum_planes(view_proj):
@@ -36,40 +52,72 @@ def frustum_planes(view_proj):
     ])
 
 
+def cull_lists(lists, mesh_transforms, mesh_visible, scene_rotation,
+               view_proj):
+    """lists: [(bsphere (P, 4), mesh (P,))], at most K13_MAX_LISTS ->
+    [(visible (P,) bool, culled count () i64)] a list, each as
+    cull_primitives gives it. CUDA tensors launch K13 once for all the
+    lists, with no copy and no synchronize; CPU tensors take the twin,
+    cull_primitives_plain a list."""
+    if not mesh_transforms.is_cuda:
+        return cull_lists_plain(lists, mesh_transforms, mesh_visible,
+                                scene_rotation, view_proj)
+    n = len(lists)
+    if not 1 <= n <= K13_MAX_LISTS:
+        raise ValueError(f"cull_lists: need 1 to {K13_MAX_LISTS} lists")
+    dev = mesh_transforms.device
+    m = mesh_transforms.shape[0]
+    _check("mesh_transforms", mesh_transforms, torch.float32, (m, 4, 4), dev)
+    _check("mesh_visible", mesh_visible, torch.int32, (m,), dev)
+    _check("scene_rotation", scene_rotation, torch.float32, (4, 4), dev)
+    _check("view_proj", view_proj, torch.float32, (4, 4), dev)
+    args = []
+    for bsphere, mesh in lists:
+        p = bsphere.shape[0]
+        _check("bsphere", bsphere, torch.float32, (p, 4), dev)
+        _check("mesh", mesh, torch.int32, (p,), dev)
+        if p and not m:
+            raise ValueError("mesh_transforms: no mesh for the spheres")
+        at = bsphere.data_ptr()
+        if at % 16:
+            raise ValueError("bsphere: K13 reads its rows as float4, "
+                             "16-byte aligned")
+        args += (at, mesh.data_ptr(), p)
+    p0 = args[2]
+    inside = torch.empty(p0 if n == 1 else p0 + args[5], dtype=torch.bool,
+                         device=dev)
+    culled = torch.empty(n, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    K13(n, *args, *_NO_LIST * (K13_MAX_LISTS - n), inside.data_ptr(),
+        mesh_transforms.data_ptr(), mesh_visible.data_ptr(),
+        scene_rotation.data_ptr(), view_proj.data_ptr(), m,
+        culled.data_ptr(),
+        zero_scratch(_K13_SCRATCH, dev, 1 + K13_MAX_LISTS, torch.int32,
+                     stream).data_ptr(), stream=stream)
+    if n == 1:
+        return [(inside, culled[0])]
+    c0, c1 = culled.unbind()
+    return [(inside[:p0], c0), (inside[p0:], c1)]
+
+
+def cull_lists_plain(lists, mesh_transforms, mesh_visible, scene_rotation,
+                     view_proj):
+    """K13's twin for a frame's lists: cull_primitives_plain a list."""
+    return [cull_primitives_plain(b, mh, mesh_transforms, mesh_visible,
+                                  scene_rotation, view_proj)
+            for b, mh in lists]
+
+
 def cull_primitives(bsphere, mesh, mesh_transforms, mesh_visible,
                     scene_rotation, view_proj):
     """-> (visible (P,) bool, culled count () i64). Spheres are object
     space; the radius scales by the largest world-axis scale. CUDA tensors
-    launch K13 (csrc/cull.cu) once; CPU tensors take the twin,
-    cull_primitives_plain. A mesh id outside [-M, M) is the caller's
-    error: the twin raises, K13 clamps it into the table."""
-    if not bsphere.is_cuda:
-        return cull_primitives_plain(bsphere, mesh, mesh_transforms,
-                                     mesh_visible, scene_rotation, view_proj)
-    dev = bsphere.device
-    p = bsphere.shape[0]
-    m = mesh_transforms.shape[0]
-    for name, t, shape, dt in (
-            ("bsphere", bsphere, (p, 4), torch.float32),
-            ("mesh", mesh, (p,), torch.int32),
-            ("mesh_transforms", mesh_transforms, (m, 4, 4), torch.float32),
-            ("mesh_visible", mesh_visible, (m,), torch.int32),
-            ("scene_rotation", scene_rotation, (4, 4), torch.float32),
-            ("view_proj", view_proj, (4, 4), torch.float32)):
-        if t.dtype != dt or t.device != dev or not t.is_contiguous() \
-                or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: need a contiguous {dt} tensor "
-                             f"{shape} on {dev}")
-    if p and not m:
-        raise ValueError("mesh_transforms: no mesh for the spheres")
-    if bsphere.data_ptr() % 16:
-        raise ValueError("bsphere: K13 reads its rows as float4, 16-byte "
-                         "aligned")
-    inside = torch.empty(p, dtype=torch.bool, device=dev)
-    culled = torch.empty((), dtype=torch.int64, device=dev)
-    K13(ptr(bsphere), ptr(mesh), ptr(mesh_transforms), ptr(mesh_visible),
-        ptr(scene_rotation), ptr(view_proj), p, m, ptr(inside), ptr(culled))
-    return inside, culled
+    launch K13 (csrc/cull.cu) once, a list of one (cull_lists); CPU
+    tensors take the twin, cull_primitives_plain. A mesh id outside
+    [-M, M) is the caller's error: the twin raises, K13 clamps it into
+    the table."""
+    return cull_lists([(bsphere, mesh)], mesh_transforms, mesh_visible,
+                      scene_rotation, view_proj)[0]
 
 
 def cull_primitives_plain(bsphere, mesh, mesh_transforms, mesh_visible,

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import mathutils as mu
-from .build import Kernel, ptr
+from .build import Kernel, ptr, zero_scratch
 
 SETUP_ROWS = 12
 ATTR_ROWS = 29
@@ -582,20 +582,12 @@ K1_WARPS = 8
 K1_TILE_PX = 2048
 SUBTILE_W, SUBTILE_H = 32, 8
 
-# K1's work and arrival counters, per (device, stream): zero between
-# launches, which leave them zero (csrc/raster.cu), so a call needs no
-# memset. Grown, never shrunk.
+# K1's work and arrival counters (csrc/raster.cu), build.zero_scratch
 _K1_COUNTERS: dict = {}
 
 
 def _k1_counters(dev, num_tiles: int):
-    stream = torch.cuda.current_stream(dev)
-    key = (dev.index, stream.cuda_stream)
-    buf = _K1_COUNTERS.get(key)
-    if buf is None or buf.numel() < num_tiles + 1:
-        buf = torch.zeros(num_tiles + 1, dtype=torch.int32, device=dev)
-        _K1_COUNTERS[key] = buf
-    return buf
+    return zero_scratch(_K1_COUNTERS, dev, num_tiles + 1, torch.int32)
 
 
 def k1_max_items(bins: Bins, params: RasterParams) -> int:

@@ -15,11 +15,13 @@ frame_noise, hashed from the pixel's whole-frame position (row0: a band's
 first row).
 
 resolve_gbuffer is K5 and masked_alpha K6 (csrc/resolve.cu) on CUDA
-tensors, and masked_peel, one masked depth peel's whole step (the alpha
-test, its chunk capacity and the accumulate), K6's peel step; on CPU
-tensors each runs its plain twin (resolve_gbuffer_plain,
-masked_alpha_plain, masked_peel_plain), the torch code the kernels were
-written from.
+tensors, masked_peel, one masked depth peel's whole step (the alpha
+test, its chunk capacity and the accumulate), K6's peel step, and
+decal_step, the decal layer's whole step (its fetch under its chunk
+capacity, the depth test and the composite into the GBuffer), K5's decal
+role; on CPU tensors each runs its plain twin (resolve_gbuffer_plain,
+masked_alpha_plain, masked_peel_plain, decal_step_plain), the torch code
+the kernels were written from.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import dataclasses
 
 import torch
 
-from .build import Kernel, ptr
+from .build import Kernel, ptr, zero_scratch
 from . import checker
 from ..core import mathutils as mu
 from ..scene import textures as tex_mod
@@ -39,10 +41,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # n_meta, mat_params, n_params, then the outputs base_color, normals, mrao,
 # emissive, mask, world_pos, uv, extras, n3 (NULL: none), width, height,
 # then the role (R_* flags), frame index, max anisotropy, checker parity,
-# row0 and the chunk keep flags (NULL: every chunk)
+# row0 and the chunk keep flags (NULL: every chunk). Its variant
+# k5_decal_step, the decal layer's step: d_tri, d_depth, d_interp, depth,
+# the tables as above, base_color, normals, mrao and n3 (NULL: none), the
+# overflow (an int64 scalar), the scratch and its words, width, height,
+# role, frame index, max anisotropy, row0, chunk capacity (-1: none)
 K5 = Kernel("resolve", "k5_resolve",
             [_P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _I] + [_P] * 9
-            + [_I, _I, _I, _I, _F, _I, _I, _P])
+            + [_I, _I, _I, _I, _F, _I, _I, _P],
+            variants={"k5_decal_step": [_P, _P, _P, _P, _P, _I, _P, _I, _P,
+                                        _I, _P, _I] + [_P] * 6
+                      + [_I, _I, _I, _I, _I, _F, _I, _I]})
 # interp, meta, n_meta, mat_params, n_params, alpha mirror, n_alpha,
 # alpha out, thresh out, width, height, row0, role, frame index, max
 # anisotropy, chunk keep flags (NULL: every chunk). Its variant
@@ -330,12 +339,11 @@ def peel_state(tri, depth, interp) -> PeelState:
                      chunk_overflow=counts[0], overflow=counts[1])
 
 
-# K6's peel-step scratch per (device, stream): int64 words the kernel
-# leaves zero (csrc/resolve.cu k6_peel_kernel): the ticket, the finished
-# blocks, the two sums, then a look-back word a block of K6_BLOCK_PX
-# pixels. Created zero, replaced by a larger zero buffer where a launch
-# needs more blocks; the launches of one stream run in order, so they
-# share it.
+# K6's peel-step scratch per (device, stream), which K5's decal step
+# shares: int64 words each kernel leaves zero (csrc/resolve.cu
+# k6_peel_kernel, k5_decal_kernel): the ticket, the finished blocks, the
+# two sums, then a look-back word a block of K6_BLOCK_PX pixels
+# (build.zero_scratch).
 _K6_STATE_WORDS = 4
 K6_BLOCK_PX = 8 * CHUNK_PX          # csrc/resolve.cu K6_WARPS chunks
 _K6_SCRATCH: dict = {}
@@ -343,14 +351,9 @@ _K6_SCRATCH: dict = {}
 
 def _k6_scratch(dev, pixels: int):
     """K6's peel-step scratch for a layer of `pixels` pixels."""
-    stream = torch.cuda.current_stream(dev)
-    key = (dev.index, stream.cuda_stream)
-    words = _K6_STATE_WORDS + -(-pixels // K6_BLOCK_PX)
-    buf = _K6_SCRATCH.get(key)
-    if buf is None or buf.numel() < words:
-        buf = torch.zeros(words, dtype=torch.int64, device=dev)
-        _K6_SCRATCH[key] = buf
-    return buf
+    return zero_scratch(_K6_SCRATCH, dev,
+                        _K6_STATE_WORDS + -(-pixels // K6_BLOCK_PX),
+                        torch.int64)
 
 
 def masked_peel(scene, m_tri, m_depth, m_interp, state: PeelState,
@@ -523,7 +526,7 @@ def resolve_gbuffer_plain(tri, depth, scene, interp, inv_view_proj,
 
     n = mu.normalize(wn)
     t = mu.normalize(wt)
-    b = mu.normalize(torch.cross(n, t, dim=-1) * sign)
+    b = mu.normalize(mu.cross3(n, t) * sign)
 
     jitter = None
     trilinear = True
@@ -589,6 +592,110 @@ def resolve_gbuffer_plain(tri, depth, scene, interp, inv_view_proj,
     if return_normal3:
         return gb, torch.where(m, n_mapped, 0.0)
     return gb
+
+
+def _oct_decode(f):
+    """mathutils.oct_decode with its norm the square root of a dot3 sum,
+    (x + y) + z, as K5's decal step sums it (torch's vector_norm reduces
+    in its own order on the card)."""
+    f = f * 2.0 - 1.0
+    nz = 1.0 - torch.abs(f[..., 0]) - torch.abs(f[..., 1])
+    t = torch.clamp(-nz, 0.0, 1.0)[..., None]
+    nxy = f + torch.where(f >= 0.0, -t, t)
+    n = torch.cat([nxy, nz[..., None]], dim=-1)
+    return n / torch.sqrt(mu.dot3(n, n, keepdim=True))
+
+
+def decal_step(scene, d_tri, d_depth, d_interp, depth, gb: GBuffer, n3,
+               inv_view_proj, width: int, height: int,
+               coverage_capacity=None, mip_dither=None,
+               uv_dither: bool = False, max_aniso: float = 16.0,
+               row0: int = 0):
+    """The decal layer's step (renderer/frame.py; JAX frame.py:325-359):
+    the decal layer (d_tri, d_depth, d_interp) resolved as
+    resolve_gbuffer resolves it (coverage_capacity, mip_dither,
+    uv_dither, max_aniso, row0 as there; no checkerboard), tested
+    GREATER_EQUAL against the scene's depth (d_depth >= depth - 1e-5),
+    and composited into gb: the base colour blended by the decal's
+    opacity a, the normals and mrao replaced where a > 0.5, and n3 (the
+    forward path's mapped normal; None: none) replaced there by the
+    decal normal's octahedral decode. Updates gb.base_color, gb.normals,
+    gb.mrao and n3 in place and returns the decal overflow, a 0-dim int64
+    (chunk_overflow of the layer under the capacity, 0 without one),
+    with no host sync. K5's decal step on CUDA tensors (one launch),
+    the twin on CPU ones."""
+    if not d_tri.is_cuda:
+        return decal_step_plain(scene, d_tri, d_depth, d_interp, depth, gb,
+                                n3, inv_view_proj, width, height,
+                                coverage_capacity, mip_dither, uv_dither,
+                                max_aniso, row0)
+    dev = d_tri.device
+    shape = (height, width)
+    _check("d_tri", d_tri, torch.int32, shape, dev)
+    _check("d_depth", d_depth, torch.float32, shape, dev)
+    _check("d_interp", d_interp, torch.float32, (16,) + shape, dev)
+    _check("depth", depth, torch.float32, shape, dev)
+    _check("gb.base_color", gb.base_color, torch.float32, shape + (4,), dev)
+    _check("gb.normals", gb.normals, torch.float32, shape + (2,), dev)
+    _check("gb.mrao", gb.mrao, torch.float32, shape + (4,), dev)
+    if n3 is not None:
+        _check("n3", n3, torch.float32, shape + (3,), dev)
+    if row0 < 0:
+        raise ValueError("decal_step: need row0 >= 0")
+    chunks = coverage_capacity is not None
+    if chunks and ((height * width) % CHUNK_PX or coverage_capacity < 0):
+        raise ValueError("a chunk capacity must be >= 0 and needs H * W "
+                         "% 128 == 0")
+    _check_tables(scene, dev, alpha=False)
+    st = scene.mat_stack
+    scratch = _k6_scratch(dev, height * width)
+    overflow = torch.empty((), dtype=torch.int64, device=dev)
+    role = _role(mip_dither, uv_dither)
+    K5(ptr(d_tri), ptr(d_depth), ptr(d_interp), ptr(depth), ptr(st.flat),
+       st.flat.shape[0], ptr(st.extra), st.extra.shape[0], ptr(st.meta),
+       st.meta.shape[0], ptr(scene.mat_params), scene.mat_params.shape[0],
+       ptr(gb.base_color), ptr(gb.normals), ptr(gb.mrao), ptr(n3),
+       ptr(overflow), ptr(scratch), scratch.numel(), width, height, role,
+       int(mip_dither or 0), float(max_aniso), int(row0),
+       int(coverage_capacity) if chunks else -1,
+       variant="k5_decal_step", name="decal_" + role_name(role, chunks))
+    return overflow
+
+
+def decal_step_plain(scene, d_tri, d_depth, d_interp, depth, gb: GBuffer,
+                     n3, inv_view_proj, width: int, height: int,
+                     coverage_capacity=None, mip_dither=None,
+                     uv_dither: bool = False, max_aniso: float = 16.0,
+                     row0: int = 0):
+    """K5's decal step's twin: the frame's decal code in torch
+    (resolve_gbuffer_plain of the layer, chunk_overflow, the composite),
+    written into gb and n3 -> the overflow. Pixels the decal does not
+    cover keep their values as they were (the composite's gb * 1 + 0 * 0
+    would turn a -0.0 into +0.0), and so do those of a chunk past the
+    capacity, whose zero channels blend nothing."""
+    d_gb = resolve_gbuffer_plain(d_tri, d_depth, scene, d_interp,
+                                 inv_view_proj, width, height,
+                                 mip_dither=mip_dither, uv_dither=uv_dither,
+                                 max_aniso=max_aniso,
+                                 coverage_capacity=coverage_capacity,
+                                 row0=row0)
+    covers = d_gb.mask & (d_depth >= depth - 1e-5)
+    if coverage_capacity is not None:
+        overflow = chunk_overflow(d_gb.mask, coverage_capacity)
+        covers &= _keep_pixels(chunk_keep(d_gb.mask, coverage_capacity),
+                               covers.shape)
+    else:
+        overflow = torch.zeros((), dtype=torch.int64, device=d_tri.device)
+    a = torch.where(covers, d_gb.base_color[..., 3], 0.0)[..., None]
+    opaque = a > 0.5
+    rgb = gb.base_color[..., :3]
+    rgb.copy_(torch.where(covers[..., None],
+                          rgb * (1 - a) + d_gb.base_color[..., :3] * a, rgb))
+    gb.normals.copy_(torch.where(opaque, d_gb.normals, gb.normals))
+    gb.mrao.copy_(torch.where(opaque, d_gb.mrao, gb.mrao))
+    if n3 is not None:
+        n3.copy_(torch.where(opaque, _oct_decode(d_gb.normals), n3))
+    return overflow
 
 
 def vertex_world_attributes(scene, scene_rotation):

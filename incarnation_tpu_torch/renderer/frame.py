@@ -163,15 +163,17 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
     culled_prims = culled_meshlets = zero
     meshlet_visible = None
     if config.frustum_culling:
-        inside, culled_prims = cull.cull_primitives(
-            scene.prim_bsphere, scene.prim_mesh, scene.mesh_transforms,
-            scene.mesh_visible, fc.scene_rotation, fc.view_proj)
+        # the primitives and the meshlets: one launch of K13 for both
+        lists = [(scene.prim_bsphere, scene.prim_mesh)]
+        if config.use_meshlets:
+            lists.append((scene.meshlet_bsphere, scene.meshlet_mesh))
+        culled = cull.cull_lists(lists, scene.mesh_transforms,
+                                 scene.mesh_visible, fc.scene_rotation,
+                                 fc.view_proj)
+        inside, culled_prims = culled[0]
         prim_visible &= inside
         if config.use_meshlets:
-            meshlet_visible, culled_meshlets = cull.cull_primitives(
-                scene.meshlet_bsphere, scene.meshlet_mesh,
-                scene.mesh_transforms, scene.mesh_visible,
-                fc.scene_rotation, fc.view_proj)
+            meshlet_visible, culled_meshlets = culled[1]
 
     prep = raster.prepare_geometry(scene, fc.scene_rotation, fc.view_proj,
                                    prim_visible, params,
@@ -276,30 +278,17 @@ def render_hdr(scene, fc: FrameConstants, *, config: Config,
     if scene.meta.has_decals:
         # Decals: GREATER_EQUAL against the scene depth; base color
         # alpha-blended, normals / metal-rough replaced where opaque. The
-        # layer's fetch takes its chunk capacity (frame.py:325-341).
+        # layer's fetch takes its chunk capacity (frame.py:325-359): the
+        # fetch, the depth test and the composite are one launch of K5's
+        # decal step, which updates gb and n3 in place.
         d_tri, d_depth, d_interp = raster.rasterize_tiles(
             layer_bins[decal_idx], params, name="raster_decal")
         d_cap = config.decal_chunk_capacity
         d_chunks = 0 < d_cap < n_chunks and whole_chunks
-        d_gb = resolve.resolve_gbuffer(
-            d_tri, d_depth, scene, d_interp, fc.inv_view_proj, params.width,
-            params.height, coverage_capacity=d_cap if d_chunks else None,
-            **sto)
-        stats["decal_overflow"] = (resolve.chunk_overflow(d_tri >= 0, d_cap)
-                                   if d_chunks else zero)
-        covers = d_gb.mask & (d_depth >= depth - 1e-5)
-        a = torch.where(covers, d_gb.base_color[..., 3], 0.0)[..., None]
-        opaque = a > 0.5
-        gb = dataclasses.replace(
-            gb,
-            base_color=torch.cat([
-                gb.base_color[..., :3] * (1 - a)
-                + d_gb.base_color[..., :3] * a,
-                gb.base_color[..., 3:]], -1),
-            normals=torch.where(opaque, d_gb.normals, gb.normals),
-            mrao=torch.where(opaque, d_gb.mrao, gb.mrao))
-        if n3 is not None:
-            n3 = torch.where(opaque, mu.oct_decode(d_gb.normals), n3)
+        stats["decal_overflow"] = resolve.decal_step(
+            scene, d_tri, d_depth, d_interp, depth, gb, n3, fc.inv_view_proj,
+            params.width, params.height,
+            coverage_capacity=d_cap if d_chunks else None, **sto)
 
     # Sun shadow map, rendered once per frame and sampled by every shaded
     # surface (the raster frame's stand-in for the reference's per-pixel

@@ -1,6 +1,7 @@
 """The frustum cull and the sun shadow-map tap against the JAX package on
-the CPU: K13's twin (cull.cull_primitives on CPU tensors) mask bit for mask
-bit and count for count, K14's twin (shadow.sun_visibility on CPU tensors)
+the CPU: K13's twin (cull.cull_primitives on CPU tensors, and cull_lists
+for the frame's two lists against two JAX calls) mask bit for mask bit
+and count for count, K14's twin (shadow.sun_visibility on CPU tensors)
 in each of its roles at the JAX comparison's rule, on the inputs the card
 tests give K13 and K14 (tests/test_torch_kernels_cuda.py cull_inputs,
 sun_tap_inputs). No atrium and no JAX frame: eager JAX functions at small
@@ -51,6 +52,34 @@ def test_cull_twin_matches_jax_exactly(n, view):
     assert not t[mesh == 2].any() and (inp["mesh"] < 0).any()
     assert (inp["bsphere"][:, 3] == 0).any()
     assert 0 < int(tc) < n
+
+
+@pytest.mark.parametrize("view", ["camera", "sun"])
+def test_cull_lists_matches_two_jax_culls_exactly(view):
+    """The frame's two lists in one cull_lists call (the atrium's 64
+    primitives and 3,434 meshlets, over one mesh table), and a list of one
+    (the frame without meshlets): each mask bit and each culled count equal
+    a JAX cull_primitives call on that list."""
+    prims = cull_inputs(64, seed=11, view=view)
+    mesh = cull_inputs(3434, seed=12, view=view)
+    shared = {k: prims[k] for k in _CULL_KEYS[2:]}
+    # the meshlets' spheres put into the primitives' mesh table
+    lists = [prims, dict(mesh, **shared)]
+    got = tcull.cull_lists(
+        [(torch.as_tensor(x["bsphere"]), torch.as_tensor(x["mesh"]))
+         for x in lists],
+        *(torch.as_tensor(shared[k]) for k in _CULL_KEYS[2:]))
+    assert len(got) == 2
+    for (ti, tc), x in zip(got, lists):
+        ji, jc = jcull.cull_primitives(*(jnp.asarray(x[k])
+                                         for k in _CULL_KEYS))
+        assert ti.dtype == torch.bool and tc.dtype == torch.int64
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        assert int(tc) == int(jc) and 0 < int(tc) < x["mesh"].shape[0]
+    (one, count), = tcull.cull_lists(
+        [(torch.as_tensor(prims["bsphere"]), torch.as_tensor(prims["mesh"]))],
+        *(torch.as_tensor(shared[k]) for k in _CULL_KEYS[2:]))
+    assert torch.equal(one, got[0][0]) and int(count) == int(got[0][1])
 
 
 def _tap_inputs(w, seed=0):

@@ -105,6 +105,45 @@ def material_inputs(seed=0, h=24, w=40, extras=True, wild_mats=False):
                 inv_view_proj=np.linalg.inv(vp).astype(np.float32))
 
 
+def decal_inputs(seed=0, h=128, w=256, n_chunks=96, row0=0, fail=0.25):
+    """numpy inputs of one decal step: material_inputs' channels as the
+    decal layer (d_interp, d_depth, inv_view_proj, and its stack and
+    materials), its triangles on n_chunks 128-pixel chunks chosen at
+    random from row row0 on (those above empty; a chosen chunk about 60%
+    covered, at least one pixel), the scene's depth (about `fail` of the
+    pixels behind the decal by more than 1e-5, a tenth level with it, the
+    rest in front: the decal's GREATER_EQUAL test fails, passes at its
+    edge, passes), a random GBuffer's base_color, normals and mrao, and a
+    unit mapped normal n3 -> dict(stack, mat_params, d_tri, d_depth,
+    d_interp, inv_view_proj, depth, base_color, normals, mrao, n3)."""
+    inp = material_inputs(seed=seed, h=h, w=w)
+    r = np.random.default_rng(seed + 1)
+    n = -(-h * w // 128)             # the last chunk may be ragged
+    first = (row0 * w + 127) // 128
+    chunk_on = np.zeros(n, bool)
+    chunk_on[first + r.choice(n - first, n_chunks, replace=False)] = True
+    on = (r.random((h, w)) < 0.6) & np.repeat(chunk_on, 128)[:h * w] \
+        .reshape(h, w)
+    on.reshape(-1)[np.minimum(np.flatnonzero(chunk_on) * 128
+                              + r.integers(0, 128, n_chunks),
+                              h * w - 1)] = True
+    d_depth = inp["depth"]
+    u = r.random((h, w))
+    depth = np.where(u < fail, d_depth + r.uniform(2e-5, 0.05, (h, w)),
+                     np.where(u < fail + 0.1, d_depth,
+                              d_depth - r.uniform(0.0, 0.05, (h, w))))
+    n3 = r.normal(size=(h, w, 3))
+    n3 /= np.linalg.norm(n3, axis=-1, keepdims=True)
+    f32 = lambda x: np.asarray(x, np.float32)
+    return dict(stack=inp["stack"], mat_params=inp["mat_params"],
+                d_tri=np.where(on, r.integers(0, 1000, (h, w)),
+                               -1).astype(np.int32),
+                d_depth=d_depth, d_interp=inp["interp"],
+                inv_view_proj=inp["inv_view_proj"], depth=f32(depth),
+                base_color=f32(r.random((h, w, 4))),
+                normals=f32(r.random((h, w, 2))),
+                mrao=f32(r.random((h, w, 4))), n3=f32(n3))
+
 EDGE_CASES = ("mixed", "empty", "magnified", "last_level", "tails",
               "address", "alternating")
 
@@ -1221,6 +1260,188 @@ def test_k6_peel_step_refuses_and_never_falls_back(dev):
     assert resolve.K6.launches == n0
 
 
+def decal_case(dev, h, w, seed=0, n_chunks=None, row0=0):
+    """decal_inputs on dev -> (scene namespace, dict of the step's tensor
+    arguments: d_tri, d_depth, d_interp, depth, inv_view_proj, and the
+    GBuffer planes and n3 it updates)."""
+    from incarnation_tpu_torch.scene import textures as tex
+    n = -(-h * w // 128)
+    first = (row0 * w + 127) // 128
+    want = (n + 1) // 2 if n_chunks is None else n_chunks
+    inp = decal_inputs(seed=seed, h=h, w=w, row0=row0,
+                       n_chunks=max(min(want, n - first), 0))
+    f = lambda x: torch.tensor(x, device=dev)
+    scene = SimpleNamespace(mat_stack=tex.material_stack(inp["stack"], dev),
+                            mat_params=f(inp["mat_params"]))
+    return scene, {k: f(inp[k]) for k in (
+        "d_tri", "d_depth", "d_interp", "depth", "inv_view_proj",
+        "base_color", "normals", "mrao", "n3")}
+
+
+def decal_call(step, scene, t, n3=True, **kw):
+    """step (decal_step or decal_step_plain) on copies of the GBuffer
+    planes and n3 in t -> (overflow, base_color, normals, mrao, n3)."""
+    h, w = t["d_tri"].shape
+    gb = resolve.GBuffer(base_color=t["base_color"].clone(),
+                         normals=t["normals"].clone(), mrao=t["mrao"].clone(),
+                         emissive=None, mask=None, world_pos=None, uv=None,
+                         extras=None)
+    out3 = t["n3"].clone() if n3 else None
+    over = step(scene, t["d_tri"], t["d_depth"], t["d_interp"], t["depth"],
+                gb, out3, t["inv_view_proj"], w, h, **kw)
+    return over, gb.base_color, gb.normals, gb.mrao, out3
+
+
+def _assert_decal(got, ref, what):
+    """Two decal steps' overflow and planes identical bit for bit."""
+    assert got[0].dtype == torch.int64 and got[0].shape == ()
+    assert int(got[0]) == int(ref[0]), (what, int(got[0]), int(ref[0]))
+    for name, g, r in zip(("base_color", "normals", "mrao", "n3"), got[1:],
+                          ref[1:]):
+        assert _bits_equal(g, r), (
+            f"{what}: {name} differs on "
+            f"{int((g != r).sum()) if g is not None else 0} elements")
+
+
+DECAL_ROLES = {"exact": {}, "dither": dict(mip_dither=3),
+               "jitter": dict(mip_dither=4, uv_dither=True),
+               "jitter_iso": dict(mip_dither=5, uv_dither=True,
+                                  max_aniso=1.0)}
+
+
+@pytest.mark.parametrize("n3", [True, False], ids=["n3", "no_n3"])
+@pytest.mark.parametrize("cap", [None, -1, 0, 1], ids=[
+    "no_cap", "cap_below", "cap_at", "cap_above"])
+@pytest.mark.parametrize("row0", [0, 37])
+@pytest.mark.parametrize("shape", [(64, 256), (37, 53), (1, 1), (33, 128)],
+                         ids=lambda s: f"{s[1]}x{s[0]}")
+@pytest.mark.parametrize("role", sorted(DECAL_ROLES))
+def test_k5_decal_step_matches_twin(dev, role, shape, row0, cap, n3):
+    """K5's decal step against decal_step_plain in every role, bit for
+    bit (the overflow, base colour, normals, mrao and n3), at sizes that
+    are and are not whole 128-pixel chunks, in a band starting at row0,
+    without a chunk capacity and with one just below, at and above the
+    layer's chunks with a decal pixel (one below: an overflow of 1); some
+    decal pixels fail the depth test and some sit at its edge. Each
+    launch counts under decal_<role>; the scratch is left zero."""
+    h, w = shape
+    if cap is not None and (h * w) % 128:
+        pytest.skip("a chunk capacity needs whole 128-pixel chunks")
+    scene, t = decal_case(dev, h, w, seed=h + w + row0)
+    have = int((t["d_tri"].reshape(-1, 128) >= 0).any(1).sum()) \
+        if cap is not None else 0
+    kw = dict(DECAL_ROLES[role], row0=row0,
+              coverage_capacity=None if cap is None else max(have + cap, 0))
+    ref = decal_call(resolve.decal_step_plain, scene, t, n3, **kw)
+    name = "decal_" + resolve.role_name(resolve._role(
+        kw.get("mip_dither"), kw.get("uv_dither", False)), cap is not None)
+    before = resolve.K5.by_name.get(name, 0)
+    got = decal_call(resolve.decal_step, scene, t, n3, **kw)
+    assert resolve.K5.by_name[name] == before + 1
+    _assert_decal(got, ref, f"{role} {w}x{h} row0 {row0} cap {cap}")
+    if cap is not None:
+        assert int(got[0]) == (1 if cap == -1 and have else 0)
+    assert _k6_scratch_zero(dev)
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("role", ["exact", "jitter"])
+def test_k5_decal_step_full_frame(dev, role, delta):
+    """The decal step at 1920x1088 (2,040 blocks, ranked by the
+    look-back) against its twin, bit for bit, under the frame's decal
+    capacity (Config.decal_chunk_capacity, 1,024) with the layer's chunks
+    holding a decal pixel one fewer than, as many as and one more than it
+    (an overflow of 1), and without a capacity."""
+    h, w, cap = 1088, 1920, 1024
+    scene, t = decal_case(dev, h, w, seed=50 + delta, n_chunks=cap + delta)
+    for kw in (dict(DECAL_ROLES[role], coverage_capacity=cap),
+               dict(DECAL_ROLES[role])):
+        ref = decal_call(resolve.decal_step_plain, scene, t, **kw)
+        got = decal_call(resolve.decal_step, scene, t, **kw)
+        _assert_decal(got, ref, f"{role} {cap + delta} chunks {kw}")
+        if "coverage_capacity" in kw:
+            assert int(got[0]) == max(delta, 0)
+        assert _k6_scratch_zero(dev)
+
+
+def test_k5_decal_steps_in_place_without_host_sync(dev):
+    """Decal steps back to back under set_sync_debug_mode("error") (the
+    frame's jittered role with its capacity, the exact role, a 64x256
+    layer on the same scratch, a 1920x1088 one again): each writes into
+    the planes and n3 it is given (their storage kept; the overflow a 0-dim
+    int64 on the card), equals the twin bit for bit, waits for nothing and
+    leaves the scratch zero; a K6 peel step after them finds its scratch
+    zero."""
+    cases = [(1088, 1920, dict(mip_dither=6, uv_dither=True,
+                               coverage_capacity=1024)),
+             (1088, 1920, {}), (64, 256, dict(coverage_capacity=3)),
+             (1088, 1920, dict(mip_dither=7, uv_dither=True,
+                               coverage_capacity=512))]
+    for k, (h, w, kw) in enumerate(cases):
+        scene, t = decal_case(dev, h, w, seed=60 + k)
+        ref = decal_call(resolve.decal_step_plain, scene, t, **kw)
+        gb = resolve.GBuffer(base_color=t["base_color"],
+                             normals=t["normals"], mrao=t["mrao"],
+                             emissive=None, mask=None, world_pos=None,
+                             uv=None, extras=None)
+        ptrs = [x.data_ptr() for x in (gb.base_color, gb.normals, gb.mrao,
+                                       t["n3"])]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            over = resolve.decal_step(
+                scene, t["d_tri"], t["d_depth"], t["d_interp"], t["depth"],
+                gb, t["n3"], t["inv_view_proj"], w, h, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert [x.data_ptr() for x in (gb.base_color, gb.normals, gb.mrao,
+                                       t["n3"])] == ptrs
+        assert over.is_cuda and over.shape == ()
+        _assert_decal((over, gb.base_color, gb.normals, gb.mrao, t["n3"]),
+                      ref, f"step {k}")
+        assert _k6_scratch_zero(dev)
+    scene, m_tri, m_depth, m_interp, state = peel_inputs(
+        dev, 16, 64, seed=3, hit_chunks=6, chunk_over=0)
+    resolve.masked_peel(scene, m_tri, m_depth, m_interp, state,
+                        coverage_capacity=4)
+    assert int(state.chunk_overflow) == 2 and _k6_scratch_zero(dev)
+
+
+def test_k5_decal_step_refuses_and_never_falls_back(dev):
+    """decal_step raises instead of launching on what K5's decal step does
+    not take (a wrong type, shape or device, a strided plane, a capacity
+    on a layer of ragged chunks, a negative row0); nothing launches."""
+    n0 = resolve.K5.launches
+
+    def call(shape=(16, 64), cap=None, row0=0, **over):
+        scene, t = decal_case(dev, *shape, seed=1)
+        x = dict(t, **over)
+        gb = resolve.GBuffer(base_color=x["base_color"],
+                             normals=x["normals"], mrao=x["mrao"],
+                             emissive=None, mask=None, world_pos=None,
+                             uv=None, extras=None)
+        h, w = shape
+        return resolve.decal_step(
+            scene, x["d_tri"], x["d_depth"], x["d_interp"], x["depth"], gb,
+            x["n3"], x["inv_view_proj"], w, h, coverage_capacity=cap,
+            row0=row0)
+    with pytest.raises(ValueError, match="d_tri"):
+        call(d_tri=torch.zeros(16, 64, dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError, match="depth"):
+        call(depth=torch.zeros(16, 64))
+    with pytest.raises(ValueError, match="base_color"):
+        call(base_color=torch.zeros(16, 64, 3, device=dev))
+    with pytest.raises(ValueError, match="normals"):
+        call(normals=torch.zeros(16, 64, 4, device=dev)[..., :2])
+    with pytest.raises(ValueError, match="n3"):
+        call(n3=torch.zeros(16, 64, 3, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="row0"):
+        call(row0=-1)
+    with pytest.raises(ValueError, match="chunk capacity"):
+        call(shape=(3, 5), cap=1)
+    assert resolve.K5.launches == n0
+
+
 # ---------------------------------------------------------------------------
 # K8: sky lighting
 # ---------------------------------------------------------------------------
@@ -2321,6 +2542,111 @@ def test_k13_refuses_and_never_falls_back(dev):
         cull.cull_primitives(shifted, mesh, xf, vis, rot, vp)
     assert cull.K13.launches == n0
 
+
+def _k13_lists(dev, sizes, view, seed=0):
+    """cull_inputs lists of the given sizes over the first list's mesh
+    table and view -> (lists [(bsphere, mesh)], mesh_transforms,
+    mesh_visible, scene_rotation, view_proj)."""
+    inps = [cull_inputs(n, seed=seed + k, view=view)
+            for k, n in enumerate(sizes)]
+    shared = _k13_args(dev, inps[0])[2:]
+    return ([_k13_args(dev, x)[:2] for x in inps], *shared)
+
+
+def _k13_scratch_zero(dev):
+    key = (torch.cuda.current_device(),
+           torch.cuda.current_stream(dev).cuda_stream)
+    buf = cull._K13_SCRATCH.get(key)
+    return buf is None or not bool(buf.any())
+
+
+@pytest.mark.parametrize("view", ["camera", "sun"])
+@pytest.mark.parametrize("sizes", [(64, 3434), (0, 3434), (3434, 0), (0, 0),
+                                   (1, 1), (100_000, 64), (64, 100_000)],
+                         ids=lambda s: f"{s[0]}+{s[1]}")
+def test_k13_two_lists_match_twin_bit_for_bit(dev, sizes, view):
+    """The frame's two lists in one launch: every mask bit and each
+    list's culled count equal the twin's (cull_primitives_plain a list);
+    empty lists, one sphere, the atrium's 64 primitives and 3,434
+    meshlets, and 100k spheres (782 blocks, more than the card holds at
+    once). The ticket's scratch is left zero."""
+    lists, *rest = _k13_lists(dev, sizes, view, seed=sum(sizes) % 97)
+    n0 = cull.K13.launches
+    got = cull.cull_lists(lists, *rest)
+    assert cull.K13.launches == n0 + 1
+    ref = cull.cull_lists_plain(lists, *rest)
+    for (inside, culled), (ri, rc), n in zip(got, ref, sizes):
+        assert inside.dtype == torch.bool and culled.dtype == torch.int64
+        assert inside.shape == (n,) and culled.shape == ()
+        assert torch.equal(inside, ri), int((inside != ri).sum())
+        assert int(culled) == int(rc)
+        if n >= 3434:
+            assert 0 < int(rc) < n
+    assert _k13_scratch_zero(dev)
+
+
+def test_k13_clamps_mesh_ids_outside_the_table(dev):
+    """A mesh id outside [-M, M) is clamped into the table after a
+    negative one wraps (JAX's gather), which the twin, whose indexing
+    raises, is given already mapped."""
+    lists, xf, vis, rot, vp = _k13_lists(dev, (64, 3434), "camera", seed=5)
+    m = xf.shape[0]
+    wild = []
+    for bs, mesh in lists:
+        mesh = mesh.clone()
+        mesh[::5] = torch.tensor([-2 * m - 1, -m - 1, m, 3 * m, 1 << 30],
+                                 dtype=torch.int32,
+                                 device=dev).repeat(mesh[::5].numel())[
+            :mesh[::5].numel()]
+        wild.append((bs, mesh))
+    mapped = [(bs, torch.where(mesh < 0, mesh + m, mesh).clamp(0, m - 1)
+               .to(torch.int32)) for bs, mesh in wild]
+    got = cull.cull_lists(wild, xf, vis, rot, vp)
+    ref = cull.cull_lists_plain(mapped, xf, vis, rot, vp)
+    for (inside, culled), (ri, rc) in zip(got, ref):
+        assert torch.equal(inside, ri) and int(culled) == int(rc)
+
+
+def test_k13_lists_back_to_back_and_no_host_sync(dev):
+    """Two-list culls of different lengths back to back under
+    set_sync_debug_mode("error"), then cull_primitives (a list of one,
+    the same kernel): each equals its twin, nothing waits for the host,
+    each is one launch, and the ticket's scratch is left zero."""
+    runs = [_k13_lists(dev, s, v, seed=k) for k, (s, v) in enumerate((
+        ((64, 3434), "camera"), ((3434, 5000), "sun"), ((0, 64), "camera"),
+        ((64, 3434), "sun")))]
+    torch.cuda.synchronize()
+    n0 = cull.K13.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [cull.cull_lists(*r) for r in runs]
+        single = cull.cull_primitives(*runs[0][0][0], *runs[0][1:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, r in zip(got, runs):
+        for (inside, culled), (ri, rc) in zip(g, cull.cull_lists_plain(*r)):
+            assert torch.equal(inside, ri) and int(culled) == int(rc)
+    ri, rc = cull.cull_primitives_plain(*runs[0][0][0], *runs[0][1:])
+    assert torch.equal(single[0], ri) and int(single[1]) == int(rc)
+    assert cull.K13.launches == n0 + len(runs) + 1
+    assert _k13_scratch_zero(dev)
+
+
+def test_k13_lists_refuse_and_never_fall_back(dev):
+    """cull_lists raises instead of launching on no list or more than
+    K13_MAX_LISTS, and on a list K13 does not take."""
+    lists, *rest = _k13_lists(dev, (64, 64), "camera")
+    n0 = cull.K13.launches
+    with pytest.raises(ValueError, match="lists"):
+        cull.cull_lists([], *rest)
+    with pytest.raises(ValueError, match="lists"):
+        cull.cull_lists(lists * 2, *rest)
+    with pytest.raises(ValueError, match="mesh"):
+        cull.cull_lists([lists[0], (lists[1][0], lists[1][1].long())], *rest)
+    with pytest.raises(ValueError, match="bsphere"):
+        cull.cull_lists([lists[0], (lists[1][0][:, :3], lists[1][1])],
+                        *rest)
+    assert cull.K13.launches == n0
 
 def sun_tap_inputs(h, w, seed=0, side=64):
     """numpy inputs of one sun-map tap: an (H, W) frame of world points

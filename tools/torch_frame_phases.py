@@ -3,8 +3,10 @@
 checkout or another one.
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
-    python3 tools/torch_frame_phases.py [TREE] [--frames 8] [--out FILE]
-    python3 tools/torch_frame_phases.py TREE_A TREE_B [--frames 8] [--out FILE]
+    python3 tools/torch_frame_phases.py [TREE] [--frames 8]
+        [--phase-frames 3] [--out FILE]
+    python3 tools/torch_frame_phases.py TREE_A TREE_B [--frames 8]
+        [--phase-frames 3] [--out FILE]
 
 It imports chip_smoke.py from TREE (default: this checkout), builds that
 checkout's kernels, builds the atrium (chip_smoke.atrium_path: its cache
@@ -14,12 +16,14 @@ renders two warm-up frames and then FRAMES TAA frames of the main path at
 render_frame, then the same FRAMES frames with the stochastic estimators
 off (chip_smoke.exact_config), then chip_smoke.phase_breakdown of one more
 frame of the main path (a
-synchronize around each phase, the mean of 3 frames), and counts what
+synchronize around each phase, the mean of PHASE_FRAMES frames), and
+counts what
 the frame launches per masked peel beside K1's peel (this checkout's
 chip_smoke.peel_launches, on that tree's modules: the eager torch
-operators between one peel's K1 call and the next's). It prints one JSON
-line {tree, card, frame_ms, frame_ms_exact, phases, peel_ops,
-peel_op_names}.
+operators between one peel's K1 call and the next's) and for its decal
+layer (chip_smoke.decal_launches: from K1's decal call to the sun pass).
+It prints one JSON line {tree, card, frame_ms, frame_ms_exact, phases,
+peel_ops, peel_op_names, decal_ops, decal_op_names, decal_kernels}.
 
 Given two trees it compares them on one card: it runs itself once per tree
 in turns, a, b, b, a, each run its own process (so each imports its own
@@ -33,8 +37,9 @@ setup, binning and raster, shadow.render_sun_shadow_map; the resolve, the
 peels' alpha tests and the shadow tap, which the stochastic estimators
 change; the two frustum culls, cull.cull_primitives; the sun's BRDF,
 shading.brdf_response, or the whole sun term with the tap inside it,
-shading.sun_term; the TAA resolve, taa.taa_resolve), the frame glue,
-and the eager operators per peel. The peels' alpha test is
+shading.sun_term; the TAA resolve, taa.taa_resolve; the decal step,
+resolve.decal_step; the frustum cull of both lists, cull.cull_lists), the
+frame glue, and the eager operators per peel and of the decal layer. The peels' alpha test is
 resolve.masked_alpha in a tree whose frame runs the accumulate in torch,
 and resolve.masked_peel (K6's peel step, the accumulate in it) in one
 whose frame calls that; the first's accumulate counts to its glue, so
@@ -63,28 +68,36 @@ COMPARED = ("raster.prepare_geometry", "skylight.sky_lighting",
             "resolve.resolve_gbuffer", "resolve.masked_alpha",
             "resolve.masked_peel", "shadow.sun_visibility",
             "shading.brdf_response", "shading.sun_term", "sun+tap",
-            "taa.taa_resolve", "cull.cull_primitives", "glue", "peels+glue",
-            "sky+glue")
+            "taa.taa_resolve", "cull.cull_primitives", "cull.cull_lists",
+            "resolve.decal_step", "glue", "peels+glue", "sky+glue",
+            "resolve+glue", "culls")
 # phases summed to compare like with like across trees: the peels with the
 # glue (a tree whose frame accumulates the peels in torch), and the sun's
 # tap with its BRDF (a tree whose sun term is shading.sun_term, the tap
-# inside it, or brdf_response beside the tap), and the sky background with
-# the glue (where the frame's add of the background to the HDR runs)
+# inside it, or brdf_response beside the tap), the sky background with
+# the glue (where the frame's add of the background to the HDR runs), the
+# resolve with the glue (a tree whose frame resolves the decal layer by K5
+# and composites it in torch, or by K5's decal step), and the frustum
+# culls (two cull_primitives calls, or one cull_lists)
 SUMS = {"peels+glue": ("resolve.masked_alpha", "resolve.masked_peel",
                        "glue"),
         "sun+tap": ("shadow.sun_visibility", "shading.brdf_response",
                     "shading.sun_term"),
-        "sky+glue": ("skylight.environment_background", "glue")}
+        "sky+glue": ("skylight.environment_background", "glue"),
+        "resolve+glue": ("resolve.resolve_gbuffer", "resolve.decal_step",
+                         "glue"),
+        "culls": ("cull.cull_primitives", "cull.cull_lists")}
 
 
-def in_turns(trees, frames: int, out) -> int:
+def in_turns(trees, frames: int, phase_frames: int, out) -> int:
     """Run this script on trees a, b, b, a (each a process of its own),
     then print each tree's frame times and COMPARED phases."""
     order = list(trees) + list(reversed(trees))
     runs = []
     for tree in order:
         proc = subprocess.run(
-            [sys.executable, __file__, tree, "--frames", str(frames)]
+            [sys.executable, __file__, tree, "--frames", str(frames),
+             "--phase-frames", str(phase_frames)]
             + (["--out", out] if out else []),
             capture_output=True, text=True, check=False)
         sys.stderr.write(proc.stderr[-4000:])
@@ -116,7 +129,8 @@ def in_turns(trees, frames: int, out) -> int:
                  f"{exact_ms[len(exact_ms) // 2]:.2f})" if exact_ms
                  else "not run") + "; phases ms "
               f"(runs in order) {json.dumps(phases)}; eager operators per "
-              f"peel {[r['peel_ops'] for r in mine]}", flush=True)
+              f"peel {[r['peel_ops'] for r in mine]}; of the decal layer "
+              f"{[r.get('decal_ops') for r in mine]}", flush=True)
     return 0
 
 
@@ -127,12 +141,15 @@ def main(argv=None) -> int:
                                  .parents[1])],
                     help="one tree, or two to compare in turns")
     ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--phase-frames", type=int, default=3,
+                    help="frames the phase breakdown takes the mean of")
     ap.add_argument("--out", help="also append the JSON line to this file")
     args = ap.parse_args(argv)
     if len(args.trees) > 2:
         ap.error("one tree, or two to compare")
     if len(args.trees) == 2:
-        return in_turns(args.trees, args.frames, args.out)
+        return in_turns(args.trees, args.frames, args.phase_frames,
+                        args.out)
     import torch
     if not torch.cuda.is_available():
         print("torch_frame_phases: no CUDA card", file=sys.stderr)
@@ -173,7 +190,8 @@ def main(argv=None) -> int:
     frame_ms_exact = frames(cs.exact_config(path.cfg))
     frame_ms = frames(path.cfg)
     fc_next = path.make_fc(2 + args.frames, fc.view_proj.cpu().numpy())
-    phases = cs.phase_breakdown(path.run, fc_next, hist)
+    phases = cs.phase_breakdown(path.run, fc_next, hist,
+                                reps=args.phase_frames)
     # this checkout's launch count, on the tree's K1 wrapper and kernels
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_here", pathlib.Path(__file__).resolve().parents[1]
@@ -183,11 +201,15 @@ def main(argv=None) -> int:
     from incarnation_tpu_torch.kernels import raster, resolve
     per, names, _ = here.peel_launches(path.run, fc_next, hist, raster,
                                        (raster.K1, resolve.K6))
+    decal_ops, decal_names, decal_kernels = here.decal_launches(
+        path.run, fc_next, hist, raster, (raster.K1, resolve.K5))
     line = json.dumps(dict(tree=str(tree), card=cs.card_line(),
                            frame_ms=frame_ms,
                            frame_ms_exact=frame_ms_exact, phases=phases,
                            peel_ops=per,
-                           peel_op_names=names))
+                           peel_op_names=names, decal_ops=decal_ops,
+                           decal_op_names=decal_names,
+                           decal_kernels=decal_kernels))
     print(line, flush=True)
     if args.out:
         with open(args.out, "a") as f:

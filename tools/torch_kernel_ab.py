@@ -3,7 +3,8 @@
 
     mkdir -p trees/parent && git archive <commit> | tar -x -C trees/parent
     python3 tools/torch_kernel_ab.py trees/parent [trees/other ...]
-        [--kernels k1,k2,k3,k3r,k4,k5,k5s,k6,k8,k8s,k9,k10,k11,k12,k15]
+        [--kernels k1,k2,k3,k3r,k4,k5,k5d,k5s,k6,k8,k8s,k9,k10,k11,k12,k13,
+                   k15]
         [--timeline]
         [--out FILE]
 
@@ -28,10 +29,12 @@ checkout that predates the resolve role is timed by its torch resolve
 around its K3 fetch.
 
 K5: the same two frames' launches of the material resolve (the main
-frame's opaque and decal layers; the small frame's opaque layer with the
-mapped normal, its decal layer and its blend layers), timed the same way.
-Each checkout's planes must be bit-identical to the other's, and each
-within chip_smoke.K5_RTOL of its own twin (resolve_gbuffer_plain). It
+frame's opaque layer; the small frame's opaque layer with the mapped
+normal and its blend layers), timed the same way. Each checkout's planes
+must be within chip_smoke.K5_RTOL of its own twin (resolve_gbuffer_plain),
+and the planes in which the checkouts differ are printed (a checkout
+that rounds the sRGB decode's reciprocals otherwise differs from this
+one by an ulp in the base colour and the emissive). It
 prints K5's registers, spill and shared-memory bytes per checkout, and
 the count of each SASS opcode in its kernel (cuobjdump).
 
@@ -49,8 +52,7 @@ step takes a fresh copy of the captured state (the step updates it in
 place); a checkout that has the step is timed by its own step. Then
 each other checkout's K6 role alone against this one's on
 the same layer, alpha and threshold identical. The checkerboard launch
-of K5 is timed as the other K5 launches, its planes bit-identical
-between checkouts.
+of K5 is timed as the other K5 launches, its planes held as theirs.
 
 K8's checkerboard (k8s): the sky lighting launch of the same frame with
 the estimators on (K8's `jitter_checker` role), and the same layer in
@@ -101,6 +103,17 @@ lit by a sun that faces at least half of its covered pixels
 inputs timed the same way (a checkout that predates the tap inside K15
 launches K14 and then K15), each output equal to this checkout's twin
 (sun_term_plain) bit for bit, NaN for NaN.
+
+K5's decal step and K13 (k5d, k13): the main-path frame's decal step
+with the estimators on and off, and on chip_smoke.decal_view's view (its
+decal layer covering at least 10,000 pixels), each this checkout's step
+(bit for bit with its twin) timed against each other checkout's K5
+launch on the decal layer, and against that launch with the frame's
+eager decal code around it (chip_smoke._k5d_parent, within K5_RTOL of
+this checkout's twin); the frame's frustum cull, this checkout's one
+cull_lists launch against each other checkout's, or its two
+cull_primitives launches where it predates cull_lists, every mask and
+count equal to the twin's (decal_cull_ab).
 
 K4: it builds the atrium's wide and binary BVHs, captures every K4 launch
 of one path-traced sample at 640x360 (primary, bounce, shadow and their
@@ -156,9 +169,10 @@ SASS = {"k3r": ("taa", "k3_taa_resolve_kernel"),
         "k8s": ("skylight", "k8_sky_"),
         "k9": ("setup", "k9_setup_kernel")}
 # the K5 launches of a main-path frame and of the small forward frame, in
-# launch order (renderer/frame.py): their roles
-K5_MAIN = ("opaque", "decal")
-K5_SMALL = ("small_opaque_n3", "small_decal")
+# launch order (renderer/frame.py): their roles (the decal layers are K5's
+# decal step, kind k5d, timed by decal_cull_ab)
+K5_MAIN = ("opaque",)
+K5_SMALL = ("small_opaque_n3",)
 
 
 def _package_modules():
@@ -176,7 +190,8 @@ def load_kernels(tree: pathlib.Path) -> dict:
     try:
         mods = {n: importlib.import_module(f"{PKG}.kernels.{n}")
                 for n in ("build", "raster", "clustered", "taa", "bvh",
-                          "pathtrace", "resolve", "skylight", "shading")}
+                          "pathtrace", "resolve", "skylight", "shading",
+                          "cull")}
     finally:
         sys.path.remove(str(tree))
         for k in _package_modules():
@@ -255,18 +270,25 @@ def sass_mix(build_mod, source: str, function: str) -> dict:
 
 
 def k5_agree(cs, a, kw, outs, mods, name):
-    """The two checkouts' K5 planes of one launch are bit-identical, and
-    each within chip_smoke.K5_RTOL of its own twin, or raise."""
+    """The two checkouts' K5 planes of one launch each within
+    chip_smoke.K5_RTOL of its own twin, or raise; prints each plane in
+    which the checkouts differ (elements and the largest difference)."""
     import torch
 
     def planes(out):
         gb, n3 = out if isinstance(out, tuple) else (out, None)
-        return [getattr(gb, f).view(torch.uint8) for f in (
-            "base_color", "normals", "mrao", "emissive", "mask", "world_pos",
-            "uv", "extras")] + ([] if n3 is None else [n3.view(torch.uint8)])
-    if not all(torch.equal(x, y) for x, y in zip(planes(outs[0]),
-                                                  planes(outs[1]))):
-        raise RuntimeError(f"{name}: the checkouts' planes differ")
+        fields = ("base_color", "normals", "mrao", "emissive", "mask",
+                  "world_pos", "uv", "extras")
+        return dict([(f, getattr(gb, f)) for f in fields]
+                    + ([] if n3 is None else [("n3", n3)]))
+    ours, theirs = planes(outs[1]), planes(outs[0])
+    for f, x in ours.items():
+        y = theirs[f]
+        if not torch.equal(x.view(torch.uint8), y.view(torch.uint8)):
+            diff = (x.double() - y.double()).abs()
+            print(f"{name}: the checkouts' {f} differ at "
+                  f"{int((x != y).sum())} elements, by at most "
+                  f"{float(diff.nan_to_num(0.0).max()):.3e}", flush=True)
     for out, m in zip(outs, mods):
         cs._k5_error(out, m["resolve"].resolve_gbuffer_plain(*a, **kw))
 
@@ -480,6 +502,15 @@ def time_pair(cs, f_other, f_this, reps):
     return min(runs[0], runs[3]), min(runs[1], runs[2])
 
 
+def host_pair(cs, f_other, f_this, reps):
+    """(other ms, this ms) of the wrappers' host work a call
+    (chip_smoke.host_ms): each the smaller of two runs, in the order
+    other, this, this, other."""
+    runs = [cs.host_ms(f, reps) for f in (f_other, f_this, f_this,
+                                          f_other)]
+    return min(runs[0], runs[3]), min(runs[1], runs[2])
+
+
 def k1_to_k5(cs, others, this, dev, times, kinds, timelines=None):
     """K1-K3, K5 and K8-K12 (those of kinds) of one main-path frame and
     the small path's blend layers (K1) and K5 launches, each launch timed
@@ -615,6 +646,100 @@ def sun_term_ab(cs, others, this, dev, times):
             t_o, t_t = time_pair(cs, lambda: impls[0](**x),
                                  lambda: impls[1](**x), 50)
             _record(times, (name, role_name), t_o, t_t)
+
+
+def decal_cull_ab(cs, others, this, dev, times, kinds):
+    """K5's decal step (k5d) and K13's two lists (k13): the main-path
+    frame's decal step with the estimators on and off and on the view
+    whose decal layer covers at least 10,000 pixels (chip_smoke.decal_view),
+    and its cull_lists launch, captured in this checkout. This
+    checkout's step must equal its twin bit for bit; it is timed in turns
+    against each other checkout's K5 launch on the decal layer
+    (resolve_gbuffer under the capacity: `k5_decal_step[<case>]`) and
+    against that launch with the frame's eager decal code around it
+    (chip_smoke._k5d_parent on the other checkout's resolve module:
+    `k5_decal_step[<case>]+glue`, its planes within K5_RTOL of this
+    checkout's twin). This checkout's cull_lists is timed against the
+    other checkout's, or its two cull_primitives launches where it has
+    no cull_lists (`k13_cull`), every mask and count equal to this
+    checkout's twin. Each pair is also
+    timed on the host in the same turns (host_pair, the wrappers' host
+    work a call: `[host]`). Appends to times[(other, role)]."""
+    import torch
+    raster, clustered, taa = this["raster"], this["clustered"], this["taa"]
+    resolve, cull = this["resolve"], this["cull"]
+    path = cs.atrium_path(dev)
+    exact = cs.exact_config(path.cfg)
+
+    def run(fc, history):
+        return path.run(fc, history)
+
+    def run_exact(fc, history):
+        return path.run(fc, history, exact)
+    hist = {}
+    for what, r in (("on", run), ("off", run_exact)):
+        fc0 = path.make_fc(0, None)
+        hist[what] = r(fc0, torch.zeros((cs.H, cs.W, 3),
+                                        device=dev))["accumulation"]
+    prev = fc0.view_proj.cpu().numpy()
+    fc1 = path.make_fc(1, prev)
+    on = cs.capture_frame(run, fc1, hist["on"], raster, clustered, taa)
+    off = cs.capture_frame(run_exact, fc1, hist["off"], raster, clustered,
+                           taa)
+    cases = [("on", on), ("off", off)]
+    if "k5d" in kinds:
+        view_on, view_off = cs.decal_view(path, run_exact, prev, hist["on"],
+                                          hist["off"])
+        cases += [("decal_view", view_on), ("decal_view_exact", view_off)]
+    for name, other in others:
+        for case, calls in cases if "k5d" in kinds else ():
+            x, = [kw for kind, _, kw in calls if kind == "k5d"]
+            cs._k5d_error(resolve, x)
+            ref = cs._k5d_run(resolve.decal_step_plain, x)
+            glue = cs._k5d_parent(other["resolve"], x)
+            for g, r in zip(glue[1:], ref[1:]):
+                if g is not None:
+                    cs._close(f"k5_decal_step[{case}] (other checkout)", g,
+                              r, rtol=cs.K5_RTOL, atol_frac=1e-5)
+            y = cs._k5d_clone(x)
+            k5 = [x[k] for k in ("d_tri", "d_depth", "scene", "d_interp",
+                                 "inv_view_proj", "width", "height")]
+            kw = {k: x[k] for k in ("coverage_capacity", "mip_dither",
+                                    "uv_dither", "max_aniso", "row0")}
+            t_o, t_t = time_pair(
+                cs, lambda: other["resolve"].resolve_gbuffer(*k5, **kw),
+                lambda: resolve.decal_step(**y), 20)
+            _record(times, (name, f"k5_decal_step[{case}]"), t_o, t_t)
+            t_o, t_t = time_pair(
+                cs, lambda: cs._k5d_parent(other["resolve"], x),
+                lambda: resolve.decal_step(**y), 20)
+            _record(times, (name, f"k5_decal_step[{case}]+glue"), t_o, t_t)
+            _record(times, (name, f"k5_decal_step[{case}]+glue[host]"),
+                    *host_pair(cs, lambda: cs._k5d_parent(other["resolve"],
+                                                          x),
+                               lambda: resolve.decal_step(**y), 50))
+        if "k13" in kinds:
+            (a, kw), = [(a, kw) for kind, a, kw in on if kind == "k13"]
+            x = cs._bound_args(cull.cull_lists_plain, a, kw)
+            rest = [x[k] for k in ("mesh_transforms", "mesh_visible",
+                                   "scene_rotation", "view_proj")]
+            ref = cull.cull_lists_plain(**x)
+            if hasattr(other["cull"], "cull_lists"):
+                def theirs():
+                    return other["cull"].cull_lists(**x)
+            else:
+                def theirs():
+                    return [other["cull"].cull_primitives(b, m, *rest)
+                            for b, m in x["lists"]]
+            for got, r in zip(list(cull.cull_lists(**x)) + theirs(),
+                              ref + ref):
+                cs._k13_error(got, r)
+            t_o, t_t = time_pair(cs, theirs, lambda: cull.cull_lists(**x),
+                                 50)
+            _record(times, (name, "k13_cull"), t_o, t_t)
+            _record(times, (name, "k13_cull[host]"),
+                    *host_pair(cs, theirs, lambda: cull.cull_lists(**x),
+                               100))
 
 
 def _record(times, key, t_o, t_t):
@@ -898,7 +1023,9 @@ def main(argv=None) -> int:
                          "frame's), k15 (the sun term with the map), k4, "
                          "k6, k5s and k8s (the peel steps and K5's and "
                          "K8's checkerboards of frames with the "
-                         "estimators on and off)")
+                         "estimators on and off), k5d and k13 (K5's "
+                         "decal step and K13's two lists against the "
+                         "launches they replaced)")
     ap.add_argument("--timeline", action="store_true",
                     help="with k10: each checkout's per-block timeline of "
                          "its counting and scatter steps")
@@ -914,12 +1041,12 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     others = [(str(o), load_kernels(pathlib.Path(o).resolve()))
               for o in args.others]
-    from incarnation_tpu_torch.kernels import (build, bvh, clustered,
+    from incarnation_tpu_torch.kernels import (build, bvh, clustered, cull,
                                                pathtrace, raster, resolve,
                                                shading, skylight, taa)
     this = dict(build=build, raster=raster, clustered=clustered, taa=taa,
                 bvh=bvh, pathtrace=pathtrace, resolve=resolve,
-                skylight=skylight, shading=shading)
+                skylight=skylight, shading=shading, cull=cull)
     dev = torch.device("cuda")
     card = cs.card_line()
     print(f"card: {card}", flush=True)
@@ -973,6 +1100,8 @@ def main(argv=None) -> int:
         peel_and_checker(cs, others, this, dev, times, kinds)
     if "k15" in kinds:
         sun_term_ab(cs, others, this, dev, times)
+    if kinds & {"k5d", "k13"}:
+        decal_cull_ab(cs, others, this, dev, times, kinds)
     totals, ends = {}, {}
     if "k4" in kinds:
         totals, ends = k4_ab(cs, others, this, dev, times)
